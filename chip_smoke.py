@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py        # every phase, one CUDA card
+
+Phases:
+  1. environment: card name and power limit, torch/CUDA versions, and
+     the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
+     (one nvcc per source, started together);
+  2. each kernel against its plain PyTorch version at llama2-7b
+     full-width planes, (N, K) in {(4096, 4096), (11008, 4096),
+     (4096, 11008)}, M in {1, 4, 37}, rank 1 and 3, bf16 and f32 (and
+     2:4 / 4:8 for slab_nm); times at M = 4, bf16, rank 1;
+  3. the port's main path at llama2-7b full width with cut depth:
+     compress_model (slab, 8 iterations, 16x128 calibration) -> pack_model
+     -> greedy_decode (batch 4, prompt 32, gen 16, square and ragged),
+     once per packed variant (slab-ell, slab-nm, slab-dense, and slab-ell
+     at f32). Launch counts are zeroed just before each greedy_decode and
+     read just after; final-step logits are held against the
+     dense-equivalent (reconstructed-W) model;
+  4. one JSON line listing every ported kernel, then the result line.
+
+Any failed check raises, and the script exits non-zero. It needs
+``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+PEAK_OPS = {torch.bfloat16: 989e12,   # bf16 dense tensor-core rate
+            torch.float32: 67e12}     # fp32 outside the tensor cores
+SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))
+BATCHES = (1, 4, 37)
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TIMED = dict(m=4, dtype=torch.bfloat16, rank=1)
+JSON_SHAPE = (4096, 4096)          # q/k/v/o: 4 of the 7 linears per layer
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- phase 1
+
+def environment():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        "nvidia-smi: " + smi.stderr.strip()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device "
+        f"{torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    t0 = time.monotonic()
+    per_src = build.build()
+    log(f"kernel build: {time.monotonic() - t0:.2f}s wall "
+        + " ".join(f"{s}={t:.2f}s" for s, t in per_src.items()))
+    for s in build.SOURCES:
+        for line in build.build_log(s).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {s}: {line.strip()}")
+    return card
+
+
+# ---------------------------------------------------------------- phase 2
+
+def _planes(n, k, dtype, rank, gen):
+    """Synthetic full-width planes for every kernel, made on the card."""
+    from repro_torch.core import packing, sparsity
+    dev = "cuda"
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    w = randn(n, k, scale=0.05)
+    score = randn(n, k).abs()
+    w_ell = torch.where(sparsity.group_topk_mask(score, 0.437), w, 0.0)
+    w_dense = torch.where(sparsity.group_topk_mask(score, 0.737), w, 0.0)
+    signs = torch.where(randn(n, k) >= 0, 1, -1).to(torch.int8)
+    u = (randn(rank, n, scale=0.2).abs()).to(dtype).contiguous()
+    v = (randn(rank, k, scale=0.2).abs()).to(dtype).contiguous()
+    ell = packing.ell_pack(w_ell.to(dtype))
+    planes = {"u": u, "v": v, "b": packing.pack_sign_bits(signs),
+              "ell": (ell.values.contiguous(), ell.indices.contiguous()),
+              "dense": w_dense.to(dtype).contiguous()}
+    for pat in ("2:4", "4:8"):
+        nn, mm = sparsity.parse_pattern(pat)
+        w_nm = torch.where(sparsity.nm_mask(score, nn, mm), w, 0.0)
+        p = packing.pack_nm(w_nm.to(dtype), nn, mm, strict=True)
+        planes[pat] = (p.values.contiguous(), p.indices.contiguous())
+    return planes
+
+
+def _cases(planes, x):
+    """(label, kernel fn, plain fn, planes read, dense W_S) per kernel."""
+    from repro_torch.core.packing import ell_unpack, ELLPacked, unpack_nm, \
+        NMPacked
+    from repro_torch.kernels import ell as ell_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    u, v, b = planes["u"], planes["v"], planes["b"]
+    k = x.shape[1]
+    vals, idx = planes["ell"]
+    out = [("slab_ell_matmul",
+            lambda: ell_k.slab_ell_matmul(x, vals, idx, b, u, v),
+            lambda: ell_k.slab_ell_matmul_plain(x, vals, idx, b, u, v),
+            (vals, idx, b, u, v),
+            lambda: ell_unpack(ELLPacked(vals, idx, k)))]
+    for pat in ("2:4", "4:8"):
+        nv, ni = planes[pat]
+        mm = int(pat.split(":")[1])
+        out.append((f"slab_nm_matmul[{pat}]",
+                    lambda nv=nv, ni=ni, mm=mm: slab_k.slab_nm_matmul(
+                        x, nv, ni, mm, b, u, v),
+                    lambda nv=nv, ni=ni, mm=mm: slab_k.slab_nm_matmul_plain(
+                        x, nv, ni, mm, b, u, v),
+                    (nv, ni, b, u, v),
+                    lambda nv=nv, ni=ni, mm=mm, pat=pat: unpack_nm(NMPacked(
+                        nv, ni, int(pat.split(":")[0]), mm, k))))
+    ws = planes["dense"]
+    out.append(("slab_matmul",
+                lambda: slab_k.slab_matmul(x, ws, b, u, v),
+                lambda: slab_k.slab_matmul_plain(x, ws, b, u, v),
+                (ws, b, u, v), lambda: ws))
+    return out
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _ops(label, x, read, rank) -> int:
+    """Operations the kernel does on these inputs: 2 per stored sparse
+    entry and batch row, x ⊙ v_r once per (row of x, column, rank), and
+    a sign-add per (batch row, weight, rank) plus the u_r scale."""
+    m, k = x.shape
+    n = read[-2].shape[1]
+    stored = read[0].numel()
+    return 2 * m * stored + m * k * rank + 2 * m * n * k * rank \
+        + 2 * m * n * rank
+
+
+def time_ms(fn, flush, reps=20) -> float:
+    """Mean device time of one call, by CUDA events, with the 50 MB L2
+    flushed before each call (the serve path streams cold weights). The
+    flush also hides the host-side launch cost from the events."""
+    fn()
+    sync()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / reps
+
+
+def kernel_checks():
+    """Every kernel vs its plain version; returns per-kernel records."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    worst = {}
+    timed = {}
+    n_checks = 0
+    for (n, k) in SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for rank in (1, 3):
+                planes = _planes(n, k, dtype, rank, gen)
+                for m in BATCHES:
+                    x = torch.randn((m, k), generator=gen,
+                                    device="cuda").to(dtype)
+                    for label, kern, plain, read, dense in _cases(planes, x):
+                        got = kern()
+                        ref = plain()
+                        sync()
+                        err = float((got.float() - ref.float()).abs().max())
+                        scale = float(ref.float().abs().max())
+                        rel = err / max(scale, 1e-30)
+                        n_checks += 1
+                        ok = (bool(torch.isfinite(got).all())
+                              and rel < TOL[dtype])
+                        w = worst.setdefault(label, [0.0, 0.0])
+                        w[0] = max(w[0], rel)
+                        if not ok:
+                            raise AssertionError(
+                                f"{label} N={n} K={k} M={m} {dtype} r{rank}"
+                                f": max|err|/max|ref| = {rel:.3g} "
+                                f"(tolerance {TOL[dtype]})")
+                        if (m == TIMED["m"] and dtype == TIMED["dtype"]
+                                and rank == TIMED["rank"]):
+                            timed[(label, n, k)] = _time_case(
+                                label, kern, plain, read, dense, x, rank,
+                                got, ref, flush)
+                del planes
+    log(f"kernel checks: {n_checks} cases passed; worst max|err|/max|ref|: "
+        + " ".join(f"{l}={w[0]:.3g}" for l, w in worst.items()))
+    return timed, worst
+
+
+def _time_case(label, kern, plain, read, dense, x, rank, got, ref, flush):
+    u, v = read[-2], read[-1]
+    b = read[-3]
+    k = x.shape[1]
+    from repro_torch.core.packing import unpack_sign_bits
+    w_hat = (dense().float()
+             + (u.float().T @ v.float()) * unpack_sign_bits(
+                 b, k, torch.float32)).to(x.dtype)
+    lib = lambda: torch.matmul(x, w_hat.T)
+    y_bytes = got.numel() * got.element_size()
+    n_bytes = _nbytes(x, *read) + y_bytes
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = _ops(label, x, read, rank) / PEAK_OPS[x.dtype] * 1e3
+    rec = {"ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
+           "library_ms": time_ms(lib, flush),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": n_bytes,
+           "max_abs_err": float((got.float() - ref.float()).abs().max())}
+    n = got.shape[1]
+    log(f"  time {label:22s} N={n:5d} K={k:5d} M={x.shape[0]} bf16 r{rank}: "
+        f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+        f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f}"
+        f" ({rec['bound_by']}, {n_bytes / 1e6:.2f} MB) "
+        f"roofline={rec['bound_ms'] / rec['ms']:.3f}")
+    return rec
+
+
+# ---------------------------------------------------------------- phase 3
+
+PROMPT, GEN, BATCH = 32, 16, 4
+RAGGED = (32, 20, 27, 9)
+
+
+def _final_logits(cfg, params, seq):
+    """Teacher-forced decode of ``seq``; the last step's logits (f32)."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import positions_for
+    b, s = seq.shape
+    cache = lm.init_cache(cfg, b, s, device="cuda")
+    logits = None
+    for t in range(s):
+        pos = positions_for(cfg, b, 1, offset=t, device="cuda")
+        logits, cache = lm.decode_step(cfg, params, cache, seq[:, t:t + 1],
+                                       pos)
+    return logits[:, -1].float()
+
+
+def _device_profile(cfg, params, prompts, step_ms, label):
+    """Device busy time per decode step from torch.profiler (kernel
+    events only), set against ``step_ms``, the same step's unprofiled
+    wall time: busy / wall is the card's busy share, the rest is time the
+    host holds it back. Prints the five kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import greedy_decode
+    steps = PROMPT + 4 - 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        greedy_decode(cfg, params, prompts, 4, device="cuda")
+        sync()
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    if busy_ms <= 0:
+        log(f"  profile {label}: the profiler saw no device time "
+            "(busy share not measured)")
+        return
+    log(f"  profile {label}: device busy {busy_ms:.3f} ms per decode step "
+        f"of {step_ms:.3f} ms wall (busy share "
+        f"{min(busy_ms / step_ms, 1.0):.3f})")
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    for e in top:
+        log(f"    {e.self_device_time_total / 1e3 / steps:8.4f} ms/step "
+            f"x{e.count // steps:<3d} {e.key[:90]}")
+
+
+def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
+                profiled=False):
+    from repro_torch import configs
+    from repro_torch.core.packed_model import PackedLinear, pack_model
+    from repro_torch.core.pipeline import _get, compress_model, linear_paths
+    from repro_torch.core.slab import SLaBConfig
+    from repro_torch.data import SyntheticCorpus, calibration_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import lm
+
+    full = configs.get("llama2_7b", smoke=False)
+    cfg = full.with_(n_layers=n_layers, dtype=dtype)
+    log(f"phase {tag}: llama2-7b d_model {cfg.d_model} heads {cfg.n_heads}"
+        f"x{cfg.d_head} d_ff {cfg.d_ff} vocab {cfg.vocab} {dtype} cr {cr} "
+        f"pattern {pattern}; reduced: n_layers {full.n_layers}->{n_layers}")
+    params = lm.init(cfg, seed=0, device="cuda")
+    calib = calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128)
+    t0 = time.monotonic()
+    dense_c, stats, decs = compress_model(
+        cfg, params, calib, method="slab",
+        scfg=SLaBConfig(cr=cr, pattern=pattern, iters=8),
+        keep_decompositions=True, device="cuda")
+    sync()
+    t_comp = time.monotonic() - t0
+    del params
+    packed, rep = pack_model(dense_c, decs, pattern=pattern, dtype=dtype)
+    n_lin = len(linear_paths(cfg)) * n_layers
+    for l, lp in enumerate(packed["layers"]):
+        for pth in linear_paths(cfg):
+            w = _get(lp, pth)
+            if not (isinstance(w, PackedLinear) and w.variant == variant):
+                raise AssertionError(f"L{l}/{pth} packed as "
+                                     f"{getattr(w, 'variant', 'dense')}, "
+                                     f"expected {variant}")
+    if rep.by_variant != {variant: n_lin}:
+        raise AssertionError(f"pack report {rep.by_variant}")
+    err_rel = max(s.err_after / s.err_before for s in stats)
+    log(f"  compressed {len(stats)} linears in {t_comp:.1f}s (measured CR "
+        f"{sum(s.cr for s in stats) / len(stats):.4f}, worst weighted "
+        f"err_after/err_before {err_rel:.4f}); packed {rep.n_packed} "
+        f"[{variant}={rep.by_variant[variant]}]")
+    for var, (pb, db) in sorted(rep.bytes_by_variant.items()):
+        log(f"  bytes/{var}: {pb / 1e6:.3f} MB packed vs {db / 1e6:.3f} MB "
+            f"dense per linear ({pb / db:.4f}x)")
+
+    prompts = SyntheticCorpus(cfg.vocab, seed=0).batch(
+        0, BATCH, PROMPT)["inputs"]
+    greedy_decode(cfg, packed, prompts, 2, device="cuda")   # warm-up
+    sync()
+    need = n_lin * (PROMPT + GEN - 1)
+    runs = {}
+    for mode, lengths in (("square", None), ("ragged", RAGGED)):
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.monotonic()
+        gen = greedy_decode(cfg, packed, prompts, GEN, lengths=lengths,
+                            device="cuda")
+        sync()
+        dt = time.monotonic() - t0
+        counts = ops.launch_counts()
+        if counts[kernel] < need:
+            raise AssertionError(f"{kernel} launched {counts[kernel]} times "
+                                 f"in the {mode} run, expected >= {need}")
+        if tuple(gen.shape) != (BATCH, GEN) or not bool(
+                ((gen >= 0) & (gen < cfg.vocab)).all()):
+            raise AssertionError(f"bad generation {tuple(gen.shape)}")
+        n_tok = BATCH * (PROMPT + GEN) if lengths is None \
+            else sum(lengths) + BATCH * GEN
+        steps = PROMPT + GEN - 1
+        log(f"  greedy_decode {mode}: {n_tok / dt:.1f} tok/s, "
+            f"{dt / steps * 1e3:.2f} ms per decode step, launches "
+            + " ".join(f"{kk}={c}" for kk, c in counts.items()))
+        runs[mode] = (gen, counts[kernel], dt)
+    # the yardstick: the same model served dense (reconstructed Ŵ)
+    greedy_decode(cfg, dense_c, prompts, 2, device="cuda")
+    sync()
+    t0 = time.monotonic()
+    greedy_decode(cfg, dense_c, prompts, GEN, device="cuda")
+    sync()
+    dt_dense = time.monotonic() - t0
+    steps = PROMPT + GEN - 1
+    log(f"  dense-equivalent greedy_decode square: "
+        f"{BATCH * (PROMPT + GEN) / dt_dense:.1f} tok/s, "
+        f"{dt_dense / steps * 1e3:.2f} ms per decode step")
+    if profiled:
+        _device_profile(cfg, packed, prompts,
+                        runs["square"][2] / steps * 1e3, "packed")
+        _device_profile(cfg, dense_c, prompts, dt_dense / steps * 1e3,
+                        "dense-equivalent")
+    sq, rg = runs["square"][0], runs["ragged"][0]
+    if not torch.equal(sq[0], rg[0]):
+        raise AssertionError("ragged row 0 (full-length prompt) differs "
+                             "from the square run")
+    seq = torch.cat([torch.as_tensor(prompts, device="cuda").long(),
+                     sq[:, :-1]], dim=1)
+    lp = _final_logits(cfg, packed, seq)
+    ld = _final_logits(cfg, dense_c, seq)
+    if not (bool(torch.isfinite(lp).all()) and bool(torch.isfinite(ld).all())):
+        raise AssertionError("non-finite logits")
+    rel = float((lp - ld).abs().max() / ld.abs().max())
+    log(f"  final-step logits packed vs dense-equivalent: max|diff|/max|ref| "
+        f"= {rel:.3g} (tolerance {tol})")
+    if not rel < tol:
+        raise AssertionError(f"phase {tag}: logits rel {rel} >= {tol}")
+    del packed, dense_c, decs
+    torch.cuda.empty_cache()
+    return {kernel: runs["square"][1] + runs["ragged"][1]}
+
+
+def main():
+    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on a CUDA card only", file=sys.stderr)
+        return 2
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.monotonic()
+
+    card = environment()
+    timed, worst = kernel_checks()
+    launches = {"slab_ell_matmul": 0, "slab_nm_matmul": 0, "slab_matmul": 0}
+    for tag, kw in (
+            ("a", dict(n_layers=4, dtype=torch.bfloat16, cr=0.5,
+                       pattern=None, variant="slab-ell",
+                       kernel="slab_ell_matmul", tol=3e-2, profiled=True)),
+            ("b", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5,
+                       pattern="2:4", variant="slab-nm",
+                       kernel="slab_nm_matmul", tol=3e-2)),
+            ("c", dict(n_layers=2, dtype=torch.bfloat16, cr=0.2,
+                       pattern=None, variant="slab-dense",
+                       kernel="slab_matmul", tol=3e-2)),
+            ("d", dict(n_layers=2, dtype=torch.float32, cr=0.5,
+                       pattern=None, variant="slab-ell",
+                       kernel="slab_ell_matmul", tol=1e-4))):
+        for kname, c in model_phase(tag, **kw).items():
+            launches[kname] += c
+
+    from repro_torch.kernels import ops
+    entries = []
+    for kern, label in ((ops.KERNELS[0], "slab_ell_matmul"),
+                        (ops.KERNELS[1], "slab_nm_matmul[2:4]"),
+                        (ops.KERNELS[2], "slab_matmul")):
+        rec = timed[(label,) + JSON_SHAPE]
+        entries.append({
+            "name": kern.name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kern.source}",
+            "replaces": kern.replaces.split(" ")[0],
+            "launches": launches[kern.name],
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            "shape": {"M": TIMED["m"], "N": JSON_SHAPE[0],
+                      "K": JSON_SHAPE[1], "dtype": "bfloat16", "rank": 1},
+            "worst_rel_err": worst[label][0],
+            "by_shape": {f"{n}x{k}": {kk: timed[(label, n, k)][kk] for kk in
+                                      ("ms", "plain_ms", "library_ms",
+                                       "bound_ms")}
+                         for (n, k) in SHAPES}})
+    log(f"card: {card}; total {time.monotonic() - t_start:.1f}s")
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,87 @@
+"""Carry the reference's arrays into the port through numpy.
+
+JAX PRNG init and Pallas tiling cannot be reproduced in torch, so parity
+runs on bridged inputs: weights from the reference's ``lm.init``,
+decompositions from its ``compress_model`` and packed planes from its
+``pack_linear``. Everything arrives as numpy arrays (``np.asarray`` of a
+JAX array) or duck-typed objects holding them; nothing of JAX or of the
+reference package is imported here.
+
+Two conversions need care:
+- bf16 arrives as ``ml_dtypes.bfloat16``; it moves as 16-bit words and is
+  viewed as ``torch.bfloat16`` on arrival.
+- unsigned planes (uint16 ELL ids, uint32 sign words) move as the
+  bit-identical int16 / int32 views the port's kernels read as unsigned.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch.core.packed_model import PackedLinear
+from repro_torch.core.slab import SLaBDecomposition
+from repro_torch.models.attention import KVCache
+
+_SIGNED_VIEW = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
+
+
+def tensor(a, device="cpu") -> torch.Tensor:
+    """One numpy (or array-like) value -> torch, bit-exact."""
+    a = np.array(a, copy=True)        # owned and writable for from_numpy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    if a.dtype in _SIGNED_VIEW:
+        return torch.from_numpy(a.view(_SIGNED_VIEW[a.dtype])).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree(x, device):
+    if isinstance(x, dict):
+        return {k: _tree(v, device) for k, v in x.items()}
+    return tensor(x, device)
+
+
+def params(ref_params: dict, n_layers: int, device="cpu") -> dict:
+    """Reference params (stacked ``layers`` leaves with a leading L dim)
+    -> the port's layout: one dict per layer."""
+    out = {k: _tree(v, device) for k, v in ref_params.items()
+           if k != "layers"}
+    stacked = _tree(ref_params["layers"], device)
+
+    def at(t, l):
+        if isinstance(t, dict):
+            return {k: at(v, l) for k, v in t.items()}
+        return t[l].contiguous()
+
+    out["layers"] = [at(stacked, l) for l in range(n_layers)]
+    return out
+
+
+def decomposition(dec, device="cpu") -> SLaBDecomposition:
+    """A reference ``SLaBDecomposition`` (any object with w_s, u, v, w_b)."""
+    return SLaBDecomposition(tensor(dec.w_s, device), tensor(dec.u, device),
+                             tensor(dec.v, device), tensor(dec.w_b, device))
+
+
+def packed_linear(pl, device="cpu") -> PackedLinear:
+    """A reference per-layer ``PackedLinear`` -> the port's."""
+    def opt(a):
+        return None if a is None else tensor(a, device).contiguous()
+
+    return PackedLinear(opt(pl.sparse_vals), opt(pl.sparse_idx),
+                        opt(pl.b_packed), opt(pl.u), opt(pl.v),
+                        variant=pl.variant, m_pat=int(pl.m_pat),
+                        d_in=int(pl.d_in), d_out=int(pl.d_out),
+                        rank=int(pl.rank))
+
+
+def kv_cache(ref_kv, device="cpu") -> List[KVCache]:
+    """A reference layer-stacked ``KVCache`` (k/v (L, B, S, Kv, dh),
+    length (L,)) -> one port KVCache per layer."""
+    k, v = tensor(ref_kv.k, device), tensor(ref_kv.v, device)
+    length = np.asarray(ref_kv.length).reshape(-1)
+    return [KVCache(k[l].contiguous(), v[l].contiguous(), int(length[l]))
+            for l in range(k.shape[0])]

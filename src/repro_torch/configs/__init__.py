@@ -1,0 +1,22 @@
+"""Config registry of the port (mirror of ``repro.configs``): the
+architectures this slice serves, each with FULL and SMOKE variants."""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.models.common import ArchConfig
+
+ARCH_IDS: List[str] = ["llama2_7b", "stablelm_12b"]
+
+
+def normalize(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def get(arch_id: str, smoke: bool = False) -> ArchConfig:
+    name = normalize(arch_id)
+    if name not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; ported: {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    return mod.SMOKE if smoke else mod.FULL

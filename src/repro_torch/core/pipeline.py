@@ -1,0 +1,166 @@
+"""Layer-wise one-shot compression loop (port of
+``repro.core.pipeline``, single-method path, dense family).
+
+  for each transformer layer, in order:
+    (1) forward the calibration set through the already-compressed
+        prefix to the layer's inputs,
+    (2) run the layer's real forward (``models.lm._layer_fwd``) under one
+        ``tap_capture``: the ``linear()`` chokepoint reports every
+        linear's exact input, reduced on the fly to ‖X‖₂ column norms,
+    (3) compress every linear with the method's compressor,
+    (4) replace the weights and continue forward with the compressed
+        layer's outputs (error propagation).
+
+Params hold one dict per layer (``params["layers"][l]``); weights are
+stored (D_in, D_out) in the model and transposed to the paper's
+(D_out, D_in) for the compressor and back.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import compressor as compressor_lib
+from repro_torch.core import scores as scores_lib
+from repro_torch.core.compressor import LinearStats
+from repro_torch.core.slab import SLaBConfig
+from repro_torch.models import lm
+from repro_torch.models.common import ArchConfig, positions_for, tap_capture
+
+
+@dataclasses.dataclass
+class CompressStats:
+    layer: int
+    name: str
+    err_before: float   # ‖W diag(n)‖_F — the zero-approximation baseline
+    err_after: float    # ‖(W - Ŵ) diag(n)‖_F with the same tapped norms
+    cr: float           # measured compression ratio
+    method: str = ""
+    variant: str = ""   # packed-serving variant ("" = none)
+
+
+def _get(d: dict, path: str):
+    cur = d
+    for k in path.split("."):
+        if k not in cur:
+            return None
+        cur = cur[k]
+    return cur
+
+
+def _set(d: dict, path: str, val):
+    ks = path.split(".")
+    cur = d
+    for k in ks[:-1]:
+        cur = cur[k]
+    cur[ks[-1]] = val
+
+
+def _copy_tree(d):
+    """Copy the dict structure (tensors are shared, not cloned)."""
+    if isinstance(d, dict):
+        return {k: _copy_tree(v) for k, v in d.items()}
+    if isinstance(d, list):
+        return [_copy_tree(v) for v in d]
+    return d
+
+
+def linear_paths(cfg: ArchConfig) -> List[str]:
+    """Compressible 2-D linears inside one layer (dense family)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    paths = ["attn.wq", "attn.wk", "attn.wv", "attn.wo"]
+    if cfg.act == "swiglu":
+        return paths + ["mlp.w_gate", "mlp.w_up", "mlp.w_down"]
+    return paths + ["mlp.w_up", "mlp.w_down"]
+
+
+def _capture_layer(cfg: ArchConfig, params: dict, lp: dict, idx: int,
+                   chunks: List[torch.Tensor],
+                   positions: List[torch.Tensor],
+                   paths: Sequence[str]) -> Dict[str, torch.Tensor]:
+    """Run layer ``idx``'s real forward over every calibration chunk under
+    ONE tap capture; returns ‖X‖₂ column norms keyed by path."""
+    with tap_capture() as tap:
+        for i in range(len(chunks)):
+            lm._layer_fwd(cfg, params, lp, idx, chunks[i], positions[i])
+    return {p: tap.norms(p) for p in paths if tap.has(p)}
+
+
+def _weighted_errs(w: torch.Tensor, w_new: torch.Tensor,
+                   an: Optional[torch.Tensor]) -> Tuple[float, float]:
+    """(err_before, err_after) under the same tapped norms."""
+    wt = w.T.float()
+    err_b = float(scores_lib.weighted_fro_error(wt, torch.zeros_like(wt),
+                                                an))
+    err_a = float(scores_lib.weighted_fro_error(wt, w_new.T.float(), an))
+    return err_b, err_a
+
+
+def _compress_leaf(layer: int, pth: str, w: torch.Tensor,
+                   an: Optional[torch.Tensor],
+                   comp: compressor_lib.Compressor):
+    """Compress one (D_in, D_out) model weight. Returns (new weight,
+    dec-or-None, CompressStats)."""
+    cl = comp.compress(w.T.float(), LinearStats(norms=an))
+    w_new = cl.dense.T.to(w.dtype).contiguous()
+    err_b, err_a = _weighted_errs(w, w_new, an)
+    cr = cl.cr if cl.cr is not None else comp.scfg.cr
+    variant = ""
+    if cl.dec is not None:
+        from repro_torch.core.packed_model import variant_of
+        variant = variant_of(cl.dec, comp.scfg.pattern) or ""
+    return w_new, cl.dec, CompressStats(layer, pth, err_b, err_a, cr,
+                                        comp.name, variant)
+
+
+@torch.no_grad()
+def compress_model(cfg: ArchConfig, params: dict, calib,
+                   method: str = "slab",
+                   scfg: SLaBConfig = SLaBConfig(),
+                   keep_decompositions: bool = False,
+                   device=None):
+    """Run the layer-wise protocol with one method on every linear.
+    Returns (new params, stats[, decs]); ``decs`` maps (layer, path) to
+    the decomposition for ``core.packed_model.pack_model``.
+
+    ``calib`` is an (N, S) int array of calibration token ids. Runs on
+    ``device`` (CUDA unless ``"cpu"`` is passed), where ``params`` must
+    already live."""
+    dev = resolve_device(device)
+    if params["embed"].device.type != dev.type:
+        raise ValueError(f"params live on {params['embed'].device}, "
+                         f"compress_model was asked to run on {dev}")
+    comp = compressor_lib.get(method, scfg)
+    toks = torch.as_tensor(np.asarray(calib), device=dev).long()
+    h = lm.embed_inputs(cfg, params, toks)
+    chunks = [h]
+    positions = [positions_for(cfg, h.shape[0], h.shape[1], device=dev)]
+
+    out = dict(params)
+    out["layers"] = _copy_tree(params["layers"])
+    out_stats: List[CompressStats] = []
+    decs: Dict[Tuple[int, str], object] = {}
+    paths = linear_paths(cfg)
+    for l in range(cfg.n_layers):
+        lp = out["layers"][l]
+        acts = _capture_layer(cfg, out, lp, l, chunks, positions, paths)
+        for pth in paths:
+            w = _get(lp, pth)
+            if w is None:
+                continue
+            w_new, dec, st = _compress_leaf(l, pth, w, acts.get(pth), comp)
+            if keep_decompositions and dec is not None:
+                decs[(l, pth)] = dec
+            out_stats.append(st)
+            _set(lp, pth, w_new)
+        for i in range(len(chunks)):
+            chunks[i], _ = lm._layer_fwd(cfg, out, lp, l, chunks[i],
+                                         positions[i])
+    if keep_decompositions:
+        return out, out_stats, decs
+    return out, out_stats

@@ -1,0 +1,217 @@
+// slab_matmul and slab_nm_matmul: the fused SLaB linears with a
+// dense-masked or an N:M packed sparse part,
+//
+//   y[m, n] = Σ_k x[m, k] · W_S[n, k]
+//           + Σ_r u_r[n] · Σ_k s[n, k] · (x[m, k] · v_r[k])
+//
+// Replace the TPU kernels repro/kernels/slab_matmul.py::slab_matmul
+// (_kernel_dense, pallas_call at slab_matmul.py:77) and ::slab_nm_matmul
+// (_kernel_nm, pallas_call at slab_matmul.py:135). The TPU versions grid
+// K and carry an fp32 VMEM accumulator across grid steps; Hopper has no
+// ordered grid, so each warp loops over the whole of K for its row.
+//
+// Bound on the H100 (3.35 TB/s), at the serve path's M = 1-8 (a GEMV):
+// bytes / 3.35 TB/s, bytes = W_S planes + sign words + u + v + x + y.
+//   slab-dense: W_S is (N, K) in x's dtype, so the format costs the dense
+//               matrix plus K/8 bytes of signs per row: it can never beat
+//               a dense GEMV; it is the fallback when ELL loses on bytes.
+//   slab-nm:    n/m of the values plus one int8 position each, e.g. 2:4
+//               at bf16 is (2 + 1)/2 + 1/16 = 0.81 of dense bytes.
+// Design: one warp per output row streams its plane once per M tile with
+// 16-byte loads, consecutive lanes on consecutive chunks (coalesced); x
+// and the row-independent x ⊙ v_r live in shared memory
+// (slab_common.cuh). slab-dense folds W_S into the binary pass over the
+// columns (one read of each x chunk serves both terms); slab-nm gathers
+// x from a column-major tile, all batch rows of a column in one load.
+// Before staging, each warp asks L2 for its row's planes, so the passes
+// read from L2 rather than wait on device memory. N:M positions are
+// checked against m before x is indexed.
+#include "slab_common.cuh"
+
+namespace slab {
+
+template <typename T, int MTP>
+__global__ void __launch_bounds__(kWarps * 32)
+slab_dense_kernel(const T* __restrict__ x, const T* __restrict__ ws,
+                  const uint32_t* __restrict__ bp, const T* __restrict__ u,
+                  const T* __restrict__ v, T* __restrict__ y, int M, int N,
+                  int K, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);     // (MTP, K) x
+  T* xv = xs + (size_t)MTP * K;               // (MTP, K) x ⊙ v_r
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = row < N;
+  const uint32_t* bp_row = bp + (size_t)row * (K / 32);
+  if (live) {
+    prefetch_l2(ws + (size_t)row * K, (size_t)K * sizeof(T), lane);
+    prefetch_l2(bp_row, (size_t)K / 8, lane);
+  }
+
+  for (int m0 = 0; m0 < M; m0 += MTP) {
+    const int mt = min(MTP, M - m0);
+    __syncthreads();
+    stage_tile<T, MTP, false>(xs, xv, x, v, m0, mt, K);
+    __syncthreads();
+    float acc[MTP], part[MTP];
+#pragma unroll
+    for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
+    for (int r = 0; r < R; ++r) {
+      if (r > 0) {
+        __syncthreads();
+        stage_tile<T, MTP, false>(nullptr, xv, x, v + (size_t)r * K, m0, mt,
+                                  K);
+        __syncthreads();
+      }
+      if (live) {
+#pragma unroll
+        for (int m = 0; m < MTP; ++m) part[m] = 0.f;
+        // W_S rides along with the first rank's pass
+        column_pass<T, MTP>(acc, part, xs, xv, K, bp_row,
+                            r == 0 ? ws + (size_t)row * K : nullptr, lane);
+        const float ur = to_f32(u[(size_t)r * N + row]);
+#pragma unroll
+        for (int m = 0; m < MTP; ++m) acc[m] += ur * part[m];
+      }
+    }
+    if (live) store_row<T, MTP>(acc, y, m0, mt, N, row, lane);
+  }
+}
+
+template <typename T, int MTP>
+__global__ void __launch_bounds__(kWarps * 32)
+slab_nm_kernel(const T* __restrict__ x, const T* __restrict__ vals,
+               const int8_t* __restrict__ idx, const uint32_t* __restrict__ bp,
+               const T* __restrict__ u, const T* __restrict__ v,
+               T* __restrict__ y, int M, int N, int K, int n_keep, int m_pat,
+               int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xk = reinterpret_cast<T*>(smem_raw);     // (K, MTP) column-major x
+  T* xv = xk + (size_t)MTP * K;               // (MTP, K) x ⊙ v_r
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = row < N;
+  const uint32_t* bp_row = bp + (size_t)row * (K / 32);
+  const int per_row = (K / m_pat) * n_keep;   // stored entries per row
+  // entry e is slot e % n_keep of group e / n_keep; its code is the
+  // position inside the group. 2:4 and 4:8 take shifts, not a division.
+  const bool pow2 = !(n_keep & (n_keep - 1)) && !(m_pat & (m_pat - 1));
+  const int ln = __ffs(n_keep) - 1, lm = __ffs(m_pat) - 1;
+  auto col_of = [=](int e, int8_t p) {
+    if (p < 0 || p >= m_pat) return -1;
+    return (pow2 ? (e >> ln) << lm : (e / n_keep) * m_pat) + p;
+  };
+  if (live) {
+    prefetch_l2(vals + (size_t)row * per_row, (size_t)per_row * sizeof(T),
+                lane);
+    prefetch_l2(idx + (size_t)row * per_row, (size_t)per_row, lane);
+    prefetch_l2(bp_row, (size_t)K / 8, lane);
+  }
+
+  for (int m0 = 0; m0 < M; m0 += MTP) {
+    const int mt = min(MTP, M - m0);
+    __syncthreads();
+    stage_tile<T, MTP, true>(xk, xv, x, v, m0, mt, K);
+    __syncthreads();
+    float acc[MTP], part[MTP];
+#pragma unroll
+    for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
+    if (live)
+      sparse_pass<T, int8_t, MTP>(acc, xk, vals + (size_t)row * per_row,
+                                  idx + (size_t)row * per_row,
+                                  (size_t)row * per_row, per_row, col_of,
+                                  lane);
+    for (int r = 0; r < R; ++r) {
+      if (r > 0) {
+        __syncthreads();
+        stage_tile<T, MTP, true>(nullptr, xv, x, v + (size_t)r * K, m0, mt,
+                                 K);
+        __syncthreads();
+      }
+      if (live) {
+#pragma unroll
+        for (int m = 0; m < MTP; ++m) part[m] = 0.f;
+        column_pass<T, MTP>(acc, part, xk, xv, K, bp_row, nullptr, lane);
+        const float ur = to_f32(u[(size_t)r * N + row]);
+#pragma unroll
+        for (int m = 0; m < MTP; ++m) acc[m] += ur * part[m];
+      }
+    }
+    if (live) store_row<T, MTP>(acc, y, m0, mt, N, row, lane);
+  }
+}
+
+template <typename T>
+static int launch_dense(const void* x, const void* ws, const void* bp,
+                        const void* u, const void* v, void* y, int M, int N,
+                        int K, int R, void* stream) {
+  if (!aligned16(ws) || !aligned16(bp))
+    return (int)cudaErrorMisalignedAddress;
+  size_t smem = 0;
+  const int mtp = pick_mtp(M, K, sizeof(T), &smem);
+  const dim3 grid((N + kWarps - 1) / kWarps);
+  SLAB_DISPATCH_MTP(mtp, {
+    auto kern = slab_dense_kernel<T, MTP>;
+    cudaError_t e = prepare(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+        (const T*)x, (const T*)ws, (const uint32_t*)bp, (const T*)u,
+        (const T*)v, (T*)y, M, N, K, R);
+  });
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_nm(const void* x, const void* vals, const void* idx,
+                     const void* bp, const void* u, const void* v, void* y,
+                     int M, int N, int K, int n_keep, int m_pat, int R,
+                     void* stream) {
+  if (!aligned16(vals) || !aligned16(idx) || !aligned16(bp))
+    return (int)cudaErrorMisalignedAddress;
+  size_t smem = 0;
+  const int mtp = pick_mtp(M, K, sizeof(T), &smem);
+  const dim3 grid((N + kWarps - 1) / kWarps);
+  SLAB_DISPATCH_MTP(mtp, {
+    auto kern = slab_nm_kernel<T, MTP>;
+    cudaError_t e = prepare(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+        (const T*)x, (const T*)vals, (const int8_t*)idx, (const uint32_t*)bp,
+        (const T*)u, (const T*)v, (T*)y, M, N, K, n_keep, m_pat, R);
+  });
+  return (int)cudaGetLastError();
+}
+
+}  // namespace slab
+
+// dtype: 0 = float32, 1 = bfloat16. Launch on ``stream``, allocate
+// nothing, return cudaGetLastError().
+extern "C" int slab_matmul(int dtype, const void* x, const void* ws,
+                           const void* bp, const void* u, const void* v,
+                           void* y, int M, int N, int K, int R,
+                           void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 32 || R <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return slab::launch_dense<float>(x, ws, bp, u, v, y, M, N, K, R, stream);
+  if (dtype == 1)
+    return slab::launch_dense<__nv_bfloat16>(x, ws, bp, u, v, y, M, N, K, R,
+                                             stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int slab_nm_matmul(int dtype, const void* x, const void* vals,
+                              const void* idx, const void* bp, const void* u,
+                              const void* v, void* y, int M, int N, int K,
+                              int n_keep, int m_pat, int R, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 32 || R <= 0 || m_pat <= 0 ||
+      K % m_pat || n_keep <= 0 || n_keep > m_pat)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return slab::launch_nm<float>(x, vals, idx, bp, u, v, y, M, N, K, n_keep,
+                                  m_pat, R, stream);
+  if (dtype == 1)
+    return slab::launch_nm<__nv_bfloat16>(x, vals, idx, bp, u, v, y, M, N, K,
+                                          n_keep, m_pat, R, stream);
+  return (int)cudaErrorInvalidValue;
+}

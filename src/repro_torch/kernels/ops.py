@@ -1,0 +1,74 @@
+"""Public wrappers of the SLaB kernels (port of ``repro.kernels.ops``).
+
+The contract of the reference wrappers: leading dims of x are
+flattened; ``u`` arrives as (N,) or (N, R) and ``v`` as (K,) or (K, R)
+and both are canonicalised to the kernels' row-major rank stacks
+(R, N) / (R, K); accumulation is fp32 and the result has x's dtype.
+
+A tensor on the CPU takes the kernel's plain PyTorch version; a CUDA
+tensor launches the hand-written kernel, which raises on anything it
+does not take. There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ell as ell_k
+from repro_torch.kernels import slab_matmul as slab_k
+
+KERNELS = (ell_k.SLAB_ELL, slab_k.SLAB_NM, slab_k.SLAB_DENSE)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def _rank_stack(u: torch.Tensor, v: torch.Tensor, dtype):
+    """(N,)/(N,R) u and (K,)/(K,R) v -> contiguous (R,N), (R,K)."""
+    u2 = u[None, :] if u.dim() == 1 else u.T
+    v2 = v[None, :] if v.dim() == 1 else v.T
+    return u2.to(dtype).contiguous(), v2.to(dtype).contiguous()
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu"
+
+
+def slab_ell_matmul(x, vals, idx, b_packed, u, v) -> torch.Tensor:
+    """Full SLaB linear with ELL sparse part + binary ⊙ rank-r term."""
+    u2, v2 = _rank_stack(u, v, x.dtype)
+    x2 = _flat(x)
+    vals = vals.to(x.dtype)
+    fn = ell_k.slab_ell_matmul_plain if _on_cpu(x) else ell_k.slab_ell_matmul
+    y = fn(x2, vals, idx, b_packed, u2, v2)
+    return y.reshape(*x.shape[:-1], -1)
+
+
+def slab_nm_matmul(x, vals, idx, m_pat: int, b_packed, u, v) -> torch.Tensor:
+    """Fused SLaB linear with N:M packed sparse part."""
+    u2, v2 = _rank_stack(u, v, x.dtype)
+    x2 = _flat(x)
+    vals = vals.to(x.dtype)
+    fn = (slab_k.slab_nm_matmul_plain if _on_cpu(x)
+          else slab_k.slab_nm_matmul)
+    y = fn(x2, vals, idx, m_pat, b_packed, u2, v2)
+    return y.reshape(*x.shape[:-1], -1)
+
+
+def slab_matmul(x, w_s, b_packed, u, v) -> torch.Tensor:
+    """Fused SLaB linear with dense-masked sparse part."""
+    u2, v2 = _rank_stack(u, v, x.dtype)
+    x2 = _flat(x)
+    w_s = w_s.to(x.dtype)
+    fn = slab_k.slab_matmul_plain if _on_cpu(x) else slab_k.slab_matmul
+    y = fn(x2, w_s, b_packed, u2, v2)
+    return y.reshape(*x.shape[:-1], -1)

@@ -1,0 +1,131 @@
+"""Language model assembly, dense family (port of ``repro.models.lm``).
+
+Params are a plain dict: ``embed`` (V, D), ``layers`` — a list with one
+dict per layer ({attn_norm, mlp_norm, attn: {wq, wk, wv, wo}, mlp:
+{w_gate, w_up, w_down}}), ``final_norm`` and ``lm_head`` (D, V). Where
+the reference scans stacked layers with ``lax.scan``, this port loops
+over the list in Python. Linear weights are (D_in, D_out); a linear may
+also be a ``core.packed_model.PackedLinear``.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
+                                       positions_for, rms_norm, tap_scope)
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+
+
+def init(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+    """Random params from ``seed`` through the port's own generator (the
+    reference's JAX PRNG stream cannot be reproduced; tests bridge the
+    reference's weights instead). Runs on CUDA unless ``device="cpu"``."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
+    layers = [{"attn_norm": ones(), "mlp_norm": ones(),
+               "attn": attn_lib.init_attention(cfg, gen, dev),
+               "mlp": mlp_lib.init_mlp(cfg, gen, dev)}
+              for _ in range(cfg.n_layers)]
+    params = {"layers": layers, "final_norm": ones(),
+              "embed": embed_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype,
+                                  dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
+                                       cfg.d_model, cfg.dtype, dev)
+    return params
+
+
+def _layer_fwd(cfg: ArchConfig, params: dict, lp: dict, idx: int,
+               h: torch.Tensor, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of the full-sequence forward. Returns (h, aux)."""
+    with tap_scope("attn"):
+        a = attn_lib.multihead_attention(
+            cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
+            positions)
+    h = h + a
+    with tap_scope("mlp"):
+        y = mlp_lib.mlp(cfg, lp["mlp"],
+                        rms_norm(h, lp["mlp_norm"], cfg.norm_eps))
+    return h + y, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def embed_inputs(cfg: ArchConfig, params: dict,
+                 inputs: torch.Tensor) -> torch.Tensor:
+    """Token ids -> table lookup; float inputs pass through."""
+    if not inputs.is_floating_point():
+        return params["embed"][inputs.long()]
+    return inputs.to(cfg.dtype)
+
+
+def unembed(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
+
+
+@torch.no_grad()
+def forward(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
+            positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits (B, S, V), aux)."""
+    _check_family(cfg)
+    b, s = inputs.shape[0], inputs.shape[1]
+    h = embed_inputs(cfg, params, inputs)
+    if positions is None:
+        positions = positions_for(cfg, b, s, device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for l, lp in enumerate(params["layers"]):
+        h, a = _layer_fwd(cfg, params, lp, l, h, positions)
+        aux = aux + a
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, h), aux
+
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int,
+               device=None) -> List[attn_lib.KVCache]:
+    """One empty KVCache per layer."""
+    _check_family(cfg)
+    return [attn_lib.init_kv_cache(cfg, batch, s_max, device)
+            for _ in range(cfg.n_layers)]
+
+
+def _layer_decode(cfg: ArchConfig, lp: dict, h: torch.Tensor,
+                  kv_l: attn_lib.KVCache, positions: torch.Tensor):
+    with tap_scope("attn"):
+        a, kc = attn_lib.decode_attention(
+            cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
+            kv_l, positions)
+    h = h + a
+    with tap_scope("mlp"):
+        y = mlp_lib.mlp(cfg, lp["mlp"],
+                        rms_norm(h, lp["mlp_norm"], cfg.norm_eps))
+    return h + y, kc
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params: dict,
+                cache: List[attn_lib.KVCache], token: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[attn_lib.KVCache]]:
+    """One decode step. token (B, 1) ints; positions (B, 1). Returns
+    (logits (B, 1, V), new cache). The cache tensors update in place."""
+    h = embed_inputs(cfg, params, token)
+    new_cache = []
+    for lp, kv_l in zip(params["layers"], cache):
+        h, kc = _layer_decode(cfg, lp, h, kv_l, positions)
+        new_cache.append(kc)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, h), new_cache

@@ -1,0 +1,205 @@
+"""The port's kernel wrappers (plain PyTorch versions on the CPU) and
+oracles against the reference Pallas kernels run in interpret mode.
+
+Inputs are made with numpy from a seed, packed by the reference packers
+and handed to both sides (the port's planes through ``bridge``). Every
+comparison is f32 at max|diff| / max|ref| < 1e-5.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import packing as ref_packing
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_oracles
+from repro_torch import bridge
+from repro_torch.core import packing
+from repro_torch.kernels import common, ops, ref
+
+TOL = 1e-5
+N, K = 96, 256
+
+
+def _rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _inputs(seed, m, rank, keep=0.44, pattern=None):
+    """Seeded numpy x, W_S, W_B, u (N, R), v (K, R); W_S keeps the
+    top-|w| ``keep`` of each row (or the best n of every m)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, K)).astype(np.float32)
+    w = (rng.standard_normal((N, K)) * 0.1).astype(np.float32)
+    if pattern:
+        n_keep, m_pat = map(int, pattern.split(":"))
+        g = np.abs(w).reshape(N, K // m_pat, m_pat)
+        thr = -np.sort(-g, axis=-1)[..., n_keep - 1:n_keep]
+        mask = (g >= thr).reshape(N, K)
+    else:
+        kk = int(keep * K)
+        thr = -np.sort(-np.abs(w), axis=1)[:, kk - 1:kk]
+        mask = np.abs(w) >= thr
+    w_s = np.where(mask, w, 0.0).astype(np.float32)
+    w_b = np.where(rng.random((N, K)) < 0.5, 1, -1).astype(np.int8)
+    u = np.abs(rng.standard_normal((N, rank))).astype(np.float32) * 0.2
+    v = np.abs(rng.standard_normal((K, rank))).astype(np.float32) * 0.2
+    return x, w_s, w_b, u, v
+
+
+def _uv_forms(u, v, rank):
+    """Rank 1 goes in as vectors (the (N,) / (K,) form of the contract)."""
+    return (u[:, 0], v[:, 0]) if rank == 1 else (u, v)
+
+
+@pytest.mark.parametrize("m", [1, 5, 37])
+@pytest.mark.parametrize("rank", [1, 3])
+def test_slab_ell_matches_reference_kernel(m, rank):
+    x, w_s, w_b, u, v = _inputs(m * 10 + rank, m, rank)
+    ep = ref_packing.ell_pack(jnp.asarray(w_s))
+    bp = ref_packing.pack_sign_bits(jnp.asarray(w_b))
+    uu, vv = _uv_forms(u, v, rank)
+    want = ref_ops.slab_ell_matmul(jnp.asarray(x), ep.values, ep.indices, bp,
+                                   jnp.asarray(uu), jnp.asarray(vv),
+                                   interpret=True)
+    t = bridge.tensor
+    got = ops.slab_ell_matmul(t(x), t(ep.values), t(ep.indices), t(bp),
+                              t(uu), t(vv))
+    assert got.dtype == torch.float32 and got.shape == (m, N)
+    assert _rel(got, want) < TOL
+    oracle = ref.slab_ell_matmul_ref(t(x), t(ep.values), t(ep.indices), K,
+                                     t(bp), t(uu), t(vv))
+    assert _rel(oracle, ref_oracles.slab_ell_matmul_ref(
+        jnp.asarray(x), ep.values, ep.indices, K, bp, jnp.asarray(uu),
+        jnp.asarray(vv))) < TOL
+
+
+@pytest.mark.parametrize("pattern", ["2:4", "4:8"])
+@pytest.mark.parametrize("rank", [1, 3])
+def test_slab_nm_matches_reference_kernel(pattern, rank):
+    m = 7
+    x, w_s, w_b, u, v = _inputs(41 + rank, m, rank, pattern=pattern)
+    n_keep, m_pat = map(int, pattern.split(":"))
+    nm = ref_packing.pack_nm(jnp.asarray(w_s), n_keep, m_pat)
+    bp = ref_packing.pack_sign_bits(jnp.asarray(w_b))
+    uu, vv = _uv_forms(u, v, rank)
+    want = ref_ops.slab_nm_matmul(jnp.asarray(x), nm.values, nm.indices,
+                                  m_pat, bp, jnp.asarray(uu),
+                                  jnp.asarray(vv), interpret=True)
+    t = bridge.tensor
+    got = ops.slab_nm_matmul(t(x), t(nm.values), t(nm.indices), m_pat,
+                             t(bp), t(uu), t(vv))
+    assert _rel(got, want) < TOL
+    oracle = ref.slab_nm_matmul_ref(t(x), t(nm.values), t(nm.indices), m_pat,
+                                    t(bp), t(uu), t(vv))
+    assert _rel(oracle, want) < TOL
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("rank", [1, 3])
+def test_slab_dense_matches_reference_kernel(m, rank):
+    x, w_s, w_b, u, v = _inputs(77 + m + rank, m, rank, keep=0.74)
+    bp = ref_packing.pack_sign_bits(jnp.asarray(w_b))
+    uu, vv = _uv_forms(u, v, rank)
+    want = ref_ops.slab_matmul(jnp.asarray(x), jnp.asarray(w_s), bp,
+                               jnp.asarray(uu), jnp.asarray(vv),
+                               interpret=True)
+    t = bridge.tensor
+    got = ops.slab_matmul(t(x), t(w_s), t(bp), t(uu), t(vv))
+    assert _rel(got, want) < TOL
+    oracle = ref.slab_matmul_ref(t(x), t(w_s), t(bp), t(uu), t(vv))
+    assert _rel(oracle, want) < TOL
+
+
+def test_wrappers_flatten_leading_dims():
+    """(B, S, K) inputs come back (B, S, N), row for row equal to the
+    flattened call — the packed forward's M = B·S path."""
+    x, w_s, w_b, u, v = _inputs(5, 6, 1)
+    t = bridge.tensor
+    ep = packing.ell_pack(t(w_s))
+    bp = packing.pack_sign_bits(t(w_b))
+    flat = ops.slab_ell_matmul(t(x), ep.values, ep.indices, bp, t(u), t(v))
+    x3 = t(x).reshape(2, 3, K)
+    y3 = ops.slab_ell_matmul(x3, ep.values, ep.indices, bp, t(u), t(v))
+    assert y3.shape == (2, 3, N)
+    assert torch.equal(y3.reshape(6, N), flat)
+
+
+def _edge_signs():
+    """Rows whose words are the edge patterns: all set (0xFFFFFFFF),
+    only bit 31 (0x80000000, negative as int32), only bit 0, none."""
+    w_b = -np.ones((4, 64), np.int8)
+    w_b[0] = 1
+    w_b[1, 31::32] = 1
+    w_b[2, 0::32] = 1
+    return w_b
+
+
+def test_sign_words_bit_identical_at_edge_words():
+    w_b = _edge_signs()
+    want = np.asarray(ref_packing.pack_sign_bits(jnp.asarray(w_b)))
+    got = packing.pack_sign_bits(torch.from_numpy(w_b))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    assert np.array_equal(want[:, 0], [0xFFFFFFFF, 0x80000000, 1, 0])
+    pm1 = common.unpack_bits(got, torch.float32).numpy()
+    assert np.array_equal(pm1, w_b.astype(np.float32))
+    assert np.array_equal(packing.unpack_sign_bits(got, 64).numpy(), w_b)
+
+
+def test_binary_term_matches_reference_at_edge_words():
+    """The binary ⊙ rank-1 term alone (W_S = 0) through both kernels on
+    the edge-word signs: bit order and sign convention end to end."""
+    rng = np.random.default_rng(3)
+    w_b = _edge_signs()
+    x = rng.standard_normal((3, 64)).astype(np.float32)
+    u = np.abs(rng.standard_normal(4)).astype(np.float32)
+    v = np.abs(rng.standard_normal(64)).astype(np.float32)
+    bp = ref_packing.pack_sign_bits(jnp.asarray(w_b))
+    w_s = np.zeros((4, 64), np.float32)
+    want = ref_ops.slab_matmul(jnp.asarray(x), jnp.asarray(w_s), bp,
+                               jnp.asarray(u), jnp.asarray(v),
+                               interpret=True)
+    t = bridge.tensor
+    got = ops.slab_matmul(t(x), t(w_s), t(bp), t(u), t(v))
+    assert _rel(got, want) < TOL
+    dense = (u[:, None] * v[None, :]) * w_b
+    np.testing.assert_allclose(got.numpy(), x @ dense.T, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bf16_binary_term_rounds_x_times_v_in_bf16():
+    """The plain version forms x ⊙ v in x.dtype before the ±1 sum, as
+    the reference kernel does: at bf16 its binary term equals the sum of
+    bf16-rounded products exactly (fp32 accumulation of ±values)."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 64)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
+    xb, vb = x.bfloat16(), v.bfloat16()
+    signs = torch.from_numpy(np.where(rng.random((3, 64)) < 0.5, 1, -1)
+                             .astype(np.int8))
+    bp = packing.pack_sign_bits(signs)
+    got = common.binlr_term(xb, bp, torch.ones(1, 3, dtype=torch.bfloat16),
+                            vb[None])
+    prod = (xb * vb).float()                    # bf16-rounded products
+    want = prod @ signs.float().T
+    assert torch.equal(got, want)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel entry points take CUDA tensors only; the CPU path goes
+    through ``ops`` to the plain version, never the other way round."""
+    from repro_torch.kernels import ell as ell_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    x, w_s, w_b, u, v = _inputs(1, 2, 1)
+    t = bridge.tensor
+    ep = packing.ell_pack(t(w_s))
+    bp = packing.pack_sign_bits(t(w_b))
+    with pytest.raises(ValueError, match="expected"):
+        ell_k.slab_ell_matmul(t(x), ep.values, ep.indices, bp, t(u).T,
+                              t(v).T.contiguous())
+    with pytest.raises(ValueError, match="expected"):
+        slab_k.slab_matmul(t(x), t(w_s), bp, t(u).T, t(v).T.contiguous())
+    assert ell_k.SLAB_ELL.launches == 0
