@@ -6,18 +6,33 @@
 Phases:
   1. environment: card name and power limit, torch/CUDA versions, and
      the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
-     (one nvcc per source, started together);
-  2. each kernel against its plain PyTorch version at llama2-7b
-     full-width planes, (N, K) in {(4096, 4096), (11008, 4096),
-     (4096, 11008)}, M in {1, 4, 37}, rank 1 and 3, bf16 and f32 (and
-     2:4 / 4:8 for slab_nm); times at M = 4, bf16, rank 1;
+     (one nvcc per source, started together), with each source's
+     register and spill summary from ``-Xptxas -v``;
+  2. each of the seven kernels against its plain PyTorch version at
+     llama2-7b full-width planes, (N, K) in {(4096, 4096), (11008, 4096),
+     (4096, 11008)}, M in {1, 4, 37}, bf16 and f32, rank 1 and 3 for the
+     kernels with a low-rank term, 2:4 and 4:8 for the N:M kernels, int32
+     ELL ids at (4096, 4096), and the kernels without sign words also at
+     (4099, 4100) (K not a multiple of 32, odd K_max); times at M = 4,
+     bf16, rank 1 beside the byte bound, the plain version and one
+     torch.matmul against the reconstructed dense W;
   3. the port's main path at llama2-7b full width with cut depth:
-     compress_model (slab, 8 iterations, 16x128 calibration) -> pack_model
-     -> greedy_decode (batch 4, prompt 32, gen 16, square and ragged),
-     once per packed variant (slab-ell, slab-nm, slab-dense, and slab-ell
-     at f32). Launch counts are zeroed just before each greedy_decode and
-     read just after; final-step logits are held against the
-     dense-equivalent (reconstructed-W) model;
+     compress_model (16x128 calibration) -> pack_model -> greedy_decode
+     (batch 4, prompt 32, gen 16, square and ragged), once per packed
+     variant:
+       a  slab 8 iterations, CR 0.5, bf16, 4 layers  -> slab-ell
+       b  slab, CR 0.5 2:4                           -> slab-nm
+       c  slab, CR 0.2                               -> slab-dense
+       d  slab, CR 0.5, f32                          -> slab-ell
+       e  wanda, CR 0.5 2:4                          -> sparse-nm
+       f  sparsegpt, CR 0.6                          -> sparse-ell
+       g  slab W_S + W_L (no binary), CR 0.5         -> lowrank-ell
+       h  slab W_S + W_L (no binary), CR 0.4         -> lowrank-dense
+     (2 layers and bf16 unless stated). Launch counts are zeroed just
+     before each greedy_decode and read just after; final-step logits are
+     held against the dense-equivalent (reconstructed-W) model; phases
+     e-h also print the eval perplexity (lm.loss_fn) of the uncompressed
+     and the compressed model;
   4. one JSON line listing every ported kernel, then the result line.
 
 Any failed check raises, and the script exits non-zero. It needs
@@ -27,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -73,13 +89,31 @@ def environment():
     log(f"kernel build: {time.monotonic() - t0:.2f}s wall "
         + " ".join(f"{s}={t:.2f}s" for s, t in per_src.items()))
     for s in build.SOURCES:
-        for line in build.build_log(s).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {s}: {line.strip()}")
+        log(f"  ptxas {s}: {_ptxas_summary(build.build_log(s))}")
     return card
 
 
+def _ptxas_summary(text: str) -> str:
+    """One line from a ``-Xptxas -v`` report: entries compiled, the most
+    registers any uses, and the entries that spill."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
+    spilling = [b for b in spills if b]
+    return (f"{len(regs)} entries, at most {max(regs, default=0)} registers"
+            f", {len(spilling)} spilling (at most "
+            f"{max(spilling, default=0)} bytes of spill stores)")
+
+
 # ---------------------------------------------------------------- phase 2
+
+# ELL keep fractions of the synthetic planes, per kernel, as the main path
+# packs them: slab-ell (SLaB CR 0.5, b 16: 0.5 - 1/16 - r/D), sparse-ell
+# (a pruner at CR 0.6) and lowrank-ell (W_S + W_L at CR 0.5: 0.5 - r/D).
+KEEP = {"slab": 0.437, "ell": 0.4, "ell_lr": 0.4995}
+# a shape off every multiple: N and K not multiples of 32 (no sign words,
+# so only the kernels without a binary term), K_max odd for lowrank-ell
+ODD_SHAPE = (4099, 4100)
+
 
 def _planes(n, k, dtype, rank, gen):
     """Synthetic full-width planes for every kernel, made on the card."""
@@ -91,69 +125,146 @@ def _planes(n, k, dtype, rank, gen):
 
     w = randn(n, k, scale=0.05)
     score = randn(n, k).abs()
-    w_ell = torch.where(sparsity.group_topk_mask(score, 0.437), w, 0.0)
+
+    def ell(keep):
+        p = packing.ell_pack(
+            torch.where(sparsity.group_topk_mask(score, keep), w, 0.0)
+            .to(dtype))
+        return p.values.contiguous(), p.indices.contiguous()
+
     w_dense = torch.where(sparsity.group_topk_mask(score, 0.737), w, 0.0)
-    signs = torch.where(randn(n, k) >= 0, 1, -1).to(torch.int8)
-    u = (randn(rank, n, scale=0.2).abs()).to(dtype).contiguous()
-    v = (randn(rank, k, scale=0.2).abs()).to(dtype).contiguous()
-    ell = packing.ell_pack(w_ell.to(dtype))
-    planes = {"u": u, "v": v, "b": packing.pack_sign_bits(signs),
-              "ell": (ell.values.contiguous(), ell.indices.contiguous()),
+    planes = {"u": (randn(rank, n, scale=0.2).abs()).to(dtype).contiguous(),
+              "v": (randn(rank, k, scale=0.2).abs()).to(dtype).contiguous(),
               "dense": w_dense.to(dtype).contiguous()}
+    planes.update({kind: ell(keep) for kind, keep in KEEP.items()})
+    if k % 32 == 0:
+        signs = torch.where(randn(n, k) >= 0, 1, -1).to(torch.int8)
+        planes["b"] = packing.pack_sign_bits(signs)
     for pat in ("2:4", "4:8"):
         nn, mm = sparsity.parse_pattern(pat)
+        if k % mm:
+            continue
         w_nm = torch.where(sparsity.nm_mask(score, nn, mm), w, 0.0)
         p = packing.pack_nm(w_nm.to(dtype), nn, mm, strict=True)
         planes[pat] = (p.values.contiguous(), p.indices.contiguous())
     return planes
 
 
-def _cases(planes, x):
-    """(label, kernel fn, plain fn, planes read, dense W_S) per kernel."""
-    from repro_torch.core.packing import ell_unpack, ELLPacked, unpack_nm, \
-        NMPacked
+class Case:
+    """One kernel call on one set of planes: the kernel and its plain
+    version, the planes it reads (for the byte bound), the dense Ŵ it
+    stands for (for the library matmul) and the operations it does."""
+
+    def __init__(self, label, kernel, kern, plain, read, w_hat, ops):
+        self.label, self.kernel = label, kernel
+        self.kern, self.plain, self.read = kern, plain, read
+        self.w_hat, self.ops = w_hat, ops
+
+
+def _cases(planes, x, rank, wide_ids=False):
+    """Every kernel's Case on these planes. Kernels without a low-rank
+    term run at rank 1 only; the binary ones only where K has sign words.
+    ``wide_ids`` adds the ELL kernels with int32 id views."""
+    from repro_torch.core.packing import (ELLPacked, NMPacked, as_unsigned,
+                                          ell_unpack, unpack_nm,
+                                          unpack_sign_bits)
     from repro_torch.kernels import ell as ell_k
+    from repro_torch.kernels import nm_sparse as nm_k
     from repro_torch.kernels import slab_matmul as slab_k
-    u, v, b = planes["u"], planes["v"], planes["b"]
-    k = x.shape[1]
-    vals, idx = planes["ell"]
-    out = [("slab_ell_matmul",
+    u, v = planes["u"], planes["v"]
+    m, k = x.shape
+    n = u.shape[1]
+    lr = lambda: u.float().T @ v.float()                     # (N, K)
+
+    def ell_dense(p):
+        return lambda: ell_unpack(ELLPacked(p[0], p[1], k)).float()
+
+    def ops(stored, lowrank=False, binary=False):
+        o = 2 * m * stored
+        if lowrank:      # the projection x @ Vᵀ and its application
+            o += 2 * m * k * rank + 2 * m * n * rank
+        if binary:       # x ⊙ v_r, a sign-add per weight, the u_r scale
+            o += m * k * rank + 2 * m * n * k * rank + 2 * m * n * rank
+        return o
+
+    out = []
+    if "b" in planes:
+        b = planes["b"]
+        w_b = lambda: lr() * unpack_sign_bits(b, k, torch.float32)
+        vals, idx = planes["slab"]
+        out.append(Case(
+            "slab_ell_matmul", "slab_ell_matmul",
             lambda: ell_k.slab_ell_matmul(x, vals, idx, b, u, v),
             lambda: ell_k.slab_ell_matmul_plain(x, vals, idx, b, u, v),
             (vals, idx, b, u, v),
-            lambda: ell_unpack(ELLPacked(vals, idx, k)))]
-    for pat in ("2:4", "4:8"):
-        nv, ni = planes[pat]
-        mm = int(pat.split(":")[1])
-        out.append((f"slab_nm_matmul[{pat}]",
-                    lambda nv=nv, ni=ni, mm=mm: slab_k.slab_nm_matmul(
-                        x, nv, ni, mm, b, u, v),
-                    lambda nv=nv, ni=ni, mm=mm: slab_k.slab_nm_matmul_plain(
-                        x, nv, ni, mm, b, u, v),
-                    (nv, ni, b, u, v),
-                    lambda nv=nv, ni=ni, mm=mm, pat=pat: unpack_nm(NMPacked(
-                        nv, ni, int(pat.split(":")[0]), mm, k))))
+            lambda: ell_dense(planes["slab"])() + w_b(),
+            ops(vals.numel(), binary=True)))
+        for pat in ("2:4", "4:8"):
+            nv, ni = planes[pat]
+            nn, mm = map(int, pat.split(":"))
+            out.append(Case(
+                f"slab_nm_matmul[{pat}]", "slab_nm_matmul",
+                lambda nv=nv, ni=ni, mm=mm: slab_k.slab_nm_matmul(
+                    x, nv, ni, mm, b, u, v),
+                lambda nv=nv, ni=ni, mm=mm: slab_k.slab_nm_matmul_plain(
+                    x, nv, ni, mm, b, u, v),
+                (nv, ni, b, u, v),
+                lambda nv=nv, ni=ni, nn=nn, mm=mm: unpack_nm(
+                    NMPacked(nv, ni, nn, mm, k)).float() + w_b(),
+                ops(nv.numel(), binary=True)))
+        ws = planes["dense"]
+        out.append(Case(
+            "slab_matmul", "slab_matmul",
+            lambda: slab_k.slab_matmul(x, ws, b, u, v),
+            lambda: slab_k.slab_matmul_plain(x, ws, b, u, v),
+            (ws, b, u, v), lambda: ws.float() + w_b(),
+            ops(ws.numel(), binary=True)))
+    ells = [("", planes["ell"], planes["ell_lr"])]
+    if wide_ids:
+        ells.append(("[int32]",
+                     (planes["ell"][0], as_unsigned(planes["ell"][1]).int()),
+                     (planes["ell_lr"][0],
+                      as_unsigned(planes["ell_lr"][1]).int())))
+    for tag, (ev, ei), (lv, li) in ells:
+        if rank == 1:
+            out.append(Case(
+                f"ell_matmul{tag}", "ell_matmul",
+                lambda ev=ev, ei=ei: ell_k.ell_matmul(x, ev, ei),
+                lambda ev=ev, ei=ei: ell_k.ell_matmul_plain(x, ev, ei),
+                (ev, ei), ell_dense((ev, ei)), ops(ev.numel())))
+        out.append(Case(
+            f"ell_lr_matmul{tag}", "ell_lr_matmul",
+            lambda lv=lv, li=li: ell_k.ell_lr_matmul(x, lv, li, u, v),
+            lambda lv=lv, li=li: ell_k.ell_lr_matmul_plain(x, lv, li, u, v),
+            (lv, li, u, v), lambda lv=lv, li=li: ell_dense((lv, li))() + lr(),
+            ops(lv.numel(), lowrank=True)))
     ws = planes["dense"]
-    out.append(("slab_matmul",
-                lambda: slab_k.slab_matmul(x, ws, b, u, v),
-                lambda: slab_k.slab_matmul_plain(x, ws, b, u, v),
-                (ws, b, u, v), lambda: ws))
+    out.append(Case(
+        "slab_lr_matmul", "slab_lr_matmul",
+        lambda: slab_k.slab_lr_matmul(x, ws, u, v),
+        lambda: slab_k.slab_lr_matmul_plain(x, ws, u, v),
+        (ws, u, v), lambda: ws.float() + lr(),
+        ops(ws.numel(), lowrank=True)))
+    if rank == 1:
+        for pat in ("2:4", "4:8"):
+            if pat not in planes:
+                continue
+            nv, ni = planes[pat]
+            nn, mm = map(int, pat.split(":"))
+            out.append(Case(
+                f"nm_matmul[{pat}]", "nm_matmul",
+                lambda nv=nv, ni=ni, mm=mm: nm_k.nm_matmul(x, nv, ni, mm),
+                lambda nv=nv, ni=ni, mm=mm: nm_k.nm_matmul_plain(
+                    x, nv, ni, mm),
+                (nv, ni),
+                lambda nv=nv, ni=ni, nn=nn, mm=mm: unpack_nm(
+                    NMPacked(nv, ni, nn, mm, k)).float(),
+                ops(nv.numel())))
     return out
 
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
-
-
-def _ops(label, x, read, rank) -> int:
-    """Operations the kernel does on these inputs: 2 per stored sparse
-    entry and batch row, x ⊙ v_r once per (row of x, column, rank), and
-    a sign-add per (batch row, weight, rank) plus the u_r scale."""
-    m, k = x.shape
-    n = read[-2].shape[1]
-    stored = read[0].numel()
-    return 2 * m * stored + m * k * rank + 2 * m * n * k * rank \
-        + 2 * m * n * rank
 
 
 def time_ms(fn, flush, reps=20) -> float:
@@ -177,69 +288,67 @@ def time_ms(fn, flush, reps=20) -> float:
 
 def kernel_checks():
     """Every kernel vs its plain version; returns per-kernel records."""
+    from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     worst = {}
     timed = {}
     n_checks = 0
-    for (n, k) in SHAPES:
+    for (n, k) in SHAPES + (ODD_SHAPE,):
         for dtype in (torch.bfloat16, torch.float32):
             for rank in (1, 3):
                 planes = _planes(n, k, dtype, rank, gen)
                 for m in BATCHES:
                     x = torch.randn((m, k), generator=gen,
                                     device="cuda").to(dtype)
-                    for label, kern, plain, read, dense in _cases(planes, x):
-                        got = kern()
-                        ref = plain()
+                    wide = (n, k) == JSON_SHAPE
+                    for c in _cases(planes, x, rank, wide_ids=wide):
+                        got = c.kern()
+                        ref = c.plain()
                         sync()
                         err = float((got.float() - ref.float()).abs().max())
                         scale = float(ref.float().abs().max())
                         rel = err / max(scale, 1e-30)
                         n_checks += 1
                         ok = (bool(torch.isfinite(got).all())
+                              and tuple(got.shape) == (m, n)
                               and rel < TOL[dtype])
-                        w = worst.setdefault(label, [0.0, 0.0])
-                        w[0] = max(w[0], rel)
+                        worst[c.label] = max(worst.get(c.label, 0.0), rel)
                         if not ok:
                             raise AssertionError(
-                                f"{label} N={n} K={k} M={m} {dtype} r{rank}"
-                                f": max|err|/max|ref| = {rel:.3g} "
+                                f"{c.label} N={n} K={k} M={m} {dtype} "
+                                f"r{rank}: max|err|/max|ref| = {rel:.3g} "
                                 f"(tolerance {TOL[dtype]})")
-                        if (m == TIMED["m"] and dtype == TIMED["dtype"]
+                        if ((n, k) in SHAPES and m == TIMED["m"]
+                                and dtype == TIMED["dtype"]
                                 and rank == TIMED["rank"]):
-                            timed[(label, n, k)] = _time_case(
-                                label, kern, plain, read, dense, x, rank,
-                                got, ref, flush)
+                            timed[(c.label, n, k)] = _time_case(
+                                c, x, rank, got, ref, flush)
                 del planes
+    ops.reset_launch_counts()        # comparison launches do not count
     log(f"kernel checks: {n_checks} cases passed; worst max|err|/max|ref|: "
-        + " ".join(f"{l}={w[0]:.3g}" for l, w in worst.items()))
+        + " ".join(f"{l}={w:.3g}" for l, w in worst.items()))
     return timed, worst
 
 
-def _time_case(label, kern, plain, read, dense, x, rank, got, ref, flush):
-    u, v = read[-2], read[-1]
-    b = read[-3]
+def _time_case(c, x, rank, got, ref, flush):
     k = x.shape[1]
-    from repro_torch.core.packing import unpack_sign_bits
-    w_hat = (dense().float()
-             + (u.float().T @ v.float()) * unpack_sign_bits(
-                 b, k, torch.float32)).to(x.dtype)
+    w_hat = c.w_hat().to(x.dtype)
     lib = lambda: torch.matmul(x, w_hat.T)
     y_bytes = got.numel() * got.element_size()
-    n_bytes = _nbytes(x, *read) + y_bytes
+    n_bytes = _nbytes(x, *c.read) + y_bytes
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = _ops(label, x, read, rank) / PEAK_OPS[x.dtype] * 1e3
-    rec = {"ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
+    t_ops = c.ops / PEAK_OPS[x.dtype] * 1e3
+    rec = {"ms": time_ms(c.kern, flush), "plain_ms": time_ms(c.plain, flush),
            "library_ms": time_ms(lib, flush),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": n_bytes,
            "max_abs_err": float((got.float() - ref.float()).abs().max())}
     n = got.shape[1]
-    log(f"  time {label:22s} N={n:5d} K={k:5d} M={x.shape[0]} bf16 r{rank}: "
-        f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+    log(f"  time {c.label:22s} N={n:5d} K={k:5d} M={x.shape[0]} bf16 "
+        f"r{rank}: kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
         f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f}"
         f" ({rec['bound_by']}, {n_bytes / 1e6:.2f} MB) "
         f"roofline={rec['bound_ms'] / rec['ms']:.3f}")
@@ -294,8 +403,16 @@ def _device_profile(cfg, params, prompts, step_ms, label):
             f"x{e.count // steps:<3d} {e.key[:90]}")
 
 
+def _perplexity(cfg, params, batch) -> float:
+    """exp(cross-entropy) of one eval batch through ``lm.loss_fn``."""
+    from repro_torch.models import lm
+    _, parts = lm.loss_fn(cfg, params, batch)
+    return float(torch.exp(parts["ce"]))
+
+
 def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
-                profiled=False):
+                profiled=False, method="slab", options=None, note="",
+                ppl=False):
     from repro_torch import configs
     from repro_torch.core.packed_model import PackedLinear, pack_model
     from repro_torch.core.pipeline import _get, compress_model, linear_paths
@@ -307,15 +424,21 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
 
     full = configs.get("llama2_7b", smoke=False)
     cfg = full.with_(n_layers=n_layers, dtype=dtype)
+    options = dict(iters=8) if options is None else options
+    opt_s = "".join(f" {k}={v}" for k, v in options.items())
     log(f"phase {tag}: llama2-7b d_model {cfg.d_model} heads {cfg.n_heads}"
-        f"x{cfg.d_head} d_ff {cfg.d_ff} vocab {cfg.vocab} {dtype} cr {cr} "
-        f"pattern {pattern}; reduced: n_layers {full.n_layers}->{n_layers}")
+        f"x{cfg.d_head} d_ff {cfg.d_ff} vocab {cfg.vocab} {dtype} "
+        f"{method}{opt_s} cr {cr} pattern {pattern}; reduced: n_layers "
+        f"{full.n_layers}->{n_layers}" + (f"; {note}" if note else ""))
     params = lm.init(cfg, seed=0, device="cuda")
     calib = calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128)
+    eval_batch = next(SyntheticCorpus(cfg.vocab, seed=0).eval_batches(
+        1, BATCH, 129))
+    ppl_orig = _perplexity(cfg, params, eval_batch) if ppl else None
     t0 = time.monotonic()
     dense_c, stats, decs = compress_model(
-        cfg, params, calib, method="slab",
-        scfg=SLaBConfig(cr=cr, pattern=pattern, iters=8),
+        cfg, params, calib, method=method,
+        scfg=SLaBConfig(cr=cr, pattern=pattern, **options),
         keep_decompositions=True, device="cuda")
     sync()
     t_comp = time.monotonic() - t0
@@ -339,6 +462,11 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
     for var, (pb, db) in sorted(rep.bytes_by_variant.items()):
         log(f"  bytes/{var}: {pb / 1e6:.3f} MB packed vs {db / 1e6:.3f} MB "
             f"dense per linear ({pb / db:.4f}x)")
+    if ppl:
+        log(f"  eval perplexity (lm.loss_fn, {BATCH}x128 synthetic tokens): "
+            f"uncompressed {ppl_orig:.2f}, compressed packed "
+            f"{_perplexity(cfg, packed, eval_batch):.2f}, compressed "
+            f"dense-equivalent {_perplexity(cfg, dense_c, eval_batch):.2f}")
 
     prompts = SyntheticCorpus(cfg.vocab, seed=0).batch(
         0, BATCH, PROMPT)["inputs"]
@@ -404,6 +532,42 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
     return {kernel: runs["square"][1] + runs["ragged"][1]}
 
 
+PHASES = (
+    ("a", dict(n_layers=4, dtype=torch.bfloat16, cr=0.5, pattern=None,
+               variant="slab-ell", kernel="slab_ell_matmul", tol=3e-2,
+               profiled=True)),
+    ("b", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
+               variant="slab-nm", kernel="slab_nm_matmul", tol=3e-2)),
+    ("c", dict(n_layers=2, dtype=torch.bfloat16, cr=0.2, pattern=None,
+               variant="slab-dense", kernel="slab_matmul", tol=3e-2)),
+    ("d", dict(n_layers=2, dtype=torch.float32, cr=0.5, pattern=None,
+               variant="slab-ell", kernel="slab_ell_matmul", tol=1e-4)),
+    ("e", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
+               variant="sparse-nm", kernel="nm_matmul", tol=3e-2,
+               method="wanda", options={}, ppl=True)),
+    ("f", dict(n_layers=2, dtype=torch.bfloat16, cr=0.6, pattern=None,
+               variant="sparse-ell", kernel="ell_matmul", tol=3e-2,
+               method="sparsegpt", options={}, ppl=True,
+               note="CR 0.6, not 0.5: at CR 0.5 and bf16 a pruner's "
+                    "K_max is D_in/2, ELL does not win on bytes, the "
+                    "linears pack as sparse-dense (a plain matmul) and "
+                    "no kernel runs")),
+    ("g", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
+               variant="lowrank-ell", kernel="ell_lr_matmul", tol=3e-2,
+               options=dict(iters=8, include_binary=False), ppl=True)),
+    ("h", dict(n_layers=2, dtype=torch.bfloat16, cr=0.4, pattern=None,
+               variant="lowrank-dense", kernel="slab_lr_matmul", tol=3e-2,
+               options=dict(iters=8, include_binary=False), ppl=True)),
+)
+# the timed case of each kernel that the JSON line reports
+JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
+              "slab_nm_matmul": "slab_nm_matmul[2:4]",
+              "slab_matmul": "slab_matmul", "ell_matmul": "ell_matmul",
+              "ell_lr_matmul": "ell_lr_matmul",
+              "slab_lr_matmul": "slab_lr_matmul",
+              "nm_matmul": "nm_matmul[2:4]"}
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -422,28 +586,15 @@ def main():
 
     card = environment()
     timed, worst = kernel_checks()
-    launches = {"slab_ell_matmul": 0, "slab_nm_matmul": 0, "slab_matmul": 0}
-    for tag, kw in (
-            ("a", dict(n_layers=4, dtype=torch.bfloat16, cr=0.5,
-                       pattern=None, variant="slab-ell",
-                       kernel="slab_ell_matmul", tol=3e-2, profiled=True)),
-            ("b", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5,
-                       pattern="2:4", variant="slab-nm",
-                       kernel="slab_nm_matmul", tol=3e-2)),
-            ("c", dict(n_layers=2, dtype=torch.bfloat16, cr=0.2,
-                       pattern=None, variant="slab-dense",
-                       kernel="slab_matmul", tol=3e-2)),
-            ("d", dict(n_layers=2, dtype=torch.float32, cr=0.5,
-                       pattern=None, variant="slab-ell",
-                       kernel="slab_ell_matmul", tol=1e-4))):
+    launches = {name: 0 for name in JSON_LABEL}
+    for tag, kw in PHASES:
         for kname, c in model_phase(tag, **kw).items():
             launches[kname] += c
 
     from repro_torch.kernels import ops
     entries = []
-    for kern, label in ((ops.KERNELS[0], "slab_ell_matmul"),
-                        (ops.KERNELS[1], "slab_nm_matmul[2:4]"),
-                        (ops.KERNELS[2], "slab_matmul")):
+    for kern in ops.KERNELS:
+        label = JSON_LABEL[kern.name]
         rec = timed[(label,) + JSON_SHAPE]
         entries.append({
             "name": kern.name, "route": "cuda",
@@ -456,7 +607,7 @@ def main():
             "library_ms": rec["library_ms"],
             "shape": {"M": TIMED["m"], "N": JSON_SHAPE[0],
                       "K": JSON_SHAPE[1], "dtype": "bfloat16", "rank": 1},
-            "worst_rel_err": worst[label][0],
+            "worst_rel_err": worst[label],
             "by_shape": {f"{n}x{k}": {kk: timed[(label, n, k)][kk] for kk in
                                       ("ms", "plain_ms", "library_ms",
                                        "bound_ms")}

@@ -61,9 +61,19 @@ def params(ref_params: dict, n_layers: int, device="cpu") -> dict:
 
 
 def decomposition(dec, device="cpu") -> SLaBDecomposition:
-    """A reference ``SLaBDecomposition`` (any object with w_s, u, v, w_b)."""
+    """A reference ``SLaBDecomposition`` (any object with w_s, u, v, w_b),
+    of any variant: sparse-only and low-rank decompositions carry
+    zero-width u / v and a (0, 0) w_b, which arrive with those shapes."""
     return SLaBDecomposition(tensor(dec.w_s, device), tensor(dec.u, device),
                              tensor(dec.v, device), tensor(dec.w_b, device))
+
+
+def hessian(h, device="cpu") -> torch.Tensor:
+    """A tapped (D_in, D_in) X^T X Gram matrix (fp32)."""
+    t = tensor(h, device)
+    if t.dim() != 2 or t.shape[0] != t.shape[1]:
+        raise ValueError(f"a Hessian is square, not {tuple(t.shape)}")
+    return t
 
 
 def packed_linear(pl, device="cpu") -> PackedLinear:

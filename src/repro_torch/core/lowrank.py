@@ -1,11 +1,14 @@
-"""Low-rank primitives (port of ``repro.core.lowrank``, rank-1 path).
+"""Low-rank primitives (port of ``repro.core.lowrank``).
 
 SLaB needs the rank-1 truncated SVD of the non-negative |W - W_S|. Power
 iteration from a positive start vector converges to the entry-wise
-non-negative dominant pair (paper Prop. 2).
+non-negative dominant pair (paper Prop. 2). Rank r > 1 (the ablations of
+Table III) goes through ``truncated_svd``: the exact SVD for small
+matrices, subspace iteration otherwise.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -28,6 +31,39 @@ def power_rank1(y: torch.Tensor, iters: int = 64
     sigma = torch.linalg.vector_norm(u)
     u = u / torch.clamp(sigma, min=1e-30)
     return sigma, u, v
+
+
+def subspace_svd(y: torch.Tensor, r: int, iters: int = 24
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-r singular triples by orthogonal (subspace) iteration from a
+    deterministic DCT-like start on the column sums. Returns (sigmas
+    (r,), U (Do, r), V (Di, r))."""
+    y = y.float()
+    d_out, d_in = y.shape
+    r = min(r, d_out, d_in)
+    k = torch.arange(d_in, dtype=torch.float32, device=y.device)[:, None]
+    j = torch.arange(r, dtype=torch.float32, device=y.device)[None, :]
+    v0 = torch.cos(math.pi * (k + 0.5) * j / d_in) \
+        * (1.0 + y.abs().sum(0))[:, None]
+    q = torch.linalg.qr(v0).Q
+    for _ in range(iters):
+        qz = torch.linalg.qr(y @ q).Q
+        q = torch.linalg.qr(y.T @ qz).Q
+    ub, s, vtb = torch.linalg.svd(y @ q, full_matrices=False)
+    return s[:r], ub[:, :r], q @ vtb.T[:, :r]
+
+
+def truncated_svd(y: torch.Tensor, r: int, iters: int = 32
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-r SVD: power iteration at r = 1, the exact SVD when the larger
+    side is at most 1024, subspace iteration otherwise."""
+    if r == 1:
+        s, u, v = power_rank1(y, iters=max(iters, 48))
+        return s[None], u[:, None], v[:, None]
+    if max(y.shape) <= 1024:
+        u, s, vt = torch.linalg.svd(y.float(), full_matrices=False)
+        return s[:r], u[:, :r], vt[:r].T
+    return subspace_svd(y, r, iters=iters)
 
 
 def slab_rank1_factors(y_abs: torch.Tensor, iters: int = 64

@@ -1,19 +1,27 @@
-"""Packed-weight serving (port of ``repro.core.packed_model``, the three
-variants of the dense serve path).
+"""Packed-weight serving (port of ``repro.core.packed_model``, the
+per-linear variants of the dense serve path).
 
 Every compressed linear lives in an on-device packed format and forwards
 through a hand-written CUDA kernel, picked by the variant tag:
 
-  variant      terms                       kernel
-  -----------  --------------------------  ----------------------------
-  slab-ell     ELL W_S + W_B + rank-r UV   kernels.ops.slab_ell_matmul
-  slab-nm      N:M W_S + W_B + rank-r UV   kernels.ops.slab_nm_matmul
-  slab-dense   dense W_S + W_B + rank-r    kernels.ops.slab_matmul
+  variant        terms                        kernel
+  -------------  ---------------------------  --------------------------
+  slab-ell       ELL W_S + W_B ⊙ rank-r UV    kernels.ops.slab_ell_matmul
+  slab-nm        N:M W_S + W_B ⊙ rank-r UV    kernels.ops.slab_nm_matmul
+  slab-dense     dense W_S + W_B ⊙ rank-r UV  kernels.ops.slab_matmul
+  lowrank-ell    ELL W_S + rank-r UV          kernels.ops.ell_lr_matmul
+  lowrank-dense  dense W_S + rank-r UV        kernels.ops.slab_lr_matmul
+  sparse-ell     ELL W_S                      kernels.ops.ell_matmul
+  sparse-nm      N:M W_S                      kernels.ops.nm_matmul
+  sparse-dense   dense W_S                    x @ W_Sᵀ (a plain matmul)
+  lowrank        rank-r UV                    (x @ V) @ Uᵀ (two matmuls)
+  lowrank-nm     N:M W_S + rank-r UV          not ported (slab_nm_lr_matmul)
+  binlr          W_B ⊙ rank-r UV              not ported (binlr_matmul)
 
 Unstructured sparse parts route to row-padded ELL whenever it wins on
 bytes at the serving dtype (``packing.ell_wins_bytes``), else they stay
-dense-masked. The other variants of the reference (binlr, lowrank-*,
-sparse-*) and ``PackedStack`` are not ported yet: classifying one raises.
+dense-masked. ``PackedStack`` is not ported: the port keeps one
+PackedLinear per layer.
 """
 from __future__ import annotations
 
@@ -29,13 +37,19 @@ from repro_torch.core.packing import (ell_pack, ell_row_nnz_max,
 from repro_torch.core.slab import SLaBDecomposition
 from repro_torch.models.common import tap_record
 
-PACKED_VARIANTS = ("slab-nm", "slab-ell", "slab-dense")
+VARIANTS = ("slab-nm", "slab-dense", "slab-ell", "binlr", "lowrank-nm",
+            "lowrank-dense", "lowrank-ell", "lowrank", "sparse-nm",
+            "sparse-dense", "sparse-ell")
+# variants whose kernel is still to be ported, and that kernel
+UNPORTED = {"lowrank-nm": "slab_nm_lr_matmul", "binlr": "binlr_matmul"}
+PACKED_VARIANTS = tuple(v for v in VARIANTS if v not in UNPORTED)
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedLinear:
     """One compressed linear, model orientation: computes x @ Wᵀ for the
     paper's (D_out, D_in) W, a drop-in for x @ w with w (D_in, D_out).
+    Planes a variant does not store are None.
 
     sparse_vals : (D_out, D_in) dense-masked W_S, (D_out, D_in/m, n) N:M
                   values, or (D_out, K_max) ELL values.
@@ -45,11 +59,11 @@ class PackedLinear:
     u, v        : (D_out, r) / (D_in, r) low-rank factors.
     """
 
-    sparse_vals: torch.Tensor
+    sparse_vals: Optional[torch.Tensor]
     sparse_idx: Optional[torch.Tensor]
-    b_packed: torch.Tensor
-    u: torch.Tensor
-    v: torch.Tensor
+    b_packed: Optional[torch.Tensor]
+    u: Optional[torch.Tensor]
+    v: Optional[torch.Tensor]
     variant: str = "slab-dense"
     m_pat: int = 0
     d_in: int = 0
@@ -83,17 +97,35 @@ def _unstructured_kind(w_s: torch.Tensor, itemsize: Optional[int] = None,
 def variant_of(dec: SLaBDecomposition, pattern: Optional[str],
                itemsize: Optional[int] = None,
                k_max: Optional[int] = None) -> Optional[str]:
-    """Classify one decomposition into its packed-serving variant."""
+    """Classify one decomposition into its packed-serving variant (None =
+    not representable). The binary term counts only beside a low-rank
+    factor: W_L ⊙ W_B with an empty W_L is identically zero."""
     if dec.w_s is None or dec.w_s.dim() != 2:
         return None
     rank = _dec_rank(dec)
     has_b = dec.w_b is not None and dec.w_b.numel() > 0 and rank > 0
+    if not has_b and rank == 0:
+        # pruning only: an all-zero W_S packs as width-1 ELL serving zeros
+        kind = "nm" if pattern else _unstructured_kind(dec.w_s, itemsize,
+                                                       k_max)
+        return f"sparse-{kind}"
     has_s = bool(dec.w_s.numel()) and bool((dec.w_s != 0).any())
-    if not (has_b and has_s):
+    kind = None
+    if has_s:
+        kind = "nm" if pattern else _unstructured_kind(dec.w_s, itemsize,
+                                                       k_max)
+    if has_b:
+        return f"slab-{kind}" if kind else "binlr"
+    return f"lowrank-{kind}" if kind else "lowrank"
+
+
+def _check_ported(variant: str) -> None:
+    if variant in UNPORTED:
         raise NotImplementedError(
-            "only the slab-ell / slab-nm / slab-dense variants are ported")
-    kind = "nm" if pattern else _unstructured_kind(dec.w_s, itemsize, k_max)
-    return f"slab-{kind}"
+            f"packed variant {variant!r} needs the {UNPORTED[variant]} "
+            "kernel, which is not ported yet")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown packed variant {variant!r}")
 
 
 def pack_linear(dec: SLaBDecomposition, pattern: Optional[str],
@@ -105,27 +137,32 @@ def pack_linear(dec: SLaBDecomposition, pattern: Optional[str],
     itemsize = torch.empty((), dtype=dtype).element_size()
     if variant is None:
         variant = variant_of(dec, pattern, itemsize=itemsize, k_max=ell_nnz)
-    if variant not in PACKED_VARIANTS:
-        raise NotImplementedError(f"packed variant {variant!r} not ported")
+    if variant is None:
+        raise ValueError("decomposition has no packable terms")
+    _check_ported(variant)
     rank = _dec_rank(dec)
-    u = (dec.u if dec.u.dim() == 2 else dec.u[:, None]).to(dtype)
-    v = (dec.v if dec.v.dim() == 2 else dec.v[:, None]).to(dtype)
-    bp = pack_sign_bits(dec.w_b)
-    idx = None
+    u = v = bp = vals = idx = None
     m_pat = 0
-    if variant == "slab-nm":
+    if rank:
+        u = (dec.u if dec.u.dim() == 2 else dec.u[:, None]).to(dtype)
+        v = (dec.v if dec.v.dim() == 2 else dec.v[:, None]).to(dtype)
+    if variant.startswith("slab-"):
+        bp = pack_sign_bits(dec.w_b)
+    if variant.endswith("-nm"):
         n, m_pat = map(int, pattern.split(":"))
         nm = pack_nm(dec.w_s.to(dtype), n, m_pat, strict=True)
         vals, idx = nm.values, nm.indices
-    elif variant == "slab-ell":
+    elif variant.endswith("-ell"):
         ep = ell_pack(dec.w_s.to(dtype), nnz=ell_nnz)
         vals, idx = ep.values, ep.indices
-    else:
+    elif variant != "lowrank":
         vals = dec.w_s.to(dtype)
-    return PackedLinear(vals.contiguous(),
-                        None if idx is None else idx.contiguous(),
-                        bp.contiguous(), u.contiguous(), v.contiguous(),
-                        variant=variant, m_pat=m_pat, d_in=d_in,
+
+    def plane(a):
+        return None if a is None else a.contiguous()
+
+    return PackedLinear(plane(vals), plane(idx), plane(bp), plane(u),
+                        plane(v), variant=variant, m_pat=m_pat, d_in=d_in,
                         d_out=d_out, rank=rank)
 
 
@@ -133,6 +170,7 @@ def packed_matmul(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
     """x (..., D_in) @ Wᵀ through the variant's kernel wrapper."""
     from repro_torch.kernels import ops
     var = w.variant
+    _check_ported(var)
     if var == "slab-ell":
         y = ops.slab_ell_matmul(x, w.sparse_vals, w.sparse_idx, w.b_packed,
                                 w.u, w.v)
@@ -141,8 +179,20 @@ def packed_matmul(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
                                w.b_packed, w.u, w.v)
     elif var == "slab-dense":
         y = ops.slab_matmul(x, w.sparse_vals, w.b_packed, w.u, w.v)
+    elif var == "lowrank-ell":
+        y = ops.ell_lr_matmul(x, w.sparse_vals, w.sparse_idx, w.u, w.v)
+    elif var == "lowrank-dense":
+        y = ops.slab_lr_matmul(x, w.sparse_vals, w.u, w.v)
+    elif var == "sparse-ell":
+        y = ops.ell_matmul(x, w.sparse_vals, w.sparse_idx)
+    elif var == "sparse-nm":
+        y = ops.nm_matmul(x, w.sparse_vals, w.sparse_idx, w.m_pat)
+    elif var == "sparse-dense":
+        # dense-masked bytes equal dense bytes: a plain matmul is the serve
+        y = x @ w.sparse_vals.to(x.dtype).T
     else:
-        raise ValueError(f"unknown packed variant {var!r}")
+        # lowrank: r(D_in + D_out) weights per token, already minimal
+        y = (x.float() @ w.v.float()) @ w.u.float().T
     return y.to(x.dtype)
 
 
@@ -190,7 +240,7 @@ def pack_model(params: dict,
         k_max = None if pattern else ell_row_nnz_max(dec.w_s)
         var = variant_of(dec, pattern, itemsize=itemsize, k_max=k_max)
         pl = pack_linear(dec, pattern, dtype, variant=var,
-                         ell_nnz=k_max if var == "slab-ell" else None)
+                         ell_nnz=k_max if var.endswith("-ell") else None)
         _set(out["layers"][l], name, pl)
         by_variant[var] = by_variant.get(var, 0) + 1
         a = agg.setdefault(var, [0.0, 0.0, 0])

@@ -1,12 +1,14 @@
 """Layer-wise one-shot compression loop (port of
-``repro.core.pipeline``, single-method path, dense family).
+``repro.core.pipeline``, one method per call, dense family).
 
   for each transformer layer, in order:
     (1) forward the calibration set through the already-compressed
         prefix to the layer's inputs,
     (2) run the layer's real forward (``models.lm._layer_fwd``) under one
         ``tap_capture``: the ``linear()`` chokepoint reports every
-        linear's exact input, reduced on the fly to ‖X‖₂ column norms,
+        linear's exact input, reduced on the fly to ‖X‖₂ column norms
+        and, when the method's ``needs`` holds "hessian", to the X^T X
+        Gram matrix,
     (3) compress every linear with the method's compressor,
     (4) replace the weights and continue forward with the compressed
         layer's outputs (error propagation).
@@ -18,7 +20,7 @@ stored (D_in, D_out) in the model and transposed to the paper's
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -82,13 +84,20 @@ def linear_paths(cfg: ArchConfig) -> List[str]:
 def _capture_layer(cfg: ArchConfig, params: dict, lp: dict, idx: int,
                    chunks: List[torch.Tensor],
                    positions: List[torch.Tensor],
-                   paths: Sequence[str]) -> Dict[str, torch.Tensor]:
+                   paths: Sequence[str], hessian_names: Set[str]
+                   ) -> Tuple[Dict[str, torch.Tensor],
+                              Dict[str, torch.Tensor]]:
     """Run layer ``idx``'s real forward over every calibration chunk under
-    ONE tap capture; returns ‖X‖₂ column norms keyed by path."""
-    with tap_capture() as tap:
+    ONE tap capture; returns (‖X‖₂ column norms, X^T X Hessians of
+    ``hessian_names``), keyed by path."""
+    with tap_capture(hessian=bool(hessian_names),
+                     hessian_names=hessian_names) as tap:
         for i in range(len(chunks)):
             lm._layer_fwd(cfg, params, lp, idx, chunks[i], positions[i])
-    return {p: tap.norms(p) for p in paths if tap.has(p)}
+    norms = {p: tap.norms(p) for p in paths if tap.has(p)}
+    hess = {p: tap.hessian(p) for p in paths
+            if tap.hessian(p) is not None}
+    return norms, hess
 
 
 def _weighted_errs(w: torch.Tensor, w_new: torch.Tensor,
@@ -102,11 +111,11 @@ def _weighted_errs(w: torch.Tensor, w_new: torch.Tensor,
 
 
 def _compress_leaf(layer: int, pth: str, w: torch.Tensor,
-                   an: Optional[torch.Tensor],
+                   an: Optional[torch.Tensor], hz: Optional[torch.Tensor],
                    comp: compressor_lib.Compressor):
     """Compress one (D_in, D_out) model weight. Returns (new weight,
-    dec-or-None, CompressStats)."""
-    cl = comp.compress(w.T.float(), LinearStats(norms=an))
+    dec-or-None, CompressStats); the stats name the dec's variant."""
+    cl = comp.compress(w.T.float(), LinearStats(norms=an, hessian=hz))
     w_new = cl.dense.T.to(w.dtype).contiguous()
     err_b, err_a = _weighted_errs(w, w_new, an)
     cr = cl.cr if cl.cr is not None else comp.scfg.cr
@@ -124,7 +133,8 @@ def compress_model(cfg: ArchConfig, params: dict, calib,
                    scfg: SLaBConfig = SLaBConfig(),
                    keep_decompositions: bool = False,
                    device=None):
-    """Run the layer-wise protocol with one method on every linear.
+    """Run the layer-wise protocol with one method (any name of
+    ``core.compressor.available()``) on every linear.
     Returns (new params, stats[, decs]); ``decs`` maps (layer, path) to
     the decomposition for ``core.packed_model.pack_model``.
 
@@ -146,14 +156,17 @@ def compress_model(cfg: ArchConfig, params: dict, calib,
     out_stats: List[CompressStats] = []
     decs: Dict[Tuple[int, str], object] = {}
     paths = linear_paths(cfg)
+    hess_names = set(paths) if "hessian" in comp.needs else set()
     for l in range(cfg.n_layers):
         lp = out["layers"][l]
-        acts = _capture_layer(cfg, out, lp, l, chunks, positions, paths)
+        acts, hess = _capture_layer(cfg, out, lp, l, chunks, positions,
+                                    paths, hess_names)
         for pth in paths:
             w = _get(lp, pth)
             if w is None:
                 continue
-            w_new, dec, st = _compress_leaf(l, pth, w, acts.get(pth), comp)
+            w_new, dec, st = _compress_leaf(l, pth, w, acts.get(pth),
+                                            hess.get(pth), comp)
             if keep_decompositions and dec is not None:
                 decs[(l, pth)] = dec
             out_stats.append(st)

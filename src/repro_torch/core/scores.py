@@ -10,6 +10,15 @@ from typing import Optional
 import torch
 
 
+def wanda_score(w: torch.Tensor, act_norms: torch.Tensor) -> torch.Tensor:
+    """S_ij = |W_ij| * ||X_j||_2 (Wanda); ``act_norms`` is (D_in,)."""
+    return w.float().abs() * act_norms.float()[None, :]
+
+
+def magnitude_score(w: torch.Tensor) -> torch.Tensor:
+    return w.float().abs()
+
+
 def weighted_fro_error(w: torch.Tensor, w_hat: torch.Tensor,
                        act_norms: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:

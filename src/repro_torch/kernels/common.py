@@ -1,7 +1,7 @@
 """Plain PyTorch counterparts of ``repro.kernels.common``: sign-bit
-unpack, N:M expand and the binary ⊙ rank-r term, with the rounding of
-the kernels they stand beside (the CUDA versions are in
-``csrc/slab_common.cuh``)."""
+unpack, N:M expand, the binary ⊙ rank-r term and the no-binary low-rank
+projection, with the rounding of the kernels they stand beside (the CUDA
+versions are in ``csrc/slab_common.cuh``)."""
 from __future__ import annotations
 
 import torch
@@ -37,3 +37,12 @@ def binlr_term(x: torch.Tensor, b_packed: torch.Tensor, u: torch.Tensor,
         xv = (x * v[r].to(x.dtype)).float()
         y = y + (xv @ b.T) * u[r].float()
     return y
+
+
+def lowrank_term(x: torch.Tensor, u: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """(x @ Vᵀ) @ U for x (M, K), u (R, N), v (R, K): the projection
+    p = x @ Vᵀ (M, R) is formed from fp32 copies of x and v (no rounding
+    through x.dtype, unlike the binary term), then applied through U."""
+    p = x.float() @ v.float().T
+    return p @ u.float()

@@ -1,12 +1,30 @@
-// slab_ell_matmul: full SLaB linear with a row-padded ELL sparse part,
+// The row-padded ELL linears,
 //
-//   y[m, n] = Σ_j x[m, idx[n, j]] · vals[n, j]
-//           + Σ_r u_r[n] · Σ_k s[n, k] · (x[m, k] · v_r[k])
+//   ell_matmul:      y[m, n] = Σ_j x[m, idx[n, j]] · vals[n, j]
+//   ell_lr_matmul:   ... + Σ_r p[m, r] · u_r[n],  p = x @ Vᵀ in fp32
+//   slab_ell_matmul: ... + Σ_r u_r[n] · Σ_k s[n, k] · (x[m, k] · v_r[k])
 //
-// Replaces the TPU kernel repro/kernels/ell.py::slab_ell_matmul
-// (_kernel_slab_ell, pallas_call at ell.py:209).
+// Replace the TPU kernels repro/kernels/ell.py::ell_matmul (_kernel_ell,
+// pallas_call at ell.py:105), ::ell_lr_matmul (_kernel_ell_lr, pallas_call
+// at ell.py:149) and ::slab_ell_matmul (_kernel_slab_ell, pallas_call at
+// ell.py:209).
 //
-// Bound on the H100 (3.35 TB/s): at the serve path's M = 1-8 the work is
+// ell_matmul and ell_lr_matmul (sparse-ell, lowrank-ell) are
+// slab_ell_matmul with the binary term removed or swapped for the
+// projection. Their bound is bytes too: vals + idx ((2 + 2)·K_max per
+// row at bf16, K_max ≈ D_in/2 for a 50 % pruner, i.e. about the dense
+// matrix: ELL wins on bytes only strictly below K_max = D_in/2) plus x, y
+// and, for lowrank-ell, u and v. They stage x alone, column-major, so the
+// shared tile is half slab_ell's and two blocks fit an SM at K = 11008,
+// M = 4. K needs no multiple of 32 (there are no sign words): staging
+// falls back to element loads when K is not a multiple of the vector
+// width. The projection p (M, R) does not depend on the output row, so
+// each block forms it once per M tile from the staged x (lowrank_proj:
+// all warps share K, fixed-order reduction) and every row adds
+// Σ_r p[m, r] · u_r[row] after its warp reduction.
+//
+// slab_ell_matmul's bound on the H100 (3.35 TB/s): at the serve path's
+// M = 1-8 the work is
 // a GEMV, so the floor is bytes / 3.35 TB/s with bytes = vals + idx +
 // sign words + u + v + x + y. At llama2-7b widths, CR 0.5 and bf16 that
 // is (2 + 2)·K_max + K/8 per output row, K_max ≈ 0.437·K: about 0.94x
@@ -103,7 +121,111 @@ static int launch(const void* x, const void* vals, const void* idx,
   return (int)cudaGetLastError();
 }
 
+// ell_matmul / ell_lr_matmul (LR): one warp per output row, x staged alone.
+template <typename T, typename I, int MTP, bool LR>
+__global__ void __launch_bounds__(kWarps * 32)
+ell_kernel(const T* __restrict__ x, const T* __restrict__ vals,
+           const I* __restrict__ idx, const T* __restrict__ u,
+           const T* __restrict__ v, T* __restrict__ y, int M, int N, int K,
+           int kmax, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xk = reinterpret_cast<T*>(smem_raw);     // (K, MTP) column-major x
+  float* p = reinterpret_cast<float*>(
+      smem_raw + align16_up((size_t)MTP * K * sizeof(T)));   // (R, MTP)
+  float* part = p + (size_t)R * MTP;          // (kWarps, R, MTP)
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = row < N;
+  const unsigned k_lim = (unsigned)K;
+  auto col_of = [k_lim](int, I code) {
+    return (unsigned)code < k_lim ? (int)code : -1;
+  };
+  if (live) {
+    prefetch_l2(vals + (size_t)row * kmax, (size_t)kmax * sizeof(T), lane);
+    prefetch_l2(idx + (size_t)row * kmax, (size_t)kmax * sizeof(I), lane);
+  }
+  for (int m0 = 0; m0 < M; m0 += MTP) {
+    const int mt = min(MTP, M - m0);
+    __syncthreads();                 // the previous tile's readers are done
+    stage_x<T, MTP, true>(xk, x, m0, mt, K);
+    __syncthreads();
+    if (LR) lowrank_proj<T, MTP, true>(p, part, xk, v, K, R);
+    float acc[MTP];
+#pragma unroll
+    for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
+    if (live) {
+      sparse_pass<T, I, MTP>(acc, xk, vals + (size_t)row * kmax,
+                             idx + (size_t)row * kmax, (size_t)row * kmax,
+                             kmax, col_of, lane);
+      store_row<T, MTP>(acc, y, m0, mt, N, row, lane, LR ? p : nullptr, u,
+                        R);
+    }
+  }
+}
+
+template <typename T, typename I, bool LR>
+static int launch_ell(const void* x, const void* vals, const void* idx,
+                      const void* u, const void* v, void* y, int M, int N,
+                      int K, int kmax, int R, void* stream) {
+  if (!aligned16(vals) || !aligned16(idx))
+    return (int)cudaErrorMisalignedAddress;
+  size_t smem = 0;
+  const int mtp = pick_mtp(M, K, sizeof(T), &smem, 1,
+                           LR ? lowrank_smem(R) : 0);
+  const dim3 grid((N + kWarps - 1) / kWarps);
+  SLAB_DISPATCH_MTP(mtp, {
+    auto kern = ell_kernel<T, I, MTP, LR>;
+    cudaError_t e = prepare(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+        (const T*)x, (const T*)vals, (const I*)idx, (const T*)u,
+        (const T*)v, (T*)y, M, N, K, kmax, R);
+  });
+  return (int)cudaGetLastError();
+}
+
+template <bool LR>
+static int dispatch_ell(int dtype, int idx_bytes, const void* x,
+                        const void* vals, const void* idx, const void* u,
+                        const void* v, void* y, int M, int N, int K,
+                        int kmax, int R, void* stream) {
+  if (dtype == 0 && idx_bytes == 2)
+    return launch_ell<float, uint16_t, LR>(x, vals, idx, u, v, y, M, N, K,
+                                           kmax, R, stream);
+  if (dtype == 0 && idx_bytes == 4)
+    return launch_ell<float, uint32_t, LR>(x, vals, idx, u, v, y, M, N, K,
+                                           kmax, R, stream);
+  if (dtype == 1 && idx_bytes == 2)
+    return launch_ell<__nv_bfloat16, uint16_t, LR>(x, vals, idx, u, v, y, M,
+                                                   N, K, kmax, R, stream);
+  if (dtype == 1 && idx_bytes == 4)
+    return launch_ell<__nv_bfloat16, uint32_t, LR>(x, vals, idx, u, v, y, M,
+                                                   N, K, kmax, R, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace slab
+
+// dtype: 0 = float32, 1 = bfloat16; idx_bytes: 2 (uint16 ids) or 4.
+// Launch on ``stream``, allocate nothing, return cudaGetLastError().
+extern "C" int ell_matmul(int dtype, int idx_bytes, const void* x,
+                          const void* vals, const void* idx, void* y, int M,
+                          int N, int K, int kmax, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || kmax <= 0)
+    return (int)cudaErrorInvalidValue;
+  return slab::dispatch_ell<false>(dtype, idx_bytes, x, vals, idx, nullptr,
+                                   nullptr, y, M, N, K, kmax, 0, stream);
+}
+
+extern "C" int ell_lr_matmul(int dtype, int idx_bytes, const void* x,
+                             const void* vals, const void* idx,
+                             const void* u, const void* v, void* y, int M,
+                             int N, int K, int kmax, int R, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || kmax <= 0 || R <= 0)
+    return (int)cudaErrorInvalidValue;
+  return slab::dispatch_ell<true>(dtype, idx_bytes, x, vals, idx, u, v, y, M,
+                                  N, K, kmax, R, stream);
+}
 
 // dtype: 0 = float32, 1 = bfloat16; idx_bytes: 2 (uint16 ids) or 4.
 // Launches on ``stream`` and allocates nothing; returns cudaGetLastError().

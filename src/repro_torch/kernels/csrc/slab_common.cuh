@@ -1,5 +1,6 @@
 // Shared device helpers of the SLaB kernels: the counterpart of
-// repro/kernels/common.py (bit unpack and the binary ⊙ rank-r term).
+// repro/kernels/common.py (bit unpack, the binary ⊙ rank-r term and the
+// no-binary low-rank projection).
 //
 // Layout of every kernel in this directory: one warp owns one output
 // row n of y (M, N) and loops over the whole of K; a block's kWarps warps
@@ -145,6 +146,44 @@ __device__ __forceinline__ void stage_tile(T* xs, T* xv,
   }
 }
 
+// Stage one M tile of x alone (no x ⊙ v): rows m0 .. m0+mt-1, zero rows
+// up to MTP, row-major xs[m * K + k] or, with COLS, column-major
+// xs[k * MTP + m]. Any K: 16-byte chunks when K is a multiple of the
+// vector width and x is aligned, else element by element.
+template <typename T, int MTP, bool COLS>
+__device__ __forceinline__ void stage_x(T* xs, const T* __restrict__ x,
+                                        int m0, int mt, int K) {
+  constexpr int V = Vec<T>::n;
+  if (K % V == 0 && aligned16(x)) {
+    const int nch = K / V;
+    for (int i = threadIdx.x; i < MTP * nch; i += blockDim.x) {
+      const int m = i / nch, k0 = (i - m * nch) * V;
+      float xf[V];
+      if (m < mt) {
+        ldg16(x + (size_t)(m0 + m) * K + k0, xf);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) xf[j] = 0.f;
+      }
+      if (COLS) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) xs[(k0 + j) * MTP + m] = from_f32<T>(xf[j]);
+      } else {
+        Pack<T, V> px;
+#pragma unroll
+        for (int j = 0; j < V; ++j) px.v[j] = from_f32<T>(xf[j]);
+        *reinterpret_cast<Pack<T, V>*>(xs + m * K + k0) = px;
+      }
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < MTP * K; i += blockDim.x) {
+    const int m = i / K, k = i - m * K;
+    const T val = m < mt ? x[(size_t)(m0 + m) * K + k] : from_f32<T>(0.f);
+    xs[COLS ? k * MTP + m : m * K + k] = val;
+  }
+}
+
 // Ask L2 for [p, p + bytes): one prefetch per 128-byte line, spread over
 // the warp's lanes. Issued before the block stages x, so the row's
 // planes are on their way while the tile is built.
@@ -194,6 +233,78 @@ __device__ __forceinline__ void column_pass(
   }
 }
 
+// One pass over a dense row of W_S against the row-major x tile:
+//   acc[m] += Σ_k W_S[row, k] · xs[m, k]
+// 16-byte loads when K is a multiple of the vector width (the row then
+// starts aligned), else one element per lane per step.
+template <typename T, int MTP>
+__device__ __forceinline__ void dense_pass(float (&acc)[MTP], const T* xs,
+                                           const T* __restrict__ ws_row,
+                                           int K, int lane) {
+  constexpr int V = Vec<T>::n;
+  if (K % V == 0) {
+    const int nch = K / V;
+#pragma unroll 2
+    for (int c = lane; c < nch; c += 32) {
+      const int k0 = c * V;
+      float w[V];
+      ldg16(ws_row + k0, w);
+#pragma unroll
+      for (int m = 0; m < MTP; ++m) {
+        float xx[V];
+        load16(xs + m * K + k0, xx);
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[m] += w[j] * xx[j];
+      }
+    }
+    return;
+  }
+  for (int k = lane; k < K; k += 32) {
+    const float w = to_f32(ws_row[k]);
+#pragma unroll
+    for (int m = 0; m < MTP; ++m) acc[m] += w * to_f32(xs[m * K + k]);
+  }
+}
+
+// The no-binary low-rank projection of one staged M tile, formed once
+// per block: p[r * MTP + m] = Σ_k x[m, k] · v_r[k] in fp32 from fp32
+// copies of x and v (the reference does not round it through x's dtype).
+// Every warp takes a strided share of K; the kWarps partial sums go
+// through part (kWarps · R · MTP floats) and are added in warp order, so
+// the result does not depend on scheduling. Contains __syncthreads: the
+// whole block calls it.
+template <typename T, int MTP, bool COLS>
+__device__ __forceinline__ void lowrank_proj(float* p, float* part,
+                                             const T* xs,
+                                             const T* __restrict__ v, int K,
+                                             int R) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = 0; r < R; ++r) {
+    const T* vr = v + (size_t)r * K;
+    float acc[MTP];
+#pragma unroll
+    for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
+    for (int k = warp * 32 + lane; k < K; k += kWarps * 32) {
+      const float vk = to_f32(vr[k]);
+#pragma unroll
+      for (int m = 0; m < MTP; ++m)
+        acc[m] += to_f32(xs[COLS ? k * MTP + m : m * K + k]) * vk;
+    }
+#pragma unroll
+    for (int m = 0; m < MTP; ++m) {
+      const float t = warp_sum(acc[m]);
+      if (lane == 0) part[(warp * R + r) * MTP + m] = t;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * MTP; i += blockDim.x) {
+    float t = 0.f;
+    for (int w = 0; w < kWarps; ++w) t += part[w * R * MTP + i];
+    p[i] = t;
+  }
+  __syncthreads();
+}
+
 // One gathered column of the column-major x tile: every batch row.
 template <typename T, int MTP>
 __device__ __forceinline__ void gather_add(float (&acc)[MTP], const T* xk,
@@ -240,22 +351,42 @@ __device__ __forceinline__ void sparse_pass(float (&acc)[MTP], const T* xk,
   }
 }
 
-// Warp-reduce acc and write y[m0 + m, row] for m < mt.
+// Warp-reduce acc and write y[m0 + m, row] for m < mt. With a projection
+// p (lowrank_proj) the low-rank term Σ_r p[r, m] · u_r[row] is added to
+// the reduced sum before the store, in fp32.
 template <typename T, int MTP>
 __device__ __forceinline__ void store_row(float (&acc)[MTP],
                                           T* __restrict__ y, int m0, int mt,
-                                          int N, int row, int lane) {
+                                          int N, int row, int lane,
+                                          const float* p = nullptr,
+                                          const T* __restrict__ u = nullptr,
+                                          int R = 0) {
 #pragma unroll
   for (int m = 0; m < MTP; ++m) {
-    const float t = warp_sum(acc[m]);
-    if (lane == 0 && m < mt) y[(size_t)(m0 + m) * N + row] = from_f32<T>(t);
+    float t = warp_sum(acc[m]);
+    if (lane == 0 && m < mt) {
+      if (p != nullptr) {
+        float lr = 0.f;
+        for (int r = 0; r < R; ++r)
+          lr += p[r * MTP + m] * to_f32(u[(size_t)r * N + row]);
+        t += lr;
+      }
+      y[(size_t)(m0 + m) * N + row] = from_f32<T>(t);
+    }
   }
 }
 
+__host__ __device__ constexpr size_t align16_up(size_t b) {
+  return (b + 15) & ~size_t(15);
+}
+
 // Host side: the batch-tile width MTP (a power of two, <= kMaxMt, no
-// wider than M needs) whose two shared tiles (x and x ⊙ v, MTP·K each)
-// fit the card's shared memory per block. 0 when even MTP = 1 does not.
-inline int pick_mtp(int M, int K, size_t elt, size_t* smem) {
+// wider than M needs) whose ``tiles`` shared tiles of MTP·K elements
+// (x, and x ⊙ v for the binary kernels), rounded up to 16 bytes, plus
+// ``extra`` bytes fit the card's shared memory per block. 0 when even
+// MTP = 1 does not.
+inline int pick_mtp(int M, int K, size_t elt, size_t* smem, int tiles = 2,
+                    size_t extra = 0) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -263,9 +394,18 @@ inline int pick_mtp(int M, int K, size_t elt, size_t* smem) {
     return 0;
   int mtp = 1;
   while (mtp < kMaxMt && mtp < M) mtp *= 2;
-  while (mtp >= 1 && 2 * (size_t)K * elt * mtp > (size_t)optin) mtp /= 2;
-  *smem = 2 * (size_t)K * elt * (size_t)mtp;
+  auto bytes = [&](int t) {
+    return align16_up((size_t)tiles * K * elt * t) + extra;
+  };
+  while (mtp >= 1 && bytes(mtp) > (size_t)optin) mtp /= 2;
+  *smem = mtp ? bytes(mtp) : 0;
   return mtp;
+}
+
+// Shared bytes of lowrank_proj's projection and partial sums at rank R
+// (sized for the widest tile, kMaxMt).
+inline size_t lowrank_smem(int R) {
+  return (size_t)(kWarps + 1) * kMaxMt * R * sizeof(float);
 }
 
 template <typename Kern>

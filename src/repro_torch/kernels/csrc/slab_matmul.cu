@@ -4,6 +4,20 @@
 //   y[m, n] = Σ_k x[m, k] · W_S[n, k]
 //           + Σ_r u_r[n] · Σ_k s[n, k] · (x[m, k] · v_r[k])
 //
+// and slab_lr_matmul, the dense-masked part with the no-binary low-rank
+// term instead (lowrank-dense),
+//
+//   y[m, n] = Σ_k x[m, k] · W_S[n, k] + Σ_r p[m, r] · u_r[n],
+//   p = x @ Vᵀ in fp32,
+//
+// which replaces repro/kernels/slab_matmul.py::slab_lr_matmul
+// (_kernel_dense_lr, pallas_call at slab_matmul.py:193). Its planes are
+// the dense (N, K) W_S in x's dtype plus u and v, so at its byte bound it
+// only ties a dense GEMV: it is the fallback when ELL loses on bytes. It
+// stages x alone (row-major), forms p once per block and M tile from the
+// staged x (lowrank_proj), streams each row of W_S once with 16-byte loads
+// and adds Σ_r p[m, r] · u_r[row] after the warp reduction.
+//
 // Replace the TPU kernels repro/kernels/slab_matmul.py::slab_matmul
 // (_kernel_dense, pallas_call at slab_matmul.py:77) and ::slab_nm_matmul
 // (_kernel_nm, pallas_call at slab_matmul.py:135). The TPU versions grid
@@ -141,6 +155,56 @@ slab_nm_kernel(const T* __restrict__ x, const T* __restrict__ vals,
   }
 }
 
+template <typename T, int MTP>
+__global__ void __launch_bounds__(kWarps * 32)
+slab_lr_kernel(const T* __restrict__ x, const T* __restrict__ ws,
+               const T* __restrict__ u, const T* __restrict__ v,
+               T* __restrict__ y, int M, int N, int K, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);     // (MTP, K) x
+  float* p = reinterpret_cast<float*>(
+      smem_raw + align16_up((size_t)MTP * K * sizeof(T)));   // (R, MTP)
+  float* part = p + (size_t)R * MTP;          // (kWarps, R, MTP)
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = row < N;
+  if (live) prefetch_l2(ws + (size_t)row * K, (size_t)K * sizeof(T), lane);
+
+  for (int m0 = 0; m0 < M; m0 += MTP) {
+    const int mt = min(MTP, M - m0);
+    __syncthreads();
+    stage_x<T, MTP, false>(xs, x, m0, mt, K);
+    __syncthreads();
+    lowrank_proj<T, MTP, false>(p, part, xs, v, K, R);
+    float acc[MTP];
+#pragma unroll
+    for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
+    if (live) {
+      dense_pass<T, MTP>(acc, xs, ws + (size_t)row * K, K, lane);
+      store_row<T, MTP>(acc, y, m0, mt, N, row, lane, p, u, R);
+    }
+  }
+}
+
+template <typename T>
+static int launch_lr(const void* x, const void* ws, const void* u,
+                     const void* v, void* y, int M, int N, int K, int R,
+                     void* stream) {
+  if (!aligned16(ws)) return (int)cudaErrorMisalignedAddress;
+  size_t smem = 0;
+  const int mtp = pick_mtp(M, K, sizeof(T), &smem, 1, lowrank_smem(R));
+  const dim3 grid((N + kWarps - 1) / kWarps);
+  SLAB_DISPATCH_MTP(mtp, {
+    auto kern = slab_lr_kernel<T, MTP>;
+    cudaError_t e = prepare(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+        (const T*)x, (const T*)ws, (const T*)u, (const T*)v, (T*)y, M, N, K,
+        R);
+  });
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_dense(const void* x, const void* ws, const void* bp,
                         const void* u, const void* v, void* y, int M, int N,
@@ -213,5 +277,18 @@ extern "C" int slab_nm_matmul(int dtype, const void* x, const void* vals,
   if (dtype == 1)
     return slab::launch_nm<__nv_bfloat16>(x, vals, idx, bp, u, v, y, M, N, K,
                                           n_keep, m_pat, R, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int slab_lr_matmul(int dtype, const void* x, const void* ws,
+                              const void* u, const void* v, void* y, int M,
+                              int N, int K, int R, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || R <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return slab::launch_lr<float>(x, ws, u, v, y, M, N, K, R, stream);
+  if (dtype == 1)
+    return slab::launch_lr<__nv_bfloat16>(x, ws, u, v, y, M, N, K, R,
+                                          stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,9 +14,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ell as ell_k
+from repro_torch.kernels import nm_sparse as nm_k
 from repro_torch.kernels import slab_matmul as slab_k
 
-KERNELS = (ell_k.SLAB_ELL, slab_k.SLAB_NM, slab_k.SLAB_DENSE)
+KERNELS = (ell_k.SLAB_ELL, slab_k.SLAB_NM, slab_k.SLAB_DENSE, ell_k.ELL,
+           ell_k.ELL_LR, slab_k.SLAB_LR, nm_k.NM)
 
 
 def reset_launch_counts() -> None:
@@ -72,3 +74,38 @@ def slab_matmul(x, w_s, b_packed, u, v) -> torch.Tensor:
     fn = slab_k.slab_matmul_plain if _on_cpu(x) else slab_k.slab_matmul
     y = fn(x2, w_s, b_packed, u2, v2)
     return y.reshape(*x.shape[:-1], -1)
+
+
+def ell_matmul(x, vals, idx) -> torch.Tensor:
+    """Row-padded ELL unstructured-sparse linear (no other term)."""
+    x2 = _flat(x)
+    vals = vals.to(x.dtype)
+    fn = ell_k.ell_matmul_plain if _on_cpu(x) else ell_k.ell_matmul
+    return fn(x2, vals, idx).reshape(*x.shape[:-1], -1)
+
+
+def ell_lr_matmul(x, vals, idx, u, v) -> torch.Tensor:
+    """ELL sparse + rank-r low-rank, no binary term."""
+    u2, v2 = _rank_stack(u, v, x.dtype)
+    x2 = _flat(x)
+    vals = vals.to(x.dtype)
+    fn = ell_k.ell_lr_matmul_plain if _on_cpu(x) else ell_k.ell_lr_matmul
+    return fn(x2, vals, idx, u2, v2).reshape(*x.shape[:-1], -1)
+
+
+def slab_lr_matmul(x, w_s, u, v) -> torch.Tensor:
+    """Dense-masked sparse + rank-r low-rank, no binary term."""
+    u2, v2 = _rank_stack(u, v, x.dtype)
+    x2 = _flat(x)
+    w_s = w_s.to(x.dtype)
+    fn = (slab_k.slab_lr_matmul_plain if _on_cpu(x)
+          else slab_k.slab_lr_matmul)
+    return fn(x2, w_s, u2, v2).reshape(*x.shape[:-1], -1)
+
+
+def nm_matmul(x, vals, idx, m_pat: int) -> torch.Tensor:
+    """N:M semi-structured sparse linear (no other term)."""
+    x2 = _flat(x)
+    vals = vals.to(x.dtype)
+    fn = nm_k.nm_matmul_plain if _on_cpu(x) else nm_k.nm_matmul
+    return fn(x2, vals, idx, m_pat).reshape(*x.shape[:-1], -1)

@@ -29,6 +29,11 @@ def binlr_ref(x, b_packed, u, v) -> torch.Tensor:
     return out
 
 
+def lowrank_ref(x, u, v) -> torch.Tensor:
+    """y = (x @ V) @ Uᵀ, the rank-r term without a binary matrix."""
+    return (x.float() @ _cols(v).float()) @ _cols(u).float().T
+
+
 def nm_matmul_ref(x, vals, idx, m: int) -> torch.Tensor:
     n = vals.shape[-1]
     w = unpack_nm(NMPacked(vals, idx, n, m, vals.shape[1] * m))
@@ -38,6 +43,11 @@ def nm_matmul_ref(x, vals, idx, m: int) -> torch.Tensor:
 def ell_matmul_ref(x, vals, idx, d_in: int) -> torch.Tensor:
     w = ell_unpack(ELLPacked(vals, idx, d_in))
     return x.float() @ w.float().T
+
+
+def ell_lr_matmul_ref(x, vals, idx, d_in: int, u, v) -> torch.Tensor:
+    """ELL sparse + rank-r low-rank, no binary."""
+    return ell_matmul_ref(x, vals, idx, d_in) + lowrank_ref(x, u, v)
 
 
 def slab_ell_matmul_ref(x, vals, idx, d_in: int, b_packed, u, v):
@@ -53,3 +63,8 @@ def slab_matmul_ref(x, w_s, b_packed, u, v):
 def slab_nm_matmul_ref(x, vals, idx, m: int, b_packed, u, v):
     """Fused SLaB linear with N:M packed sparse part."""
     return nm_matmul_ref(x, vals, idx, m) + binlr_ref(x, b_packed, u, v)
+
+
+def slab_lr_matmul_ref(x, w_s, u, v):
+    """Sparse + rank-r low-rank, no binary: y = x @ W_Sᵀ + (x @ V) @ Uᵀ."""
+    return x.float() @ w_s.float().T + lowrank_ref(x, u, v)

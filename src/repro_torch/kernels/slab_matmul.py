@@ -2,10 +2,12 @@
 the hand-written CUDA kernels (``csrc/slab_matmul.cu``) and their plain
 PyTorch versions.
 
-    y = x @ W_Sᵀ + Σ_r ((x ⊙ v_r) @ Bᵀ) ⊙ u_r
+    slab_matmul, slab_nm_matmul  y = x @ W_Sᵀ + Σ_r ((x ⊙ v_r) @ Bᵀ) ⊙ u_r
+    slab_lr_matmul               y = x @ W_Sᵀ + (x @ Vᵀ) @ U  (no binary)
 
-Replace ``repro/kernels/slab_matmul.py::{slab_matmul, slab_nm_matmul}``
-(TPU). Operands use the kernel layout: x (M, K), u (R, N), v (R, K).
+Replace ``repro/kernels/slab_matmul.py::{slab_matmul, slab_nm_matmul,
+slab_lr_matmul}`` (TPU). Operands use the kernel layout: x (M, K),
+u (R, N), v (R, K).
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import binlr_term, expand_nm
+from repro_torch.kernels.common import binlr_term, expand_nm, lowrank_term
 
 SLAB_DENSE = build.CudaKernel(
     "slab_matmul", "slab_matmul.cu",
@@ -22,11 +24,15 @@ SLAB_DENSE = build.CudaKernel(
 SLAB_NM = build.CudaKernel(
     "slab_nm_matmul", "slab_matmul.cu",
     "src/repro/kernels/slab_matmul.py:117 (slab_nm_matmul, pallas_call :135)")
+SLAB_LR = build.CudaKernel(
+    "slab_lr_matmul", "slab_matmul.cu",
+    "src/repro/kernels/slab_matmul.py:180 (slab_lr_matmul, pallas_call :193)")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DENSE_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _NM_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_LR_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 
 
 def _common_checks(x, b_packed, u, v, n: int):
@@ -95,4 +101,35 @@ def slab_nm_matmul(x, vals, idx, m_pat: int, b_packed, u, v) -> torch.Tensor:
     build.check_launch(err, SLAB_NM.name,
                        f"M={m} N={n} K={k} {n_keep}:{m_pat} R={r}")
     SLAB_NM.launches += 1
+    return y
+
+
+def slab_lr_matmul_plain(x, w_s, u, v) -> torch.Tensor:
+    """Plain version of the dense-masked + low-rank kernel; returns
+    x.dtype."""
+    y = x.float() @ w_s.float().T + lowrank_term(x, u, v)
+    return y.to(x.dtype)
+
+
+def slab_lr_matmul(x, w_s, u, v) -> torch.Tensor:
+    """Launch the dense-masked + low-rank CUDA kernel on the current
+    stream."""
+    m, k = x.shape
+    n = w_s.shape[0]
+    r = u.shape[0]
+    dev = x.device
+    build.check_operand(x, "x", x.dtype, (m, k), dev)
+    build.check_operand(w_s, "w_s", x.dtype, (n, k), dev)
+    build.check_operand(u, "u", x.dtype, (r, n), dev)
+    build.check_operand(v, "v", x.dtype, (r, k), dev)
+    build.check_aligned(w_s, "w_s")
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    if m == 0:
+        return y
+    fn = build.function(SLAB_LR.source, SLAB_LR.name, _LR_ARGS)
+    err = fn(build.dtype_code(x.dtype), x.data_ptr(), w_s.data_ptr(),
+             u.data_ptr(), v.data_ptr(), y.data_ptr(), m, n, k, r,
+             build.stream_ptr(dev))
+    build.check_launch(err, SLAB_LR.name, f"M={m} N={n} K={k} R={r}")
+    SLAB_LR.launches += 1
     return y

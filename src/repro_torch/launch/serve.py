@@ -1,10 +1,11 @@
-"""Serving entry point (port of ``repro.launch.serve``): init -> optional SLaB
-compression from synthetic calibration -> optional packing onto the
-CUDA kernels -> prefill + greedy decode.
+"""Serving entry point (port of ``repro.launch.serve``): init -> optional
+compression from synthetic calibration (SLaB or one of the paper's
+baselines, ``--compress``) -> optional packing onto the CUDA kernels ->
+prefill + greedy decode.
 
   python -m repro_torch.launch.serve --arch llama2_7b --no-smoke --packed
-  python -m repro_torch.launch.serve --arch stablelm_12b --packed \
-      --pattern 2:4 --device cpu
+  python -m repro_torch.launch.serve --arch llama2_7b --compress wanda \
+      --pattern 2:4 --packed --device cpu
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 refuses to start.
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.core import compressor as compressor_lib
 from repro_torch.core.pipeline import compress_model
 from repro_torch.core.slab import SLaBConfig
 from repro_torch.data import SyntheticCorpus, calibration_batch
@@ -94,7 +96,9 @@ def main(argv: Optional[list] = None):
                     default=True,
                     help="reduced smoke geometry (--no-smoke for the "
                          "full-size config)")
-    ap.add_argument("--compress", choices=["none", "slab"], default="slab")
+    ap.add_argument("--compress",
+                    choices=["none"] + compressor_lib.available(),
+                    default="slab")
     ap.add_argument("--packed", action="store_true",
                     help="serve through the hand-written CUDA kernels "
                          "(their plain versions on --device cpu)")

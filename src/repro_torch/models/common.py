@@ -1,7 +1,7 @@
 """Shared model building blocks (port of ``repro.models.common``):
-ArchConfig, norms, activations, rotary embeddings, position ids and the
-activation-tap registry that feeds calibration statistics to the
-compression pipeline.
+ArchConfig, norms, activations, rotary embeddings, position ids, the
+next-token cross-entropy and the activation-tap registry that feeds
+calibration statistics to the compression pipeline.
 
 Taps: ``core.packed_model.linear(x, w, tap="wq")`` reports its input
 here when a capture is active; modules push ``tap_scope`` prefixes
@@ -14,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,11 +39,37 @@ def _tap_prefix() -> List[str]:
 
 
 class TapCapture:
-    """Streaming per-linear fp32 column sum-of-squares for one capture:
-    ``norms(name)`` is ``diag(sqrt(X^T X))`` over every recorded input."""
+    """Streaming per-linear fp32 activation statistics for one capture:
+    ``norms(name)`` is ``diag(sqrt(X^T X))`` over every recorded input
+    and, with ``hessian=True``, ``hessian(name)`` is the Gram matrix
+    X^T X (restricted to ``hessian_names`` when given)."""
 
-    def __init__(self):
+    def __init__(self, hessian: bool = False,
+                 hessian_names: Optional[set] = None):
+        self.want_hessian = hessian
+        self._hess_names = (None if hessian_names is None
+                            else set(hessian_names))
         self._sumsq: Dict[str, torch.Tensor] = {}
+        self._hess: Dict[str, torch.Tensor] = {}
+        # taps fed by the same tensor in one forward (wq/wk/wv share their
+        # input, so do w_gate/w_up) pay one Gram; a few FIFO slots suffice
+        # because such taps fire back to back
+        self._gram_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._gram_cache_slots = 4
+
+    def _want_hess(self, name: str) -> bool:
+        return self.want_hessian and (self._hess_names is None
+                                      or name in self._hess_names)
+
+    def _gram(self, x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        hit = self._gram_cache.get(id(x))
+        if hit is not None and hit[0] is x:
+            return hit[1]
+        g = f.T @ f
+        while len(self._gram_cache) >= self._gram_cache_slots:
+            self._gram_cache.pop(next(iter(self._gram_cache)))
+        self._gram_cache[id(x)] = (x, g)
+        return g
 
     def record(self, name: str, x: torch.Tensor) -> None:
         """x (..., D_in): all leading dims are token dims."""
@@ -51,6 +77,10 @@ class TapCapture:
         ss = (f * f).sum(0)
         prev = self._sumsq.get(name)
         self._sumsq[name] = ss if prev is None else prev + ss
+        if self._want_hess(name):
+            g = self._gram(x, f)
+            prev = self._hess.get(name)
+            self._hess[name] = g if prev is None else prev + g
 
     def has(self, name: str) -> bool:
         return name in self._sumsq
@@ -58,11 +88,15 @@ class TapCapture:
     def norms(self, name: str) -> torch.Tensor:
         return torch.sqrt(self._sumsq[name])
 
+    def hessian(self, name: str) -> Optional[torch.Tensor]:
+        return self._hess.get(name)
+
 
 @contextlib.contextmanager
-def tap_capture():
+def tap_capture(hessian: bool = False,
+                hessian_names: Optional[set] = None):
     """Activate activation recording for the enclosed forward."""
-    cap = TapCapture()
+    cap = TapCapture(hessian=hessian, hessian_names=hessian_names)
     _tap_captures().append(cap)
     try:
         yield cap
@@ -222,3 +256,21 @@ def rotate(cfg: ArchConfig, x: torch.Tensor,
     if cfg.rope != "rope":
         raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
     return apply_rope(x, positions, cfg.rope_theta)
+
+
+# ------------------------------------------------------------------
+# Loss
+# ------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32. logits (B, S, V) in any
+    float dtype, labels (B, S); ``mask`` weights the tokens."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -17,7 +17,10 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
-                                       positions_for, rms_norm, tap_scope)
+                                       positions_for, rms_norm,
+                                       softmax_xent, tap_scope)
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -92,6 +95,21 @@ def forward(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
         aux = aux + a
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, h), aux
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict
+            ) -> Tuple[torch.Tensor, dict]:
+    """Next-token loss of one batch ({inputs, labels[, positions, mask]}):
+    ce + AUX_LOSS_WEIGHT · aux. exp(ce) is the perplexity the paper
+    reports."""
+    inputs = torch.as_tensor(batch["inputs"], device=params["embed"].device)
+    labels = torch.as_tensor(batch["labels"], device=inputs.device)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=inputs.device)
+    logits, aux = forward(cfg, params, inputs, batch.get("positions"))
+    ce = softmax_xent(logits, labels, mask)
+    return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int,

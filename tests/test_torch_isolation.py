@@ -27,7 +27,8 @@ def _imported_modules(path: Path):
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "bridge.py", "lm.py", "serve.py", "ell.py",
-            "slab_matmul.py", "ops.py", "packed_model.py"} <= names
+            "slab_matmul.py", "nm_sparse.py", "ops.py", "packed_model.py",
+            "baselines.py", "compressor.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
