@@ -8,15 +8,22 @@ Phases:
      the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, started together), with each source's
      register and spill summary from ``-Xptxas -v``;
-  2. each of the seven kernels against its plain PyTorch version at
-     llama2-7b full-width planes, (N, K) in {(4096, 4096), (11008, 4096),
-     (4096, 11008)}, M in {1, 4, 37}, bf16 and f32, rank 1 and 3 for the
-     kernels with a low-rank term, 2:4 and 4:8 for the N:M kernels, int32
-     ELL ids at (4096, 4096), and the kernels without sign words also at
-     (4099, 4100) (K not a multiple of 32, odd K_max); times at M = 4,
-     bf16, rank 1 beside the byte bound, the plain version and one
-     torch.matmul against the reconstructed dense W;
-  3. the port's main path at llama2-7b full width with cut depth:
+  2. each of the nine per-linear kernels against its plain PyTorch
+     version at llama2-7b full-width planes, (N, K) in {(4096, 4096),
+     (11008, 4096), (4096, 11008)}, M in {1, 4, 37}, bf16 and f32, rank 1
+     and 3 for the kernels with a low-rank term, 2:4 and 4:8 for the N:M
+     kernels, int32 ELL ids at (4096, 4096), and the kernels without sign
+     words also at (4099, 4100) (K not a multiple of 32, odd K_max); times
+     at M = 4, bf16, rank 1 beside the byte bound, the plain version and
+     one torch.matmul against the reconstructed dense W. Then both
+     flash-decode kernels (paged #11, contiguous #10) against their plain
+     versions at the decode shapes of llama2-7b (R 8, KV 32, G 1, dh 128)
+     and stablelm-12b (R 8, KV 8, G 4, dh 160): block size 16 and 32,
+     lengths 0 to 4096 with exact chunk boundaries, scattered block
+     tables, the model dtype and int8, bf16 and f32, and for #10 also
+     S = 4100; times beside the byte bound, the plain version and one
+     scaled_dot_product_attention call;
+  3. the port's main paths at llama2-7b full width with cut depth:
      compress_model (16x128 calibration) -> pack_model -> greedy_decode
      (batch 4, prompt 32, gen 16, square and ragged), once per packed
      variant:
@@ -28,12 +35,25 @@ Phases:
        f  sparsegpt, CR 0.6                          -> sparse-ell
        g  slab W_S + W_L (no binary), CR 0.5         -> lowrank-ell
        h  slab W_S + W_L (no binary), CR 0.4         -> lowrank-dense
+       i  slab W_S + W_L (no binary), CR 0.5 2:4     -> lowrank-nm
+       j  slab, CR 0.5, then W_S := 0 (W_L ⊙ W_B)    -> binlr
      (2 layers and bf16 unless stated). Launch counts are zeroed just
      before each greedy_decode and read just after; final-step logits are
      held against the dense-equivalent (reconstructed-W) model; phases
-     e-h also print the eval perplexity (lm.loss_fn) of the uncompressed
-     and the compressed model;
-  4. one JSON line listing every ported kernel, then the result line.
+     e-i also print the eval perplexity (lm.loss_fn) of the uncompressed
+     and the compressed model. Then the continuous-batching engine on the
+     paged KV cache, slab-ell packed, 2 layers:
+       k  f32: a mixed-arrival trace of 10 requests (prompts 16-256,
+          outputs 8-64, 4 slots, block size 16), then its first 6
+          requests on a pool that forces evictions; every stream
+          token-equal to greedy_decode, no block leaked;
+       l  bf16, int8 KV: the ``serve --engine`` synthetic trace under
+          FaultPlan.chaos(0) on the steps clock; every request terminal,
+          no block leaked, tok/s, goodput, TTFT and per-token latency, the
+          device-busy share of a decode step, and paged_decode_step held
+          against decode_step;
+  4. one JSON line listing every ported kernel (eleven), then the result
+     line.
 
 Any failed check raises, and the script exits non-zero. It needs
 ``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
@@ -168,6 +188,7 @@ def _cases(planes, x, rank, wide_ids=False):
     from repro_torch.core.packing import (ELLPacked, NMPacked, as_unsigned,
                                           ell_unpack, unpack_nm,
                                           unpack_sign_bits)
+    from repro_torch.kernels import binlr as binlr_k
     from repro_torch.kernels import ell as ell_k
     from repro_torch.kernels import nm_sparse as nm_k
     from repro_torch.kernels import slab_matmul as slab_k
@@ -219,6 +240,11 @@ def _cases(planes, x, rank, wide_ids=False):
             lambda: slab_k.slab_matmul_plain(x, ws, b, u, v),
             (ws, b, u, v), lambda: ws.float() + w_b(),
             ops(ws.numel(), binary=True)))
+        out.append(Case(
+            "binlr_matmul", "binlr_matmul",
+            lambda: binlr_k.binlr_matmul(x, b, u, v),
+            lambda: binlr_k.binlr_matmul_plain(x, b, u, v),
+            (b, u, v), w_b, ops(0, binary=True)))
     ells = [("", planes["ell"], planes["ell_lr"])]
     if wide_ids:
         ells.append(("[int32]",
@@ -245,6 +271,21 @@ def _cases(planes, x, rank, wide_ids=False):
         lambda: slab_k.slab_lr_matmul_plain(x, ws, u, v),
         (ws, u, v), lambda: ws.float() + lr(),
         ops(ws.numel(), lowrank=True)))
+    for pat in ("2:4", "4:8"):
+        if pat not in planes:
+            continue
+        nv, ni = planes[pat]
+        nn, mm = map(int, pat.split(":"))
+        out.append(Case(
+            f"slab_nm_lr_matmul[{pat}]", "slab_nm_lr_matmul",
+            lambda nv=nv, ni=ni, mm=mm: slab_k.slab_nm_lr_matmul(
+                x, nv, ni, mm, u, v),
+            lambda nv=nv, ni=ni, mm=mm: slab_k.slab_nm_lr_matmul_plain(
+                x, nv, ni, mm, u, v),
+            (nv, ni, u, v),
+            lambda nv=nv, ni=ni, nn=nn, mm=mm: unpack_nm(
+                NMPacked(nv, ni, nn, mm, k)).float() + lr(),
+            ops(nv.numel(), lowrank=True)))
     if rank == 1:
         for pat in ("2:4", "4:8"):
             if pat not in planes:
@@ -355,10 +396,200 @@ def _time_case(c, x, rank, got, ref, flush):
     return rec
 
 
+# flash-decode (#10, #11) at the decode shapes of the two ported attention
+# layouts, R = 8 rows: llama2-7b (MHA, KV 32, G 1, dh 128) and stablelm-12b
+# (GQA, KV 8, G 4, dh 160). Lengths: an empty row, one token, exact chunk
+# boundaries and their neighbours, up to 4096.
+FD_LAYOUTS = {"llama2-7b": (32, 1, 128), "stablelm-12b": (8, 4, 160)}
+FD_ROWS = 8
+FD_MAX = 4096
+FD_TIMED = dict(layout="llama2-7b", bs=16, dtype=torch.bfloat16, quant=False)
+
+
+def _fd_lengths(bs):
+    return [0, 1, bs, bs + 1, 777, 2048, FD_MAX - 1, FD_MAX]
+
+
+def _fd_inputs(layout, bs, s, dtype, quant, gen, paged):
+    """q, the cache (contiguous (R, S, KV, dh) or a pool of scattered
+    blocks with tables) and lengths, made on the card."""
+    from repro_torch.models.attention import _quantize_token
+    kv, g, dh = FD_LAYOUTS[layout]
+    dev = "cuda"
+    lengths = torch.tensor(_fd_lengths(bs), dtype=torch.int32, device=dev)
+    lengths = lengths.clamp(max=s)
+    q = (torch.randn((FD_ROWS, kv, g, dh), generator=gen, device=dev)
+         * dh ** -0.5).to(dtype)
+    k = torch.randn((FD_ROWS, s, kv, dh), generator=gen, device=dev)
+    v = torch.randn((FD_ROWS, s, kv, dh), generator=gen, device=dev)
+    ks = vs = None
+    if quant:
+        k, ks = _quantize_token(k)
+        v, vs = _quantize_token(v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    if not paged:
+        return dict(q=q, k=k, v=v, lengths=lengths, k_scale=ks, v_scale=vs)
+    n_bt = -(-s // bs)
+    n_blocks = FD_ROWS * n_bt + 7
+    perm = torch.randperm(n_blocks, generator=gen, device=dev)
+    tables = perm[:FD_ROWS * n_bt].reshape(FD_ROWS, n_bt).to(torch.int32)
+
+    def pool(t):
+        if t is None:
+            return None
+        pad = n_bt * bs - s
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        out = torch.zeros((n_blocks, bs) + tuple(t.shape[2:]),
+                          dtype=t.dtype, device=dev)
+        out[tables.long().reshape(-1)] = t.reshape(
+            (FD_ROWS * n_bt, bs) + tuple(t.shape[2:]))
+        return out
+
+    # table entries past a row's length may name any block: scramble them
+    junk = torch.randint(0, n_blocks, tables.shape, generator=gen,
+                         device=dev, dtype=torch.int32)
+    col = torch.arange(n_bt, device=dev)[None, :]
+    used = (col * bs) < lengths[:, None]
+    return dict(q=q, k_pool=pool(k), v_pool=pool(v),
+                block_tables=torch.where(used, tables, junk).contiguous(),
+                lengths=lengths, k_scale=pool(ks), v_scale=pool(vs),
+                _contig=(k, v, ks, vs))
+
+
+def _fd_bytes(a, s, bs, paged):
+    """Bytes the function must move: each valid token's K and V (and their
+    scales) once — on a length-0 row of the contiguous kernel, whose output
+    is the mean of V, all S tokens of V (and v_scale) and no K — plus q,
+    out, lengths and the table entries a row's length reaches."""
+    q = a["q"]
+    kv, dh = q.shape[1], q.shape[3]
+    k = a["k_pool"] if paged else a["k"]
+    half = kv * dh * k.element_size()          # K or V of one token
+    if a["k_scale"] is not None:
+        half += kv * 4
+    lens = a["lengths"].tolist()
+    n = sum(2 * l * half if (l or paged) else s * half for l in lens)
+    if paged:
+        n += 4 * sum(-(-l // bs) for l in lens)
+    return n + 2 * _nbytes(q) + _nbytes(a["lengths"])
+
+
+def _fd_ops(a, s, paged):
+    """Operations the function must do: per valid token and query head a
+    q·k and a p·v of dh multiply-adds each; on a length-0 contiguous row
+    only the sum of V over S."""
+    kv, g, dh = a["q"].shape[1:]
+    lens = a["lengths"].tolist()
+    toks = sum(lens)
+    empty = 0 if paged else s * sum(1 for l in lens if l == 0)
+    return (4 * toks + 2 * empty) * kv * g * dh
+
+
+def _sdpa(a, paged):
+    """One torch scaled_dot_product_attention call on the contiguous
+    (R, KV, S, dh) layout with a boolean length mask — the yardstick; the
+    transpose (and, for the paged kernel, the gather from the pool) into
+    that layout is done before and not timed."""
+    F = torch.nn.functional
+    k, v, ks, vs = a["_contig"] if paged else (a["k"], a["v"], a["k_scale"],
+                                               a["v_scale"])
+    dt = a["q"].dtype
+    if ks is not None:
+        k = (k.float() * ks[..., None]).to(dt)
+        v = (v.float() * vs[..., None]).to(dt)
+    kt = k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    pos = torch.arange(kt.shape[2], device="cuda")
+    mask = (pos[None, :] < a["lengths"][:, None].long())[:, None, None, :]
+    q = a["q"]
+    return lambda: F.scaled_dot_product_attention(q, kt, vt, attn_mask=mask,
+                                                  scale=1.0)
+
+
+def flash_checks(flush):
+    """#11 and #10 against their plain versions on the card; times at
+    FD_TIMED. Returns (timed records by kernel name, worst rel errors)."""
+    from repro_torch.kernels import flash_decode as fd_k
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    worst, timed, n_checks = {}, {}, 0
+    plans = []
+    for layout in FD_LAYOUTS:
+        for bs in (16, 32):
+            plans.append(("flash_decode_paged", layout, bs, FD_MAX, True))
+            plans.append(("flash_decode", layout, bs, FD_MAX, False))
+        plans.append(("flash_decode", layout, 512, FD_MAX + 4, False))
+    for name, layout, bs, s, paged in plans:
+        for dtype in (torch.bfloat16, torch.float32):
+            for quant in (False, True):
+                a = _fd_inputs(layout, bs, s, dtype, quant, gen, paged)
+                args = {kk: vv for kk, vv in a.items()
+                        if not kk.startswith("_")}
+                if paged:
+                    kern = lambda: fd_k.flash_decode_paged(**args)
+                    plain = lambda: fd_k.flash_decode_paged_plain(**args)
+                else:
+                    kern = lambda: fd_k.flash_decode(**args, bs=bs)
+                    plain = lambda: fd_k.flash_decode_plain(**args, bs=bs)
+                got, ref = kern(), plain()
+                sync()
+                err = float((got.float() - ref.float()).abs().max())
+                rel = err / max(float(ref.float().abs().max()), 1e-30)
+                label = f"{name}[{'int8' if quant else 'model'}]"
+                worst[label] = max(worst.get(label, 0.0), rel)
+                n_checks += 1
+                ok = (bool(torch.isfinite(got).all()) and rel < TOL[dtype]
+                      and tuple(got.shape) == tuple(a["q"].shape))
+                if paged:
+                    ok = ok and bool((got[0] == 0).all())   # empty row
+                if not ok:
+                    raise AssertionError(
+                        f"{label} {layout} bs={bs} S={s} {dtype}: "
+                        f"max|err|/max|ref| = {rel:.3g} (tolerance "
+                        f"{TOL[dtype]})")
+                if (layout == FD_TIMED["layout"] and bs == FD_TIMED["bs"]
+                        and dtype == FD_TIMED["dtype"]
+                        and quant == FD_TIMED["quant"]):
+                    n_bytes = _fd_bytes(a, s, bs, paged)
+                    kv, g, dh = FD_LAYOUTS[layout]
+                    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+                    t_ops = _fd_ops(a, s, paged) / PEAK_OPS[
+                        torch.float32] * 1e3
+                    rec = {"ms": time_ms(kern, flush),
+                           "plain_ms": time_ms(plain, flush),
+                           "library_ms": time_ms(_sdpa(a, paged), flush),
+                           "bound_ms": max(t_bytes, t_ops),
+                           "bound_by": "bytes" if t_bytes >= t_ops
+                           else "operations",
+                           "bytes": n_bytes, "max_abs_err": err,
+                           "shape": {"R": FD_ROWS, "KV": kv, "G": g,
+                                     "dh": dh, "S": s, "bs": bs,
+                                     "lengths": a["lengths"].tolist(),
+                                     "dtype": "bfloat16", "int8": False}}
+                    timed[name] = rec
+                    log(f"  time {name:22s} {layout} R={FD_ROWS} bs={bs} "
+                        f"S={s} bf16: kernel_ms={rec['ms']:.4f} "
+                        f"plain_ms={rec['plain_ms']:.4f} library_ms="
+                        f"{rec['library_ms']:.4f} bound_ms="
+                        f"{rec['bound_ms']:.4f} ({rec['bound_by']}, "
+                        f"{n_bytes / 1e6:.2f} MB) roofline="
+                        f"{rec['bound_ms'] / rec['ms']:.3f}")
+                del a, args, got, ref
+    ops.reset_launch_counts()        # comparison launches do not count
+    log(f"flash-decode checks: {n_checks} cases passed; worst "
+        "max|err|/max|ref|: "
+        + " ".join(f"{l}={w:.3g}" for l, w in worst.items()))
+    return timed, worst
+
+
 # ---------------------------------------------------------------- phase 3
 
 PROMPT, GEN, BATCH = 32, 16, 4
 RAGGED = (32, 20, 27, 9)
+ENGINE_REQUESTS = 10
+EVICT_REQUESTS = 6       # phase k's evicting run: the trace's first 6
 
 
 def _final_logits(cfg, params, seq):
@@ -375,17 +606,26 @@ def _final_logits(cfg, params, seq):
     return logits[:, -1].float()
 
 
-def _device_profile(cfg, params, prompts, step_ms, label):
-    """Device busy time per decode step from torch.profiler (kernel
-    events only), set against ``step_ms``, the same step's unprofiled
-    wall time: busy / wall is the card's busy share, the rest is time the
-    host holds it back. Prints the five kernels that take the most."""
-    from torch.profiler import ProfilerActivity, profile
+def _greedy_profile(cfg, params, prompts, step_ms, label):
+    """``_device_profile`` over one greedy_decode of PROMPT + 4 - 1
+    decode steps."""
     from repro_torch.launch.serve import greedy_decode
-    steps = PROMPT + 4 - 1
+    _device_profile(lambda: greedy_decode(cfg, params, prompts, 4,
+                                          device="cuda"),
+                    PROMPT + 4 - 1, step_ms, label)
+
+
+def _device_profile(run, steps, step_ms, label):
+    """Device busy time per step from torch.profiler (kernel events
+    only) over ``run()``, which takes ``steps`` steps, set against
+    ``step_ms``, the same step's unprofiled wall time: busy / wall is the
+    card's busy share, the rest is time the host holds it back. Prints
+    the five kernels that take the most. Returns the busy share (None
+    when the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        greedy_decode(cfg, params, prompts, 4, device="cuda")
+        run()
         sync()
     kern = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")]
@@ -393,14 +633,15 @@ def _device_profile(cfg, params, prompts, step_ms, label):
     if busy_ms <= 0:
         log(f"  profile {label}: the profiler saw no device time "
             "(busy share not measured)")
-        return
+        return None
+    share = min(busy_ms / step_ms, 1.0)
     log(f"  profile {label}: device busy {busy_ms:.3f} ms per decode step "
-        f"of {step_ms:.3f} ms wall (busy share "
-        f"{min(busy_ms / step_ms, 1.0):.3f})")
+        f"of {step_ms:.3f} ms wall (busy share {share:.3f})")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
     for e in top:
         log(f"    {e.self_device_time_total / 1e3 / steps:8.4f} ms/step "
             f"x{e.count // steps:<3d} {e.key[:90]}")
+    return share
 
 
 def _perplexity(cfg, params, batch) -> float:
@@ -410,9 +651,23 @@ def _perplexity(cfg, params, batch) -> float:
     return float(torch.exp(parts["ce"]))
 
 
+def _zero_sparse_part(cfg, dense_c, decs, dtype):
+    """W_S := 0 in every decomposition (what remains is W_L ⊙ W_B, the
+    binlr variant), and the dense-equivalent params rebuilt to match."""
+    from repro_torch.core.pipeline import _set
+    from repro_torch.core.slab import reconstruct
+    out = {}
+    for (l, name), dec in decs.items():
+        dec = dec._replace(w_s=torch.zeros_like(dec.w_s))
+        _set(dense_c["layers"][l], name,
+             reconstruct(dec).T.to(dtype).contiguous())
+        out[(l, name)] = dec
+    return out
+
+
 def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
                 profiled=False, method="slab", options=None, note="",
-                ppl=False):
+                ppl=False, zero_ws=False):
     from repro_torch import configs
     from repro_torch.core.packed_model import PackedLinear, pack_model
     from repro_torch.core.pipeline import _get, compress_model, linear_paths
@@ -443,6 +698,8 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
     sync()
     t_comp = time.monotonic() - t0
     del params
+    if zero_ws:
+        decs = _zero_sparse_part(cfg, dense_c, decs, dtype)
     packed, rep = pack_model(dense_c, decs, pattern=pattern, dtype=dtype)
     n_lin = len(linear_paths(cfg)) * n_layers
     for l, lp in enumerate(packed["layers"]):
@@ -457,8 +714,9 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
     err_rel = max(s.err_after / s.err_before for s in stats)
     log(f"  compressed {len(stats)} linears in {t_comp:.1f}s (measured CR "
         f"{sum(s.cr for s in stats) / len(stats):.4f}, worst weighted "
-        f"err_after/err_before {err_rel:.4f}); packed {rep.n_packed} "
-        f"[{variant}={rep.by_variant[variant]}]")
+        f"err_after/err_before {err_rel:.4f}"
+        + ("; then W_S := 0" if zero_ws else "")
+        + f"); packed {rep.n_packed} [{variant}={rep.by_variant[variant]}]")
     for var, (pb, db) in sorted(rep.bytes_by_variant.items()):
         log(f"  bytes/{var}: {pb / 1e6:.3f} MB packed vs {db / 1e6:.3f} MB "
             f"dense per linear ({pb / db:.4f}x)")
@@ -508,9 +766,9 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
         f"{BATCH * (PROMPT + GEN) / dt_dense:.1f} tok/s, "
         f"{dt_dense / steps * 1e3:.2f} ms per decode step")
     if profiled:
-        _device_profile(cfg, packed, prompts,
+        _greedy_profile(cfg, packed, prompts,
                         runs["square"][2] / steps * 1e3, "packed")
-        _device_profile(cfg, dense_c, prompts, dt_dense / steps * 1e3,
+        _greedy_profile(cfg, dense_c, prompts, dt_dense / steps * 1e3,
                         "dense-equivalent")
     sq, rg = runs["square"][0], runs["ragged"][0]
     if not torch.equal(sq[0], rg[0]):
@@ -530,6 +788,250 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
     del packed, dense_c, decs
     torch.cuda.empty_cache()
     return {kernel: runs["square"][1] + runs["ragged"][1]}
+
+
+def _packed_llama(n_layers, dtype, **cfg_kw):
+    """llama2-7b at full width, cut to ``n_layers``, SLaB-compressed (CR
+    0.5, 8 iterations, 16x128 calibration) and packed: slab-ell."""
+    from repro_torch import configs
+    from repro_torch.core.packed_model import pack_model
+    from repro_torch.core.pipeline import compress_model
+    from repro_torch.core.slab import SLaBConfig
+    from repro_torch.data import calibration_batch
+    from repro_torch.models import lm
+    cfg = configs.get("llama2_7b", smoke=False).with_(
+        n_layers=n_layers, dtype=dtype, **cfg_kw)
+    params = lm.init(cfg, seed=0, device="cuda")
+    calib = calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128)
+    dense_c, _, decs = compress_model(
+        cfg, params, calib, method="slab", scfg=SLaBConfig(cr=0.5, iters=8),
+        keep_decompositions=True, device="cuda")
+    del params
+    packed, rep = pack_model(dense_c, decs, dtype=dtype)
+    if rep.by_variant != {"slab-ell": 7 * n_layers}:
+        raise AssertionError(f"pack report {rep.by_variant}")
+    del dense_c, decs
+    return cfg, packed
+
+
+def _check_no_leak(eng, tag):
+    s = eng.sched
+    if s.slots or s.alloc.n_reserved or s.alloc.n_free != eng.ecfg.n_blocks:
+        raise AssertionError(
+            f"{tag}: block leak (slots {sorted(s.slots)}, reserved "
+            f"{s.alloc.n_reserved}, free {s.alloc.n_free}/"
+            f"{eng.ecfg.n_blocks})")
+
+
+def _run_engine(eng, reqs, tag, need, **kw):
+    """One engine run with the launch counts zeroed just before and read
+    just after; every kernel in ``need`` must have launched."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.monotonic()
+    done = eng.run(reqs, **kw)
+    sync()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    for kname in need:
+        if counts[kname] <= 0:
+            raise AssertionError(f"{tag}: {kname} was never launched")
+    _check_no_leak(eng, tag)
+    return done, wall, counts
+
+
+def engine_phase_k():
+    """Phase k: the engine at f32 on slab-ell packed llama2-7b (2 layers):
+    a mixed-arrival trace, then its first EVICT_REQUESTS requests on a
+    pool that forces evictions; every stream token-equal to greedy_decode
+    of the same packed params."""
+    import numpy as np
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.serving import Engine, EngineConfig, Request
+    from repro_torch.serving.paged_cache import blocks_needed
+    log("phase k: engine, llama2-7b full width f32, slab cr 0.5 -> "
+        "slab-ell; reduced: n_layers 32->2")
+    cfg, packed = _packed_llama(2, torch.float32)
+    rng = np.random.default_rng(0)
+    specs = [(int(rng.integers(16, 257)), int(rng.integers(8, 65)),
+              float(3 * i)) for i in range(ENGINE_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab, size=p).astype(np.int32)
+               for p, _, _ in specs]
+
+    def trace(n_req):
+        return [Request(rid=i, prompt=prompts[i], max_new=n, arrival=a)
+                for i, (p, n, a) in enumerate(specs[:n_req])]
+
+    max_len = 256 + 64
+    big = blocks_needed(max(p + n - 1 for p, n, _ in
+                            specs[:EVICT_REQUESTS]), 16)
+    pools = (("mixed arrivals", 4 * blocks_needed(max_len, 16),
+              ENGINE_REQUESTS),
+             ("evicting pool", big + 4, EVICT_REQUESTS))
+    # the oracle: one ragged greedy_decode of every prompt
+    s_max = max(p for p, _, _ in specs)
+    padded = np.zeros((len(specs), s_max), np.int32)
+    for i, pr in enumerate(prompts):
+        padded[i, :len(pr)] = pr
+    lengths = [p for p, _, _ in specs]
+    t0 = time.monotonic()
+    want = greedy_decode(cfg, packed, padded, max(n for _, n, _ in specs),
+                         lengths=lengths, device="cuda").cpu().numpy()
+    log(f"  oracle greedy_decode (ragged, {len(specs)} rows): "
+        f"{time.monotonic() - t0:.1f}s")
+    launches = {}
+    for tag, n_blocks, n_req in pools:
+        eng = Engine(cfg, packed, EngineConfig(
+            n_slots=4, n_blocks=n_blocks, block_size=16, max_len=max_len,
+            prefill_chunk=8), device="cuda")
+        done, wall, counts = _run_engine(
+            eng, trace(n_req), f"phase k {tag}",
+            ("slab_ell_matmul", "flash_decode_paged"), clock="steps")
+        for r in done:
+            if r.status != "finished":
+                raise AssertionError(f"phase k: rid {r.rid} {r.status}")
+            got = np.asarray(r.out)
+            ref = want[r.rid, :r.max_new]
+            if not np.array_equal(got, ref):
+                at = int(np.flatnonzero(got != ref)[0])
+                raise AssertionError(
+                    f"phase k {tag}: rid {r.rid} differs from greedy_decode "
+                    f"at token {at}: {got[at]} != {ref[at]}")
+        n_tok = sum(r.n_generated for r in done)
+        log(f"  {tag}: {len(done)} requests token-equal to greedy_decode, "
+            f"{n_tok} tokens, {eng.n_steps} steps, "
+            f"{eng.sched.n_evictions} evictions, {wall:.1f}s, pool "
+            f"{n_blocks} blocks back on the free list; launches "
+            + " ".join(f"{kk}={c}" for kk, c in counts.items() if c))
+        if tag == "evicting pool" and eng.sched.n_evictions == 0:
+            raise AssertionError("phase k: the small pool forced no eviction")
+        for kk, c in counts.items():
+            launches[kk] = launches.get(kk, 0) + c
+    del packed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _decode_steady(eng, n_rows, steps):
+    """Admit ``n_rows`` requests (prompt 32, long outputs), prefill them,
+    then time ``steps`` pure-decode engine steps by the host clock.
+    Returns (ms per step, a callable that runs ``steps`` more)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(1)
+    for i in range(n_rows):
+        eng.sched.submit(Request(
+            rid=100 + i, prompt=rng.integers(0, eng.cfg.vocab, size=32),
+            max_new=10 * steps))
+    eng.sched.admit(0.0)
+
+    def step():
+        tokens, n_valid, _ = eng.sched.plan_step()
+        last, ok = eng._run_step(tokens, n_valid,
+                                 np.zeros(n_valid.shape, bool))
+        eng.sched.commit_step(n_valid, last, 0.0)
+
+    while any(sl.phase == "prefill" for sl in eng.sched.slots.values()):
+        step()
+    step()
+    sync()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        step()
+    sync()
+    ms = (time.monotonic() - t0) / steps * 1e3
+
+    def more():
+        for _ in range(steps):
+            step()
+    return ms, more
+
+
+def engine_phase_l():
+    """Phase l: the engine at bf16 with an int8 KV cache on slab-ell packed
+    llama2-7b (2 layers): the ``serve --engine`` synthetic trace under
+    FaultPlan.chaos(0) on the steps clock; every request terminal, no
+    leaked block; the decode step's device-busy share; paged_decode_step
+    held against decode_step."""
+    import argparse as ap
+    import numpy as np
+    from repro_torch.launch.serve import engine_trace
+    from repro_torch.models import lm
+    from repro_torch.models.common import positions_for
+    from repro_torch.serving import (Engine, EngineConfig, FaultPlan,
+                                     init_paged_cache)
+    from repro_torch.serving.engine import summarize
+    from repro_torch.serving.paged_cache import blocks_needed
+    log("phase l: engine, llama2-7b full width bf16, int8 KV, slab cr 0.5 "
+        "-> slab-ell, serve --engine trace under chaos seed 0; reduced: "
+        "n_layers 32->2")
+    cfg, packed = _packed_llama(2, torch.bfloat16, kv_quant="int8")
+    args = ap.Namespace(requests=8, prompt_len=32, gen_len=16, seed=0,
+                        deadline=None)
+    reqs = engine_trace(cfg, args)
+    max_len = args.prompt_len + args.gen_len
+    ecfg = EngineConfig(n_slots=4, block_size=16,
+                        n_blocks=4 * blocks_needed(max_len, 16),
+                        max_len=max_len, prefill_chunk=8)
+    faults = FaultPlan.chaos(0, vocab=cfg.vocab, n_rows=4)
+    eng = Engine(cfg, packed, ecfg, device="cuda")
+    done, wall, counts = _run_engine(
+        eng, reqs, "phase l", ("slab_ell_matmul", "flash_decode_paged"),
+        clock="steps", faults=faults)
+    if not all(r.terminal for r in done):
+        raise AssertionError("phase l: a request is not terminal")
+    m = summarize(done, wall)
+    step_ms = wall / eng.n_steps * 1e3
+    statuses = " ".join(f"{k}={v}" for k, v in sorted(m["statuses"].items()))
+    ttft, lat = m["ttft"], m["per_token_latency"]
+    log(f"  {faults!r}: {m['n_requests']} requests [{statuses}], "
+        f"{m['n_tokens_out']} tokens in {wall:.2f}s ({m['tokens_per_s']:.1f} "
+        f"tok/s, goodput {m['goodput_tokens_per_s']:.1f} tok/s), "
+        f"{eng.n_steps} steps ({step_ms:.2f} ms per step), "
+        f"{m['n_evictions']} evictions; no block leaked; launches "
+        + " ".join(f"{kk}={c}" for kk, c in counts.items() if c))
+    log(f"  ttft p50/p95: {ttft['p50']:.1f}/{ttft['p95']:.1f} steps "
+        f"({ttft['p50'] * step_ms:.1f}/{ttft['p95'] * step_ms:.1f} ms at "
+        f"the mean step); per-token p50/p95: {lat['p50']:.2f}/"
+        f"{lat['p95']:.2f} steps ({lat['p50'] * step_ms:.2f}/"
+        f"{lat['p95'] * step_ms:.2f} ms)")
+    # the device-busy share of a pure-decode step (4 rows, one token each)
+    eng2 = Engine(cfg, packed, EngineConfig(
+        n_slots=4, block_size=16, n_blocks=4 * blocks_needed(256, 16),
+        max_len=256, prefill_chunk=8), device="cuda")
+    dec_ms, more = _decode_steady(eng2, 4, 8)
+    share = _device_profile(more, 8, dec_ms, "engine decode step")
+    # paged_decode_step against decode_step on the same tokens
+    b, s = 4, 24
+    toks = torch.randint(0, cfg.vocab, (b, s), device="cuda",
+                         generator=torch.Generator(device="cuda"
+                                                   ).manual_seed(3))
+    n_bt = blocks_needed(s, 16)
+    paged = init_paged_cache(cfg, b * n_bt, 16, device="cuda")
+    tables = torch.randperm(b * n_bt, device="cuda").reshape(b, n_bt).to(
+        torch.int32)
+    cache = lm.init_cache(cfg, b, s, device="cuda")
+    active = torch.ones(b, dtype=torch.bool)
+    for t in range(s):
+        lens = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        lp, _ = lm.paged_decode_step(cfg, packed, paged, tables, lens,
+                                     toks[:, t:t + 1], active)
+        ld, cache = lm.decode_step(cfg, packed, cache, toks[:, t:t + 1],
+                                   positions_for(cfg, b, 1, offset=t,
+                                                 device="cuda"))
+    lp, ld = lp[:, 0].float(), ld[:, -1].float()
+    rel = float((lp - ld).abs().max() / ld.abs().max())
+    log(f"  paged_decode_step vs decode_step, int8 KV, {s} tokens: "
+        f"max|diff|/max|ref| = {rel:.3g} (tolerance 3e-2)")
+    if not (bool(torch.isfinite(lp).all()) and rel < 3e-2):
+        raise AssertionError(f"phase l: paged vs contiguous logits {rel}")
+    del packed
+    torch.cuda.empty_cache()
+    return counts, {"tokens_per_s": m["tokens_per_s"],
+                    "goodput_tokens_per_s": m["goodput_tokens_per_s"],
+                    "step_ms": step_ms, "decode_step_ms": dec_ms,
+                    "decode_busy_share": share}
 
 
 PHASES = (
@@ -558,6 +1060,14 @@ PHASES = (
     ("h", dict(n_layers=2, dtype=torch.bfloat16, cr=0.4, pattern=None,
                variant="lowrank-dense", kernel="slab_lr_matmul", tol=3e-2,
                options=dict(iters=8, include_binary=False), ppl=True)),
+    ("i", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
+               variant="lowrank-nm", kernel="slab_nm_lr_matmul", tol=3e-2,
+               options=dict(iters=8, include_binary=False), ppl=True)),
+    ("j", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
+               variant="binlr", kernel="binlr_matmul", tol=3e-2,
+               zero_ws=True,
+               note="phase a's slab decompositions with W_S := 0, served "
+                    "as W_L ⊙ W_B; logits against that dense-equivalent")),
 )
 # the timed case of each kernel that the JSON line reports
 JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
@@ -565,7 +1075,9 @@ JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
               "slab_matmul": "slab_matmul", "ell_matmul": "ell_matmul",
               "ell_lr_matmul": "ell_lr_matmul",
               "slab_lr_matmul": "slab_lr_matmul",
-              "nm_matmul": "nm_matmul[2:4]"}
+              "slab_nm_lr_matmul": "slab_nm_lr_matmul[2:4]",
+              "nm_matmul": "nm_matmul[2:4]", "binlr_matmul": "binlr_matmul"}
+FLASH = ("flash_decode", "flash_decode_paged")
 
 
 def main():
@@ -584,16 +1096,49 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
 
+    seconds, last = {}, [t_start]
+
+    def mark(label):
+        now = time.monotonic()
+        seconds[label] = round(now - last[0], 1)
+        last[0] = now
+
     card = environment()
+    mark("build")
     timed, worst = kernel_checks()
-    launches = {name: 0 for name in JSON_LABEL}
+    mark("kernels")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fd_timed, fd_worst = flash_checks(flush)
+    del flush
+    mark("flash")
+    launches = {name: 0 for name in tuple(JSON_LABEL) + FLASH}
     for tag, kw in PHASES:
         for kname, c in model_phase(tag, **kw).items():
             launches[kname] += c
+        mark(tag)
+    for kname, c in engine_phase_k().items():
+        launches[kname] += c
+    mark("k")
+    counts_l, engine_l = engine_phase_l()
+    for kname, c in counts_l.items():
+        launches[kname] += c
+    mark("l")
 
     from repro_torch.kernels import ops
     entries = []
     for kern in ops.KERNELS:
+        if kern.name in FLASH:
+            rec = fd_timed[kern.name]
+            entries.append({
+                "name": kern.name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{kern.source}",
+                "replaces": kern.replaces.split(" ")[0],
+                "launches": launches[kern.name],
+                **{kk: rec[kk] for kk in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "shape")},
+                "worst_rel_err": fd_worst})
+            continue
         label = JSON_LABEL[kern.name]
         rec = timed[(label,) + JSON_SHAPE]
         entries.append({
@@ -612,6 +1157,8 @@ def main():
                                       ("ms", "plain_ms", "library_ms",
                                        "bound_ms")}
                          for (n, k) in SHAPES}})
+    log(f"engine (phase l): {json.dumps(engine_l)}")
+    log(f"seconds per phase: {json.dumps(seconds)}")
     log(f"card: {card}; total {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ import torch
 from repro_torch.core.packed_model import PackedLinear
 from repro_torch.core.slab import SLaBDecomposition
 from repro_torch.models.attention import KVCache
+from repro_torch.serving.paged_cache import PagedKVCache
 
 _SIGNED_VIEW = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
 
@@ -90,8 +91,30 @@ def packed_linear(pl, device="cpu") -> PackedLinear:
 
 def kv_cache(ref_kv, device="cpu") -> List[KVCache]:
     """A reference layer-stacked ``KVCache`` (k/v (L, B, S, Kv, dh),
-    length (L,)) -> one port KVCache per layer."""
+    length (L,), int8 k/v with k_scale/v_scale (L, B, S, Kv) when
+    quantized) -> one port KVCache per layer."""
     k, v = tensor(ref_kv.k, device), tensor(ref_kv.v, device)
     length = np.asarray(ref_kv.length).reshape(-1)
-    return [KVCache(k[l].contiguous(), v[l].contiguous(), int(length[l]))
+    ks = vs = None
+    if ref_kv.k_scale is not None:
+        ks, vs = tensor(ref_kv.k_scale, device), tensor(ref_kv.v_scale,
+                                                          device)
+    return [KVCache(k[l].contiguous(), v[l].contiguous(), int(length[l]),
+                    None if ks is None else ks[l].contiguous(),
+                    None if vs is None else vs[l].contiguous())
+            for l in range(k.shape[0])]
+
+
+def paged_kv_cache(ref_paged, device="cpu") -> List[PagedKVCache]:
+    """A reference ``PagedKVCache`` (pools stacked (L, n_blocks, bs, KV,
+    dh), int8 with (L, n_blocks, bs, KV) f32 scales when quantized) ->
+    the port's list of per-layer pools."""
+    k, v = tensor(ref_paged.k, device), tensor(ref_paged.v, device)
+    ks = vs = None
+    if ref_paged.k_scale is not None:
+        ks = tensor(ref_paged.k_scale, device)
+        vs = tensor(ref_paged.v_scale, device)
+    return [PagedKVCache(k[l].contiguous(), v[l].contiguous(),
+                         None if ks is None else ks[l].contiguous(),
+                         None if vs is None else vs[l].contiguous())
             for l in range(k.shape[0])]

@@ -14,9 +14,9 @@ through a hand-written CUDA kernel, picked by the variant tag:
   sparse-ell     ELL W_S                      kernels.ops.ell_matmul
   sparse-nm      N:M W_S                      kernels.ops.nm_matmul
   sparse-dense   dense W_S                    x @ W_Sᵀ (a plain matmul)
+  lowrank-nm     N:M W_S + rank-r UV          kernels.ops.slab_nm_lr_matmul
+  binlr          W_B ⊙ rank-r UV              kernels.ops.binlr
   lowrank        rank-r UV                    (x @ V) @ Uᵀ (two matmuls)
-  lowrank-nm     N:M W_S + rank-r UV          not ported (slab_nm_lr_matmul)
-  binlr          W_B ⊙ rank-r UV              not ported (binlr_matmul)
 
 Unstructured sparse parts route to row-padded ELL whenever it wins on
 bytes at the serving dtype (``packing.ell_wins_bytes``), else they stay
@@ -40,9 +40,6 @@ from repro_torch.models.common import tap_record
 VARIANTS = ("slab-nm", "slab-dense", "slab-ell", "binlr", "lowrank-nm",
             "lowrank-dense", "lowrank-ell", "lowrank", "sparse-nm",
             "sparse-dense", "sparse-ell")
-# variants whose kernel is still to be ported, and that kernel
-UNPORTED = {"lowrank-nm": "slab_nm_lr_matmul", "binlr": "binlr_matmul"}
-PACKED_VARIANTS = tuple(v for v in VARIANTS if v not in UNPORTED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,11 +116,7 @@ def variant_of(dec: SLaBDecomposition, pattern: Optional[str],
     return f"lowrank-{kind}" if kind else "lowrank"
 
 
-def _check_ported(variant: str) -> None:
-    if variant in UNPORTED:
-        raise NotImplementedError(
-            f"packed variant {variant!r} needs the {UNPORTED[variant]} "
-            "kernel, which is not ported yet")
+def _check_variant(variant: str) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"unknown packed variant {variant!r}")
 
@@ -139,14 +132,14 @@ def pack_linear(dec: SLaBDecomposition, pattern: Optional[str],
         variant = variant_of(dec, pattern, itemsize=itemsize, k_max=ell_nnz)
     if variant is None:
         raise ValueError("decomposition has no packable terms")
-    _check_ported(variant)
+    _check_variant(variant)
     rank = _dec_rank(dec)
     u = v = bp = vals = idx = None
     m_pat = 0
     if rank:
         u = (dec.u if dec.u.dim() == 2 else dec.u[:, None]).to(dtype)
         v = (dec.v if dec.v.dim() == 2 else dec.v[:, None]).to(dtype)
-    if variant.startswith("slab-"):
+    if variant.startswith("slab-") or variant == "binlr":
         bp = pack_sign_bits(dec.w_b)
     if variant.endswith("-nm"):
         n, m_pat = map(int, pattern.split(":"))
@@ -155,7 +148,7 @@ def pack_linear(dec: SLaBDecomposition, pattern: Optional[str],
     elif variant.endswith("-ell"):
         ep = ell_pack(dec.w_s.to(dtype), nnz=ell_nnz)
         vals, idx = ep.values, ep.indices
-    elif variant != "lowrank":
+    elif variant.endswith("-dense") or variant.startswith("sparse"):
         vals = dec.w_s.to(dtype)
 
     def plane(a):
@@ -170,7 +163,7 @@ def packed_matmul(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
     """x (..., D_in) @ Wᵀ through the variant's kernel wrapper."""
     from repro_torch.kernels import ops
     var = w.variant
-    _check_ported(var)
+    _check_variant(var)
     if var == "slab-ell":
         y = ops.slab_ell_matmul(x, w.sparse_vals, w.sparse_idx, w.b_packed,
                                 w.u, w.v)
@@ -183,6 +176,11 @@ def packed_matmul(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
         y = ops.ell_lr_matmul(x, w.sparse_vals, w.sparse_idx, w.u, w.v)
     elif var == "lowrank-dense":
         y = ops.slab_lr_matmul(x, w.sparse_vals, w.u, w.v)
+    elif var == "lowrank-nm":
+        y = ops.slab_nm_lr_matmul(x, w.sparse_vals, w.sparse_idx, w.m_pat,
+                                  w.u, w.v)
+    elif var == "binlr":
+        y = ops.binlr(x, w.b_packed, w.u, w.v)
     elif var == "sparse-ell":
         y = ops.ell_matmul(x, w.sparse_vals, w.sparse_idx)
     elif var == "sparse-nm":

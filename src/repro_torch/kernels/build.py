@@ -22,7 +22,8 @@ from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("ell.cu", "slab_matmul.cu", "nm_sparse.cu")
+SOURCES = ("ell.cu", "slab_matmul.cu", "nm_sparse.cu",
+           "flash_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -18,6 +18,24 @@
 // staged x (lowrank_proj), streams each row of W_S once with 16-byte loads
 // and adds Σ_r p[m, r] · u_r[row] after the warp reduction.
 //
+// slab_nm_lr_matmul, the N:M part with the no-binary low-rank term
+// (lowrank-nm), replaces repro/kernels/slab_matmul.py::slab_nm_lr_matmul
+// (_kernel_nm_lr, pallas_call at slab_matmul.py:247): nm_matmul's gather
+// from the column-major x tile plus slab_lr_matmul's projection epilogue
+// (lowrank_proj, then Σ_r p[m, r] · u_r[row] after the warp reduction).
+// 2:4 at bf16 streams (2 + 1)/2 = 0.75 of the dense bytes plus u and v.
+//
+// binlr_matmul, the binary ⊙ rank-r term alone (binlr: a decomposition
+// whose W_S is all zero),
+//
+//   y[m, n] = Σ_r u_r[n] · Σ_k s[n, k] · (x[m, k] · v_r[k]),
+//
+// replaces repro/kernels/binlr.py::binlr_matmul (_kernel, pallas_call at
+// binlr.py:65): slab_dense's column pass with no W_S. Only the sign words
+// (K/8 bytes a row) and u, v stream, 1/16 of the dense bf16 bytes, so the
+// kernel is bound by bytes far below a GEMV; x ⊙ v_r is rounded to x's
+// dtype before the ±1 contraction, as the reference does.
+//
 // Replace the TPU kernels repro/kernels/slab_matmul.py::slab_matmul
 // (_kernel_dense, pallas_call at slab_matmul.py:77) and ::slab_nm_matmul
 // (_kernel_nm, pallas_call at slab_matmul.py:135). The TPU versions grid
@@ -246,6 +264,127 @@ static int launch_nm(const void* x, const void* vals, const void* idx,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int MTP>
+__global__ void __launch_bounds__(kWarps * 32)
+nm_lr_kernel(const T* __restrict__ x, const T* __restrict__ vals,
+             const int8_t* __restrict__ idx, const T* __restrict__ u,
+             const T* __restrict__ v, T* __restrict__ y, int M, int N, int K,
+             int n_keep, int m_pat, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xk = reinterpret_cast<T*>(smem_raw);     // (K, MTP) column-major x
+  float* p = reinterpret_cast<float*>(
+      smem_raw + align16_up((size_t)MTP * K * sizeof(T)));   // (R, MTP)
+  float* part = p + (size_t)R * MTP;          // (kWarps, R, MTP)
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = row < N;
+  const int per_row = (K / m_pat) * n_keep;   // stored entries per row
+  const bool pow2 = !(n_keep & (n_keep - 1)) && !(m_pat & (m_pat - 1));
+  const int ln = __ffs(n_keep) - 1, lm = __ffs(m_pat) - 1;
+  auto col_of = [=](int e, int8_t q) {
+    if (q < 0 || q >= m_pat) return -1;
+    return (pow2 ? (e >> ln) << lm : (e / n_keep) * m_pat) + q;
+  };
+  if (live) {
+    prefetch_l2(vals + (size_t)row * per_row, (size_t)per_row * sizeof(T),
+                lane);
+    prefetch_l2(idx + (size_t)row * per_row, (size_t)per_row, lane);
+  }
+  for (int m0 = 0; m0 < M; m0 += MTP) {
+    const int mt = min(MTP, M - m0);
+    __syncthreads();
+    stage_x<T, MTP, true>(xk, x, m0, mt, K);
+    __syncthreads();
+    lowrank_proj<T, MTP, true>(p, part, xk, v, K, R);
+    float acc[MTP];
+#pragma unroll
+    for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
+    if (live) {
+      sparse_pass<T, int8_t, MTP>(acc, xk, vals + (size_t)row * per_row,
+                                  idx + (size_t)row * per_row,
+                                  (size_t)row * per_row, per_row, col_of,
+                                  lane);
+      store_row<T, MTP>(acc, y, m0, mt, N, row, lane, p, u, R);
+    }
+  }
+}
+
+template <typename T, int MTP>
+__global__ void __launch_bounds__(kWarps * 32)
+binlr_kernel(const T* __restrict__ x, const uint32_t* __restrict__ bp,
+             const T* __restrict__ u, const T* __restrict__ v,
+             T* __restrict__ y, int M, int N, int K, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xv = reinterpret_cast<T*>(smem_raw);     // (MTP, K) x ⊙ v_r
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = row < N;
+  const uint32_t* bp_row = bp + (size_t)row * (K / 32);
+  if (live) prefetch_l2(bp_row, (size_t)K / 8, lane);
+
+  for (int m0 = 0; m0 < M; m0 += MTP) {
+    const int mt = min(MTP, M - m0);
+    float acc[MTP], part[MTP];
+#pragma unroll
+    for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
+    for (int r = 0; r < R; ++r) {
+      __syncthreads();
+      stage_tile<T, MTP, false>(nullptr, xv, x, v + (size_t)r * K, m0, mt,
+                                K);
+      __syncthreads();
+      if (live) {
+#pragma unroll
+        for (int m = 0; m < MTP; ++m) part[m] = 0.f;
+        column_pass<T, MTP>(acc, part, nullptr, xv, K, bp_row, nullptr,
+                            lane);
+        const float ur = to_f32(u[(size_t)r * N + row]);
+#pragma unroll
+        for (int m = 0; m < MTP; ++m) acc[m] += ur * part[m];
+      }
+    }
+    if (live) store_row<T, MTP>(acc, y, m0, mt, N, row, lane);
+  }
+}
+
+template <typename T>
+static int launch_nm_lr(const void* x, const void* vals, const void* idx,
+                        const void* u, const void* v, void* y, int M, int N,
+                        int K, int n_keep, int m_pat, int R, void* stream) {
+  if (!aligned16(vals) || !aligned16(idx))
+    return (int)cudaErrorMisalignedAddress;
+  size_t smem = 0;
+  const int mtp = pick_mtp(M, K, sizeof(T), &smem, 1, lowrank_smem(R));
+  const dim3 grid((N + kWarps - 1) / kWarps);
+  SLAB_DISPATCH_MTP(mtp, {
+    auto kern = nm_lr_kernel<T, MTP>;
+    cudaError_t e = prepare(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+        (const T*)x, (const T*)vals, (const int8_t*)idx, (const T*)u,
+        (const T*)v, (T*)y, M, N, K, n_keep, m_pat, R);
+  });
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_binlr(const void* x, const void* bp, const void* u,
+                        const void* v, void* y, int M, int N, int K, int R,
+                        void* stream) {
+  if (!aligned16(bp)) return (int)cudaErrorMisalignedAddress;
+  size_t smem = 0;
+  const int mtp = pick_mtp(M, K, sizeof(T), &smem, 1);
+  const dim3 grid((N + kWarps - 1) / kWarps);
+  SLAB_DISPATCH_MTP(mtp, {
+    auto kern = binlr_kernel<T, MTP>;
+    cudaError_t e = prepare(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+        (const T*)x, (const uint32_t*)bp, (const T*)u, (const T*)v, (T*)y,
+        M, N, K, R);
+  });
+  return (int)cudaGetLastError();
+}
+
 }  // namespace slab
 
 // dtype: 0 = float32, 1 = bfloat16. Launch on ``stream``, allocate
@@ -290,5 +429,34 @@ extern "C" int slab_lr_matmul(int dtype, const void* x, const void* ws,
   if (dtype == 1)
     return slab::launch_lr<__nv_bfloat16>(x, ws, u, v, y, M, N, K, R,
                                           stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int slab_nm_lr_matmul(int dtype, const void* x, const void* vals,
+                                 const void* idx, const void* u,
+                                 const void* v, void* y, int M, int N, int K,
+                                 int n_keep, int m_pat, int R, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || R <= 0 || m_pat <= 0 || K % m_pat ||
+      n_keep <= 0 || n_keep > m_pat)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return slab::launch_nm_lr<float>(x, vals, idx, u, v, y, M, N, K, n_keep,
+                                     m_pat, R, stream);
+  if (dtype == 1)
+    return slab::launch_nm_lr<__nv_bfloat16>(x, vals, idx, u, v, y, M, N, K,
+                                             n_keep, m_pat, R, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int binlr_matmul(int dtype, const void* x, const void* bp,
+                            const void* u, const void* v, void* y, int M,
+                            int N, int K, int R, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 32 || R <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return slab::launch_binlr<float>(x, bp, u, v, y, M, N, K, R, stream);
+  if (dtype == 1)
+    return slab::launch_binlr<__nv_bfloat16>(x, bp, u, v, y, M, N, K, R,
+                                             stream);
   return (int)cudaErrorInvalidValue;
 }

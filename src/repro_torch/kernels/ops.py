@@ -13,12 +13,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import binlr as binlr_k
 from repro_torch.kernels import ell as ell_k
+from repro_torch.kernels import flash_decode as fd_k
 from repro_torch.kernels import nm_sparse as nm_k
 from repro_torch.kernels import slab_matmul as slab_k
 
 KERNELS = (ell_k.SLAB_ELL, slab_k.SLAB_NM, slab_k.SLAB_DENSE, ell_k.ELL,
-           ell_k.ELL_LR, slab_k.SLAB_LR, nm_k.NM)
+           ell_k.ELL_LR, slab_k.SLAB_LR, slab_k.SLAB_NM_LR, nm_k.NM,
+           binlr_k.BINLR, fd_k.FLASH_DECODE, fd_k.FLASH_DECODE_PAGED)
 
 
 def reset_launch_counts() -> None:
@@ -109,3 +112,40 @@ def nm_matmul(x, vals, idx, m_pat: int) -> torch.Tensor:
     vals = vals.to(x.dtype)
     fn = nm_k.nm_matmul_plain if _on_cpu(x) else nm_k.nm_matmul
     return fn(x2, vals, idx, m_pat).reshape(*x.shape[:-1], -1)
+
+
+def binlr(x, b_packed, u, v) -> torch.Tensor:
+    """Binary ⊙ rank-r linear, no sparse part."""
+    u2, v2 = _rank_stack(u, v, x.dtype)
+    x2 = _flat(x)
+    fn = binlr_k.binlr_matmul_plain if _on_cpu(x) else binlr_k.binlr_matmul
+    return fn(x2, b_packed, u2, v2).reshape(*x.shape[:-1], -1)
+
+
+def slab_nm_lr_matmul(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
+    """N:M sparse + rank-r low-rank, no binary term."""
+    u2, v2 = _rank_stack(u, v, x.dtype)
+    x2 = _flat(x)
+    vals = vals.to(x.dtype)
+    fn = (slab_k.slab_nm_lr_matmul_plain if _on_cpu(x)
+          else slab_k.slab_nm_lr_matmul)
+    return fn(x2, vals, idx, m_pat, u2, v2).reshape(*x.shape[:-1], -1)
+
+
+def flash_decode_attention(q, k, v, lengths, k_scale=None, v_scale=None,
+                           bs: int = 512) -> torch.Tensor:
+    """Grouped-query decode attention (optionally int8 KV) on a
+    contiguous cache. q (B, KV, G, dh) pre-scaled by 1/sqrt(dh); k / v
+    (B, S, KV, dh); lengths (B,) int32."""
+    fn = fd_k.flash_decode_plain if _on_cpu(q) else fd_k.flash_decode
+    return fn(q, k, v, lengths, k_scale, v_scale, bs=bs)
+
+
+def flash_decode_paged_attention(q, k_pool, v_pool, block_tables, lengths,
+                                 k_scale=None, v_scale=None) -> torch.Tensor:
+    """Paged (block-table) grouped-query decode attention. q (R, KV, G,
+    dh) pre-scaled; k_pool / v_pool (n_blocks, bs, KV, dh); block_tables
+    (R, n_bt) int32; lengths (R,) int32 — zero-length rows return 0."""
+    fn = (fd_k.flash_decode_paged_plain if _on_cpu(q)
+          else fd_k.flash_decode_paged)
+    return fn(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)

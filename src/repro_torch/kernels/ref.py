@@ -68,3 +68,26 @@ def slab_nm_matmul_ref(x, vals, idx, m: int, b_packed, u, v):
 def slab_lr_matmul_ref(x, w_s, u, v):
     """Sparse + rank-r low-rank, no binary: y = x @ W_Sᵀ + (x @ V) @ Uᵀ."""
     return x.float() @ w_s.float().T + lowrank_ref(x, u, v)
+
+
+def slab_nm_lr_matmul_ref(x, vals, idx, m: int, u, v) -> torch.Tensor:
+    """N:M sparse + rank-r low-rank, no binary."""
+    return nm_matmul_ref(x, vals, idx, m) + lowrank_ref(x, u, v)
+
+
+def flash_decode_ref(q, k, v, lengths, k_scale=None, v_scale=None):
+    """Grouped decode attention oracle. q (B,KV,G,dh) pre-scaled;
+    k/v (B,S,KV,dh); lengths (B,). Returns (B,KV,G,dh). A length-0 row
+    gets uniform weights over the S slots (the reference oracle's
+    softmax of an all-masked row)."""
+    kf = k.float()
+    vf = v.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()[..., None]
+        vf = vf * v_scale.float()[..., None]
+    logits = torch.einsum("bkgd,bskd->bkgs", q.float(), kf)
+    pos = torch.arange(k.shape[1], device=q.device)
+    mask = pos[None, :] < lengths.long()[:, None]
+    logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bkgs,bskd->bkgd", p, vf).to(q.dtype)

@@ -4,9 +4,10 @@ PyTorch versions.
 
     slab_matmul, slab_nm_matmul  y = x @ W_Sᵀ + Σ_r ((x ⊙ v_r) @ Bᵀ) ⊙ u_r
     slab_lr_matmul               y = x @ W_Sᵀ + (x @ Vᵀ) @ U  (no binary)
+    slab_nm_lr_matmul            the same with an N:M W_S   (no binary)
 
 Replace ``repro/kernels/slab_matmul.py::{slab_matmul, slab_nm_matmul,
-slab_lr_matmul}`` (TPU). Operands use the kernel layout: x (M, K),
+slab_lr_matmul, slab_nm_lr_matmul}`` (TPU). Operands use the kernel layout: x (M, K),
 u (R, N), v (R, K).
 """
 from __future__ import annotations
@@ -28,11 +29,17 @@ SLAB_LR = build.CudaKernel(
     "slab_lr_matmul", "slab_matmul.cu",
     "src/repro/kernels/slab_matmul.py:180 (slab_lr_matmul, pallas_call :193)")
 
+SLAB_NM_LR = build.CudaKernel(
+    "slab_nm_lr_matmul", "slab_matmul.cu",
+    "src/repro/kernels/slab_matmul.py:231 (slab_nm_lr_matmul, pallas_call "
+    ":247)")
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DENSE_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _NM_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _LR_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_NM_LR_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 
 
 def _common_checks(x, b_packed, u, v, n: int):
@@ -132,4 +139,39 @@ def slab_lr_matmul(x, w_s, u, v) -> torch.Tensor:
              build.stream_ptr(dev))
     build.check_launch(err, SLAB_LR.name, f"M={m} N={n} K={k} R={r}")
     SLAB_LR.launches += 1
+    return y
+
+
+def slab_nm_lr_matmul_plain(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
+    """Plain version of the N:M + low-rank kernel; returns x.dtype."""
+    w = expand_nm(vals, idx, m_pat, torch.float32)
+    y = x.float() @ w.T + lowrank_term(x, u, v)
+    return y.to(x.dtype)
+
+
+def slab_nm_lr_matmul(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
+    """Launch the N:M + low-rank CUDA kernel on the current stream."""
+    m, k = x.shape
+    n, n_grp, n_keep = vals.shape
+    r = u.shape[0]
+    dev = x.device
+    build.check_operand(x, "x", x.dtype, (m, k), dev)
+    if n_grp * m_pat != k:
+        raise ValueError(f"{n_grp} groups of {m_pat} do not cover K={k}")
+    build.check_operand(vals, "vals", x.dtype, (n, n_grp, n_keep), dev)
+    build.check_operand(idx, "idx", torch.int8, (n, n_grp, n_keep), dev)
+    build.check_operand(u, "u", x.dtype, (r, n), dev)
+    build.check_operand(v, "v", x.dtype, (r, k), dev)
+    build.check_aligned(vals, "vals")
+    build.check_aligned(idx, "idx")
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    if m == 0:
+        return y
+    fn = build.function(SLAB_NM_LR.source, SLAB_NM_LR.name, _NM_LR_ARGS)
+    err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
+             idx.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(), m, n,
+             k, n_keep, m_pat, r, build.stream_ptr(dev))
+    build.check_launch(err, SLAB_NM_LR.name,
+                       f"M={m} N={n} K={k} {n_keep}:{m_pat} R={r}")
+    SLAB_NM_LR.launches += 1
     return y

@@ -1,11 +1,15 @@
 """Serving entry point (port of ``repro.launch.serve``): init -> optional
 compression from synthetic calibration (SLaB or one of the paper's
 baselines, ``--compress``) -> optional packing onto the CUDA kernels ->
-prefill + greedy decode.
+prefill + greedy decode of one static batch, or (``--engine``) an
+open-loop request trace through the continuous-batching engine on a
+paged KV cache (``--kv-quant`` for an int8 cache).
 
   python -m repro_torch.launch.serve --arch llama2_7b --no-smoke --packed
   python -m repro_torch.launch.serve --arch llama2_7b --compress wanda \
       --pattern 2:4 --packed --device cpu
+  python -m repro_torch.launch.serve --arch stablelm_12b --packed --engine \
+      --kv-quant --chaos 0 --device cpu
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 refuses to start.
@@ -102,6 +106,32 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--packed", action="store_true",
                     help="serve through the hand-written CUDA kernels "
                          "(their plain versions on --device cpu)")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve an open-loop request trace through the "
+                         "continuous-batching engine (paged KV cache + "
+                         "scheduler) instead of one static greedy_decode "
+                         "batch; composes with --packed")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="--engine: requests in the synthetic trace")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="--engine: paged-cache tokens per block")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="--engine: per-request TTL in seconds — a "
+                         "request not finished by arrival+TTL times "
+                         "out (status 'timeout', partial output kept)")
+    ap.add_argument("--max-waiting", type=int, default=None,
+                    help="--engine: bound the waiting queue; overflow "
+                         "arrivals are load-shed (status 'shed')")
+    ap.add_argument("--shed", default="reject",
+                    choices=["reject", "evict-oldest-waiting"],
+                    help="--engine: load-shedding policy when "
+                         "--max-waiting overflows")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="--engine: run under a seeded FaultPlan "
+                         "(pool-shrink, forced NaNs, arrival burst — "
+                         "serving/faults.py); same seed, same faults")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV cache with per-(token, head) scales")
     ap.add_argument("--cr", type=float, default=0.5)
     ap.add_argument("--pattern", default=None)
     ap.add_argument("--iters", type=int, default=8)
@@ -116,6 +146,8 @@ def main(argv: Optional[list] = None):
 
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch, smoke=args.smoke)
+    if args.kv_quant:
+        cfg = cfg.with_(kv_quant="int8")
     params = lm.init(cfg, seed=args.seed, device=dev)
     n_params = sum(t.numel() for t in _tensors(params))
     print(f"{cfg.name}: {n_params / 1e6:.2f}M params on {dev}")
@@ -146,6 +178,10 @@ def main(argv: Optional[list] = None):
                 print(f"  bytes/{var}: {pb / 1e3:.1f} kB packed vs "
                       f"{db / 1e3:.1f} kB dense ({pb / db:.2f}x){flag}")
 
+    if args.engine:
+        serve_engine(cfg, params, args, dev)
+        return
+
     corpus = SyntheticCorpus(cfg.vocab, seed=args.seed)
     prompts = corpus.batch(0, args.batch, args.prompt_len)["inputs"]
     t0 = time.monotonic()
@@ -157,6 +193,70 @@ def main(argv: Optional[list] = None):
     print(f"served {args.batch} seqs x ({args.prompt_len}+{args.gen_len}) "
           f"tokens in {dt:.1f}s ({n_tok / dt:.1f} tok/s)")
     print("sample generation:", gen[0, :16].cpu().numpy())
+
+
+def engine_trace(cfg, args):
+    """The synthetic open-loop trace of ``--engine``: prompt and output
+    lengths uniform in [len/2, len], exponential inter-arrivals of mean
+    0.2 s, all from ``np.random.default_rng(seed)``."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(args.seed)
+    reqs = []
+    t_arr = 0.0
+    for i in range(args.requests):
+        p_len = int(rng.integers(max(args.prompt_len // 2, 1),
+                                 args.prompt_len + 1))
+        n_new = int(rng.integers(max(args.gen_len // 2, 1),
+                                 args.gen_len + 1))
+        reqs.append(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, size=p_len),
+            max_new=n_new, arrival=t_arr,
+            deadline=(t_arr + args.deadline
+                      if args.deadline is not None else None)))
+        t_arr += float(rng.exponential(0.2))
+    return reqs
+
+
+def serve_engine(cfg, params, args, dev):
+    """``--engine``: the synthetic trace through the engine; prints the
+    statuses, tok/s, goodput, steps, evictions and the TTFT / per-token
+    latency percentiles."""
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.engine import summarize
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.paged_cache import blocks_needed
+    reqs = engine_trace(cfg, args)
+    max_len = args.prompt_len + args.gen_len
+    per_req = blocks_needed(max_len, args.block_size)
+    ecfg = EngineConfig(
+        n_slots=args.batch, block_size=args.block_size,
+        n_blocks=per_req * args.batch, max_len=max_len,
+        prefill_chunk=min(8, args.prompt_len),
+        max_waiting=args.max_waiting, shed=args.shed)
+    eng = Engine(cfg, params, ecfg, device=dev)
+    faults = None
+    if args.chaos is not None:
+        faults = FaultPlan.chaos(args.chaos, vocab=cfg.vocab,
+                                 n_rows=args.batch)
+        print(f"chaos: {faults!r}")
+    t0 = time.monotonic()
+    done = eng.run(reqs, clock="wall", faults=faults)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    m = summarize(done, time.monotonic() - t0)
+    statuses = " ".join(f"{k}={v}" for k, v
+                        in sorted(m["statuses"].items()))
+    print(f"engine: {m['n_requests']} requests [{statuses}], "
+          f"{m['n_tokens_out']} tokens in {m['wall_s']:.1f}s "
+          f"({m['tokens_per_s']:.1f} tok/s, goodput "
+          f"{m['goodput_tokens_per_s']:.1f} tok/s, "
+          f"{eng.n_steps} steps, {m['n_evictions']} evictions)")
+    print(f"  ttft p50/p95/p99: {m['ttft']['p50']:.3f}/"
+          f"{m['ttft']['p95']:.3f}/{m['ttft']['p99']:.3f}s")
+    lat = m['per_token_latency']
+    print(f"  per-token p50/p95/p99: {lat['p50'] * 1e3:.1f}/"
+          f"{lat['p95'] * 1e3:.1f}/{lat['p99'] * 1e3:.1f}ms")
+    print("sample generation:", np.asarray(reqs[0].out, np.int32)[:16])
 
 
 def _tensors(tree):

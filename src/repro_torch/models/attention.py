@@ -6,11 +6,13 @@ reference.
 
 The decode path writes the new token's K/V into the cache tensors in
 place (the reference returns fresh arrays); ``KVCache.length`` is a host
-int, one write offset for the whole batch.
+int, one write offset for the whole batch. The paged path (the serving
+engine's) carries per-row lengths as a device tensor instead and writes
+into a block pool, also in place.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -66,24 +68,44 @@ def multihead_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor     # (B, S_max, Kv, dh) in cfg.dtype
+    k: torch.Tensor     # (B, S_max, Kv, dh) in cfg.dtype, or int8
     v: torch.Tensor     # (B, S_max, Kv, dh)
     length: int         # tokens currently valid (one offset for the batch)
+    k_scale: Optional[torch.Tensor] = None   # (B, S_max, Kv) f32, int8 only
+    v_scale: Optional[torch.Tensor] = None
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, s_max: int,
                   device=None) -> KVCache:
-    if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     shp = (batch, s_max, cfg.n_kv, cfg.d_head)
+    if cfg.kv_quant:
+        sshp = shp[:-1]
+        return KVCache(torch.zeros(shp, dtype=torch.int8, device=device),
+                       torch.zeros(shp, dtype=torch.int8, device=device), 0,
+                       torch.zeros(sshp, dtype=torch.float32, device=device),
+                       torch.zeros(sshp, dtype=torch.float32, device=device))
     return KVCache(torch.zeros(shp, dtype=cfg.dtype, device=device),
                    torch.zeros(shp, dtype=cfg.dtype, device=device), 0)
+
+
+def _quantize_token(t: torch.Tensor):
+    """(..., Kv, dh) -> int8 payload + (..., Kv) f32 scale: per (token,
+    head) absmax / 127, at least 1e-8; round half to even, as jnp.round."""
+    t32 = t.float()
+    scale = torch.clamp(t32.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(t32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
                      cache: KVCache, positions: torch.Tensor
                      ) -> Tuple[torch.Tensor, KVCache]:
-    """One-token step. x (B, 1, D); positions (B, 1)."""
+    """One-token step. x (B, 1, D); positions (B, 1).
+
+    int8 mode: the cache is stored and read as int8; the per-(token,
+    head) scales are folded into the scores and the probabilities, so no
+    dequantized copy of the cache is formed (the reference's
+    arithmetic)."""
     b, s, _ = x.shape
     kv, g, dh = cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.d_head
     q = linear(x, p["wq"], tap="wq").reshape(b, s, cfg.n_heads, dh)
@@ -93,15 +115,84 @@ def decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
     k_new = rotate(cfg, k_new, positions)
 
     idx = cache.length
-    cache.k[:, idx:idx + s] = k_new.to(cache.k.dtype)
-    cache.v[:, idx:idx + s] = v_new.to(cache.v.dtype)
-    new_cache = KVCache(cache.k, cache.v, idx + s)
+    if cfg.kv_quant:
+        k_q, k_s = _quantize_token(k_new)
+        v_q, v_s = _quantize_token(v_new)
+        cache.k[:, idx:idx + s] = k_q
+        cache.v[:, idx:idx + s] = v_q
+        cache.k_scale[:, idx:idx + s] = k_s
+        cache.v_scale[:, idx:idx + s] = v_s
+    else:
+        cache.k[:, idx:idx + s] = k_new.to(cache.k.dtype)
+        cache.v[:, idx:idx + s] = v_new.to(cache.v.dtype)
+    new_cache = cache._replace(length=idx + s)
 
     q = q.reshape(b, s, kv, g, dh) * (dh ** -0.5)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", q.float(), cache.k.float())
+    kk = cache.k.to(cfg.dtype) if cfg.kv_quant else cache.k
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q.float(), kk.float())
+    if cfg.kv_quant:
+        logits = logits * cache.k_scale.permute(0, 2, 1)[:, :, None, None, :]
     valid = torch.arange(cache.k.shape[1], device=x.device) <= idx
     logits = logits.masked_fill(~valid, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, cache.v)
+    probs = torch.softmax(logits, dim=-1)
+    if cfg.kv_quant:
+        probs = probs * cache.v_scale.permute(0, 2, 1)[:, :, None, None, :]
+    probs = probs.to(cfg.dtype)
+    vv = cache.v.to(cfg.dtype) if cfg.kv_quant else cache.v
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, vv)
     out = out.reshape(b, s, cfg.d_q)
     return linear(out, p["wo"], tap="wo"), new_cache
+
+
+def paged_decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, pool,
+                           block_tables: torch.Tensor, lengths: torch.Tensor,
+                           positions: torch.Tensor, active: torch.Tensor):
+    """One-token decode against a paged KV cache (one layer's pool).
+
+    x (R, 1, D); pool a single-layer ``serving.paged_cache.PagedKVCache``
+    (k/v (n_blocks, bs, KV, dh)); block_tables (R, n_bt) int32; lengths
+    (R,) int32 tokens already cached per row (also the write position);
+    active (R,) bool, on the host or on x's device: inactive rows write
+    nothing and read nothing. Returns (out (R, 1, D), pool); the pool is
+    updated in place.
+
+    The new token's K/V go to block ``block_tables[r, len // bs]`` at
+    offset ``len % bs``; attention then reads the whole stream through
+    the block table with the ``flash_decode_paged`` kernel, int8
+    included."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.paged_cache import paged_write
+    b, s, _ = x.shape
+    kv, g, dh = cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.d_head
+    q = linear(x, p["wq"], tap="wq").reshape(b, s, cfg.n_heads, dh)
+    k_new = linear(x, p["wk"], tap="wk").reshape(b, s, kv, dh)
+    v_new = linear(x, p["wv"], tap="wv").reshape(b, s, kv, dh)
+    q = rotate(cfg, q, positions)
+    k_new = rotate(cfg, k_new, positions)
+
+    bs_blk = pool.block_size
+    n_bt = block_tables.shape[1]
+    # physical write slot; the clamp shields idle rows with stale
+    # lengths (their write is dropped by ``active`` anyway)
+    col = torch.clamp(lengths // bs_blk, 0, n_bt - 1).long()
+    blk = torch.gather(block_tables, 1, col[:, None])[:, 0]
+    off = lengths % bs_blk
+    if cfg.kv_quant:
+        k_q, k_s = _quantize_token(k_new)
+        v_q, v_s = _quantize_token(v_new)
+        paged_write(pool.k, k_q[:, 0], blk, off, active)
+        paged_write(pool.v, v_q[:, 0], blk, off, active)
+        paged_write(pool.k_scale, k_s[:, 0], blk, off, active)
+        paged_write(pool.v_scale, v_s[:, 0], blk, off, active)
+    else:
+        paged_write(pool.k, k_new[:, 0], blk, off, active)
+        paged_write(pool.v, v_new[:, 0], blk, off, active)
+
+    qg = q[:, 0].reshape(b, kv, g, dh) * (dh ** -0.5)
+    act = torch.as_tensor(active).to(x.device, non_blocking=True)
+    att_len = torch.where(act, lengths + 1, 0).to(torch.int32)
+    out = ops.flash_decode_paged_attention(
+        qg.contiguous(), pool.k, pool.v, block_tables, att_len,
+        pool.k_scale, pool.v_scale)
+    out = out.reshape(b, 1, cfg.d_q).to(x.dtype)
+    return linear(out, p["wo"], tap="wo"), pool

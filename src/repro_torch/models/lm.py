@@ -5,7 +5,10 @@ dict per layer ({attn_norm, mlp_norm, attn: {wq, wk, wv, wo}, mlp:
 {w_gate, w_up, w_down}}), ``final_norm`` and ``lm_head`` (D, V). Where
 the reference scans stacked layers with ``lax.scan``, this port loops
 over the list in Python. Linear weights are (D_in, D_out); a linear may
-also be a ``core.packed_model.PackedLinear``.
+also be a ``core.packed_model.PackedLinear``. ``decode_step`` runs on a
+contiguous cache with one host-int offset for the batch;
+``paged_decode_step`` (the serving engine's) on a paged cache with a
+device tensor of per-row lengths.
 """
 from __future__ import annotations
 
@@ -147,3 +150,52 @@ def decode_step(cfg: ArchConfig, params: dict,
         new_cache.append(kc)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, h), new_cache
+
+
+def _layer_decode_paged(cfg: ArchConfig, lp: dict, h: torch.Tensor,
+                        pool_l, block_tables: torch.Tensor,
+                        lengths: torch.Tensor, positions: torch.Tensor,
+                        active):
+    with tap_scope("attn"):
+        a, pool_l = attn_lib.paged_decode_attention(
+            cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
+            pool_l, block_tables, lengths, positions, active)
+    h = h + a
+    with tap_scope("mlp"):
+        y = mlp_lib.mlp(cfg, lp["mlp"],
+                        rms_norm(h, lp["mlp_norm"], cfg.norm_eps))
+    return h + y, pool_l
+
+
+@torch.no_grad()
+def paged_decode_step(cfg: ArchConfig, params: dict, paged: list,
+                      block_tables: torch.Tensor, lengths: torch.Tensor,
+                      token: torch.Tensor, active):
+    """One decode step against the paged KV cache (serving engine path).
+
+    token (R, 1) ints over the engine's fixed request slots; paged a list
+    of per-layer ``serving.paged_cache.PagedKVCache``; block_tables
+    (R, n_bt) int32 and lengths (R,) int32 (tokens already cached per
+    row) on the params' device; active (R,) bool, best on the host.
+    Returns (logits (R, 1, V), paged); the pools update in place.
+    Inactive rows write nothing into the pool and their logits are
+    garbage-but-finite. Where the reference scans the layers, this port
+    loops over them in Python."""
+    _check_family(cfg)
+    r = token.shape[0]
+    positions = positions_for(cfg, r, 1, offset=lengths[:, None],
+                              device=lengths.device)
+    h = embed_inputs(cfg, params, token)
+    for lp, pool_l in zip(params["layers"], paged):
+        h, _ = _layer_decode_paged(cfg, lp, h, pool_l, block_tables,
+                                   lengths, positions, active)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, h), paged
+
+
+def prefill(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prefill = the full forward's logits (the cache fill is modelled as
+    the forward pass)."""
+    logits, _ = forward(cfg, params, inputs, positions)
+    return logits

@@ -28,7 +28,9 @@ def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "bridge.py", "lm.py", "serve.py", "ell.py",
             "slab_matmul.py", "nm_sparse.py", "ops.py", "packed_model.py",
-            "baselines.py", "compressor.py"} <= names
+            "baselines.py", "compressor.py", "binlr.py", "flash_decode.py",
+            "paged_cache.py", "scheduler.py", "faults.py",
+            "engine.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -1,11 +1,12 @@
-"""The kernels of the port's second slice (plain versions on the CPU)
-against the reference Pallas kernels in interpret mode, and the packed
-variants of the port against the reference's on bridged planes.
+"""The per-linear kernels of the port's second and third slices (plain
+versions on the CPU) against the reference Pallas kernels in interpret
+mode, and the packed variants of the port against the reference's on
+bridged planes.
 
 Inputs are numpy arrays from a seed, handed to both sides (the port's
 through ``bridge``). Kernel comparisons are f32 at max|diff| / max|ref|
 < 1e-5 and run at K = 344, the llama2_7b SMOKE d_ff (not a multiple of
-32: these kernels carry no sign words).
+32: these kernels carry no sign words), except binlr's at K = 128.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -136,6 +137,44 @@ def test_nm_matmul_matches_reference_kernel(m, pattern):
     assert _rel(oracle, want) < TOL
 
 
+@pytest.mark.parametrize("m", [1, 5, 37])
+@pytest.mark.parametrize("pattern,rank", [("2:4", 1), ("4:8", 3)])
+def test_slab_nm_lr_matmul_matches_reference_kernel(m, pattern, rank):
+    x, w, u, v = _inputs(40 + m + rank, m, rank)
+    n_keep, m_pat = map(int, pattern.split(":"))
+    nm = ref_packing.pack_nm(jnp.asarray(_keep_nm(w, pattern)), n_keep,
+                             m_pat)
+    uu, vv = _uv(u, v, rank)
+    want = ref_ops.slab_nm_lr_matmul(jnp.asarray(x), nm.values, nm.indices,
+                                     m_pat, jnp.asarray(uu), jnp.asarray(vv),
+                                     interpret=True)
+    got = ops.slab_nm_lr_matmul(t(x), t(nm.values), t(nm.indices), m_pat,
+                                t(uu), t(vv))
+    assert got.shape == (m, N)
+    assert _rel(got, want) < TOL
+    oracle = ref.slab_nm_lr_matmul_ref(t(x), t(nm.values), t(nm.indices),
+                                       m_pat, t(uu), t(vv))
+    assert _rel(oracle, ref_oracles.slab_nm_lr_matmul_ref(
+        jnp.asarray(x), nm.values, nm.indices, m_pat, jnp.asarray(uu),
+        jnp.asarray(vv))) < TOL
+
+
+@pytest.mark.parametrize("m", [1, 5, 37])
+@pytest.mark.parametrize("rank", [1, 3])
+def test_binlr_matmul_matches_reference_kernel(m, rank):
+    x, _, u, v = _inputs(50 + m + rank, m, rank, k=128)
+    signs = np.where(np.random.default_rng(m).random((N, 128)) < 0.5, 1,
+                     -1).astype(np.int8)
+    bp = ref_packing.pack_sign_bits(jnp.asarray(signs))
+    uu, vv = _uv(u, v, rank)
+    want = ref_ops.binlr(jnp.asarray(x), bp, jnp.asarray(uu),
+                         jnp.asarray(vv), interpret=True)
+    got = ops.binlr(t(x), t(bp), t(uu), t(vv))
+    assert got.shape == (m, N)
+    assert _rel(got, want) < TOL
+    assert _rel(ref.binlr_ref(t(x), t(bp), t(uu), t(vv)), want) < TOL
+
+
 def test_lowrank_projection_is_not_rounded_through_bf16():
     """The plain low-rank term forms x @ Vᵀ from fp32 copies, as the
     reference kernels do (the binary term rounds x ⊙ v to x.dtype)."""
@@ -206,8 +245,7 @@ def test_all_eleven_variants_are_classified():
     assert seen == set(packed_model.VARIANTS)
 
 
-PORTED = [k for k in KINDS if not k.startswith("half")
-          and k not in ("binlr", "nm-lowrank")]
+PORTED = [k for k in KINDS if not k.startswith("half")]
 
 
 @pytest.mark.parametrize("kind", PORTED)
@@ -218,7 +256,7 @@ def test_packed_matmul_matches_reference(kind):
     dec, pattern = _dec(kind, seed=3)
     pl_r = ref_pm.pack_linear(dec, pattern, jnp.float32)
     pl = bridge.packed_linear(pl_r)
-    assert pl.variant in packed_model.PACKED_VARIANTS
+    assert pl.variant in packed_model.VARIANTS
     x = np.random.default_rng(5).standard_normal((2, 3, KP)).astype(
         np.float32)
     want = ref_pm.packed_matmul(jnp.asarray(x), pl_r, interpret=True)
@@ -232,20 +270,6 @@ def test_packed_matmul_matches_reference(kind):
         assert (a is None) == (b is None), f
         assert a is None or torch.equal(a, b), f
     assert own.nbytes() == pl.nbytes()
-
-
-@pytest.mark.parametrize("kind,kernel", [("binlr", "binlr_matmul"),
-                                         ("nm-lowrank",
-                                          "slab_nm_lr_matmul")])
-def test_unported_variants_raise_naming_their_kernel(kind, kernel):
-    dec, pattern = _dec(kind)
-    pdec = bridge.decomposition(dec)
-    assert packed_model.variant_of(pdec, pattern) in packed_model.UNPORTED
-    with pytest.raises(NotImplementedError, match=kernel):
-        packed_model.pack_linear(pdec, pattern)
-    pl = bridge.packed_linear(ref_pm.pack_linear(dec, pattern, jnp.float32))
-    with pytest.raises(NotImplementedError, match=kernel):
-        packed_model.packed_matmul(torch.zeros(1, KP), pl)
 
 
 def test_new_cuda_wrappers_refuse_cpu_tensors():
@@ -268,3 +292,90 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
         nm_k.nm_matmul(t(x), t(nm.values), t(nm.indices), 4)
     assert ell_k.ELL.launches == ell_k.ELL_LR.launches == 0
     assert slab_k.SLAB_LR.launches == nm_k.NM.launches == 0
+
+
+def test_slice3_cuda_wrappers_refuse_cpu_tensors():
+    """binlr, slab_nm_lr and both flash-decode entry points take CUDA
+    tensors only; nothing is launched or counted for a CPU tensor."""
+    from repro_torch.kernels import binlr as binlr_k
+    from repro_torch.kernels import flash_decode as fd_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    x, w, u, v = _inputs(2, 2, 1)
+    u2, v2 = t(u).T.contiguous(), t(v).T.contiguous()
+    nm = ref_packing.pack_nm(jnp.asarray(_keep_nm(w, "2:4")), 2, 4)
+    with pytest.raises(ValueError, match="expected"):
+        slab_k.slab_nm_lr_matmul(t(x), t(nm.values), t(nm.indices), 4, u2,
+                                 v2)
+    xb = torch.zeros(2, 128)
+    with pytest.raises(ValueError, match="expected"):
+        binlr_k.binlr_matmul(xb, torch.zeros(3, 4, dtype=torch.int32),
+                             torch.zeros(1, 3), torch.zeros(1, 128))
+    q = torch.zeros(2, 2, 1, 16)
+    cache = torch.zeros(2, 8, 2, 16)
+    lens = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="expected"):
+        fd_k.flash_decode(q, cache, cache, lens)
+    with pytest.raises(ValueError, match="expected"):
+        fd_k.flash_decode_paged(q, cache, cache,
+                                torch.zeros(2, 1, dtype=torch.int32), lens)
+    assert slab_k.SLAB_NM_LR.launches == binlr_k.BINLR.launches == 0
+    assert fd_k.FLASH_DECODE.launches == fd_k.FLASH_DECODE_PAGED.launches \
+        == 0
+
+
+def test_serve_cli_packs_hassle_2_4_as_lowrank_nm(capsys):
+    """HASSLE-free under 2:4 on llama2_7b SMOKE packs every linear as
+    lowrank-nm (kernel #7's plain version on the CPU). One intra-op
+    thread: the float64 SVDs crawl when the suite's parallel workers
+    oversubscribe the cores."""
+    from repro_torch.launch import serve
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        serve.main(["--arch", "llama2_7b", "--compress", "hassle",
+                    "--pattern", "2:4", "--packed", "--device", "cpu",
+                    "--iters", "1", "--calib-seqs", "2", "--calib-len",
+                    "16", "--batch", "2", "--prompt-len", "4",
+                    "--gen-len", "2"])
+    finally:
+        torch.set_num_threads(n_threads)
+    out = capsys.readouterr().out
+    assert "packed serving: 14 linears" in out
+    assert "[lowrank-nm=14]" in out
+    assert "sample generation:" in out
+
+
+def test_ctypes_argtypes_match_the_c_signatures():
+    """Every wrapper's ctypes argtypes list has one entry per parameter
+    of its ``extern "C"`` entry, a pointer (c_void_p) exactly where the C
+    side takes one: ctypes passes an extra argument as a 32-bit int and
+    cuts a pointer."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import binlr as binlr_k
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ell as ell_k
+    from repro_torch.kernels import flash_decode as fd_k
+    from repro_torch.kernels import nm_sparse as nm_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    argtypes = {
+        "slab_ell_matmul": ell_k._ARGS, "ell_matmul": ell_k._ELL_ARGS,
+        "ell_lr_matmul": ell_k._ELL_LR_ARGS,
+        "slab_matmul": slab_k._DENSE_ARGS, "slab_nm_matmul": slab_k._NM_ARGS,
+        "slab_lr_matmul": slab_k._LR_ARGS,
+        "slab_nm_lr_matmul": slab_k._NM_LR_ARGS, "nm_matmul": nm_k._ARGS,
+        "binlr_matmul": binlr_k._ARGS, "flash_decode": fd_k._CONTIG_ARGS,
+        "flash_decode_paged": fd_k._PAGED_ARGS}
+    assert set(argtypes) == {k.name for k in ops.KERNELS}
+    seen = set()
+    for src in build.SOURCES:
+        text = (Path(build.CSRC) / src).read_text()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text):
+            kinds = [ctypes.c_void_p if ("*" in p_) else ctypes.c_int
+                     for p_ in params.split(",")]
+            assert argtypes[name] == kinds, name
+            seen.add(name)
+    assert seen == set(argtypes)
