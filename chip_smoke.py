@@ -22,37 +22,55 @@ Phases:
      lengths 0 to 4096 with exact chunk boundaries, scattered block
      tables, the model dtype and int8, bf16 and f32, and for #10 also
      S = 4100; times beside the byte bound, the plain version and one
-     scaled_dot_product_attention call;
-  3. the port's main paths at llama2-7b full width with cut depth:
-     compress_model (16x128 calibration) -> pack_model -> greedy_decode
-     (batch 4, prompt 32, gen 16, square and ragged), once per packed
-     variant:
-       a  slab 8 iterations, CR 0.5, bf16, 4 layers  -> slab-ell
+     scaled_dot_product_attention call. Then the four grouped-expert
+     kernels (#14-#17) at phi3.5-moe's expert planes: 16 experts and a
+     bucket of 5 gathered out of order, (N, K) in {(6400, 4096), (4096,
+     6400)}, M in {1, 2, 20}, bf16 and f32, rank 1 and 3, 2:4 and 4:8,
+     int32 ELL ids, nm_matmul_g also at K = 6408; times at M = 2, E = 16,
+     bf16, rank 1 beside the byte bound, the plain version and one
+     torch.bmm on the reconstructed dense (E, K, N) stack;
+  3. the port's main paths at full width with cut depth: compress_model
+     (16x128 calibration) -> pack_model -> greedy_decode (batch 4, prompt
+     32, gen 16, square and ragged), once per packed variant, llama2-7b:
+       a  slab 8 iterations, CR 0.5                  -> slab-ell
        b  slab, CR 0.5 2:4                           -> slab-nm
        c  slab, CR 0.2                               -> slab-dense
        d  slab, CR 0.5, f32                          -> slab-ell
        e  wanda, CR 0.5 2:4                          -> sparse-nm
-       f  sparsegpt, CR 0.6                          -> sparse-ell
+       f  sparsegpt, CR 0.6, 1 layer                 -> sparse-ell
        g  slab W_S + W_L (no binary), CR 0.5         -> lowrank-ell
        h  slab W_S + W_L (no binary), CR 0.4         -> lowrank-dense
        i  slab W_S + W_L (no binary), CR 0.5 2:4     -> lowrank-nm
        j  slab, CR 0.5, then W_S := 0 (W_L ⊙ W_B)    -> binlr
-     (2 layers and bf16 unless stated). Launch counts are zeroed just
-     before each greedy_decode and read just after; final-step logits are
-     held against the dense-equivalent (reconstructed-W) model; phases
-     e-i also print the eval perplexity (lm.loss_fn) of the uncompressed
-     and the compressed model. Then the continuous-batching engine on the
-     paged KV cache, slab-ell packed, 2 layers:
-       k  f32: a mixed-arrival trace of 10 requests (prompts 16-256,
-          outputs 8-64, 4 slots, block size 16), then its first 6
-          requests on a pool that forces evictions; every stream
+     (2 layers and bf16 unless stated), and phi3.5-moe (16 experts,
+     top-2, 1 layer, bf16), attention and every expert packed alike:
+       m  slab, CR 0.5                               -> slab-ell (#1, #14)
+       n  slab, CR 0.5 2:4                           -> slab-nm (#2, #17)
+       o  slab, CR 0.2                               -> slab-dense (#3, #16)
+       p  wanda, CR 0.5 2:4                          -> sparse-nm (#8, #15)
+     Launch counts are zeroed just before each greedy_decode and read
+     just after; final-step logits are held against the dense-equivalent
+     (reconstructed-W) model — for phi3.5-moe against dense experts behind
+     the same packed attention, whose expert choices must agree token for
+     token (_hold_moe_logits says why); phases e-i also print the eval
+     perplexity (lm.loss_fn) of the uncompressed and the compressed model.
+     Then the continuous-batching engine on the paged KV cache, slab-ell
+     packed:
+       k  llama2-7b f32, 2 layers: a mixed-arrival trace of 10 requests
+          (prompts 16-256, outputs 8-64, 4 slots, block size 16), then its
+          first 6 requests on a pool that forces evictions; every stream
           token-equal to greedy_decode, no block leaked;
-       l  bf16, int8 KV: the ``serve --engine`` synthetic trace under
-          FaultPlan.chaos(0) on the steps clock; every request terminal,
-          no block leaked, tok/s, goodput, TTFT and per-token latency, the
-          device-busy share of a decode step, and paged_decode_step held
-          against decode_step;
-  4. one JSON line listing every ported kernel (eleven), then the result
+       l  llama2-7b bf16, int8 KV, 2 layers: the ``serve --engine``
+          synthetic trace under FaultPlan.chaos(0) on the steps clock;
+          every request terminal, no block leaked, tok/s, goodput, TTFT
+          and per-token latency, the device-busy share of a decode step,
+          and paged_decode_step held against decode_step;
+       q  phi3.5-moe f32, 1 layer: logits against the dense-equivalent,
+          then a mixed-arrival trace of 8 requests (prompts 16-128,
+          outputs 8-32) at the drop-free capacity factor (every stream
+          token-equal to greedy_decode) and at the published 1.25 (every
+          request terminal); no block leaked;
+  4. one JSON line listing every ported kernel (fifteen), then the result
      line.
 
 Any failed check raises, and the script exits non-zero. It needs
@@ -61,6 +79,7 @@ Any failed check raises, and the script exits non-zero. It needs
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -327,6 +346,25 @@ def time_ms(fn, flush, reps=20) -> float:
     return total / reps
 
 
+def _check_case(c, x, n, dtype, rank, worst, where):
+    """Run one case's kernel and plain version; raise unless they agree.
+    Returns (kernel output, plain output)."""
+    got = c.kern()
+    ref = c.plain()
+    sync()
+    err = float((got.float() - ref.float()).abs().max())
+    rel = err / max(float(ref.float().abs().max()), 1e-30)
+    worst[c.label] = max(worst.get(c.label, 0.0), rel)
+    want_shape = tuple(x.shape[:-1]) + (n,)
+    if not (bool(torch.isfinite(got).all()) and tuple(got.shape) ==
+            want_shape and rel < TOL[dtype]):
+        raise AssertionError(
+            f"{c.label} {where} {dtype} r{rank}: max|err|/max|ref| = "
+            f"{rel:.3g} (tolerance {TOL[dtype]}), shape "
+            f"{tuple(got.shape)}")
+    return got, ref
+
+
 def kernel_checks():
     """Every kernel vs its plain version; returns per-kernel records."""
     from repro_torch.kernels import ops
@@ -345,22 +383,9 @@ def kernel_checks():
                                     device="cuda").to(dtype)
                     wide = (n, k) == JSON_SHAPE
                     for c in _cases(planes, x, rank, wide_ids=wide):
-                        got = c.kern()
-                        ref = c.plain()
-                        sync()
-                        err = float((got.float() - ref.float()).abs().max())
-                        scale = float(ref.float().abs().max())
-                        rel = err / max(scale, 1e-30)
+                        got, ref = _check_case(c, x, n, dtype, rank, worst,
+                                               f"N={n} K={k} M={m}")
                         n_checks += 1
-                        ok = (bool(torch.isfinite(got).all())
-                              and tuple(got.shape) == (m, n)
-                              and rel < TOL[dtype])
-                        worst[c.label] = max(worst.get(c.label, 0.0), rel)
-                        if not ok:
-                            raise AssertionError(
-                                f"{c.label} N={n} K={k} M={m} {dtype} "
-                                f"r{rank}: max|err|/max|ref| = {rel:.3g} "
-                                f"(tolerance {TOL[dtype]})")
                         if ((n, k) in SHAPES and m == TIMED["m"]
                                 and dtype == TIMED["dtype"]
                                 and rank == TIMED["rank"]):
@@ -373,27 +398,230 @@ def kernel_checks():
     return timed, worst
 
 
-def _time_case(c, x, rank, got, ref, flush):
-    k = x.shape[1]
+def _time_case(c, x, rank, got, ref, flush, plain_reps=20):
+    """Kernel, plain and library times of one case; the library call is
+    one torch.matmul on the dense Ŵ, or for a grouped case (x (E, M, K))
+    one torch.bmm on the dense (E, K, N) stack."""
+    k = x.shape[-1]
     w_hat = c.w_hat().to(x.dtype)
-    lib = lambda: torch.matmul(x, w_hat.T)
+    if x.dim() == 3:
+        w_t = w_hat.transpose(1, 2).contiguous()
+        del w_hat
+        lib = lambda: torch.bmm(x, w_t)
+    else:
+        lib = lambda: torch.matmul(x, w_hat.T)
     y_bytes = got.numel() * got.element_size()
     n_bytes = _nbytes(x, *c.read) + y_bytes
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = c.ops / PEAK_OPS[x.dtype] * 1e3
-    rec = {"ms": time_ms(c.kern, flush), "plain_ms": time_ms(c.plain, flush),
+    rec = {"ms": time_ms(c.kern, flush),
+           "plain_ms": time_ms(c.plain, flush, plain_reps),
            "library_ms": time_ms(lib, flush),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": n_bytes,
            "max_abs_err": float((got.float() - ref.float()).abs().max())}
-    n = got.shape[1]
-    log(f"  time {c.label:22s} N={n:5d} K={k:5d} M={x.shape[0]} bf16 "
+    n = got.shape[-1]
+    m = x.shape[-2]
+    e = f" E={x.shape[0]}" if x.dim() == 3 else ""
+    log(f"  time {c.label:22s}{e} N={n:5d} K={k:5d} M={m} bf16 "
         f"r{rank}: kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
         f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f}"
         f" ({rec['bound_by']}, {n_bytes / 1e6:.2f} MB) "
         f"roofline={rec['bound_ms'] / rec['ms']:.3f}")
     return rec
+
+
+# grouped-expert kernels (#14-#17) at phi3.5-moe expert planes: 16
+# experts, (N, K) of w_gate / w_up (6400, 4096) and w_down (4096, 6400);
+# M = 2 is a decode step's capacity per expert (batch 4, top-2, 16
+# experts, capacity factor 1.25), M = 20 the calibration-sized case.
+# G_BUCKET is a bucket of 5 experts gathered out of order, as
+# expert_matmul hands a group to its kernel.
+G_SHAPES = ((6400, 4096), (4096, 6400))
+G_EXPERTS = 16
+G_BUCKET = (3, 14, 0, 9, 6)
+G_BATCHES = (1, 2, 20)
+G_TIMED = dict(m=2, dtype=torch.bfloat16, rank=1)
+G_JSON_SHAPE = (6400, 4096)
+G_ODD_K = 6408                 # nm_matmul_g with K not a multiple of 32
+
+
+def _g_planes(e, n, k, dtype, rank, gen, nm_only=False):
+    """Synthetic planes of E experts for the grouped kernels, made on the
+    card row by row (every mask and packer works per row, so the E·N rows
+    pack as one matrix and reshape to (E, N, ...))."""
+    from repro_torch.core import packing, sparsity
+    dev = "cuda"
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    w = randn(e * n, k, scale=0.05)
+    score = randn(e * n, k).abs()
+    planes = {}
+    for pat in ("2:4", "4:8"):
+        nn, mm = sparsity.parse_pattern(pat)
+        if k % mm:
+            continue
+        p = packing.pack_nm(torch.where(sparsity.nm_mask(score, nn, mm), w,
+                                        0.0).to(dtype), nn, mm, strict=True)
+        planes[pat] = (p.values.reshape(e, n, k // mm, nn).contiguous(),
+                       p.indices.reshape(e, n, k // mm, nn).contiguous())
+    if nm_only:
+        return planes
+    ell = packing.ell_pack(torch.where(
+        sparsity.group_topk_mask(score, KEEP["slab"]), w, 0.0).to(dtype))
+    planes["slab"] = (ell.values.reshape(e, n, -1).contiguous(),
+                      ell.indices.reshape(e, n, -1).contiguous())
+    planes["dense"] = torch.where(sparsity.group_topk_mask(score, 0.737), w,
+                                  0.0).to(dtype).reshape(e, n, k)
+    del w, score
+    signs = torch.where(randn(e * n, k) >= 0, 1, -1).to(torch.int8)
+    planes["b"] = packing.pack_sign_bits(signs).reshape(e, n, k // 32)
+    planes["u"] = randn(e, rank, n, scale=0.2).abs().to(dtype).contiguous()
+    planes["v"] = randn(e, rank, k, scale=0.2).abs().to(dtype).contiguous()
+    return planes
+
+
+def _g_cases(planes, x, rank, wide_ids=False):
+    """Every grouped kernel's Case on these planes (kernel layout u (E, R,
+    N), v (E, R, K)); w_hat is the dense (E, N, K) stack."""
+    from repro_torch.core.packing import (ELLPacked, NMPacked, as_unsigned,
+                                          ell_unpack, unpack_nm,
+                                          unpack_sign_bits)
+    from repro_torch.kernels import grouped as g_k
+    e, m, k = x.shape
+
+    def stack(fn, *planes_e):
+        return lambda: torch.stack([fn(*(p[i] for p in planes_e))
+                                    for i in range(e)])
+
+    def ops(stored, binary=False):
+        o = 2 * m * stored
+        if binary:   # x ⊙ v_r, a sign-add per weight, the u_r scale
+            n = planes["b"].shape[1]
+            o += e * rank * (m * k + 2 * m * n * k + 2 * m * n)
+        return o
+
+    def nm_dense(nv, ni, nn, mm):
+        return stack(lambda a, b: unpack_nm(NMPacked(a, b, nn, mm, k))
+                     .float(), nv, ni)
+
+    out = []
+    if "b" in planes:
+        b, u, v = planes["b"], planes["u"], planes["v"]
+
+        def w_b():
+            lr = torch.einsum("ern,erk->enk", u.float(), v.float())
+            n = b.shape[1]
+            return lr * unpack_sign_bits(b.reshape(e * n, -1), k,
+                                         torch.float32).reshape(e, n, k)
+
+        ells = [("", planes["slab"])]
+        if wide_ids:
+            ells.append(("[int32]", (planes["slab"][0],
+                                     as_unsigned(planes["slab"][1]).int())))
+        for tag, (vals, idx) in ells:
+            out.append(Case(
+                f"slab_ell_matmul_g{tag}", "slab_ell_matmul_g",
+                lambda vals=vals, idx=idx: g_k.slab_ell_matmul_g(
+                    x, vals, idx, b, u, v),
+                lambda vals=vals, idx=idx: g_k.slab_ell_matmul_g_plain(
+                    x, vals, idx, b, u, v),
+                (vals, idx, b, u, v),
+                lambda vals=vals, idx=idx: stack(
+                    lambda a, c: ell_unpack(ELLPacked(a, c, k)).float(),
+                    vals, idx)() + w_b(),
+                ops(vals.numel(), binary=True)))
+        for pat in ("2:4", "4:8"):
+            nv, ni = planes[pat]
+            nn, mm = map(int, pat.split(":"))
+            out.append(Case(
+                f"slab_nm_matmul_g[{pat}]", "slab_nm_matmul_g",
+                lambda nv=nv, ni=ni, mm=mm: g_k.slab_nm_matmul_g(
+                    x, nv, ni, mm, b, u, v),
+                lambda nv=nv, ni=ni, mm=mm: g_k.slab_nm_matmul_g_plain(
+                    x, nv, ni, mm, b, u, v),
+                (nv, ni, b, u, v),
+                lambda nv=nv, ni=ni, nn=nn, mm=mm:
+                    nm_dense(nv, ni, nn, mm)() + w_b(),
+                ops(nv.numel(), binary=True)))
+        ws = planes["dense"]
+        out.append(Case(
+            "slab_matmul_g", "slab_matmul_g",
+            lambda: g_k.slab_matmul_g(x, ws, b, u, v),
+            lambda: g_k.slab_matmul_g_plain(x, ws, b, u, v),
+            (ws, b, u, v), lambda: ws.float() + w_b(),
+            ops(ws.numel(), binary=True)))
+    if rank == 1:
+        for pat in ("2:4", "4:8"):
+            if pat not in planes:
+                continue
+            nv, ni = planes[pat]
+            nn, mm = map(int, pat.split(":"))
+            out.append(Case(
+                f"nm_matmul_g[{pat}]", "nm_matmul_g",
+                lambda nv=nv, ni=ni, mm=mm: g_k.nm_matmul_g(x, nv, ni, mm),
+                lambda nv=nv, ni=ni, mm=mm: g_k.nm_matmul_g_plain(
+                    x, nv, ni, mm),
+                (nv, ni), nm_dense(nv, ni, nn, mm), ops(nv.numel())))
+    return out
+
+
+def grouped_checks(flush):
+    """#14-#17 against their plain versions at phi3.5-moe expert planes;
+    times at G_TIMED. Returns (timed records by (label, N, K), worst)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    worst, timed, n_checks = {}, {}, 0
+    sel = torch.tensor(G_BUCKET, device="cuda")
+    for (n, k) in G_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for rank in (1, 3):
+                planes = _g_planes(G_EXPERTS, n, k, dtype, rank, gen)
+                bucket = {kk: (tuple(t.index_select(0, sel).contiguous()
+                                     for t in vv) if isinstance(vv, tuple)
+                               else vv.index_select(0, sel).contiguous())
+                          for kk, vv in planes.items()}
+                runs = [(planes, G_EXPERTS, m) for m in G_BATCHES] + [
+                    (bucket, len(G_BUCKET), 2)]
+                for pl, e, m in runs:
+                    x = torch.randn((e, m, k), generator=gen,
+                                    device="cuda").to(dtype)
+                    wide = (n, k) == G_JSON_SHAPE and e == G_EXPERTS
+                    for c in _g_cases(pl, x, rank, wide_ids=wide):
+                        got, ref = _check_case(c, x, n, dtype, rank, worst,
+                                               f"E={e} N={n} K={k} M={m}")
+                        n_checks += 1
+                        if (e == G_EXPERTS and m == G_TIMED["m"]
+                                and dtype == G_TIMED["dtype"]
+                                and rank == G_TIMED["rank"]):
+                            # the plain loops take ~100 ms: 3 reps
+                            timed[(c.label, n, k)] = _time_case(
+                                c, x, rank, got, ref, flush, plain_reps=3)
+                        del got, ref
+                del planes, bucket
+                torch.cuda.empty_cache()
+    # nm_matmul_g with K off every multiple of 32 (no sign words needed)
+    for dtype in (torch.bfloat16, torch.float32):
+        planes = _g_planes(G_EXPERTS, 4096, G_ODD_K, dtype, 1, gen,
+                           nm_only=True)
+        for m in G_BATCHES:
+            x = torch.randn((G_EXPERTS, m, G_ODD_K), generator=gen,
+                            device="cuda").to(dtype)
+            for c in _g_cases(planes, x, 1):
+                _check_case(c, x, 4096, dtype, 1, worst,
+                            f"E={G_EXPERTS} N=4096 K={G_ODD_K} M={m}")
+                n_checks += 1
+        del planes
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()        # comparison launches do not count
+    log(f"grouped kernel checks: {n_checks} cases passed; worst "
+        "max|err|/max|ref|: "
+        + " ".join(f"{l}={w:.3g}" for l, w in worst.items()))
+    return timed, worst
 
 
 # flash-decode (#10, #11) at the decode shapes of the two ported attention
@@ -606,6 +834,53 @@ def _final_logits(cfg, params, seq):
     return logits[:, -1].float()
 
 
+@contextlib.contextmanager
+def _routing_spy():
+    """Record, in call order, every MoE layer's expert choices: the
+    sorted top-k of the router's probabilities per token, (tokens, k)."""
+    from repro_torch.models import moe
+    calls = []
+    orig = moe.moe_ffn
+
+    def spy(cfg, p, x):
+        xt = x.reshape(-1, x.shape[-1])
+        probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+        calls.append(probs.topk(cfg.top_k, dim=-1).indices.sort(-1).values)
+        return orig(cfg, p, x)
+
+    moe.moe_ffn = spy
+    try:
+        yield calls
+    finally:
+        moe.moe_ffn = orig
+
+
+def _final_logits_routed(cfg, params, seq):
+    """``_final_logits`` and the expert choices of every MoE call."""
+    with _routing_spy() as calls:
+        logits = _final_logits(cfg, params, seq)
+    return logits, calls
+
+
+def _choices_differing(a, b) -> int:
+    """Tokens whose expert choices differ between two runs' MoE calls."""
+    return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b, strict=True))
+
+
+def _experts_dense(packed, dense):
+    """The packed model with every expert leaf swapped for its
+    dense-equivalent (E, D_in, D_out) weight: the same attention kernels
+    (so the same router inputs and expert choices, bit for bit, in a
+    1-layer model), dense experts."""
+    from repro_torch.core.packed_model import expert_stacks
+    from repro_torch.core.pipeline import _copy_tree, _get, _set
+    out = dict(packed)
+    out["layers"] = _copy_tree(packed["layers"])
+    for l, pth, _ in expert_stacks(packed):
+        _set(out["layers"][l], pth, _get(dense["layers"][l], pth))
+    return out
+
+
 def _greedy_profile(cfg, params, prompts, step_ms, label):
     """``_device_profile`` over one greedy_decode of PROMPT + 4 - 1
     decode steps."""
@@ -665,26 +940,79 @@ def _zero_sparse_part(cfg, dense_c, decs, dtype):
     return out
 
 
+def _check_packed(cfg, packed, rep, variant):
+    """Every linear of every layer packed as ``variant``: each 2-D linear a
+    PackedLinear, each expert of a MoE leaf in a group of that variant
+    with no expert left dense. Returns the number of linears (an expert
+    counts as one) and, for a MoE model, the groups of each leaf."""
+    from repro_torch.core.packed_model import (ExpertPackedStack,
+                                               PackedLinear, expert_stacks)
+    from repro_torch.core.pipeline import _get, linear_paths
+    n_lin = 0
+    for l, lp in enumerate(packed["layers"]):
+        for pth in linear_paths(cfg):
+            w = _get(lp, pth)
+            if isinstance(w, ExpertPackedStack):
+                if (w.variant_counts() != {variant: cfg.n_experts}
+                        or w.dense_members):
+                    raise AssertionError(f"L{l}/{pth} packed as "
+                                         f"{w.describe()}, expected "
+                                         f"{variant} for every expert")
+                n_lin += cfg.n_experts
+            elif isinstance(w, PackedLinear) and w.variant == variant:
+                n_lin += 1
+            else:
+                raise AssertionError(f"L{l}/{pth} packed as "
+                                     f"{getattr(w, 'variant', 'dense')}, "
+                                     f"expected {variant}")
+    if rep.by_variant != {variant: n_lin} or rep.fallback:
+        raise AssertionError(f"pack report {rep.by_variant}, dense experts "
+                             f"{rep.fallback}")
+    groups = {f"L{l}/{pth}": len(eps.groups)
+              for l, pth, eps in expert_stacks(packed)}
+    return n_lin, groups
+
+
+def _expert_bytes(packed, dense):
+    """Packed bytes of every MoE leaf against its dense bytes."""
+    from repro_torch.core.packed_model import expert_stacks
+    from repro_torch.core.pipeline import _get
+    pb = db = 0
+    for l, pth, eps in expert_stacks(packed):
+        pb += sum(g.nbytes() for g in eps.groups)
+        w = _get(dense["layers"][l], pth)
+        db += w.numel() * w.element_size()
+    return pb, db
+
+
 def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
                 profiled=False, method="slab", options=None, note="",
-                ppl=False, zero_ws=False):
+                ppl=False, zero_ws=False, arch="llama2_7b",
+                expert_kernel=None):
+    """compress_model -> pack_model -> greedy_decode of ``arch`` at full
+    width cut to ``n_layers``; ``kernel`` serves every 2-D linear and, on
+    a MoE model, ``expert_kernel`` every expert leaf (one launch per
+    group). Returns the launches of the main-path runs per kernel."""
     from repro_torch import configs
-    from repro_torch.core.packed_model import PackedLinear, pack_model
-    from repro_torch.core.pipeline import _get, compress_model, linear_paths
+    from repro_torch.core.packed_model import pack_model
+    from repro_torch.core.pipeline import compress_model
     from repro_torch.core.slab import SLaBConfig
     from repro_torch.data import SyntheticCorpus, calibration_batch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import greedy_decode
     from repro_torch.models import lm
 
-    full = configs.get("llama2_7b", smoke=False)
+    full = configs.get(arch, smoke=False)
     cfg = full.with_(n_layers=n_layers, dtype=dtype)
     options = dict(iters=8) if options is None else options
     opt_s = "".join(f" {k}={v}" for k, v in options.items())
-    log(f"phase {tag}: llama2-7b d_model {cfg.d_model} heads {cfg.n_heads}"
-        f"x{cfg.d_head} d_ff {cfg.d_ff} vocab {cfg.vocab} {dtype} "
-        f"{method}{opt_s} cr {cr} pattern {pattern}; reduced: n_layers "
-        f"{full.n_layers}->{n_layers}" + (f"; {note}" if note else ""))
+    moe_s = (f" experts {cfg.n_experts} top-{cfg.top_k} capacity factor "
+             f"{cfg.capacity_factor}" if cfg.family == "moe" else "")
+    log(f"phase {tag}: {full.name} d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}x{cfg.d_head} kv {cfg.n_kv} d_ff {cfg.d_ff}{moe_s} "
+        f"vocab {cfg.vocab} {dtype} {method}{opt_s} cr {cr} pattern "
+        f"{pattern}; reduced: n_layers {full.n_layers}->{n_layers}"
+        + (f"; {note}" if note else ""))
     params = lm.init(cfg, seed=0, device="cuda")
     calib = calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128)
     eval_batch = next(SyntheticCorpus(cfg.vocab, seed=0).eval_batches(
@@ -701,18 +1029,10 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
     if zero_ws:
         decs = _zero_sparse_part(cfg, dense_c, decs, dtype)
     packed, rep = pack_model(dense_c, decs, pattern=pattern, dtype=dtype)
-    n_lin = len(linear_paths(cfg)) * n_layers
-    for l, lp in enumerate(packed["layers"]):
-        for pth in linear_paths(cfg):
-            w = _get(lp, pth)
-            if not (isinstance(w, PackedLinear) and w.variant == variant):
-                raise AssertionError(f"L{l}/{pth} packed as "
-                                     f"{getattr(w, 'variant', 'dense')}, "
-                                     f"expected {variant}")
-    if rep.by_variant != {variant: n_lin}:
-        raise AssertionError(f"pack report {rep.by_variant}")
+    del decs
+    n_lin, groups = _check_packed(cfg, packed, rep, variant)
     err_rel = max(s.err_after / s.err_before for s in stats)
-    log(f"  compressed {len(stats)} linears in {t_comp:.1f}s (measured CR "
+    log(f"  compressed {len(stats)} leaves in {t_comp:.1f}s (measured CR "
         f"{sum(s.cr for s in stats) / len(stats):.4f}, worst weighted "
         f"err_after/err_before {err_rel:.4f}"
         + ("; then W_S := 0" if zero_ws else "")
@@ -720,6 +1040,12 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
     for var, (pb, db) in sorted(rep.bytes_by_variant.items()):
         log(f"  bytes/{var}: {pb / 1e6:.3f} MB packed vs {db / 1e6:.3f} MB "
             f"dense per linear ({pb / db:.4f}x)")
+    if groups:
+        pb, db = _expert_bytes(packed, dense_c)
+        log(f"  experts: every one of {cfg.n_experts} per leaf {variant}, "
+            f"0 dense; {pb / 1e6:.1f} MB packed vs {db / 1e6:.1f} MB dense "
+            f"({pb / db:.4f}x); groups per leaf "
+            + " ".join(f"{k}={v}" for k, v in groups.items()))
     if ppl:
         log(f"  eval perplexity (lm.loss_fn, {BATCH}x128 synthetic tokens): "
             f"uncompressed {ppl_orig:.2f}, compressed packed "
@@ -730,7 +1056,12 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
         0, BATCH, PROMPT)["inputs"]
     greedy_decode(cfg, packed, prompts, 2, device="cuda")   # warm-up
     sync()
-    need = n_lin * (PROMPT + GEN - 1)
+    steps = PROMPT + GEN - 1
+    n_flat = n_lin - cfg.n_experts * len(groups)      # 2-D linears
+    need = {kernel: n_flat * steps}
+    if expert_kernel:
+        need[expert_kernel] = len(groups) * steps     # >= 1 per leaf
+    launched = dict.fromkeys(need, 0)
     runs = {}
     for mode, lengths in (("square", None), ("ragged", RAGGED)):
         ops.reset_launch_counts()
@@ -741,19 +1072,21 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
         sync()
         dt = time.monotonic() - t0
         counts = ops.launch_counts()
-        if counts[kernel] < need:
-            raise AssertionError(f"{kernel} launched {counts[kernel]} times "
-                                 f"in the {mode} run, expected >= {need}")
+        for kname, n_need in need.items():
+            if counts[kname] < n_need:
+                raise AssertionError(
+                    f"{kname} launched {counts[kname]} times in the {mode} "
+                    f"run, expected >= {n_need}")
+            launched[kname] += counts[kname]
         if tuple(gen.shape) != (BATCH, GEN) or not bool(
                 ((gen >= 0) & (gen < cfg.vocab)).all()):
             raise AssertionError(f"bad generation {tuple(gen.shape)}")
         n_tok = BATCH * (PROMPT + GEN) if lengths is None \
             else sum(lengths) + BATCH * GEN
-        steps = PROMPT + GEN - 1
         log(f"  greedy_decode {mode}: {n_tok / dt:.1f} tok/s, "
             f"{dt / steps * 1e3:.2f} ms per decode step, launches "
-            + " ".join(f"{kk}={c}" for kk, c in counts.items()))
-        runs[mode] = (gen, counts[kernel], dt)
+            + " ".join(f"{kk}={c}" for kk, c in counts.items() if c))
+        runs[mode] = (gen, dt)
     # the yardstick: the same model served dense (reconstructed Ŵ)
     greedy_decode(cfg, dense_c, prompts, 2, device="cuda")
     sync()
@@ -761,56 +1094,99 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
     greedy_decode(cfg, dense_c, prompts, GEN, device="cuda")
     sync()
     dt_dense = time.monotonic() - t0
-    steps = PROMPT + GEN - 1
     log(f"  dense-equivalent greedy_decode square: "
         f"{BATCH * (PROMPT + GEN) / dt_dense:.1f} tok/s, "
         f"{dt_dense / steps * 1e3:.2f} ms per decode step")
     if profiled:
         _greedy_profile(cfg, packed, prompts,
-                        runs["square"][2] / steps * 1e3, "packed")
+                        runs["square"][1] / steps * 1e3, "packed")
         _greedy_profile(cfg, dense_c, prompts, dt_dense / steps * 1e3,
                         "dense-equivalent")
     sq, rg = runs["square"][0], runs["ragged"][0]
-    if not torch.equal(sq[0], rg[0]):
+    if cfg.family != "moe" and not torch.equal(sq[0], rg[0]):
+        # (a MoE row's output depends on its step's other rows through
+        # the expert capacity, so the ragged batch may route it apart)
         raise AssertionError("ragged row 0 (full-length prompt) differs "
                              "from the square run")
     seq = torch.cat([torch.as_tensor(prompts, device="cuda").long(),
                      sq[:, :-1]], dim=1)
-    lp = _final_logits(cfg, packed, seq)
-    ld = _final_logits(cfg, dense_c, seq)
-    if not (bool(torch.isfinite(lp).all()) and bool(torch.isfinite(ld).all())):
-        raise AssertionError("non-finite logits")
-    rel = float((lp - ld).abs().max() / ld.abs().max())
-    log(f"  final-step logits packed vs dense-equivalent: max|diff|/max|ref| "
-        f"= {rel:.3g} (tolerance {tol})")
+    if cfg.family == "moe":
+        _hold_moe_logits(tag, cfg, packed, dense_c, seq, tol)
+    else:
+        _hold_logits(tag, _final_logits(cfg, packed, seq),
+                     _final_logits(cfg, dense_c, seq), tol,
+                     "packed vs dense-equivalent")
+    del packed, dense_c
+    torch.cuda.empty_cache()
+    return launched
+
+
+def _hold_logits(tag, got, want, tol, what) -> float:
+    """Raise unless both are finite and max|got - want| / max|want| <
+    tol; returns that ratio."""
+    if not (bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(want).all())):
+        raise AssertionError(f"phase {tag}: non-finite logits")
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"  final-step logits {what}: max|diff|/max|ref| = {rel:.3g} "
+        f"(tolerance {tol})")
     if not rel < tol:
         raise AssertionError(f"phase {tag}: logits rel {rel} >= {tol}")
-    del packed, dense_c, decs
-    torch.cuda.empty_cache()
-    return {kernel: runs["square"][1] + runs["ragged"][1]}
+    return rel
 
 
-def _packed_llama(n_layers, dtype, **cfg_kw):
-    """llama2-7b at full width, cut to ``n_layers``, SLaB-compressed (CR
-    0.5, 8 iterations, 16x128 calibration) and packed: slab-ell."""
+def _hold_moe_logits(tag, cfg, packed, dense_c, seq, tol):
+    """A MoE model's routing is discontinuous: at bf16 a last-bit
+    difference in a router input can flip a token's expert choice (or, by
+    the capacity, a neighbour's), and no logits tolerance then holds. The
+    packed model is held against the same packed attention with
+    dense-equivalent experts, whose expert choices must agree token for
+    token in every MoE call of the teacher-forced run; against the whole
+    dense-equivalent model the logits and the differing choices are
+    reported."""
+    lp, calls_p = _final_logits_routed(cfg, packed, seq)
+    le, calls_e = _final_logits_routed(cfg, _experts_dense(packed, dense_c),
+                                       seq)
+    n_tok = sum(int(c.shape[0]) for c in calls_p)
+    n_diff = _choices_differing(calls_p, calls_e)
+    log(f"  expert choices, packed vs dense experts behind the same "
+        f"attention: {n_diff} of {n_tok} tokens differ")
+    if n_diff:
+        raise AssertionError(f"phase {tag}: {n_diff} expert choices differ")
+    _hold_logits(tag, lp, le, tol, "packed vs dense-equivalent experts")
+    ld, calls_d = _final_logits_routed(cfg, dense_c, seq)
+    rel = float((lp - ld).abs().max() / ld.abs().max())
+    log(f"  against the whole dense-equivalent model (not held): "
+        f"max|diff|/max|ref| = {rel:.3g}, expert choices of "
+        f"{_choices_differing(calls_p, calls_d)} of {n_tok} tokens differ")
+
+
+def _packed_model(arch, n_layers, dtype, keep_dense=False, **cfg_kw):
+    """``arch`` at full width, cut to ``n_layers``, SLaB-compressed (CR
+    0.5, 8 iterations, 16x128 calibration) and packed: slab-ell
+    everywhere. Returns (cfg, packed) and, with ``keep_dense``, the
+    dense-equivalent params too."""
     from repro_torch import configs
     from repro_torch.core.packed_model import pack_model
     from repro_torch.core.pipeline import compress_model
     from repro_torch.core.slab import SLaBConfig
     from repro_torch.data import calibration_batch
     from repro_torch.models import lm
-    cfg = configs.get("llama2_7b", smoke=False).with_(
+    cfg = configs.get(arch, smoke=False).with_(
         n_layers=n_layers, dtype=dtype, **cfg_kw)
     params = lm.init(cfg, seed=0, device="cuda")
     calib = calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128)
     dense_c, _, decs = compress_model(
-        cfg, params, calib, method="slab", scfg=SLaBConfig(cr=0.5, iters=8),
-        keep_decompositions=True, device="cuda")
+        cfg, params, calib, method="slab",
+        scfg=SLaBConfig(cr=0.5, iters=8), keep_decompositions=True,
+        device="cuda")
     del params
     packed, rep = pack_model(dense_c, decs, dtype=dtype)
-    if rep.by_variant != {"slab-ell": 7 * n_layers}:
-        raise AssertionError(f"pack report {rep.by_variant}")
-    del dense_c, decs
+    _check_packed(cfg, packed, rep, "slab-ell")
+    del decs
+    if keep_dense:
+        return cfg, packed, dense_c
+    del dense_c
     return cfg, packed
 
 
@@ -852,7 +1228,7 @@ def engine_phase_k():
     from repro_torch.serving.paged_cache import blocks_needed
     log("phase k: engine, llama2-7b full width f32, slab cr 0.5 -> "
         "slab-ell; reduced: n_layers 32->2")
-    cfg, packed = _packed_llama(2, torch.float32)
+    cfg, packed = _packed_model("llama2_7b", 2, torch.float32)
     rng = np.random.default_rng(0)
     specs = [(int(rng.integers(16, 257)), int(rng.integers(8, 65)),
               float(3 * i)) for i in range(ENGINE_REQUESTS)]
@@ -966,7 +1342,8 @@ def engine_phase_l():
     log("phase l: engine, llama2-7b full width bf16, int8 KV, slab cr 0.5 "
         "-> slab-ell, serve --engine trace under chaos seed 0; reduced: "
         "n_layers 32->2")
-    cfg, packed = _packed_llama(2, torch.bfloat16, kv_quant="int8")
+    cfg, packed = _packed_model("llama2_7b", 2, torch.bfloat16,
+                                kv_quant="int8")
     args = ap.Namespace(requests=8, prompt_len=32, gen_len=16, seed=0,
                         deadline=None)
     reqs = engine_trace(cfg, args)
@@ -1034,8 +1411,91 @@ def engine_phase_l():
                     "decode_busy_share": share}
 
 
+Q_REQUESTS = 8
+
+
+def engine_phase_q():
+    """Phase q: the engine at f32 on slab-ell packed phi3.5-moe (1 layer,
+    every expert through the grouped kernel #14): a mixed-arrival trace
+    of Q_REQUESTS requests (prompts 16-128, outputs 8-32, 4 slots, blocks
+    of 16), twice. At a drop-free capacity factor (n_experts / top_k: no
+    token is ever dropped, so a row's output does not depend on the other
+    rows of its step) every stream is token-equal to greedy_decode; at
+    the published capacity factor, where the rows of a step compete for
+    the experts' slots, every request ends in a terminal state. No block
+    leaks in either run."""
+    import numpy as np
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.serving import Engine, EngineConfig, Request
+    from repro_torch.serving.paged_cache import blocks_needed
+    log("phase q: engine, phi3.5-moe full width f32, slab cr 0.5 -> "
+        "slab-ell (attention and all 16 experts); reduced: n_layers 32->1")
+    cfg, packed, dense_c = _packed_model("phi3_5_moe", 1, torch.float32,
+                                         keep_dense=True)
+    rng = np.random.default_rng(0)
+    specs = [(int(rng.integers(16, 129)), int(rng.integers(8, 33)),
+              float(2 * i)) for i in range(Q_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab, size=p).astype(np.int32)
+               for p, _, _ in specs]
+    max_len = 128 + 32
+    free = cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k)
+    padded = np.zeros((len(specs), max(p for p, _, _ in specs)), np.int32)
+    for i, pr in enumerate(prompts):
+        padded[i, :len(pr)] = pr
+    want = greedy_decode(free, packed, padded, max(n for _, n, _ in specs),
+                         lengths=[p for p, _, _ in specs],
+                         device="cuda").cpu().numpy()
+    # at f32 the packed model is held against the whole dense-equivalent
+    seq = torch.as_tensor(padded[:4, :16], device="cuda").long()
+    lp, calls_p = _final_logits_routed(cfg, packed, seq)
+    ld, calls_d = _final_logits_routed(cfg, dense_c, seq)
+    log(f"  expert choices packed vs dense-equivalent: "
+        f"{_choices_differing(calls_p, calls_d)} of "
+        f"{sum(int(c.shape[0]) for c in calls_p)} tokens differ")
+    _hold_logits("q", lp, ld, 1e-4, "packed vs dense-equivalent (4 x 16 "
+                 "prompt tokens)")
+    del dense_c
+    launches = {}
+    for tag, c in (("drop-free capacity", free), ("published capacity",
+                                                   cfg)):
+        eng = Engine(c, packed, EngineConfig(
+            n_slots=4, n_blocks=4 * blocks_needed(max_len, 16),
+            block_size=16, max_len=max_len, prefill_chunk=8),
+            device="cuda")
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=n, arrival=a)
+                for i, (p, n, a) in enumerate(specs)]
+        done, wall, counts = _run_engine(
+            eng, reqs, f"phase q {tag}",
+            ("slab_ell_matmul", "slab_ell_matmul_g", "flash_decode_paged"),
+            clock="steps")
+        n_equal = 0
+        for r in done:
+            if not r.terminal:
+                raise AssertionError(f"phase q {tag}: rid {r.rid} "
+                                     f"{r.status}")
+            equal = np.array_equal(np.asarray(r.out),
+                                   want[r.rid, :r.max_new])
+            n_equal += equal
+            if c is free and (r.status != "finished" or not equal):
+                raise AssertionError(
+                    f"phase q {tag}: rid {r.rid} {r.status}, differs from "
+                    "greedy_decode")
+        statuses = sorted({r.status for r in done})
+        log(f"  {tag} (factor {c.capacity_factor}): {len(done)} requests "
+            f"{statuses}, {n_equal} token-equal to greedy_decode at the "
+            f"drop-free factor, {sum(r.n_generated for r in done)} tokens, "
+            f"{eng.n_steps} steps, {wall:.1f}s, every block back on the "
+            "free list; launches "
+            + " ".join(f"{kk}={v}" for kk, v in counts.items() if v))
+        for kk, v in counts.items():
+            launches[kk] = launches.get(kk, 0) + v
+    del packed
+    torch.cuda.empty_cache()
+    return launches
+
+
 PHASES = (
-    ("a", dict(n_layers=4, dtype=torch.bfloat16, cr=0.5, pattern=None,
+    ("a", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
                variant="slab-ell", kernel="slab_ell_matmul", tol=3e-2,
                profiled=True)),
     ("b", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
@@ -1047,7 +1507,7 @@ PHASES = (
     ("e", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
                variant="sparse-nm", kernel="nm_matmul", tol=3e-2,
                method="wanda", options={}, ppl=True)),
-    ("f", dict(n_layers=2, dtype=torch.bfloat16, cr=0.6, pattern=None,
+    ("f", dict(n_layers=1, dtype=torch.bfloat16, cr=0.6, pattern=None,
                variant="sparse-ell", kernel="ell_matmul", tol=3e-2,
                method="sparsegpt", options={}, ppl=True,
                note="CR 0.6, not 0.5: at CR 0.5 and bf16 a pruner's "
@@ -1068,6 +1528,23 @@ PHASES = (
                zero_ws=True,
                note="phase a's slab decompositions with W_S := 0, served "
                     "as W_L ⊙ W_B; logits against that dense-equivalent")),
+    # phi3.5-moe: attention through the per-linear kernel, every expert
+    # leaf through its grouped kernel; 1 layer, so that the yardstick's
+    # expert choices equal the packed model's bit for bit
+    # (_hold_moe_logits)
+    ("m", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.5,
+               pattern=None, variant="slab-ell", kernel="slab_ell_matmul",
+               expert_kernel="slab_ell_matmul_g", tol=3e-2, profiled=True)),
+    ("n", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.5,
+               pattern="2:4", variant="slab-nm", kernel="slab_nm_matmul",
+               expert_kernel="slab_nm_matmul_g", tol=3e-2)),
+    ("o", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.2,
+               pattern=None, variant="slab-dense", kernel="slab_matmul",
+               expert_kernel="slab_matmul_g", tol=3e-2)),
+    ("p", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.5,
+               pattern="2:4", variant="sparse-nm", kernel="nm_matmul",
+               expert_kernel="nm_matmul_g", tol=3e-2, method="wanda",
+               options={})),
 )
 # the timed case of each kernel that the JSON line reports
 JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
@@ -1077,6 +1554,11 @@ JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
               "slab_lr_matmul": "slab_lr_matmul",
               "slab_nm_lr_matmul": "slab_nm_lr_matmul[2:4]",
               "nm_matmul": "nm_matmul[2:4]", "binlr_matmul": "binlr_matmul"}
+# ... and of each grouped kernel (at G_JSON_SHAPE, E = 16)
+G_JSON_LABEL = {"slab_ell_matmul_g": "slab_ell_matmul_g",
+                "nm_matmul_g": "nm_matmul_g[2:4]",
+                "slab_matmul_g": "slab_matmul_g",
+                "slab_nm_matmul_g": "slab_nm_matmul_g[2:4]"}
 FLASH = ("flash_decode", "flash_decode_paged")
 
 
@@ -1105,13 +1587,16 @@ def main():
 
     card = environment()
     mark("build")
+    from repro_torch.kernels import ops
     timed, worst = kernel_checks()
     mark("kernels")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     fd_timed, fd_worst = flash_checks(flush)
-    del flush
     mark("flash")
-    launches = {name: 0 for name in tuple(JSON_LABEL) + FLASH}
+    g_timed, g_worst = grouped_checks(flush)
+    del flush
+    mark("grouped")
+    launches = {k.name: 0 for k in ops.KERNELS}
     for tag, kw in PHASES:
         for kname, c in model_phase(tag, **kw).items():
             launches[kname] += c
@@ -1123,10 +1608,33 @@ def main():
     for kname, c in counts_l.items():
         launches[kname] += c
     mark("l")
+    for kname, c in engine_phase_q().items():
+        launches[kname] += c
+    mark("q")
 
-    from repro_torch.kernels import ops
     entries = []
     for kern in ops.KERNELS:
+        if kern.name in G_JSON_LABEL:
+            label = G_JSON_LABEL[kern.name]
+            rec = g_timed[(label,) + G_JSON_SHAPE]
+            entries.append({
+                "name": kern.name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{kern.source}",
+                "replaces": kern.replaces.split(" ")[0],
+                "launches": launches[kern.name],
+                **{kk: rec[kk] for kk in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")},
+                "shape": {"E": G_EXPERTS, "M": G_TIMED["m"],
+                          "N": G_JSON_SHAPE[0], "K": G_JSON_SHAPE[1],
+                          "dtype": "bfloat16", "rank": 1},
+                "worst_rel_err": g_worst[label],
+                "by_shape": {f"{n}x{k}": {kk: g_timed[(label, n, k)][kk]
+                                          for kk in ("ms", "plain_ms",
+                                                     "library_ms",
+                                                     "bound_ms")}
+                             for (n, k) in G_SHAPES}})
+            continue
         if kern.name in FLASH:
             rec = fd_timed[kern.name]
             entries.append({

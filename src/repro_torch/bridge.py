@@ -3,9 +3,9 @@
 JAX PRNG init and Pallas tiling cannot be reproduced in torch, so parity
 runs on bridged inputs: weights from the reference's ``lm.init``,
 decompositions from its ``compress_model`` and packed planes from its
-``pack_linear``. Everything arrives as numpy arrays (``np.asarray`` of a
-JAX array) or duck-typed objects holding them; nothing of JAX or of the
-reference package is imported here.
+``pack_linear`` / ``pack_expert_stack``. Everything arrives as numpy
+arrays (``np.asarray`` of a JAX array) or duck-typed objects holding
+them; nothing of JAX or of the reference package is imported here.
 
 Two conversions need care:
 - bf16 arrives as ``ml_dtypes.bfloat16``; it moves as 16-bit words and is
@@ -20,7 +20,7 @@ from typing import List
 import numpy as np
 import torch
 
-from repro_torch.core.packed_model import PackedLinear
+from repro_torch.core.packed_model import ExpertPackedStack, PackedLinear
 from repro_torch.core.slab import SLaBDecomposition
 from repro_torch.models.attention import KVCache
 from repro_torch.serving.paged_cache import PagedKVCache
@@ -64,9 +64,16 @@ def params(ref_params: dict, n_layers: int, device="cpu") -> dict:
 def decomposition(dec, device="cpu") -> SLaBDecomposition:
     """A reference ``SLaBDecomposition`` (any object with w_s, u, v, w_b),
     of any variant: sparse-only and low-rank decompositions carry
-    zero-width u / v and a (0, 0) w_b, which arrive with those shapes."""
-    return SLaBDecomposition(tensor(dec.w_s, device), tensor(dec.u, device),
+    zero-width u / v and a (0, 0) w_b, which arrive with those shapes; a
+    dec with no sparse plane keeps w_s None."""
+    w_s = None if dec.w_s is None else tensor(dec.w_s, device)
+    return SLaBDecomposition(w_s, tensor(dec.u, device),
                              tensor(dec.v, device), tensor(dec.w_b, device))
+
+
+def expert_decompositions(decs, device="cpu") -> tuple:
+    """A 3-D expert leaf's tuple of per-expert decs."""
+    return tuple(decomposition(d, device) for d in decs)
 
 
 def hessian(h, device="cpu") -> torch.Tensor:
@@ -87,6 +94,19 @@ def packed_linear(pl, device="cpu") -> PackedLinear:
                         variant=pl.variant, m_pat=int(pl.m_pat),
                         d_in=int(pl.d_in), d_out=int(pl.d_out),
                         rank=int(pl.rank))
+
+
+def expert_packed_stack(ref_eps, device="cpu") -> ExpertPackedStack:
+    """A reference per-layer ``ExpertPackedStack`` -> the port's: its
+    groups (planes with a leading expert dim), the dense remainder and
+    the member ids."""
+    dense = (None if ref_eps.dense is None
+             else tensor(ref_eps.dense, device).contiguous())
+    return ExpertPackedStack(
+        tuple(packed_linear(g, device) for g in ref_eps.groups), dense,
+        tuple(tuple(int(e) for e in m) for m in ref_eps.members),
+        tuple(int(e) for e in ref_eps.dense_members),
+        int(ref_eps.n_experts))
 
 
 def kv_cache(ref_kv, device="cpu") -> List[KVCache]:

@@ -22,12 +22,18 @@ Unstructured sparse parts route to row-padded ELL whenever it wins on
 bytes at the serving dtype (``packing.ell_wins_bytes``), else they stay
 dense-masked. ``PackedStack`` is not ported: the port keeps one
 PackedLinear per layer.
+
+A 3-D MoE expert leaf packs into an ``ExpertPackedStack``: experts with
+the same packed signature stack into one group (planes with a leading
+expert dim) that one grouped-kernel launch serves (``expert_matmul``);
+ELL experts first bucket by their realized K_max, so a few dense
+experts do not widen every expert's pad.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -93,10 +99,13 @@ def _unstructured_kind(w_s: torch.Tensor, itemsize: Optional[int] = None,
 
 def variant_of(dec: SLaBDecomposition, pattern: Optional[str],
                itemsize: Optional[int] = None,
-               k_max: Optional[int] = None) -> Optional[str]:
+               k_max: Optional[int] = None,
+               has_s: Optional[bool] = None) -> Optional[str]:
     """Classify one decomposition into its packed-serving variant (None =
     not representable). The binary term counts only beside a low-rank
-    factor: W_L ⊙ W_B with an empty W_L is identically zero."""
+    factor: W_L ⊙ W_B with an empty W_L is identically zero. ``has_s``
+    (is the sparse part non-zero) skips that reduction when the caller
+    has it already."""
     if dec.w_s is None or dec.w_s.dim() != 2:
         return None
     rank = _dec_rank(dec)
@@ -106,7 +115,8 @@ def variant_of(dec: SLaBDecomposition, pattern: Optional[str],
         kind = "nm" if pattern else _unstructured_kind(dec.w_s, itemsize,
                                                        k_max)
         return f"sparse-{kind}"
-    has_s = bool(dec.w_s.numel()) and bool((dec.w_s != 0).any())
+    if has_s is None:
+        has_s = bool(dec.w_s.numel()) and bool((dec.w_s != 0).any())
     kind = None
     if has_s:
         kind = "nm" if pattern else _unstructured_kind(dec.w_s, itemsize,
@@ -194,6 +204,221 @@ def packed_matmul(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+# ------------------------------------------------------------------
+# MoE experts: one grouped-kernel launch per bucket of experts
+# ------------------------------------------------------------------
+
+# Expert variants whose grouped kernel is still to port (ROADMAP queue B).
+_GROUPED_TO_PORT = {"sparse-ell": "#12 ell_matmul_g",
+                    "lowrank-ell": "#13 ell_lr_matmul_g",
+                    "lowrank-dense": "#18 slab_lr_matmul_g",
+                    "lowrank-nm": "#19 slab_nm_lr_matmul_g",
+                    "binlr": "#20 binlr_matmul_g"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertPackedStack:
+    """One layer's 3-D MoE leaf, packed per expert.
+
+    ``groups[g]`` is a PackedLinear whose every plane leads with the
+    experts ``members[g]`` (ascending ids); one grouped-kernel launch
+    serves a group. ``dense`` holds the model-orientation (E_d, D_in,
+    D_out) slices of the experts with no packable terms,
+    ``dense_members``."""
+
+    groups: Tuple[PackedLinear, ...]
+    dense: Optional[torch.Tensor]
+    members: Tuple[Tuple[int, ...], ...]
+    dense_members: Tuple[int, ...]
+    n_experts: int
+
+    def variant_counts(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for grp, mem in zip(self.groups, self.members):
+            out[grp.variant] = out.get(grp.variant, 0) + len(mem)
+        return out
+
+    def describe(self) -> str:
+        """One line: each group's variant, pad width or pattern, rank and
+        expert count, then the dense members."""
+        parts = []
+        for grp, mem in zip(self.groups, self.members):
+            d = grp.variant
+            if grp.m_pat:
+                d += f"({grp.sparse_vals.shape[-1]}:{grp.m_pat})"
+            elif grp.variant.endswith("-ell"):
+                d += f"(kmax={grp.sparse_vals.shape[-1]})"
+            if grp.rank:
+                d += f" r{grp.rank}"
+            parts.append(f"{d} x{len(mem)}")
+        if self.dense_members:
+            parts.append(f"dense x{len(self.dense_members)}")
+        return "experts[" + " | ".join(parts) + "]"
+
+
+def _stack_group(pls: Sequence[PackedLinear]) -> PackedLinear:
+    """Stack same-signature PackedLinears on a new leading expert dim."""
+    def stack(name):
+        a = [getattr(pl, name) for pl in pls]
+        return None if a[0] is None else torch.stack(a).contiguous()
+
+    p0 = pls[0]
+    return dataclasses.replace(p0, **{n: stack(n) for n in (
+        "sparse_vals", "sparse_idx", "b_packed", "u", "v")})
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    """The reference's dtype name of a plane: the int16 / int32 planes
+    (ELL ids, sign words) are unsigned views."""
+    name = str(t.dtype).replace("torch.", "")
+    return {"int16": "uint16", "int32": "uint32"}.get(name, name)
+
+
+def _pack_signature(pl: PackedLinear) -> Tuple:
+    """Full stacking key: the metadata plus each plane's (shape, dtype),
+    in the reference's terms so that sorting by ``str`` orders groups as
+    the reference does."""
+    aux = (pl.variant, pl.m_pat, pl.d_in, pl.d_out, pl.rank)
+    leaves = tuple(None if a is None else (tuple(a.shape), _dtype_name(a))
+                   for a in (pl.sparse_vals, pl.sparse_idx, pl.b_packed,
+                             pl.u, pl.v))
+    return aux + leaves
+
+
+# How many buckets the per-expert realized ELL K_max is cut into: within
+# a bucket the experts pad to the bucket's realized max, so a few dense
+# experts do not widen every pad, and a leaf takes at most this many
+# ELL launches.
+EXPERT_KMAX_BUCKETS = 4
+
+
+def pack_expert_stack(old: torch.Tensor,
+                      e_decs: Sequence[SLaBDecomposition],
+                      pattern: Optional[str], dtype=torch.float32
+                      ) -> ExpertPackedStack:
+    """Pack one layer's (E, D_in, D_out) expert leaf ``old`` from its
+    per-expert (D_out, D_in) decompositions. Every expert classifies
+    from one fused reduction (realized row-nnz K_max and total nnz);
+    ELL experts bucket by K_max — bucket width ``ceil(max K_max /
+    EXPERT_KMAX_BUCKETS)`` — and pad to their bucket's realized max. Experts
+    sharing a packed signature stack into one group; groups sort by
+    ``str`` of their signature, members ascend. Experts with no sparse
+    plane stay dense (``old``'s slices)."""
+    n_exp = len(e_decs)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    servable = [e for e, d in enumerate(e_decs)
+                if d.w_s is not None and d.w_s.dim() == 2]
+    kmaxes = [1] * n_exp
+    variants: List[Optional[str]] = [None] * n_exp
+    if servable:
+        nz = torch.stack([e_decs[e].w_s for e in servable]) != 0
+        row_nnz = nz.sum(-1).amax(-1).tolist()
+        tot_nnz = nz.sum((1, 2)).tolist()
+        for i, e in enumerate(servable):
+            kmaxes[e] = max(1, int(row_nnz[i]))
+            variants[e] = variant_of(e_decs[e], pattern, itemsize,
+                                     k_max=kmaxes[e],
+                                     has_s=bool(tot_nnz[i]))
+    q = max(1, -(-max(kmaxes) // EXPERT_KMAX_BUCKETS))
+    pads: Dict[int, int] = {}
+    for e, var in enumerate(variants):
+        if var is not None and var.endswith("-ell"):
+            b = (kmaxes[e] - 1) // q
+            pads[b] = max(pads.get(b, 0), kmaxes[e])
+    by_sig: Dict[Tuple, List[Tuple[int, PackedLinear]]] = {}
+    dense_members: List[int] = []
+    for e, (dec, var) in enumerate(zip(e_decs, variants)):
+        if var is None:
+            dense_members.append(e)
+            continue
+        nnz = (pads[(kmaxes[e] - 1) // q] if var.endswith("-ell")
+               else kmaxes[e])
+        pl = pack_linear(dec, pattern, dtype, variant=var, ell_nnz=nnz)
+        by_sig.setdefault(_pack_signature(pl), []).append((e, pl))
+    groups, members = [], []
+    for key in sorted(by_sig, key=str):
+        es = by_sig[key]
+        groups.append(_stack_group([pl for _, pl in es]))
+        members.append(tuple(e for e, _ in es))
+    dense = (torch.stack([old[e] for e in dense_members]).contiguous()
+             if dense_members else None)
+    return ExpertPackedStack(tuple(groups), dense, tuple(members),
+                             tuple(dense_members), n_exp)
+
+
+def expert_stacks(params: dict) -> List[Tuple[int, str, ExpertPackedStack]]:
+    """Every ExpertPackedStack of the per-layer params, as (layer, path,
+    stack)."""
+    out = []
+    for l, lp in enumerate(params["layers"]):
+        for name, sub in sorted(lp.items()):
+            if not isinstance(sub, dict):
+                continue
+            for leaf, w in sorted(sub.items()):
+                if isinstance(w, ExpertPackedStack):
+                    out.append((l, f"{name}.{leaf}", w))
+    return out
+
+
+def packed_matmul_grouped(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
+    """x (E, M, D_in) against an expert-stacked PackedLinear (every plane
+    leads with E) -> (E, M, D_out): one grouped-kernel launch."""
+    from repro_torch.kernels import ops
+    var = w.variant
+    _check_variant(var)
+    if var in _GROUPED_TO_PORT:
+        raise NotImplementedError(
+            f"grouped {var!r} experts need kernel {_GROUPED_TO_PORT[var]}, "
+            "still to port (ROADMAP queue B)")
+    if var == "slab-ell":
+        y = ops.slab_ell_matmul_g(x, w.sparse_vals, w.sparse_idx,
+                                  w.b_packed, w.u, w.v)
+    elif var == "slab-nm":
+        y = ops.slab_nm_matmul_g(x, w.sparse_vals, w.sparse_idx, w.m_pat,
+                                 w.b_packed, w.u, w.v)
+    elif var == "slab-dense":
+        y = ops.slab_matmul_g(x, w.sparse_vals, w.b_packed, w.u, w.v)
+    elif var == "sparse-nm":
+        y = ops.nm_matmul_g(x, w.sparse_vals, w.sparse_idx, w.m_pat)
+    elif var == "sparse-dense":
+        # dense-masked bytes equal dense bytes: a batched matmul is the
+        # serve, as in the reference
+        y = torch.einsum("emk,enk->emn", x, w.sparse_vals.to(x.dtype))
+    else:
+        # lowrank: two skinny batched matmuls, already minimal bytes
+        y = torch.einsum("emk,ekr->emr", x.float(), w.v.float())
+        y = torch.einsum("emr,enr->emn", y, w.u.float())
+    return y.to(x.dtype)
+
+
+def expert_matmul(x: torch.Tensor, w: ExpertPackedStack) -> torch.Tensor:
+    """Per-expert packed linear: x (E, M, D_in) -> (E, M, D_out), one
+    grouped-kernel launch per group, the experts gathered into their
+    groups and scattered back; a single group covering every expert in
+    order skips the gathers."""
+    n = w.n_experts
+    if (len(w.groups) == 1 and not w.dense_members
+            and w.members[0] == tuple(range(n))):
+        return packed_matmul_grouped(x, w.groups[0])
+    parts: List[torch.Tensor] = []
+    order: List[int] = []
+    for mem, grp in zip(w.members, w.groups):
+        xg = x.index_select(0, torch.tensor(mem, device=x.device))
+        parts.append(packed_matmul_grouped(xg, grp))
+        order.extend(mem)
+    if w.dense is not None:
+        xd = x.index_select(0, torch.tensor(w.dense_members,
+                                            device=x.device))
+        parts.append(torch.einsum("emk,ekn->emn", xd,
+                                  w.dense.to(x.dtype)).to(x.dtype))
+        order.extend(w.dense_members)
+    y = torch.cat(parts, dim=0)
+    inv = [0] * n
+    for pos, eid in enumerate(order):
+        inv[eid] = pos
+    return y.index_select(0, torch.tensor(inv, device=x.device))
+
+
 def linear(x: torch.Tensor, w, tap: Optional[str] = None) -> torch.Tensor:
     """Dispatch point used by the model layers: dense ``x @ w`` or the
     packed kernel. ``tap`` names this linear for activation capture."""
@@ -209,12 +434,15 @@ def linear(x: torch.Tensor, w, tap: Optional[str] = None) -> torch.Tensor:
 # ------------------------------------------------------------------
 
 class PackReport(NamedTuple):
-    """What pack_model did: packed-linear counts per variant, the packed
-    paths, and per-variant (packed, dense) bytes per linear."""
+    """What pack_model did: packed-linear counts per variant (each expert
+    of a MoE leaf counts as one linear), the packed paths, per-variant
+    (packed, dense) bytes per linear, and the experts left dense, named
+    ``L{layer}/{path}[expert {e}]``."""
     n_packed: int
     by_variant: Dict[str, int]
     paths: List[str]
     bytes_by_variant: Dict[str, Tuple[float, float]]
+    fallback: Tuple[str, ...] = ()
 
 
 def pack_model(params: dict,
@@ -222,7 +450,9 @@ def pack_model(params: dict,
                pattern: Optional[str] = None,
                dtype=torch.float32) -> Tuple[dict, PackReport]:
     """Replace every decomposed linear of the per-layer params with its
-    PackedLinear at the serving ``dtype``. ``decs`` comes from
+    PackedLinear at the serving ``dtype``, and every 3-D expert leaf
+    (whose decs arrive as a tuple, one per expert) with an
+    ``ExpertPackedStack``. ``decs`` comes from
     ``core.pipeline.compress_model(keep_decompositions=True)``. Returns
     (params, PackReport); the input params are not modified."""
     from repro_torch.core.pipeline import _copy_tree, _get, _set
@@ -232,21 +462,38 @@ def pack_model(params: dict,
     by_variant: Dict[str, int] = {}
     agg: Dict[str, List[float]] = {}
     paths: List[str] = []
+    fallback: List[str] = []
+
+    def account(var: str, packed_b: float, dense_b: float, n: int = 1):
+        a = agg.setdefault(var, [0.0, 0.0, 0])
+        a[0] += packed_b
+        a[1] += dense_b
+        a[2] += n
+        if var != "dense-fallback":
+            by_variant[var] = by_variant.get(var, 0) + n
+
     for (l, name) in sorted(decs, key=lambda k: (k[1], k[0])):
         dec = decs[(l, name)]
         old = _get(out["layers"][l], name)
+        if name not in paths:
+            paths.append(name)
+        if type(dec) is tuple:          # one dec per expert of a 3-D leaf
+            eps = pack_expert_stack(old, dec, pattern, dtype)
+            _set(out["layers"][l], name, eps)
+            per_e = old[0].numel() * old.element_size()
+            for grp, mem in zip(eps.groups, eps.members):
+                account(grp.variant, grp.nbytes(), per_e * len(mem),
+                        len(mem))
+            for e in eps.dense_members:
+                fallback.append(f"L{l}/{name}[expert {e}]")
+                account("dense-fallback", per_e, per_e)
+            continue
         k_max = None if pattern else ell_row_nnz_max(dec.w_s)
         var = variant_of(dec, pattern, itemsize=itemsize, k_max=k_max)
         pl = pack_linear(dec, pattern, dtype, variant=var,
                          ell_nnz=k_max if var.endswith("-ell") else None)
         _set(out["layers"][l], name, pl)
-        by_variant[var] = by_variant.get(var, 0) + 1
-        a = agg.setdefault(var, [0.0, 0.0, 0])
-        a[0] += pl.nbytes()
-        a[1] += old.numel() * old.element_size()
-        a[2] += 1
-        if name not in paths:
-            paths.append(name)
+        account(var, pl.nbytes(), old.numel() * old.element_size())
     per_linear = {var: (p / n, d / n) for var, (p, d, n) in agg.items()}
     for var, (p, d) in sorted(per_linear.items()):
         if p > d:
@@ -255,4 +502,4 @@ def pack_model(params: dict,
                 f"bytes ({p / 1e3:.1f} kB vs {d / 1e3:.1f} kB per linear)",
                 stacklevel=2)
     return out, PackReport(sum(by_variant.values()), by_variant, paths,
-                           per_linear)
+                           per_linear, tuple(fallback))

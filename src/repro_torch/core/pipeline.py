@@ -1,5 +1,5 @@
 """Layer-wise one-shot compression loop (port of
-``repro.core.pipeline``, one method per call, dense family).
+``repro.core.pipeline``, one method per call, dense and moe families).
 
   for each transformer layer, in order:
     (1) forward the calibration set through the already-compressed
@@ -15,7 +15,10 @@
 
 Params hold one dict per layer (``params["layers"][l]``); weights are
 stored (D_in, D_out) in the model and transposed to the paper's
-(D_out, D_in) for the compressor and back.
+(D_out, D_in) for the compressor and back. MoE experts, (E, D_in, D_out)
+leaves, are compressed one expert at a time from that expert's own
+tapped statistics (the tokens dispatched to it), and their
+decompositions travel as a tuple, one per expert.
 """
 from __future__ import annotations
 
@@ -72,10 +75,13 @@ def _copy_tree(d):
 
 
 def linear_paths(cfg: ArchConfig) -> List[str]:
-    """Compressible 2-D linears inside one layer (dense family)."""
-    if cfg.family != "dense":
+    """Compressible linears inside one layer: 2-D, and the 3-D (E, D,
+    F) expert leaves of the moe family."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     paths = ["attn.wq", "attn.wk", "attn.wv", "attn.wo"]
+    if cfg.family == "moe":
+        return paths + ["moe.w_gate", "moe.w_up", "moe.w_down"]
     if cfg.act == "swiglu":
         return paths + ["mlp.w_gate", "mlp.w_up", "mlp.w_down"]
     return paths + ["mlp.w_up", "mlp.w_down"]
@@ -110,11 +116,62 @@ def _weighted_errs(w: torch.Tensor, w_new: torch.Tensor,
     return err_b, err_a
 
 
+def _expert_hessians(hz: Optional[torch.Tensor], n_exp: int, d_in: int
+                     ) -> List[Optional[torch.Tensor]]:
+    """Per-expert Hessian slices. An expert that saw no calibration
+    tokens (all-zero Gram) takes the identity, which reduces
+    Hessian-aware methods to magnitude pruning instead of zeroing it."""
+    if hz is None:
+        return [None] * n_exp
+    tr = torch.diagonal(hz, dim1=-2, dim2=-1).sum(-1).reshape(-1).tolist()
+    out: List[Optional[torch.Tensor]] = []
+    for e in range(n_exp):
+        if tr[e if len(tr) > 1 else 0] == 0.0:
+            out.append(torch.eye(d_in, dtype=torch.float32,
+                                 device=hz.device))
+        else:
+            out.append(hz[e] if hz.dim() == 3 else hz)
+    return out
+
+
+def _compress_experts(layer: int, pth: str, w: torch.Tensor,
+                      an: Optional[torch.Tensor],
+                      hz: Optional[torch.Tensor],
+                      comp: compressor_lib.Compressor):
+    """Compress a 3-D (E, D_in, D_out) expert leaf expert by expert.
+    The decs travel as a tuple (``core.packed_model.pack_model`` packs
+    it into an ``ExpertPackedStack``); the stats' variant is "expert"."""
+    hz_e = _expert_hessians(hz, w.shape[0], w.shape[1])
+    outs, crs, e_decs = [], [], []
+    eb2 = ea2 = 0.0
+    for e in range(w.shape[0]):
+        an_e = an[e] if (an is not None and an.dim() == 2) else an
+        cl = comp.compress(w[e].T.float(),
+                           LinearStats(norms=an_e, hessian=hz_e[e]))
+        o = cl.dense.T.to(w.dtype)
+        outs.append(o)
+        e_decs.append(cl.dec)
+        if cl.cr is not None:
+            crs.append(cl.cr)
+        b_e, a_e = _weighted_errs(w[e], o, an_e)
+        eb2 += b_e ** 2
+        ea2 += a_e ** 2
+    w_new = torch.stack(outs).contiguous()
+    cr = float(np.mean(crs)) if crs else comp.scfg.cr
+    dec = tuple(e_decs) if all(d is not None for d in e_decs) else None
+    return w_new, dec, CompressStats(layer, pth, float(np.sqrt(eb2)),
+                                     float(np.sqrt(ea2)), cr, comp.name,
+                                     "expert" if dec is not None else "")
+
+
 def _compress_leaf(layer: int, pth: str, w: torch.Tensor,
                    an: Optional[torch.Tensor], hz: Optional[torch.Tensor],
                    comp: compressor_lib.Compressor):
-    """Compress one (D_in, D_out) model weight. Returns (new weight,
-    dec-or-None, CompressStats); the stats name the dec's variant."""
+    """Compress one (D_in, D_out) model weight, or a 3-D expert leaf.
+    Returns (new weight, dec-or-None, CompressStats); the stats name the
+    dec's variant."""
+    if w.dim() == 3:
+        return _compress_experts(layer, pth, w, an, hz, comp)
     cl = comp.compress(w.T.float(), LinearStats(norms=an, hessian=hz))
     w_new = cl.dense.T.to(w.dtype).contiguous()
     err_b, err_a = _weighted_errs(w, w_new, an)

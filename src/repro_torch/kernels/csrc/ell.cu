@@ -42,6 +42,14 @@
 // so the passes read from L2 rather than wait on device memory. ELL pads
 // are value 0 at a real zero column; ids are still checked against K.
 // No tensor cores, TMA or wgmma yet.
+//
+// slab_ell_matmul_g, the grouped-expert form (replaces repro/kernels/
+// grouped.py::slab_ell_matmul_g, _kernel_slab_ell_g, pallas_call at
+// grouped.py:142): the same kernel on a grid with the expert as its y
+// dimension (slab_common.cuh), so one launch serves a
+// whole bucket of E experts, each with its own x (M, K), planes and y.
+// At the MoE decode shapes (M = 2 rows per expert) it is a GEMV per
+// expert, bound by the E experts' plane bytes.
 #include "slab_common.cuh"
 
 namespace slab {
@@ -58,15 +66,21 @@ slab_ell_kernel(const T* __restrict__ x, const T* __restrict__ vals,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = row < N;
-  const uint32_t* bp_row = bp + (size_t)row * (K / 32);
+  const size_t ex = blockIdx.y;               // expert (0 for a 2-D launch)
+  x += ex * M * K;
+  y += ex * M * N;
+  u += ex * R * N;
+  v += ex * R * K;
+  const size_t grow = ex * N + row;           // row of the stacked planes
+  const uint32_t* bp_row = bp + grow * (K / 32);
   const unsigned k_lim = (unsigned)K;
   auto col_of = [k_lim](int, I code) {
     return (unsigned)code < k_lim ? (int)code : -1;
   };
 
   if (live) {
-    prefetch_l2(vals + (size_t)row * kmax, (size_t)kmax * sizeof(T), lane);
-    prefetch_l2(idx + (size_t)row * kmax, (size_t)kmax * sizeof(I), lane);
+    prefetch_l2(vals + grow * kmax, (size_t)kmax * sizeof(T), lane);
+    prefetch_l2(idx + grow * kmax, (size_t)kmax * sizeof(I), lane);
     prefetch_l2(bp_row, (size_t)K / 8, lane);
   }
   for (int m0 = 0; m0 < M; m0 += MTP) {
@@ -78,9 +92,8 @@ slab_ell_kernel(const T* __restrict__ x, const T* __restrict__ vals,
 #pragma unroll
     for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
     if (live)
-      sparse_pass<T, I, MTP>(acc, xk, vals + (size_t)row * kmax,
-                             idx + (size_t)row * kmax, (size_t)row * kmax,
-                             kmax, col_of, lane);
+      sparse_pass<T, I, MTP>(acc, xk, vals + grow * kmax, idx + grow * kmax,
+                             grow * kmax, kmax, col_of, lane);
     for (int r = 0; r < R; ++r) {
       if (r > 0) {
         __syncthreads();             // xv of the previous rank is consumed
@@ -104,12 +117,13 @@ slab_ell_kernel(const T* __restrict__ x, const T* __restrict__ vals,
 template <typename T, typename I>
 static int launch(const void* x, const void* vals, const void* idx,
                   const void* bp, const void* u, const void* v, void* y,
-                  int M, int N, int K, int kmax, int R, void* stream) {
+                  int E, int M, int N, int K, int kmax, int R,
+                  void* stream) {
   if (!aligned16(vals) || !aligned16(idx) || !aligned16(bp))
     return (int)cudaErrorMisalignedAddress;
   size_t smem = 0;
   const int mtp = pick_mtp(M, K, sizeof(T), &smem);
-  const dim3 grid((N + kWarps - 1) / kWarps);
+  const dim3 grid((N + kWarps - 1) / kWarps, E);
   SLAB_DISPATCH_MTP(mtp, {
     auto kern = slab_ell_kernel<T, I, MTP>;
     cudaError_t e = prepare(kern, smem);
@@ -227,6 +241,33 @@ extern "C" int ell_lr_matmul(int dtype, int idx_bytes, const void* x,
                                   N, K, kmax, R, stream);
 }
 
+namespace slab {
+
+static int dispatch_slab_ell(int dtype, int idx_bytes, const void* x,
+                             const void* vals, const void* idx,
+                             const void* bp, const void* u, const void* v,
+                             void* y, int E, int M, int N, int K, int kmax,
+                             int R, void* stream) {
+  if (E <= 0 || E > kMaxExperts || M <= 0 || N <= 0 || K <= 0 || K % 32 ||
+      kmax <= 0 || R <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && idx_bytes == 2)
+    return launch<float, uint16_t>(x, vals, idx, bp, u, v, y, E, M, N, K,
+                                   kmax, R, stream);
+  if (dtype == 0 && idx_bytes == 4)
+    return launch<float, uint32_t>(x, vals, idx, bp, u, v, y, E, M, N, K,
+                                   kmax, R, stream);
+  if (dtype == 1 && idx_bytes == 2)
+    return launch<__nv_bfloat16, uint16_t>(x, vals, idx, bp, u, v, y, E, M,
+                                           N, K, kmax, R, stream);
+  if (dtype == 1 && idx_bytes == 4)
+    return launch<__nv_bfloat16, uint32_t>(x, vals, idx, bp, u, v, y, E, M,
+                                           N, K, kmax, R, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace slab
+
 // dtype: 0 = float32, 1 = bfloat16; idx_bytes: 2 (uint16 ids) or 4.
 // Launches on ``stream`` and allocates nothing; returns cudaGetLastError().
 extern "C" int slab_ell_matmul(int dtype, int idx_bytes, const void* x,
@@ -234,19 +275,18 @@ extern "C" int slab_ell_matmul(int dtype, int idx_bytes, const void* x,
                                const void* bp, const void* u, const void* v,
                                void* y, int M, int N, int K, int kmax, int R,
                                void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 32 || kmax <= 0 || R <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && idx_bytes == 2)
-    return slab::launch<float, uint16_t>(x, vals, idx, bp, u, v, y, M, N, K,
-                                         kmax, R, stream);
-  if (dtype == 0 && idx_bytes == 4)
-    return slab::launch<float, uint32_t>(x, vals, idx, bp, u, v, y, M, N, K,
-                                         kmax, R, stream);
-  if (dtype == 1 && idx_bytes == 2)
-    return slab::launch<__nv_bfloat16, uint16_t>(x, vals, idx, bp, u, v, y, M,
-                                                 N, K, kmax, R, stream);
-  if (dtype == 1 && idx_bytes == 4)
-    return slab::launch<__nv_bfloat16, uint32_t>(x, vals, idx, bp, u, v, y, M,
-                                                 N, K, kmax, R, stream);
-  return (int)cudaErrorInvalidValue;
+  return slab::dispatch_slab_ell(dtype, idx_bytes, x, vals, idx, bp, u, v, y,
+                                 1, M, N, K, kmax, R, stream);
+}
+
+// The grouped form: E experts, every operand stacked on a leading expert
+// dim (x (E, M, K), vals / idx (E, N, K_max), bp (E, N, K/32), u (E, R,
+// N), v (E, R, K), y (E, M, N)); one launch.
+extern "C" int slab_ell_matmul_g(int dtype, int idx_bytes, const void* x,
+                                 const void* vals, const void* idx,
+                                 const void* bp, const void* u,
+                                 const void* v, void* y, int E, int M, int N,
+                                 int K, int kmax, int R, void* stream) {
+  return slab::dispatch_slab_ell(dtype, idx_bytes, x, vals, idx, bp, u, v, y,
+                                 E, M, N, K, kmax, R, stream);
 }

@@ -22,6 +22,13 @@
 // stages x. Positions are checked against m_pat before x is indexed. Only
 // m_pat has to divide K: staging falls back to element loads when K is
 // not a multiple of the vector width. No sparse tensor cores yet.
+//
+// nm_matmul_g, the grouped-expert form (replaces repro/kernels/
+// grouped.py::nm_matmul_g, _kernel_nm_g, pallas_call at grouped.py:195):
+// the same kernel on a grid with the expert as its y dimension
+// (slab_common.cuh), one launch per bucket of E experts; at the MoE
+// decode shapes (M = 2 rows per expert) a GEMV per expert, bound by the
+// E experts' plane bytes.
 #include "slab_common.cuh"
 
 namespace slab {
@@ -36,7 +43,11 @@ nm_kernel(const T* __restrict__ x, const T* __restrict__ vals,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = row < N;
+  const size_t ex = blockIdx.y;               // expert (0 for a 2-D launch)
+  x += ex * M * K;
+  y += ex * M * N;
   const int per_row = (K / m_pat) * n_keep;   // stored entries per row
+  const size_t base = (ex * N + row) * per_row;   // the row's first entry
   // entry e is slot e % n_keep of group e / n_keep; its code is the
   // position inside the group. 2:4 and 4:8 take shifts, not a division.
   const bool pow2 = !(n_keep & (n_keep - 1)) && !(m_pat & (m_pat - 1));
@@ -46,9 +57,8 @@ nm_kernel(const T* __restrict__ x, const T* __restrict__ vals,
     return (pow2 ? (e >> ln) << lm : (e / n_keep) * m_pat) + q;
   };
   if (live) {
-    prefetch_l2(vals + (size_t)row * per_row, (size_t)per_row * sizeof(T),
-                lane);
-    prefetch_l2(idx + (size_t)row * per_row, (size_t)per_row, lane);
+    prefetch_l2(vals + base, (size_t)per_row * sizeof(T), lane);
+    prefetch_l2(idx + base, (size_t)per_row, lane);
   }
   for (int m0 = 0; m0 < M; m0 += MTP) {
     const int mt = min(MTP, M - m0);
@@ -59,10 +69,8 @@ nm_kernel(const T* __restrict__ x, const T* __restrict__ vals,
 #pragma unroll
     for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
     if (live) {
-      sparse_pass<T, int8_t, MTP>(acc, xk, vals + (size_t)row * per_row,
-                                  idx + (size_t)row * per_row,
-                                  (size_t)row * per_row, per_row, col_of,
-                                  lane);
+      sparse_pass<T, int8_t, MTP>(acc, xk, vals + base, idx + base, base,
+                                  per_row, col_of, lane);
       store_row<T, MTP>(acc, y, m0, mt, N, row, lane);
     }
   }
@@ -70,13 +78,13 @@ nm_kernel(const T* __restrict__ x, const T* __restrict__ vals,
 
 template <typename T>
 static int launch_nm(const void* x, const void* vals, const void* idx,
-                     void* y, int M, int N, int K, int n_keep, int m_pat,
-                     void* stream) {
+                     void* y, int E, int M, int N, int K, int n_keep,
+                     int m_pat, void* stream) {
   if (!aligned16(vals) || !aligned16(idx))
     return (int)cudaErrorMisalignedAddress;
   size_t smem = 0;
   const int mtp = pick_mtp(M, K, sizeof(T), &smem, 1);
-  const dim3 grid((N + kWarps - 1) / kWarps);
+  const dim3 grid((N + kWarps - 1) / kWarps, E);
   SLAB_DISPATCH_MTP(mtp, {
     auto kern = nm_kernel<T, MTP>;
     cudaError_t e = prepare(kern, smem);
@@ -88,6 +96,21 @@ static int launch_nm(const void* x, const void* vals, const void* idx,
   return (int)cudaGetLastError();
 }
 
+static int dispatch_nm(int dtype, const void* x, const void* vals,
+                       const void* idx, void* y, int E, int M, int N, int K,
+                       int n_keep, int m_pat, void* stream) {
+  if (E <= 0 || E > kMaxExperts || M <= 0 || N <= 0 || K <= 0 ||
+      m_pat <= 0 || K % m_pat || n_keep <= 0 || n_keep > m_pat)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_nm<float>(x, vals, idx, y, E, M, N, K, n_keep, m_pat,
+                            stream);
+  if (dtype == 1)
+    return launch_nm<__nv_bfloat16>(x, vals, idx, y, E, M, N, K, n_keep,
+                                    m_pat, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace slab
 
 // dtype: 0 = float32, 1 = bfloat16. Launch on ``stream``, allocate
@@ -95,14 +118,15 @@ static int launch_nm(const void* x, const void* vals, const void* idx,
 extern "C" int nm_matmul(int dtype, const void* x, const void* vals,
                          const void* idx, void* y, int M, int N, int K,
                          int n_keep, int m_pat, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || m_pat <= 0 || K % m_pat ||
-      n_keep <= 0 || n_keep > m_pat)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return slab::launch_nm<float>(x, vals, idx, y, M, N, K, n_keep, m_pat,
-                                  stream);
-  if (dtype == 1)
-    return slab::launch_nm<__nv_bfloat16>(x, vals, idx, y, M, N, K, n_keep,
-                                          m_pat, stream);
-  return (int)cudaErrorInvalidValue;
+  return slab::dispatch_nm(dtype, x, vals, idx, y, 1, M, N, K, n_keep, m_pat,
+                           stream);
+}
+
+// The grouped form: E experts, x (E, M, K), vals / idx (E, N, K/m, n),
+// y (E, M, N); one launch.
+extern "C" int nm_matmul_g(int dtype, const void* x, const void* vals,
+                           const void* idx, void* y, int E, int M, int N,
+                           int K, int n_keep, int m_pat, void* stream) {
+  return slab::dispatch_nm(dtype, x, vals, idx, y, E, M, N, K, n_keep, m_pat,
+                           stream);
 }

@@ -417,6 +417,15 @@ inline cudaError_t prepare(Kern kernel, size_t smem) {
   return cudaSuccess;
 }
 
+// Grouped-expert launches put the expert on the grid's y dimension (one
+// launch for a bucket of E experts; a 2-D launch has E = 1). A kernel
+// moves its per-expert operands x (E, M, K), y (E, M, N), u (E, R, N)
+// and v (E, R, K) to blockIdx.y's slice and addresses its weight planes
+// by the global row e·N + row of the stacked (E·N, ...) planes, from
+// their 16-byte aligned base, so a row's alignment is that of its global
+// row.
+constexpr int kMaxExperts = 65535;   // the grid's y limit
+
 // Run the statement(s) with a constexpr MTP equal to the runtime tile
 // width chosen by pick_mtp.
 #define SLAB_DISPATCH_MTP(mtp, ...)                            \

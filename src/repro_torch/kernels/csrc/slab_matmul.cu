@@ -58,6 +58,14 @@
 // Before staging, each warp asks L2 for its row's planes, so the passes
 // read from L2 rather than wait on device memory. N:M positions are
 // checked against m before x is indexed.
+//
+// slab_matmul_g and slab_nm_matmul_g, the grouped-expert forms (replace
+// repro/kernels/grouped.py::slab_matmul_g, _kernel_dense_g, pallas_call
+// at grouped.py:242, and ::slab_nm_matmul_g, _kernel_nm_full_g,
+// pallas_call at grouped.py:297): the same kernels on a grid with the
+// expert as its y dimension (slab_common.cuh), one launch per bucket of
+// E experts. At the MoE decode shapes (M = 2 rows per expert) each is a
+// GEMV per expert, bound by the E experts' plane bytes.
 #include "slab_common.cuh"
 
 namespace slab {
@@ -74,9 +82,15 @@ slab_dense_kernel(const T* __restrict__ x, const T* __restrict__ ws,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = row < N;
-  const uint32_t* bp_row = bp + (size_t)row * (K / 32);
+  const size_t ex = blockIdx.y;               // expert (0 for a 2-D launch)
+  x += ex * M * K;
+  y += ex * M * N;
+  u += ex * R * N;
+  v += ex * R * K;
+  const size_t grow = ex * N + row;           // row of the stacked planes
+  const uint32_t* bp_row = bp + grow * (K / 32);
   if (live) {
-    prefetch_l2(ws + (size_t)row * K, (size_t)K * sizeof(T), lane);
+    prefetch_l2(ws + grow * K, (size_t)K * sizeof(T), lane);
     prefetch_l2(bp_row, (size_t)K / 8, lane);
   }
 
@@ -100,7 +114,7 @@ slab_dense_kernel(const T* __restrict__ x, const T* __restrict__ ws,
         for (int m = 0; m < MTP; ++m) part[m] = 0.f;
         // W_S rides along with the first rank's pass
         column_pass<T, MTP>(acc, part, xs, xv, K, bp_row,
-                            r == 0 ? ws + (size_t)row * K : nullptr, lane);
+                            r == 0 ? ws + grow * K : nullptr, lane);
         const float ur = to_f32(u[(size_t)r * N + row]);
 #pragma unroll
         for (int m = 0; m < MTP; ++m) acc[m] += ur * part[m];
@@ -123,8 +137,15 @@ slab_nm_kernel(const T* __restrict__ x, const T* __restrict__ vals,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = row < N;
-  const uint32_t* bp_row = bp + (size_t)row * (K / 32);
+  const size_t ex = blockIdx.y;               // expert (0 for a 2-D launch)
+  x += ex * M * K;
+  y += ex * M * N;
+  u += ex * R * N;
+  v += ex * R * K;
+  const size_t grow = ex * N + row;           // row of the stacked planes
+  const uint32_t* bp_row = bp + grow * (K / 32);
   const int per_row = (K / m_pat) * n_keep;   // stored entries per row
+  const size_t base = grow * per_row;         // the row's first entry
   // entry e is slot e % n_keep of group e / n_keep; its code is the
   // position inside the group. 2:4 and 4:8 take shifts, not a division.
   const bool pow2 = !(n_keep & (n_keep - 1)) && !(m_pat & (m_pat - 1));
@@ -134,9 +155,8 @@ slab_nm_kernel(const T* __restrict__ x, const T* __restrict__ vals,
     return (pow2 ? (e >> ln) << lm : (e / n_keep) * m_pat) + p;
   };
   if (live) {
-    prefetch_l2(vals + (size_t)row * per_row, (size_t)per_row * sizeof(T),
-                lane);
-    prefetch_l2(idx + (size_t)row * per_row, (size_t)per_row, lane);
+    prefetch_l2(vals + base, (size_t)per_row * sizeof(T), lane);
+    prefetch_l2(idx + base, (size_t)per_row, lane);
     prefetch_l2(bp_row, (size_t)K / 8, lane);
   }
 
@@ -149,10 +169,8 @@ slab_nm_kernel(const T* __restrict__ x, const T* __restrict__ vals,
 #pragma unroll
     for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
     if (live)
-      sparse_pass<T, int8_t, MTP>(acc, xk, vals + (size_t)row * per_row,
-                                  idx + (size_t)row * per_row,
-                                  (size_t)row * per_row, per_row, col_of,
-                                  lane);
+      sparse_pass<T, int8_t, MTP>(acc, xk, vals + base, idx + base, base,
+                                  per_row, col_of, lane);
     for (int r = 0; r < R; ++r) {
       if (r > 0) {
         __syncthreads();
@@ -225,13 +243,13 @@ static int launch_lr(const void* x, const void* ws, const void* u,
 
 template <typename T>
 static int launch_dense(const void* x, const void* ws, const void* bp,
-                        const void* u, const void* v, void* y, int M, int N,
-                        int K, int R, void* stream) {
+                        const void* u, const void* v, void* y, int E, int M,
+                        int N, int K, int R, void* stream) {
   if (!aligned16(ws) || !aligned16(bp))
     return (int)cudaErrorMisalignedAddress;
   size_t smem = 0;
   const int mtp = pick_mtp(M, K, sizeof(T), &smem);
-  const dim3 grid((N + kWarps - 1) / kWarps);
+  const dim3 grid((N + kWarps - 1) / kWarps, E);
   SLAB_DISPATCH_MTP(mtp, {
     auto kern = slab_dense_kernel<T, MTP>;
     cudaError_t e = prepare(kern, smem);
@@ -246,13 +264,13 @@ static int launch_dense(const void* x, const void* ws, const void* bp,
 template <typename T>
 static int launch_nm(const void* x, const void* vals, const void* idx,
                      const void* bp, const void* u, const void* v, void* y,
-                     int M, int N, int K, int n_keep, int m_pat, int R,
+                     int E, int M, int N, int K, int n_keep, int m_pat, int R,
                      void* stream) {
   if (!aligned16(vals) || !aligned16(idx) || !aligned16(bp))
     return (int)cudaErrorMisalignedAddress;
   size_t smem = 0;
   const int mtp = pick_mtp(M, K, sizeof(T), &smem);
-  const dim3 grid((N + kWarps - 1) / kWarps);
+  const dim3 grid((N + kWarps - 1) / kWarps, E);
   SLAB_DISPATCH_MTP(mtp, {
     auto kern = slab_nm_kernel<T, MTP>;
     cudaError_t e = prepare(kern, smem);
@@ -385,6 +403,37 @@ static int launch_binlr(const void* x, const void* bp, const void* u,
   return (int)cudaGetLastError();
 }
 
+static int dispatch_dense(int dtype, const void* x, const void* ws,
+                          const void* bp, const void* u, const void* v,
+                          void* y, int E, int M, int N, int K, int R,
+                          void* stream) {
+  if (E <= 0 || E > kMaxExperts || M <= 0 || N <= 0 || K <= 0 || K % 32 ||
+      R <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_dense<float>(x, ws, bp, u, v, y, E, M, N, K, R, stream);
+  if (dtype == 1)
+    return launch_dense<__nv_bfloat16>(x, ws, bp, u, v, y, E, M, N, K, R,
+                                       stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+static int dispatch_nm(int dtype, const void* x, const void* vals,
+                       const void* idx, const void* bp, const void* u,
+                       const void* v, void* y, int E, int M, int N, int K,
+                       int n_keep, int m_pat, int R, void* stream) {
+  if (E <= 0 || E > kMaxExperts || M <= 0 || N <= 0 || K <= 0 || K % 32 ||
+      R <= 0 || m_pat <= 0 || K % m_pat || n_keep <= 0 || n_keep > m_pat)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_nm<float>(x, vals, idx, bp, u, v, y, E, M, N, K, n_keep,
+                            m_pat, R, stream);
+  if (dtype == 1)
+    return launch_nm<__nv_bfloat16>(x, vals, idx, bp, u, v, y, E, M, N, K,
+                                    n_keep, m_pat, R, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace slab
 
 // dtype: 0 = float32, 1 = bfloat16. Launch on ``stream``, allocate
@@ -393,30 +442,36 @@ extern "C" int slab_matmul(int dtype, const void* x, const void* ws,
                            const void* bp, const void* u, const void* v,
                            void* y, int M, int N, int K, int R,
                            void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 32 || R <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return slab::launch_dense<float>(x, ws, bp, u, v, y, M, N, K, R, stream);
-  if (dtype == 1)
-    return slab::launch_dense<__nv_bfloat16>(x, ws, bp, u, v, y, M, N, K, R,
-                                             stream);
-  return (int)cudaErrorInvalidValue;
+  return slab::dispatch_dense(dtype, x, ws, bp, u, v, y, 1, M, N, K, R,
+                              stream);
 }
 
 extern "C" int slab_nm_matmul(int dtype, const void* x, const void* vals,
                               const void* idx, const void* bp, const void* u,
                               const void* v, void* y, int M, int N, int K,
                               int n_keep, int m_pat, int R, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 32 || R <= 0 || m_pat <= 0 ||
-      K % m_pat || n_keep <= 0 || n_keep > m_pat)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return slab::launch_nm<float>(x, vals, idx, bp, u, v, y, M, N, K, n_keep,
-                                  m_pat, R, stream);
-  if (dtype == 1)
-    return slab::launch_nm<__nv_bfloat16>(x, vals, idx, bp, u, v, y, M, N, K,
-                                          n_keep, m_pat, R, stream);
-  return (int)cudaErrorInvalidValue;
+  return slab::dispatch_nm(dtype, x, vals, idx, bp, u, v, y, 1, M, N, K,
+                           n_keep, m_pat, R, stream);
+}
+
+// The grouped forms: E experts, every operand stacked on a leading
+// expert dim (x (E, M, K), ws (E, N, K) or vals / idx (E, N, K/m, n),
+// bp (E, N, K/32), u (E, R, N), v (E, R, K), y (E, M, N)); one launch.
+extern "C" int slab_matmul_g(int dtype, const void* x, const void* ws,
+                             const void* bp, const void* u, const void* v,
+                             void* y, int E, int M, int N, int K, int R,
+                             void* stream) {
+  return slab::dispatch_dense(dtype, x, ws, bp, u, v, y, E, M, N, K, R,
+                              stream);
+}
+
+extern "C" int slab_nm_matmul_g(int dtype, const void* x, const void* vals,
+                                const void* idx, const void* bp,
+                                const void* u, const void* v, void* y, int E,
+                                int M, int N, int K, int n_keep, int m_pat,
+                                int R, void* stream) {
+  return slab::dispatch_nm(dtype, x, vals, idx, bp, u, v, y, E, M, N, K,
+                           n_keep, m_pat, R, stream);
 }
 
 extern "C" int slab_lr_matmul(int dtype, const void* x, const void* ws,

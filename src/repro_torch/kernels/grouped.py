@@ -1,0 +1,192 @@
+"""Grouped-expert SLaB linears: the hand-written CUDA kernels and their
+plain PyTorch versions. Each computes, for every expert e of a bucket,
+what its per-linear counterpart computes on x[e] and expert e's planes:
+
+    slab_ell_matmul_g  #1 per expert  (csrc/ell.cu)
+    nm_matmul_g        #8 per expert  (csrc/nm_sparse.cu)
+    slab_matmul_g      #3 per expert  (csrc/slab_matmul.cu)
+    slab_nm_matmul_g   #2 per expert  (csrc/slab_matmul.cu)
+
+Replace ``repro/kernels/grouped.py::{slab_ell_matmul_g, nm_matmul_g,
+slab_matmul_g, slab_nm_matmul_g}`` (TPU). A CUDA kernel here is its
+per-linear kernel launched once for the whole bucket with the expert as
+the grid's y dimension, never E launches. Operands use the kernel
+layout with a leading expert dim: x (E, M, K), u (E, R, N), v (E, R, K),
+planes (E, N, ...); ``kernels.ops`` maps the public layouts onto it.
+The plain versions loop over the experts through the per-linear plain
+versions.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import ell as ell_k
+from repro_torch.kernels import nm_sparse as nm_k
+from repro_torch.kernels import slab_matmul as slab_k
+
+SLAB_ELL_G = build.CudaKernel(
+    "slab_ell_matmul_g", "ell.cu",
+    "src/repro/kernels/grouped.py:128 (slab_ell_matmul_g, pallas_call :142)")
+NM_G = build.CudaKernel(
+    "nm_matmul_g", "nm_sparse.cu",
+    "src/repro/kernels/grouped.py:183 (nm_matmul_g, pallas_call :195)")
+SLAB_G = build.CudaKernel(
+    "slab_matmul_g", "slab_matmul.cu",
+    "src/repro/kernels/grouped.py:230 (slab_matmul_g, pallas_call :242)")
+SLAB_NM_G = build.CudaKernel(
+    "slab_nm_matmul_g", "slab_matmul.cu",
+    "src/repro/kernels/grouped.py:280 (slab_nm_matmul_g, pallas_call :297)")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SLAB_ELL_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _P]
+_NM_ARGS = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_SLAB_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_SLAB_NM_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 _P]
+
+
+def _per_expert(plain, x, *planes) -> torch.Tensor:
+    """Stack ``plain`` over the experts; non-tensor arguments pass as is."""
+    def at(a, e):
+        return a[e] if isinstance(a, torch.Tensor) else a
+    return torch.stack([plain(x[e], *(at(a, e) for a in planes))
+                        for e in range(x.shape[0])])
+
+
+def _check_x(x):
+    e, m, k = x.shape
+    build.check_operand(x, "x", x.dtype, (e, m, k), x.device)
+    return e, m, k
+
+
+def _check_binary(x, b_packed, u, v, n: int):
+    """The sign words and rank stacks of the binary kernels."""
+    e, m, k = _check_x(x)
+    r = u.shape[1]
+    dev = x.device
+    if k % 32:
+        raise ValueError(f"K={k} is not a multiple of 32")
+    build.check_operand(b_packed, "b_packed", torch.int32, (e, n, k // 32),
+                        dev)
+    build.check_operand(u, "u", x.dtype, (e, r, n), dev)
+    build.check_operand(v, "v", x.dtype, (e, r, k), dev)
+    build.check_aligned(b_packed, "b_packed")
+    return e, m, k, r
+
+
+def _check_nm(x, vals, idx, m_pat: int):
+    e, _, k = x.shape
+    n, n_grp, n_keep = vals.shape[1:]
+    if n_grp * m_pat != k:
+        raise ValueError(f"{n_grp} groups of {m_pat} do not cover K={k}")
+    build.check_operand(vals, "vals", x.dtype, (e, n, n_grp, n_keep),
+                        x.device)
+    build.check_operand(idx, "idx", torch.int8, (e, n, n_grp, n_keep),
+                        x.device)
+    build.check_aligned(vals, "vals")
+    build.check_aligned(idx, "idx")
+    return n, n_keep
+
+
+def slab_ell_matmul_g_plain(x, vals, idx, b_packed, u, v) -> torch.Tensor:
+    return _per_expert(ell_k.slab_ell_matmul_plain, x, vals, idx, b_packed,
+                       u, v)
+
+
+def slab_ell_matmul_g(x, vals, idx, b_packed, u, v) -> torch.Tensor:
+    """Launch the grouped ELL SLaB kernel (one launch for the bucket)."""
+    n, k_max = vals.shape[1:]
+    e, m, k, r = _check_binary(x, b_packed, u, v, n)
+    dev = x.device
+    build.check_operand(vals, "vals", x.dtype, (e, n, k_max), dev)
+    if idx.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"ELL ids must be int16/int32 views, not {idx.dtype}")
+    build.check_operand(idx, "idx", idx.dtype, (e, n, k_max), dev)
+    build.check_aligned(vals, "vals")
+    build.check_aligned(idx, "idx")
+    y = torch.empty((e, m, n), dtype=x.dtype, device=dev)
+    if m == 0:
+        return y
+    fn = build.function(SLAB_ELL_G.source, SLAB_ELL_G.name, _SLAB_ELL_ARGS)
+    err = fn(build.dtype_code(x.dtype), idx.element_size(), x.data_ptr(),
+             vals.data_ptr(), idx.data_ptr(), b_packed.data_ptr(),
+             u.data_ptr(), v.data_ptr(), y.data_ptr(), e, m, n, k, k_max, r,
+             build.stream_ptr(dev))
+    build.check_launch(err, SLAB_ELL_G.name,
+                       f"E={e} M={m} N={n} K={k} K_max={k_max} R={r}")
+    SLAB_ELL_G.launches += 1
+    return y
+
+
+def nm_matmul_g_plain(x, vals, idx, m_pat: int) -> torch.Tensor:
+    return _per_expert(nm_k.nm_matmul_plain, x, vals, idx, m_pat)
+
+
+def nm_matmul_g(x, vals, idx, m_pat: int) -> torch.Tensor:
+    """Launch the grouped N:M kernel (one launch for the bucket)."""
+    e, m, k = _check_x(x)
+    n, n_keep = _check_nm(x, vals, idx, m_pat)
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    fn = build.function(NM_G.source, NM_G.name, _NM_ARGS)
+    err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
+             idx.data_ptr(), y.data_ptr(), e, m, n, k, n_keep, m_pat,
+             build.stream_ptr(x.device))
+    build.check_launch(err, NM_G.name,
+                       f"E={e} M={m} N={n} K={k} {n_keep}:{m_pat}")
+    NM_G.launches += 1
+    return y
+
+
+def slab_matmul_g_plain(x, w_s, b_packed, u, v) -> torch.Tensor:
+    return _per_expert(slab_k.slab_matmul_plain, x, w_s, b_packed, u, v)
+
+
+def slab_matmul_g(x, w_s, b_packed, u, v) -> torch.Tensor:
+    """Launch the grouped dense-masked SLaB kernel (one launch)."""
+    n = w_s.shape[1]
+    e, m, k, r = _check_binary(x, b_packed, u, v, n)
+    build.check_operand(w_s, "w_s", x.dtype, (e, n, k), x.device)
+    build.check_aligned(w_s, "w_s")
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    fn = build.function(SLAB_G.source, SLAB_G.name, _SLAB_ARGS)
+    err = fn(build.dtype_code(x.dtype), x.data_ptr(), w_s.data_ptr(),
+             b_packed.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(),
+             e, m, n, k, r, build.stream_ptr(x.device))
+    build.check_launch(err, SLAB_G.name, f"E={e} M={m} N={n} K={k} R={r}")
+    SLAB_G.launches += 1
+    return y
+
+
+def slab_nm_matmul_g_plain(x, vals, idx, m_pat: int, b_packed, u,
+                           v) -> torch.Tensor:
+    return _per_expert(slab_k.slab_nm_matmul_plain, x, vals, idx, m_pat,
+                       b_packed, u, v)
+
+
+def slab_nm_matmul_g(x, vals, idx, m_pat: int, b_packed, u,
+                     v) -> torch.Tensor:
+    """Launch the grouped N:M SLaB kernel (one launch for the bucket)."""
+    n = vals.shape[1]
+    e, m, k, r = _check_binary(x, b_packed, u, v, n)
+    _, n_keep = _check_nm(x, vals, idx, m_pat)
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    fn = build.function(SLAB_NM_G.source, SLAB_NM_G.name, _SLAB_NM_ARGS)
+    err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
+             idx.data_ptr(), b_packed.data_ptr(), u.data_ptr(), v.data_ptr(),
+             y.data_ptr(), e, m, n, k, n_keep, m_pat, r,
+             build.stream_ptr(x.device))
+    build.check_launch(err, SLAB_NM_G.name,
+                       f"E={e} M={m} N={n} K={k} {n_keep}:{m_pat} R={r}")
+    SLAB_NM_G.launches += 1
+    return y

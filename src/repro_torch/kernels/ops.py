@@ -5,6 +5,10 @@ flattened; ``u`` arrives as (N,) or (N, R) and ``v`` as (K,) or (K, R)
 and both are canonicalised to the kernels' row-major rank stacks
 (R, N) / (R, K); accumulation is fp32 and the result has x's dtype.
 
+The grouped-expert wrappers (``*_g``) take x (E, M, K) and planes
+stacked on a leading expert dim, with u (E, N, R) / v (E, K, R)
+canonicalised to (E, R, N) / (E, R, K); one kernel launch serves all E.
+
 A tensor on the CPU takes the kernel's plain PyTorch version; a CUDA
 tensor launches the hand-written kernel, which raises on anything it
 does not take. There is no fallback from one to the other.
@@ -16,12 +20,14 @@ import torch
 from repro_torch.kernels import binlr as binlr_k
 from repro_torch.kernels import ell as ell_k
 from repro_torch.kernels import flash_decode as fd_k
+from repro_torch.kernels import grouped as g_k
 from repro_torch.kernels import nm_sparse as nm_k
 from repro_torch.kernels import slab_matmul as slab_k
 
 KERNELS = (ell_k.SLAB_ELL, slab_k.SLAB_NM, slab_k.SLAB_DENSE, ell_k.ELL,
            ell_k.ELL_LR, slab_k.SLAB_LR, slab_k.SLAB_NM_LR, nm_k.NM,
-           binlr_k.BINLR, fd_k.FLASH_DECODE, fd_k.FLASH_DECODE_PAGED)
+           binlr_k.BINLR, fd_k.FLASH_DECODE, fd_k.FLASH_DECODE_PAGED,
+           g_k.SLAB_ELL_G, g_k.NM_G, g_k.SLAB_G, g_k.SLAB_NM_G)
 
 
 def reset_launch_counts() -> None:
@@ -130,6 +136,48 @@ def slab_nm_lr_matmul(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
     fn = (slab_k.slab_nm_lr_matmul_plain if _on_cpu(x)
           else slab_k.slab_nm_lr_matmul)
     return fn(x2, vals, idx, m_pat, u2, v2).reshape(*x.shape[:-1], -1)
+
+
+def _rank_stack_g(u: torch.Tensor, v: torch.Tensor, dtype):
+    """Expert-stacked (E, N, R) u / (E, K, R) v -> contiguous (E, R, N),
+    (E, R, K)."""
+    return (u.transpose(1, 2).to(dtype).contiguous(),
+            v.transpose(1, 2).to(dtype).contiguous())
+
+
+def slab_ell_matmul_g(x, vals, idx, b_packed, u, v) -> torch.Tensor:
+    """Grouped-expert slab_ell_matmul: x (E, M, K), vals / idx (E, N,
+    K_max), b_packed (E, N, K/32) -> (E, M, N)."""
+    u2, v2 = _rank_stack_g(u, v, x.dtype)
+    x = x.contiguous()
+    fn = (g_k.slab_ell_matmul_g_plain if _on_cpu(x)
+          else g_k.slab_ell_matmul_g)
+    return fn(x, vals.to(x.dtype), idx, b_packed, u2, v2)
+
+
+def nm_matmul_g(x, vals, idx, m_pat: int) -> torch.Tensor:
+    """Grouped-expert nm_matmul: vals / idx (E, N, K/m, n)."""
+    x = x.contiguous()
+    fn = g_k.nm_matmul_g_plain if _on_cpu(x) else g_k.nm_matmul_g
+    return fn(x, vals.to(x.dtype), idx, m_pat)
+
+
+def slab_matmul_g(x, w_s, b_packed, u, v) -> torch.Tensor:
+    """Grouped-expert slab_matmul: w_s (E, N, K)."""
+    u2, v2 = _rank_stack_g(u, v, x.dtype)
+    x = x.contiguous()
+    fn = g_k.slab_matmul_g_plain if _on_cpu(x) else g_k.slab_matmul_g
+    return fn(x, w_s.to(x.dtype), b_packed, u2, v2)
+
+
+def slab_nm_matmul_g(x, vals, idx, m_pat: int, b_packed, u,
+                     v) -> torch.Tensor:
+    """Grouped-expert slab_nm_matmul: vals / idx (E, N, K/m, n)."""
+    u2, v2 = _rank_stack_g(u, v, x.dtype)
+    x = x.contiguous()
+    fn = (g_k.slab_nm_matmul_g_plain if _on_cpu(x)
+          else g_k.slab_nm_matmul_g)
+    return fn(x, vals.to(x.dtype), idx, m_pat, b_packed, u2, v2)
 
 
 def flash_decode_attention(q, k, v, lengths, k_scale=None, v_scale=None,

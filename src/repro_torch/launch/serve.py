@@ -10,6 +10,7 @@ paged KV cache (``--kv-quant`` for an int8 cache).
       --pattern 2:4 --packed --device cpu
   python -m repro_torch.launch.serve --arch stablelm_12b --packed --engine \
       --kv-quant --chaos 0 --device cpu
+  python -m repro_torch.launch.serve --arch phi3_5_moe --packed --device cpu
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 refuses to start.
@@ -177,6 +178,7 @@ def main(argv: Optional[list] = None):
                 flag = "  <-- exceeds dense" if pb > db else ""
                 print(f"  bytes/{var}: {pb / 1e3:.1f} kB packed vs "
                       f"{db / 1e3:.1f} kB dense ({pb / db:.2f}x){flag}")
+            print_experts(params, rep)
 
     if args.engine:
         serve_engine(cfg, params, args, dev)
@@ -193,6 +195,26 @@ def main(argv: Optional[list] = None):
     print(f"served {args.batch} seqs x ({args.prompt_len}+{args.gen_len}) "
           f"tokens in {dt:.1f}s ({n_tok / dt:.1f} tok/s)")
     print("sample generation:", gen[0, :16].cpu().numpy())
+
+
+def print_experts(params: dict, rep) -> None:
+    """The packed MoE leaves: experts per variant, experts left dense,
+    and each leaf's groups (one grouped-kernel launch each)."""
+    from repro_torch.core.packed_model import expert_stacks
+    stacks = expert_stacks(params)
+    if not stacks:
+        return
+    counts: dict = {}
+    for _, _, eps in stacks:
+        for var, c in eps.variant_counts().items():
+            counts[var] = counts.get(var, 0) + c
+    n_groups = [len(eps.groups) for _, _, eps in stacks]
+    print(f"experts: {len(stacks)} leaves ["
+          + " ".join(f"{v}={c}" for v, c in sorted(counts.items()))
+          + f"]; dense experts: {len(rep.fallback)}; groups per leaf "
+          f"{min(n_groups)}-{max(n_groups)}")
+    for l, path, eps in stacks:
+        print(f"  L{l}/{path}: {len(eps.groups)} groups {eps.describe()}")
 
 
 def engine_trace(cfg, args):

@@ -5,7 +5,7 @@ calibration statistics to the compression pipeline.
 
 Taps: ``core.packed_model.linear(x, w, tap="wq")`` reports its input
 here when a capture is active; modules push ``tap_scope`` prefixes
-("attn", "mlp") so full tap names equal ``core.pipeline.linear_paths``.
+("attn", "mlp", "moe") so full tap names equal ``core.pipeline.linear_paths``.
 PyTorch runs eagerly, so every tap sees concrete values (the reference
 must refuse traced ones).
 """
@@ -50,37 +50,58 @@ class TapCapture:
         self._hess_names = (None if hessian_names is None
                             else set(hessian_names))
         self._sumsq: Dict[str, torch.Tensor] = {}
+        self._count: Dict[str, Any] = {}
         self._hess: Dict[str, torch.Tensor] = {}
         # taps fed by the same tensor in one forward (wq/wk/wv share their
         # input, so do w_gate/w_up) pay one Gram; a few FIFO slots suffice
         # because such taps fire back to back
-        self._gram_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._gram_cache: Dict[Tuple[int, str],
+                               Tuple[torch.Tensor, torch.Tensor]] = {}
         self._gram_cache_slots = 4
 
     def _want_hess(self, name: str) -> bool:
         return self.want_hessian and (self._hess_names is None
                                       or name in self._hess_names)
 
-    def _gram(self, x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-        hit = self._gram_cache.get(id(x))
+    def _gram(self, x: torch.Tensor, kind: str, compute) -> torch.Tensor:
+        key = (id(x), kind)
+        hit = self._gram_cache.get(key)
         if hit is not None and hit[0] is x:
             return hit[1]
-        g = f.T @ f
+        g = compute()
         while len(self._gram_cache) >= self._gram_cache_slots:
             self._gram_cache.pop(next(iter(self._gram_cache)))
-        self._gram_cache[id(x)] = (x, g)
+        self._gram_cache[key] = (x, g)
         return g
+
+    def _add(self, store: dict, name: str, val) -> None:
+        prev = store.get(name)
+        store[name] = val if prev is None else prev + val
 
     def record(self, name: str, x: torch.Tensor) -> None:
         """x (..., D_in): all leading dims are token dims."""
         f = x.reshape(-1, x.shape[-1]).float()
-        ss = (f * f).sum(0)
-        prev = self._sumsq.get(name)
-        self._sumsq[name] = ss if prev is None else prev + ss
+        self._add(self._sumsq, name, (f * f).sum(0))
+        self._add(self._count, name, f.shape[0])
         if self._want_hess(name):
-            g = self._gram(x, f)
-            prev = self._hess.get(name)
-            self._hess[name] = g if prev is None else prev + g
+            self._add(self._hess, name,
+                      self._gram(x, "flat", lambda: f.T @ f))
+
+    def record_stacked(self, name: str, x: torch.Tensor,
+                       stack_axis: int) -> None:
+        """x with one stacked dim (experts) at ``stack_axis``; the other
+        leading dims are token dims, the last is D_in. Norms are (E, D),
+        counts (E,) nonzero rows (an unused capacity slot is a zero row
+        and does not count), Hessians (E, D, D)."""
+        xe = torch.movedim(x, stack_axis, 0)
+        e = xe.shape[0]
+        f = xe.reshape(e, -1, xe.shape[-1]).float()
+        self._add(self._sumsq, name, (f * f).sum(1))
+        self._add(self._count, name, (f != 0).any(-1).sum(1))
+        if self._want_hess(name):
+            self._add(self._hess, name, self._gram(
+                x, f"stk{stack_axis}",
+                lambda: torch.einsum("eti,etj->eij", f, f)))
 
     def has(self, name: str) -> bool:
         return name in self._sumsq
@@ -90,6 +111,11 @@ class TapCapture:
 
     def hessian(self, name: str) -> Optional[torch.Tensor]:
         return self._hess.get(name)
+
+    def token_count(self, name: str):
+        """Recorded token rows: an int for flat taps, an (E,) tensor of
+        per-expert dispatched counts for stacked taps."""
+        return self._count.get(name, 0)
 
 
 @contextlib.contextmanager
@@ -115,16 +141,31 @@ def tap_scope(prefix: str):
         stack.pop()
 
 
+def _full_tap_name(leaf: str) -> str:
+    pre = _tap_prefix()
+    return ".".join(pre + [leaf]) if pre else leaf
+
+
 def tap_record(leaf: str, x: torch.Tensor) -> None:
     """Report a linear's input under the current scope. No-op unless a
     capture is active."""
     caps = _tap_captures()
     if not caps:
         return
-    pre = _tap_prefix()
-    name = ".".join(pre + [leaf]) if pre else leaf
+    name = _full_tap_name(leaf)
     for cap in caps:
         cap.record(name, x)
+
+
+def tap_record_stacked(leaf: str, x: torch.Tensor, stack_axis: int) -> None:
+    """Per-expert variant of ``tap_record``: ``stack_axis`` indexes the
+    expert dim."""
+    caps = _tap_captures()
+    if not caps:
+        return
+    name = _full_tap_name(leaf)
+    for cap in caps:
+        cap.record_stacked(name, x, stack_axis)
 
 
 # ------------------------------------------------------------------
@@ -133,8 +174,8 @@ def tap_record(leaf: str, x: torch.Tensor) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """One architecture (mirror of the reference's ArchConfig; only the
-    dense family is served by this port so far)."""
+    """One architecture (mirror of the reference's ArchConfig; the port
+    serves the dense and moe families)."""
 
     name: str
     family: str

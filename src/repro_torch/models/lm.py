@@ -1,8 +1,11 @@
-"""Language model assembly, dense family (port of ``repro.models.lm``).
+"""Language model assembly, dense and moe families (port of
+``repro.models.lm``).
 
 Params are a plain dict: ``embed`` (V, D), ``layers`` — a list with one
 dict per layer ({attn_norm, mlp_norm, attn: {wq, wk, wv, wo}, mlp:
-{w_gate, w_up, w_down}}), ``final_norm`` and ``lm_head`` (D, V). Where
+{w_gate, w_up, w_down}}; the moe family holds ``moe``: {router, w_gate,
+w_up, w_down} with a leading expert dim in place of ``mlp``),
+``final_norm`` and ``lm_head`` (D, V). Where
 the reference scans stacked layers with ``lax.scan``, this port loops
 over the list in Python. Linear weights are (D_in, D_out); a linear may
 also be a ``core.packed_model.PackedLinear``. ``decode_step`` runs on a
@@ -19,6 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
                                        positions_for, rms_norm,
                                        softmax_xent, tap_scope)
@@ -27,8 +31,29 @@ AUX_LOSS_WEIGHT = 0.01
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
+
+
+def _init_ffn(cfg: ArchConfig, gen: torch.Generator, dev) -> dict:
+    if cfg.family == "moe":
+        return {"moe": moe_lib.init_moe(cfg, gen, dev)}
+    return {"mlp": mlp_lib.init_mlp(cfg, gen, dev)}
+
+
+def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's feed-forward half on the residual stream h: the MLP,
+    or the MoE layer with its aux loss, on rms_norm(h). Returns (h + y,
+    aux), aux None for the MLP."""
+    hin = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.family == "moe":
+        with tap_scope("moe"):
+            y, aux = moe_lib.moe_ffn(cfg, lp["moe"], hin)
+        return h + y, aux
+    with tap_scope("mlp"):
+        y = mlp_lib.mlp(cfg, lp["mlp"], hin)
+    return h + y, None
 
 
 def init(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
@@ -42,7 +67,7 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
     layers = [{"attn_norm": ones(), "mlp_norm": ones(),
                "attn": attn_lib.init_attention(cfg, gen, dev),
-               "mlp": mlp_lib.init_mlp(cfg, gen, dev)}
+               **_init_ffn(cfg, gen, dev)}
               for _ in range(cfg.n_layers)]
     params = {"layers": layers, "final_norm": ones(),
               "embed": embed_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype,
@@ -61,11 +86,10 @@ def _layer_fwd(cfg: ArchConfig, params: dict, lp: dict, idx: int,
         a = attn_lib.multihead_attention(
             cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
             positions)
-    h = h + a
-    with tap_scope("mlp"):
-        y = mlp_lib.mlp(cfg, lp["mlp"],
-                        rms_norm(h, lp["mlp_norm"], cfg.norm_eps))
-    return h + y, torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = _ffn(cfg, lp, h + a)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def embed_inputs(cfg: ArchConfig, params: dict,
@@ -129,11 +153,8 @@ def _layer_decode(cfg: ArchConfig, lp: dict, h: torch.Tensor,
         a, kc = attn_lib.decode_attention(
             cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
             kv_l, positions)
-    h = h + a
-    with tap_scope("mlp"):
-        y = mlp_lib.mlp(cfg, lp["mlp"],
-                        rms_norm(h, lp["mlp_norm"], cfg.norm_eps))
-    return h + y, kc
+    h, _ = _ffn(cfg, lp, h + a)
+    return h, kc
 
 
 @torch.no_grad()
@@ -160,11 +181,8 @@ def _layer_decode_paged(cfg: ArchConfig, lp: dict, h: torch.Tensor,
         a, pool_l = attn_lib.paged_decode_attention(
             cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
             pool_l, block_tables, lengths, positions, active)
-    h = h + a
-    with tap_scope("mlp"):
-        y = mlp_lib.mlp(cfg, lp["mlp"],
-                        rms_norm(h, lp["mlp_norm"], cfg.norm_eps))
-    return h + y, pool_l
+    h, _ = _ffn(cfg, lp, h + a)
+    return h, pool_l
 
 
 @torch.no_grad()

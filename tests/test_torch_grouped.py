@@ -1,0 +1,326 @@
+"""The port's grouped-expert layer against the reference on identical
+numpy inputs, on the CPU:
+
+- the plain versions of the four grouped kernels (#14 slab_ell_matmul_g,
+  #15 nm_matmul_g, #16 slab_matmul_g, #17 slab_nm_matmul_g) against the
+  reference's ``ops.*_g`` run in interpret mode, f32 at rel < 1e-5;
+- ``pack_expert_stack`` byte-identical to the reference's (groups in the
+  same order, members, dense members, every plane), and the reference's
+  own bucketing / dense-member / fast-path cases;
+- ``pack_model`` on tuple decs: experts counted per variant, dense
+  experts named;
+- ``packed_matmul_grouped`` raises for the five variants whose grouped
+  kernel is still to port.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import packed_model as ref_pm
+from repro.core.slab import SLaBDecomposition as RefDec
+from repro.kernels import ops as ref_ops
+from repro_torch import bridge
+from repro_torch.core import packing, sparsity
+from repro_torch.core.packed_model import (ExpertPackedStack, expert_matmul,
+                                           pack_expert_stack)
+from repro_torch.core.slab import SLaBDecomposition, reconstruct
+from repro_torch.kernels import ops
+
+
+def _rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _randn(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+# ------------------------------------------------- grouped kernels (#14-#17)
+
+N, K = 48, 64
+
+
+def _expert_planes(rng, e, rank, pattern=None, wide_ids=False):
+    """Per-expert SLaB planes from numpy, packed by the port's packers
+    (the reference reads their numpy views)."""
+    w = torch.from_numpy(_randn(rng, e, N, K, scale=0.1))
+    score = torch.from_numpy(np.abs(_randn(rng, e, N, K)))
+    signs = torch.from_numpy(np.where(_randn(rng, e, N, K) >= 0, 1, -1)
+                             .astype(np.int8))
+    out = {"u": torch.from_numpy(_randn(rng, e, N, rank, scale=.2)),
+           "v": torch.from_numpy(_randn(rng, e, K, rank, scale=.2)),
+           "b": torch.stack([packing.pack_sign_bits(signs[i])
+                             for i in range(e)]),
+           "dense": torch.where(score > 0.7, w, 0.0)}
+    if pattern:
+        nn, mm = sparsity.parse_pattern(pattern)
+        nms = [packing.pack_nm(torch.where(sparsity.nm_mask(score[i], nn, mm),
+                                           w[i], 0.0), nn, mm, strict=True)
+               for i in range(e)]
+        out["nm"] = (torch.stack([p.values for p in nms]),
+                     torch.stack([p.indices for p in nms]), mm)
+    else:
+        ws = torch.where(score > 0.9, w, 0.0)
+        k_max = max(packing.ell_row_nnz_max(ws[i]) for i in range(e))
+        ells = [packing.ell_pack(ws[i], nnz=k_max) for i in range(e)]
+        idx = torch.stack([p.indices for p in ells])
+        if wide_ids:
+            idx = packing.as_unsigned(idx).int()
+        out["ell"] = (torch.stack([p.values for p in ells]), idx)
+    return out
+
+
+def _np_ids(idx: torch.Tensor) -> np.ndarray:
+    """The reference's unsigned ELL ids of the port's int16/int32 view."""
+    a = idx.numpy()
+    return a.view(np.uint16 if a.dtype == np.int16 else np.uint32)
+
+
+CASES = [  # (kernel, E, M, rank, pattern or id width)
+    ("slab_ell", 1, 1, 1, "u16"), ("slab_ell", 3, 5, 3, "u16"),
+    ("slab_ell", 4, 5, 1, "u32"),
+    ("nm", 1, 1, 1, "2:4"), ("nm", 3, 5, 1, "4:8"), ("nm", 4, 5, 1, "2:4"),
+    ("slab", 1, 1, 1, None), ("slab", 3, 5, 3, None), ("slab", 4, 1, 1, None),
+    ("slab_nm", 1, 1, 1, "2:4"), ("slab_nm", 3, 5, 3, "4:8"),
+    ("slab_nm", 4, 5, 1, "2:4"),
+]
+
+
+@pytest.mark.parametrize("kernel,e,m,rank,opt", CASES,
+                         ids=lambda c: str(c))
+def test_grouped_plain_matches_reference_interpret(kernel, e, m, rank, opt):
+    rng = np.random.default_rng(e * 10 + m + rank)
+    pattern = opt if opt and ":" in opt else None
+    p = _expert_planes(rng, e, rank, pattern, wide_ids=opt == "u32")
+    x = torch.from_numpy(_randn(rng, e, m, K))
+    xr, ur, vr = jnp.asarray(x.numpy()), jnp.asarray(p["u"].numpy()), \
+        jnp.asarray(p["v"].numpy())
+    br = jnp.asarray(p["b"].numpy().view(np.uint32))
+    if kernel == "slab_ell":
+        vals, idx = p["ell"]
+        got = ops.slab_ell_matmul_g(x, vals, idx, p["b"], p["u"], p["v"])
+        want = ref_ops.slab_ell_matmul_g(
+            xr, jnp.asarray(vals.numpy()), jnp.asarray(_np_ids(idx)), br, ur,
+            vr, interpret=True)
+    elif kernel == "nm":
+        vals, idx, mm = p["nm"]
+        got = ops.nm_matmul_g(x, vals, idx, mm)
+        want = ref_ops.nm_matmul_g(xr, jnp.asarray(vals.numpy()),
+                                   jnp.asarray(idx.numpy()), mm,
+                                   interpret=True)
+    elif kernel == "slab":
+        got = ops.slab_matmul_g(x, p["dense"], p["b"], p["u"], p["v"])
+        want = ref_ops.slab_matmul_g(xr, jnp.asarray(p["dense"].numpy()), br,
+                                     ur, vr, interpret=True)
+    else:
+        vals, idx, mm = p["nm"]
+        got = ops.slab_nm_matmul_g(x, vals, idx, mm, p["b"], p["u"], p["v"])
+        want = ref_ops.slab_nm_matmul_g(
+            xr, jnp.asarray(vals.numpy()), jnp.asarray(idx.numpy()), mm, br,
+            ur, vr, interpret=True)
+    assert got.shape == (e, m, N) and got.dtype == torch.float32
+    assert _rel(got, want) < 1e-5
+
+
+def test_grouped_plain_takes_each_experts_planes():
+    """Expert e's output is the per-linear plain version on x[e] and
+    expert e's planes alone (no mixing across the expert axis)."""
+    rng = np.random.default_rng(7)
+    p = _expert_planes(rng, 3, 1)
+    x = torch.from_numpy(_randn(rng, 3, 2, K))
+    vals, idx = p["ell"]
+    got = ops.slab_ell_matmul_g(x, vals, idx, p["b"], p["u"], p["v"])
+    for e in range(3):
+        want = ops.slab_ell_matmul(x[e], vals[e], idx[e], p["b"][e],
+                                   p["u"][e], p["v"][e])
+        assert torch.equal(got[e], want)
+
+
+# ------------------------------------------------------ pack_expert_stack
+
+def _np_dec(seed, n=64, k=128, *, keep=0.4, rank=2, binary=True,
+            pattern=None):
+    """A numpy decomposition (w_s, u, v, w_b) in the reference's layout."""
+    rng = np.random.default_rng(seed)
+    w = _randn(rng, n, k, scale=0.1)
+    score = np.abs(w)
+    if pattern:
+        nn, mm = map(int, pattern.split(":"))
+        g = score.reshape(n, k // mm, mm)
+        order = np.argsort(-g, axis=-1, kind="stable")[..., :nn]
+        mask = np.zeros_like(g, bool)
+        np.put_along_axis(mask, order, True, axis=-1)
+        mask = mask.reshape(n, k)
+    else:
+        thr = np.quantile(score, 1 - keep, axis=1, keepdims=True)
+        mask = score >= thr
+    w_s = np.where(mask, w, 0.0).astype(np.float32)
+    u = _randn(rng, n, rank, scale=0.2)
+    v = _randn(rng, k, rank, scale=0.2)
+    w_b = (np.where(rng.random((n, k)) < 0.5, 1, -1).astype(np.int8)
+           if binary else np.zeros((0, 0), np.int8))
+    return w_s, u, v, w_b
+
+
+def _ref_dec(t):
+    return RefDec(*(None if a is None else jnp.asarray(a) for a in t))
+
+
+def _port_dec(t):
+    return SLaBDecomposition(*(None if a is None else torch.from_numpy(a)
+                               for a in t))
+
+
+def _no_sparse_plane(n=64, k=128):
+    return (None, np.zeros((n, 0), np.float32), np.zeros((k, 0), np.float32),
+            np.zeros((0, 0), np.int8))
+
+
+def _assert_same_stack(got: ExpertPackedStack, ref):
+    want = bridge.expert_packed_stack(ref)
+    assert got.members == want.members
+    assert got.dense_members == want.dense_members
+    assert got.n_experts == want.n_experts
+    assert len(got.groups) == len(want.groups)
+    for g, w in zip(got.groups, want.groups):
+        assert (g.variant, g.m_pat, g.d_in, g.d_out, g.rank) == \
+            (w.variant, w.m_pat, w.d_in, w.d_out, w.rank)
+        for name in ("sparse_vals", "sparse_idx", "b_packed", "u", "v"):
+            a, b = getattr(g, name), getattr(w, name)
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert a.dtype == b.dtype and torch.equal(a, b), name
+    if want.dense is None:
+        assert got.dense is None
+    else:
+        assert torch.equal(got.dense, want.dense)
+
+
+STACKS = {
+    "mixed_kmax": [dict(seed=s, keep=kp)
+                   for s, kp in enumerate((0.05, 0.08, 0.4, 0.45))],
+    "dense_member": [dict(seed=0, keep=0.45), None, dict(seed=2, keep=0.05),
+                     dict(seed=3, keep=0.45)],
+    "nm_2_4": [dict(seed=s, pattern="2:4") for s in range(3)],
+    "rank_mix": [dict(seed=0, rank=1), dict(seed=1, rank=2),
+                 dict(seed=2, rank=1)],
+}
+
+
+@pytest.mark.parametrize("case", list(STACKS))
+def test_pack_expert_stack_byte_identical_to_reference(case):
+    specs = STACKS[case]
+    pattern = specs[0].get("pattern") if specs[0] else None
+    decs = [(_no_sparse_plane() if s is None else _np_dec(**s))
+            for s in specs]
+    old = _randn(np.random.default_rng(9), len(decs), 128, 64)
+    ref = ref_pm.pack_expert_stack(jnp.asarray(old),
+                                   tuple(_ref_dec(d) for d in decs), pattern,
+                                   jnp.float32)
+    got = pack_expert_stack(torch.from_numpy(old),
+                            tuple(_port_dec(d) for d in decs), pattern,
+                            torch.float32)
+    _assert_same_stack(got, ref)
+
+
+def _dense_out(x, dec):
+    return x @ reconstruct(dec).T
+
+
+def test_mixed_kmax_buckets_pad_to_bucket_max():
+    """Experts of very different realized row-nnz land in different K_max
+    buckets; each bucket pads to its own realized max."""
+    decs = tuple(_port_dec(_np_dec(s, keep=kp))
+                 for s, kp in enumerate((0.05, 0.08, 0.4, 0.45)))
+    old = torch.from_numpy(_randn(np.random.default_rng(9), 4, 128, 64))
+    eps = pack_expert_stack(old, decs, None)
+    assert eps.dense_members == () and eps.dense is None
+    assert sorted(e for mem in eps.members for e in mem) == [0, 1, 2, 3]
+    assert len(eps.groups) >= 2
+    kmaxes = [packing.ell_row_nnz_max(d.w_s) for d in decs]
+    for grp, mem in zip(eps.groups, eps.members):
+        assert grp.sparse_idx.shape[-1] == max(kmaxes[e] for e in mem)
+    x = torch.from_numpy(_randn(np.random.default_rng(10), 4, 8, 128))
+    got = expert_matmul(x, eps)
+    for e, d in enumerate(decs):
+        torch.testing.assert_close(got[e], _dense_out(x[e], d), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_expert_stack_dense_member_and_permutation():
+    """An expert with no packable terms rides the dense slice of ``old``;
+    the gathers restore expert order when groups interleave ids."""
+    decs = tuple(_port_dec(t) for t in (
+        _np_dec(0, keep=0.45), _no_sparse_plane(), _np_dec(2, keep=0.05),
+        _np_dec(3, keep=0.45)))
+    old = torch.from_numpy(_randn(np.random.default_rng(11), 4, 128, 64,
+                                  scale=0.1))
+    eps = pack_expert_stack(old, decs, None)
+    assert eps.dense_members == (1,) and eps.dense.shape == (1, 128, 64)
+    assert 1 not in {e for mem in eps.members for e in mem}
+    x = torch.from_numpy(_randn(np.random.default_rng(12), 4, 8, 128))
+    got = expert_matmul(x, eps)
+    for e in (0, 2, 3):
+        torch.testing.assert_close(got[e], _dense_out(x[e], decs[e]),
+                                   rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[1], x[1] @ old[1], rtol=1e-4, atol=1e-4)
+
+
+def test_single_bucket_full_coverage_fast_path():
+    """Same-signature experts collapse to one group over every id."""
+    decs = tuple(_port_dec(_np_dec(s, keep=0.4)) for s in range(4))
+    old = torch.from_numpy(_randn(np.random.default_rng(13), 4, 128, 64))
+    eps = pack_expert_stack(old, decs, None)
+    assert len(eps.groups) == 1 and eps.members == ((0, 1, 2, 3),)
+    x = torch.from_numpy(_randn(np.random.default_rng(14), 4, 8, 128))
+    got = expert_matmul(x, eps)
+    for e, d in enumerate(decs):
+        torch.testing.assert_close(got[e], _dense_out(x[e], d), rtol=1e-4,
+                                   atol=1e-4)
+
+
+# --------------------------------- the grouped variants still to port
+
+TO_PORT = {  # variant -> (numpy dec maker, pattern)
+    "sparse-ell": (lambda: _np_dec(0, keep=0.2, rank=0, binary=False), None),
+    "lowrank-ell": (lambda: _np_dec(0, keep=0.2, binary=False), None),
+    "lowrank-dense": (lambda: _np_dec(0, keep=0.9, binary=False), None),
+    "lowrank-nm": (lambda: _np_dec(0, binary=False, pattern="2:4"), "2:4"),
+    "binlr": (lambda: (np.zeros((64, 128), np.float32),)
+              + _np_dec(0)[1:], None),
+}
+
+
+@pytest.mark.parametrize("variant", list(TO_PORT))
+def test_unported_grouped_variants_raise(variant):
+    make, pattern = TO_PORT[variant]
+    decs = tuple(_port_dec(make()) for _ in range(2))
+    eps = pack_expert_stack(torch.zeros(2, 128, 64), decs, pattern)
+    assert [g.variant for g in eps.groups] == [variant]
+    with pytest.raises(NotImplementedError, match="queue B"):
+        expert_matmul(torch.zeros(2, 3, 128), eps)
+
+
+def test_pack_model_counts_experts_and_names_dense_ones():
+    """pack_model on a tuple of per-expert decs: an ExpertPackedStack in
+    the layer, each packed expert counted under its variant, an expert
+    with no sparse plane left dense and named in the report."""
+    from repro_torch.core.packed_model import pack_model
+    decs = (_np_dec(0, keep=0.2, rank=0, binary=False), _no_sparse_plane(),
+            _np_dec(2, keep=0.2, rank=0, binary=False))
+    old = torch.from_numpy(_randn(np.random.default_rng(3), 3, 128, 64))
+    params = {"layers": [{"moe": {"w_up": old}}]}
+    out, rep = pack_model(params, {(0, "moe.w_up"): tuple(
+        _port_dec(d) for d in decs)})
+    eps = out["layers"][0]["moe"]["w_up"]
+    assert isinstance(eps, ExpertPackedStack)
+    assert params["layers"][0]["moe"]["w_up"] is old     # input untouched
+    assert rep.by_variant == {"sparse-ell": 2} and rep.n_packed == 2
+    assert rep.fallback == ("L0/moe.w_up[expert 1]",)
+    per_e = 128 * 64 * 4
+    assert rep.bytes_by_variant["dense-fallback"] == (per_e, per_e)
+    packed_b, dense_b = rep.bytes_by_variant["sparse-ell"]
+    assert dense_b == per_e and packed_b < per_e

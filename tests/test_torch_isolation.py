@@ -30,7 +30,7 @@ def test_port_files_exist():
             "slab_matmul.py", "nm_sparse.py", "ops.py", "packed_model.py",
             "baselines.py", "compressor.py", "binlr.py", "flash_decode.py",
             "paged_cache.py", "scheduler.py", "faults.py",
-            "engine.py"} <= names
+            "engine.py", "moe.py", "grouped.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -69,6 +69,10 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card):
     assert out.shape == (1, 2)
     _, stats = compress_model(cfg, params, calib, device="cpu")
     assert len(stats) == 7
+    moe_cfg = configs.get("phi3_5_moe", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init(moe_cfg)
+    assert "moe" in lm.init(moe_cfg, device="cpu")["layers"][0]
 
 
 def test_serve_cli_runs_packed_on_the_cpu_when_asked(capsys):

@@ -358,6 +358,7 @@ def test_ctypes_argtypes_match_the_c_signatures():
     from repro_torch.kernels import build
     from repro_torch.kernels import ell as ell_k
     from repro_torch.kernels import flash_decode as fd_k
+    from repro_torch.kernels import grouped as g_k
     from repro_torch.kernels import nm_sparse as nm_k
     from repro_torch.kernels import slab_matmul as slab_k
     argtypes = {
@@ -367,7 +368,9 @@ def test_ctypes_argtypes_match_the_c_signatures():
         "slab_lr_matmul": slab_k._LR_ARGS,
         "slab_nm_lr_matmul": slab_k._NM_LR_ARGS, "nm_matmul": nm_k._ARGS,
         "binlr_matmul": binlr_k._ARGS, "flash_decode": fd_k._CONTIG_ARGS,
-        "flash_decode_paged": fd_k._PAGED_ARGS}
+        "flash_decode_paged": fd_k._PAGED_ARGS,
+        "slab_ell_matmul_g": g_k._SLAB_ELL_ARGS, "nm_matmul_g": g_k._NM_ARGS,
+        "slab_matmul_g": g_k._SLAB_ARGS, "slab_nm_matmul_g": g_k._SLAB_NM_ARGS}
     assert set(argtypes) == {k.name for k in ops.KERNELS}
     seen = set()
     for src in build.SOURCES:
