@@ -22,13 +22,18 @@ Phases:
      lengths 0 to 4096 with exact chunk boundaries, scattered block
      tables, the model dtype and int8, bf16 and f32, and for #10 also
      S = 4100; times beside the byte bound, the plain version and one
-     scaled_dot_product_attention call. Then the four grouped-expert
-     kernels (#14-#17) at phi3.5-moe's expert planes: 16 experts and a
-     bucket of 5 gathered out of order, (N, K) in {(6400, 4096), (4096,
-     6400)}, M in {1, 2, 20}, bf16 and f32, rank 1 and 3, 2:4 and 4:8,
-     int32 ELL ids, nm_matmul_g also at K = 6408; times at M = 2, E = 16,
-     bf16, rank 1 beside the byte bound, the plain version and one
-     torch.bmm on the reconstructed dense (E, K, N) stack;
+     scaled_dot_product_attention call. Then the nine grouped-expert
+     kernels (G_SPECS): #14-#17 at phi3.5-moe's expert planes (16
+     experts and a bucket of 5 gathered out of order, (N, K) in {(6400,
+     4096), (4096, 6400)}, M in {1, 2, 20}, nm_matmul_g also at K = 6408)
+     and #12, #13, #18-#20 at deepseek-moe-16b's (64 experts and a bucket
+     of 7, (N, K) in {(1408, 2048), (2048, 1408)}, M in {1, 6, 20}, the
+     kernels without sign words also at (1411, 1412), K_max odd); bf16
+     and f32, rank 1 and 3, 2:4 and 4:8, int32 ELL ids; times at the
+     decode step's M per expert (2 and 6), all experts, bf16, rank 1
+     beside the byte bound, the plain version and one torch.bmm on the
+     reconstructed dense (E, K, N) stack, and at the first shape the
+     kernel alone at each other M (the "M sweep" lines);
   3. the port's main paths at full width with cut depth: compress_model
      (16x128 calibration) -> pack_model -> greedy_decode (batch 4, prompt
      32, gen 16, square and ragged), once per packed variant, llama2-7b:
@@ -48,11 +53,22 @@ Phases:
        n  slab, CR 0.5 2:4                           -> slab-nm (#2, #17)
        o  slab, CR 0.2                               -> slab-dense (#3, #16)
        p  wanda, CR 0.5 2:4                          -> sparse-nm (#8, #15)
+     and deepseek-moe-16b (64 experts, top-6, the shared experts' SwiGLU
+     MLP of width 2816 beside them, 1 layer, bf16), attention, shared
+     and routed experts packed alike:
+       r  slab, CR 0.5                               -> slab-ell (#1, #14)
+       s  sparsegpt, CR 0.6                          -> sparse-ell (#4, #12)
+       t  slab W_S + W_L (no binary), CR 0.5         -> lowrank-ell (#5, #13)
+       u  slab W_S + W_L (no binary), CR 0.4         -> lowrank-dense (#6,
+                                                        #18)
+       v  slab W_S + W_L (no binary), CR 0.5 2:4     -> lowrank-nm (#7, #19)
+       w  slab, CR 0.5, then W_S := 0                -> binlr (#9, #20)
      Launch counts are zeroed just before each greedy_decode and read
      just after; final-step logits are held against the dense-equivalent
-     (reconstructed-W) model — for phi3.5-moe against dense experts behind
-     the same packed attention, whose expert choices must agree token for
-     token (_hold_moe_logits says why); phases e-i also print the eval
+     (reconstructed-W) model — for the MoE models against dense experts
+     (and dense shared experts) behind the same packed attention, whose
+     expert choices must agree token for token (_hold_moe_logits says
+     why); phases a, m and r are profiled; phases e-i also print the eval
      perplexity (lm.loss_fn) of the uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
      packed:
@@ -70,8 +86,10 @@ Phases:
           outputs 8-32) at the drop-free capacity factor (every stream
           token-equal to greedy_decode) and at the published 1.25 (every
           request terminal); no block leaked;
-  4. one JSON line listing every ported kernel (fifteen), then the result
-     line.
+       x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
+          factor 64/6;
+  4. one JSON line listing every ported kernel (all twenty), then the
+     result line.
 
 Any failed check raises, and the script exits non-zero. It needs
 ``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
@@ -432,27 +450,46 @@ def _time_case(c, x, rank, got, ref, flush, plain_reps=20):
     return rec
 
 
-# grouped-expert kernels (#14-#17) at phi3.5-moe expert planes: 16
-# experts, (N, K) of w_gate / w_up (6400, 4096) and w_down (4096, 6400);
-# M = 2 is a decode step's capacity per expert (batch 4, top-2, 16
-# experts, capacity factor 1.25), M = 20 the calibration-sized case.
-# G_BUCKET is a bucket of 5 experts gathered out of order, as
-# expert_matmul hands a group to its kernel.
-G_SHAPES = ((6400, 4096), (4096, 6400))
-G_EXPERTS = 16
-G_BUCKET = (3, 14, 0, 9, 6)
-G_BATCHES = (1, 2, 20)
-G_TIMED = dict(m=2, dtype=torch.bfloat16, rank=1)
-G_JSON_SHAPE = (6400, 4096)
-G_ODD_K = 6408                 # nm_matmul_g with K not a multiple of 32
+# grouped-expert kernels at each MoE configuration's expert planes, (N, K)
+# of w_gate / w_up, then w_down: phi3.5-moe's 16 experts for #14-#17
+# (M = 2: a decode step's capacity per expert at batch 4, top-2, capacity
+# factor 1.25) and deepseek-moe-16b's 64 for #12, #13, #18-#20 (M = 6:
+# max(int(4·6·1.25/64), 6)); M = 20 is a calibration-sized case. A
+# bucket of a few experts gathered out of order stands for what
+# expert_matmul hands a group's kernel. ``odd`` is an (N, K) off every
+# multiple of 32 (no sign words), where only the kernels that take any K
+# run: nm_matmul_g on phi3.5-moe; ell / ell_lr (odd K_max), slab_lr and
+# slab_nm_lr (2:4) on deepseek-moe-16b. The first shape is the one the
+# JSON line reports.
+G_SPECS = {
+    "phi3.5-moe": dict(
+        kernels=("slab_ell_matmul_g", "nm_matmul_g", "slab_matmul_g",
+                 "slab_nm_matmul_g"),
+        shapes=((6400, 4096), (4096, 6400)), experts=16,
+        bucket=(3, 14, 0, 9, 6), batches=(1, 2, 20), timed_m=2,
+        odd=(4096, 6408), seed=2),
+    "deepseek-moe-16b": dict(
+        kernels=("ell_matmul_g", "ell_lr_matmul_g", "slab_lr_matmul_g",
+                 "slab_nm_lr_matmul_g", "binlr_matmul_g"),
+        shapes=((1408, 2048), (2048, 1408)), experts=64,
+        bucket=(9, 61, 0, 33, 17, 48, 5), batches=(1, 6, 20), timed_m=6,
+        odd=(1411, 1412), seed=4),
+}
+G_TIMED = dict(dtype=torch.bfloat16, rank=1)
+READS_NM = ("nm_matmul_g", "slab_nm_matmul_g", "slab_nm_lr_matmul_g")
+READS_SIGNS = ("slab_ell_matmul_g", "slab_matmul_g", "slab_nm_matmul_g",
+            "binlr_matmul_g")
 
 
-def _g_planes(e, n, k, dtype, rank, gen, nm_only=False):
-    """Synthetic planes of E experts for the grouped kernels, made on the
-    card row by row (every mask and packer works per row, so the E·N rows
-    pack as one matrix and reshape to (E, N, ...))."""
+def _g_planes(e, n, k, dtype, rank, gen, kernels):
+    """Synthetic planes of E experts for ``kernels``, made on the card row
+    by row (every mask and packer works per row, so the E·N rows pack as
+    one matrix and reshape to (E, N, ...)). The ELL planes of ell /
+    ell_lr pad K_max to an odd width, so that a row's 16-byte alignment
+    follows its global row e·N + row."""
     from repro_torch.core import packing, sparsity
     dev = "cuda"
+    need = set(kernels)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -462,67 +499,94 @@ def _g_planes(e, n, k, dtype, rank, gen, nm_only=False):
     planes = {}
     for pat in ("2:4", "4:8"):
         nn, mm = sparsity.parse_pattern(pat)
-        if k % mm:
+        if k % mm or not need & set(READS_NM):
             continue
         p = packing.pack_nm(torch.where(sparsity.nm_mask(score, nn, mm), w,
                                         0.0).to(dtype), nn, mm, strict=True)
         planes[pat] = (p.values.reshape(e, n, k // mm, nn).contiguous(),
                        p.indices.reshape(e, n, k // mm, nn).contiguous())
-    if nm_only:
-        return planes
-    ell = packing.ell_pack(torch.where(
-        sparsity.group_topk_mask(score, KEEP["slab"]), w, 0.0).to(dtype))
-    planes["slab"] = (ell.values.reshape(e, n, -1).contiguous(),
-                      ell.indices.reshape(e, n, -1).contiguous())
-    planes["dense"] = torch.where(sparsity.group_topk_mask(score, 0.737), w,
-                                  0.0).to(dtype).reshape(e, n, k)
+
+    def ell(keep, odd):
+        ws = torch.where(sparsity.group_topk_mask(score, keep), w,
+                         0.0).to(dtype)
+        nnz = packing.ell_row_nnz_max(ws)
+        p = packing.ell_pack(ws, nnz=nnz | 1 if odd else nnz)
+        return (p.values.reshape(e, n, -1).contiguous(),
+                p.indices.reshape(e, n, -1).contiguous())
+
+    for kern, kind, odd in (("slab_ell_matmul_g", "slab", False),
+                            ("ell_matmul_g", "ell", True),
+                            ("ell_lr_matmul_g", "ell_lr", True)):
+        if kern in need:
+            planes[kind] = ell(KEEP[kind], odd)
+    if need & {"slab_matmul_g", "slab_lr_matmul_g"}:
+        planes["dense"] = torch.where(sparsity.group_topk_mask(score, 0.737),
+                                      w, 0.0).to(dtype).reshape(e, n, k)
     del w, score
-    signs = torch.where(randn(e * n, k) >= 0, 1, -1).to(torch.int8)
-    planes["b"] = packing.pack_sign_bits(signs).reshape(e, n, k // 32)
+    if k % 32 == 0 and need & set(READS_SIGNS):
+        signs = torch.where(randn(e * n, k) >= 0, 1, -1).to(torch.int8)
+        planes["b"] = packing.pack_sign_bits(signs).reshape(e, n, k // 32)
     planes["u"] = randn(e, rank, n, scale=0.2).abs().to(dtype).contiguous()
     planes["v"] = randn(e, rank, k, scale=0.2).abs().to(dtype).contiguous()
     return planes
 
 
-def _g_cases(planes, x, rank, wide_ids=False):
-    """Every grouped kernel's Case on these planes (kernel layout u (E, R,
-    N), v (E, R, K)); w_hat is the dense (E, N, K) stack."""
+def _g_cases(planes, x, rank, kernels, wide_ids=False):
+    """The Case of each of ``kernels`` whose planes exist (kernel layout u
+    (E, R, N), v (E, R, K)); w_hat is the dense (E, N, K) stack. Kernels
+    without a low-rank term run at rank 1 only; ``wide_ids`` adds the ELL
+    kernels with int32 id views."""
     from repro_torch.core.packing import (ELLPacked, NMPacked, as_unsigned,
                                           ell_unpack, unpack_nm,
                                           unpack_sign_bits)
     from repro_torch.kernels import grouped as g_k
     e, m, k = x.shape
+    u, v = planes["u"], planes["v"]
+    n = u.shape[2]
+    want = set(kernels)
 
     def stack(fn, *planes_e):
         return lambda: torch.stack([fn(*(p[i] for p in planes_e))
                                     for i in range(e)])
 
-    def ops(stored, binary=False):
+    def ops(stored, lowrank=False, binary=False):
         o = 2 * m * stored
+        if lowrank:  # the projection x @ Vᵀ and its application
+            o += e * rank * (2 * m * k + 2 * m * n)
         if binary:   # x ⊙ v_r, a sign-add per weight, the u_r scale
-            n = planes["b"].shape[1]
             o += e * rank * (m * k + 2 * m * n * k + 2 * m * n)
         return o
+
+    def lr():
+        return torch.einsum("ern,erk->enk", u.float(), v.float())
+
+    def w_b():
+        return lr() * unpack_sign_bits(planes["b"].reshape(e * n, -1), k,
+                                       torch.float32).reshape(e, n, k)
+
+    def ell_dense(vals, idx):
+        return stack(lambda a, c: ell_unpack(ELLPacked(a, c, k)).float(),
+                     vals, idx)
 
     def nm_dense(nv, ni, nn, mm):
         return stack(lambda a, b: unpack_nm(NMPacked(a, b, nn, mm, k))
                      .float(), nv, ni)
 
-    out = []
-    if "b" in planes:
-        b, u, v = planes["b"], planes["u"], planes["v"]
-
-        def w_b():
-            lr = torch.einsum("ern,erk->enk", u.float(), v.float())
-            n = b.shape[1]
-            return lr * unpack_sign_bits(b.reshape(e * n, -1), k,
-                                         torch.float32).reshape(e, n, k)
-
-        ells = [("", planes["slab"])]
+    def ells(kind):
+        out = [("", planes[kind])]
         if wide_ids:
-            ells.append(("[int32]", (planes["slab"][0],
-                                     as_unsigned(planes["slab"][1]).int())))
-        for tag, (vals, idx) in ells:
+            out.append(("[int32]", (planes[kind][0],
+                                    as_unsigned(planes[kind][1]).int())))
+        return out
+
+    def nms():
+        return [(pat, *planes[pat], *map(int, pat.split(":")))
+                for pat in ("2:4", "4:8") if pat in planes]
+
+    out = []
+    b = planes.get("b")
+    if b is not None and "slab_ell_matmul_g" in want:
+        for tag, (vals, idx) in ells("slab"):
             out.append(Case(
                 f"slab_ell_matmul_g{tag}", "slab_ell_matmul_g",
                 lambda vals=vals, idx=idx: g_k.slab_ell_matmul_g(
@@ -530,13 +594,10 @@ def _g_cases(planes, x, rank, wide_ids=False):
                 lambda vals=vals, idx=idx: g_k.slab_ell_matmul_g_plain(
                     x, vals, idx, b, u, v),
                 (vals, idx, b, u, v),
-                lambda vals=vals, idx=idx: stack(
-                    lambda a, c: ell_unpack(ELLPacked(a, c, k)).float(),
-                    vals, idx)() + w_b(),
+                lambda vals=vals, idx=idx: ell_dense(vals, idx)() + w_b(),
                 ops(vals.numel(), binary=True)))
-        for pat in ("2:4", "4:8"):
-            nv, ni = planes[pat]
-            nn, mm = map(int, pat.split(":"))
+    if b is not None and "slab_nm_matmul_g" in want:
+        for pat, nv, ni, nn, mm in nms():
             out.append(Case(
                 f"slab_nm_matmul_g[{pat}]", "slab_nm_matmul_g",
                 lambda nv=nv, ni=ni, mm=mm: g_k.slab_nm_matmul_g(
@@ -547,6 +608,7 @@ def _g_cases(planes, x, rank, wide_ids=False):
                 lambda nv=nv, ni=ni, nn=nn, mm=mm:
                     nm_dense(nv, ni, nn, mm)() + w_b(),
                 ops(nv.numel(), binary=True)))
+    if b is not None and "slab_matmul_g" in want:
         ws = planes["dense"]
         out.append(Case(
             "slab_matmul_g", "slab_matmul_g",
@@ -554,71 +616,124 @@ def _g_cases(planes, x, rank, wide_ids=False):
             lambda: g_k.slab_matmul_g_plain(x, ws, b, u, v),
             (ws, b, u, v), lambda: ws.float() + w_b(),
             ops(ws.numel(), binary=True)))
-    if rank == 1:
-        for pat in ("2:4", "4:8"):
-            if pat not in planes:
-                continue
-            nv, ni = planes[pat]
-            nn, mm = map(int, pat.split(":"))
+    if b is not None and "binlr_matmul_g" in want:
+        out.append(Case(
+            "binlr_matmul_g", "binlr_matmul_g",
+            lambda: g_k.binlr_matmul_g(x, b, u, v),
+            lambda: g_k.binlr_matmul_g_plain(x, b, u, v),
+            (b, u, v), w_b, ops(0, binary=True)))
+    if rank == 1 and "nm_matmul_g" in want:
+        for pat, nv, ni, nn, mm in nms():
             out.append(Case(
                 f"nm_matmul_g[{pat}]", "nm_matmul_g",
                 lambda nv=nv, ni=ni, mm=mm: g_k.nm_matmul_g(x, nv, ni, mm),
                 lambda nv=nv, ni=ni, mm=mm: g_k.nm_matmul_g_plain(
                     x, nv, ni, mm),
                 (nv, ni), nm_dense(nv, ni, nn, mm), ops(nv.numel())))
+    if rank == 1 and "ell_matmul_g" in want:
+        for tag, (vals, idx) in ells("ell"):
+            out.append(Case(
+                f"ell_matmul_g{tag}", "ell_matmul_g",
+                lambda vals=vals, idx=idx: g_k.ell_matmul_g(x, vals, idx),
+                lambda vals=vals, idx=idx: g_k.ell_matmul_g_plain(
+                    x, vals, idx),
+                (vals, idx), ell_dense(vals, idx), ops(vals.numel())))
+    if "ell_lr_matmul_g" in want:
+        for tag, (vals, idx) in ells("ell_lr"):
+            out.append(Case(
+                f"ell_lr_matmul_g{tag}", "ell_lr_matmul_g",
+                lambda vals=vals, idx=idx: g_k.ell_lr_matmul_g(
+                    x, vals, idx, u, v),
+                lambda vals=vals, idx=idx: g_k.ell_lr_matmul_g_plain(
+                    x, vals, idx, u, v),
+                (vals, idx, u, v),
+                lambda vals=vals, idx=idx: ell_dense(vals, idx)() + lr(),
+                ops(vals.numel(), lowrank=True)))
+    if "slab_lr_matmul_g" in want:
+        ws = planes["dense"]
+        out.append(Case(
+            "slab_lr_matmul_g", "slab_lr_matmul_g",
+            lambda: g_k.slab_lr_matmul_g(x, ws, u, v),
+            lambda: g_k.slab_lr_matmul_g_plain(x, ws, u, v),
+            (ws, u, v), lambda: ws.float() + lr(),
+            ops(ws.numel(), lowrank=True)))
+    if "slab_nm_lr_matmul_g" in want:
+        for pat, nv, ni, nn, mm in nms():
+            out.append(Case(
+                f"slab_nm_lr_matmul_g[{pat}]", "slab_nm_lr_matmul_g",
+                lambda nv=nv, ni=ni, mm=mm: g_k.slab_nm_lr_matmul_g(
+                    x, nv, ni, mm, u, v),
+                lambda nv=nv, ni=ni, mm=mm: g_k.slab_nm_lr_matmul_g_plain(
+                    x, nv, ni, mm, u, v),
+                (nv, ni, u, v),
+                lambda nv=nv, ni=ni, nn=nn, mm=mm:
+                    nm_dense(nv, ni, nn, mm)() + lr(),
+                ops(nv.numel(), lowrank=True)))
     return out
 
 
-def grouped_checks(flush):
-    """#14-#17 against their plain versions at phi3.5-moe expert planes;
-    times at G_TIMED. Returns (timed records by (label, N, K), worst)."""
+def grouped_checks(flush, model):
+    """The grouped kernels of G_SPECS[model] against their plain versions
+    at that model's expert planes; times at G_TIMED and the spec's M.
+    Returns (timed records by (label, N, K), worst)."""
     from repro_torch.kernels import ops
+    spec = G_SPECS[model]
+    kernels, n_exp = spec["kernels"], spec["experts"]
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
+    gen.manual_seed(spec["seed"])
     worst, timed, n_checks = {}, {}, 0
-    sel = torch.tensor(G_BUCKET, device="cuda")
-    for (n, k) in G_SHAPES:
+    by_m = {}            # kernel ms at the other M of the first shape
+    sel = torch.tensor(spec["bucket"], device="cuda")
+    for (n, k) in spec["shapes"]:
         for dtype in (torch.bfloat16, torch.float32):
             for rank in (1, 3):
-                planes = _g_planes(G_EXPERTS, n, k, dtype, rank, gen)
+                planes = _g_planes(n_exp, n, k, dtype, rank, gen, kernels)
                 bucket = {kk: (tuple(t.index_select(0, sel).contiguous()
                                      for t in vv) if isinstance(vv, tuple)
                                else vv.index_select(0, sel).contiguous())
                           for kk, vv in planes.items()}
-                runs = [(planes, G_EXPERTS, m) for m in G_BATCHES] + [
-                    (bucket, len(G_BUCKET), 2)]
+                runs = [(planes, n_exp, m) for m in spec["batches"]] + [
+                    (bucket, len(spec["bucket"]), spec["timed_m"])]
                 for pl, e, m in runs:
                     x = torch.randn((e, m, k), generator=gen,
                                     device="cuda").to(dtype)
-                    wide = (n, k) == G_JSON_SHAPE and e == G_EXPERTS
-                    for c in _g_cases(pl, x, rank, wide_ids=wide):
+                    wide = (n, k) == spec["shapes"][0] and e == n_exp
+                    for c in _g_cases(pl, x, rank, kernels, wide_ids=wide):
                         got, ref = _check_case(c, x, n, dtype, rank, worst,
                                                f"E={e} N={n} K={k} M={m}")
                         n_checks += 1
-                        if (e == G_EXPERTS and m == G_TIMED["m"]
-                                and dtype == G_TIMED["dtype"]
-                                and rank == G_TIMED["rank"]):
-                            # the plain loops take ~100 ms: 3 reps
+                        at_timed = (e == n_exp and dtype == G_TIMED["dtype"]
+                                    and rank == G_TIMED["rank"])
+                        if at_timed and m == spec["timed_m"]:
+                            # the plain loops take up to ~100 ms: 3 reps
                             timed[(c.label, n, k)] = _time_case(
                                 c, x, rank, got, ref, flush, plain_reps=3)
+                        elif at_timed and (n, k) == spec["shapes"][0]:
+                            by_m.setdefault(c.label, {})[m] = time_ms(
+                                c.kern, flush)
                         del got, ref
                 del planes, bucket
                 torch.cuda.empty_cache()
-    # nm_matmul_g with K off every multiple of 32 (no sign words needed)
+    n, k = spec["odd"]
+    any_k = [kk for kk in kernels if kk not in READS_SIGNS]
     for dtype in (torch.bfloat16, torch.float32):
-        planes = _g_planes(G_EXPERTS, 4096, G_ODD_K, dtype, 1, gen,
-                           nm_only=True)
-        for m in G_BATCHES:
-            x = torch.randn((G_EXPERTS, m, G_ODD_K), generator=gen,
+        planes = _g_planes(n_exp, n, k, dtype, 1, gen, any_k)
+        for m in spec["batches"]:
+            x = torch.randn((n_exp, m, k), generator=gen,
                             device="cuda").to(dtype)
-            for c in _g_cases(planes, x, 1):
-                _check_case(c, x, 4096, dtype, 1, worst,
-                            f"E={G_EXPERTS} N=4096 K={G_ODD_K} M={m}")
+            for c in _g_cases(planes, x, 1, any_k):
+                _check_case(c, x, n, dtype, 1, worst,
+                            f"E={n_exp} N={n} K={k} M={m}")
                 n_checks += 1
         del planes
     torch.cuda.empty_cache()
     ops.reset_launch_counts()        # comparison launches do not count
-    log(f"grouped kernel checks: {n_checks} cases passed; worst "
+    n, k = spec["shapes"][0]
+    for label, ms in by_m.items():
+        ms[spec["timed_m"]] = timed[(label, n, k)]["ms"]
+        log(f"  M sweep {label} E={n_exp} N={n} K={k} bf16 r1: "
+            + " ".join(f"M={m}: {t:.4f} ms" for m, t in sorted(ms.items())))
+    log(f"grouped kernel checks ({model}): {n_checks} cases passed; worst "
         "max|err|/max|ref|: "
         + " ".join(f"{l}={w:.3g}" for l, w in worst.items()))
     return timed, worst
@@ -867,17 +982,25 @@ def _choices_differing(a, b) -> int:
     return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b, strict=True))
 
 
+SHARED_PATHS = ("moe.shared.w_gate", "moe.shared.w_up", "moe.shared.w_down")
+
+
 def _experts_dense(packed, dense):
     """The packed model with every expert leaf swapped for its
-    dense-equivalent (E, D_in, D_out) weight: the same attention kernels
-    (so the same router inputs and expert choices, bit for bit, in a
-    1-layer model), dense experts."""
+    dense-equivalent (E, D_in, D_out) weight, and the shared experts'
+    linears (deepseek-moe) for theirs: the same attention kernels (so
+    the same router inputs and expert choices, bit for bit, in a 1-layer
+    model), dense experts."""
     from repro_torch.core.packed_model import expert_stacks
     from repro_torch.core.pipeline import _copy_tree, _get, _set
     out = dict(packed)
     out["layers"] = _copy_tree(packed["layers"])
     for l, pth, _ in expert_stacks(packed):
         _set(out["layers"][l], pth, _get(dense["layers"][l], pth))
+    for l, lp in enumerate(out["layers"]):
+        for pth in SHARED_PATHS:
+            if _get(lp, pth) is not None:
+                _set(lp, pth, _get(dense["layers"][l], pth))
     return out
 
 
@@ -927,15 +1050,24 @@ def _perplexity(cfg, params, batch) -> float:
 
 
 def _zero_sparse_part(cfg, dense_c, decs, dtype):
-    """W_S := 0 in every decomposition (what remains is W_L ⊙ W_B, the
-    binlr variant), and the dense-equivalent params rebuilt to match."""
+    """W_S := 0 in every decomposition, each expert's of a MoE leaf too
+    (what remains is W_L ⊙ W_B, the binlr variant), and the
+    dense-equivalent params rebuilt to match."""
     from repro_torch.core.pipeline import _set
     from repro_torch.core.slab import reconstruct
+
+    def zero(dec):
+        return dec._replace(w_s=torch.zeros_like(dec.w_s))
+
     out = {}
     for (l, name), dec in decs.items():
-        dec = dec._replace(w_s=torch.zeros_like(dec.w_s))
-        _set(dense_c["layers"][l], name,
-             reconstruct(dec).T.to(dtype).contiguous())
+        if type(dec) is tuple:          # one dec per expert
+            dec = tuple(zero(d) for d in dec)
+            w = torch.stack([reconstruct(d).T for d in dec])
+        else:
+            dec = zero(dec)
+            w = reconstruct(dec).T
+        _set(dense_c["layers"][l], name, w.to(dtype).contiguous())
         out[(l, name)] = dec
     return out
 
@@ -1008,6 +1140,8 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
     opt_s = "".join(f" {k}={v}" for k, v in options.items())
     moe_s = (f" experts {cfg.n_experts} top-{cfg.top_k} capacity factor "
              f"{cfg.capacity_factor}" if cfg.family == "moe" else "")
+    if cfg.shared_ff:
+        moe_s += f" shared_ff {cfg.shared_ff}"
     log(f"phase {tag}: {full.name} d_model {cfg.d_model} heads "
         f"{cfg.n_heads}x{cfg.d_head} kv {cfg.n_kv} d_ff {cfg.d_ff}{moe_s} "
         f"vocab {cfg.vocab} {dtype} {method}{opt_s} cr {cr} pattern "
@@ -1411,30 +1545,35 @@ def engine_phase_l():
                     "decode_busy_share": share}
 
 
-Q_REQUESTS = 8
+MOE_REQUESTS = 8
 
 
-def engine_phase_q():
-    """Phase q: the engine at f32 on slab-ell packed phi3.5-moe (1 layer,
-    every expert through the grouped kernel #14): a mixed-arrival trace
-    of Q_REQUESTS requests (prompts 16-128, outputs 8-32, 4 slots, blocks
-    of 16), twice. At a drop-free capacity factor (n_experts / top_k: no
-    token is ever dropped, so a row's output does not depend on the other
-    rows of its step) every stream is token-equal to greedy_decode; at
-    the published capacity factor, where the rows of a step compete for
-    the experts' slots, every request ends in a terminal state. No block
-    leaks in either run."""
+def moe_engine_phase(tag, arch):
+    """Phases q (phi3.5-moe) and x (deepseek-moe-16b): the engine at f32
+    on slab-ell packed ``arch`` (1 layer, every expert through the grouped
+    kernel #14, attention and any shared experts through #1): a
+    mixed-arrival trace of MOE_REQUESTS requests (prompts 16-128, outputs
+    8-32, 4 slots, blocks of 16), twice. At a drop-free capacity factor
+    (n_experts / top_k: no token is ever dropped, so a row's output does
+    not depend on the other rows of its step) every stream is token-equal
+    to greedy_decode; at the published capacity factor, where the rows of
+    a step compete for the experts' slots, every request ends in a
+    terminal state. No block leaks in either run."""
     import numpy as np
+    from repro_torch import configs
     from repro_torch.launch.serve import greedy_decode
     from repro_torch.serving import Engine, EngineConfig, Request
     from repro_torch.serving.paged_cache import blocks_needed
-    log("phase q: engine, phi3.5-moe full width f32, slab cr 0.5 -> "
-        "slab-ell (attention and all 16 experts); reduced: n_layers 32->1")
-    cfg, packed, dense_c = _packed_model("phi3_5_moe", 1, torch.float32,
+    full = configs.get(arch, smoke=False)
+    shared = ", shared" if full.shared_ff else ""
+    log(f"phase {tag}: engine, {full.name} full width f32, slab cr 0.5 -> "
+        f"slab-ell (attention{shared} and all {full.n_experts} experts); "
+        f"reduced: n_layers {full.n_layers}->1")
+    cfg, packed, dense_c = _packed_model(arch, 1, torch.float32,
                                          keep_dense=True)
     rng = np.random.default_rng(0)
     specs = [(int(rng.integers(16, 129)), int(rng.integers(8, 33)),
-              float(2 * i)) for i in range(Q_REQUESTS)]
+              float(2 * i)) for i in range(MOE_REQUESTS)]
     prompts = [rng.integers(0, cfg.vocab, size=p).astype(np.int32)
                for p, _, _ in specs]
     max_len = 128 + 32
@@ -1452,11 +1591,11 @@ def engine_phase_q():
     log(f"  expert choices packed vs dense-equivalent: "
         f"{_choices_differing(calls_p, calls_d)} of "
         f"{sum(int(c.shape[0]) for c in calls_p)} tokens differ")
-    _hold_logits("q", lp, ld, 1e-4, "packed vs dense-equivalent (4 x 16 "
+    _hold_logits(tag, lp, ld, 1e-4, "packed vs dense-equivalent (4 x 16 "
                  "prompt tokens)")
     del dense_c
     launches = {}
-    for tag, c in (("drop-free capacity", free), ("published capacity",
+    for run, c in (("drop-free capacity", free), ("published capacity",
                                                    cfg)):
         eng = Engine(c, packed, EngineConfig(
             n_slots=4, n_blocks=4 * blocks_needed(max_len, 16),
@@ -1465,23 +1604,23 @@ def engine_phase_q():
         reqs = [Request(rid=i, prompt=prompts[i], max_new=n, arrival=a)
                 for i, (p, n, a) in enumerate(specs)]
         done, wall, counts = _run_engine(
-            eng, reqs, f"phase q {tag}",
+            eng, reqs, f"phase {tag} {run}",
             ("slab_ell_matmul", "slab_ell_matmul_g", "flash_decode_paged"),
             clock="steps")
         n_equal = 0
         for r in done:
             if not r.terminal:
-                raise AssertionError(f"phase q {tag}: rid {r.rid} "
+                raise AssertionError(f"phase {tag} {run}: rid {r.rid} "
                                      f"{r.status}")
             equal = np.array_equal(np.asarray(r.out),
                                    want[r.rid, :r.max_new])
             n_equal += equal
             if c is free and (r.status != "finished" or not equal):
                 raise AssertionError(
-                    f"phase q {tag}: rid {r.rid} {r.status}, differs from "
-                    "greedy_decode")
+                    f"phase {tag} {run}: rid {r.rid} {r.status}, differs "
+                    "from greedy_decode")
         statuses = sorted({r.status for r in done})
-        log(f"  {tag} (factor {c.capacity_factor}): {len(done)} requests "
+        log(f"  {run} (factor {c.capacity_factor:.4g}): {len(done)} requests "
             f"{statuses}, {n_equal} token-equal to greedy_decode at the "
             f"drop-free factor, {sum(r.n_generated for r in done)} tokens, "
             f"{eng.n_steps} steps, {wall:.1f}s, every block back on the "
@@ -1545,6 +1684,37 @@ PHASES = (
                pattern="2:4", variant="sparse-nm", kernel="nm_matmul",
                expert_kernel="nm_matmul_g", tol=3e-2, method="wanda",
                options={})),
+    # deepseek-moe-16b (64 experts, top-6, shared experts): attention and
+    # the shared MLP through the per-linear kernel, every routed expert
+    # leaf through its grouped kernel; 1 layer (_hold_moe_logits)
+    ("r", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
+               cr=0.5, pattern=None, variant="slab-ell",
+               kernel="slab_ell_matmul", expert_kernel="slab_ell_matmul_g",
+               tol=3e-2, profiled=True)),
+    ("s", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
+               cr=0.6, pattern=None, variant="sparse-ell",
+               kernel="ell_matmul", expert_kernel="ell_matmul_g", tol=3e-2,
+               method="sparsegpt", options={},
+               note="CR 0.6, not 0.5: at CR 0.5 and bf16 a pruner's K_max "
+                    "is D_in/2 and ELL does not win on bytes")),
+    ("t", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
+               cr=0.5, pattern=None, variant="lowrank-ell",
+               kernel="ell_lr_matmul", expert_kernel="ell_lr_matmul_g",
+               tol=3e-2, options=dict(iters=8, include_binary=False))),
+    ("u", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
+               cr=0.4, pattern=None, variant="lowrank-dense",
+               kernel="slab_lr_matmul", expert_kernel="slab_lr_matmul_g",
+               tol=3e-2, options=dict(iters=8, include_binary=False))),
+    ("v", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
+               cr=0.5, pattern="2:4", variant="lowrank-nm",
+               kernel="slab_nm_lr_matmul",
+               expert_kernel="slab_nm_lr_matmul_g", tol=3e-2,
+               options=dict(iters=8, include_binary=False))),
+    ("w", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
+               cr=0.5, pattern=None, variant="binlr", kernel="binlr_matmul",
+               expert_kernel="binlr_matmul_g", tol=3e-2, zero_ws=True,
+               note="phase r's slab decompositions with W_S := 0, served "
+                    "as W_L ⊙ W_B")),
 )
 # the timed case of each kernel that the JSON line reports
 JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
@@ -1554,11 +1724,16 @@ JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
               "slab_lr_matmul": "slab_lr_matmul",
               "slab_nm_lr_matmul": "slab_nm_lr_matmul[2:4]",
               "nm_matmul": "nm_matmul[2:4]", "binlr_matmul": "binlr_matmul"}
-# ... and of each grouped kernel (at G_JSON_SHAPE, E = 16)
+# ... and of each grouped kernel (at its G_SPECS model's first shape)
 G_JSON_LABEL = {"slab_ell_matmul_g": "slab_ell_matmul_g",
                 "nm_matmul_g": "nm_matmul_g[2:4]",
                 "slab_matmul_g": "slab_matmul_g",
-                "slab_nm_matmul_g": "slab_nm_matmul_g[2:4]"}
+                "slab_nm_matmul_g": "slab_nm_matmul_g[2:4]",
+                "ell_matmul_g": "ell_matmul_g",
+                "ell_lr_matmul_g": "ell_lr_matmul_g",
+                "slab_lr_matmul_g": "slab_lr_matmul_g",
+                "slab_nm_lr_matmul_g": "slab_nm_lr_matmul_g[2:4]",
+                "binlr_matmul_g": "binlr_matmul_g"}
 FLASH = ("flash_decode", "flash_decode_paged")
 
 
@@ -1593,9 +1768,12 @@ def main():
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     fd_timed, fd_worst = flash_checks(flush)
     mark("flash")
-    g_timed, g_worst = grouped_checks(flush)
+    g_timed, g_worst = {}, {}
+    for model in G_SPECS:
+        t, w = grouped_checks(flush, model)
+        g_timed[model], g_worst[model] = t, w
+        mark(f"grouped {model}")
     del flush
-    mark("grouped")
     launches = {k.name: 0 for k in ops.KERNELS}
     for tag, kw in PHASES:
         for kname, c in model_phase(tag, **kw).items():
@@ -1608,15 +1786,19 @@ def main():
     for kname, c in counts_l.items():
         launches[kname] += c
     mark("l")
-    for kname, c in engine_phase_q().items():
-        launches[kname] += c
-    mark("q")
+    for tag, arch in (("q", "phi3_5_moe"), ("x", "deepseek_moe_16b")):
+        for kname, c in moe_engine_phase(tag, arch).items():
+            launches[kname] += c
+        mark(tag)
 
     entries = []
     for kern in ops.KERNELS:
         if kern.name in G_JSON_LABEL:
             label = G_JSON_LABEL[kern.name]
-            rec = g_timed[(label,) + G_JSON_SHAPE]
+            model = next(mm for mm, sp in G_SPECS.items()
+                         if kern.name in sp["kernels"])
+            spec = G_SPECS[model]
+            rec = g_timed[model][(label,) + spec["shapes"][0]]
             entries.append({
                 "name": kern.name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{kern.source}",
@@ -1625,15 +1807,16 @@ def main():
                 **{kk: rec[kk] for kk in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")},
-                "shape": {"E": G_EXPERTS, "M": G_TIMED["m"],
-                          "N": G_JSON_SHAPE[0], "K": G_JSON_SHAPE[1],
-                          "dtype": "bfloat16", "rank": 1},
-                "worst_rel_err": g_worst[label],
-                "by_shape": {f"{n}x{k}": {kk: g_timed[(label, n, k)][kk]
-                                          for kk in ("ms", "plain_ms",
-                                                     "library_ms",
-                                                     "bound_ms")}
-                             for (n, k) in G_SHAPES}})
+                "shape": {"model": model, "E": spec["experts"],
+                          "M": spec["timed_m"], "N": spec["shapes"][0][0],
+                          "K": spec["shapes"][0][1], "dtype": "bfloat16",
+                          "rank": 1},
+                "worst_rel_err": g_worst[model][label],
+                "by_shape": {f"{n}x{k}": {kk: g_timed[model][(label, n, k)]
+                                          [kk] for kk in ("ms", "plain_ms",
+                                                          "library_ms",
+                                                          "bound_ms")}
+                             for (n, k) in spec["shapes"]}})
             continue
         if kern.name in FLASH:
             rec = fd_timed[kern.name]

@@ -1,4 +1,7 @@
-"""PyTorch + CUDA port of the SLaB reproduction (dense serve path).
+"""PyTorch + CUDA port of the SLaB reproduction: compression, packed
+serving through hand-written CUDA kernels, the serving engine, for the
+dense (llama2-7b, stablelm-12b) and MoE (phi3.5-moe, deepseek-moe-16b)
+families.
 
 The JAX package ``repro`` is the reference; this package mirrors its
 module names (``repro_torch.models.lm`` <-> ``repro.models.lm`` ...) and

@@ -98,8 +98,9 @@ def packed_linear(pl, device="cpu") -> PackedLinear:
 
 def expert_packed_stack(ref_eps, device="cpu") -> ExpertPackedStack:
     """A reference per-layer ``ExpertPackedStack`` -> the port's: its
-    groups (planes with a leading expert dim), the dense remainder and
-    the member ids."""
+    groups (planes with a leading expert dim, of any variant: a plane
+    the variant lacks stays None, ids and sign words arrive as their
+    int16 / int32 views), the dense remainder and the member ids."""
     dense = (None if ref_eps.dense is None
              else tensor(ref_eps.dense, device).contiguous())
     return ExpertPackedStack(

@@ -25,9 +25,11 @@ PackedLinear per layer.
 
 A 3-D MoE expert leaf packs into an ``ExpertPackedStack``: experts with
 the same packed signature stack into one group (planes with a leading
-expert dim) that one grouped-kernel launch serves (``expert_matmul``);
-ELL experts first bucket by their realized K_max, so a few dense
-experts do not widen every expert's pad.
+expert dim) that one grouped-kernel launch serves (``expert_matmul``:
+the ``kernels.ops.*_g`` form of the variant's kernel above, for every
+variant but sparse-dense and lowrank, which stay batched matmuls as in
+the reference); ELL experts first bucket by their realized K_max, so a
+few dense experts do not widen every expert's pad.
 """
 from __future__ import annotations
 
@@ -208,14 +210,6 @@ def packed_matmul(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
 # MoE experts: one grouped-kernel launch per bucket of experts
 # ------------------------------------------------------------------
 
-# Expert variants whose grouped kernel is still to port (ROADMAP queue B).
-_GROUPED_TO_PORT = {"sparse-ell": "#12 ell_matmul_g",
-                    "lowrank-ell": "#13 ell_lr_matmul_g",
-                    "lowrank-dense": "#18 slab_lr_matmul_g",
-                    "lowrank-nm": "#19 slab_nm_lr_matmul_g",
-                    "binlr": "#20 binlr_matmul_g"}
-
-
 @dataclasses.dataclass(frozen=True)
 class ExpertPackedStack:
     """One layer's 3-D MoE leaf, packed per expert.
@@ -362,14 +356,12 @@ def expert_stacks(params: dict) -> List[Tuple[int, str, ExpertPackedStack]]:
 
 def packed_matmul_grouped(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
     """x (E, M, D_in) against an expert-stacked PackedLinear (every plane
-    leads with E) -> (E, M, D_out): one grouped-kernel launch."""
+    leads with E) -> (E, M, D_out): one grouped-kernel launch (two
+    batched matmuls for the sparse-dense and lowrank variants, as in the
+    reference)."""
     from repro_torch.kernels import ops
     var = w.variant
     _check_variant(var)
-    if var in _GROUPED_TO_PORT:
-        raise NotImplementedError(
-            f"grouped {var!r} experts need kernel {_GROUPED_TO_PORT[var]}, "
-            "still to port (ROADMAP queue B)")
     if var == "slab-ell":
         y = ops.slab_ell_matmul_g(x, w.sparse_vals, w.sparse_idx,
                                   w.b_packed, w.u, w.v)
@@ -378,6 +370,17 @@ def packed_matmul_grouped(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
                                  w.b_packed, w.u, w.v)
     elif var == "slab-dense":
         y = ops.slab_matmul_g(x, w.sparse_vals, w.b_packed, w.u, w.v)
+    elif var == "lowrank-ell":
+        y = ops.ell_lr_matmul_g(x, w.sparse_vals, w.sparse_idx, w.u, w.v)
+    elif var == "lowrank-dense":
+        y = ops.slab_lr_matmul_g(x, w.sparse_vals, w.u, w.v)
+    elif var == "lowrank-nm":
+        y = ops.slab_nm_lr_matmul_g(x, w.sparse_vals, w.sparse_idx, w.m_pat,
+                                    w.u, w.v)
+    elif var == "binlr":
+        y = ops.binlr_g(x, w.b_packed, w.u, w.v)
+    elif var == "sparse-ell":
+        y = ops.ell_matmul_g(x, w.sparse_vals, w.sparse_idx)
     elif var == "sparse-nm":
         y = ops.nm_matmul_g(x, w.sparse_vals, w.sparse_idx, w.m_pat)
     elif var == "sparse-dense":

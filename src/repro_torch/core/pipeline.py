@@ -76,12 +76,17 @@ def _copy_tree(d):
 
 def linear_paths(cfg: ArchConfig) -> List[str]:
     """Compressible linears inside one layer: 2-D, and the 3-D (E, D,
-    F) expert leaves of the moe family."""
+    F) expert leaves of the moe family, with its shared experts' 2-D
+    linears when ``cfg.shared_ff`` is set."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     paths = ["attn.wq", "attn.wk", "attn.wv", "attn.wo"]
     if cfg.family == "moe":
-        return paths + ["moe.w_gate", "moe.w_up", "moe.w_down"]
+        paths += ["moe.w_gate", "moe.w_up", "moe.w_down"]
+        if cfg.shared_ff:
+            paths += ["moe.shared.w_gate", "moe.shared.w_up",
+                      "moe.shared.w_down"]
+        return paths
     if cfg.act == "swiglu":
         return paths + ["mlp.w_gate", "mlp.w_up", "mlp.w_down"]
     return paths + ["mlp.w_up", "mlp.w_down"]

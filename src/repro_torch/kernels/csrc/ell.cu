@@ -43,13 +43,19 @@
 // are value 0 at a real zero column; ids are still checked against K.
 // No tensor cores, TMA or wgmma yet.
 //
-// slab_ell_matmul_g, the grouped-expert form (replaces repro/kernels/
+// The grouped-expert forms: slab_ell_matmul_g (replaces repro/kernels/
 // grouped.py::slab_ell_matmul_g, _kernel_slab_ell_g, pallas_call at
-// grouped.py:142): the same kernel on a grid with the expert as its y
-// dimension (slab_common.cuh), so one launch serves a
-// whole bucket of E experts, each with its own x (M, K), planes and y.
-// At the MoE decode shapes (M = 2 rows per expert) it is a GEMV per
-// expert, bound by the E experts' plane bytes.
+// grouped.py:142), ell_matmul_g (::ell_matmul_g, _kernel_ell_g,
+// pallas_call at grouped.py:64) and ell_lr_matmul_g (::ell_lr_matmul_g,
+// _kernel_ell_lr_g, pallas_call at grouped.py:103): the same kernels on a
+// grid with the expert as its y dimension (slab_common.cuh), so one
+// launch serves a whole bucket of E experts, each with its own x (M, K),
+// planes and y; the 2-D entry points are the E = 1 launch. An ELL row
+// starts at entry (e·N + row)·K_max of the stacked planes, so with an odd
+// K_max and 2-byte ids its 16-byte alignment follows the global row:
+// sparse_pass finds the boundary from that start. At the MoE decode
+// shapes (M = 2-6 rows per expert) each is a GEMV per expert, bound by
+// the E experts' plane bytes.
 #include "slab_common.cuh"
 
 namespace slab {
@@ -150,13 +156,21 @@ ell_kernel(const T* __restrict__ x, const T* __restrict__ vals,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = row < N;
+  const size_t ex = blockIdx.y;               // expert (0 for a 2-D launch)
+  x += ex * M * K;
+  y += ex * M * N;
+  if (LR) {
+    u += ex * R * N;
+    v += ex * R * K;
+  }
+  const size_t start = (ex * N + row) * kmax; // the row's first entry
   const unsigned k_lim = (unsigned)K;
   auto col_of = [k_lim](int, I code) {
     return (unsigned)code < k_lim ? (int)code : -1;
   };
   if (live) {
-    prefetch_l2(vals + (size_t)row * kmax, (size_t)kmax * sizeof(T), lane);
-    prefetch_l2(idx + (size_t)row * kmax, (size_t)kmax * sizeof(I), lane);
+    prefetch_l2(vals + start, (size_t)kmax * sizeof(T), lane);
+    prefetch_l2(idx + start, (size_t)kmax * sizeof(I), lane);
   }
   for (int m0 = 0; m0 < M; m0 += MTP) {
     const int mt = min(MTP, M - m0);
@@ -168,8 +182,7 @@ ell_kernel(const T* __restrict__ x, const T* __restrict__ vals,
 #pragma unroll
     for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
     if (live) {
-      sparse_pass<T, I, MTP>(acc, xk, vals + (size_t)row * kmax,
-                             idx + (size_t)row * kmax, (size_t)row * kmax,
+      sparse_pass<T, I, MTP>(acc, xk, vals + start, idx + start, start,
                              kmax, col_of, lane);
       store_row<T, MTP>(acc, y, m0, mt, N, row, lane, LR ? p : nullptr, u,
                         R);
@@ -179,14 +192,14 @@ ell_kernel(const T* __restrict__ x, const T* __restrict__ vals,
 
 template <typename T, typename I, bool LR>
 static int launch_ell(const void* x, const void* vals, const void* idx,
-                      const void* u, const void* v, void* y, int M, int N,
-                      int K, int kmax, int R, void* stream) {
+                      const void* u, const void* v, void* y, int E, int M,
+                      int N, int K, int kmax, int R, void* stream) {
   if (!aligned16(vals) || !aligned16(idx))
     return (int)cudaErrorMisalignedAddress;
   size_t smem = 0;
   const int mtp = pick_mtp(M, K, sizeof(T), &smem, 1,
                            LR ? lowrank_smem(R) : 0);
-  const dim3 grid((N + kWarps - 1) / kWarps);
+  const dim3 grid((N + kWarps - 1) / kWarps, E);
   SLAB_DISPATCH_MTP(mtp, {
     auto kern = ell_kernel<T, I, MTP, LR>;
     cudaError_t e = prepare(kern, smem);
@@ -201,20 +214,23 @@ static int launch_ell(const void* x, const void* vals, const void* idx,
 template <bool LR>
 static int dispatch_ell(int dtype, int idx_bytes, const void* x,
                         const void* vals, const void* idx, const void* u,
-                        const void* v, void* y, int M, int N, int K,
+                        const void* v, void* y, int E, int M, int N, int K,
                         int kmax, int R, void* stream) {
+  if (E <= 0 || E > kMaxExperts || M <= 0 || N <= 0 || K <= 0 ||
+      kmax <= 0 || (LR && R <= 0))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0 && idx_bytes == 2)
-    return launch_ell<float, uint16_t, LR>(x, vals, idx, u, v, y, M, N, K,
+    return launch_ell<float, uint16_t, LR>(x, vals, idx, u, v, y, E, M, N, K,
                                            kmax, R, stream);
   if (dtype == 0 && idx_bytes == 4)
-    return launch_ell<float, uint32_t, LR>(x, vals, idx, u, v, y, M, N, K,
+    return launch_ell<float, uint32_t, LR>(x, vals, idx, u, v, y, E, M, N, K,
                                            kmax, R, stream);
   if (dtype == 1 && idx_bytes == 2)
-    return launch_ell<__nv_bfloat16, uint16_t, LR>(x, vals, idx, u, v, y, M,
-                                                   N, K, kmax, R, stream);
+    return launch_ell<__nv_bfloat16, uint16_t, LR>(x, vals, idx, u, v, y, E,
+                                                   M, N, K, kmax, R, stream);
   if (dtype == 1 && idx_bytes == 4)
-    return launch_ell<__nv_bfloat16, uint32_t, LR>(x, vals, idx, u, v, y, M,
-                                                   N, K, kmax, R, stream);
+    return launch_ell<__nv_bfloat16, uint32_t, LR>(x, vals, idx, u, v, y, E,
+                                                   M, N, K, kmax, R, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -225,20 +241,35 @@ static int dispatch_ell(int dtype, int idx_bytes, const void* x,
 extern "C" int ell_matmul(int dtype, int idx_bytes, const void* x,
                           const void* vals, const void* idx, void* y, int M,
                           int N, int K, int kmax, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || kmax <= 0)
-    return (int)cudaErrorInvalidValue;
   return slab::dispatch_ell<false>(dtype, idx_bytes, x, vals, idx, nullptr,
-                                   nullptr, y, M, N, K, kmax, 0, stream);
+                                   nullptr, y, 1, M, N, K, kmax, 0, stream);
 }
 
 extern "C" int ell_lr_matmul(int dtype, int idx_bytes, const void* x,
                              const void* vals, const void* idx,
                              const void* u, const void* v, void* y, int M,
                              int N, int K, int kmax, int R, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || kmax <= 0 || R <= 0)
-    return (int)cudaErrorInvalidValue;
-  return slab::dispatch_ell<true>(dtype, idx_bytes, x, vals, idx, u, v, y, M,
-                                  N, K, kmax, R, stream);
+  return slab::dispatch_ell<true>(dtype, idx_bytes, x, vals, idx, u, v, y, 1,
+                                  M, N, K, kmax, R, stream);
+}
+
+// The grouped forms: E experts, x (E, M, K), vals / idx (E, N, K_max),
+// u (E, R, N), v (E, R, K), y (E, M, N); one launch.
+extern "C" int ell_matmul_g(int dtype, int idx_bytes, const void* x,
+                            const void* vals, const void* idx, void* y,
+                            int E, int M, int N, int K, int kmax,
+                            void* stream) {
+  return slab::dispatch_ell<false>(dtype, idx_bytes, x, vals, idx, nullptr,
+                                   nullptr, y, E, M, N, K, kmax, 0, stream);
+}
+
+extern "C" int ell_lr_matmul_g(int dtype, int idx_bytes, const void* x,
+                               const void* vals, const void* idx,
+                               const void* u, const void* v, void* y, int E,
+                               int M, int N, int K, int kmax, int R,
+                               void* stream) {
+  return slab::dispatch_ell<true>(dtype, idx_bytes, x, vals, idx, u, v, y, E,
+                                  M, N, K, kmax, R, stream);
 }
 
 namespace slab {

@@ -59,13 +59,20 @@
 // read from L2 rather than wait on device memory. N:M positions are
 // checked against m before x is indexed.
 //
-// slab_matmul_g and slab_nm_matmul_g, the grouped-expert forms (replace
-// repro/kernels/grouped.py::slab_matmul_g, _kernel_dense_g, pallas_call
-// at grouped.py:242, and ::slab_nm_matmul_g, _kernel_nm_full_g,
-// pallas_call at grouped.py:297): the same kernels on a grid with the
-// expert as its y dimension (slab_common.cuh), one launch per bucket of
-// E experts. At the MoE decode shapes (M = 2 rows per expert) each is a
-// GEMV per expert, bound by the E experts' plane bytes.
+// The grouped-expert forms (replace repro/kernels/grouped.py::
+// slab_matmul_g, _kernel_dense_g, pallas_call at grouped.py:242;
+// ::slab_nm_matmul_g, _kernel_nm_full_g, :297; ::slab_lr_matmul_g,
+// _kernel_dense_lr_g, :348; ::slab_nm_lr_matmul_g, _kernel_nm_lr_g, :402;
+// ::binlr_matmul_g, _kernel_binlr_g, :450): the same kernels on a grid
+// with the expert as its y dimension (slab_common.cuh), one launch per
+// bucket of E experts; the 2-D entry points are the E = 1 launch. At the
+// MoE decode shapes (M = 2-6 rows per expert) each is a GEMV per expert,
+// bound by the E experts' plane bytes: dense W_S for slab_lr_matmul_g
+// (the dense expert stack's bytes plus u and v: it can only tie a
+// batched dense GEMV), n/m of the values plus int8 positions for
+// slab_nm_lr_matmul_g, and the sign words alone (1/16 of the dense bf16
+// bytes) for binlr_matmul_g, which x ⊙ v_r staging and launch cost
+// bound rather than bytes at these sizes.
 #include "slab_common.cuh"
 
 namespace slab {
@@ -204,7 +211,13 @@ slab_lr_kernel(const T* __restrict__ x, const T* __restrict__ ws,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = row < N;
-  if (live) prefetch_l2(ws + (size_t)row * K, (size_t)K * sizeof(T), lane);
+  const size_t ex = blockIdx.y;               // expert (0 for a 2-D launch)
+  x += ex * M * K;
+  y += ex * M * N;
+  u += ex * R * N;
+  v += ex * R * K;
+  const T* ws_row = ws + (ex * N + row) * K;  // row of the stacked planes
+  if (live) prefetch_l2(ws_row, (size_t)K * sizeof(T), lane);
 
   for (int m0 = 0; m0 < M; m0 += MTP) {
     const int mt = min(MTP, M - m0);
@@ -216,7 +229,7 @@ slab_lr_kernel(const T* __restrict__ x, const T* __restrict__ ws,
 #pragma unroll
     for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
     if (live) {
-      dense_pass<T, MTP>(acc, xs, ws + (size_t)row * K, K, lane);
+      dense_pass<T, MTP>(acc, xs, ws_row, K, lane);
       store_row<T, MTP>(acc, y, m0, mt, N, row, lane, p, u, R);
     }
   }
@@ -224,12 +237,12 @@ slab_lr_kernel(const T* __restrict__ x, const T* __restrict__ ws,
 
 template <typename T>
 static int launch_lr(const void* x, const void* ws, const void* u,
-                     const void* v, void* y, int M, int N, int K, int R,
-                     void* stream) {
+                     const void* v, void* y, int E, int M, int N, int K,
+                     int R, void* stream) {
   if (!aligned16(ws)) return (int)cudaErrorMisalignedAddress;
   size_t smem = 0;
   const int mtp = pick_mtp(M, K, sizeof(T), &smem, 1, lowrank_smem(R));
-  const dim3 grid((N + kWarps - 1) / kWarps);
+  const dim3 grid((N + kWarps - 1) / kWarps, E);
   SLAB_DISPATCH_MTP(mtp, {
     auto kern = slab_lr_kernel<T, MTP>;
     cudaError_t e = prepare(kern, smem);
@@ -296,7 +309,13 @@ nm_lr_kernel(const T* __restrict__ x, const T* __restrict__ vals,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = row < N;
+  const size_t ex = blockIdx.y;               // expert (0 for a 2-D launch)
+  x += ex * M * K;
+  y += ex * M * N;
+  u += ex * R * N;
+  v += ex * R * K;
   const int per_row = (K / m_pat) * n_keep;   // stored entries per row
+  const size_t base = (ex * N + row) * per_row;   // the row's first entry
   const bool pow2 = !(n_keep & (n_keep - 1)) && !(m_pat & (m_pat - 1));
   const int ln = __ffs(n_keep) - 1, lm = __ffs(m_pat) - 1;
   auto col_of = [=](int e, int8_t q) {
@@ -304,9 +323,8 @@ nm_lr_kernel(const T* __restrict__ x, const T* __restrict__ vals,
     return (pow2 ? (e >> ln) << lm : (e / n_keep) * m_pat) + q;
   };
   if (live) {
-    prefetch_l2(vals + (size_t)row * per_row, (size_t)per_row * sizeof(T),
-                lane);
-    prefetch_l2(idx + (size_t)row * per_row, (size_t)per_row, lane);
+    prefetch_l2(vals + base, (size_t)per_row * sizeof(T), lane);
+    prefetch_l2(idx + base, (size_t)per_row, lane);
   }
   for (int m0 = 0; m0 < M; m0 += MTP) {
     const int mt = min(MTP, M - m0);
@@ -318,10 +336,8 @@ nm_lr_kernel(const T* __restrict__ x, const T* __restrict__ vals,
 #pragma unroll
     for (int m = 0; m < MTP; ++m) acc[m] = 0.f;
     if (live) {
-      sparse_pass<T, int8_t, MTP>(acc, xk, vals + (size_t)row * per_row,
-                                  idx + (size_t)row * per_row,
-                                  (size_t)row * per_row, per_row, col_of,
-                                  lane);
+      sparse_pass<T, int8_t, MTP>(acc, xk, vals + base, idx + base, base,
+                                  per_row, col_of, lane);
       store_row<T, MTP>(acc, y, m0, mt, N, row, lane, p, u, R);
     }
   }
@@ -337,7 +353,12 @@ binlr_kernel(const T* __restrict__ x, const uint32_t* __restrict__ bp,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool live = row < N;
-  const uint32_t* bp_row = bp + (size_t)row * (K / 32);
+  const size_t ex = blockIdx.y;               // expert (0 for a 2-D launch)
+  x += ex * M * K;
+  y += ex * M * N;
+  u += ex * R * N;
+  v += ex * R * K;
+  const uint32_t* bp_row = bp + (ex * N + row) * (K / 32);
   if (live) prefetch_l2(bp_row, (size_t)K / 8, lane);
 
   for (int m0 = 0; m0 < M; m0 += MTP) {
@@ -366,13 +387,14 @@ binlr_kernel(const T* __restrict__ x, const uint32_t* __restrict__ bp,
 
 template <typename T>
 static int launch_nm_lr(const void* x, const void* vals, const void* idx,
-                        const void* u, const void* v, void* y, int M, int N,
-                        int K, int n_keep, int m_pat, int R, void* stream) {
+                        const void* u, const void* v, void* y, int E, int M,
+                        int N, int K, int n_keep, int m_pat, int R,
+                        void* stream) {
   if (!aligned16(vals) || !aligned16(idx))
     return (int)cudaErrorMisalignedAddress;
   size_t smem = 0;
   const int mtp = pick_mtp(M, K, sizeof(T), &smem, 1, lowrank_smem(R));
-  const dim3 grid((N + kWarps - 1) / kWarps);
+  const dim3 grid((N + kWarps - 1) / kWarps, E);
   SLAB_DISPATCH_MTP(mtp, {
     auto kern = nm_lr_kernel<T, MTP>;
     cudaError_t e = prepare(kern, smem);
@@ -386,12 +408,12 @@ static int launch_nm_lr(const void* x, const void* vals, const void* idx,
 
 template <typename T>
 static int launch_binlr(const void* x, const void* bp, const void* u,
-                        const void* v, void* y, int M, int N, int K, int R,
-                        void* stream) {
+                        const void* v, void* y, int E, int M, int N, int K,
+                        int R, void* stream) {
   if (!aligned16(bp)) return (int)cudaErrorMisalignedAddress;
   size_t smem = 0;
   const int mtp = pick_mtp(M, K, sizeof(T), &smem, 1);
-  const dim3 grid((N + kWarps - 1) / kWarps);
+  const dim3 grid((N + kWarps - 1) / kWarps, E);
   SLAB_DISPATCH_MTP(mtp, {
     auto kern = binlr_kernel<T, MTP>;
     cudaError_t e = prepare(kern, smem);
@@ -414,6 +436,48 @@ static int dispatch_dense(int dtype, const void* x, const void* ws,
     return launch_dense<float>(x, ws, bp, u, v, y, E, M, N, K, R, stream);
   if (dtype == 1)
     return launch_dense<__nv_bfloat16>(x, ws, bp, u, v, y, E, M, N, K, R,
+                                       stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+static int dispatch_lr(int dtype, const void* x, const void* ws,
+                       const void* u, const void* v, void* y, int E, int M,
+                       int N, int K, int R, void* stream) {
+  if (E <= 0 || E > kMaxExperts || M <= 0 || N <= 0 || K <= 0 || R <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_lr<float>(x, ws, u, v, y, E, M, N, K, R, stream);
+  if (dtype == 1)
+    return launch_lr<__nv_bfloat16>(x, ws, u, v, y, E, M, N, K, R, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+static int dispatch_nm_lr(int dtype, const void* x, const void* vals,
+                          const void* idx, const void* u, const void* v,
+                          void* y, int E, int M, int N, int K, int n_keep,
+                          int m_pat, int R, void* stream) {
+  if (E <= 0 || E > kMaxExperts || M <= 0 || N <= 0 || K <= 0 || R <= 0 ||
+      m_pat <= 0 || K % m_pat || n_keep <= 0 || n_keep > m_pat)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_nm_lr<float>(x, vals, idx, u, v, y, E, M, N, K, n_keep,
+                               m_pat, R, stream);
+  if (dtype == 1)
+    return launch_nm_lr<__nv_bfloat16>(x, vals, idx, u, v, y, E, M, N, K,
+                                       n_keep, m_pat, R, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+static int dispatch_binlr(int dtype, const void* x, const void* bp,
+                          const void* u, const void* v, void* y, int E,
+                          int M, int N, int K, int R, void* stream) {
+  if (E <= 0 || E > kMaxExperts || M <= 0 || N <= 0 || K <= 0 || K % 32 ||
+      R <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_binlr<float>(x, bp, u, v, y, E, M, N, K, R, stream);
+  if (dtype == 1)
+    return launch_binlr<__nv_bfloat16>(x, bp, u, v, y, E, M, N, K, R,
                                        stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -477,41 +541,43 @@ extern "C" int slab_nm_matmul_g(int dtype, const void* x, const void* vals,
 extern "C" int slab_lr_matmul(int dtype, const void* x, const void* ws,
                               const void* u, const void* v, void* y, int M,
                               int N, int K, int R, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || R <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return slab::launch_lr<float>(x, ws, u, v, y, M, N, K, R, stream);
-  if (dtype == 1)
-    return slab::launch_lr<__nv_bfloat16>(x, ws, u, v, y, M, N, K, R,
-                                          stream);
-  return (int)cudaErrorInvalidValue;
+  return slab::dispatch_lr(dtype, x, ws, u, v, y, 1, M, N, K, R, stream);
 }
 
 extern "C" int slab_nm_lr_matmul(int dtype, const void* x, const void* vals,
                                  const void* idx, const void* u,
                                  const void* v, void* y, int M, int N, int K,
                                  int n_keep, int m_pat, int R, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || R <= 0 || m_pat <= 0 || K % m_pat ||
-      n_keep <= 0 || n_keep > m_pat)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return slab::launch_nm_lr<float>(x, vals, idx, u, v, y, M, N, K, n_keep,
-                                     m_pat, R, stream);
-  if (dtype == 1)
-    return slab::launch_nm_lr<__nv_bfloat16>(x, vals, idx, u, v, y, M, N, K,
-                                             n_keep, m_pat, R, stream);
-  return (int)cudaErrorInvalidValue;
+  return slab::dispatch_nm_lr(dtype, x, vals, idx, u, v, y, 1, M, N, K,
+                              n_keep, m_pat, R, stream);
 }
 
 extern "C" int binlr_matmul(int dtype, const void* x, const void* bp,
                             const void* u, const void* v, void* y, int M,
                             int N, int K, int R, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 32 || R <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return slab::launch_binlr<float>(x, bp, u, v, y, M, N, K, R, stream);
-  if (dtype == 1)
-    return slab::launch_binlr<__nv_bfloat16>(x, bp, u, v, y, M, N, K, R,
-                                             stream);
-  return (int)cudaErrorInvalidValue;
+  return slab::dispatch_binlr(dtype, x, bp, u, v, y, 1, M, N, K, R, stream);
+}
+
+// The grouped forms without a sparse-binary pair: ws (E, N, K) or vals /
+// idx (E, N, K/m, n), bp (E, N, K/32), u (E, R, N), v (E, R, K), x (E,
+// M, K), y (E, M, N); one launch.
+extern "C" int slab_lr_matmul_g(int dtype, const void* x, const void* ws,
+                                const void* u, const void* v, void* y, int E,
+                                int M, int N, int K, int R, void* stream) {
+  return slab::dispatch_lr(dtype, x, ws, u, v, y, E, M, N, K, R, stream);
+}
+
+extern "C" int slab_nm_lr_matmul_g(int dtype, const void* x,
+                                   const void* vals, const void* idx,
+                                   const void* u, const void* v, void* y,
+                                   int E, int M, int N, int K, int n_keep,
+                                   int m_pat, int R, void* stream) {
+  return slab::dispatch_nm_lr(dtype, x, vals, idx, u, v, y, E, M, N, K,
+                              n_keep, m_pat, R, stream);
+}
+
+extern "C" int binlr_matmul_g(int dtype, const void* x, const void* bp,
+                              const void* u, const void* v, void* y, int E,
+                              int M, int N, int K, int R, void* stream) {
+  return slab::dispatch_binlr(dtype, x, bp, u, v, y, E, M, N, K, R, stream);
 }

@@ -2,15 +2,20 @@
 plain PyTorch versions. Each computes, for every expert e of a bucket,
 what its per-linear counterpart computes on x[e] and expert e's planes:
 
-    slab_ell_matmul_g  #1 per expert  (csrc/ell.cu)
-    nm_matmul_g        #8 per expert  (csrc/nm_sparse.cu)
-    slab_matmul_g      #3 per expert  (csrc/slab_matmul.cu)
-    slab_nm_matmul_g   #2 per expert  (csrc/slab_matmul.cu)
+    ell_matmul_g         #4 per expert  (csrc/ell.cu)
+    ell_lr_matmul_g      #5 per expert  (csrc/ell.cu)
+    slab_ell_matmul_g    #1 per expert  (csrc/ell.cu)
+    nm_matmul_g          #8 per expert  (csrc/nm_sparse.cu)
+    slab_matmul_g        #3 per expert  (csrc/slab_matmul.cu)
+    slab_nm_matmul_g     #2 per expert  (csrc/slab_matmul.cu)
+    slab_lr_matmul_g     #6 per expert  (csrc/slab_matmul.cu)
+    slab_nm_lr_matmul_g  #7 per expert  (csrc/slab_matmul.cu)
+    binlr_matmul_g       #9 per expert  (csrc/slab_matmul.cu)
 
-Replace ``repro/kernels/grouped.py::{slab_ell_matmul_g, nm_matmul_g,
-slab_matmul_g, slab_nm_matmul_g}`` (TPU). A CUDA kernel here is its
-per-linear kernel launched once for the whole bucket with the expert as
-the grid's y dimension, never E launches. Operands use the kernel
+Replace the nine kernels of ``repro/kernels/grouped.py`` (TPU), one for
+one. A CUDA kernel here is its per-linear kernel launched once for the
+whole bucket with the expert as the grid's y dimension, never E
+launches. Operands use the kernel
 layout with a leading expert dim: x (E, M, K), u (E, R, N), v (E, R, K),
 planes (E, N, ...); ``kernels.ops`` maps the public layouts onto it.
 The plain versions loop over the experts through the per-linear plain
@@ -22,6 +27,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import binlr as binlr_k
 from repro_torch.kernels import build
 from repro_torch.kernels import ell as ell_k
 from repro_torch.kernels import nm_sparse as nm_k
@@ -39,6 +45,22 @@ SLAB_G = build.CudaKernel(
 SLAB_NM_G = build.CudaKernel(
     "slab_nm_matmul_g", "slab_matmul.cu",
     "src/repro/kernels/grouped.py:280 (slab_nm_matmul_g, pallas_call :297)")
+ELL_G = build.CudaKernel(
+    "ell_matmul_g", "ell.cu",
+    "src/repro/kernels/grouped.py:54 (ell_matmul_g, pallas_call :64)")
+ELL_LR_G = build.CudaKernel(
+    "ell_lr_matmul_g", "ell.cu",
+    "src/repro/kernels/grouped.py:91 (ell_lr_matmul_g, pallas_call :103)")
+SLAB_LR_G = build.CudaKernel(
+    "slab_lr_matmul_g", "slab_matmul.cu",
+    "src/repro/kernels/grouped.py:336 (slab_lr_matmul_g, pallas_call :348)")
+SLAB_NM_LR_G = build.CudaKernel(
+    "slab_nm_lr_matmul_g", "slab_matmul.cu",
+    "src/repro/kernels/grouped.py:387 (slab_nm_lr_matmul_g, pallas_call "
+    ":402)")
+BINLR_G = build.CudaKernel(
+    "binlr_matmul_g", "slab_matmul.cu",
+    "src/repro/kernels/grouped.py:437 (binlr_matmul_g, pallas_call :450)")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +70,11 @@ _NM_ARGS = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _SLAB_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _SLAB_NM_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                  _P]
+_ELL_ARGS = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_ELL_LR_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_LR_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_NM_LR_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_BINLR_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
 def _per_expert(plain, x, *planes) -> torch.Tensor:
@@ -64,19 +91,37 @@ def _check_x(x):
     return e, m, k
 
 
-def _check_binary(x, b_packed, u, v, n: int):
-    """The sign words and rank stacks of the binary kernels."""
+def _check_rank(x, u, v, n: int):
+    """The (E, R, N) / (E, R, K) rank stacks; returns (e, m, k, r)."""
     e, m, k = _check_x(x)
     r = u.shape[1]
-    dev = x.device
+    build.check_operand(u, "u", x.dtype, (e, r, n), x.device)
+    build.check_operand(v, "v", x.dtype, (e, r, k), x.device)
+    return e, m, k, r
+
+
+def _check_binary(x, b_packed, u, v, n: int):
+    """The sign words and rank stacks of the binary kernels."""
+    e, m, k, r = _check_rank(x, u, v, n)
     if k % 32:
         raise ValueError(f"K={k} is not a multiple of 32")
     build.check_operand(b_packed, "b_packed", torch.int32, (e, n, k // 32),
-                        dev)
-    build.check_operand(u, "u", x.dtype, (e, r, n), dev)
-    build.check_operand(v, "v", x.dtype, (e, r, k), dev)
+                        x.device)
     build.check_aligned(b_packed, "b_packed")
     return e, m, k, r
+
+
+def _check_ell(x, vals, idx):
+    """The (E, N, K_max) ELL planes; returns (n, k_max)."""
+    e = x.shape[0]
+    n, k_max = vals.shape[1:]
+    build.check_operand(vals, "vals", x.dtype, (e, n, k_max), x.device)
+    if idx.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"ELL ids must be int16/int32 views, not {idx.dtype}")
+    build.check_operand(idx, "idx", idx.dtype, (e, n, k_max), x.device)
+    build.check_aligned(vals, "vals")
+    build.check_aligned(idx, "idx")
+    return n, k_max
 
 
 def _check_nm(x, vals, idx, m_pat: int):
@@ -100,15 +145,9 @@ def slab_ell_matmul_g_plain(x, vals, idx, b_packed, u, v) -> torch.Tensor:
 
 def slab_ell_matmul_g(x, vals, idx, b_packed, u, v) -> torch.Tensor:
     """Launch the grouped ELL SLaB kernel (one launch for the bucket)."""
-    n, k_max = vals.shape[1:]
+    n, k_max = _check_ell(x, vals, idx)
     e, m, k, r = _check_binary(x, b_packed, u, v, n)
     dev = x.device
-    build.check_operand(vals, "vals", x.dtype, (e, n, k_max), dev)
-    if idx.dtype not in (torch.int16, torch.int32):
-        raise TypeError(f"ELL ids must be int16/int32 views, not {idx.dtype}")
-    build.check_operand(idx, "idx", idx.dtype, (e, n, k_max), dev)
-    build.check_aligned(vals, "vals")
-    build.check_aligned(idx, "idx")
     y = torch.empty((e, m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
@@ -189,4 +228,111 @@ def slab_nm_matmul_g(x, vals, idx, m_pat: int, b_packed, u,
     build.check_launch(err, SLAB_NM_G.name,
                        f"E={e} M={m} N={n} K={k} {n_keep}:{m_pat} R={r}")
     SLAB_NM_G.launches += 1
+    return y
+
+
+def ell_matmul_g_plain(x, vals, idx) -> torch.Tensor:
+    return _per_expert(ell_k.ell_matmul_plain, x, vals, idx)
+
+
+def ell_matmul_g(x, vals, idx) -> torch.Tensor:
+    """Launch the grouped ELL kernel (one launch for the bucket)."""
+    e, m, k = _check_x(x)
+    n, k_max = _check_ell(x, vals, idx)
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    fn = build.function(ELL_G.source, ELL_G.name, _ELL_ARGS)
+    err = fn(build.dtype_code(x.dtype), idx.element_size(), x.data_ptr(),
+             vals.data_ptr(), idx.data_ptr(), y.data_ptr(), e, m, n, k,
+             k_max, build.stream_ptr(x.device))
+    build.check_launch(err, ELL_G.name,
+                       f"E={e} M={m} N={n} K={k} K_max={k_max}")
+    ELL_G.launches += 1
+    return y
+
+
+def ell_lr_matmul_g_plain(x, vals, idx, u, v) -> torch.Tensor:
+    return _per_expert(ell_k.ell_lr_matmul_plain, x, vals, idx, u, v)
+
+
+def ell_lr_matmul_g(x, vals, idx, u, v) -> torch.Tensor:
+    """Launch the grouped ELL + low-rank kernel (one launch)."""
+    n, k_max = _check_ell(x, vals, idx)
+    e, m, k, r = _check_rank(x, u, v, n)
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    fn = build.function(ELL_LR_G.source, ELL_LR_G.name, _ELL_LR_ARGS)
+    err = fn(build.dtype_code(x.dtype), idx.element_size(), x.data_ptr(),
+             vals.data_ptr(), idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+             y.data_ptr(), e, m, n, k, k_max, r, build.stream_ptr(x.device))
+    build.check_launch(err, ELL_LR_G.name,
+                       f"E={e} M={m} N={n} K={k} K_max={k_max} R={r}")
+    ELL_LR_G.launches += 1
+    return y
+
+
+def slab_lr_matmul_g_plain(x, w_s, u, v) -> torch.Tensor:
+    return _per_expert(slab_k.slab_lr_matmul_plain, x, w_s, u, v)
+
+
+def slab_lr_matmul_g(x, w_s, u, v) -> torch.Tensor:
+    """Launch the grouped dense-masked + low-rank kernel (one launch)."""
+    n = w_s.shape[1]
+    e, m, k, r = _check_rank(x, u, v, n)
+    build.check_operand(w_s, "w_s", x.dtype, (e, n, k), x.device)
+    build.check_aligned(w_s, "w_s")
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    fn = build.function(SLAB_LR_G.source, SLAB_LR_G.name, _LR_ARGS)
+    err = fn(build.dtype_code(x.dtype), x.data_ptr(), w_s.data_ptr(),
+             u.data_ptr(), v.data_ptr(), y.data_ptr(), e, m, n, k, r,
+             build.stream_ptr(x.device))
+    build.check_launch(err, SLAB_LR_G.name, f"E={e} M={m} N={n} K={k} R={r}")
+    SLAB_LR_G.launches += 1
+    return y
+
+
+def slab_nm_lr_matmul_g_plain(x, vals, idx, m_pat: int, u,
+                              v) -> torch.Tensor:
+    return _per_expert(slab_k.slab_nm_lr_matmul_plain, x, vals, idx, m_pat,
+                       u, v)
+
+
+def slab_nm_lr_matmul_g(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
+    """Launch the grouped N:M + low-rank kernel (one launch)."""
+    n, n_keep = _check_nm(x, vals, idx, m_pat)
+    e, m, k, r = _check_rank(x, u, v, n)
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    fn = build.function(SLAB_NM_LR_G.source, SLAB_NM_LR_G.name, _NM_LR_ARGS)
+    err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
+             idx.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(), e, m,
+             n, k, n_keep, m_pat, r, build.stream_ptr(x.device))
+    build.check_launch(err, SLAB_NM_LR_G.name,
+                       f"E={e} M={m} N={n} K={k} {n_keep}:{m_pat} R={r}")
+    SLAB_NM_LR_G.launches += 1
+    return y
+
+
+def binlr_matmul_g_plain(x, b_packed, u, v) -> torch.Tensor:
+    return _per_expert(binlr_k.binlr_matmul_plain, x, b_packed, u, v)
+
+
+def binlr_matmul_g(x, b_packed, u, v) -> torch.Tensor:
+    """Launch the grouped binary ⊙ rank-r kernel (one launch)."""
+    n = b_packed.shape[1]
+    e, m, k, r = _check_binary(x, b_packed, u, v, n)
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    fn = build.function(BINLR_G.source, BINLR_G.name, _BINLR_ARGS)
+    err = fn(build.dtype_code(x.dtype), x.data_ptr(), b_packed.data_ptr(),
+             u.data_ptr(), v.data_ptr(), y.data_ptr(), e, m, n, k, r,
+             build.stream_ptr(x.device))
+    build.check_launch(err, BINLR_G.name, f"E={e} M={m} N={n} K={k} R={r}")
+    BINLR_G.launches += 1
     return y

@@ -27,7 +27,8 @@ from repro_torch.kernels import slab_matmul as slab_k
 KERNELS = (ell_k.SLAB_ELL, slab_k.SLAB_NM, slab_k.SLAB_DENSE, ell_k.ELL,
            ell_k.ELL_LR, slab_k.SLAB_LR, slab_k.SLAB_NM_LR, nm_k.NM,
            binlr_k.BINLR, fd_k.FLASH_DECODE, fd_k.FLASH_DECODE_PAGED,
-           g_k.SLAB_ELL_G, g_k.NM_G, g_k.SLAB_G, g_k.SLAB_NM_G)
+           g_k.SLAB_ELL_G, g_k.NM_G, g_k.SLAB_G, g_k.SLAB_NM_G, g_k.ELL_G,
+           g_k.ELL_LR_G, g_k.SLAB_LR_G, g_k.SLAB_NM_LR_G, g_k.BINLR_G)
 
 
 def reset_launch_counts() -> None:
@@ -145,6 +146,22 @@ def _rank_stack_g(u: torch.Tensor, v: torch.Tensor, dtype):
             v.transpose(1, 2).to(dtype).contiguous())
 
 
+def ell_matmul_g(x, vals, idx) -> torch.Tensor:
+    """Grouped-expert ell_matmul: x (E, M, K), vals / idx (E, N, K_max)
+    -> (E, M, N)."""
+    x = x.contiguous()
+    fn = g_k.ell_matmul_g_plain if _on_cpu(x) else g_k.ell_matmul_g
+    return fn(x, vals.to(x.dtype), idx)
+
+
+def ell_lr_matmul_g(x, vals, idx, u, v) -> torch.Tensor:
+    """Grouped-expert ell_lr_matmul: u (E, N, R), v (E, K, R)."""
+    u2, v2 = _rank_stack_g(u, v, x.dtype)
+    x = x.contiguous()
+    fn = g_k.ell_lr_matmul_g_plain if _on_cpu(x) else g_k.ell_lr_matmul_g
+    return fn(x, vals.to(x.dtype), idx, u2, v2)
+
+
 def slab_ell_matmul_g(x, vals, idx, b_packed, u, v) -> torch.Tensor:
     """Grouped-expert slab_ell_matmul: x (E, M, K), vals / idx (E, N,
     K_max), b_packed (E, N, K/32) -> (E, M, N)."""
@@ -178,6 +195,31 @@ def slab_nm_matmul_g(x, vals, idx, m_pat: int, b_packed, u,
     fn = (g_k.slab_nm_matmul_g_plain if _on_cpu(x)
           else g_k.slab_nm_matmul_g)
     return fn(x, vals.to(x.dtype), idx, m_pat, b_packed, u2, v2)
+
+
+def slab_lr_matmul_g(x, w_s, u, v) -> torch.Tensor:
+    """Grouped-expert slab_lr_matmul: w_s (E, N, K)."""
+    u2, v2 = _rank_stack_g(u, v, x.dtype)
+    x = x.contiguous()
+    fn = g_k.slab_lr_matmul_g_plain if _on_cpu(x) else g_k.slab_lr_matmul_g
+    return fn(x, w_s.to(x.dtype), u2, v2)
+
+
+def slab_nm_lr_matmul_g(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
+    """Grouped-expert slab_nm_lr_matmul: vals / idx (E, N, K/m, n)."""
+    u2, v2 = _rank_stack_g(u, v, x.dtype)
+    x = x.contiguous()
+    fn = (g_k.slab_nm_lr_matmul_g_plain if _on_cpu(x)
+          else g_k.slab_nm_lr_matmul_g)
+    return fn(x, vals.to(x.dtype), idx, m_pat, u2, v2)
+
+
+def binlr_g(x, b_packed, u, v) -> torch.Tensor:
+    """Grouped-expert binlr: b_packed (E, N, K/32) sign words."""
+    u2, v2 = _rank_stack_g(u, v, x.dtype)
+    x = x.contiguous()
+    fn = g_k.binlr_matmul_g_plain if _on_cpu(x) else g_k.binlr_matmul_g
+    return fn(x, b_packed, u2, v2)
 
 
 def flash_decode_attention(q, k, v, lengths, k_scale=None, v_scale=None,

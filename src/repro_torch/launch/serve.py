@@ -11,6 +11,8 @@ paged KV cache (``--kv-quant`` for an int8 cache).
   python -m repro_torch.launch.serve --arch stablelm_12b --packed --engine \
       --kv-quant --chaos 0 --device cpu
   python -m repro_torch.launch.serve --arch phi3_5_moe --packed --device cpu
+  python -m repro_torch.launch.serve --arch deepseek_moe_16b --packed \
+      --compress hassle --pattern 2:4 --device cpu
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 refuses to start.

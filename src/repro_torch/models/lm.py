@@ -4,7 +4,8 @@
 Params are a plain dict: ``embed`` (V, D), ``layers`` — a list with one
 dict per layer ({attn_norm, mlp_norm, attn: {wq, wk, wv, wo}, mlp:
 {w_gate, w_up, w_down}}; the moe family holds ``moe``: {router, w_gate,
-w_up, w_down} with a leading expert dim in place of ``mlp``),
+w_up, w_down} with a leading expert dim, and ``shared`` (a SwiGLU MLP
+dict) when the config has shared experts, in place of ``mlp``),
 ``final_norm`` and ``lm_head`` (D, V). Where
 the reference scans stacked layers with ``lax.scan``, this port loops
 over the list in Python. Linear weights are (D_in, D_out); a linear may

@@ -13,8 +13,10 @@ def is_gated(act: str) -> bool:
     return act == "swiglu"
 
 
-def init_mlp(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ArchConfig, gen: torch.Generator, device,
+             d_ff: int | None = None) -> dict:
+    """``d_ff`` overrides the hidden width (the MoE shared experts)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     if is_gated(cfg.act):
         return {"w_gate": dense_init(gen, (d, f), d, cfg.dtype, device),
                 "w_up": dense_init(gen, (d, f), d, cfg.dtype, device),

@@ -13,7 +13,9 @@ The expert linears run on the (G, E, C, D) buffer: a dense (E, D_in,
 D_out) leaf is a batched matmul, an ``ExpertPackedStack`` goes through
 ``core.packed_model.expert_matmul`` (one grouped-kernel launch per
 expert bucket). Returns the Switch load-balancing aux loss beside the
-output. Shared experts (``cfg.shared_ff``, DeepSeek-MoE) and the
+output. With ``cfg.shared_ff`` (DeepSeek-MoE) an always-on SwiGLU MLP
+of that width, the shared experts, is added to the routed output; its
+linears tap as ``moe.shared.*`` and pack as plain 2-D linears. The
 sharding axes are not ported.
 """
 from __future__ import annotations
@@ -24,14 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.packed_model import ExpertPackedStack, expert_matmul
+from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.common import (ArchConfig, dense_init, tap_record,
-                                       tap_record_stacked)
-
-
-def _check_shared(cfg: ArchConfig) -> None:
-    if cfg.shared_ff:
-        raise NotImplementedError("shared experts (cfg.shared_ff) are not "
-                                  "ported yet")
+                                       tap_record_stacked, tap_scope)
 
 
 def _expert_apply(x4: torch.Tensor, w) -> torch.Tensor:
@@ -47,12 +44,15 @@ def _expert_apply(x4: torch.Tensor, w) -> torch.Tensor:
 
 
 def init_moe(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
-    _check_shared(cfg)
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"router": dense_init(gen, (d, e), d, torch.float32, device),
-            "w_gate": dense_init(gen, (e, d, f), d, cfg.dtype, device),
-            "w_up": dense_init(gen, (e, d, f), d, cfg.dtype, device),
-            "w_down": dense_init(gen, (e, f, d), f, cfg.dtype, device)}
+    p = {"router": dense_init(gen, (d, e), d, torch.float32, device),
+         "w_gate": dense_init(gen, (e, d, f), d, cfg.dtype, device),
+         "w_up": dense_init(gen, (e, d, f), d, cfg.dtype, device),
+         "w_down": dense_init(gen, (e, f, d), f, cfg.dtype, device)}
+    if cfg.shared_ff:
+        p["shared"] = mlp_lib.init_mlp(cfg.with_(act="swiglu"), gen, device,
+                                       d_ff=cfg.shared_ff)
+    return p
 
 
 def capacity(cfg: ArchConfig, tokens_per_group: int) -> int:
@@ -64,7 +64,6 @@ def capacity(cfg: ArchConfig, tokens_per_group: int) -> int:
 def moe_ffn(cfg: ArchConfig, p: dict,
             x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux loss scalar)."""
-    _check_shared(cfg)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     n_tok = b * s
@@ -114,4 +113,8 @@ def moe_ffn(cfg: ArchConfig, p: dict,
     frac_tokens = sel.mean(dim=(0, 1)) / k
     frac_probs = probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac_tokens * frac_probs)
+
+    if cfg.shared_ff:
+        with tap_scope("shared"):
+            y = y + mlp_lib.mlp(cfg.with_(act="swiglu"), p["shared"], x)
     return y, aux

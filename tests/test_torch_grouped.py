@@ -1,16 +1,19 @@
 """The port's grouped-expert layer against the reference on identical
 numpy inputs, on the CPU:
 
-- the plain versions of the four grouped kernels (#14 slab_ell_matmul_g,
-  #15 nm_matmul_g, #16 slab_matmul_g, #17 slab_nm_matmul_g) against the
-  reference's ``ops.*_g`` run in interpret mode, f32 at rel < 1e-5;
+- the plain versions of the nine grouped kernels (#12 ell_matmul_g, #13
+  ell_lr_matmul_g, #14 slab_ell_matmul_g, #15 nm_matmul_g, #16
+  slab_matmul_g, #17 slab_nm_matmul_g, #18 slab_lr_matmul_g, #19
+  slab_nm_lr_matmul_g, #20 binlr_matmul_g) against the reference's
+  ``ops.*_g`` run in interpret mode, f32 at rel < 1e-5;
 - ``pack_expert_stack`` byte-identical to the reference's (groups in the
   same order, members, dense members, every plane), and the reference's
   own bucketing / dense-member / fast-path cases;
 - ``pack_model`` on tuple decs: experts counted per variant, dense
   experts named;
-- ``packed_matmul_grouped`` raises for the five variants whose grouped
-  kernel is still to port.
+- ``expert_matmul`` for the variants of #12, #13 and #18-#20: equal to
+  each expert's own per-linear ``packed_matmul`` and to the reference's
+  ``expert_matmul`` on the same decompositions.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +26,8 @@ from repro.kernels import ops as ref_ops
 from repro_torch import bridge
 from repro_torch.core import packing, sparsity
 from repro_torch.core.packed_model import (ExpertPackedStack, expert_matmul,
-                                           pack_expert_stack)
+                                           pack_expert_stack, pack_linear,
+                                           packed_matmul)
 from repro_torch.core.slab import SLaBDecomposition, reconstruct
 from repro_torch.kernels import ops
 
@@ -38,7 +42,7 @@ def _randn(rng, *shape, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
-# ------------------------------------------------- grouped kernels (#14-#17)
+# --------------------------------------------- grouped kernels (#12-#20)
 
 N, K = 48, 64
 
@@ -86,6 +90,15 @@ CASES = [  # (kernel, E, M, rank, pattern or id width)
     ("slab", 1, 1, 1, None), ("slab", 3, 5, 3, None), ("slab", 4, 1, 1, None),
     ("slab_nm", 1, 1, 1, "2:4"), ("slab_nm", 3, 5, 3, "4:8"),
     ("slab_nm", 4, 5, 1, "2:4"),
+    ("ell", 1, 1, 1, "u16"), ("ell", 3, 5, 1, "u32"), ("ell", 4, 5, 1, "u16"),
+    ("ell_lr", 1, 1, 1, "u16"), ("ell_lr", 3, 5, 3, "u16"),
+    ("ell_lr", 4, 1, 3, "u32"),
+    ("slab_lr", 1, 1, 1, None), ("slab_lr", 3, 5, 3, None),
+    ("slab_lr", 4, 1, 1, None),
+    ("slab_nm_lr", 1, 1, 1, "2:4"), ("slab_nm_lr", 3, 5, 3, "4:8"),
+    ("slab_nm_lr", 4, 5, 1, "2:4"),
+    ("binlr", 1, 1, 1, None), ("binlr", 3, 5, 3, None),
+    ("binlr", 4, 5, 1, None),
 ]
 
 
@@ -115,6 +128,29 @@ def test_grouped_plain_matches_reference_interpret(kernel, e, m, rank, opt):
         got = ops.slab_matmul_g(x, p["dense"], p["b"], p["u"], p["v"])
         want = ref_ops.slab_matmul_g(xr, jnp.asarray(p["dense"].numpy()), br,
                                      ur, vr, interpret=True)
+    elif kernel in ("ell", "ell_lr"):
+        vals, idx = p["ell"]
+        ell_r = (jnp.asarray(vals.numpy()), jnp.asarray(_np_ids(idx)))
+        if kernel == "ell":
+            got = ops.ell_matmul_g(x, vals, idx)
+            want = ref_ops.ell_matmul_g(xr, *ell_r, interpret=True)
+        else:
+            got = ops.ell_lr_matmul_g(x, vals, idx, p["u"], p["v"])
+            want = ref_ops.ell_lr_matmul_g(xr, *ell_r, ur, vr,
+                                           interpret=True)
+    elif kernel == "slab_lr":
+        got = ops.slab_lr_matmul_g(x, p["dense"], p["u"], p["v"])
+        want = ref_ops.slab_lr_matmul_g(xr, jnp.asarray(p["dense"].numpy()),
+                                        ur, vr, interpret=True)
+    elif kernel == "slab_nm_lr":
+        vals, idx, mm = p["nm"]
+        got = ops.slab_nm_lr_matmul_g(x, vals, idx, mm, p["u"], p["v"])
+        want = ref_ops.slab_nm_lr_matmul_g(
+            xr, jnp.asarray(vals.numpy()), jnp.asarray(idx.numpy()), mm, ur,
+            vr, interpret=True)
+    elif kernel == "binlr":
+        got = ops.binlr_g(x, p["b"], p["u"], p["v"])
+        want = ref_ops.binlr_g(xr, br, ur, vr, interpret=True)
     else:
         vals, idx, mm = p["nm"]
         got = ops.slab_nm_matmul_g(x, vals, idx, mm, p["b"], p["u"], p["v"])
@@ -282,26 +318,49 @@ def test_single_bucket_full_coverage_fast_path():
                                    atol=1e-4)
 
 
-# --------------------------------- the grouped variants still to port
+# ------------------------- the variants of the grouped kernels #12, #13, #18-#20
 
-TO_PORT = {  # variant -> (numpy dec maker, pattern)
-    "sparse-ell": (lambda: _np_dec(0, keep=0.2, rank=0, binary=False), None),
-    "lowrank-ell": (lambda: _np_dec(0, keep=0.2, binary=False), None),
-    "lowrank-dense": (lambda: _np_dec(0, keep=0.9, binary=False), None),
-    "lowrank-nm": (lambda: _np_dec(0, binary=False, pattern="2:4"), "2:4"),
-    "binlr": (lambda: (np.zeros((64, 128), np.float32),)
-              + _np_dec(0)[1:], None),
+GROUPED_VARIANTS = {  # variant -> (numpy dec maker of a seed, pattern)
+    "sparse-ell": (lambda s: _np_dec(s, keep=0.2, rank=0, binary=False),
+                   None),
+    "lowrank-ell": (lambda s: _np_dec(s, keep=0.2, binary=False), None),
+    "lowrank-dense": (lambda s: _np_dec(s, keep=0.9, binary=False), None),
+    "lowrank-nm": (lambda s: _np_dec(s, binary=False, pattern="2:4"), "2:4"),
+    "binlr": (lambda s: (np.zeros((64, 128), np.float32),) + _np_dec(s)[1:],
+              None),
 }
 
 
-@pytest.mark.parametrize("variant", list(TO_PORT))
-def test_unported_grouped_variants_raise(variant):
-    make, pattern = TO_PORT[variant]
-    decs = tuple(_port_dec(make()) for _ in range(2))
-    eps = pack_expert_stack(torch.zeros(2, 128, 64), decs, pattern)
+@pytest.mark.parametrize("variant", list(GROUPED_VARIANTS))
+def test_grouped_variants_serve_each_expert(variant):
+    """Three experts of one variant stack into one group whose
+    ``expert_matmul`` gives, expert for expert, that expert's own
+    per-linear ``packed_matmul``, and what the reference's
+    ``expert_matmul`` gives on its pack of the same decompositions (the
+    two stacks byte-identical)."""
+    make, pattern = GROUPED_VARIANTS[variant]
+    np_decs = [make(s) for s in range(3)]
+    decs = tuple(_port_dec(d) for d in np_decs)
+    old = _randn(np.random.default_rng(4), 3, 128, 64)
+    eps = pack_expert_stack(torch.from_numpy(old), decs, pattern)
     assert [g.variant for g in eps.groups] == [variant]
-    with pytest.raises(NotImplementedError, match="queue B"):
-        expert_matmul(torch.zeros(2, 3, 128), eps)
+    assert eps.members == ((0, 1, 2),) and not eps.dense_members
+    ref = ref_pm.pack_expert_stack(jnp.asarray(old),
+                                   tuple(_ref_dec(d) for d in np_decs),
+                                   pattern, jnp.float32)
+    _assert_same_stack(eps, ref)
+    x = _randn(np.random.default_rng(5), 3, 6, 128)
+    got = expert_matmul(torch.from_numpy(x), eps)
+    assert got.shape == (3, 6, 64)
+    grp = eps.groups[0]
+    k_max = grp.sparse_vals.shape[-1] if variant.endswith("-ell") else None
+    for e, d in enumerate(decs):
+        own = pack_linear(d, pattern, torch.float32, variant=variant,
+                          ell_nnz=k_max)
+        assert _rel(got[e], packed_matmul(torch.from_numpy(x[e]), own)) \
+            < 1e-6
+    want = ref_pm.expert_matmul(jnp.asarray(x), ref)
+    assert _rel(got, want) < 1e-5
 
 
 def test_pack_model_counts_experts_and_names_dense_ones():

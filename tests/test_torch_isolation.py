@@ -30,7 +30,8 @@ def test_port_files_exist():
             "slab_matmul.py", "nm_sparse.py", "ops.py", "packed_model.py",
             "baselines.py", "compressor.py", "binlr.py", "flash_decode.py",
             "paged_cache.py", "scheduler.py", "faults.py",
-            "engine.py", "moe.py", "grouped.py"} <= names
+            "engine.py", "moe.py", "grouped.py",
+            "deepseek_moe_16b.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

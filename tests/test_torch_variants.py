@@ -370,7 +370,11 @@ def test_ctypes_argtypes_match_the_c_signatures():
         "binlr_matmul": binlr_k._ARGS, "flash_decode": fd_k._CONTIG_ARGS,
         "flash_decode_paged": fd_k._PAGED_ARGS,
         "slab_ell_matmul_g": g_k._SLAB_ELL_ARGS, "nm_matmul_g": g_k._NM_ARGS,
-        "slab_matmul_g": g_k._SLAB_ARGS, "slab_nm_matmul_g": g_k._SLAB_NM_ARGS}
+        "slab_matmul_g": g_k._SLAB_ARGS, "slab_nm_matmul_g": g_k._SLAB_NM_ARGS,
+        "ell_matmul_g": g_k._ELL_ARGS, "ell_lr_matmul_g": g_k._ELL_LR_ARGS,
+        "slab_lr_matmul_g": g_k._LR_ARGS,
+        "slab_nm_lr_matmul_g": g_k._NM_LR_ARGS,
+        "binlr_matmul_g": g_k._BINLR_ARGS}
     assert set(argtypes) == {k.name for k in ops.KERNELS}
     seen = set()
     for src in build.SOURCES:
