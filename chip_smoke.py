@@ -18,7 +18,9 @@ Phases:
      one torch.matmul against the reconstructed dense W. Then both
      flash-decode kernels (paged #11, contiguous #10) against their plain
      versions at the decode shapes of llama2-7b (R 8, KV 32, G 1, dh 128)
-     and stablelm-12b (R 8, KV 8, G 4, dh 160): block size 16 and 32,
+     and stablelm-12b (R 8, KV 8, G 4, dh 160), and at qwen2-vl-2b's
+     (KV 2, G 6, dh 128) and nemotron-4-340b's (KV 8, G 12, dh 192)
+     wider groups: block size 16 and 32,
      lengths 0 to 4096 with exact chunk boundaries, scattered block
      tables, the model dtype and int8, bf16 and f32, and for #10 also
      S = 4100; times beside the byte bound, the plain version and one
@@ -26,14 +28,19 @@ Phases:
      kernels (G_SPECS): #14-#17 at phi3.5-moe's expert planes (16
      experts and a bucket of 5 gathered out of order, (N, K) in {(6400,
      4096), (4096, 6400)}, M in {1, 2, 20}, nm_matmul_g also at K = 6408)
-     and #12, #13, #18-#20 at deepseek-moe-16b's (64 experts and a bucket
+     and #12-#14, #18-#20 at deepseek-moe-16b's (64 experts and a bucket
      of 7, (N, K) in {(1408, 2048), (2048, 1408)}, M in {1, 6, 20}, the
      kernels without sign words also at (1411, 1412), K_max odd); bf16
      and f32, rank 1 and 3, 2:4 and 4:8, int32 ELL ids; times at the
      decode step's M per expert (2 and 6), all experts, bf16, rank 1
      beside the byte bound, the plain version and one torch.bmm on the
      reconstructed dense (E, K, N) stack, and at the first shape the
-     kernel alone at each other M (the "M sweep" lines);
+     kernel alone at each other M (the "M sweep" lines); #14 on both
+     models and #19 also checked and timed at M = 1, 2, 3, 4, 6, 8, 9,
+     16, 20, 32 (bf16, rank 1), through the wrapper (the line names the
+     library it ran at each M) and through each of their two libraries,
+     grouped_tc.cu and the first design; #19's first design also timed
+     at f32;
   3. the port's main paths at full width with cut depth: compress_model
      (16x128 calibration) -> pack_model -> greedy_decode (batch 4, prompt
      32, gen 16, square and ragged), once per packed variant, llama2-7b:
@@ -64,11 +71,13 @@ Phases:
        v  slab W_S + W_L (no binary), CR 0.5 2:4     -> lowrank-nm (#7, #19)
        w  slab, CR 0.5, then W_S := 0                -> binlr (#9, #20)
      Launch counts are zeroed just before each greedy_decode and read
-     just after; final-step logits are held against the dense-equivalent
+     just after, one counter per library: phase m's #14 (2 rows per
+     expert) must run only the first design (ell.cu), phases r and v
+     only grouped_tc.cu, and phases q and x (f32) only ell.cu; final-step logits are held against the dense-equivalent
      (reconstructed-W) model — for the MoE models against dense experts
      (and dense shared experts) behind the same packed attention, whose
      expert choices must agree token for token (_hold_moe_logits says
-     why); phases a, m and r are profiled; phases e-i also print the eval
+     why); phases a, m, r and v are profiled; phases e-i also print the eval
      perplexity (lm.loss_fn) of the uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
      packed:
@@ -88,8 +97,9 @@ Phases:
           request terminal); no block leaked;
        x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
           factor 64/6;
-  4. one JSON line listing every ported kernel (all twenty), then the
-     result line.
+  4. one JSON line listing every ported kernel (all twenty; #14 and #19
+     once per library, each with its own launch counter: twenty-two
+     entries), then the result line.
 
 Any failed check raises, and the script exits non-zero. It needs
 ``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
@@ -212,10 +222,13 @@ class Case:
     version, the planes it reads (for the byte bound), the dense Ŵ it
     stands for (for the library matmul) and the operations it does."""
 
-    def __init__(self, label, kernel, kern, plain, read, w_hat, ops):
+    def __init__(self, label, kernel, kern, plain, read, w_hat, ops,
+                 libs=None):
         self.label, self.kernel = label, kernel
         self.kern, self.plain, self.read = kern, plain, read
         self.w_hat, self.ops = w_hat, ops
+        # a kernel with two libraries: the call through each, by counter
+        self.libs = libs or {}
 
 
 def _cases(planes, x, rank, wide_ids=False):
@@ -364,11 +377,12 @@ def time_ms(fn, flush, reps=20) -> float:
     return total / reps
 
 
-def _check_case(c, x, n, dtype, rank, worst, where):
-    """Run one case's kernel and plain version; raise unless they agree.
-    Returns (kernel output, plain output)."""
-    got = c.kern()
-    ref = c.plain()
+def _check_case(c, x, n, dtype, rank, worst, where, kern=None, ref=None):
+    """Run one case's kernel (or ``kern``) and plain version (unless
+    ``ref`` is given); raise unless they agree. Returns (kernel output,
+    plain output)."""
+    got = (kern or c.kern)()
+    ref = c.plain() if ref is None else ref
     sync()
     err = float((got.float() - ref.float()).abs().max())
     rel = err / max(float(ref.float().abs().max()), 1e-30)
@@ -438,11 +452,13 @@ def _time_case(c, x, rank, got, ref, flush, plain_reps=20):
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": n_bytes,
-           "max_abs_err": float((got.float() - ref.float()).abs().max())}
+           "max_abs_err": float((got.float() - ref.float()).abs().max()),
+           "m": x.shape[-2], "dtype": str(x.dtype).replace("torch.", "")}
     n = got.shape[-1]
     m = x.shape[-2]
     e = f" E={x.shape[0]}" if x.dim() == 3 else ""
-    log(f"  time {c.label:22s}{e} N={n:5d} K={k:5d} M={m} bf16 "
+    dt = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    log(f"  time {c.label:22s}{e} N={n:5d} K={k:5d} M={m} {dt} "
         f"r{rank}: kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
         f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f}"
         f" ({rec['bound_by']}, {n_bytes / 1e6:.2f} MB) "
@@ -460,20 +476,29 @@ def _time_case(c, x, rank, got, ref, flush, plain_reps=20):
 # multiple of 32 (no sign words), where only the kernels that take any K
 # run: nm_matmul_g on phi3.5-moe; ell / ell_lr (odd K_max), slab_lr and
 # slab_nm_lr (2:4) on deepseek-moe-16b. The first shape is the one the
-# JSON line reports.
+# JSON line reports, at the last model whose kernels name the kernel.
+# ``sweep`` names the kernels that are also checked and timed alone at
+# every M of G_SWEEP_M (bf16, rank 1, all experts, first shape), through
+# the wrapper and through each of their libraries. ``timed_f32`` names
+# cases also timed at f32 (the launches only the first design of #19
+# takes).
+G_SWEEP_M = (1, 2, 3, 4, 6, 8, 9, 16, 20, 32)
 G_SPECS = {
     "phi3.5-moe": dict(
         kernels=("slab_ell_matmul_g", "nm_matmul_g", "slab_matmul_g",
                  "slab_nm_matmul_g"),
         shapes=((6400, 4096), (4096, 6400)), experts=16,
         bucket=(3, 14, 0, 9, 6), batches=(1, 2, 20), timed_m=2,
-        odd=(4096, 6408), seed=2),
+        odd=(4096, 6408), seed=2, sweep=("slab_ell_matmul_g",)),
     "deepseek-moe-16b": dict(
-        kernels=("ell_matmul_g", "ell_lr_matmul_g", "slab_lr_matmul_g",
-                 "slab_nm_lr_matmul_g", "binlr_matmul_g"),
+        kernels=("slab_ell_matmul_g", "ell_matmul_g", "ell_lr_matmul_g",
+                 "slab_lr_matmul_g", "slab_nm_lr_matmul_g",
+                 "binlr_matmul_g"),
         shapes=((1408, 2048), (2048, 1408)), experts=64,
         bucket=(9, 61, 0, 33, 17, 48, 5), batches=(1, 6, 20), timed_m=6,
-        odd=(1411, 1412), seed=4),
+        odd=(1411, 1412), seed=4,
+        sweep=("slab_ell_matmul_g", "slab_nm_lr_matmul_g"),
+        timed_f32=("slab_nm_lr_matmul_g[2:4]",)),
 }
 G_TIMED = dict(dtype=torch.bfloat16, rank=1)
 READS_NM = ("nm_matmul_g", "slab_nm_matmul_g", "slab_nm_lr_matmul_g")
@@ -595,7 +620,11 @@ def _g_cases(planes, x, rank, kernels, wide_ids=False):
                     x, vals, idx, b, u, v),
                 (vals, idx, b, u, v),
                 lambda vals=vals, idx=idx: ell_dense(vals, idx)() + w_b(),
-                ops(vals.numel(), binary=True)))
+                ops(vals.numel(), binary=True),
+                libs={kk.key: (lambda kk=kk, vals=vals, idx=idx:
+                               g_k.launch_slab_ell_g(kk, x, vals, idx, b,
+                                                     u, v))
+                      for kk in (g_k.SLAB_ELL_G, g_k.SLAB_ELL_G_FIRST)}))
     if b is not None and "slab_nm_matmul_g" in want:
         for pat, nv, ni, nn, mm in nms():
             out.append(Case(
@@ -668,7 +697,11 @@ def _g_cases(planes, x, rank, kernels, wide_ids=False):
                 (nv, ni, u, v),
                 lambda nv=nv, ni=ni, nn=nn, mm=mm:
                     nm_dense(nv, ni, nn, mm)() + lr(),
-                ops(nv.numel(), lowrank=True)))
+                ops(nv.numel(), lowrank=True),
+                libs={kk.key: (lambda kk=kk, nv=nv, ni=ni, mm=mm:
+                               g_k.launch_slab_nm_lr_g(kk, x, nv, ni, mm, u,
+                                                       v))
+                      for kk in (g_k.SLAB_NM_LR_G, g_k.SLAB_NM_LR_G_FIRST)}))
     return out
 
 
@@ -708,6 +741,11 @@ def grouped_checks(flush, model):
                             # the plain loops take up to ~100 ms: 3 reps
                             timed[(c.label, n, k)] = _time_case(
                                 c, x, rank, got, ref, flush, plain_reps=3)
+                        elif (e == n_exp and m == spec["timed_m"]
+                              and dtype == torch.float32 and rank == 1
+                              and c.label in spec.get("timed_f32", ())):
+                            timed[(c.label + " f32", n, k)] = _time_case(
+                                c, x, rank, got, ref, flush, plain_reps=3)
                         elif at_timed and (n, k) == spec["shapes"][0]:
                             by_m.setdefault(c.label, {})[m] = time_ms(
                                 c.kern, flush)
@@ -727,11 +765,45 @@ def grouped_checks(flush, model):
                 n_checks += 1
         del planes
     torch.cuda.empty_cache()
-    ops.reset_launch_counts()        # comparison launches do not count
     n, k = spec["shapes"][0]
+    sweep = spec["sweep"]
+    dtype, rank = G_TIMED["dtype"], G_TIMED["rank"]
+    planes = _g_planes(n_exp, n, k, dtype, rank, gen, sweep)
+    source = {kk.key: kk.source for kk in ops.KERNELS}
+    picked = {}          # the library the wrapper ran, by label and M
+    by_lib = {}          # ms of each library alone, by (label, key) and M
+    for m in G_SWEEP_M:
+        x = torch.randn((n_exp, m, k), generator=gen, device="cuda").to(dtype)
+        for c in _g_cases(planes, x, rank, sweep):
+            before = ops.launch_counts()
+            where = f"E={n_exp} N={n} K={k} M={m} (sweep)"
+            _, ref = _check_case(c, x, n, dtype, rank, worst, where)
+            n_checks += 1
+            picked.setdefault(c.label, {})[m] = " ".join(
+                source[kk] for kk, v in ops.launch_counts().items()
+                if v > before[kk])
+            if m != spec["timed_m"]:
+                by_m.setdefault(c.label, {})[m] = time_ms(c.kern, flush)
+            for key, fn in c.libs.items():
+                _check_case(c, x, n, dtype, rank, worst,
+                            f"{where} through {source[key]}", kern=fn,
+                            ref=ref)
+                n_checks += 1
+                by_lib.setdefault((c.label, key), {})[m] = time_ms(fn, flush)
+            del ref
+    del planes
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()        # comparison launches do not count
     for label, ms in by_m.items():
         ms[spec["timed_m"]] = timed[(label, n, k)]["ms"]
+        on = picked.get(label, {})
         log(f"  M sweep {label} E={n_exp} N={n} K={k} bf16 r1: "
+            + " ".join(f"M={m}: {t:.4f} ms"
+                       + (f" ({on[m]})" if m in on else "")
+                       for m, t in sorted(ms.items())))
+    for (label, key), ms in by_lib.items():
+        log(f"  M sweep {label} E={n_exp} N={n} K={k} bf16 r1 through "
+            f"{source[key]}: "
             + " ".join(f"M={m}: {t:.4f} ms" for m, t in sorted(ms.items())))
     log(f"grouped kernel checks ({model}): {n_checks} cases passed; worst "
         "max|err|/max|ref|: "
@@ -741,9 +813,13 @@ def grouped_checks(flush, model):
 
 # flash-decode (#10, #11) at the decode shapes of the two ported attention
 # layouts, R = 8 rows: llama2-7b (MHA, KV 32, G 1, dh 128) and stablelm-12b
-# (GQA, KV 8, G 4, dh 160). Lengths: an empty row, one token, exact chunk
+# (GQA, KV 8, G 4, dh 160); and at two wider groups the reference's
+# configs carry, which reach the kernel's G 8 and G 16 instantiations:
+# qwen2-vl-2b (12 heads over KV 2: G 6, dh 128) and nemotron-4-340b (96
+# over KV 8: G 12, dh 192). Lengths: an empty row, one token, exact chunk
 # boundaries and their neighbours, up to 4096.
-FD_LAYOUTS = {"llama2-7b": (32, 1, 128), "stablelm-12b": (8, 4, 160)}
+FD_LAYOUTS = {"llama2-7b": (32, 1, 128), "stablelm-12b": (8, 4, 160),
+              "qwen2-vl-2b": (2, 6, 128), "nemotron-4-340b": (8, 12, 192)}
 FD_ROWS = 8
 FD_MAX = 4096
 FD_TIMED = dict(layout="llama2-7b", bs=16, dtype=torch.bfloat16, quant=False)
@@ -1117,6 +1193,19 @@ def _expert_bytes(packed, dense):
     return pb, db
 
 
+def _only_through(counts, key, where):
+    """Raise if a kernel that counts per library launched through another
+    library than ``key`` (every launch of a phase's kernel should run the
+    library the phase names)."""
+    from repro_torch.kernels import ops
+    name = {kk.key: kk.name for kk in ops.KERNELS}
+    for other, c in counts.items():
+        if c and other != key and name[other] == name[key]:
+            raise AssertionError(
+                f"{where}: {other} launched {c} times; every "
+                f"{name[key]} launch here should count on {key}")
+
+
 def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
                 profiled=False, method="slab", options=None, note="",
                 ppl=False, zero_ws=False, arch="llama2_7b",
@@ -1211,6 +1300,7 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
                 raise AssertionError(
                     f"{kname} launched {counts[kname]} times in the {mode} "
                     f"run, expected >= {n_need}")
+            _only_through(counts, kname, f"phase {tag} {mode} run")
             launched[kname] += counts[kname]
         if tuple(gen.shape) != (BATCH, GEN) or not bool(
                 ((gen >= 0) & (gen < cfg.vocab)).all()):
@@ -1347,6 +1437,7 @@ def _run_engine(eng, reqs, tag, need, **kw):
     for kname in need:
         if counts[kname] <= 0:
             raise AssertionError(f"{tag}: {kname} was never launched")
+        _only_through(counts, kname, tag)
     _check_no_leak(eng, tag)
     return done, wall, counts
 
@@ -1605,7 +1696,8 @@ def moe_engine_phase(tag, arch):
                 for i, (p, n, a) in enumerate(specs)]
         done, wall, counts = _run_engine(
             eng, reqs, f"phase {tag} {run}",
-            ("slab_ell_matmul", "slab_ell_matmul_g", "flash_decode_paged"),
+            ("slab_ell_matmul", "slab_ell_matmul_g@ell.cu",
+             "flash_decode_paged"),
             clock="steps")
         n_equal = 0
         for r in done:
@@ -1671,9 +1763,11 @@ PHASES = (
     # leaf through its grouped kernel; 1 layer, so that the yardstick's
     # expert choices equal the packed model's bit for bit
     # (_hold_moe_logits)
+    # (its decode steps give 2 rows per expert: the first design of #14)
     ("m", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.5,
                pattern=None, variant="slab-ell", kernel="slab_ell_matmul",
-               expert_kernel="slab_ell_matmul_g", tol=3e-2, profiled=True)),
+               expert_kernel="slab_ell_matmul_g@ell.cu", tol=3e-2,
+               profiled=True)),
     ("n", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.5,
                pattern="2:4", variant="slab-nm", kernel="slab_nm_matmul",
                expert_kernel="slab_nm_matmul_g", tol=3e-2)),
@@ -1686,7 +1780,8 @@ PHASES = (
                options={})),
     # deepseek-moe-16b (64 experts, top-6, shared experts): attention and
     # the shared MLP through the per-linear kernel, every routed expert
-    # leaf through its grouped kernel; 1 layer (_hold_moe_logits)
+    # leaf through its grouped kernel; 1 layer (_hold_moe_logits). At 6
+    # rows per expert, #14 (r) and #19 (v) run grouped_tc.cu's kernels.
     ("r", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.5, pattern=None, variant="slab-ell",
                kernel="slab_ell_matmul", expert_kernel="slab_ell_matmul_g",
@@ -1709,7 +1804,7 @@ PHASES = (
                cr=0.5, pattern="2:4", variant="lowrank-nm",
                kernel="slab_nm_lr_matmul",
                expert_kernel="slab_nm_lr_matmul_g", tol=3e-2,
-               options=dict(iters=8, include_binary=False))),
+               options=dict(iters=8, include_binary=False), profiled=True)),
     ("w", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.5, pattern=None, variant="binlr", kernel="binlr_matmul",
                expert_kernel="binlr_matmul_g", tol=3e-2, zero_ws=True,
@@ -1724,16 +1819,23 @@ JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
               "slab_lr_matmul": "slab_lr_matmul",
               "slab_nm_lr_matmul": "slab_nm_lr_matmul[2:4]",
               "nm_matmul": "nm_matmul[2:4]", "binlr_matmul": "binlr_matmul"}
-# ... and of each grouped kernel (at its G_SPECS model's first shape)
-G_JSON_LABEL = {"slab_ell_matmul_g": "slab_ell_matmul_g",
-                "nm_matmul_g": "nm_matmul_g[2:4]",
-                "slab_matmul_g": "slab_matmul_g",
-                "slab_nm_matmul_g": "slab_nm_matmul_g[2:4]",
-                "ell_matmul_g": "ell_matmul_g",
-                "ell_lr_matmul_g": "ell_lr_matmul_g",
-                "slab_lr_matmul_g": "slab_lr_matmul_g",
-                "slab_nm_lr_matmul_g": "slab_nm_lr_matmul_g[2:4]",
-                "binlr_matmul_g": "binlr_matmul_g"}
+# ... and of each grouped kernel's library, by counter key: the G_SPECS
+# model and the timed case (at that model's first shape). #14's first
+# design reports phi3.5-moe at M 2, where its decode runs it; #19's its
+# f32 launches.
+G_JSON = {"slab_ell_matmul_g": ("deepseek-moe-16b", "slab_ell_matmul_g"),
+          "slab_ell_matmul_g@ell.cu": ("phi3.5-moe", "slab_ell_matmul_g"),
+          "nm_matmul_g": ("phi3.5-moe", "nm_matmul_g[2:4]"),
+          "slab_matmul_g": ("phi3.5-moe", "slab_matmul_g"),
+          "slab_nm_matmul_g": ("phi3.5-moe", "slab_nm_matmul_g[2:4]"),
+          "ell_matmul_g": ("deepseek-moe-16b", "ell_matmul_g"),
+          "ell_lr_matmul_g": ("deepseek-moe-16b", "ell_lr_matmul_g"),
+          "slab_lr_matmul_g": ("deepseek-moe-16b", "slab_lr_matmul_g"),
+          "slab_nm_lr_matmul_g": ("deepseek-moe-16b",
+                                  "slab_nm_lr_matmul_g[2:4]"),
+          "slab_nm_lr_matmul_g@slab_matmul.cu": (
+              "deepseek-moe-16b", "slab_nm_lr_matmul_g[2:4] f32"),
+          "binlr_matmul_g": ("deepseek-moe-16b", "binlr_matmul_g")}
 FLASH = ("flash_decode", "flash_decode_paged")
 
 
@@ -1774,7 +1876,7 @@ def main():
         g_timed[model], g_worst[model] = t, w
         mark(f"grouped {model}")
     del flush
-    launches = {k.name: 0 for k in ops.KERNELS}
+    launches = {k.key: 0 for k in ops.KERNELS}
     for tag, kw in PHASES:
         for kname, c in model_phase(tag, **kw).items():
             launches[kname] += c
@@ -1793,25 +1895,23 @@ def main():
 
     entries = []
     for kern in ops.KERNELS:
-        if kern.name in G_JSON_LABEL:
-            label = G_JSON_LABEL[kern.name]
-            model = next(mm for mm, sp in G_SPECS.items()
-                         if kern.name in sp["kernels"])
+        if kern.key in G_JSON:
+            model, label = G_JSON[kern.key]
             spec = G_SPECS[model]
             rec = g_timed[model][(label,) + spec["shapes"][0]]
             entries.append({
                 "name": kern.name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{kern.source}",
                 "replaces": kern.replaces.split(" ")[0],
-                "launches": launches[kern.name],
+                "launches": launches[kern.key], "counter": kern.key,
                 **{kk: rec[kk] for kk in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")},
                 "shape": {"model": model, "E": spec["experts"],
-                          "M": spec["timed_m"], "N": spec["shapes"][0][0],
-                          "K": spec["shapes"][0][1], "dtype": "bfloat16",
+                          "M": rec["m"], "N": spec["shapes"][0][0],
+                          "K": spec["shapes"][0][1], "dtype": rec["dtype"],
                           "rank": 1},
-                "worst_rel_err": g_worst[model][label],
+                "worst_rel_err": g_worst[model][label.split(" ")[0]],
                 "by_shape": {f"{n}x{k}": {kk: g_timed[model][(label, n, k)]
                                           [kk] for kk in ("ms", "plain_ms",
                                                           "library_ms",

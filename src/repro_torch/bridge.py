@@ -12,6 +12,10 @@ Two conversions need care:
   viewed as ``torch.bfloat16`` on arrival.
 - unsigned planes (uint16 ELL ids, uint32 sign words) move as the
   bit-identical int16 / int32 views the port's kernels read as unsigned.
+
+Like every entry point of the port, each converter puts its tensors on
+the card unless the caller passes ``device="cpu"``, and raises without
+a card (``repro_torch.resolve_device``).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.packed_model import ExpertPackedStack, PackedLinear
 from repro_torch.core.slab import SLaBDecomposition
 from repro_torch.models.attention import KVCache
@@ -28,8 +33,10 @@ from repro_torch.serving.paged_cache import PagedKVCache
 _SIGNED_VIEW = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
 
 
-def tensor(a, device="cpu") -> torch.Tensor:
-    """One numpy (or array-like) value -> torch, bit-exact."""
+def tensor(a, device=None) -> torch.Tensor:
+    """One numpy (or array-like) value -> torch, bit-exact, on
+    ``resolve_device(device)``: the card unless ``device="cpu"``."""
+    device = resolve_device(device)
     a = np.array(a, copy=True)        # owned and writable for from_numpy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(
@@ -45,7 +52,7 @@ def _tree(x, device):
     return tensor(x, device)
 
 
-def params(ref_params: dict, n_layers: int, device="cpu") -> dict:
+def params(ref_params: dict, n_layers: int, device=None) -> dict:
     """Reference params (stacked ``layers`` leaves with a leading L dim)
     -> the port's layout: one dict per layer."""
     out = {k: _tree(v, device) for k, v in ref_params.items()
@@ -61,7 +68,7 @@ def params(ref_params: dict, n_layers: int, device="cpu") -> dict:
     return out
 
 
-def decomposition(dec, device="cpu") -> SLaBDecomposition:
+def decomposition(dec, device=None) -> SLaBDecomposition:
     """A reference ``SLaBDecomposition`` (any object with w_s, u, v, w_b),
     of any variant: sparse-only and low-rank decompositions carry
     zero-width u / v and a (0, 0) w_b, which arrive with those shapes; a
@@ -71,12 +78,12 @@ def decomposition(dec, device="cpu") -> SLaBDecomposition:
                              tensor(dec.v, device), tensor(dec.w_b, device))
 
 
-def expert_decompositions(decs, device="cpu") -> tuple:
+def expert_decompositions(decs, device=None) -> tuple:
     """A 3-D expert leaf's tuple of per-expert decs."""
     return tuple(decomposition(d, device) for d in decs)
 
 
-def hessian(h, device="cpu") -> torch.Tensor:
+def hessian(h, device=None) -> torch.Tensor:
     """A tapped (D_in, D_in) X^T X Gram matrix (fp32)."""
     t = tensor(h, device)
     if t.dim() != 2 or t.shape[0] != t.shape[1]:
@@ -84,7 +91,7 @@ def hessian(h, device="cpu") -> torch.Tensor:
     return t
 
 
-def packed_linear(pl, device="cpu") -> PackedLinear:
+def packed_linear(pl, device=None) -> PackedLinear:
     """A reference per-layer ``PackedLinear`` -> the port's."""
     def opt(a):
         return None if a is None else tensor(a, device).contiguous()
@@ -96,7 +103,7 @@ def packed_linear(pl, device="cpu") -> PackedLinear:
                         rank=int(pl.rank))
 
 
-def expert_packed_stack(ref_eps, device="cpu") -> ExpertPackedStack:
+def expert_packed_stack(ref_eps, device=None) -> ExpertPackedStack:
     """A reference per-layer ``ExpertPackedStack`` -> the port's: its
     groups (planes with a leading expert dim, of any variant: a plane
     the variant lacks stays None, ids and sign words arrive as their
@@ -110,7 +117,7 @@ def expert_packed_stack(ref_eps, device="cpu") -> ExpertPackedStack:
         int(ref_eps.n_experts))
 
 
-def kv_cache(ref_kv, device="cpu") -> List[KVCache]:
+def kv_cache(ref_kv, device=None) -> List[KVCache]:
     """A reference layer-stacked ``KVCache`` (k/v (L, B, S, Kv, dh),
     length (L,), int8 k/v with k_scale/v_scale (L, B, S, Kv) when
     quantized) -> one port KVCache per layer."""
@@ -126,7 +133,7 @@ def kv_cache(ref_kv, device="cpu") -> List[KVCache]:
             for l in range(k.shape[0])]
 
 
-def paged_kv_cache(ref_paged, device="cpu") -> List[PagedKVCache]:
+def paged_kv_cache(ref_paged, device=None) -> List[PagedKVCache]:
     """A reference ``PagedKVCache`` (pools stacked (L, n_blocks, bs, KV,
     dh), int8 with (L, n_blocks, bs, KV) f32 scales when quantized) ->
     the port's list of per-layer pools."""

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, List, Optional
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("ell.cu", "slab_matmul.cu", "nm_sparse.cu",
-           "flash_decode.cu")
+           "flash_decode.cu", "grouped_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,12 +33,18 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 @dataclasses.dataclass
 class CudaKernel:
     """One hand-written kernel: its C symbol, its source under csrc/, the
-    TPU kernel it replaces, and a plain count of its launches."""
+    TPU kernel it replaces, and a plain count of its launches. ``key``
+    names its launch counter: the C symbol, or ``symbol@source`` for a
+    second library that a wrapper launches under the same symbol."""
 
     name: str
     source: str
     replaces: str
     launches: int = 0
+    key: str = ""
+
+    def __post_init__(self):
+        self.key = self.key or self.name
 
 
 def _nvcc() -> str:

@@ -30,7 +30,11 @@
 // length-0 contiguous row) + q + out, over 3.35 TB/s; two flops a byte at
 // most, far below either compute peak.
 //
-// Design: one thread block per (kv head, row), kWarps warps. Warps take
+// Design: one thread block per (kv head, row, chunk of query heads),
+// kWarps warps. A chunk is all G heads of the group up to 16, fewer when
+// the merge buffers below would pass the card's opt-in shared memory
+// (G 16 at dh 256 needs 264 KB), so any G runs; a chunk rereads the
+// group's K/V. Warps take
 // tiles of kTok consecutive tokens in turn; every lane holds the dh
 // elements d = lane + 32 i (coalesced loads, any dh up to 256, so
 // stablelm's 160 works) of the tile's K and V and of the G query heads,
@@ -56,6 +60,7 @@ using slab::warp_sum;
 constexpr int kWarps = 16;    // warps per (row, kv head) block
 constexpr int kTok = 4;       // tokens a warp loads per step
 constexpr int kMaxDpl = 8;    // elements per lane: dh <= 256
+constexpr int kMaxGc = 16;    // query heads one block takes (GP <= 16)
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
@@ -76,10 +81,12 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
                     const float* __restrict__ vs,
                     const int* __restrict__ bt,
                     const int* __restrict__ lengths, T* __restrict__ out,
-                    int KV, int G, int dh, int bs, int n_bt, int n_blocks,
-                    int pad_count, int skip_empty) {
+                    int KV, int G_all, int gc, int dh, int bs, int n_bt,
+                    int n_blocks, int pad_count, int skip_empty) {
   extern __shared__ float sm[];   // acc (kWarps, G, dh), m, l (kWarps, G)
   const int h = blockIdx.x, r = blockIdx.y;
+  const int g0 = blockIdx.z * gc;                // this block's query heads
+  const int G = min(gc, G_all - g0);             // g0 .. g0 + G - 1
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int dpl = (dh + 31) / 32;
   const int len = lengths[r];
@@ -87,7 +94,7 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
   const int n_proc = len > 0 ? min(len, n_max) : (skip_empty ? 0 : n_max);
 
   float qr[GP][kMaxDpl], acc[GP][kMaxDpl], m[GP], l[GP];
-  const T* qp = q + ((size_t)r * KV + h) * G * dh;
+  const T* qp = q + (((size_t)r * KV + h) * G_all + g0) * dh;
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
     m[g] = kNeg;
@@ -178,7 +185,7 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
     }
   }
   __syncthreads();
-  T* op = out + ((size_t)r * KV + h) * G * dh;
+  T* op = out + (((size_t)r * KV + h) * G_all + g0) * dh;
   for (int e = threadIdx.x; e < G * dh; e += blockDim.x) {
     const int g = e / dh, d = e - g * dh;
     float mf = kNeg;
@@ -202,15 +209,16 @@ template <typename T, typename KT, int GP>
 static int launch_gp(const void* q, const void* k, const void* v,
                      const float* ks, const float* vs, const int* bt,
                      const int* lengths, void* out, int R, int KV, int G,
-                     int dh, int bs, int n_bt, int n_blocks, int pad_count,
-                     int skip_empty, void* stream) {
+                     int gc, int dh, int bs, int n_bt, int n_blocks,
+                     int pad_count, int skip_empty, void* stream) {
   auto kern = flash_decode_kernel<T, KT, GP>;
-  const size_t smem = smem_bytes(G, dh);
+  const size_t smem = smem_bytes(gc, dh);
   cudaError_t e = slab::prepare(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(KV, R), kWarps * 32, smem, (cudaStream_t)stream>>>(
+  const dim3 grid(KV, R, (G + gc - 1) / gc);
+  kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const KT*)k, (const KT*)v, ks, vs, bt, lengths, (T*)out,
-      KV, G, dh, bs, n_bt, n_blocks, pad_count, skip_empty);
+      KV, G, gc, dh, bs, n_bt, n_blocks, pad_count, skip_empty);
   return (int)cudaGetLastError();
 }
 
@@ -220,13 +228,25 @@ static int launch(const void* q, const void* k, const void* v,
                   const int* lengths, void* out, int R, int KV, int G, int dh,
                   int bs, int n_bt, int n_blocks, int pad_count,
                   int skip_empty, void* stream) {
+  // Query heads per block: all G up to kMaxGc, fewer when their merge
+  // buffers pass the card's opt-in shared memory (G 16 at dh 256 needs
+  // 264 KB); the grid's z dimension walks the chunks.
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  int gc = min(G, kMaxGc);
+  while (gc > 1 && smem_bytes(gc, dh) > (size_t)optin) gc = (gc + 1) / 2;
+  if (smem_bytes(gc, dh) > (size_t)optin) return (int)cudaErrorInvalidValue;
 #define FD_LAUNCH(GP)                                                      \
   return launch_gp<T, KT, GP>(q, k, v, ks, vs, bt, lengths, out, R, KV, G, \
-                              dh, bs, n_bt, n_blocks, pad_count,           \
+                              gc, dh, bs, n_bt, n_blocks, pad_count,       \
                               skip_empty, stream)
-  if (G <= 1) FD_LAUNCH(1);
-  if (G <= 4) FD_LAUNCH(4);
-  if (G <= 8) FD_LAUNCH(8);
+  if (gc <= 1) FD_LAUNCH(1);
+  if (gc <= 4) FD_LAUNCH(4);
+  if (gc <= 8) FD_LAUNCH(8);
   FD_LAUNCH(16);
 #undef FD_LAUNCH
 }
@@ -236,9 +256,9 @@ static int dispatch(int dtype, int quant, const void* q, const void* k,
                     const int* bt, const int* lengths, void* out, int R,
                     int KV, int G, int dh, int bs, int n_bt, int n_blocks,
                     int pad_count, int skip_empty, void* stream) {
-  if (R <= 0 || KV <= 0 || G <= 0 || G > 16 || dh <= 0 ||
-      dh > 32 * kMaxDpl || bs <= 0 || n_bt <= 0 || n_blocks <= 0 ||
-      pad_count < 0 || R > 65535)
+  if (R <= 0 || KV <= 0 || G <= 0 || dh <= 0 || dh > 32 * kMaxDpl ||
+      bs <= 0 || n_bt <= 0 || n_blocks <= 0 || pad_count < 0 || R > 65535 ||
+      (G + kMaxGc - 1) / kMaxGc > 65535)
     return (int)cudaErrorInvalidValue;
   if (quant && (ks == nullptr || vs == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -1,0 +1,782 @@
+// The bf16 grouped-expert kernels redesigned for Hopper's tensor cores:
+//
+//   slab_ell_matmul_g:    y[e] = x[e] · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ   (#14)
+//   slab_nm_lr_matmul_g:  y[e] = x[e] · (W_S + U Vᵀ)ᵀ              (#19)
+//
+// Replace repro/kernels/grouped.py::slab_ell_matmul_g (_kernel_slab_ell_g,
+// pallas_call at grouped.py:142) and ::slab_nm_lr_matmul_g
+// (_kernel_nm_lr_g, pallas_call at grouped.py:402) for bf16 operands.
+// The first design (ell.cu, slab_matmul.cu) keeps the f32 launches,
+// which hold 1e-5 without TF32, #19's patterns other than 2:4 / 4:8, and
+// #14 at 1-2 rows per expert, where its 2-byte gathers are cheaper than
+// this kernel's (grouped.TC_MIN_ROWS).
+//
+// Bound on the H100: bytes. At the MoE decode shapes (1-32 rows per
+// expert) each expert is a skinny GEMM: the E experts' planes (ELL vals +
+// ids + sign words, or N:M vals + int8 positions) stream once from device
+// memory, about 345 MB (#14) and 280 MB (#19) at deepseek-moe-16b's
+// (1408, 2048) stack, against 2·M FLOP per stored weight, far below the
+// tensor-core line. So wgmma is not needed: mma.sync m16n8k16 retires the
+// products at a small share of the issue slots, and the design is about
+// the instructions spent per streamed byte.
+//
+// What the first design (one warp per output row on CUDA cores) lost and
+// what this one does about it:
+//  - x was staged column-major with scalar 2-byte stores, a 32-way bank
+//    conflict at 8 batch rows, in every block of 16 rows. Here a block
+//    owns kRows = 128 output rows of one expert (grid (⌈N/128⌉, E)) and
+//    stages x once per 8·NTP batch rows with 16-byte stores: #14 as NTP
+//    column-major planes (one 16-byte row of 8 batch rows per column k),
+//    so an ELL gather is one 16-byte load for all 8 rows and
+//    ldmatrix.trans reads the mma's B fragment without conflicts; #19 as
+//    a row-major tile whose 16-byte units are swizzled so that its B
+//    loads are conflict-free.
+//  - #14's ±1 contraction cost ~5 CUDA-core instructions per (column,
+//    batch row). Here it is an mma with the weights as A (swap-AB: yᵀ =
+//    Ŵ·xᵀ, 16 weight rows by up to 8 batch rows): A's elements are ±u_r[n]
+//    decoded in registers from the sign words (u's bf16 bits with the
+//    sign bit set for a clear sign bit), B is x ⊙ v_r rounded to bf16 as
+//    the reference rounds it, so every product u·(±1)·bf16(x·v) is exact
+//    in fp32 and only the order of summation changes. More than 8 batch
+//    rows loop over n-tiles that reuse the decoded A fragments; the next
+//    128 columns' sign words load during this chunk's steps.
+//  - #14's W_S takes the gather route: the four lanes of an mma row group
+//    split rows g and g + 8 into 8-entry blocks (coalesced 16-byte loads),
+//    each entry one 16-byte shared load of its x column and an FMA per
+//    batch row, reduced into the C fragment. The other route, each
+//    128-column chunk's entries scattered into a zeroed 16 x 128 shared
+//    tile fed to the same mma, was built and timed against it on an H100
+//    and lost at every M from 1 to 32 (PERF.md): its data-dependent walk
+//    over each chunk's entries diverges across lanes and costs more than
+//    the gathers it saves, so it was dropped.
+//  - #19's N:M part is an mma too. Its A fragments are decoded in
+//    registers from vals and positions: the mma sums over k in any order,
+//    so within each 128-column chunk lane q of a row group owns the 32
+//    consecutive columns 32q .. 32q + 31 (the k-slots 2q, 2q+1, 2q+8,
+//    2q+9 of step s are its columns 4s + 0..3), reads them as two
+//    16-byte value loads and one 16-byte position load per row, a chunk
+//    ahead of their use, and reads B as four 16-byte loads of its x row.
+//    A position outside [0, m) matches no column and contributes 0, as
+//    before.
+//  - #19's projection p = x·Vᵀ was formed in every block of 16 rows; now
+//    once per block of 128, in fp32 from the staged x with a fixed
+//    reduction order, and Σ_r p[m, r]·u_r[n] is added in the epilogue.
+//  - The first design's L2 prefetch of each warp's planes is gone: builds
+//    with it ran slower (the demand loads are already whole 128-byte
+//    lines, issued ahead).
+#include "slab_common.cuh"
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using slab::aligned16;
+
+constexpr int kWarps = 8;            // warps per block, 16 weight rows each
+constexpr int kRows = 16 * kWarps;   // output rows per block
+constexpr int kMaxNtp = 4;           // 8-row n-tiles staged per pass
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
+                                              const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(a));
+}
+
+// bf16 bits -> f32 (the low or the high half of a word)
+__device__ __forceinline__ float lo_f(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+// two f32 -> one word of two bf16, round to nearest even (lo in bits 0-15)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ uint32_t bits16(bf16 v) {
+  return (uint32_t)__bfloat16_as_ushort(v);
+}
+
+// ---------------------------------------------------------------- #14
+
+// Stage batch rows m0 .. m0 + 8·ntp - 1 of x (zero rows past M) as ntp
+// column-major planes of K 16-byte rows (row k: x[m0 + 8t .. + 7, k]). A
+// thread takes an 8 x 8 block: eight 16-byte loads (one per batch row,
+// coalesced across lanes), a register transpose, eight 16-byte stores
+// (one per column; lanes 128 bytes apart share a bank group, an 8-way
+// conflict paid once per block, where a swizzle would cost every gather
+// four instructions).
+__device__ __forceinline__ void stage_cols(uint4* xs, const bf16* __restrict__ x,
+                                           int m0, int M, int K, int ntp) {
+  const int nkb = K / 8;
+  const bool vec = aligned16(x);
+  for (int i = threadIdx.x; i < ntp * nkb; i += blockDim.x) {
+    const int t = i / nkb, kb = i - t * nkb;
+    uint32_t w[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int m = m0 + 8 * t + r;
+      if (m < M) {
+        const bf16* p = x + (size_t)m * K + kb * 8;
+        if (vec) {
+          const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+          w[r][0] = q.x; w[r][1] = q.y; w[r][2] = q.z; w[r][3] = q.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            w[r][j] = bits16(p[2 * j]) | (bits16(p[2 * j + 1]) << 16);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w[r][j] = 0u;
+      }
+    }
+    uint4* plane = xs + (size_t)t * K;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
+      uint4 o;
+      o.x = __byte_perm(w[0][j >> 1], w[1][j >> 1], sel);
+      o.y = __byte_perm(w[2][j >> 1], w[3][j >> 1], sel);
+      o.z = __byte_perm(w[4][j >> 1], w[5][j >> 1], sel);
+      o.w = __byte_perm(w[6][j >> 1], w[7][j >> 1], sel);
+      plane[kb * 8 + j] = o;
+    }
+  }
+}
+
+// ±u_r on the A side: a clear sign bit (-1) sets the bf16 sign bit.
+// u2 holds u's bits in both halves; b's bit 0 is the low column.
+__device__ __forceinline__ uint32_t sign_pair(uint32_t u2, uint32_t b) {
+  return u2 ^ (((~b & 1u) << 15) | ((~b & 2u) << 30));
+}
+
+// Four sign words of one row from column kw·32 on (zeros past the row).
+__device__ __forceinline__ uint4 sign_words(const uint32_t* __restrict__ row,
+                                            int kw, int W, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(row + kw));
+  uint4 o;
+  o.x = kw < W ? __ldg(row + kw) : 0u;
+  o.y = kw + 1 < W ? __ldg(row + kw + 1) : 0u;
+  o.z = kw + 2 < W ? __ldg(row + kw + 2) : 0u;
+  o.w = kw + 3 < W ? __ldg(row + kw + 3) : 0u;
+  return o;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& q, int i) {
+  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+}
+
+// Eight ELL entries from entry e0 (a multiple of 8): vals and ids.
+template <typename I> struct Ids8;
+template <> struct Ids8<uint16_t> {
+  uint4 a;
+  __device__ __forceinline__ void load(const uint16_t* p) {
+    a = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ uint32_t at(int j) const {
+    return (word_of(a, j >> 1) >> ((j & 1) * 16)) & 0xffffu;
+  }
+};
+template <> struct Ids8<uint32_t> {
+  uint4 a, b;
+  __device__ __forceinline__ void load(const uint32_t* p) {
+    a = __ldg(reinterpret_cast<const uint4*>(p));
+    b = __ldg(reinterpret_cast<const uint4*>(p + 4));
+  }
+  __device__ __forceinline__ uint32_t at(int j) const {
+    return j < 4 ? word_of(a, j) : word_of(b, j - 4);
+  }
+};
+
+// acc[t][m] += w · x[t·8 + m, col] for entries jlo <= j < jhi of one
+// 8-entry block that name a column below K: one 16-byte load of the
+// column per n-tile, 8 FMAs.
+template <int NTP>
+__device__ __forceinline__ void gather_entry(float (&acc)[NTP][8],
+                                             const uint4* xs, uint32_t vw,
+                                             int j, uint32_t col, int K) {
+  const float w = (j & 1) ? hi_f(vw) : lo_f(vw);
+  const uint4* xc = xs + col;
+#pragma unroll
+  for (int t = 0; t < NTP; ++t) {
+    const uint4 q = xc[(size_t)t * K];
+    acc[t][0] += w * lo_f(q.x); acc[t][1] += w * hi_f(q.x);
+    acc[t][2] += w * lo_f(q.y); acc[t][3] += w * hi_f(q.y);
+    acc[t][4] += w * lo_f(q.z); acc[t][5] += w * hi_f(q.z);
+    acc[t][6] += w * lo_f(q.w); acc[t][7] += w * hi_f(q.w);
+  }
+}
+
+template <typename I, int NTP>
+__device__ __forceinline__ void gather8(float (&acc)[NTP][8], const uint4* xs,
+                                        const uint4& vv, const Ids8<I>& ii,
+                                        int jlo, int jhi, int K) {
+  if (jlo == 0 && jhi == 8) {        // a whole block: the common case
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t col = ii.at(j);
+      if (col < (uint32_t)K)
+        gather_entry<NTP>(acc, xs, word_of(vv, j >> 1), j, col, K);
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t col = ii.at(j);
+    if (j >= jlo && j < jhi && col < (uint32_t)K)
+      gather_entry<NTP>(acc, xs, word_of(vv, j >> 1), j, col, K);
+  }
+}
+
+// The entries [jlo, jhi) of the block from entry e0 that lie in [lo, hi).
+__device__ __forceinline__ void block_span(size_t e0, size_t lo, size_t hi,
+                                           int& jlo, int& jhi) {
+  jlo = e0 < lo ? (int)(lo - e0) : 0;
+  jhi = hi - e0 >= 8 ? 8 : (int)(hi - e0);
+}
+
+constexpr int kTileK = 128;     // columns of one sign-word chunk
+constexpr int kMaxR = 4;        // ranks whose u values stay in registers
+
+// One k16 step of Σ_r (±u_r) · bf16(x ⊙ v_r) into c: A is u_r's bits with
+// the sign bit set where the sign word's bit is clear (f: rows g / g + 8,
+// bits of columns 2q, 2q + 1 at 0-1 and of 2q + 8, 2q + 9 at 8-9); B is
+// the staged x fragment times v_r (v2: v_r at those columns).
+template <int NTP>
+__device__ __forceinline__ void binary_step(float (&c)[NTP][4],
+                                            const uint32_t (&bx)[NTP][2],
+                                            uint32_t fa, uint32_t fb,
+                                            uint32_t u2a, uint32_t u2b,
+                                            uint32_t v01, uint32_t v89) {
+  const uint32_t a0 = sign_pair(u2a, fa & 3u);
+  const uint32_t a1 = sign_pair(u2b, fb & 3u);
+  const uint32_t a2 = sign_pair(u2a, (fa >> 8) & 3u);
+  const uint32_t a3 = sign_pair(u2b, (fb >> 8) & 3u);
+  const float v0 = lo_f(v01), v1 = hi_f(v01), v8 = lo_f(v89), v9 = hi_f(v89);
+#pragma unroll
+  for (int t = 0; t < NTP; ++t) {
+    const uint32_t b0 = pack_bf16(lo_f(bx[t][0]) * v0, hi_f(bx[t][0]) * v1);
+    const uint32_t b1 = pack_bf16(lo_f(bx[t][1]) * v8, hi_f(bx[t][1]) * v9);
+    mma_bf16(c[t], a0, a1, a2, a3, b0, b1);
+  }
+}
+
+template <typename I, int NTP>
+__global__ void __launch_bounds__(kWarps * 32)
+slab_ell_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ vals,
+                   const I* __restrict__ idx, const uint32_t* __restrict__ bp,
+                   const bf16* __restrict__ u, const bf16* __restrict__ v,
+                   bf16* __restrict__ y, int M, int N, int K, int kmax,
+                   int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* xs = reinterpret_cast<uint4*>(smem_raw);   // NTP planes (K, 8)
+  bf16* vs = reinterpret_cast<bf16*>(xs + (size_t)NTP * K);   // (R, K)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const size_t ex = blockIdx.y;
+  x += ex * M * K;
+  y += ex * M * N;
+  u += ex * R * N;
+  v += ex * R * K;
+  const int row0 = blockIdx.x * kRows + warp * 16;
+  const bool live = row0 < N;
+  // this lane's rows g and g + 8 (rows past N load the last row's planes;
+  // their results are not stored)
+  const int ra = min(row0 + g, N - 1), rb = min(row0 + g + 8, N - 1);
+  const size_t sa = (ex * N + ra) * kmax, sb = (ex * N + rb) * kmax;
+  const int W = K / 32;
+  const uint32_t* bpa = bp + (ex * N + ra) * W;
+  const uint32_t* bpb = bp + (ex * N + rb) * W;
+  const bool wvec = (W % 4) == 0;
+  for (int i = threadIdx.x; i < R * K; i += blockDim.x) vs[i] = v[i];
+  uint32_t u2a[kMaxR], u2b[kMaxR];   // u_r's bits twice, rows g and g + 8
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) {
+    const uint32_t ua = r < R ? bits16(u[(size_t)r * N + ra]) : 0u;
+    const uint32_t ub = r < R ? bits16(u[(size_t)r * N + rb]) : 0u;
+    u2a[r] = ua | (ua << 16);
+    u2b[r] = ub | (ub << 16);
+  }
+  // the four lanes of a row group take every fourth 8-entry block of its
+  // rows (blocks start at 8-entry boundaries of the stacked planes, so
+  // every load is 16-byte aligned)
+  const size_t la = (sa & ~size_t(7)) + 8 * q, lb = (sb & ~size_t(7)) + 8 * q;
+  const size_t ha = sa + kmax, hb = sb + kmax;
+
+  for (int m0 = 0; m0 < M; m0 += 8 * NTP) {
+    __syncthreads();                 // the previous pass's readers are done
+    stage_cols(xs, x, m0, M, K, NTP);
+    __syncthreads();
+    if (!live) continue;
+    float c[NTP][4];
+#pragma unroll
+    for (int t = 0; t < NTP; ++t)
+      c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.f;
+
+    {  // W_S by the gather, reduced over the row group's four lanes into
+       // the C fragment (c0, c1: row g, batch rows 2q, 2q + 1; c2, c3:
+       // row g + 8)
+      float acc_a[NTP][8], acc_b[NTP][8];
+#pragma unroll
+      for (int t = 0; t < NTP; ++t)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc_a[t][j] = acc_b[t][j] = 0.f;
+#pragma unroll 2
+      for (size_t off = 0; la + off < ha || lb + off < hb; off += 32) {
+        const bool in_a = la + off < ha, in_b = lb + off < hb;
+        uint4 va = make_uint4(0, 0, 0, 0), vb = va;
+        Ids8<I> ia, ib;
+        if (in_a) {
+          va = __ldg(reinterpret_cast<const uint4*>(vals + la + off));
+          ia.load(idx + la + off);
+        }
+        if (in_b) {
+          vb = __ldg(reinterpret_cast<const uint4*>(vals + lb + off));
+          ib.load(idx + lb + off);
+        }
+        int jlo, jhi;
+        if (in_a) {
+          block_span(la + off, sa, ha, jlo, jhi);
+          gather8<I, NTP>(acc_a, xs, va, ia, jlo, jhi, K);
+        }
+        if (in_b) {
+          block_span(lb + off, sb, hb, jlo, jhi);
+          gather8<I, NTP>(acc_b, xs, vb, ib, jlo, jhi, K);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < NTP; ++t) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float fa = acc_a[t][j], fb = acc_b[t][j];
+          fa += __shfl_xor_sync(0xffffffffu, fa, 1);
+          fa += __shfl_xor_sync(0xffffffffu, fa, 2);
+          fb += __shfl_xor_sync(0xffffffffu, fb, 1);
+          fb += __shfl_xor_sync(0xffffffffu, fb, 2);
+          if (j == 2 * q) { c[t][0] += fa; c[t][2] += fb; }
+          if (j == 2 * q + 1) { c[t][1] += fa; c[t][3] += fb; }
+        }
+      }
+    }
+
+    // Σ_r (±u_r) · bf16(x ⊙ v_r) on the tensor cores, 128 columns a
+    // chunk, the next chunk's sign words loading during this one's steps
+    uint4 wna = sign_words(bpa, 0, W, wvec), wnb = sign_words(bpb, 0, W, wvec);
+    for (int kc = 0; kc < K; kc += kTileK) {
+      const uint4 wa = wna, wb = wnb;
+      if (kc + kTileK < K) {
+        wna = sign_words(bpa, (kc + kTileK) / 32, W, wvec);
+        wnb = sign_words(bpb, (kc + kTileK) / 32, W, wvec);
+      }
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int k0 = kc + 16 * s;
+        if (k0 >= K) break;
+        uint32_t bx[NTP][2];
+#pragma unroll
+        for (int t = 0; t < NTP; ++t)
+          ldsm_x2_trans(bx[t][0], bx[t][1], xs + (size_t)t * K + k0 + (lane & 15));
+        const int sh = (s & 1) * 16 + 2 * q;
+        const uint32_t fa = word_of(wa, s >> 1) >> sh;
+        const uint32_t fb = word_of(wb, s >> 1) >> sh;
+        const bf16* vr = vs + k0 + 2 * q;
+#pragma unroll
+        for (int r = 0; r < kMaxR; ++r) {
+          if (r >= R) break;
+          binary_step<NTP>(c, bx, fa, fb, u2a[r], u2b[r],
+                           *reinterpret_cast<const uint32_t*>(vr + (size_t)r * K),
+                           *reinterpret_cast<const uint32_t*>(vr + (size_t)r * K + 8));
+        }
+        for (int r = kMaxR; r < R; ++r) {
+          const uint32_t ua = bits16(u[(size_t)r * N + ra]);
+          const uint32_t ub = bits16(u[(size_t)r * N + rb]);
+          binary_step<NTP>(c, bx, fa, fb, ua | (ua << 16), ub | (ub << 16),
+                           *reinterpret_cast<const uint32_t*>(vr + (size_t)r * K),
+                           *reinterpret_cast<const uint32_t*>(vr + (size_t)r * K + 8));
+        }
+      }
+    }
+
+    const int n_a = row0 + g, n_b = row0 + g + 8;
+#pragma unroll
+    for (int t = 0; t < NTP; ++t) {
+      const int m = m0 + 8 * t + 2 * q;
+      if (m < M) {
+        if (n_a < N) y[(size_t)m * N + n_a] = __float2bfloat16(c[t][0]);
+        if (n_b < N) y[(size_t)m * N + n_b] = __float2bfloat16(c[t][2]);
+      }
+      if (m + 1 < M) {
+        if (n_a < N) y[(size_t)(m + 1) * N + n_a] = __float2bfloat16(c[t][1]);
+        if (n_b < N) y[(size_t)(m + 1) * N + n_b] = __float2bfloat16(c[t][3]);
+      }
+    }
+  }
+}
+
+// The n-tiles per pass: enough for M (up to 4), fewer when their
+// shared bytes (per_tile each, plus fixed) pass the card's opt-in limit.
+// 0 when even one does not fit.
+inline int pick_ntp(int M, size_t per_tile, size_t fixed, size_t* smem) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  int ntp = min((M + 7) / 8, kMaxNtp);
+  while (ntp >= 1 && per_tile * ntp + fixed > (size_t)optin) --ntp;
+  *smem = ntp ? per_tile * ntp + fixed : 0;
+  return ntp;
+}
+
+#define TC_DISPATCH_NTP(ntp, ...)                              \
+  switch (ntp) {                                               \
+    case 1: { constexpr int NTP = 1; __VA_ARGS__; } break;     \
+    case 2: { constexpr int NTP = 2; __VA_ARGS__; } break;     \
+    case 3: { constexpr int NTP = 3; __VA_ARGS__; } break;     \
+    case 4: { constexpr int NTP = 4; __VA_ARGS__; } break;     \
+    default: return (int)cudaErrorInvalidValue;                \
+  }
+
+template <typename I>
+static int launch_slab_ell(const void* x, const void* vals, const void* idx,
+                           const void* bp, const void* u, const void* v,
+                           void* y, int E, int M, int N, int K, int kmax,
+                           int R, void* stream) {
+  if (!aligned16(vals) || !aligned16(idx) || !aligned16(bp))
+    return (int)cudaErrorMisalignedAddress;
+  size_t smem = 0;
+  const int ntp = pick_ntp(M, (size_t)K * 16,
+                           slab::align16_up((size_t)R * K * sizeof(bf16)),
+                           &smem);
+  const dim3 grid((N + kRows - 1) / kRows, E);
+  TC_DISPATCH_NTP(ntp, {
+    auto kern = slab_ell_tc_kernel<I, NTP>;
+    cudaError_t e = slab::prepare(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+        (const bf16*)x, (const bf16*)vals, (const I*)idx,
+        (const uint32_t*)bp, (const bf16*)u, (const bf16*)v, (bf16*)y, M, N,
+        K, kmax, R);
+  });
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// dtype must be 1 (bfloat16): f32 launches go to ell.cu's kernel.
+// idx_bytes: 2 (uint16 ids) or 4. x (E, M, K), vals / idx (E, N, K_max),
+// bp (E, N, K/32), u (E, R, N), v (E, R, K), y (E, M, N). Launches on
+// ``stream``, allocates nothing, returns cudaGetLastError().
+extern "C" int slab_ell_matmul_g(int dtype, int idx_bytes, const void* x,
+                                 const void* vals, const void* idx,
+                                 const void* bp, const void* u,
+                                 const void* v, void* y, int E, int M, int N,
+                                 int K, int kmax, int R, void* stream) {
+  if (dtype != 1 || E <= 0 || E > slab::kMaxExperts || M <= 0 || N <= 0 ||
+      K <= 0 || K % 32 || kmax <= 0 || R <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (idx_bytes == 2)
+    return tc::launch_slab_ell<uint16_t>(x, vals, idx, bp, u, v, y, E, M, N,
+                                         K, kmax, R, stream);
+  if (idx_bytes == 4)
+    return tc::launch_slab_ell<uint32_t>(x, vals, idx, bp, u, v, y, E, M, N,
+                                         K, kmax, R, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace tc {
+
+// ---------------------------------------------------------------- #19
+
+// #19's x tile is row-major, Kp = K rounded up to 128 columns plus 8 of
+// padding a row (16 bytes past a multiple of 128), with the 16-byte unit
+// u of a row stored at u ^ ((u >> 2) & 2): the main loop's lanes read
+// units 4q + j (q = 0..3) of two rows at once, and those land in eight
+// different bank groups.
+__device__ __forceinline__ int xr_unit(int u) { return u ^ ((u >> 2) & 2); }
+__device__ __forceinline__ int xr_elem(int k) {
+  return xr_unit(k >> 3) * 8 + (k & 7);
+}
+
+// Stage batch rows m0 .. m0 + 8·ntp - 1 of x (zero rows past M, zero
+// columns from K to Kp) with 16-byte stores.
+__device__ __forceinline__ void stage_rows(bf16* xr, const bf16* __restrict__ x,
+                                           int m0, int M, int K, int Kp,
+                                           int sx, int ntp) {
+  const int nch = Kp / 8;
+  const bool vec = aligned16(x) && K % 8 == 0;
+  for (int i = threadIdx.x; i < ntp * 8 * nch; i += blockDim.x) {
+    const int r = i / nch, ch = i - r * nch, c = ch * 8, m = m0 + r;
+    uint4 o = make_uint4(0, 0, 0, 0);
+    if (m < M && c < K) {
+      const bf16* p = x + (size_t)m * K + c;
+      if (vec) {
+        o = __ldg(reinterpret_cast<const uint4*>(p));
+      } else {
+        uint32_t w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t lo = c + 2 * j < K ? bits16(p[2 * j]) : 0u;
+          const uint32_t hi = c + 2 * j + 1 < K ? bits16(p[2 * j + 1]) : 0u;
+          w[j] = lo | (hi << 16);
+        }
+        o = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    *reinterpret_cast<uint4*>(xr + (size_t)r * sx + xr_unit(ch) * 8) = o;
+  }
+}
+
+// One weight row's stored N:M entries for the 32 columns c .. c + 31 (c a
+// multiple of 32): 16 values and 16 int8 positions (2:4 and 4:8 both keep
+// half). Entries of groups at or past K read as position -128, which
+// matches no column. ``vec``: every row's entries start on a 32-byte
+// boundary (K a multiple of 32), so they are two 16-byte value loads and
+// one 16-byte position load.
+struct NmRaw {
+  uint32_t v[8], p[4];
+};
+
+template <int NK, int MG>
+__device__ __forceinline__ void nm_load(NmRaw& raw,
+                                        const bf16* __restrict__ vals,
+                                        const int8_t* __restrict__ idx,
+                                        size_t base, int c, int K, bool vec) {
+  static_assert(32 / MG * NK == 16, "16 stored entries per 32 columns");
+  const size_t e = base + (size_t)(c / MG) * NK;
+  if (vec && c + 32 <= K) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(vals + e));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(vals + e + 8));
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(idx + e));
+    raw.v[0] = a.x; raw.v[1] = a.y; raw.v[2] = a.z; raw.v[3] = a.w;
+    raw.v[4] = b.x; raw.v[5] = b.y; raw.v[6] = b.z; raw.v[7] = b.w;
+    raw.p[0] = q.x; raw.p[1] = q.y; raw.p[2] = q.z; raw.p[3] = q.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) raw.v[j] = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) raw.p[j] = 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (c + (j / NK) * MG >= K) continue;
+    raw.v[j >> 1] |= bits16(vals[e + j]) << ((j & 1) * 16);
+    const uint32_t pb = (uint32_t)(uint8_t)idx[e + j];
+    raw.p[j >> 2] = (raw.p[j >> 2] & ~(0xffu << ((j & 3) * 8))) |
+                    (pb << ((j & 3) * 8));
+  }
+}
+
+// The A elements of those 32 columns, packed two to a word (a[j]:
+// columns c + 2j, c + 2j + 1). A position outside [0, MG) matches no
+// column; the first of two entries at one position wins (the packer
+// never emits two).
+template <int NK, int MG>
+__device__ __forceinline__ void nm_decode(uint32_t (&a)[16],
+                                          const NmRaw& raw) {
+  int pos[16];
+  uint32_t val[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    pos[j] = (int)(int8_t)((raw.p[j >> 2] >> ((j & 3) * 8)) & 0xffu);
+    val[j] = (raw.v[j >> 1] >> ((j & 1) * 16)) & 0xffffu;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    uint32_t h[2];
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const int col = i + d, grp = col / MG, j = col % MG;
+      uint32_t b = 0u;
+#pragma unroll
+      for (int n = NK - 1; n >= 0; --n)
+        b = pos[grp * NK + n] == j ? val[grp * NK + n] : b;
+      h[d] = b;
+    }
+    a[i / 2] = h[0] | (h[1] << 16);
+  }
+}
+
+template <int NK, int MG, int NTP>
+__global__ void __launch_bounds__(kWarps * 32)
+nm_lr_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ vals,
+                const int8_t* __restrict__ idx, const bf16* __restrict__ u,
+                const bf16* __restrict__ v, bf16* __restrict__ y, int M,
+                int N, int K, int R) {
+  constexpr int MT = 8 * NTP;                 // batch rows per pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Kp = (K + 127) / 128 * 128, sx = Kp + 8;
+  bf16* xr = reinterpret_cast<bf16*>(smem_raw);            // (MT, sx)
+  float* p = reinterpret_cast<float*>(xr + (size_t)MT * sx);   // (R, MT)
+  float* part = p + (size_t)R * MT;                         // (kWarps, R, MT)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const size_t ex = blockIdx.y;
+  x += ex * M * K;
+  y += ex * M * N;
+  u += ex * R * N;
+  v += ex * R * K;
+  const int row0 = blockIdx.x * kRows + warp * 16;
+  const bool live = row0 < N;
+  const int ra = min(row0 + g, N - 1), rb = min(row0 + g + 8, N - 1);
+  const int per_row = K / MG * NK;            // stored entries per row
+  const bool evec = K % 32 == 0;
+  const size_t ba = (ex * N + ra) * per_row, bb = (ex * N + rb) * per_row;
+
+  for (int m0 = 0; m0 < M; m0 += MT) {
+    __syncthreads();                 // the previous pass's readers are done
+    stage_rows(xr, x, m0, M, K, Kp, sx, NTP);
+    __syncthreads();
+    // p[r, m] = Σ_k x[m, k] · v_r[k] in fp32: every warp takes a strided
+    // share of K, the partial sums are added in warp order
+    for (int r = 0; r < R; ++r) {
+      float acc[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+      for (int k = warp * 32 + lane; k < K; k += kWarps * 32) {
+        const float vk = __bfloat162float(v[(size_t)r * K + k]);
+        const int kk = xr_elem(k);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          acc[m] += __bfloat162float(xr[(size_t)m * sx + kk]) * vk;
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float t = slab::warp_sum(acc[m]);
+        if (lane == 0) part[((size_t)warp * R + r) * MT + m] = t;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < R * MT; i += blockDim.x) {
+      float t = 0.f;
+      for (int w = 0; w < kWarps; ++w) t += part[(size_t)w * R * MT + i];
+      p[i] = t;
+    }
+    __syncthreads();
+    if (!live) continue;
+
+    float c[NTP][4];
+#pragma unroll
+    for (int t = 0; t < NTP; ++t)
+      c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.f;
+    // within each 128-column chunk lane q owns columns 32q .. 32q + 31:
+    // the k-slots 2q, 2q+1 / 2q+8, 2q+9 of step s are its columns 4s,
+    // 4s+1 / 4s+2, 4s+3, so A words a[2s] / a[2s+1] and the B words of
+    // the same index. The next chunk's planes load before this chunk's
+    // decode.
+    NmRaw cur_a, cur_b, nxt_a, nxt_b;
+    nm_load<NK, MG>(cur_a, vals, idx, ba, 32 * q, K, evec);
+    nm_load<NK, MG>(cur_b, vals, idx, bb, 32 * q, K, evec);
+    for (int kc = 0; kc < K; kc += 128) {
+      const int cn = kc + 128 + 32 * q;
+      nm_load<NK, MG>(nxt_a, vals, idx, ba, cn, K, evec);
+      nm_load<NK, MG>(nxt_b, vals, idx, bb, cn, K, evec);
+      uint32_t aa[16], ab[16];
+      nm_decode<NK, MG>(aa, cur_a);
+      nm_decode<NK, MG>(ab, cur_b);
+#pragma unroll
+      for (int t = 0; t < NTP; ++t) {
+        const bf16* xrow = xr + (size_t)(8 * t + g) * sx;
+        const int u0 = kc / 8 + 4 * q;
+        uint32_t bw[16];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint4 b = *reinterpret_cast<const uint4*>(
+              xrow + xr_unit(u0 + j) * 8);
+          bw[4 * j] = b.x; bw[4 * j + 1] = b.y;
+          bw[4 * j + 2] = b.z; bw[4 * j + 3] = b.w;
+        }
+#pragma unroll
+        for (int s = 0; s < 8; ++s)
+          mma_bf16(c[t], aa[2 * s], ab[2 * s], aa[2 * s + 1], ab[2 * s + 1],
+                   bw[2 * s], bw[2 * s + 1]);
+      }
+      cur_a = nxt_a;
+      cur_b = nxt_b;
+    }
+
+    const int na = row0 + g, nb = row0 + g + 8;
+#pragma unroll
+    for (int t = 0; t < NTP; ++t) {
+      const int mi = 8 * t + 2 * q, m = m0 + mi;
+      float l0 = 0.f, l1 = 0.f, l2 = 0.f, l3 = 0.f;
+      for (int r = 0; r < R; ++r) {
+        const float ua = __bfloat162float(u[(size_t)r * N + ra]);
+        const float ub = __bfloat162float(u[(size_t)r * N + rb]);
+        const float p0 = p[r * MT + mi], p1 = p[r * MT + mi + 1];
+        l0 += p0 * ua; l1 += p1 * ua; l2 += p0 * ub; l3 += p1 * ub;
+      }
+      if (m < M) {
+        if (na < N) y[(size_t)m * N + na] = __float2bfloat16(c[t][0] + l0);
+        if (nb < N) y[(size_t)m * N + nb] = __float2bfloat16(c[t][2] + l2);
+      }
+      if (m + 1 < M) {
+        if (na < N)
+          y[(size_t)(m + 1) * N + na] = __float2bfloat16(c[t][1] + l1);
+        if (nb < N)
+          y[(size_t)(m + 1) * N + nb] = __float2bfloat16(c[t][3] + l3);
+      }
+    }
+  }
+}
+
+template <int NK, int MG>
+static int launch_nm_lr(const void* x, const void* vals, const void* idx,
+                        const void* u, const void* v, void* y, int E, int M,
+                        int N, int K, int R, void* stream) {
+  if (!aligned16(vals) || !aligned16(idx))
+    return (int)cudaErrorMisalignedAddress;
+  const int Kp = (K + 127) / 128 * 128;
+  const size_t per_tile = (size_t)8 * (Kp + 8) * sizeof(bf16) +
+                          (size_t)(kWarps + 1) * R * 8 * sizeof(float);
+  size_t smem = 0;
+  const int ntp = pick_ntp(M, per_tile, 0, &smem);
+  const dim3 grid((N + kRows - 1) / kRows, E);
+  TC_DISPATCH_NTP(ntp, {
+    auto kern = nm_lr_tc_kernel<NK, MG, NTP>;
+    cudaError_t e = slab::prepare(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+        (const bf16*)x, (const bf16*)vals, (const int8_t*)idx,
+        (const bf16*)u, (const bf16*)v, (bf16*)y, M, N, K, R);
+  });
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// dtype must be 1 (bfloat16) and the pattern 2:4 or 4:8: other launches
+// go to slab_matmul.cu's kernel. x (E, M, K), vals / idx (E, N, K/m, n),
+// u (E, R, N), v (E, R, K), y (E, M, N). Launches on ``stream``,
+// allocates nothing, returns cudaGetLastError().
+extern "C" int slab_nm_lr_matmul_g(int dtype, const void* x,
+                                   const void* vals, const void* idx,
+                                   const void* u, const void* v, void* y,
+                                   int E, int M, int N, int K, int n_keep,
+                                   int m_pat, int R, void* stream) {
+  if (dtype != 1 || E <= 0 || E > slab::kMaxExperts || M <= 0 || N <= 0 ||
+      K <= 0 || R <= 0 || m_pat <= 0 || K % m_pat)
+    return (int)cudaErrorInvalidValue;
+  if (n_keep == 2 && m_pat == 4)
+    return tc::launch_nm_lr<2, 4>(x, vals, idx, u, v, y, E, M, N, K, R,
+                                  stream);
+  if (n_keep == 4 && m_pat == 8)
+    return tc::launch_nm_lr<4, 8>(x, vals, idx, u, v, y, E, M, N, K, R,
+                                  stream);
+  return (int)cudaErrorInvalidValue;
+}

@@ -35,8 +35,7 @@ FLASH_DECODE = build.CudaKernel(
     "src/repro/kernels/flash_decode.py:85 (flash_decode, pallas_call :130)")
 
 NEG_INF = -1e30
-MAX_G = 16          # query heads per kv head the kernel takes
-MAX_DH = 256        # head width the kernel takes
+MAX_DH = 256        # head width the kernel takes (any G)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -111,9 +110,9 @@ def _check_cache(q, k, v, k_scale, v_scale, lead):
     r, kv, g, dh = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q has dtype {q.dtype}, expected float32/bfloat16")
-    if g > MAX_G or dh > MAX_DH:
-        raise ValueError(f"G={g} dh={dh}: the kernel takes G <= {MAX_G}, "
-                         f"dh <= {MAX_DH}")
+    if dh > MAX_DH:
+        raise ValueError(f"dh={dh}: the kernel takes head widths up to "
+                         f"{MAX_DH} (any number of query heads)")
     build.check_operand(q, "q", q.dtype, (r, kv, g, dh), dev)
     quant = k_scale is not None
     if quant != (v_scale is not None):

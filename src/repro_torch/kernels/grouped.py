@@ -4,19 +4,26 @@ what its per-linear counterpart computes on x[e] and expert e's planes:
 
     ell_matmul_g         #4 per expert  (csrc/ell.cu)
     ell_lr_matmul_g      #5 per expert  (csrc/ell.cu)
-    slab_ell_matmul_g    #1 per expert  (csrc/ell.cu)
+    slab_ell_matmul_g    #1 per expert  (csrc/grouped_tc.cu; f32 and 1-2
+                                         rows per expert: ell.cu)
     nm_matmul_g          #8 per expert  (csrc/nm_sparse.cu)
     slab_matmul_g        #3 per expert  (csrc/slab_matmul.cu)
     slab_nm_matmul_g     #2 per expert  (csrc/slab_matmul.cu)
     slab_lr_matmul_g     #6 per expert  (csrc/slab_matmul.cu)
-    slab_nm_lr_matmul_g  #7 per expert  (csrc/slab_matmul.cu)
+    slab_nm_lr_matmul_g  #7 per expert  (csrc/grouped_tc.cu; f32 and
+                                         patterns other than 2:4 / 4:8:
+                                         slab_matmul.cu)
     binlr_matmul_g       #9 per expert  (csrc/slab_matmul.cu)
 
 Replace the nine kernels of ``repro/kernels/grouped.py`` (TPU), one for
-one. A CUDA kernel here is its per-linear kernel launched once for the
-whole bucket with the expert as the grid's y dimension, never E
-launches. Operands use the kernel
-layout with a leading expert dim: x (E, M, K), u (E, R, N), v (E, R, K),
+one. A CUDA kernel here is launched once for the whole bucket with the
+expert as the grid's y dimension, never E launches: its per-linear
+kernel, or for the bf16 slab_ell_matmul_g and slab_nm_lr_matmul_g a
+kernel of its own on the tensor cores (``csrc/grouped_tc.cu``); those
+two keep their first design (same C symbol in ``ell.cu`` /
+``slab_matmul.cu``) for the launches the new kernel does not take, and
+count each library's launches apart. Operands use the kernel layout
+with a leading expert dim: x (E, M, K), u (E, R, N), v (E, R, K),
 planes (E, N, ...); ``kernels.ops`` maps the public layouts onto it.
 The plain versions loop over the experts through the per-linear plain
 versions.
@@ -33,9 +40,13 @@ from repro_torch.kernels import ell as ell_k
 from repro_torch.kernels import nm_sparse as nm_k
 from repro_torch.kernels import slab_matmul as slab_k
 
-SLAB_ELL_G = build.CudaKernel(
-    "slab_ell_matmul_g", "ell.cu",
-    "src/repro/kernels/grouped.py:128 (slab_ell_matmul_g, pallas_call :142)")
+_SLAB_ELL_G_TPU = ("src/repro/kernels/grouped.py:128 (slab_ell_matmul_g, "
+                   "pallas_call :142)")
+SLAB_ELL_G = build.CudaKernel("slab_ell_matmul_g", "grouped_tc.cu",
+                              _SLAB_ELL_G_TPU)
+SLAB_ELL_G_FIRST = build.CudaKernel("slab_ell_matmul_g", "ell.cu",
+                                    _SLAB_ELL_G_TPU,
+                                    key="slab_ell_matmul_g@ell.cu")
 NM_G = build.CudaKernel(
     "nm_matmul_g", "nm_sparse.cu",
     "src/repro/kernels/grouped.py:183 (nm_matmul_g, pallas_call :195)")
@@ -54,13 +65,24 @@ ELL_LR_G = build.CudaKernel(
 SLAB_LR_G = build.CudaKernel(
     "slab_lr_matmul_g", "slab_matmul.cu",
     "src/repro/kernels/grouped.py:336 (slab_lr_matmul_g, pallas_call :348)")
-SLAB_NM_LR_G = build.CudaKernel(
-    "slab_nm_lr_matmul_g", "slab_matmul.cu",
-    "src/repro/kernels/grouped.py:387 (slab_nm_lr_matmul_g, pallas_call "
-    ":402)")
+_SLAB_NM_LR_G_TPU = ("src/repro/kernels/grouped.py:387 (slab_nm_lr_matmul_g, "
+                     "pallas_call :402)")
+SLAB_NM_LR_G = build.CudaKernel("slab_nm_lr_matmul_g", "grouped_tc.cu",
+                                _SLAB_NM_LR_G_TPU)
+SLAB_NM_LR_G_FIRST = build.CudaKernel("slab_nm_lr_matmul_g",
+                                      "slab_matmul.cu", _SLAB_NM_LR_G_TPU,
+                                      key="slab_nm_lr_matmul_g@slab_matmul.cu")
 BINLR_G = build.CudaKernel(
     "binlr_matmul_g", "slab_matmul.cu",
     "src/repro/kernels/grouped.py:437 (binlr_matmul_g, pallas_call :450)")
+
+# The bf16 slab_ell_matmul_g runs grouped_tc.cu's kernel from this many
+# rows per expert; below, ell.cu's first design, whose 2-byte gathers
+# beat the tensor-core kernel's wider ones on an H100. chip_smoke.py
+# times both libraries at M 1-32 on both MoE models' expert planes
+# (PERF.md), deepseek-moe-16b's (1408, 2048) and phi3.5-moe's (6400,
+# 4096); the crossover of each is recorded there.
+TC_MIN_ROWS = 3
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -143,22 +165,39 @@ def slab_ell_matmul_g_plain(x, vals, idx, b_packed, u, v) -> torch.Tensor:
                        u, v)
 
 
+def slab_ell_g_kernel(dtype, m: int) -> build.CudaKernel:
+    """The library a launch at ``m`` rows per expert runs: grouped_tc.cu
+    for bf16 from TC_MIN_ROWS rows; f32 (1e-5, no TF32) and fewer rows
+    the first design."""
+    if dtype == torch.bfloat16 and m >= TC_MIN_ROWS:
+        return SLAB_ELL_G
+    return SLAB_ELL_G_FIRST
+
+
 def slab_ell_matmul_g(x, vals, idx, b_packed, u, v) -> torch.Tensor:
     """Launch the grouped ELL SLaB kernel (one launch for the bucket)."""
+    _, m, _ = _check_x(x)
+    return launch_slab_ell_g(slab_ell_g_kernel(x.dtype, m), x, vals, idx,
+                             b_packed, u, v)
+
+
+def launch_slab_ell_g(kern, x, vals, idx, b_packed, u, v) -> torch.Tensor:
+    """slab_ell_matmul_g through ``kern``'s library (SLAB_ELL_G or
+    SLAB_ELL_G_FIRST), counted on its counter."""
     n, k_max = _check_ell(x, vals, idx)
     e, m, k, r = _check_binary(x, b_packed, u, v, n)
     dev = x.device
     y = torch.empty((e, m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    fn = build.function(SLAB_ELL_G.source, SLAB_ELL_G.name, _SLAB_ELL_ARGS)
+    fn = build.function(kern.source, kern.name, _SLAB_ELL_ARGS)
     err = fn(build.dtype_code(x.dtype), idx.element_size(), x.data_ptr(),
              vals.data_ptr(), idx.data_ptr(), b_packed.data_ptr(),
              u.data_ptr(), v.data_ptr(), y.data_ptr(), e, m, n, k, k_max, r,
              build.stream_ptr(dev))
-    build.check_launch(err, SLAB_ELL_G.name,
+    build.check_launch(err, kern.key,
                        f"E={e} M={m} N={n} K={k} K_max={k_max} R={r}")
-    SLAB_ELL_G.launches += 1
+    kern.launches += 1
     return y
 
 
@@ -301,20 +340,36 @@ def slab_nm_lr_matmul_g_plain(x, vals, idx, m_pat: int, u,
                        u, v)
 
 
+def slab_nm_lr_g_kernel(dtype, n_keep: int, m_pat: int) -> build.CudaKernel:
+    """The library a launch runs: grouped_tc.cu for bf16 2:4 / 4:8, the
+    first design for f32 and the other patterns."""
+    if dtype == torch.bfloat16 and (n_keep, m_pat) in ((2, 4), (4, 8)):
+        return SLAB_NM_LR_G
+    return SLAB_NM_LR_G_FIRST
+
+
 def slab_nm_lr_matmul_g(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
     """Launch the grouped N:M + low-rank kernel (one launch)."""
+    kern = slab_nm_lr_g_kernel(x.dtype, vals.shape[-1], m_pat)
+    return launch_slab_nm_lr_g(kern, x, vals, idx, m_pat, u, v)
+
+
+def launch_slab_nm_lr_g(kern, x, vals, idx, m_pat: int, u,
+                        v) -> torch.Tensor:
+    """slab_nm_lr_matmul_g through ``kern``'s library (SLAB_NM_LR_G or
+    SLAB_NM_LR_G_FIRST), counted on its counter."""
     n, n_keep = _check_nm(x, vals, idx, m_pat)
     e, m, k, r = _check_rank(x, u, v, n)
     y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    fn = build.function(SLAB_NM_LR_G.source, SLAB_NM_LR_G.name, _NM_LR_ARGS)
+    fn = build.function(kern.source, kern.name, _NM_LR_ARGS)
     err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
              idx.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(), e, m,
              n, k, n_keep, m_pat, r, build.stream_ptr(x.device))
-    build.check_launch(err, SLAB_NM_LR_G.name,
+    build.check_launch(err, kern.key,
                        f"E={e} M={m} N={n} K={k} {n_keep}:{m_pat} R={r}")
-    SLAB_NM_LR_G.launches += 1
+    kern.launches += 1
     return y
 
 

@@ -27,8 +27,9 @@ from repro_torch.kernels import slab_matmul as slab_k
 KERNELS = (ell_k.SLAB_ELL, slab_k.SLAB_NM, slab_k.SLAB_DENSE, ell_k.ELL,
            ell_k.ELL_LR, slab_k.SLAB_LR, slab_k.SLAB_NM_LR, nm_k.NM,
            binlr_k.BINLR, fd_k.FLASH_DECODE, fd_k.FLASH_DECODE_PAGED,
-           g_k.SLAB_ELL_G, g_k.NM_G, g_k.SLAB_G, g_k.SLAB_NM_G, g_k.ELL_G,
-           g_k.ELL_LR_G, g_k.SLAB_LR_G, g_k.SLAB_NM_LR_G, g_k.BINLR_G)
+           g_k.SLAB_ELL_G, g_k.SLAB_ELL_G_FIRST, g_k.NM_G, g_k.SLAB_G,
+           g_k.SLAB_NM_G, g_k.ELL_G, g_k.ELL_LR_G, g_k.SLAB_LR_G,
+           g_k.SLAB_NM_LR_G, g_k.SLAB_NM_LR_G_FIRST, g_k.BINLR_G)
 
 
 def reset_launch_counts() -> None:
@@ -37,7 +38,10 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    return {k.name: k.launches for k in KERNELS}
+    """Launches per counter key: one counter per library, so a wrapper
+    that picks between two (``grouped.slab_ell_matmul_g``,
+    ``grouped.slab_nm_lr_matmul_g``) shows which one ran."""
+    return {k.key: k.launches for k in KERNELS}
 
 
 def _rank_stack(u: torch.Tensor, v: torch.Tensor, dtype):

@@ -47,7 +47,7 @@ def _both(name, cfg_kw, w, an=None, h=None, **opts):
     got = compressor.get(name, slab.SLaBConfig(**cfg_kw), **opts).compress(
         torch.from_numpy(w), compressor.LinearStats(
             None if an is None else torch.from_numpy(an),
-            None if h is None else bridge.hessian(h)))
+            None if h is None else bridge.hessian(h, device="cpu")))
     return ref, got
 
 
@@ -201,7 +201,7 @@ def test_softmax_xent_and_loss_fn_match_reference():
         dtype=jnp.float32)
     cfg = configs.get("llama2_7b", smoke=True).with_(dtype=torch.float32)
     params_r, _ = ref_lm.init(cfg_r, jax.random.PRNGKey(0))
-    params = bridge.params(jax.tree.map(np.asarray, params_r), cfg.n_layers)
+    params = bridge.params(jax.tree.map(np.asarray, params_r), cfg.n_layers, device="cpu")
     batch = ref_synth.SyntheticCorpus(cfg.vocab, seed=0).batch(0, 2, 17)
     loss_r, parts_r = jax.jit(ref_lm.loss_fn, static_argnums=0)(
         cfg_r, params_r, {k: jnp.asarray(v) for k, v in batch.items()})

@@ -82,7 +82,7 @@ def test_packers_byte_identical(pattern, dtype):
     bytes as the reference for the same bridged decomposition."""
     _, _, dec = _ref_dec(5, pattern=pattern)
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
-    pdec = bridge.decomposition(dec)
+    pdec = bridge.decomposition(dec, device="cpu")
     assert np.array_equal(
         packing.pack_sign_bits(pdec.w_b).numpy(),
         np.asarray(ref_packing.pack_sign_bits(dec.w_b)).view(np.int32))
@@ -91,14 +91,14 @@ def test_packers_byte_identical(pattern, dtype):
     if pattern:
         n, m = map(int, pattern.split(":"))
         a, b = ref_packing.pack_nm(ws_ref, n, m), packing.pack_nm(ws, n, m)
-        assert torch.equal(b.values, bridge.tensor(a.values))
-        assert torch.equal(b.indices, bridge.tensor(a.indices))
+        assert torch.equal(b.values, bridge.tensor(a.values, device="cpu"))
+        assert torch.equal(b.indices, bridge.tensor(a.indices, device="cpu"))
     else:
         a, b = ref_packing.ell_pack(ws_ref), packing.ell_pack(ws)
-        assert torch.equal(b.values, bridge.tensor(a.values))
-        assert torch.equal(b.indices, bridge.tensor(a.indices))
+        assert torch.equal(b.values, bridge.tensor(a.values, device="cpu"))
+        assert torch.equal(b.indices, bridge.tensor(a.indices, device="cpu"))
         assert b.indices.dtype == torch.int16
-    want = bridge.packed_linear(ref_pm.pack_linear(dec, pattern, jdt))
+    want = bridge.packed_linear(ref_pm.pack_linear(dec, pattern, jdt), device="cpu")
     got = packed_model.pack_linear(pdec, pattern, tdt)
     assert got.variant == want.variant
     for f in ("sparse_vals", "sparse_idx", "b_packed", "u", "v"):
@@ -112,8 +112,8 @@ def test_ell_pads_on_zero_columns_like_reference():
                  rng.standard_normal((8, 64)), 0.0).astype(np.float32)
     a = ref_packing.ell_pack(jnp.asarray(w))
     b = packing.ell_pack(torch.from_numpy(w))
-    assert torch.equal(b.indices, bridge.tensor(a.indices))
-    assert torch.equal(b.values, bridge.tensor(a.values))
+    assert torch.equal(b.indices, bridge.tensor(a.indices, device="cpu"))
+    assert torch.equal(b.values, bridge.tensor(a.values, device="cpu"))
     assert np.array_equal(packing.ell_unpack(b).numpy(), w)
     assert packing.ell_row_nnz_max(torch.from_numpy(w)) == \
         ref_packing.ell_row_nnz_max(jnp.asarray(w))
@@ -154,7 +154,7 @@ def test_compress_model_per_linear_errors_match_reference():
         dtype=jnp.float32)
     cfg = configs.get("llama2_7b", smoke=True).with_(dtype=torch.float32)
     params_r, _ = ref_lm.init(cfg_r, jax.random.PRNGKey(0))
-    params = bridge.params(jax.tree.map(np.asarray, params_r), cfg.n_layers)
+    params = bridge.params(jax.tree.map(np.asarray, params_r), cfg.n_layers, device="cpu")
     calib = ref_synth.calibration_batch(cfg.vocab, n_seq=4, seq_len=32)
     _, st_r = ref_pipeline.compress_model(
         cfg_r, params_r, calib, scfg=ref_slab.SLaBConfig(cr=0.5, iters=2))

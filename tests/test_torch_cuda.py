@@ -1,7 +1,9 @@
-"""The port's CUDA kernels of the third slice against their plain
-PyTorch versions, on a card only: slab_nm_lr_matmul (#7), binlr_matmul
-(#9), flash_decode (#10) and flash_decode_paged (#11). Every test skips
-without a card (the kernels are CUDA C++ for sm_90a with no CPU mode).
+"""The port's CUDA kernels against their plain PyTorch versions, on a
+card only: slab_nm_lr_matmul (#7), binlr_matmul (#9), flash_decode (#10)
+and flash_decode_paged (#11), and the grouped slab_ell_matmul_g (#14) and
+slab_nm_lr_matmul_g (#19), whose bf16 launches run the tensor-core
+kernels of csrc/grouped_tc.cu. Every test skips without a card (the
+kernels are CUDA C++ for sm_90a with no CPU mode).
 
 This file imports neither JAX nor the reference package, so it runs on
 a machine with PyTorch alone:
@@ -18,10 +20,15 @@ import torch
 from repro_torch.core import packing, sparsity
 from repro_torch.kernels import binlr as binlr_k
 from repro_torch.kernels import flash_decode as fd_k
+from repro_torch.kernels import grouped as g_k
 from repro_torch.kernels import slab_matmul as slab_k
 from repro_torch.models.attention import _quantize_token
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# (KV, G, dh): stablelm-12b, an MHA cut, qwen2-vl-2b (G 6: the kernel's
+# G 8 instantiation) and nemotron-4-340b (G 12: its G 16 instantiation)
+FD_LAYOUTS = [(8, 4, 160), (4, 1, 128), (2, 6, 128), (8, 12, 192)]
+FD_IDS = ("gqa-dh160", "mha-dh128", "g6-dh128", "g12-dh192")
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -93,8 +100,7 @@ def _cache(rng, r, s, kv, g, dh, dtype, quant, dev):
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=("model", "int8"))
-@pytest.mark.parametrize("layout", [(8, 4, 160), (4, 1, 128)],
-                         ids=("gqa-dh160", "mha-dh128"))
+@pytest.mark.parametrize("layout", FD_LAYOUTS, ids=FD_IDS)
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_flash_decode_kernel_matches_plain(cuda, dt, layout, quant):
     """S = 300 with the reference chunk 64 (S_pad 320); a length-0 row
@@ -110,9 +116,30 @@ def test_flash_decode_kernel_matches_plain(cuda, dt, layout, quant):
     assert fd_k.FLASH_DECODE.launches > 0
 
 
+@pytest.mark.parametrize("paged", [False, True], ids=("contig", "paged"))
+def test_flash_decode_wide_group_matches_plain(cuda, paged):
+    """G 32 at dh 256: its merge buffers pass one block's shared memory,
+    so the kernel takes the query heads in chunks (grid z)."""
+    rng = np.random.default_rng(22)
+    q, k, v, _, _ = _cache(rng, 3, 96, 2, 32, 256, torch.bfloat16, False,
+                           cuda)
+    lens = torch.tensor([1, 50, 96], dtype=torch.int32, device=cuda)
+    if paged:
+        bs = 16
+        pool = lambda t: t.reshape(3 * 96 // bs, bs, *t.shape[2:])
+        tables = torch.arange(3 * 96 // bs, dtype=torch.int32,
+                              device=cuda).reshape(3, -1)
+        args = (q, pool(k), pool(v), tables, lens)
+        got = fd_k.flash_decode_paged(*args)
+        want = fd_k.flash_decode_paged_plain(*args)
+    else:
+        got = fd_k.flash_decode(q, k, v, lens, bs=32)
+        want = fd_k.flash_decode_plain(q, k, v, lens, bs=32)
+    _close(got, want, torch.bfloat16)
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=("model", "int8"))
-@pytest.mark.parametrize("layout", [(8, 4, 160), (4, 1, 128)],
-                         ids=("gqa-dh160", "mha-dh128"))
+@pytest.mark.parametrize("layout", FD_LAYOUTS, ids=FD_IDS)
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_flash_decode_paged_kernel_matches_plain(cuda, dt, layout, quant):
     """Scattered blocks of 16, lengths 0 / 1 / 16 / 17 / 80, junk table
@@ -142,3 +169,173 @@ def test_flash_decode_paged_kernel_matches_plain(cuda, dt, layout, quant):
     got = fd_k.flash_decode_paged(*args)
     _close(got, fd_k.flash_decode_paged_plain(*args), dtype)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+# grouped #14 / #19 at 1-32 rows per expert: (N, K) off the 128-row
+# block and the 128-column chunk (N 1411; #14 K 1376, whose sign words are
+# not whole 16-byte loads; #19 K 1412, whose N:M rows start off 16 bytes)
+# and deepseek-moe-16b's (1408, 2048). Planes are made on the card from a
+# seeded generator (numpy at E 64 x 1408 x 2048 takes minutes).
+G_M = [1, 3, 5, 6, 8, 9, 16, 20, 32]
+G_E = [1, 7, 64]
+
+
+def _g_shape(e, k_odd):
+    return (1408, 2048) if e == 64 else (1411, k_odd)
+
+
+def _g_randn(gen, *shape, scale=1.0):
+    return torch.randn(shape, generator=gen, device=gen.device) * scale
+
+
+@pytest.mark.parametrize("e", G_E)
+@pytest.mark.parametrize("m", G_M)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_slab_ell_matmul_g_kernel_matches_plain(cuda, dt, m, e):
+    """Rank 3 at odd M, else 1; uint32 ids at E 7, else uint16; K_max
+    three past the fullest row, so every row ends in ELL pads."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(100 + m + e)
+    n, k = _g_shape(e, 1376)
+    rank = 3 if m % 2 else 1
+    w = _g_randn(gen, e * n, k, scale=0.05)
+    ws = torch.where(_g_randn(gen, e * n, k) > 0.25, w, 0.0)
+    ell = packing.ell_pack(ws.to(dtype),
+                           nnz=packing.ell_row_nnz_max(ws) + 3)
+    vals = ell.values.reshape(e, n, -1).contiguous()
+    idx = ell.indices.reshape(e, n, -1).contiguous()
+    if e == 7:
+        idx = packing.as_unsigned(idx).int()
+    signs = torch.where(_g_randn(gen, e * n, k) >= 0, 1, -1).to(torch.int8)
+    bp = packing.pack_sign_bits(signs).reshape(e, n, k // 32)
+    x = _g_randn(gen, e, m, k).to(dtype)
+    u = _g_randn(gen, e, rank, n, scale=0.2).to(dtype)
+    v = _g_randn(gen, e, rank, k, scale=0.2).to(dtype)
+    kern = g_k.slab_ell_g_kernel(dtype, m)
+    assert kern is (g_k.SLAB_ELL_G if dtype == torch.bfloat16
+                    and m >= g_k.TC_MIN_ROWS else g_k.SLAB_ELL_G_FIRST)
+    launches = kern.launches
+    got = g_k.slab_ell_matmul_g(x, vals, idx, bp, u, v)
+    assert kern.launches == launches + 1
+    _close(got, g_k.slab_ell_matmul_g_plain(x, vals, idx, bp, u, v), dtype)
+
+
+@pytest.mark.parametrize("order", ["reversed", "duplicates"])
+def test_slab_ell_matmul_g_any_entry_order(cuda, order):
+    """The ELL format does not promise sorted ids: reversed rows, and
+    rows whose entries repeat a column (their values add), give the
+    plain version's result."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    e, n, k, m = 3, 300, 512, 6
+    w = _g_randn(gen, e * n, k, scale=0.05)
+    ws = torch.where(_g_randn(gen, e * n, k) > 0.25, w, 0.0)
+    ell = packing.ell_pack(ws.to(torch.bfloat16))
+    vals, idx = ell.values, ell.indices
+    if order == "reversed":
+        vals, idx = vals.flip(1), idx.flip(1)
+    else:        # every third entry takes its left neighbour's column
+        idx = idx.clone()
+        idx[:, 3::3] = idx[:, 2:-1:3][:, :idx[:, 3::3].shape[1]]
+    vals = vals.reshape(e, n, -1).contiguous()
+    idx = idx.reshape(e, n, -1).contiguous()
+    signs = torch.where(_g_randn(gen, e * n, k) >= 0, 1, -1).to(torch.int8)
+    bp = packing.pack_sign_bits(signs).reshape(e, n, k // 32)
+    x = _g_randn(gen, e, m, k).to(torch.bfloat16)
+    u = _g_randn(gen, e, 1, n, scale=0.2).to(torch.bfloat16)
+    v = _g_randn(gen, e, 1, k, scale=0.2).to(torch.bfloat16)
+    got = g_k.slab_ell_matmul_g(x, vals, idx, bp, u, v)
+    _close(got, g_k.slab_ell_matmul_g_plain(x, vals, idx, bp, u, v),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 2, 6, 20])
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+def test_slab_ell_matmul_g_each_library(cuda, lib, m):
+    """Both libraries of the bf16 #14 at the row counts the wrapper
+    gives the other one (chip_smoke times both at every M)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(300 + m)
+    e, (n, k) = 7, _g_shape(7, 1376)
+    w = _g_randn(gen, e * n, k, scale=0.05)
+    ws = torch.where(_g_randn(gen, e * n, k) > 0.25, w, 0.0)
+    ell = packing.ell_pack(ws.to(torch.bfloat16))
+    vals = ell.values.reshape(e, n, -1).contiguous()
+    idx = ell.indices.reshape(e, n, -1).contiguous()
+    signs = torch.where(_g_randn(gen, e * n, k) >= 0, 1, -1).to(torch.int8)
+    bp = packing.pack_sign_bits(signs).reshape(e, n, k // 32)
+    x = _g_randn(gen, e, m, k).to(torch.bfloat16)
+    u = _g_randn(gen, e, 1, n, scale=0.2).to(torch.bfloat16)
+    v = _g_randn(gen, e, 1, k, scale=0.2).to(torch.bfloat16)
+    kern = g_k.SLAB_ELL_G if lib == "grouped_tc" else g_k.SLAB_ELL_G_FIRST
+    launches = kern.launches
+    got = g_k.launch_slab_ell_g(kern, x, vals, idx, bp, u, v)
+    assert kern.launches == launches + 1
+    _close(got, g_k.slab_ell_matmul_g_plain(x, vals, idx, bp, u, v),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("pattern", ["2:4", "4:8"])
+def test_slab_nm_lr_matmul_g_first_design_bf16(cuda, pattern):
+    """The first design of #19 still takes bf16 2:4 / 4:8 (chip_smoke
+    times it beside the tensor-core kernel)."""
+    n_keep, m_pat = map(int, pattern.split(":"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(400 + m_pat)
+    e, m, (n, k) = 7, 6, _g_shape(7, 1408)
+    w = _g_randn(gen, e * n, k, scale=0.05)
+    w_nm = torch.where(sparsity.nm_mask(w.abs(), n_keep, m_pat), w, 0.0)
+    nm = packing.pack_nm(w_nm.to(torch.bfloat16), n_keep, m_pat,
+                         strict=True)
+    shape = (e, n, k // m_pat, n_keep)
+    vals = nm.values.reshape(shape).contiguous()
+    idx = nm.indices.reshape(shape).contiguous()
+    x = _g_randn(gen, e, m, k).to(torch.bfloat16)
+    u = _g_randn(gen, e, 1, n, scale=0.2).to(torch.bfloat16)
+    v = _g_randn(gen, e, 1, k, scale=0.2).to(torch.bfloat16)
+    kern = g_k.SLAB_NM_LR_G_FIRST
+    launches = kern.launches
+    got = g_k.launch_slab_nm_lr_g(kern, x, vals, idx, m_pat, u, v)
+    assert kern.launches == launches + 1
+    _close(got, g_k.slab_nm_lr_matmul_g_plain(x, vals, idx, m_pat, u, v),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("e", G_E)
+@pytest.mark.parametrize("m", G_M)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_slab_nm_lr_matmul_g_kernel_matches_plain(cuda, dt, m, e):
+    """2:4 at rank 1 for even M, 4:8 at rank 3 for odd M (2:4 only at K
+    1412); one stored position in 50 is moved out of [0, m) (-1 or m),
+    which the kernel must skip: the plain version sees that entry as a
+    zero at position 0."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(200 + m + e)
+    n, k = _g_shape(e, 1412)
+    n_keep, m_pat = (4, 8) if m % 2 and k % 8 == 0 else (2, 4)
+    rank = 3 if m % 2 else 1
+    w = _g_randn(gen, e * n, k, scale=0.05)
+    w_nm = torch.where(sparsity.nm_mask(w.abs(), n_keep, m_pat), w, 0.0)
+    nm = packing.pack_nm(w_nm.to(dtype), n_keep, m_pat, strict=True)
+    shape = (e, n, k // m_pat, n_keep)
+    vals = nm.values.reshape(shape).contiguous()
+    idx = nm.indices.reshape(shape).contiguous()
+    bad = torch.rand(shape, generator=gen, device=cuda) < 0.02
+    off = torch.where(torch.rand(shape, generator=gen, device=cuda) < 0.5,
+                      -1, m_pat).to(torch.int8)
+    idx_k = torch.where(bad, off, idx)
+    vals_p = torch.where(bad, torch.zeros_like(vals), vals)
+    idx_p = torch.where(bad, torch.zeros_like(idx), idx)
+    x = _g_randn(gen, e, m, k).to(dtype)
+    u = _g_randn(gen, e, rank, n, scale=0.2).to(dtype)
+    v = _g_randn(gen, e, rank, k, scale=0.2).to(dtype)
+    kern = g_k.slab_nm_lr_g_kernel(dtype, n_keep, m_pat)
+    assert kern is (g_k.SLAB_NM_LR_G if dtype == torch.bfloat16
+                    else g_k.SLAB_NM_LR_G_FIRST)
+    launches = kern.launches
+    got = g_k.slab_nm_lr_matmul_g(x, vals, idx_k, m_pat, u, v)
+    assert kern.launches == launches + 1
+    _close(got, g_k.slab_nm_lr_matmul_g_plain(x, vals_p, idx_p, m_pat, u, v),
+           dtype)

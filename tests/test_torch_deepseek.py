@@ -81,7 +81,7 @@ def _tokens(seed, b, s, vocab):
 def _bridged(tree):
     if isinstance(tree, dict):
         return {k: _bridged(v) for k, v in tree.items()}
-    return bridge.tensor(np.asarray(tree))
+    return bridge.tensor(np.asarray(tree), device="cpu")
 
 
 @pytest.mark.parametrize("smoke", [True, False])
@@ -162,7 +162,7 @@ def build_models():
         dtype=torch.float32, n_layers=1)
     params_r, _ = ref_lm.init(cfg_r, jax.random.PRNGKey(0))
     return cfg_r, cfg, params_r, bridge.params(_np_tree(params_r),
-                                               cfg.n_layers)
+                                               cfg.n_layers, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -215,11 +215,11 @@ class Chain:
                            for k, d in src.decs_r.items()}
         self.packed_r, self.rep_r = ref_pm.pack_plan_decs(
             self.dense_r, self.decs_r, cfg_r.n_layers, self.plan)
-        decs_b = {k: (bridge.expert_decompositions(d) if type(d) is tuple
-                      else bridge.decomposition(d))
+        decs_b = {k: (bridge.expert_decompositions(d, device="cpu") if type(d) is tuple
+                      else bridge.decomposition(d, device="cpu"))
                   for k, d in self.decs_r.items()}
         self.packed, self.rep = pack_model(
-            bridge.params(_np_tree(self.dense_r), cfg.n_layers), decs_b,
+            bridge.params(_np_tree(self.dense_r), cfg.n_layers, device="cpu"), decs_b,
             pattern=self.pattern, dtype=torch.float32)
 
 
@@ -288,10 +288,10 @@ def check_pack_byte_identical(chain, variant):
         for path in SHARED_PATHS + ("attn.wq",):
             assert isinstance(_get(lp, path), PackedLinear), path
             _same_planes(_get(lp, path),
-                         bridge.packed_linear(_get(lp_r, path)))
+                         bridge.packed_linear(_get(lp_r, path), device="cpu"))
         for path in EXPERT_PATHS:
             eps = _get(lp, path)
-            want = bridge.expert_packed_stack(_get(lp_r, path))
+            want = bridge.expert_packed_stack(_get(lp_r, path), device="cpu")
             assert isinstance(eps, ExpertPackedStack)
             assert eps.members == want.members
             assert eps.dense_members == want.dense_members == ()

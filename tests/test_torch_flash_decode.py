@@ -6,6 +6,7 @@ plain versions: ``tests/test_torch_cuda.py``, on a card.)
 Tolerances: f32 rel/abs 1e-5; bf16 rel/abs 2e-2 (as the reference's own
 ``tests/test_flash_decode.py``).
 """
+import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ NONDIV = [
     (2, 1, 1, 16, 33, 32),
 ]
 DTYPES = {"f32": (jnp.float32, 1e-5), "bf16": (jnp.bfloat16, 2e-2)}
-t = bridge.tensor
+t = functools.partial(bridge.tensor, device="cpu")
 
 
 @pytest.fixture(autouse=True)

@@ -13,7 +13,8 @@ numpy inputs, on the CPU:
   experts named;
 - ``expert_matmul`` for the variants of #12, #13 and #18-#20: equal to
   each expert's own per-linear ``packed_matmul`` and to the reference's
-  ``expert_matmul`` on the same decompositions.
+  ``expert_matmul`` on the same decompositions;
+- ``bridge`` converters default to the card (and raise without one).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -85,7 +86,8 @@ def _np_ids(idx: torch.Tensor) -> np.ndarray:
 
 CASES = [  # (kernel, E, M, rank, pattern or id width)
     ("slab_ell", 1, 1, 1, "u16"), ("slab_ell", 3, 5, 3, "u16"),
-    ("slab_ell", 4, 5, 1, "u32"),
+    ("slab_ell", 4, 5, 1, "u32"), ("slab_ell", 2, 9, 1, "u16"),
+    ("slab_ell", 3, 20, 3, "u32"),
     ("nm", 1, 1, 1, "2:4"), ("nm", 3, 5, 1, "4:8"), ("nm", 4, 5, 1, "2:4"),
     ("slab", 1, 1, 1, None), ("slab", 3, 5, 3, None), ("slab", 4, 1, 1, None),
     ("slab_nm", 1, 1, 1, "2:4"), ("slab_nm", 3, 5, 3, "4:8"),
@@ -96,7 +98,8 @@ CASES = [  # (kernel, E, M, rank, pattern or id width)
     ("slab_lr", 1, 1, 1, None), ("slab_lr", 3, 5, 3, None),
     ("slab_lr", 4, 1, 1, None),
     ("slab_nm_lr", 1, 1, 1, "2:4"), ("slab_nm_lr", 3, 5, 3, "4:8"),
-    ("slab_nm_lr", 4, 5, 1, "2:4"),
+    ("slab_nm_lr", 4, 5, 1, "2:4"), ("slab_nm_lr", 2, 9, 1, "2:4"),
+    ("slab_nm_lr", 3, 20, 3, "4:8"),
     ("binlr", 1, 1, 1, None), ("binlr", 3, 5, 3, None),
     ("binlr", 4, 5, 1, None),
 ]
@@ -216,7 +219,7 @@ def _no_sparse_plane(n=64, k=128):
 
 
 def _assert_same_stack(got: ExpertPackedStack, ref):
-    want = bridge.expert_packed_stack(ref)
+    want = bridge.expert_packed_stack(ref, device="cpu")
     assert got.members == want.members
     assert got.dense_members == want.dense_members
     assert got.n_experts == want.n_experts
@@ -383,3 +386,62 @@ def test_pack_model_counts_experts_and_names_dense_ones():
     assert rep.bytes_by_variant["dense-fallback"] == (per_e, per_e)
     packed_b, dense_b = rep.bytes_by_variant["sparse-ell"]
     assert dense_b == per_e and packed_b < per_e
+
+
+# ------------------------------------------- library choice and counters
+
+
+@pytest.mark.parametrize("dtype,m,source", [
+    (torch.bfloat16, 1, "ell.cu"), (torch.bfloat16, 2, "ell.cu"),
+    (torch.bfloat16, 3, "grouped_tc.cu"), (torch.bfloat16, 32,
+                                           "grouped_tc.cu"),
+    (torch.float32, 6, "ell.cu")])
+def test_slab_ell_g_library_choice(dtype, m, source):
+    """bf16 #14 runs the tensor-core kernel from TC_MIN_ROWS rows per
+    expert; fewer rows and f32 the first design, on its own counter."""
+    from repro_torch.kernels import grouped as g_k
+    kern = g_k.slab_ell_g_kernel(dtype, m)
+    assert kern.source == source and kern.name == "slab_ell_matmul_g"
+    assert kern.key == ("slab_ell_matmul_g" if source == "grouped_tc.cu"
+                        else "slab_ell_matmul_g@ell.cu")
+
+
+@pytest.mark.parametrize("dtype,pattern,source", [
+    (torch.bfloat16, (2, 4), "grouped_tc.cu"),
+    (torch.bfloat16, (4, 8), "grouped_tc.cu"),
+    (torch.bfloat16, (1, 4), "slab_matmul.cu"),
+    (torch.float32, (2, 4), "slab_matmul.cu")])
+def test_slab_nm_lr_g_library_choice(dtype, pattern, source):
+    from repro_torch.kernels import grouped as g_k
+    kern = g_k.slab_nm_lr_g_kernel(dtype, *pattern)
+    assert kern.source == source and kern.name == "slab_nm_lr_matmul_g"
+
+
+def test_launch_counters_are_per_library():
+    """Every library has a counter key of its own, and a reset zeroes
+    them all."""
+    keys = [k.key for k in ops.KERNELS]
+    assert len(set(keys)) == len(keys) == 22
+    assert len({k.name for k in ops.KERNELS}) == 20
+    for k in ops.KERNELS:
+        k.launches = 1
+    assert set(ops.launch_counts()) == set(keys)
+    ops.reset_launch_counts()
+    assert not any(ops.launch_counts().values())
+
+
+# ------------------------------------------------------------- bridge
+
+
+def test_bridge_defaults_to_the_card():
+    """Without a device a converter puts its tensor on the card (and
+    raises without one, as every entry point does); ``device="cpu"``
+    keeps it on the CPU."""
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    if torch.cuda.is_available():
+        assert bridge.tensor(a).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bridge.tensor(a)
+    got = bridge.tensor(a, device="cpu")
+    assert got.device.type == "cpu" and torch.equal(got, torch.from_numpy(a))

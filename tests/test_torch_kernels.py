@@ -5,6 +5,7 @@ Inputs are made with numpy from a seed, packed by the reference packers
 and handed to both sides (the port's planes through ``bridge``). Every
 comparison is f32 at max|diff| / max|ref| < 1e-5.
 """
+import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,7 +65,7 @@ def test_slab_ell_matches_reference_kernel(m, rank):
     want = ref_ops.slab_ell_matmul(jnp.asarray(x), ep.values, ep.indices, bp,
                                    jnp.asarray(uu), jnp.asarray(vv),
                                    interpret=True)
-    t = bridge.tensor
+    t = functools.partial(bridge.tensor, device="cpu")
     got = ops.slab_ell_matmul(t(x), t(ep.values), t(ep.indices), t(bp),
                               t(uu), t(vv))
     assert got.dtype == torch.float32 and got.shape == (m, N)
@@ -88,7 +89,7 @@ def test_slab_nm_matches_reference_kernel(pattern, rank):
     want = ref_ops.slab_nm_matmul(jnp.asarray(x), nm.values, nm.indices,
                                   m_pat, bp, jnp.asarray(uu),
                                   jnp.asarray(vv), interpret=True)
-    t = bridge.tensor
+    t = functools.partial(bridge.tensor, device="cpu")
     got = ops.slab_nm_matmul(t(x), t(nm.values), t(nm.indices), m_pat,
                              t(bp), t(uu), t(vv))
     assert _rel(got, want) < TOL
@@ -106,7 +107,7 @@ def test_slab_dense_matches_reference_kernel(m, rank):
     want = ref_ops.slab_matmul(jnp.asarray(x), jnp.asarray(w_s), bp,
                                jnp.asarray(uu), jnp.asarray(vv),
                                interpret=True)
-    t = bridge.tensor
+    t = functools.partial(bridge.tensor, device="cpu")
     got = ops.slab_matmul(t(x), t(w_s), t(bp), t(uu), t(vv))
     assert _rel(got, want) < TOL
     oracle = ref.slab_matmul_ref(t(x), t(w_s), t(bp), t(uu), t(vv))
@@ -117,7 +118,7 @@ def test_wrappers_flatten_leading_dims():
     """(B, S, K) inputs come back (B, S, N), row for row equal to the
     flattened call — the packed forward's M = B·S path."""
     x, w_s, w_b, u, v = _inputs(5, 6, 1)
-    t = bridge.tensor
+    t = functools.partial(bridge.tensor, device="cpu")
     ep = packing.ell_pack(t(w_s))
     bp = packing.pack_sign_bits(t(w_b))
     flat = ops.slab_ell_matmul(t(x), ep.values, ep.indices, bp, t(u), t(v))
@@ -162,7 +163,7 @@ def test_binary_term_matches_reference_at_edge_words():
     want = ref_ops.slab_matmul(jnp.asarray(x), jnp.asarray(w_s), bp,
                                jnp.asarray(u), jnp.asarray(v),
                                interpret=True)
-    t = bridge.tensor
+    t = functools.partial(bridge.tensor, device="cpu")
     got = ops.slab_matmul(t(x), t(w_s), t(bp), t(u), t(v))
     assert _rel(got, want) < TOL
     dense = (u[:, None] * v[None, :]) * w_b
@@ -194,7 +195,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels import ell as ell_k
     from repro_torch.kernels import slab_matmul as slab_k
     x, w_s, w_b, u, v = _inputs(1, 2, 1)
-    t = bridge.tensor
+    t = functools.partial(bridge.tensor, device="cpu")
     ep = packing.ell_pack(t(w_s))
     bp = packing.pack_sign_bits(t(w_b))
     with pytest.raises(ValueError, match="expected"):

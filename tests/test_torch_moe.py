@@ -95,7 +95,7 @@ def layer():
         dtype=jnp.float32)
     cfg = configs.get("phi3_5_moe", smoke=True).with_(dtype=torch.float32)
     p_r, _ = ref_moe.init_moe(cfg_r, jax.random.PRNGKey(3))
-    return cfg_r, cfg, p_r, {k: bridge.tensor(v) for k, v in
+    return cfg_r, cfg, p_r, {k: bridge.tensor(v, device="cpu") for k, v in
                              _np_tree(p_r).items()}
 
 
@@ -177,7 +177,7 @@ def models():
     cfg = configs.get("phi3_5_moe", smoke=True).with_(dtype=torch.float32)
     params_r, _ = ref_lm.init(cfg_r, jax.random.PRNGKey(0))
     return cfg_r, cfg, params_r, bridge.params(_np_tree(params_r),
-                                               cfg.n_layers)
+                                               cfg.n_layers, device="cpu")
 
 
 def test_bridge_params_slices_expert_leaves_per_layer(models):
@@ -246,9 +246,9 @@ def packed(models, compressed):
         dense_r, decs_r, cfg_r.n_layers, plan,
         variants={(s.layer, s.name): s.variant for s in st_r})
     assert rep_r.fallback == []
-    decs = {k: (bridge.expert_decompositions(d) if type(d) is tuple
-                else bridge.decomposition(d)) for k, d in decs_r.items()}
-    dense = bridge.params(_np_tree(dense_r), cfg.n_layers)
+    decs = {k: (bridge.expert_decompositions(d, device="cpu") if type(d) is tuple
+                else bridge.decomposition(d, device="cpu")) for k, d in decs_r.items()}
+    dense = bridge.params(_np_tree(dense_r), cfg.n_layers, device="cpu")
     packed_p, rep = pack_model(dense, decs, pattern=pattern,
                                dtype=torch.float32)
     return pattern, dense, decs_r, packed_r, packed_p, rep
@@ -270,7 +270,7 @@ def test_pack_model_expert_stacks_byte_identical(models, compressed,
             old = jnp.asarray(dense["layers"][l][mod][leaf].numpy())
             ref = ref_pm.pack_expert_stack(old, decs_r[(l, path)], pattern,
                                            jnp.float32)
-            want = bridge.expert_packed_stack(ref)
+            want = bridge.expert_packed_stack(ref, device="cpu")
             assert eps.members == want.members
             assert eps.dense_members == want.dense_members == ()
             for g, w in zip(eps.groups, want.groups, strict=True):

@@ -198,7 +198,7 @@ def llama():
         dtype=jnp.float32)
     cfg = configs.get("llama2_7b", smoke=True).with_(dtype=torch.float32)
     params_r, _ = ref_lm.init(cfg_r, jax.random.PRNGKey(0))
-    params = bridge.params(jax.tree.map(np.asarray, params_r), cfg.n_layers)
+    params = bridge.params(jax.tree.map(np.asarray, params_r), cfg.n_layers, device="cpu")
     return cfg_r, cfg, params_r, params
 
 
@@ -239,7 +239,7 @@ def test_paged_decode_step_matches_reference(llama, quant):
         assert _rel(lp[:2], np.asarray(lr)[:2]) < 1e-4, step
         assert _rel(lp[:2, 0], ld[:2, -1]) < 1e-4, step
         lengths = lengths + active
-    ref_pools = bridge.paged_kv_cache(jax.tree.map(np.asarray, paged_r))
+    ref_pools = bridge.paged_kv_cache(jax.tree.map(np.asarray, paged_r), device="cpu")
     for mine, theirs in zip(paged, ref_pools):
         if quant:
             assert (mine.k != theirs.k).float().mean() < 1e-3
@@ -277,7 +277,7 @@ def test_int8_decode_step_matches_reference(llama):
                                    torch.from_numpy(toks[:, step:step + 1]),
                                    positions_for(cfg, b, 1, offset=step))
         assert _rel(lp, lr) < 1e-4, step
-    bridged = bridge.kv_cache(jax.tree.map(np.asarray, cache_r.kv))
+    bridged = bridge.kv_cache(jax.tree.map(np.asarray, cache_r.kv), device="cpu")
     for mine, theirs in zip(cache, bridged):
         assert mine.length == theirs.length == s
         assert mine.k.dtype == theirs.k.dtype == torch.int8

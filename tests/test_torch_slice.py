@@ -54,7 +54,7 @@ def models():
     cfg = configs.get("stablelm_12b", smoke=True).with_(dtype=torch.float32)
     params_r, _ = ref_lm.init(cfg_r, jax.random.PRNGKey(0))
     return cfg_r, cfg, params_r, bridge.params(_np_tree(params_r),
-                                               cfg.n_layers)
+                                               cfg.n_layers, device="cpu")
 
 
 def _tokens(seed, b, s, vocab):
@@ -86,7 +86,7 @@ def test_decode_steps_match_reference(models):
             positions_for(cfg, b, 1, offset=t))
         assert _rel(got, want) < 1e-5, t
     # the bridged reference cache holds the same keys/values
-    kv = bridge.kv_cache(_np_tree(cache_r.kv))
+    kv = bridge.kv_cache(_np_tree(cache_r.kv), device="cpu")
     for a, c in zip(kv, cache):
         assert a.length == c.length == s
         assert _rel(c.k, a.k) < 1e-5 and _rel(c.v, a.v) < 1e-5
@@ -105,8 +105,8 @@ def packed(request, models):
         keep_decompositions=True)
     packed_r = ref_pm.pack_model(dense_r, decs_r, cfg_r.n_layers,
                                  pattern=pattern, dtype=jnp.float32)
-    decs = {k: bridge.decomposition(d) for k, d in decs_r.items()}
-    dense = bridge.params(_np_tree(dense_r), cfg.n_layers)
+    decs = {k: bridge.decomposition(d, device="cpu") for k, d in decs_r.items()}
+    dense = bridge.params(_np_tree(dense_r), cfg.n_layers, device="cpu")
     packed_p, rep = pack_model(dense, decs, pattern=pattern,
                                dtype=torch.float32)
     variant = "slab-nm" if pattern else "slab-ell"

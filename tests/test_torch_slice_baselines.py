@@ -41,7 +41,7 @@ def models():
         dtype=jnp.float32)
     cfg = configs.get("llama2_7b", smoke=True).with_(dtype=torch.float32)
     params_r, _ = ref_lm.init(cfg_r, jax.random.PRNGKey(0))
-    params = bridge.params(jax.tree.map(np.asarray, params_r), cfg.n_layers)
+    params = bridge.params(jax.tree.map(np.asarray, params_r), cfg.n_layers, device="cpu")
     return cfg_r, cfg, params_r, params
 
 
@@ -62,11 +62,11 @@ def compressed(request, models):
                                  dtype=jnp.float32)
     packed = bridge.params(
         jax.tree.map(np.asarray, {k: v for k, v in dense_r.items()}),
-        cfg.n_layers)
+        cfg.n_layers, device="cpu")
     for (l, path) in decs_r:
         pl_r = ref_pm.layer_slice(packed_r["layers"], l)
         _set(packed["layers"][l], path,
-             bridge.packed_linear(_get(pl_r, path)))
+             bridge.packed_linear(_get(pl_r, path), device="cpu"))
     return variant, st_r, st, packed_r, packed
 
 

@@ -8,6 +8,7 @@ through ``bridge``). Kernel comparisons are f32 at max|diff| / max|ref|
 < 1e-5 and run at K = 344, the llama2_7b SMOKE d_ff (not a multiple of
 32: these kernels carry no sign words), except binlr's at K = 128.
 """
+import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ from repro_torch.kernels import ops, ref
 
 TOL = 1e-5
 N, K = 96, 344
-t = bridge.tensor
+t = functools.partial(bridge.tensor, device="cpu")
 
 
 def _rel(got, want) -> float:
@@ -232,7 +233,7 @@ KINDS = ["ell-slab", "nm-slab", "dense-slab", "binlr", "ell-lowrank",
 def test_variant_of_equals_reference(kind, itemsize):
     dec, pattern = _dec(kind)
     want = ref_pm.variant_of(dec, pattern, itemsize=itemsize)
-    got = packed_model.variant_of(bridge.decomposition(dec), pattern,
+    got = packed_model.variant_of(bridge.decomposition(dec, device="cpu"), pattern,
                                   itemsize=itemsize)
     assert got == want
     if kind.startswith("half"):     # K_max = D_in/2: ELL only at f32
@@ -255,7 +256,7 @@ def test_packed_matmul_matches_reference(kind):
     decomposition is byte-identical to them."""
     dec, pattern = _dec(kind, seed=3)
     pl_r = ref_pm.pack_linear(dec, pattern, jnp.float32)
-    pl = bridge.packed_linear(pl_r)
+    pl = bridge.packed_linear(pl_r, device="cpu")
     assert pl.variant in packed_model.VARIANTS
     x = np.random.default_rng(5).standard_normal((2, 3, KP)).astype(
         np.float32)
@@ -263,7 +264,7 @@ def test_packed_matmul_matches_reference(kind):
     got = packed_model.packed_matmul(t(x), pl)
     assert got.shape == (2, 3, N)
     assert _rel(got, want) < TOL
-    own = packed_model.pack_linear(bridge.decomposition(dec), pattern,
+    own = packed_model.pack_linear(bridge.decomposition(dec, device="cpu"), pattern,
                                    torch.float32)
     for f in ("sparse_vals", "sparse_idx", "b_packed", "u", "v"):
         a, b = getattr(own, f), getattr(pl, f)
