@@ -36,11 +36,11 @@ Phases:
      beside the byte bound, the plain version and one torch.bmm on the
      reconstructed dense (E, K, N) stack, and at the first shape the
      kernel alone at each other M (the "M sweep" lines); #14 on both
-     models and #19 also checked and timed at M = 1, 2, 3, 4, 6, 8, 9,
-     16, 20, 32 (bf16, rank 1), through the wrapper (the line names the
-     library it ran at each M) and through each of their two libraries,
-     grouped_tc.cu and the first design; #19's first design also timed
-     at f32;
+     models and #12, #13 and #19 also checked and timed at M = 1, 2, 3,
+     4, 6, 8, 9, 16, 20, 32 (bf16, rank 1), through the wrapper (the line
+     names the library it ran at each M) and through each of their two
+     libraries, grouped_tc.cu and the first design; the first design of
+     #12, #13 and #19 also timed at f32;
   3. the port's main paths at full width with cut depth: compress_model
      (16x128 calibration) -> pack_model -> greedy_decode (batch 4, prompt
      32, gen 16, square and ragged), once per packed variant, llama2-7b:
@@ -72,12 +72,13 @@ Phases:
        w  slab, CR 0.5, then W_S := 0                -> binlr (#9, #20)
      Launch counts are zeroed just before each greedy_decode and read
      just after, one counter per library: phase m's #14 (2 rows per
-     expert) must run only the first design (ell.cu), phases r and v
-     only grouped_tc.cu, and phases q and x (f32) only ell.cu; final-step logits are held against the dense-equivalent
+     expert) must run only the first design (ell.cu), phases r, s, t and
+     v only grouped_tc.cu, and phases q and x (f32) only ell.cu;
+     final-step logits are held against the dense-equivalent
      (reconstructed-W) model — for the MoE models against dense experts
      (and dense shared experts) behind the same packed attention, whose
      expert choices must agree token for token (_hold_moe_logits says
-     why); phases a, m, r and v are profiled; phases e-i also print the eval
+     why); phases a, m, r, s, t and v are profiled; phases e-i also print the eval
      perplexity (lm.loss_fn) of the uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
      packed:
@@ -97,9 +98,9 @@ Phases:
           request terminal); no block leaked;
        x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
           factor 64/6;
-  4. one JSON line listing every ported kernel (all twenty; #14 and #19
-     once per library, each with its own launch counter: twenty-two
-     entries), then the result line.
+  4. one JSON line listing every ported kernel (all twenty; #12, #13,
+     #14 and #19 once per library, each with its own launch counter:
+     twenty-four entries), then the result line.
 
 Any failed check raises, and the script exits non-zero. It needs
 ``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
@@ -480,8 +481,8 @@ def _time_case(c, x, rank, got, ref, flush, plain_reps=20):
 # ``sweep`` names the kernels that are also checked and timed alone at
 # every M of G_SWEEP_M (bf16, rank 1, all experts, first shape), through
 # the wrapper and through each of their libraries. ``timed_f32`` names
-# cases also timed at f32 (the launches only the first design of #19
-# takes).
+# cases also timed at f32 (launches that only the first design of #12,
+# #13 and #19 takes).
 G_SWEEP_M = (1, 2, 3, 4, 6, 8, 9, 16, 20, 32)
 G_SPECS = {
     "phi3.5-moe": dict(
@@ -497,8 +498,10 @@ G_SPECS = {
         shapes=((1408, 2048), (2048, 1408)), experts=64,
         bucket=(9, 61, 0, 33, 17, 48, 5), batches=(1, 6, 20), timed_m=6,
         odd=(1411, 1412), seed=4,
-        sweep=("slab_ell_matmul_g", "slab_nm_lr_matmul_g"),
-        timed_f32=("slab_nm_lr_matmul_g[2:4]",)),
+        sweep=("slab_ell_matmul_g", "slab_nm_lr_matmul_g", "ell_matmul_g",
+               "ell_lr_matmul_g"),
+        timed_f32=("slab_nm_lr_matmul_g[2:4]", "ell_matmul_g",
+                   "ell_lr_matmul_g")),
 }
 G_TIMED = dict(dtype=torch.bfloat16, rank=1)
 READS_NM = ("nm_matmul_g", "slab_nm_matmul_g", "slab_nm_lr_matmul_g")
@@ -666,7 +669,10 @@ def _g_cases(planes, x, rank, kernels, wide_ids=False):
                 lambda vals=vals, idx=idx: g_k.ell_matmul_g(x, vals, idx),
                 lambda vals=vals, idx=idx: g_k.ell_matmul_g_plain(
                     x, vals, idx),
-                (vals, idx), ell_dense(vals, idx), ops(vals.numel())))
+                (vals, idx), ell_dense(vals, idx), ops(vals.numel()),
+                libs={kk.key: (lambda kk=kk, vals=vals, idx=idx:
+                               g_k.launch_ell_g(kk, x, vals, idx))
+                      for kk in (g_k.ELL_G, g_k.ELL_G_FIRST)}))
     if "ell_lr_matmul_g" in want:
         for tag, (vals, idx) in ells("ell_lr"):
             out.append(Case(
@@ -677,7 +683,10 @@ def _g_cases(planes, x, rank, kernels, wide_ids=False):
                     x, vals, idx, u, v),
                 (vals, idx, u, v),
                 lambda vals=vals, idx=idx: ell_dense(vals, idx)() + lr(),
-                ops(vals.numel(), lowrank=True)))
+                ops(vals.numel(), lowrank=True),
+                libs={kk.key: (lambda kk=kk, vals=vals, idx=idx:
+                               g_k.launch_ell_lr_g(kk, x, vals, idx, u, v))
+                      for kk in (g_k.ELL_LR_G, g_k.ELL_LR_G_FIRST)}))
     if "slab_lr_matmul_g" in want:
         ws = planes["dense"]
         out.append(Case(
@@ -1781,7 +1790,8 @@ PHASES = (
     # deepseek-moe-16b (64 experts, top-6, shared experts): attention and
     # the shared MLP through the per-linear kernel, every routed expert
     # leaf through its grouped kernel; 1 layer (_hold_moe_logits). At 6
-    # rows per expert, #14 (r) and #19 (v) run grouped_tc.cu's kernels.
+    # rows per expert, #14 (r), #12 (s), #13 (t) and #19 (v) run
+    # grouped_tc.cu's kernels.
     ("r", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.5, pattern=None, variant="slab-ell",
                kernel="slab_ell_matmul", expert_kernel="slab_ell_matmul_g",
@@ -1789,13 +1799,14 @@ PHASES = (
     ("s", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.6, pattern=None, variant="sparse-ell",
                kernel="ell_matmul", expert_kernel="ell_matmul_g", tol=3e-2,
-               method="sparsegpt", options={},
+               method="sparsegpt", options={}, profiled=True,
                note="CR 0.6, not 0.5: at CR 0.5 and bf16 a pruner's K_max "
                     "is D_in/2 and ELL does not win on bytes")),
     ("t", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.5, pattern=None, variant="lowrank-ell",
                kernel="ell_lr_matmul", expert_kernel="ell_lr_matmul_g",
-               tol=3e-2, options=dict(iters=8, include_binary=False))),
+               tol=3e-2, options=dict(iters=8, include_binary=False),
+               profiled=True)),
     ("u", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.4, pattern=None, variant="lowrank-dense",
                kernel="slab_lr_matmul", expert_kernel="slab_lr_matmul_g",
@@ -1821,15 +1832,18 @@ JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
               "nm_matmul": "nm_matmul[2:4]", "binlr_matmul": "binlr_matmul"}
 # ... and of each grouped kernel's library, by counter key: the G_SPECS
 # model and the timed case (at that model's first shape). #14's first
-# design reports phi3.5-moe at M 2, where its decode runs it; #19's its
-# f32 launches.
+# design reports phi3.5-moe at M 2, where its decode runs it; #12's, #13's
+# and #19's their f32 launches.
 G_JSON = {"slab_ell_matmul_g": ("deepseek-moe-16b", "slab_ell_matmul_g"),
           "slab_ell_matmul_g@ell.cu": ("phi3.5-moe", "slab_ell_matmul_g"),
           "nm_matmul_g": ("phi3.5-moe", "nm_matmul_g[2:4]"),
           "slab_matmul_g": ("phi3.5-moe", "slab_matmul_g"),
           "slab_nm_matmul_g": ("phi3.5-moe", "slab_nm_matmul_g[2:4]"),
           "ell_matmul_g": ("deepseek-moe-16b", "ell_matmul_g"),
+          "ell_matmul_g@ell.cu": ("deepseek-moe-16b", "ell_matmul_g f32"),
           "ell_lr_matmul_g": ("deepseek-moe-16b", "ell_lr_matmul_g"),
+          "ell_lr_matmul_g@ell.cu": ("deepseek-moe-16b",
+                                     "ell_lr_matmul_g f32"),
           "slab_lr_matmul_g": ("deepseek-moe-16b", "slab_lr_matmul_g"),
           "slab_nm_lr_matmul_g": ("deepseek-moe-16b",
                                   "slab_nm_lr_matmul_g[2:4]"),

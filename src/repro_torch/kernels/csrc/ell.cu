@@ -55,7 +55,12 @@
 // K_max and 2-byte ids its 16-byte alignment follows the global row:
 // sparse_pass finds the boundary from that start. At the MoE decode
 // shapes (M = 2-6 rows per expert) each is a GEMV per expert, bound by
-// the E experts' plane bytes.
+// the E experts' plane bytes. These grouped forms are the first design:
+// bf16 launches from 3 rows per expert run grouped_tc.cu's redesign of
+// each (same C symbol; grouped.slab_ell_g_kernel / ell_g_kernel pick the
+// library), so here they serve f32, 1-2 rows per expert and K too wide
+// for grouped_tc.cu's staged x, counted as slab_ell_matmul_g@ell.cu,
+// ell_matmul_g@ell.cu and ell_lr_matmul_g@ell.cu.
 #include "slab_common.cuh"
 
 namespace slab {

@@ -1,18 +1,24 @@
-// The bf16 grouped-expert kernels redesigned for Hopper's tensor cores:
+// The bf16 grouped-expert kernels redesigned for Hopper:
 //
 //   slab_ell_matmul_g:    y[e] = x[e] · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ   (#14)
 //   slab_nm_lr_matmul_g:  y[e] = x[e] · (W_S + U Vᵀ)ᵀ              (#19)
+//   ell_matmul_g:         y[e] = x[e] · W_Sᵀ                       (#12)
+//   ell_lr_matmul_g:      y[e] = x[e] · W_Sᵀ + (x[e] · Vᵀ) · U     (#13)
 //
 // Replace repro/kernels/grouped.py::slab_ell_matmul_g (_kernel_slab_ell_g,
-// pallas_call at grouped.py:142) and ::slab_nm_lr_matmul_g
-// (_kernel_nm_lr_g, pallas_call at grouped.py:402) for bf16 operands.
+// pallas_call at grouped.py:142), ::slab_nm_lr_matmul_g
+// (_kernel_nm_lr_g, pallas_call at grouped.py:402), ::ell_matmul_g
+// (_kernel_ell_g, pallas_call at grouped.py:64) and ::ell_lr_matmul_g
+// (_kernel_ell_lr_g, pallas_call at grouped.py:103) for bf16 operands.
 // The first design (ell.cu, slab_matmul.cu) keeps the f32 launches,
 // which hold 1e-5 without TF32, #19's patterns other than 2:4 / 4:8, and
-// #14 at 1-2 rows per expert, where its 2-byte gathers are cheaper than
-// this kernel's (grouped.TC_MIN_ROWS).
+// #12, #13 and #14 at 1-2 rows per expert, where its 2-byte gathers are
+// cheaper than these kernels' 16-byte ones (grouped.TC_MIN_ROWS,
+// grouped.ELL_TC_MIN_ROWS). #14 and #19 use the tensor cores; #12 and
+// #13, whose work is all gather, do not (their section below).
 //
-// Bound on the H100: bytes. At the MoE decode shapes (1-32 rows per
-// expert) each expert is a skinny GEMM: the E experts' planes (ELL vals +
+// #14 and #19's bound on the H100: bytes. At the MoE decode shapes (1-32
+// rows per expert) each expert is a skinny GEMM: the E experts' planes (ELL vals +
 // ids + sign words, or N:M vals + int8 positions) stream once from device
 // memory, about 345 MB (#14) and 280 MB (#19) at deepseek-moe-16b's
 // (1408, 2048) stack, against 2·M FLOP per stored weight, far below the
@@ -779,4 +785,427 @@ extern "C" int slab_nm_lr_matmul_g(int dtype, const void* x,
     return tc::launch_nm_lr<4, 8>(x, vals, idx, u, v, y, E, M, N, K, R,
                                   stream);
   return (int)cudaErrorInvalidValue;
+}
+
+namespace tc {
+
+// ---------------------------------------------------------------- #12, #13
+//
+// Bound on the H100: bytes. At deepseek-moe-16b's decode shapes (6 rows
+// per expert, E 64, (1408, 2048) and (2048, 1408)) the planes (bf16 vals
+// + 16-bit ids, K_max ≈ 0.4·K for sparse-ell at CR 0.6, ≈ K/2 for
+// lowrank-ell) are 295 MB and 369 MB: 0.089 and 0.111 ms at 3.35 TB/s,
+// against 2·M FLOP per stored entry. The first design (ell.cu's
+// ell_kernel, one warp per output row, 16 rows a block) staged x
+// column-major with scalar 2-byte stores, a 32-way bank conflict at 8
+// batch rows, in every block of 16 rows (88 times per expert), and
+// formed #13's projection as often; it ran at 15-16 % of the bound.
+// This design, and what each part is for:
+//  - a block owns kEllRows = 128 output rows of one expert (grid
+//    (⌈N/128⌉, E)) and stages x once per 8·NTP batch rows with 16-byte
+//    stores into NTP column planes (stage_cols_any: any K, a zero tail
+//    and one zero column past K), so a gather is one 16-byte shared load
+//    for 8 batch rows; #13's projection is formed once per block pass in
+//    fp32 with a fixed reduction order and added before the one
+//    rounding;
+//  - a group of kEllLanes = 8 lanes streams one row at a time, each lane
+//    an 8-entry block (16 bytes of vals, 16 or 32 of ids) per step, so a
+//    group reads 128 contiguous bytes of each plane a step; a row's
+//    partial blocks (it starts anywhere when K_max is odd) have their
+//    values outside the row zeroed, and ids are clamped to the zero
+//    column K, so every block runs one branch-free gather; the group
+//    reduces its row with a reduce-scatter over shuffles and each lane
+//    stores one batch row;
+//  - the blocks arrive through a per-thread cp.async ring of kEllStages
+//    steps (each thread reads back only what it copied: no barrier),
+//    bypassing L1.
+// Alternatives built and timed on an H100 while this kernel was designed
+// (PERF.md §6 gives their direction; the builds are not kept): with the
+// gather taken out, the plane stream alone took most of the kernel's
+// time, and gathers made free of bank conflicts saved little. A 4-lane
+// group over two rows at once (#14's gather mapping) streamed the planes
+// slower still; x as fp32 (no unpacking, twice the shared bytes) lost by
+// a wide margin; rings of 2 or 8 steps, blocks loaded into registers
+// instead of the ring and 16- or 32-lane groups did not help; 16 warps a
+// block gained a few percent and were not taken.
+constexpr int kEllWarps = 8;      // warps per block, 16 output rows each
+constexpr int kEllStages = 4;     // steps (8-entry blocks) in flight per thread
+constexpr int kEllLanes = 8;      // lanes that stream one row together
+constexpr int kEllThreads = kEllWarps * 32;
+constexpr int kEllRows = kEllWarps * 16;
+constexpr int kEllRowsPerGroup = 16 * kEllLanes / 32;   // rows in turn
+
+// The columns of #12 / #13's x planes: K (any width: there are no sign
+// words) plus at least one zero column, rounded up to 8. An id at or past
+// K reads zero column K (ids are clamped), so it adds nothing.
+__host__ __device__ inline int ell_kp(int K) { return (K + 8) / 8 * 8; }
+
+// stage_cols for any K: batch rows m0 .. m0 + 8·ntp - 1 of x (zero rows
+// past M) as ntp planes of kp 16-byte columns, zero from K on. A row of
+// x starts on a 16-byte boundary only when K % 8 == 0; otherwise each
+// 8-column block is read element by element.
+__device__ __forceinline__ void stage_cols_any(uint4* xs,
+                                               const bf16* __restrict__ x,
+                                               int m0, int M, int K, int kp,
+                                               int ntp) {
+  const int nkb = kp / 8;
+  const bool vec = aligned16(x) && K % 8 == 0;
+  for (int i = threadIdx.x; i < ntp * nkb; i += blockDim.x) {
+    const int t = i / nkb, kb = i - t * nkb;
+    uint32_t w[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int m = m0 + 8 * t + r;
+      const bf16* p = x + (size_t)m * K + kb * 8;
+      if (m < M && vec && kb * 8 < K) {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+        w[r][0] = q.x; w[r][1] = q.y; w[r][2] = q.z; w[r][3] = q.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = kb * 8 + 2 * j;
+          const uint32_t lo = m < M && c < K ? bits16(p[2 * j]) : 0u;
+          const uint32_t hi = m < M && c + 1 < K ? bits16(p[2 * j + 1]) : 0u;
+          w[r][j] = lo | (hi << 16);
+        }
+      }
+    }
+    uint4* plane = xs + (size_t)t * kp;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
+      uint4 o;
+      o.x = __byte_perm(w[0][j >> 1], w[1][j >> 1], sel);
+      o.y = __byte_perm(w[2][j >> 1], w[3][j >> 1], sel);
+      o.z = __byte_perm(w[4][j >> 1], w[5][j >> 1], sel);
+      o.w = __byte_perm(w[6][j >> 1], w[7][j >> 1], sel);
+      plane[kb * 8 + j] = o;
+    }
+  }
+}
+
+// The 8 batch rows of column col of an n-tile's plane, as floats.
+__device__ __forceinline__ void ell_col(float (&v)[8], const uint4* plane,
+                                        uint32_t col) {
+  const uint4 q = plane[col];
+  v[0] = lo_f(q.x); v[1] = hi_f(q.x); v[2] = lo_f(q.y); v[3] = hi_f(q.y);
+  v[4] = lo_f(q.z); v[5] = hi_f(q.z); v[6] = lo_f(q.w); v[7] = hi_f(q.w);
+}
+
+// One 8-entry block of a row: values and ids.
+template <typename I>
+struct EllBlock {
+  uint4 v;
+  Ids8<I> i;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16-byte units of one 8-entry block: vals, then 1 (uint16) or 2 (uint32)
+// of ids. A thread's ring slot holds unit u at slot[u · threads].
+template <typename I>
+__host__ __device__ constexpr int ell_units() {
+  return sizeof(I) == 2 ? 2 : 3;
+}
+
+// 16-byte units of a block's ring: kEllStages steps per thread.
+template <typename I>
+__host__ __device__ constexpr int ell_ring_units() {
+  return kEllStages * ell_units<I>() * kEllThreads;
+}
+
+// Copy the block from entry e0 into a ring slot, asynchronously (it
+// bypasses L1: the planes are read once).
+template <typename I>
+__device__ __forceinline__ void ell_copy(uint4* slot,
+                                         const bf16* __restrict__ vals,
+                                         const I* __restrict__ idx,
+                                         size_t e0) {
+  cp_async16(slot, vals + e0);
+  cp_async16(slot + kEllThreads, idx + e0);
+  if constexpr (sizeof(I) == 4)
+    cp_async16(slot + 2 * kEllThreads, idx + e0 + 4);
+}
+
+template <typename I>
+__device__ __forceinline__ void ell_read(EllBlock<I>& b, const uint4* slot) {
+  b.v = slot[0];
+  b.i.a = slot[kEllThreads];
+  if constexpr (sizeof(I) == 4) b.i.b = slot[2 * kEllThreads];
+}
+
+// The block b from entry e0 of a row spanning [lo, hi): values outside
+// the span (the neighbouring rows', or all of a block past the row's end,
+// which was not loaded) are zeroed, so every block runs the same gather:
+// its ids are clamped into range and add w = 0.
+template <typename I>
+__device__ __forceinline__ void ell_mask(EllBlock<I>& b, size_t e0,
+                                         size_t lo, size_t hi) {
+  if (e0 >= lo && e0 + 8 <= hi) return;   // a whole block
+  int jlo = 8, jhi = 0;
+  if (e0 < hi) block_span(e0, lo, hi, jlo, jhi);
+  const uint32_t keep = (0xffu >> (8 - jhi)) & (0xffu << jlo);
+  auto mask = [keep](int i) {      // word i: entries 2i (low), 2i + 1
+    return ((keep >> (2 * i)) & 1u ? 0x0000ffffu : 0u) |
+           ((keep >> (2 * i + 1)) & 1u ? 0xffff0000u : 0u);
+  };
+  b.v.x &= mask(0); b.v.y &= mask(1); b.v.z &= mask(2); b.v.w &= mask(3);
+}
+
+// acc[t][m] += w_j · x[8t + m, col_j] for entry j of block b: one load of
+// the column per n-tile, 8 FMAs.
+template <typename I, int NTP>
+__device__ __forceinline__ void ell_entry(float (&acc)[NTP][8],
+                                          const uint4* xs, int kp, int K,
+                                          const EllBlock<I>& b, int j) {
+  const uint32_t col = min(b.i.at(j), (uint32_t)K);
+  const uint32_t vw = word_of(b.v, j >> 1);
+  const float w = (j & 1) ? hi_f(vw) : lo_f(vw);
+#pragma unroll
+  for (int t = 0; t < NTP; ++t) {
+    float xv[8];
+    ell_col(xv, xs + (size_t)t * kp, col);
+#pragma unroll
+    for (int m = 0; m < 8; ++m) acc[t][m] += w * xv[m];
+  }
+}
+
+// Sum v[0..7] over the row group's 8 lanes; lane l ends with the sum of
+// v[l & 7] in v[0] (a reduce-scatter over lane bits 2, 1, 0).
+__device__ __forceinline__ void ell_reduce(float (&v)[8], int lane) {
+#pragma unroll
+  for (int h = 4; h >= 1; h >>= 1) {
+    const bool up = lane & h;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? v[i] : v[i + h];
+      const float keep = up ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, h);
+    }
+  }
+}
+
+// #12 (LR false) and #13 (LR true): y[e] = x[e] · W_S[e]ᵀ (+ (x[e] ·
+// V[e]ᵀ) · U[e]). A block owns kEllRows output rows of one expert, a warp
+// 16 of them; a group of kEllLanes lanes streams kEllRowsPerGroup of
+// those rows one after the other, lane k of the group taking the 8-entry
+// blocks at 8k, 8k + 8·kEllLanes, ... of the row, so a group's load is
+// one contiguous 16·kEllLanes-byte run of each plane.
+template <typename I, int NTP, bool LR>
+__global__ void __launch_bounds__(kEllThreads)
+ell_gather_kernel(const bf16* __restrict__ x, const bf16* __restrict__ vals,
+                  const I* __restrict__ idx, const bf16* __restrict__ u,
+                  const bf16* __restrict__ v, bf16* __restrict__ y, int M,
+                  int N, int K, int kmax, int R) {
+  constexpr int MT = 8 * NTP;                 // batch rows per pass
+  constexpr int D = kEllStages, U = ell_units<I>();
+  constexpr int L = kEllLanes, RG = kEllRowsPerGroup;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kp = ell_kp(K);
+  uint4* xs = reinterpret_cast<uint4*>(smem_raw);     // NTP planes (kp, 8)
+  uint4* ring = xs + (size_t)NTP * kp;                // ell_ring_units
+  float* p = reinterpret_cast<float*>(ring + ell_ring_units<I>());  // (R, MT)
+  float* part = p + (size_t)R * MT;                   // (kEllWarps, R, MT)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k8 = 8 * (lane % L);              // the lane's entry in a run
+  const size_t ex = blockIdx.y;
+  x += ex * M * K;
+  y += ex * M * N;
+  if (LR) {
+    u += ex * R * N;
+    v += ex * R * K;
+  }
+  const int row0 = blockIdx.x * kEllRows + warp * 16 + (lane / L) * RG;
+  const bool live = blockIdx.x * kEllRows + warp * 16 < N;
+  // every row takes nc steps of 8·L entries from the 8-entry boundary at
+  // or below its start (rows past N read the last row and store nothing)
+  const int nc = (kmax + 7 + 8 * L - 1) / (8 * L);
+  auto start = [&](int i) {           // the row's first entry
+    return (ex * N + min(row0 + i, N - 1)) * (size_t)kmax;
+  };
+  auto slot = [&](int s) {
+    return ring + (size_t)(s % D) * U * kEllThreads + threadIdx.x;
+  };
+  // the group's steps in order: row fi, run fc. next(e0): the next
+  // step's first entry, false past the row's end or the group's rows
+  int fi, fc;
+  auto next = [&](size_t& e0) {
+    if (fi >= RG) return false;
+    const size_t lo = start(fi);
+    e0 = (lo & ~size_t(7)) + (size_t)fc * 8 * L + k8;
+    if (++fc == nc) {
+      fc = 0;
+      ++fi;
+    }
+    return e0 < lo + kmax;
+  };
+  int f;                              // the step copy_next copies
+  auto copy_next = [&]() {
+    size_t e0;
+    if (next(e0)) ell_copy<I>(slot(f), vals, idx, e0);
+    ++f;
+    cp_async_commit();
+  };
+
+  for (int m0 = 0; m0 < M; m0 += MT) {
+    __syncthreads();                 // the previous pass's readers are done
+    stage_cols_any(xs, x, m0, M, K, kp, NTP);
+    __syncthreads();
+    if (LR) {
+      // p[r, m] = Σ_k x[m, k] · v_r[k] in fp32 from the staged x: every
+      // warp takes a strided share of the columns, the partial sums are
+      // added in warp order
+      for (int r = 0; r < R; ++r) {
+        float acc[MT];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+        for (int k = threadIdx.x; k < K; k += kEllThreads) {
+          const float vk = __bfloat162float(v[(size_t)r * K + k]);
+#pragma unroll
+          for (int t = 0; t < NTP; ++t) {
+            float xv[8];
+            ell_col(xv, xs + (size_t)t * kp, k);
+#pragma unroll
+            for (int m = 0; m < 8; ++m) acc[8 * t + m] += xv[m] * vk;
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float s = slab::warp_sum(acc[m]);
+          if (lane == 0) part[((size_t)warp * R + r) * MT + m] = s;
+        }
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < R * MT; i += kEllThreads) {
+        float s = 0.f;
+        for (int w = 0; w < kEllWarps; ++w)
+          s += part[(size_t)w * R * MT + i];
+        p[i] = s;
+      }
+      __syncthreads();
+    }
+    if (!live) continue;
+
+    // a ring of D steps per thread: step f's block arrives by cp.async
+    // while the D - 1 steps before it are gathered; a thread reads back
+    // only what it copied, so no barrier is needed
+    f = fi = fc = 0;
+#pragma unroll
+    for (int d = 0; d < D - 1; ++d) copy_next();
+    float acc[NTP][8];
+#pragma unroll
+    for (int t = 0; t < NTP; ++t)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[t][j] = 0.f;
+    int i = 0, c = 0;                 // the step's row and run
+    for (int s = 0; s < RG * nc; ++s) {
+      copy_next();                   // step s + D - 1
+      cp_async_wait<D - 1>();        // step s has landed
+      EllBlock<I> b;
+      ell_read<I>(b, slot(s));
+      const size_t lo = start(i);
+      ell_mask<I>(b, (lo & ~size_t(7)) + (size_t)c * 8 * L + k8, lo, lo + kmax);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ell_entry<I, NTP>(acc, xs, kp, K, b, j);
+      if (++c < nc) continue;
+      // the row is done: reduce over the group, add the low-rank term,
+      // store batch row m = lane & 7 of each n-tile, start the next row
+      const int n = row0 + i, m = lane & 7;
+#pragma unroll
+      for (int t = 0; t < NTP; ++t) {
+        ell_reduce(acc[t], lane);
+        float out = acc[t][0];
+        if (LR) {   // Σ_r p[r, m] · u_r[n] in fp32, before the one rounding
+          for (int r = 0; r < R; ++r)
+            out += p[r * MT + 8 * t + m] *
+                   __bfloat162float(u[(size_t)r * N + min(n, N - 1)]);
+        }
+        if (n < N && m0 + 8 * t + m < M)
+          y[(size_t)(m0 + 8 * t + m) * N + n] = __float2bfloat16(out);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[t][j] = 0.f;
+      }
+      c = 0;
+      ++i;
+    }
+    cp_async_wait<0>();
+  }
+}
+
+template <typename I, bool LR>
+static int launch_ell(const void* x, const void* vals, const void* idx,
+                      const void* u, const void* v, void* y, int E, int M,
+                      int N, int K, int kmax, int R, void* stream) {
+  if (!aligned16(vals) || !aligned16(idx))
+    return (int)cudaErrorMisalignedAddress;
+  const size_t per_tile =
+      (size_t)ell_kp(K) * 16 +
+      (LR ? (size_t)(kEllWarps + 1) * R * 8 * sizeof(float) : 0);
+  size_t smem = 0;
+  const int ntp = pick_ntp(M, per_tile, (size_t)ell_ring_units<I>() * 16,
+                           &smem);
+  const dim3 grid((N + kEllRows - 1) / kEllRows, E);
+  TC_DISPATCH_NTP(ntp, {
+    auto kern = ell_gather_kernel<I, NTP, LR>;
+    cudaError_t e = slab::prepare(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, kEllThreads, smem, (cudaStream_t)stream>>>(
+        (const bf16*)x, (const bf16*)vals, (const I*)idx, (const bf16*)u,
+        (const bf16*)v, (bf16*)y, M, N, K, kmax, R);
+  });
+  return (int)cudaGetLastError();
+}
+
+template <bool LR>
+static int dispatch_ell(int dtype, int idx_bytes, const void* x,
+                        const void* vals, const void* idx, const void* u,
+                        const void* v, void* y, int E, int M, int N, int K,
+                        int kmax, int R, void* stream) {
+  if (dtype != 1 || E <= 0 || E > slab::kMaxExperts || M <= 0 || N <= 0 ||
+      K <= 0 || kmax <= 0 || (LR && R <= 0))
+    return (int)cudaErrorInvalidValue;
+  if (idx_bytes == 2)
+    return launch_ell<uint16_t, LR>(x, vals, idx, u, v, y, E, M, N, K, kmax,
+                                    R, stream);
+  if (idx_bytes == 4)
+    return launch_ell<uint32_t, LR>(x, vals, idx, u, v, y, E, M, N, K, kmax,
+                                    R, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+// dtype must be 1 (bfloat16): f32 launches, launches at fewer rows per
+// expert than grouped.ELL_TC_MIN_ROWS, and shapes whose one tile does not
+// fit shared memory (grouped.ell_tc_smem) go to ell.cu's kernel.
+// idx_bytes: 2 (uint16 ids) or 4. x (E, M, K), vals / idx (E, N, K_max),
+// u (E, R, N), v (E, R, K), y (E, M, N). Launches on ``stream``,
+// allocates nothing, returns cudaGetLastError().
+extern "C" int ell_matmul_g(int dtype, int idx_bytes, const void* x,
+                            const void* vals, const void* idx, void* y,
+                            int E, int M, int N, int K, int kmax,
+                            void* stream) {
+  return tc::dispatch_ell<false>(dtype, idx_bytes, x, vals, idx, nullptr,
+                                 nullptr, y, E, M, N, K, kmax, 0, stream);
+}
+
+extern "C" int ell_lr_matmul_g(int dtype, int idx_bytes, const void* x,
+                               const void* vals, const void* idx,
+                               const void* u, const void* v, void* y, int E,
+                               int M, int N, int K, int kmax, int R,
+                               void* stream) {
+  return tc::dispatch_ell<true>(dtype, idx_bytes, x, vals, idx, u, v, y, E,
+                                M, N, K, kmax, R, stream);
 }

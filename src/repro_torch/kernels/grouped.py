@@ -2,8 +2,10 @@
 plain PyTorch versions. Each computes, for every expert e of a bucket,
 what its per-linear counterpart computes on x[e] and expert e's planes:
 
-    ell_matmul_g         #4 per expert  (csrc/ell.cu)
-    ell_lr_matmul_g      #5 per expert  (csrc/ell.cu)
+    ell_matmul_g         #4 per expert  (csrc/grouped_tc.cu; f32, 1-2
+                                         rows per expert and K too
+                                         wide to stage: ell.cu)
+    ell_lr_matmul_g      #5 per expert  (the same)
     slab_ell_matmul_g    #1 per expert  (csrc/grouped_tc.cu; f32 and 1-2
                                          rows per expert: ell.cu)
     nm_matmul_g          #8 per expert  (csrc/nm_sparse.cu)
@@ -18,9 +20,11 @@ what its per-linear counterpart computes on x[e] and expert e's planes:
 Replace the nine kernels of ``repro/kernels/grouped.py`` (TPU), one for
 one. A CUDA kernel here is launched once for the whole bucket with the
 expert as the grid's y dimension, never E launches: its per-linear
-kernel, or for the bf16 slab_ell_matmul_g and slab_nm_lr_matmul_g a
-kernel of its own on the tensor cores (``csrc/grouped_tc.cu``); those
-two keep their first design (same C symbol in ``ell.cu`` /
+kernel, or for the bf16 ell_matmul_g, ell_lr_matmul_g,
+slab_ell_matmul_g and slab_nm_lr_matmul_g a kernel of its own redesigned
+for Hopper (``csrc/grouped_tc.cu``: 128 output rows a block, x staged
+once per 8-32 batch rows, the last two on the tensor cores); those four
+keep their first design (same C symbol in ``ell.cu`` /
 ``slab_matmul.cu``) for the launches the new kernel does not take, and
 count each library's launches apart. Operands use the kernel layout
 with a leading expert dim: x (E, M, K), u (E, R, N), v (E, R, K),
@@ -56,12 +60,17 @@ SLAB_G = build.CudaKernel(
 SLAB_NM_G = build.CudaKernel(
     "slab_nm_matmul_g", "slab_matmul.cu",
     "src/repro/kernels/grouped.py:280 (slab_nm_matmul_g, pallas_call :297)")
-ELL_G = build.CudaKernel(
-    "ell_matmul_g", "ell.cu",
-    "src/repro/kernels/grouped.py:54 (ell_matmul_g, pallas_call :64)")
-ELL_LR_G = build.CudaKernel(
-    "ell_lr_matmul_g", "ell.cu",
-    "src/repro/kernels/grouped.py:91 (ell_lr_matmul_g, pallas_call :103)")
+_ELL_G_TPU = "src/repro/kernels/grouped.py:54 (ell_matmul_g, pallas_call :64)"
+ELL_G = build.CudaKernel("ell_matmul_g", "grouped_tc.cu", _ELL_G_TPU)
+ELL_G_FIRST = build.CudaKernel("ell_matmul_g", "ell.cu", _ELL_G_TPU,
+                               key="ell_matmul_g@ell.cu")
+_ELL_LR_G_TPU = ("src/repro/kernels/grouped.py:91 (ell_lr_matmul_g, "
+                 "pallas_call :103)")
+ELL_LR_G = build.CudaKernel("ell_lr_matmul_g", "grouped_tc.cu",
+                            _ELL_LR_G_TPU)
+ELL_LR_G_FIRST = build.CudaKernel("ell_lr_matmul_g", "ell.cu",
+                                  _ELL_LR_G_TPU,
+                                  key="ell_lr_matmul_g@ell.cu")
 SLAB_LR_G = build.CudaKernel(
     "slab_lr_matmul_g", "slab_matmul.cu",
     "src/repro/kernels/grouped.py:336 (slab_lr_matmul_g, pallas_call :348)")
@@ -83,6 +92,24 @@ BINLR_G = build.CudaKernel(
 # (PERF.md), deepseek-moe-16b's (1408, 2048) and phi3.5-moe's (6400,
 # 4096); the crossover of each is recorded there.
 TC_MIN_ROWS = 3
+# The bf16 ell_matmul_g and ell_lr_matmul_g run grouped_tc.cu's gather
+# kernel from ELL_TC_MIN_ROWS rows per expert (chip_smoke.py's M sweep on
+# deepseek-moe-16b's planes, PERF.md) where its smallest tile fits an
+# H100 block's ELL_TC_SMEM bytes of shared memory (ell_tc_smem). The
+# rest runs the first design, which holds x at 2 bytes a column.
+ELL_TC_MIN_ROWS = 3
+ELL_TC_SMEM = 227 * 1024
+
+
+def ell_tc_smem(k: int, r: int, idx_bytes: int) -> int:
+    """Shared bytes of grouped_tc.cu's gather kernel at one tile of 8
+    batch rows (its launch_ell): x as ell_kp(K) 16-byte columns, a ring
+    of 4 steps of 8-entry blocks for each of 256 threads (vals and ids,
+    16 bytes per 8 vals or uint16 ids), and for a rank-``r`` projection
+    its sums and the 8 warps' partial sums in fp32."""
+    kp = (k + 8) // 8 * 8
+    ring = 4 * (1 + idx_bytes // 2) * 256 * 16
+    return kp * 16 + ring + (8 + 1) * r * 8 * 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -274,20 +301,41 @@ def ell_matmul_g_plain(x, vals, idx) -> torch.Tensor:
     return _per_expert(ell_k.ell_matmul_plain, x, vals, idx)
 
 
+def ell_g_kernel(dtype, m: int, k: int, lowrank: bool = False, *,
+                 r: int = 0, idx_bytes: int = 4) -> build.CudaKernel:
+    """The library a launch of ell_matmul_g (``lowrank``: ell_lr_matmul_g
+    at rank ``r``) at ``m`` rows per expert, ``k`` columns and ids of
+    ``idx_bytes`` runs: grouped_tc.cu for bf16 from ELL_TC_MIN_ROWS rows
+    where one tile fits ELL_TC_SMEM; f32 (1e-5, no TF32), fewer rows and
+    shapes that do not fit the first design."""
+    if dtype == torch.bfloat16 and m >= ELL_TC_MIN_ROWS \
+            and ell_tc_smem(k, r if lowrank else 0, idx_bytes) <= ELL_TC_SMEM:
+        return ELL_LR_G if lowrank else ELL_G
+    return ELL_LR_G_FIRST if lowrank else ELL_G_FIRST
+
+
 def ell_matmul_g(x, vals, idx) -> torch.Tensor:
     """Launch the grouped ELL kernel (one launch for the bucket)."""
+    _, m, k = _check_x(x)
+    kern = ell_g_kernel(x.dtype, m, k, idx_bytes=idx.element_size())
+    return launch_ell_g(kern, x, vals, idx)
+
+
+def launch_ell_g(kern, x, vals, idx) -> torch.Tensor:
+    """ell_matmul_g through ``kern``'s library (ELL_G or ELL_G_FIRST),
+    counted on its counter."""
     e, m, k = _check_x(x)
     n, k_max = _check_ell(x, vals, idx)
     y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    fn = build.function(ELL_G.source, ELL_G.name, _ELL_ARGS)
+    fn = build.function(kern.source, kern.name, _ELL_ARGS)
     err = fn(build.dtype_code(x.dtype), idx.element_size(), x.data_ptr(),
              vals.data_ptr(), idx.data_ptr(), y.data_ptr(), e, m, n, k,
              k_max, build.stream_ptr(x.device))
-    build.check_launch(err, ELL_G.name,
+    build.check_launch(err, kern.key,
                        f"E={e} M={m} N={n} K={k} K_max={k_max}")
-    ELL_G.launches += 1
+    kern.launches += 1
     return y
 
 
@@ -297,18 +345,27 @@ def ell_lr_matmul_g_plain(x, vals, idx, u, v) -> torch.Tensor:
 
 def ell_lr_matmul_g(x, vals, idx, u, v) -> torch.Tensor:
     """Launch the grouped ELL + low-rank kernel (one launch)."""
+    _, m, k = _check_x(x)
+    kern = ell_g_kernel(x.dtype, m, k, lowrank=True, r=u.shape[1],
+                        idx_bytes=idx.element_size())
+    return launch_ell_lr_g(kern, x, vals, idx, u, v)
+
+
+def launch_ell_lr_g(kern, x, vals, idx, u, v) -> torch.Tensor:
+    """ell_lr_matmul_g through ``kern``'s library (ELL_LR_G or
+    ELL_LR_G_FIRST), counted on its counter."""
     n, k_max = _check_ell(x, vals, idx)
     e, m, k, r = _check_rank(x, u, v, n)
     y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    fn = build.function(ELL_LR_G.source, ELL_LR_G.name, _ELL_LR_ARGS)
+    fn = build.function(kern.source, kern.name, _ELL_LR_ARGS)
     err = fn(build.dtype_code(x.dtype), idx.element_size(), x.data_ptr(),
              vals.data_ptr(), idx.data_ptr(), u.data_ptr(), v.data_ptr(),
              y.data_ptr(), e, m, n, k, k_max, r, build.stream_ptr(x.device))
-    build.check_launch(err, ELL_LR_G.name,
+    build.check_launch(err, kern.key,
                        f"E={e} M={m} N={n} K={k} K_max={k_max} R={r}")
-    ELL_LR_G.launches += 1
+    kern.launches += 1
     return y
 
 

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
 card only: slab_nm_lr_matmul (#7), binlr_matmul (#9), flash_decode (#10)
-and flash_decode_paged (#11), and the grouped slab_ell_matmul_g (#14) and
-slab_nm_lr_matmul_g (#19), whose bf16 launches run the tensor-core
-kernels of csrc/grouped_tc.cu. Every test skips without a card (the
-kernels are CUDA C++ for sm_90a with no CPU mode).
+and flash_decode_paged (#11), and the grouped ell_matmul_g (#12),
+ell_lr_matmul_g (#13), slab_ell_matmul_g (#14) and slab_nm_lr_matmul_g
+(#19), whose bf16 launches run the kernels of csrc/grouped_tc.cu. Every
+test skips without a card (the kernels are CUDA C++ for sm_90a with no
+CPU mode).
 
 This file imports neither JAX nor the reference package, so it runs on
 a machine with PyTorch alone:
@@ -339,3 +340,152 @@ def test_slab_nm_lr_matmul_g_kernel_matches_plain(cuda, dt, m, e):
     assert kern.launches == launches + 1
     _close(got, g_k.slab_nm_lr_matmul_g_plain(x, vals_p, idx_p, m_pat, u, v),
            dtype)
+
+
+# grouped #12 / #13 at 1-32 rows per expert: deepseek-moe-16b's (1408,
+# 2048) at E 64; at E 1 and in a bucket of 7 experts taken out of order
+# from 12, (1411, 1412): K off every multiple of 8 (rows of x start off 16
+# bytes; the staged x has a zero tail) and N off the 128-row block. K_max
+# is odd and past the fullest row (every row ends in ELL pads; a row's
+# 16-byte alignment follows its global row); uint32 ids in the bucket.
+ELL_M = [1, 2, 3, 6, 8, 9, 20, 32]
+
+
+def _ell_g_operands(gen, e, m, dtype, rank):
+    """x, vals, idx, u, v of ``e`` experts (7: a bucket out of order)."""
+    n, k = (1408, 2048) if e == 64 else (1411, 1412)
+    e_all = 12 if e == 7 else e
+    w = _g_randn(gen, e_all * n, k, scale=0.05)
+    ws = torch.where(_g_randn(gen, e_all * n, k) > 0.25, w, 0.0)
+    ell = packing.ell_pack(ws.to(dtype),
+                           nnz=(packing.ell_row_nnz_max(ws) + 2) | 1)
+    vals = ell.values.reshape(e_all, n, -1)
+    idx = ell.indices.reshape(e_all, n, -1)
+    u = _g_randn(gen, e_all, rank, n, scale=0.2).to(dtype)
+    v = _g_randn(gen, e_all, rank, k, scale=0.2).to(dtype)
+    if e == 7:
+        sel = torch.tensor([9, 2, 0, 11, 5, 7, 3], device=gen.device)
+        vals, u, v = (t.index_select(0, sel) for t in (vals, u, v))
+        idx = packing.as_unsigned(idx.index_select(0, sel)).int()
+    x = _g_randn(gen, e, m, k).to(dtype)
+    return (x, vals.contiguous(), idx.contiguous(), u.contiguous(),
+            v.contiguous())
+
+
+def _ell_g_run(kern, lowrank, x, vals, idx, u, v):
+    if lowrank:
+        return (g_k.launch_ell_lr_g(kern, x, vals, idx, u, v),
+                g_k.ell_lr_matmul_g_plain(x, vals, idx, u, v))
+    return (g_k.launch_ell_g(kern, x, vals, idx),
+            g_k.ell_matmul_g_plain(x, vals, idx))
+
+
+@pytest.mark.parametrize("lowrank", [False, True], ids=("ell", "ell_lr"))
+@pytest.mark.parametrize("e", G_E)
+@pytest.mark.parametrize("m", ELL_M)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_ell_matmul_g_kernel_matches_plain(cuda, dt, m, e, lowrank):
+    """Through the wrappers; #13 at rank 3 for odd M, else 1. The launch
+    counts on the library the wrapper picks."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(500 + m + e + lowrank)
+    x, vals, idx, u, v = _ell_g_operands(gen, e, m, dtype,
+                                         3 if m % 2 else 1)
+    kern = g_k.ell_g_kernel(dtype, m, x.shape[2], lowrank)
+    new = g_k.ELL_LR_G if lowrank else g_k.ELL_G
+    assert (kern is new) == (dtype == torch.bfloat16
+                             and m >= g_k.ELL_TC_MIN_ROWS)
+    launches = kern.launches
+    if lowrank:
+        got = g_k.ell_lr_matmul_g(x, vals, idx, u, v)
+        want = g_k.ell_lr_matmul_g_plain(x, vals, idx, u, v)
+    else:
+        got = g_k.ell_matmul_g(x, vals, idx)
+        want = g_k.ell_matmul_g_plain(x, vals, idx)
+    assert kern.launches == launches + 1
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("lowrank", [False, True], ids=("ell", "ell_lr"))
+@pytest.mark.parametrize("m", [1, 2, 6, 20])
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+def test_ell_matmul_g_each_library(cuda, lib, m, lowrank):
+    """Both libraries of the bf16 #12 / #13 at the row counts the wrapper
+    gives the other one (chip_smoke times both at every M)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(600 + m + lowrank)
+    ops_ = _ell_g_operands(gen, 7, m, torch.bfloat16, 3 if lowrank else 1)
+    kern = {(False, "grouped_tc"): g_k.ELL_G, (False, "first"):
+            g_k.ELL_G_FIRST, (True, "grouped_tc"): g_k.ELL_LR_G,
+            (True, "first"): g_k.ELL_LR_G_FIRST}[lowrank, lib]
+    launches = kern.launches
+    got, want = _ell_g_run(kern, lowrank, *ops_)
+    assert kern.launches == launches + 1
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("lowrank", [False, True], ids=("ell", "ell_lr"))
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+def test_ell_matmul_g_no_rows(cuda, lib, lowrank):
+    """M = 0: an empty (E, 0, N) result and no launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(700)
+    x, vals, idx, u, v = _ell_g_operands(gen, 7, 0, torch.bfloat16, 1)
+    kern = {(False, "grouped_tc"): g_k.ELL_G, (False, "first"):
+            g_k.ELL_G_FIRST, (True, "grouped_tc"): g_k.ELL_LR_G,
+            (True, "first"): g_k.ELL_LR_G_FIRST}[lowrank, lib]
+    launches = kern.launches
+    got, _ = _ell_g_run(kern, lowrank, x, vals, idx, u, v)
+    assert kern.launches == launches
+    assert got.shape == (7, 0, vals.shape[1]) and got.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("rank", [24, 25])
+def test_ell_lr_matmul_g_shared_memory_choice(cuda, rank):
+    """At K 11008 with uint32 ids one tile of the gather kernel fits an
+    H100 block's shared memory up to rank 24 (grouped.ell_tc_smem); at
+    rank 25 the wrapper runs the first design. Both give the plain
+    version's result."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(900 + rank)
+    n, k, m = 200, 11008, 6
+    w = _g_randn(gen, n, k, scale=0.05)
+    ws = torch.where(_g_randn(gen, n, k) > 1.5, w, 0.0)
+    ell = packing.ell_pack(ws.to(torch.bfloat16))
+    vals = ell.values.reshape(1, n, -1).contiguous()
+    idx = packing.as_unsigned(ell.indices).int().reshape(1, n, -1)
+    x = _g_randn(gen, 1, m, k).to(torch.bfloat16)
+    u = _g_randn(gen, 1, rank, n, scale=0.2).to(torch.bfloat16)
+    v = _g_randn(gen, 1, rank, k, scale=0.2).to(torch.bfloat16)
+    kern = g_k.ELL_LR_G if rank == 24 else g_k.ELL_LR_G_FIRST
+    launches = kern.launches
+    got = g_k.ell_lr_matmul_g(x, vals, idx.contiguous(), u, v)
+    assert kern.launches == launches + 1
+    _close(got, g_k.ell_lr_matmul_g_plain(x, vals, idx, u, v),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("order", ["reversed", "duplicates"])
+def test_ell_matmul_g_any_entry_order(cuda, order):
+    """Unsorted rows, and rows that repeat a column (their values add),
+    give the plain version's result on grouped_tc.cu's kernel."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    e, n, k, m = 3, 300, 500, 6
+    w = _g_randn(gen, e * n, k, scale=0.05)
+    ws = torch.where(_g_randn(gen, e * n, k) > 0.25, w, 0.0)
+    ell = packing.ell_pack(ws.to(torch.bfloat16))
+    vals, idx = ell.values, ell.indices
+    if order == "reversed":
+        vals, idx = vals.flip(1), idx.flip(1)
+    else:        # every third entry takes its left neighbour's column
+        idx = idx.clone()
+        idx[:, 3::3] = idx[:, 2:-1:3][:, :idx[:, 3::3].shape[1]]
+    vals = vals.reshape(e, n, -1).contiguous()
+    idx = idx.reshape(e, n, -1).contiguous()
+    x = _g_randn(gen, e, m, k).to(torch.bfloat16)
+    launches = g_k.ELL_G.launches
+    got = g_k.ell_matmul_g(x, vals, idx)
+    assert g_k.ELL_G.launches == launches + 1
+    _close(got, g_k.ell_matmul_g_plain(x, vals, idx), torch.bfloat16)

@@ -417,11 +417,58 @@ def test_slab_nm_lr_g_library_choice(dtype, pattern, source):
     assert kern.source == source and kern.name == "slab_nm_lr_matmul_g"
 
 
+@pytest.mark.parametrize("lowrank", [False, True], ids=("ell", "ell_lr"))
+@pytest.mark.parametrize("dtype,m,k,source", [
+    (torch.bfloat16, 1, 2048, "ell.cu"), (torch.bfloat16, 2, 2048, "ell.cu"),
+    (torch.bfloat16, 3, 2048, "grouped_tc.cu"),
+    (torch.bfloat16, 32, 1412, "grouped_tc.cu"),
+    (torch.bfloat16, 6, 20000, "ell.cu"), (torch.float32, 6, 2048, "ell.cu")])
+def test_ell_g_library_choice(dtype, m, k, source, lowrank):
+    """bf16 #12 / #13 run grouped_tc.cu's gather kernel from
+    ELL_TC_MIN_ROWS rows per expert where its tile fits shared memory;
+    fewer rows, wider K and f32 the first design, on its own counter."""
+    from repro_torch.kernels import grouped as g_k
+    name = "ell_lr_matmul_g" if lowrank else "ell_matmul_g"
+    kern = g_k.ell_g_kernel(dtype, m, k, lowrank)
+    assert kern.source == source and kern.name == name
+    assert kern.key == (name if source == "grouped_tc.cu"
+                        else f"{name}@ell.cu")
+
+
+@pytest.mark.parametrize("lowrank,k,r,idx_bytes,source", [
+    (False, 11455, 0, 4, "grouped_tc.cu"), (False, 11456, 0, 4, "ell.cu"),
+    (False, 12479, 0, 2, "grouped_tc.cu"), (False, 12480, 0, 2, "ell.cu"),
+    (True, 11008, 24, 4, "grouped_tc.cu"), (True, 11008, 25, 4, "ell.cu"),
+    (True, 11008, 32, 2, "grouped_tc.cu"), (True, 11008, 32, 4, "ell.cu")])
+def test_ell_g_library_choice_by_shared_memory(lowrank, k, r, idx_bytes,
+                                               source):
+    """The gather kernel's one tile of x, its ring of planes (wider for
+    uint32 ids) and #13's projection sums (growing with the rank) must
+    fit an H100 block; where they do not, the first design runs."""
+    from repro_torch.kernels import grouped as g_k
+    kern = g_k.ell_g_kernel(torch.bfloat16, 6, k, lowrank, r=r,
+                            idx_bytes=idx_bytes)
+    assert kern.source == source
+    fits = g_k.ell_tc_smem(k, r, idx_bytes) <= g_k.ELL_TC_SMEM
+    assert fits == (source == "grouped_tc.cu")
+
+
+def test_ell_tc_smem_counts_the_launch_bytes():
+    """x at (K + 8) // 8 · 8 columns of 16 bytes, 4 ring steps for 256
+    threads of 2 (uint16 ids) or 3 (uint32) 16-byte units, 9 · 8 fp32
+    projection sums per rank."""
+    from repro_torch.kernels import grouped as g_k
+    assert g_k.ELL_TC_SMEM == 232448
+    assert g_k.ell_tc_smem(11008, 32, 4) == 176256 + 49152 + 9216
+    assert g_k.ell_tc_smem(2048, 0, 2) == 2056 * 16 + 32768
+    assert g_k.ell_tc_smem(1412, 3, 2) == 1416 * 16 + 32768 + 864
+
+
 def test_launch_counters_are_per_library():
     """Every library has a counter key of its own, and a reset zeroes
     them all."""
     keys = [k.key for k in ops.KERNELS]
-    assert len(set(keys)) == len(keys) == 22
+    assert len(set(keys)) == len(keys) == 24
     assert len({k.name for k in ops.KERNELS}) == 20
     for k in ops.KERNELS:
         k.launches = 1
