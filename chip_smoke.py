@@ -23,8 +23,11 @@ Phases:
      wider groups: block size 16 and 32,
      lengths 0 to 4096 with exact chunk boundaries, scattered block
      tables, the model dtype and int8, bf16 and f32, and for #10 also
-     S = 4100; times beside the byte bound, the plain version and one
-     scaled_dot_product_attention call. Then the nine grouped-expert
+     S = 4100; and at the engine's decode shape (4 rows of llama2-7b,
+     lengths 33-320); times (bf16, blocks of 16) at llama2-7b's and
+     stablelm-12b's R 8 shapes and at the engine's, beside the byte
+     bound, the plain version and one scaled_dot_product_attention
+     call, with the splits the kernels ran. Then the nine grouped-expert
      kernels (G_SPECS): #14-#17 at phi3.5-moe's expert planes (16
      experts and a bucket of 5 gathered out of order, (N, K) in {(6400,
      4096), (4096, 6400)}, M in {1, 2, 20}, nm_matmul_g also at K = 6408)
@@ -89,8 +92,9 @@ Phases:
        l  llama2-7b bf16, int8 KV, 2 layers: the ``serve --engine``
           synthetic trace under FaultPlan.chaos(0) on the steps clock;
           every request terminal, no block leaked, tok/s, goodput, TTFT
-          and per-token latency, the device-busy share of a decode step,
-          and paged_decode_step held against decode_step;
+          and per-token latency, the device-busy share of a decode step
+          and #11's device time in it, and paged_decode_step held
+          against decode_step;
        q  phi3.5-moe f32, 1 layer: logits against the dense-equivalent,
           then a mixed-arrival trace of 8 requests (prompts 16-128,
           outputs 8-32) at the drop-free capacity factor (every stream
@@ -823,33 +827,38 @@ def grouped_checks(flush, model):
 # flash-decode (#10, #11) at the decode shapes of the two ported attention
 # layouts, R = 8 rows: llama2-7b (MHA, KV 32, G 1, dh 128) and stablelm-12b
 # (GQA, KV 8, G 4, dh 160); and at two wider groups the reference's
-# configs carry, which reach the kernel's G 8 and G 16 instantiations:
-# qwen2-vl-2b (12 heads over KV 2: G 6, dh 128) and nemotron-4-340b (96
-# over KV 8: G 12, dh 192). Lengths: an empty row, one token, exact chunk
-# boundaries and their neighbours, up to 4096.
+# configs carry: qwen2-vl-2b (12 heads over KV 2: G 6, dh 128) and
+# nemotron-4-340b (96 over KV 8: G 12, dh 192). Lengths: an empty row, one
+# token, exact chunk boundaries and their neighbours, up to 4096. Then the
+# engine's decode shape: 4 rows of llama2-7b up to 320 tokens, blocks of
+# 16. Timed (bf16, model dtype, blocks of 16): FD_TIMED, the JSON line's;
+# the GQA layout; the engine's shape.
 FD_LAYOUTS = {"llama2-7b": (32, 1, 128), "stablelm-12b": (8, 4, 160),
               "qwen2-vl-2b": (2, 6, 128), "nemotron-4-340b": (8, 12, 192)}
-FD_ROWS = 8
 FD_MAX = 4096
 FD_TIMED = dict(layout="llama2-7b", bs=16, dtype=torch.bfloat16, quant=False)
+FD_ENGINE = dict(layout="llama2-7b", lengths=(33, 100, 257, 320), s=320)
+FD_TIMES = (("llama2-7b", FD_MAX), ("stablelm-12b", FD_MAX),
+            ("llama2-7b", FD_ENGINE["s"]))
 
 
 def _fd_lengths(bs):
     return [0, 1, bs, bs + 1, 777, 2048, FD_MAX - 1, FD_MAX]
 
 
-def _fd_inputs(layout, bs, s, dtype, quant, gen, paged):
+def _fd_inputs(layout, bs, s, dtype, quant, gen, paged, lengths):
     """q, the cache (contiguous (R, S, KV, dh) or a pool of scattered
-    blocks with tables) and lengths, made on the card."""
+    blocks with tables) and lengths, made on the card; R = len(lengths)."""
     from repro_torch.models.attention import _quantize_token
     kv, g, dh = FD_LAYOUTS[layout]
     dev = "cuda"
-    lengths = torch.tensor(_fd_lengths(bs), dtype=torch.int32, device=dev)
+    rows = len(lengths)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     lengths = lengths.clamp(max=s)
-    q = (torch.randn((FD_ROWS, kv, g, dh), generator=gen, device=dev)
+    q = (torch.randn((rows, kv, g, dh), generator=gen, device=dev)
          * dh ** -0.5).to(dtype)
-    k = torch.randn((FD_ROWS, s, kv, dh), generator=gen, device=dev)
-    v = torch.randn((FD_ROWS, s, kv, dh), generator=gen, device=dev)
+    k = torch.randn((rows, s, kv, dh), generator=gen, device=dev)
+    v = torch.randn((rows, s, kv, dh), generator=gen, device=dev)
     ks = vs = None
     if quant:
         k, ks = _quantize_token(k)
@@ -859,9 +868,9 @@ def _fd_inputs(layout, bs, s, dtype, quant, gen, paged):
     if not paged:
         return dict(q=q, k=k, v=v, lengths=lengths, k_scale=ks, v_scale=vs)
     n_bt = -(-s // bs)
-    n_blocks = FD_ROWS * n_bt + 7
+    n_blocks = rows * n_bt + 7
     perm = torch.randperm(n_blocks, generator=gen, device=dev)
-    tables = perm[:FD_ROWS * n_bt].reshape(FD_ROWS, n_bt).to(torch.int32)
+    tables = perm[:rows * n_bt].reshape(rows, n_bt).to(torch.int32)
 
     def pool(t):
         if t is None:
@@ -871,7 +880,7 @@ def _fd_inputs(layout, bs, s, dtype, quant, gen, paged):
         out = torch.zeros((n_blocks, bs) + tuple(t.shape[2:]),
                           dtype=t.dtype, device=dev)
         out[tables.long().reshape(-1)] = t.reshape(
-            (FD_ROWS * n_bt, bs) + tuple(t.shape[2:]))
+            (rows * n_bt, bs) + tuple(t.shape[2:]))
         return out
 
     # table entries past a row's length may name any block: scramble them
@@ -935,9 +944,41 @@ def _sdpa(a, paged):
                                                   scale=1.0)
 
 
+def _fd_time(name, layout, bs, s, paged, a, kern, plain, err, flush):
+    """Time one case: kernel, plain version and SDPA, beside the bound."""
+    from repro_torch.kernels import flash_decode as fd_k
+    n_bytes = _fd_bytes(a, s, bs, paged)
+    kv, g, dh = FD_LAYOUTS[layout]
+    rows = a["q"].shape[0]
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = _fd_ops(a, s, paged) / PEAK_OPS[torch.float32] * 1e3
+    n_max = -(-s // bs) * bs if paged else s
+    n_split, split_len = fd_k.plan_splits(
+        rows, kv, -(-g // fd_k.head_chunk(g, dh)), n_max,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    rec = {"ms": time_ms(kern, flush),
+           "plain_ms": time_ms(plain, flush),
+           "library_ms": time_ms(_sdpa(a, paged), flush),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": n_bytes, "max_abs_err": err,
+           "shape": {"R": rows, "KV": kv, "G": g, "dh": dh, "S": s,
+                     "bs": bs, "lengths": a["lengths"].tolist(),
+                     "dtype": "bfloat16", "int8": False,
+                     "splits": [n_split, split_len]}}
+    log(f"  time {name:22s} {layout} R={rows} bs={bs} S={s} bf16 "
+        f"splits={n_split}x{split_len}: kernel_ms={rec['ms']:.4f} "
+        f"plain_ms={rec['plain_ms']:.4f} library_ms="
+        f"{rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}, {n_bytes / 1e6:.2f} MB) roofline="
+        f"{rec['bound_ms'] / rec['ms']:.3f}")
+    return rec
+
+
 def flash_checks(flush):
     """#11 and #10 against their plain versions on the card; times at
-    FD_TIMED. Returns (timed records by kernel name, worst rel errors)."""
+    FD_TIMES. Returns (timed records by (kernel name, layout, S), worst
+    rel errors)."""
     from repro_torch.kernels import flash_decode as fd_k
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda")
@@ -946,13 +987,21 @@ def flash_checks(flush):
     plans = []
     for layout in FD_LAYOUTS:
         for bs in (16, 32):
-            plans.append(("flash_decode_paged", layout, bs, FD_MAX, True))
-            plans.append(("flash_decode", layout, bs, FD_MAX, False))
-        plans.append(("flash_decode", layout, 512, FD_MAX + 4, False))
-    for name, layout, bs, s, paged in plans:
+            plans.append(("flash_decode_paged", layout, bs, FD_MAX, True,
+                          _fd_lengths(bs)))
+            plans.append(("flash_decode", layout, bs, FD_MAX, False,
+                          _fd_lengths(bs)))
+        plans.append(("flash_decode", layout, 512, FD_MAX + 4, False,
+                      _fd_lengths(512)))
+    for name, paged in (("flash_decode_paged", True),
+                        ("flash_decode", False)):
+        plans.append((name, FD_ENGINE["layout"], 16, FD_ENGINE["s"], paged,
+                      list(FD_ENGINE["lengths"])))
+    for name, layout, bs, s, paged, lengths in plans:
         for dtype in (torch.bfloat16, torch.float32):
             for quant in (False, True):
-                a = _fd_inputs(layout, bs, s, dtype, quant, gen, paged)
+                a = _fd_inputs(layout, bs, s, dtype, quant, gen, paged,
+                               lengths)
                 args = {kk: vv for kk, vv in a.items()
                         if not kk.startswith("_")}
                 if paged:
@@ -970,40 +1019,22 @@ def flash_checks(flush):
                 n_checks += 1
                 ok = (bool(torch.isfinite(got).all()) and rel < TOL[dtype]
                       and tuple(got.shape) == tuple(a["q"].shape))
-                if paged:
-                    ok = ok and bool((got[0] == 0).all())   # empty row
+                empty = [i for i, l in enumerate(a["lengths"].tolist())
+                         if l == 0]
+                if paged:                       # empty rows: exact zeros
+                    ok = ok and all(bool((got[i] == 0).all())
+                                    for i in empty)
                 if not ok:
                     raise AssertionError(
                         f"{label} {layout} bs={bs} S={s} {dtype}: "
                         f"max|err|/max|ref| = {rel:.3g} (tolerance "
                         f"{TOL[dtype]})")
-                if (layout == FD_TIMED["layout"] and bs == FD_TIMED["bs"]
+                if ((layout, s) in FD_TIMES and bs == FD_TIMED["bs"]
                         and dtype == FD_TIMED["dtype"]
                         and quant == FD_TIMED["quant"]):
-                    n_bytes = _fd_bytes(a, s, bs, paged)
-                    kv, g, dh = FD_LAYOUTS[layout]
-                    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-                    t_ops = _fd_ops(a, s, paged) / PEAK_OPS[
-                        torch.float32] * 1e3
-                    rec = {"ms": time_ms(kern, flush),
-                           "plain_ms": time_ms(plain, flush),
-                           "library_ms": time_ms(_sdpa(a, paged), flush),
-                           "bound_ms": max(t_bytes, t_ops),
-                           "bound_by": "bytes" if t_bytes >= t_ops
-                           else "operations",
-                           "bytes": n_bytes, "max_abs_err": err,
-                           "shape": {"R": FD_ROWS, "KV": kv, "G": g,
-                                     "dh": dh, "S": s, "bs": bs,
-                                     "lengths": a["lengths"].tolist(),
-                                     "dtype": "bfloat16", "int8": False}}
-                    timed[name] = rec
-                    log(f"  time {name:22s} {layout} R={FD_ROWS} bs={bs} "
-                        f"S={s} bf16: kernel_ms={rec['ms']:.4f} "
-                        f"plain_ms={rec['plain_ms']:.4f} library_ms="
-                        f"{rec['library_ms']:.4f} bound_ms="
-                        f"{rec['bound_ms']:.4f} ({rec['bound_by']}, "
-                        f"{n_bytes / 1e6:.2f} MB) roofline="
-                        f"{rec['bound_ms'] / rec['ms']:.3f}")
+                    timed[(name, layout, s)] = _fd_time(
+                        name, layout, bs, s, paged, a, kern, plain, err,
+                        flush)
                 del a, args, got, ref
     ops.reset_launch_counts()        # comparison launches do not count
     log(f"flash-decode checks: {n_checks} cases passed; worst "
@@ -1098,13 +1129,15 @@ def _greedy_profile(cfg, params, prompts, step_ms, label):
                     PROMPT + 4 - 1, step_ms, label)
 
 
-def _device_profile(run, steps, step_ms, label):
+def _device_profile(run, steps, step_ms, label, focus=None):
     """Device busy time per step from torch.profiler (kernel events
     only) over ``run()``, which takes ``steps`` steps, set against
     ``step_ms``, the same step's unprofiled wall time: busy / wall is the
     card's busy share, the rest is time the host holds it back. Prints
-    the five kernels that take the most. Returns the busy share (None
-    when the profiler saw no device time)."""
+    the five kernels that take the most, and with ``focus`` = (what,
+    name part) the device time per step of the kernels whose names hold
+    that part. Returns the busy share (None when the profiler saw no
+    device time), and with ``focus`` also that time per step."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1116,7 +1149,7 @@ def _device_profile(run, steps, step_ms, label):
     if busy_ms <= 0:
         log(f"  profile {label}: the profiler saw no device time "
             "(busy share not measured)")
-        return None
+        return (None, None) if focus else None
     share = min(busy_ms / step_ms, 1.0)
     log(f"  profile {label}: device busy {busy_ms:.3f} ms per decode step "
         f"of {step_ms:.3f} ms wall (busy share {share:.3f})")
@@ -1124,7 +1157,15 @@ def _device_profile(run, steps, step_ms, label):
     for e in top:
         log(f"    {e.self_device_time_total / 1e3 / steps:8.4f} ms/step "
             f"x{e.count // steps:<3d} {e.key[:90]}")
-    return share
+    if not focus:
+        return share
+    what, part = focus
+    hit = [e for e in kern if part in e.key]
+    ms = sum(e.self_device_time_total for e in hit) / 1e3 / steps
+    log(f"  profile {label}: {what} {ms:.4f} ms per step in "
+        f"{sum(e.count for e in hit) / steps:g} launches ("
+        + ", ".join(e.key.split("(")[0][:60] for e in hit) + ")")
+    return share, ms
 
 
 def _perplexity(cfg, params, batch) -> float:
@@ -1612,7 +1653,8 @@ def engine_phase_l():
         n_slots=4, block_size=16, n_blocks=4 * blocks_needed(256, 16),
         max_len=256, prefill_chunk=8), device="cuda")
     dec_ms, more = _decode_steady(eng2, 4, 8)
-    share = _device_profile(more, 8, dec_ms, "engine decode step")
+    share, fd_ms = _device_profile(more, 8, dec_ms, "engine decode step",
+                                   focus=("#11 flash_decode_paged", "fd::"))
     # paged_decode_step against decode_step on the same tokens
     b, s = 4, 24
     toks = torch.randint(0, cfg.vocab, (b, s), device="cuda",
@@ -1642,7 +1684,8 @@ def engine_phase_l():
     return counts, {"tokens_per_s": m["tokens_per_s"],
                     "goodput_tokens_per_s": m["goodput_tokens_per_s"],
                     "step_ms": step_ms, "decode_step_ms": dec_ms,
-                    "decode_busy_share": share}
+                    "decode_busy_share": share,
+                    "flash_decode_paged_ms_per_step": fd_ms}
 
 
 MOE_REQUESTS = 8
@@ -1933,7 +1976,7 @@ def main():
                              for (n, k) in spec["shapes"]}})
             continue
         if kern.name in FLASH:
-            rec = fd_timed[kern.name]
+            rec = fd_timed[(kern.name, FD_TIMED["layout"], FD_MAX)]
             entries.append({
                 "name": kern.name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{kern.source}",
@@ -1942,7 +1985,11 @@ def main():
                 **{kk: rec[kk] for kk in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms", "shape")},
-                "worst_rel_err": fd_worst})
+                "worst_rel_err": fd_worst,
+                "by_shape": {f"{layout} S={s}": {
+                    kk: fd_timed[(kern.name, layout, s)][kk]
+                    for kk in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                    for layout, s in FD_TIMES}})
             continue
         label = JSON_LABEL[kern.name]
         rec = timed[(label,) + JSON_SHAPE]

@@ -172,6 +172,82 @@ def test_flash_decode_paged_kernel_matches_plain(cuda, dt, layout, quant):
     assert torch.equal(got[0], torch.zeros_like(got[0]))
 
 
+# (G, dh) across the head chunks: MHA, stablelm-12b's G 4, qwen2-vl-2b's
+# G 6, nemotron-4-340b's G 12 and G 32 at dh 256 (two chunks of 16)
+FD_SPLIT_GROUPS = [(1, 128), (4, 160), (6, 128), (12, 192), (32, 256)]
+
+
+def _split_case(rng, bs, g, dh, dtype, quant, paged, dev):
+    """3 rows of KV 2 over 2048 slots, lengths 0 / 700 / 2048: many
+    splits, a split across 700 and splits past it; (kernel, plain)."""
+    r, s = 3, 2048
+    q, k, v, ks, vs = _cache(rng, r, s, 2, g, dh, dtype, quant, dev)
+    lens = torch.tensor([0, 700, s], dtype=torch.int32, device=dev)
+    n_split, _ = fd_k.plan_splits(r, 2, -(-g // fd_k.head_chunk(g, dh)), s,
+                                  fd_k._sm_count(dev.index or 0))
+    assert n_split > 1
+    if not paged:
+        return (lambda: fd_k.flash_decode(q, k, v, lens, ks, vs, bs=bs),
+                lambda: fd_k.flash_decode_plain(q, k, v, lens, ks, vs,
+                                                bs=bs))
+    n_bt = s // bs
+    perm = torch.from_numpy(rng.permutation(r * n_bt + 5)[:r * n_bt]).to(dev)
+
+    def pool(t):
+        if t is None:
+            return None
+        out = torch.zeros((r * n_bt + 5, bs) + tuple(t.shape[2:]),
+                          dtype=t.dtype, device=dev)
+        out[perm] = t.reshape((r * n_bt, bs) + tuple(t.shape[2:]))
+        return out
+
+    args = (q, pool(k), pool(v),
+            perm.reshape(r, n_bt).to(torch.int32).contiguous(), lens,
+            pool(ks), pool(vs))
+    return (lambda: fd_k.flash_decode_paged(*args),
+            lambda: fd_k.flash_decode_paged_plain(*args))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=("contig", "paged"))
+@pytest.mark.parametrize("bs", [16, 32, 512])
+@pytest.mark.parametrize("gdh", FD_SPLIT_GROUPS, ids=str)
+def test_flash_decode_splits_match_plain(cuda, gdh, bs, paged):
+    """Rows far longer than a split, at every query-head group; the same
+    launch twice is bitwise equal (splits merge in order, no atomics)."""
+    g, dh = gdh
+    rng = np.random.default_rng(23 + g + bs)
+    kern, plain = _split_case(rng, bs, g, dh, torch.bfloat16, False, paged,
+                              cuda)
+    got = kern()
+    _close(got, plain(), torch.bfloat16)
+    assert torch.equal(got, kern())
+    if paged:
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=("model", "int8"))
+@pytest.mark.parametrize("paged", [False, True], ids=("contig", "paged"))
+def test_flash_decode_splits_f32_match_plain(cuda, paged, quant):
+    """The f32 and int8 caches through the split path (the engine's f32
+    phases run it token-exact)."""
+    rng = np.random.default_rng(24)
+    kern, plain = _split_case(rng, 16, 4, 160, torch.float32, quant, paged,
+                              cuda)
+    _close(kern(), plain(), torch.float32)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=("model", "int8"))
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("paged", [False, True], ids=("contig", "paged"))
+def test_flash_decode_odd_head_width_matches_plain(cuda, paged, dt, quant):
+    """dh 40, not a multiple of 16: rows are copied element by element
+    into zero-padded tiles instead of by bulk copies."""
+    rng = np.random.default_rng(25)
+    kern, plain = _split_case(rng, 16, 3, 40, DTYPES[dt], quant, paged,
+                              cuda)
+    _close(kern(), plain(), DTYPES[dt])
+
+
 # grouped #14 / #19 at 1-32 rows per expert: (N, K) off the 128-row
 # block and the 128-column chunk (N 1411; #14 K 1376, whose sign words are
 # not whole 16-byte loads; #19 K 1412, whose N:M rows start off 16 bytes)
