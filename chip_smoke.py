@@ -15,7 +15,10 @@ Phases:
      kernels, int32 ELL ids at (4096, 4096), and the kernels without sign
      words also at (4099, 4100) (K not a multiple of 32, odd K_max); times
      at M = 4, bf16, rank 1 beside the byte bound, the plain version and
-     one torch.matmul against the reconstructed dense W. Then both
+     one torch.matmul against the reconstructed dense W; #2 slab_nm_matmul
+     at bf16 also through each of its two libraries (grouped_tc.cu, K
+     split across blocks, and the first design), and timed through each
+     at M 1, 2, 4, 8, 16 at (4096, 4096) (its "M sweep" lines). Then both
      flash-decode kernels (paged #11, contiguous #10) against their plain
      versions at the decode shapes of llama2-7b (R 8, KV 32, G 1, dh 128)
      and stablelm-12b (R 8, KV 8, G 4, dh 160), and at qwen2-vl-2b's
@@ -39,11 +42,12 @@ Phases:
      beside the byte bound, the plain version and one torch.bmm on the
      reconstructed dense (E, K, N) stack, and at the first shape the
      kernel alone at each other M (the "M sweep" lines); #14 on both
-     models and #12, #13 and #19 also checked and timed at M = 1, 2, 3,
-     4, 6, 8, 9, 16, 20, 32 (bf16, rank 1), through the wrapper (the line
-     names the library it ran at each M) and through each of their two
-     libraries, grouped_tc.cu and the first design; the first design of
-     #12, #13 and #19 also timed at f32;
+     models and #12, #13, #18 and #19 also checked and timed at M = 1, 2,
+     3, 4, 6, 8, 9, 16, 20, 32 (bf16, rank 1), through the wrapper (the
+     line names the library it ran at each M) and through each of their
+     two libraries, grouped_tc.cu and the first design; #18 also through
+     each library at the timed M; the first design of #12, #13 and #19
+     also timed at f32;
   3. the port's main paths at full width with cut depth: compress_model
      (16x128 calibration) -> pack_model -> greedy_decode (batch 4, prompt
      32, gen 16, square and ragged), once per packed variant, llama2-7b:
@@ -75,14 +79,17 @@ Phases:
        w  slab, CR 0.5, then W_S := 0                -> binlr (#9, #20)
      Launch counts are zeroed just before each greedy_decode and read
      just after, one counter per library: phase m's #14 (2 rows per
-     expert) must run only the first design (ell.cu), phases r, s, t and
-     v only grouped_tc.cu, and phases q and x (f32) only ell.cu;
+     expert) must run only the first design (ell.cu), phases b and n's #2
+     and phases r, s, t, u and v's grouped kernel only grouped_tc.cu, and
+     phases q and x (f32) only ell.cu;
      final-step logits are held against the dense-equivalent
      (reconstructed-W) model — for the MoE models against dense experts
      (and dense shared experts) behind the same packed attention, whose
      expert choices must agree token for token (_hold_moe_logits says
-     why); phases a, m, r, s, t and v are profiled; phases e-i also print the eval
-     perplexity (lm.loss_fn) of the uncompressed and the compressed model.
+     why); phases a, b, m, r, s, t, u and v are profiled (b and u with
+     #2's and #18's device time per step and share of the busy time);
+     phases e-i also print the eval perplexity (lm.loss_fn) of the
+     uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
      packed:
        k  llama2-7b f32, 2 layers: a mixed-arrival trace of 10 requests
@@ -102,9 +109,9 @@ Phases:
           request terminal); no block leaked;
        x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
           factor 64/6;
-  4. one JSON line listing every ported kernel (all twenty; #12, #13,
-     #14 and #19 once per library, each with its own launch counter:
-     twenty-four entries), then the result line.
+  4. one JSON line listing every ported kernel (all twenty; #2, #12,
+     #13, #14, #18 and #19 once per library, each with its own launch
+     counter: twenty-six entries), then the result line.
 
 Any failed check raises, and the script exits non-zero. It needs
 ``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
@@ -130,6 +137,12 @@ BATCHES = (1, 4, 37)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TIMED = dict(m=4, dtype=torch.bfloat16, rank=1)
 JSON_SHAPE = (4096, 4096)          # q/k/v/o: 4 of the 7 linears per layer
+SLEEP_CYCLES = 400_000             # ~0.2 ms of device sleep before a timed call
+# kernels whose two libraries are also checked and timed one by one at
+# every bf16 timed case (the JSON line reports each library's time)
+LIB_TIMED = ("slab_nm_matmul", "slab_lr_matmul_g")
+# #2's per-library M sweep at JSON_SHAPE (bf16, rank 1, 2:4 and 4:8)
+NM_SWEEP_M = (1, 2, 4, 8, 16)
 
 
 def log(msg: str) -> None:
@@ -162,6 +175,8 @@ def environment():
         + " ".join(f"{s}={t:.2f}s" for s, t in per_src.items()))
     for s in build.SOURCES:
         log(f"  ptxas {s}: {_ptxas_summary(build.build_log(s))}")
+    log("  ptxas grouped_tc.cu tc bodies (#19, #18, #2): "
+        + _ptxas_tc(build.build_log("grouped_tc.cu")))
     return card
 
 
@@ -174,6 +189,28 @@ def _ptxas_summary(text: str) -> str:
     return (f"{len(regs)} entries, at most {max(regs, default=0)} registers"
             f", {len(spilling)} spilling (at most "
             f"{max(spilling, default=0)} bytes of spill stores)")
+
+
+def _ptxas_tc(text: str) -> str:
+    """Registers and spill-store bytes of each tc_kernel / tc_bin_kernel
+    entry of a ``-Xptxas -v`` report, as kernel<source, n-tiles>."""
+    out = []
+    pat = re.compile(r"Compiling entry function '_ZN2tc(\d+)(tc_(?:bin_)?kernel)"
+                     r"INS_(?:\d+)(NmSrc|DenseSrc)(?:ILi(\d)ELi(\d)EE)?"
+                     r"ELi(\d)E")
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        m = pat.search(line)
+        if not m:
+            continue
+        _, kern, src, nk, mg, ntp = m.groups()
+        src = f"{src}<{nk},{mg}>" if nk else src
+        tail = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", tail)
+        spill = re.search(r"(\d+) bytes spill stores", tail)
+        out.append(f"{kern}<{src},{ntp}> {regs.group(1) if regs else '?'}r"
+                   f"/{spill.group(1) if spill else '?'}sp")
+    return " ".join(out)
 
 
 # ---------------------------------------------------------------- phase 2
@@ -287,7 +324,11 @@ def _cases(planes, x, rank, wide_ids=False):
                 (nv, ni, b, u, v),
                 lambda nv=nv, ni=ni, nn=nn, mm=mm: unpack_nm(
                     NMPacked(nv, ni, nn, mm, k)).float() + w_b(),
-                ops(nv.numel(), binary=True)))
+                ops(nv.numel(), binary=True),
+                libs={kk.key: (lambda kk=kk, nv=nv, ni=ni, mm=mm:
+                               slab_k.launch_slab_nm(kk, x, nv, ni, mm, b, u,
+                                                     v))
+                      for kk in (slab_k.SLAB_NM, slab_k.SLAB_NM_FIRST)}))
         ws = planes["dense"]
         out.append(Case(
             "slab_matmul", "slab_matmul",
@@ -365,13 +406,16 @@ def _nbytes(*ts) -> int:
 
 def time_ms(fn, flush, reps=20) -> float:
     """Mean device time of one call, by CUDA events, with the 50 MB L2
-    flushed before each call (the serve path streams cold weights). The
-    flush also hides the host-side launch cost from the events."""
+    flushed before each call (the serve path streams cold weights). A
+    device sleep of SLEEP_CYCLES after the flush keeps the card busy
+    while the host runs the wrapper, so the events see the call's device
+    time and none of its host-side launch cost."""
     fn()
     sync()
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -420,14 +464,25 @@ def kernel_checks():
                                     device="cuda").to(dtype)
                     wide = (n, k) == JSON_SHAPE
                     for c in _cases(planes, x, rank, wide_ids=wide):
+                        where = f"N={n} K={k} M={m}"
                         got, ref = _check_case(c, x, n, dtype, rank, worst,
-                                               f"N={n} K={k} M={m}")
+                                               where)
                         n_checks += 1
+                        libs = {}
+                        if c.kernel in LIB_TIMED and dtype == torch.bfloat16:
+                            for key, fn in c.libs.items():
+                                g2, _ = _check_case(
+                                    c, x, n, dtype, rank, worst,
+                                    f"{where} through {key}", kern=fn,
+                                    ref=ref)
+                                n_checks += 1
+                                libs[key] = (fn, float(
+                                    (g2.float() - ref.float()).abs().max()))
                         if ((n, k) in SHAPES and m == TIMED["m"]
                                 and dtype == TIMED["dtype"]
                                 and rank == TIMED["rank"]):
                             timed[(c.label, n, k)] = _time_case(
-                                c, x, rank, got, ref, flush)
+                                c, x, rank, got, ref, flush, libs=libs)
                 del planes
     ops.reset_launch_counts()        # comparison launches do not count
     log(f"kernel checks: {n_checks} cases passed; worst max|err|/max|ref|: "
@@ -435,10 +490,58 @@ def kernel_checks():
     return timed, worst
 
 
-def _time_case(c, x, rank, got, ref, flush, plain_reps=20):
+def nm_sweep(flush):
+    """#2 slab_nm_matmul at JSON_SHAPE, bf16, rank 1, 2:4 and 4:8, at every
+    M of NM_SWEEP_M: checked against its plain version and timed through
+    the wrapper (each M tagged with the library it ran) and through each
+    of its two libraries."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    n, k = JSON_SHAPE
+    dtype = torch.bfloat16
+    planes = _planes(n, k, dtype, 1, gen)
+    source = {kk.key: kk.source for kk in ops.KERNELS}
+    worst, n_checks, ms = {}, 0, {}
+    for m in NM_SWEEP_M:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        for c in _cases(planes, x, 1):
+            if c.kernel != "slab_nm_matmul":
+                continue
+            where = f"N={n} K={k} M={m} (sweep)"
+            before = ops.launch_counts()
+            _, ref = _check_case(c, x, n, dtype, 1, worst, where)
+            ran = " ".join(source[kk] for kk, v in ops.launch_counts().items()
+                           if v > before[kk])
+            ms.setdefault((c.label, None), {})[m] = (time_ms(c.kern, flush),
+                                                     ran)
+            n_checks += 1
+            for key, fn in c.libs.items():
+                _check_case(c, x, n, dtype, 1, worst,
+                            f"{where} through {source[key]}", kern=fn,
+                            ref=ref)
+                n_checks += 1
+                ms.setdefault((c.label, key), {})[m] = (time_ms(fn, flush),
+                                                        "")
+    del planes
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()        # comparison launches do not count
+    for (label, key), by_m in ms.items():
+        how = f" through {source[key]}" if key else ""
+        log(f"  M sweep {label} N={n} K={k} bf16 r1{how}: "
+            + " ".join(f"M={m}: {t:.4f} ms" + (f" ({ran})" if ran else "")
+                       for m, (t, ran) in sorted(by_m.items())))
+    log(f"slab_nm_matmul sweep: {n_checks} cases passed; worst "
+        "max|err|/max|ref|: "
+        + " ".join(f"{l}={w:.3g}" for l, w in worst.items()))
+
+
+def _time_case(c, x, rank, got, ref, flush, plain_reps=20, libs=None):
     """Kernel, plain and library times of one case; the library call is
     one torch.matmul on the dense Ŵ, or for a grouped case (x (E, M, K))
-    one torch.bmm on the dense (E, K, N) stack."""
+    one torch.bmm on the dense (E, K, N) stack. ``libs`` (counter key ->
+    (call, max|err|)): each library of a kernel that has two, timed too
+    (rec["libs"])."""
     k = x.shape[-1]
     w_hat = c.w_hat().to(x.dtype)
     if x.dim() == 3:
@@ -468,6 +571,12 @@ def _time_case(c, x, rank, got, ref, flush, plain_reps=20):
         f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f}"
         f" ({rec['bound_by']}, {n_bytes / 1e6:.2f} MB) "
         f"roofline={rec['bound_ms'] / rec['ms']:.3f}")
+    if libs:
+        rec["libs"] = {key: {"ms": time_ms(fn, flush), "max_abs_err": err}
+                       for key, (fn, err) in libs.items()}
+        log(f"    {c.label} by library: " + " ".join(
+            f"{key}={v['ms']:.4f} ms ({rec['bound_ms'] / v['ms']:.3f} of "
+            "bound)" for key, v in rec["libs"].items()))
     return rec
 
 
@@ -503,7 +612,7 @@ G_SPECS = {
         bucket=(9, 61, 0, 33, 17, 48, 5), batches=(1, 6, 20), timed_m=6,
         odd=(1411, 1412), seed=4,
         sweep=("slab_ell_matmul_g", "slab_nm_lr_matmul_g", "ell_matmul_g",
-               "ell_lr_matmul_g"),
+               "ell_lr_matmul_g", "slab_lr_matmul_g"),
         timed_f32=("slab_nm_lr_matmul_g[2:4]", "ell_matmul_g",
                    "ell_lr_matmul_g")),
 }
@@ -698,7 +807,10 @@ def _g_cases(planes, x, rank, kernels, wide_ids=False):
             lambda: g_k.slab_lr_matmul_g(x, ws, u, v),
             lambda: g_k.slab_lr_matmul_g_plain(x, ws, u, v),
             (ws, u, v), lambda: ws.float() + lr(),
-            ops(ws.numel(), lowrank=True)))
+            ops(ws.numel(), lowrank=True),
+            libs={kk.key: (lambda kk=kk: g_k.launch_slab_lr_g(kk, x, ws, u,
+                                                              v))
+                  for kk in (g_k.SLAB_LR_G, g_k.SLAB_LR_G_FIRST)}))
     if "slab_nm_lr_matmul_g" in want:
         for pat, nv, ni, nn, mm in nms():
             out.append(Case(
@@ -751,9 +863,22 @@ def grouped_checks(flush, model):
                         at_timed = (e == n_exp and dtype == G_TIMED["dtype"]
                                     and rank == G_TIMED["rank"])
                         if at_timed and m == spec["timed_m"]:
+                            libs = {}
+                            if c.kernel in LIB_TIMED:
+                                for key, fn in c.libs.items():
+                                    g2, _ = _check_case(
+                                        c, x, n, dtype, rank, worst,
+                                        f"E={e} N={n} K={k} M={m} through "
+                                        f"{key}", kern=fn, ref=ref)
+                                    n_checks += 1
+                                    libs[key] = (fn, float(
+                                        (g2.float() - ref.float()).abs()
+                                        .max()))
+                                    del g2
                             # the plain loops take up to ~100 ms: 3 reps
                             timed[(c.label, n, k)] = _time_case(
-                                c, x, rank, got, ref, flush, plain_reps=3)
+                                c, x, rank, got, ref, flush, plain_reps=3,
+                                libs=libs)
                         elif (e == n_exp and m == spec["timed_m"]
                               and dtype == torch.float32 and rank == 1
                               and c.label in spec.get("timed_f32", ())):
@@ -1120,13 +1245,13 @@ def _experts_dense(packed, dense):
     return out
 
 
-def _greedy_profile(cfg, params, prompts, step_ms, label):
+def _greedy_profile(cfg, params, prompts, step_ms, label, focus=None):
     """``_device_profile`` over one greedy_decode of PROMPT + 4 - 1
     decode steps."""
     from repro_torch.launch.serve import greedy_decode
     _device_profile(lambda: greedy_decode(cfg, params, prompts, 4,
                                           device="cuda"),
-                    PROMPT + 4 - 1, step_ms, label)
+                    PROMPT + 4 - 1, step_ms, label, focus)
 
 
 def _device_profile(run, steps, step_ms, label, focus=None):
@@ -1136,7 +1261,7 @@ def _device_profile(run, steps, step_ms, label, focus=None):
     card's busy share, the rest is time the host holds it back. Prints
     the five kernels that take the most, and with ``focus`` = (what,
     name part) the device time per step of the kernels whose names hold
-    that part. Returns the busy share (None when the profiler saw no
+    that part (spaces ignored) and its share of the busy time. Returns the busy share (None when the profiler saw no
     device time), and with ``focus`` also that time per step."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1160,9 +1285,11 @@ def _device_profile(run, steps, step_ms, label, focus=None):
     if not focus:
         return share
     what, part = focus
-    hit = [e for e in kern if part in e.key]
+    hit = [e for e in kern
+           if part.replace(" ", "") in e.key.replace(" ", "")]
     ms = sum(e.self_device_time_total for e in hit) / 1e3 / steps
-    log(f"  profile {label}: {what} {ms:.4f} ms per step in "
+    log(f"  profile {label}: {what} {ms:.4f} ms per step "
+        f"({ms / busy_ms:.3f} of busy) in "
         f"{sum(e.count for e in hit) / steps:g} launches ("
         + ", ".join(e.key.split("(")[0][:60] for e in hit) + ")")
     return share, ms
@@ -1259,11 +1386,13 @@ def _only_through(counts, key, where):
 def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
                 profiled=False, method="slab", options=None, note="",
                 ppl=False, zero_ws=False, arch="llama2_7b",
-                expert_kernel=None):
+                expert_kernel=None, focus=None):
     """compress_model -> pack_model -> greedy_decode of ``arch`` at full
     width cut to ``n_layers``; ``kernel`` serves every 2-D linear and, on
     a MoE model, ``expert_kernel`` every expert leaf (one launch per
-    group). Returns the launches of the main-path runs per kernel."""
+    group). ``focus`` (what, kernel name part): the profile's device time
+    of that kernel. Returns the launches of the main-path runs per
+    kernel."""
     from repro_torch import configs
     from repro_torch.core.packed_model import pack_model
     from repro_torch.core.pipeline import compress_model
@@ -1373,7 +1502,7 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
         f"{dt_dense / steps * 1e3:.2f} ms per decode step")
     if profiled:
         _greedy_profile(cfg, packed, prompts,
-                        runs["square"][1] / steps * 1e3, "packed")
+                        runs["square"][1] / steps * 1e3, "packed", focus)
         _greedy_profile(cfg, dense_c, prompts, dt_dense / steps * 1e3,
                         "dense-equivalent")
     sq, rg = runs["square"][0], runs["ragged"][0]
@@ -1782,7 +1911,9 @@ PHASES = (
                variant="slab-ell", kernel="slab_ell_matmul", tol=3e-2,
                profiled=True)),
     ("b", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
-               variant="slab-nm", kernel="slab_nm_matmul", tol=3e-2)),
+               variant="slab-nm", kernel="slab_nm_matmul", tol=3e-2,
+               profiled=True,
+               focus=("#2 slab_nm_matmul", "NmSrc<2, 4>, 1, false, true>"))),
     ("c", dict(n_layers=2, dtype=torch.bfloat16, cr=0.2, pattern=None,
                variant="slab-dense", kernel="slab_matmul", tol=3e-2)),
     ("d", dict(n_layers=2, dtype=torch.float32, cr=0.5, pattern=None,
@@ -1853,7 +1984,9 @@ PHASES = (
     ("u", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.4, pattern=None, variant="lowrank-dense",
                kernel="slab_lr_matmul", expert_kernel="slab_lr_matmul_g",
-               tol=3e-2, options=dict(iters=8, include_binary=False))),
+               tol=3e-2, options=dict(iters=8, include_binary=False),
+               profiled=True,
+               focus=("#18 slab_lr_matmul_g", "tc::DenseSrc"))),
     ("v", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.5, pattern="2:4", variant="lowrank-nm",
                kernel="slab_nm_lr_matmul",
@@ -1876,7 +2009,8 @@ JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
 # ... and of each grouped kernel's library, by counter key: the G_SPECS
 # model and the timed case (at that model's first shape). #14's first
 # design reports phi3.5-moe at M 2, where its decode runs it; #12's, #13's
-# and #19's their f32 launches.
+# and #19's their f32 launches; #18's (and #2's, above) each library at
+# the timed case (LIB_TIMED: the case's "libs").
 G_JSON = {"slab_ell_matmul_g": ("deepseek-moe-16b", "slab_ell_matmul_g"),
           "slab_ell_matmul_g@ell.cu": ("phi3.5-moe", "slab_ell_matmul_g"),
           "nm_matmul_g": ("phi3.5-moe", "nm_matmul_g[2:4]"),
@@ -1888,6 +2022,8 @@ G_JSON = {"slab_ell_matmul_g": ("deepseek-moe-16b", "slab_ell_matmul_g"),
           "ell_lr_matmul_g@ell.cu": ("deepseek-moe-16b",
                                      "ell_lr_matmul_g f32"),
           "slab_lr_matmul_g": ("deepseek-moe-16b", "slab_lr_matmul_g"),
+          "slab_lr_matmul_g@slab_matmul.cu": ("deepseek-moe-16b",
+                                              "slab_lr_matmul_g"),
           "slab_nm_lr_matmul_g": ("deepseek-moe-16b",
                                   "slab_nm_lr_matmul_g[2:4]"),
           "slab_nm_lr_matmul_g@slab_matmul.cu": (
@@ -1925,6 +2061,8 @@ def main():
     timed, worst = kernel_checks()
     mark("kernels")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    nm_sweep(flush)
+    mark("nm sweep")
     fd_timed, fd_worst = flash_checks(flush)
     mark("flash")
     g_timed, g_worst = {}, {}
@@ -1950,12 +2088,19 @@ def main():
             launches[kname] += c
         mark(tag)
 
+    def by_lib(rec, key):
+        """The record with the library ``key``'s own time where it was
+        timed alone (LIB_TIMED)."""
+        lib = rec.get("libs", {}).get(key)
+        return {**rec, **lib} if lib else rec
+
     entries = []
     for kern in ops.KERNELS:
         if kern.key in G_JSON:
             model, label = G_JSON[kern.key]
             spec = G_SPECS[model]
-            rec = g_timed[model][(label,) + spec["shapes"][0]]
+            rec = by_lib(g_timed[model][(label,) + spec["shapes"][0]],
+                         kern.key)
             entries.append({
                 "name": kern.name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{kern.source}",
@@ -1969,11 +2114,10 @@ def main():
                           "K": spec["shapes"][0][1], "dtype": rec["dtype"],
                           "rank": 1},
                 "worst_rel_err": g_worst[model][label.split(" ")[0]],
-                "by_shape": {f"{n}x{k}": {kk: g_timed[model][(label, n, k)]
-                                          [kk] for kk in ("ms", "plain_ms",
-                                                          "library_ms",
-                                                          "bound_ms")}
-                             for (n, k) in spec["shapes"]}})
+                "by_shape": {f"{n}x{k}": {
+                    kk: by_lib(g_timed[model][(label, n, k)], kern.key)[kk]
+                    for kk in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                    for (n, k) in spec["shapes"]}})
             continue
         if kern.name in FLASH:
             rec = fd_timed[(kern.name, FD_TIMED["layout"], FD_MAX)]
@@ -1992,12 +2136,12 @@ def main():
                     for layout, s in FD_TIMES}})
             continue
         label = JSON_LABEL[kern.name]
-        rec = timed[(label,) + JSON_SHAPE]
+        rec = by_lib(timed[(label,) + JSON_SHAPE], kern.key)
         entries.append({
             "name": kern.name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kern.source}",
             "replaces": kern.replaces.split(" ")[0],
-            "launches": launches[kern.name],
+            "launches": launches[kern.key], "counter": kern.key,
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -2005,10 +2149,10 @@ def main():
             "shape": {"M": TIMED["m"], "N": JSON_SHAPE[0],
                       "K": JSON_SHAPE[1], "dtype": "bfloat16", "rank": 1},
             "worst_rel_err": worst[label],
-            "by_shape": {f"{n}x{k}": {kk: timed[(label, n, k)][kk] for kk in
-                                      ("ms", "plain_ms", "library_ms",
-                                       "bound_ms")}
-                         for (n, k) in SHAPES}})
+            "by_shape": {f"{n}x{k}": {
+                kk: by_lib(timed[(label, n, k)], kern.key)[kk]
+                for kk in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for (n, k) in SHAPES}})
     log(f"engine (phase l): {json.dumps(engine_l)}")
     log(f"seconds per phase: {json.dumps(seconds)}")
     log(f"card: {card}; total {time.monotonic() - t_start:.1f}s")

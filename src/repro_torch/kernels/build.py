@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -120,6 +121,13 @@ def stream_ptr(device) -> int:
     """PyTorch's current CUDA stream on ``device``, as an int handle."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_operand(t, name: str, dtype, shape, device) -> None:

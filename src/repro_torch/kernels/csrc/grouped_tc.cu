@@ -1,21 +1,27 @@
-// The bf16 grouped-expert kernels redesigned for Hopper:
+// The bf16 kernels redesigned for Hopper, grouped-expert and one 2-D:
 //
 //   slab_ell_matmul_g:    y[e] = x[e] · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ   (#14)
 //   slab_nm_lr_matmul_g:  y[e] = x[e] · (W_S + U Vᵀ)ᵀ              (#19)
+//   slab_lr_matmul_g:     the same with a dense W_S                (#18)
+//   slab_nm_matmul:       y = x · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ, N:M   (#2)
 //   ell_matmul_g:         y[e] = x[e] · W_Sᵀ                       (#12)
 //   ell_lr_matmul_g:      y[e] = x[e] · W_Sᵀ + (x[e] · Vᵀ) · U     (#13)
 //
 // Replace repro/kernels/grouped.py::slab_ell_matmul_g (_kernel_slab_ell_g,
 // pallas_call at grouped.py:142), ::slab_nm_lr_matmul_g
-// (_kernel_nm_lr_g, pallas_call at grouped.py:402), ::ell_matmul_g
-// (_kernel_ell_g, pallas_call at grouped.py:64) and ::ell_lr_matmul_g
-// (_kernel_ell_lr_g, pallas_call at grouped.py:103) for bf16 operands.
+// (_kernel_nm_lr_g, pallas_call at grouped.py:402), ::slab_lr_matmul_g
+// (_kernel_dense_lr_g, pallas_call at grouped.py:348), ::ell_matmul_g
+// (_kernel_ell_g, pallas_call at grouped.py:64), ::ell_lr_matmul_g
+// (_kernel_ell_lr_g, pallas_call at grouped.py:103) and
+// repro/kernels/slab_matmul.py::slab_nm_matmul (_kernel_nm, pallas_call
+// at slab_matmul.py:135) for bf16 operands.
 // The first design (ell.cu, slab_matmul.cu) keeps the f32 launches,
-// which hold 1e-5 without TF32, #19's patterns other than 2:4 / 4:8, and
-// #12, #13 and #14 at 1-2 rows per expert, where its 2-byte gathers are
-// cheaper than these kernels' 16-byte ones (grouped.TC_MIN_ROWS,
-// grouped.ELL_TC_MIN_ROWS). #14 and #19 use the tensor cores; #12 and
-// #13, whose work is all gather, do not (their section below).
+// which hold 1e-5 without TF32, #19's and #2's patterns other than 2:4 /
+// 4:8, and #12, #13 and #14 at 1-2 rows per expert, where its 2-byte
+// gathers are cheaper than these kernels' 16-byte ones
+// (grouped.TC_MIN_ROWS, grouped.ELL_TC_MIN_ROWS). #14, #19, #18 and #2
+// use the tensor cores; #12 and #13, whose work is all gather, do not
+// (their section below).
 //
 // #14 and #19's bound on the H100: bytes. At the MoE decode shapes (1-32
 // rows per expert) each expert is a skinny GEMM: the E experts' planes (ELL vals +
@@ -76,6 +82,10 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 using slab::aligned16;
+using slab::bulk_copy;
+using slab::mbar_expect;
+using slab::mbar_init;
+using slab::mbar_wait;
 
 constexpr int kWarps = 8;            // warps per block, 16 weight rows each
 constexpr int kRows = 16 * kWarps;   // output rows per block
@@ -507,11 +517,74 @@ extern "C" int slab_ell_matmul_g(int dtype, int idx_bytes, const void* x,
 
 namespace tc {
 
-// ---------------------------------------------------------------- #19
+// ---------------------------------------------------------------- #19, #18, #2
+//
+// One body, tc_kernel, serves three kernels whose weight rows meet x on
+// the tensor cores in one k order:
+//
+//   slab_nm_lr_matmul_g  y[e] = x[e] · W_S[e]ᵀ + (x[e] · V[e]ᵀ) · U[e],
+//                        W_S in N:M form                             (#19)
+//   slab_lr_matmul_g     the same with a dense W_S                   (#18)
+//   slab_nm_matmul       y = x · W_Sᵀ + Σ_r u_r ⊙ (B · (x ⊙ v_r)ᵀ),
+//                        W_S in N:M form, B the ±1 sign words        (#2)
+//
+// #18 replaces repro/kernels/grouped.py::slab_lr_matmul_g
+// (_kernel_dense_lr_g, pallas_call at grouped.py:348) and #2
+// repro/kernels/slab_matmul.py::slab_nm_matmul (_kernel_nm, pallas_call
+// at slab_matmul.py:135), for bf16 operands (#2 at 2:4 and 4:8); their
+// f32 launches and #2's other patterns keep the first design
+// (slab_matmul.cu), which holds 1e-5 without TF32.
+//
+// A block owns kRows = 128 output rows of one expert, a warp 16 (grid
+// (⌈N/128⌉, E, splits of K)); x is staged once per 8·NTP batch rows;
+// within each 128-column chunk lane q of a row group owns columns 32q ..
+// 32q + 31 (the k-slots 2q, 2q+1 / 2q+8, 2q+9 of step s are its columns
+// 4s, 4s+1 / 4s+2, 4s+3) on the A and the B side alike, and reads B as
+// four 16-byte loads of its x row. What differs is where A comes from
+// (the Src template):
+//  - NmSrc (#19, #2): decoded in registers from vals and positions read a
+//    chunk ahead of their use, two 16-byte value loads and one 16-byte
+//    position load a row; 2:4 is decoded by byte permutes, 4:8 by
+//    comparisons. A position outside [0, m) matches no column and
+//    contributes 0.
+//  - DenseSrc (#18): its bound is the dense expert stack's bytes, what
+//    one torch.bmm streams, so the design is the stream. Each warp's 16
+//    rows of a chunk arrive by one bulk copy a row (cp.async.bulk on an
+//    mbarrier: the tensor memory accelerator, no per-lane address work)
+//    into a ring of stages of its own, every stage in flight while the
+//    warp works from registers, and the ring is sized so that two blocks
+//    share an SM (one block's start, x staged and projected, overlaps the
+//    other's stream). A row of a stage is 272 bytes (16 past 256), so the
+//    two rows a quarter-warp reads fall in different banks; within a row
+//    lanes q and q + 2 share a bank group (a 2-way conflict on the A
+//    loads, once a chunk).
+// #2 adds the ±1 term to the same accumulator as one more mma a rank and
+// step: A is ±u_r from the sign bits (sign word 4c + q of a row holds
+// exactly lane q's 32 columns of chunk c: bits 4s .. 4s + 3 are step
+// s's), B is bf16(x ⊙ v_r), rounded as the reference rounds it and
+// staged once a block beside x from the same loads (forming it from the
+// x fragment at every step, in every warp, took ~40 % of the kernel on
+// an H100). #2's per-linear shapes give few blocks of 128 rows ((4096,
+// 4096): 32 for 132 SMs), so K is split across blocks from the shapes
+// alone (kernels/slab_matmul.py::plan_nm_splits): each block stages only
+// its columns of x and x ⊙ v_r (the tiles stay small at any K) and writes
+// fp32 partial sums, and the last block of a row tile (counted by an
+// atomic ticket) adds them in split order, so two launches give the same
+// bits. #2 caps its registers so that two blocks share an SM; #19 and #18
+// run one split.
+// Built and timed on an H100 while this was designed (PERF.md gives the
+// direction; the builds are not kept): #2's N:M planes through a
+// shared-memory ring (bulk copies or cp.async, 3-4 stages) lost to the
+// registers at every shape; #18's ring by cp.async lost to the bulk
+// copies, and with one block an SM and 4 stages it lost to two blocks
+// and 2 stages.
+// #19's and #18's projection p = x·Vᵀ is formed once a block pass in fp32
+// from the staged x with a fixed reduction order; Σ_r p[m, r]·u_r[n] is
+// added in the epilogue, before the one rounding.
 
-// #19's x tile is row-major, Kp = K rounded up to 128 columns plus 8 of
-// padding a row (16 bytes past a multiple of 128), with the 16-byte unit
-// u of a row stored at u ^ ((u >> 2) & 2): the main loop's lanes read
+// The x tile is row-major, Kp = the staged columns rounded up to 128 plus
+// 8 of padding a row (16 bytes past a multiple of 128), with the 16-byte
+// unit u of a row stored at u ^ ((u >> 2) & 2): the main loop's lanes read
 // units 4q + j (q = 0..3) of two rows at once, and those land in eight
 // different bank groups.
 __device__ __forceinline__ int xr_unit(int u) { return u ^ ((u >> 2) & 2); }
@@ -519,32 +592,49 @@ __device__ __forceinline__ int xr_elem(int k) {
   return xr_unit(k >> 3) * 8 + (k & 7);
 }
 
-// Stage batch rows m0 .. m0 + 8·ntp - 1 of x (zero rows past M, zero
-// columns from K to Kp) with 16-byte stores.
+// Stage batch rows m0 .. m0 + 8·ntp - 1 of x (rows ldx apart; zero rows
+// past M, zero columns from kw to Kp) with 16-byte stores; with xv (#2)
+// also bf16(x ⊙ v_r) for each of the R ranks (v_r: R rows ldx apart from
+// v) as tiles of the same layout from xv + r·8·ntp·sx, from the same
+// loads of x.
 __device__ __forceinline__ void stage_rows(bf16* xr, const bf16* __restrict__ x,
-                                           int m0, int M, int K, int Kp,
-                                           int sx, int ntp) {
+                                           int ldx, int m0, int M, int kw,
+                                           int Kp, int sx, int ntp,
+                                           bf16* xv = nullptr,
+                                           const bf16* __restrict__ v = nullptr,
+                                           int R = 0) {
   const int nch = Kp / 8;
-  const bool vec = aligned16(x) && K % 8 == 0;
+  const bool vec = aligned16(x) && ldx % 8 == 0 &&
+                   (v == nullptr || aligned16(v));
+  auto load = [&](const bf16* p, int c) {
+    if (vec && c + 8 <= kw) return __ldg(reinterpret_cast<const uint4*>(p));
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t lo = c + 2 * j < kw ? bits16(p[2 * j]) : 0u;
+      const uint32_t hi = c + 2 * j + 1 < kw ? bits16(p[2 * j + 1]) : 0u;
+      w[j] = lo | (hi << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  };
   for (int i = threadIdx.x; i < ntp * 8 * nch; i += blockDim.x) {
     const int r = i / nch, ch = i - r * nch, c = ch * 8, m = m0 + r;
-    uint4 o = make_uint4(0, 0, 0, 0);
-    if (m < M && c < K) {
-      const bf16* p = x + (size_t)m * K + c;
-      if (vec) {
-        o = __ldg(reinterpret_cast<const uint4*>(p));
-      } else {
-        uint32_t w[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t lo = c + 2 * j < K ? bits16(p[2 * j]) : 0u;
-          const uint32_t hi = c + 2 * j + 1 < K ? bits16(p[2 * j + 1]) : 0u;
-          w[j] = lo | (hi << 16);
-        }
-        o = make_uint4(w[0], w[1], w[2], w[3]);
+    const bool in = m < M && c < kw;
+    const uint4 o = in ? load(x + (size_t)m * ldx + c, c)
+                       : make_uint4(0, 0, 0, 0);
+    const size_t at = (size_t)r * sx + xr_unit(ch) * 8;
+    *reinterpret_cast<uint4*>(xr + at) = o;
+    for (int k = 0; k < R; ++k) {
+      uint4 w = make_uint4(0, 0, 0, 0);
+      if (in) {
+        const uint4 vq = load(v + (size_t)k * ldx + c, c);
+        w.x = pack_bf16(lo_f(o.x) * lo_f(vq.x), hi_f(o.x) * hi_f(vq.x));
+        w.y = pack_bf16(lo_f(o.y) * lo_f(vq.y), hi_f(o.y) * hi_f(vq.y));
+        w.z = pack_bf16(lo_f(o.z) * lo_f(vq.z), hi_f(o.z) * hi_f(vq.z));
+        w.w = pack_bf16(lo_f(o.w) * lo_f(vq.w), hi_f(o.w) * hi_f(vq.w));
       }
+      *reinterpret_cast<uint4*>(xv + (size_t)k * 8 * ntp * sx + at) = w;
     }
-    *reinterpret_cast<uint4*>(xr + (size_t)r * sx + xr_unit(ch) * 8) = o;
   }
 }
 
@@ -618,87 +708,277 @@ __device__ __forceinline__ void nm_decode(uint32_t (&a)[16],
   }
 }
 
-template <int NK, int MG, int NTP>
-__global__ void __launch_bounds__(kWarps * 32)
-nm_lr_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ vals,
-                const int8_t* __restrict__ idx, const bf16* __restrict__ u,
-                const bf16* __restrict__ v, bf16* __restrict__ y, int M,
-                int N, int K, int R) {
+// x << n with n of 32 or more giving 0 (PTX shl clamps the shift)
+__device__ __forceinline__ uint32_t shl_clamp(uint32_t x, uint32_t n) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;\n" : "=r"(r) : "r"(x), "r"(n));
+  return r;
+}
+
+// 2:4 by byte permutes: group j's two values are word v[j] (entry 0 low),
+// their positions bytes 2j, 2j + 1 of p. Column c of the group takes the
+// bytes that a selector byte names: 0x54 (the zero word's), 0x10 (entry
+// 0) or 0x32 (entry 1), set by XOR at byte 8·position; a position outside
+// [0, 4) shifts past the word and sets nothing.
+__device__ __forceinline__ void nm_decode_24(uint32_t (&a)[16],
+                                             const NmRaw& raw) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t pw = raw.p[j >> 1] >> (16 * (j & 1));
+    const uint32_t sel = 0x54545454u ^ shl_clamp(0x44u, (pw & 0xffu) << 3) ^
+                         shl_clamp(0x66u, ((pw >> 8) & 0xffu) << 3);
+    a[2 * j] = __byte_perm(raw.v[j], 0u, sel);
+    a[2 * j + 1] = __byte_perm(raw.v[j], 0u, sel >> 16);
+  }
+}
+
+// 2:4 by byte permutes, other patterns by comparisons
+template <int NK, int MG>
+__device__ __forceinline__ void nm_decode_a(uint32_t (&a)[16],
+                                            const NmRaw& raw) {
+  if constexpr (NK == 2 && MG == 4)
+    nm_decode_24(a, raw);
+  else
+    nm_decode<NK, MG>(a, raw);
+}
+
+constexpr int kRingStages = 4;               // most stages of a warp's ring
+
+// The operands of one tc_kernel launch.
+struct TcArgs {
+  const bf16* x;          // (E, M, K)
+  const bf16* w;          // vals (E·N, K/m·n) or the dense W_S (E·N, K)
+  const int8_t* idx;      // N:M positions, as vals
+  const uint32_t* bp;     // #2: sign words (N, K/32)
+  const bf16* u;          // (E, R, N)
+  const bf16* v;          // (E, R, K)
+  bf16* y;                // (E, M, N)
+  float* part;            // #2 split: (splits, M, N) partial sums
+  int* tickets;           // #2 split: one per row tile, zero between launches
+  int M, N, K, R;
+  int cps;                // 128-column chunks a split covers
+  int stages;             // DenseSrc: stages of each warp's ring
+};
+
+// A from N:M planes: the row pair's entries of the next chunk in
+// registers.
+template <int NK, int MG>
+struct NmSrc {
+  static constexpr bool kRing = false;
+  static constexpr int kStage = 0, kBlocks = 1;
+  const bf16* vals;
+  const int8_t* idx;
+  size_t ba, bb;          // first entries of rows g and g + 8
+  int K, q;
+  bool vec;
+  NmRaw na, nb;           // the next chunk's entries
+
+  __device__ __forceinline__ void init(const TcArgs& a, size_t ex, int row0,
+                                       int ra, int rb, unsigned char*,
+                                       uint64_t*, int lane) {
+    const size_t per_row = (size_t)(a.K / MG) * NK;
+    vals = a.w;
+    idx = a.idx;
+    ba = (ex * a.N + ra) * per_row;
+    bb = (ex * a.N + rb) * per_row;
+    K = a.K;
+    q = lane & 3;
+    vec = K % 32 == 0;
+  }
+  __device__ __forceinline__ void load(int c) {
+    nm_load<NK, MG>(na, vals, idx, ba, c + 32 * q, K, vec);
+    nm_load<NK, MG>(nb, vals, idx, bb, c + 32 * q, K, vec);
+  }
+  __device__ __forceinline__ void begin(int c0, int) { load(c0); }
+  // chunk c's A words (rows g, g + 8; a[j]: columns 32q + 2j, + 1), the
+  // next chunk's loads issued first
+  __device__ __forceinline__ void next(int c, int c1, uint32_t (&aa)[16],
+                                       uint32_t (&ab)[16]) {
+    const NmRaw ca = na, cb = nb;
+    if (c + 128 < c1) load(c + 128);
+    nm_decode_a<NK, MG>(aa, ca);
+    nm_decode_a<NK, MG>(ab, cb);
+  }
+};
+
+// A from dense rows: each warp's ring of stages in shared memory, one
+// bulk copy a row and chunk (lanes 0-15 copy rows row0 .. row0 + 15; rows
+// past N the last row, whose results are not stored). A row of a stage
+// is 272 bytes (16 past 256), so the two rows a quarter-warp reads fall
+// in different banks.
+struct DenseSrc {
+  static constexpr bool kRing = true;
+  static constexpr int kRow = 272;
+  static constexpr int kStage = 16 * kRow;
+  static constexpr int kBlocks = 2;           // blocks an SM (shared memory)
+  const bf16* row;        // lane < 16: its row of W_S
+  unsigned char* ring;    // this warp's stages
+  uint64_t* bars;         // and their mbarriers
+  int K, stages, lane;
+  uint32_t issued, used;  // chunks copied / read, over every pass
+
+  __device__ __forceinline__ void init(const TcArgs& a, size_t ex, int row0,
+                                       int, int, unsigned char* r,
+                                       uint64_t* b, int l) {
+    row = a.w + (ex * a.N + min(row0 + (l & 15), a.N - 1)) * (size_t)a.K;
+    ring = r;
+    bars = b;
+    K = a.K;
+    stages = a.stages;
+    lane = l;
+    issued = used = 0;
+  }
+  __device__ __forceinline__ void issue(int c) {
+    const int st = issued % stages;
+    const uint32_t bytes = (uint32_t)min(128, K - c) * 2u;
+    if (lane == 0) mbar_expect(&bars[st], 16u * bytes);
+    if (lane < 16)
+      bulk_copy(ring + st * kStage + lane * kRow, row + c, bytes, &bars[st]);
+    ++issued;
+  }
+  __device__ __forceinline__ void begin(int c0, int c1) {
+    for (int i = 0; i < stages && c0 + 128 * i < c1; ++i) issue(c0 + 128 * i);
+  }
+  // chunk c's A words from its stage (zero past K); the stage then takes
+  // the chunk `stages` ahead
+  __device__ __forceinline__ void next(int c, int c1, uint32_t (&aa)[16],
+                                       uint32_t (&ab)[16]) {
+    const int st = used % stages;
+    mbar_wait(&bars[st], (used / stages) & 1u);
+    const int g = lane >> 2, q = lane & 3;
+    const unsigned char* pa = ring + st * kStage + g * kRow + 64 * q;
+    const unsigned char* pb = pa + 8 * kRow;
+    const int left = K - c - 32 * q;        // this lane's columns left
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint4 wa = *reinterpret_cast<const uint4*>(pa + 16 * j);
+      uint4 wb = *reinterpret_cast<const uint4*>(pb + 16 * j);
+      if (8 * j >= left) wa = wb = make_uint4(0, 0, 0, 0);
+      aa[4 * j] = wa.x; aa[4 * j + 1] = wa.y;
+      aa[4 * j + 2] = wa.z; aa[4 * j + 3] = wa.w;
+      ab[4 * j] = wb.x; ab[4 * j + 1] = wb.y;
+      ab[4 * j + 2] = wb.z; ab[4 * j + 3] = wb.w;
+    }
+    __syncwarp();                         // every lane has read the stage
+    if (c + 128 * stages < c1) issue(c + 128 * stages);
+    ++used;
+  }
+};
+
+// LR: the low-rank projection and its epilogue term (#19, #18). BIN: the
+// ±1 term (#2), with K split over gridDim.z.
+template <class Src, int NTP, bool LR, bool BIN>
+__device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
+                                        int& last_split) {
   constexpr int MT = 8 * NTP;                 // batch rows per pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Kp = (K + 127) / 128 * 128, sx = Kp + 8;
-  bf16* xr = reinterpret_cast<bf16*>(smem_raw);            // (MT, sx)
-  float* p = reinterpret_cast<float*>(xr + (size_t)MT * sx);   // (R, MT)
-  float* part = p + (size_t)R * MT;                         // (kWarps, R, MT)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
+  const int M = a.M, N = a.N, K = a.K, R = a.R;
   const size_t ex = blockIdx.y;
-  x += ex * M * K;
-  y += ex * M * N;
-  u += ex * R * N;
-  v += ex * R * K;
+  const int n_split = gridDim.z;
+  const int k_lo = blockIdx.z * a.cps * 128;  // this split's columns
+  const int k_hi = min(K, k_lo + a.cps * 128);
+  const int kw = k_hi - k_lo;
+  const int Kp = (kw + 127) / 128 * 128, sx = Kp + 8;
+  bf16* xr = reinterpret_cast<bf16*>(smem_raw);                 // (MT, sx)
+  bf16* xv = xr + (size_t)MT * sx;        // BIN: R tiles of x ⊙ v_r
+  float* p = reinterpret_cast<float*>(xv + (BIN ? (size_t)R * MT * sx : 0));
+  float* part = p + (size_t)R * MT;       // LR: p (R, MT), (kWarps, R, MT)
+  unsigned char* ring = reinterpret_cast<unsigned char*>(p) +
+      (LR ? slab::align16_up((size_t)(kWarps + 1) * R * MT * sizeof(float))
+          : 0);
+  const bf16* x = a.x + ex * M * K;
+  bf16* y = a.y + ex * M * N;
+  const bf16* u = a.u + ex * R * N;
+  const bf16* v = a.v + ex * R * K;
   const int row0 = blockIdx.x * kRows + warp * 16;
   const bool live = row0 < N;
   const int ra = min(row0 + g, N - 1), rb = min(row0 + g + 8, N - 1);
-  const int per_row = K / MG * NK;            // stored entries per row
-  const bool evec = K % 32 == 0;
-  const size_t ba = (ex * N + ra) * per_row, bb = (ex * N + rb) * per_row;
 
+  Src src;
+  src.init(a, ex, row0, ra, rb, ring + (size_t)warp * a.stages * Src::kStage,
+           bars + warp * kRingStages, lane);
+  if (Src::kRing) {                  // each warp's own ring, used at once
+    if (lane < a.stages) mbar_init(&bars[warp * kRingStages + lane]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    __syncwarp();
+  }
+  // BIN: the row pair's sign words and u_r's bits twice (as #14)
+  const uint32_t* bpa = BIN ? a.bp + (ex * N + ra) * (size_t)(K / 32) : nullptr;
+  const uint32_t* bpb = BIN ? a.bp + (ex * N + rb) * (size_t)(K / 32) : nullptr;
+  uint32_t u2a[kMaxR], u2b[kMaxR];
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) {
+    const uint32_t ua = BIN && r < R ? bits16(u[(size_t)r * N + ra]) : 0u;
+    const uint32_t ub = BIN && r < R ? bits16(u[(size_t)r * N + rb]) : 0u;
+    u2a[r] = ua | (ua << 16);
+    u2b[r] = ub | (ub << 16);
+  }
+
+  // BIN: the lane's sign words of a chunk (zero past K), a chunk ahead
+  auto words = [&](int kc, uint32_t& wa, uint32_t& wb) {
+    const bool in = kc + 32 * q < K;
+    wa = in ? __ldg(bpa + kc / 32 + q) : 0u;
+    wb = in ? __ldg(bpb + kc / 32 + q) : 0u;
+  };
   for (int m0 = 0; m0 < M; m0 += MT) {
+    // the pass's first chunks of A (and sign words) load while x is
+    // staged (and projected)
+    uint32_t wna = 0u, wnb = 0u;
+    if (live) {
+      src.begin(k_lo, k_hi);
+      if (BIN) words(k_lo, wna, wnb);
+    }
     __syncthreads();                 // the previous pass's readers are done
-    stage_rows(xr, x, m0, M, K, Kp, sx, NTP);
+    if (BIN)
+      stage_rows(xr, x + k_lo, K, m0, M, kw, Kp, sx, NTP, xv, v + k_lo, R);
+    else
+      stage_rows(xr, x + k_lo, K, m0, M, kw, Kp, sx, NTP);
     __syncthreads();
-    // p[r, m] = Σ_k x[m, k] · v_r[k] in fp32: every warp takes a strided
-    // share of K, the partial sums are added in warp order
-    for (int r = 0; r < R; ++r) {
-      float acc[MT];
+    if (LR) {
+      // p[r, m] = Σ_k x[m, k] · v_r[k] in fp32: every warp takes a
+      // strided share of K, the partial sums are added in warp order
+      for (int r = 0; r < R; ++r) {
+        float acc[MT];
 #pragma unroll
-      for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-      for (int k = warp * 32 + lane; k < K; k += kWarps * 32) {
-        const float vk = __bfloat162float(v[(size_t)r * K + k]);
-        const int kk = xr_elem(k);
+        for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+        for (int k = warp * 32 + lane; k < K; k += kWarps * 32) {
+          const float vk = __bfloat162float(v[(size_t)r * K + k]);
+          const int kk = xr_elem(k);
 #pragma unroll
-        for (int m = 0; m < MT; ++m)
-          acc[m] += __bfloat162float(xr[(size_t)m * sx + kk]) * vk;
+          for (int m = 0; m < MT; ++m)
+            acc[m] += __bfloat162float(xr[(size_t)m * sx + kk]) * vk;
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float t = slab::warp_sum(acc[m]);
+          if (lane == 0) part[((size_t)warp * R + r) * MT + m] = t;
+        }
       }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float t = slab::warp_sum(acc[m]);
-        if (lane == 0) part[((size_t)warp * R + r) * MT + m] = t;
+      __syncthreads();
+      for (int i = threadIdx.x; i < R * MT; i += blockDim.x) {
+        float t = 0.f;
+        for (int w = 0; w < kWarps; ++w) t += part[(size_t)w * R * MT + i];
+        p[i] = t;
       }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < R * MT; i += blockDim.x) {
-      float t = 0.f;
-      for (int w = 0; w < kWarps; ++w) t += part[(size_t)w * R * MT + i];
-      p[i] = t;
-    }
-    __syncthreads();
     if (!live) continue;
 
     float c[NTP][4];
 #pragma unroll
     for (int t = 0; t < NTP; ++t)
       c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.f;
-    // within each 128-column chunk lane q owns columns 32q .. 32q + 31:
-    // the k-slots 2q, 2q+1 / 2q+8, 2q+9 of step s are its columns 4s,
-    // 4s+1 / 4s+2, 4s+3, so A words a[2s] / a[2s+1] and the B words of
-    // the same index. The next chunk's planes load before this chunk's
-    // decode.
-    NmRaw cur_a, cur_b, nxt_a, nxt_b;
-    nm_load<NK, MG>(cur_a, vals, idx, ba, 32 * q, K, evec);
-    nm_load<NK, MG>(cur_b, vals, idx, bb, 32 * q, K, evec);
-    for (int kc = 0; kc < K; kc += 128) {
-      const int cn = kc + 128 + 32 * q;
-      nm_load<NK, MG>(nxt_a, vals, idx, ba, cn, K, evec);
-      nm_load<NK, MG>(nxt_b, vals, idx, bb, cn, K, evec);
+    for (int kc = k_lo; kc < k_hi; kc += 128) {
       uint32_t aa[16], ab[16];
-      nm_decode<NK, MG>(aa, cur_a);
-      nm_decode<NK, MG>(ab, cur_b);
+      src.next(kc, k_hi, aa, ab);
+      const uint32_t wa = wna, wb = wnb;
+      if (BIN && kc + 128 < k_hi) words(kc + 128, wna, wnb);
 #pragma unroll
       for (int t = 0; t < NTP; ++t) {
         const bf16* xrow = xr + (size_t)(8 * t + g) * sx;
-        const int u0 = kc / 8 + 4 * q;
+        const int u0 = (kc - k_lo) / 8 + 4 * q;
         uint32_t bw[16];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -711,9 +991,37 @@ nm_lr_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ vals,
         for (int s = 0; s < 8; ++s)
           mma_bf16(c[t], aa[2 * s], ab[2 * s], aa[2 * s + 1], ab[2 * s + 1],
                    bw[2 * s], bw[2 * s + 1]);
+        if (!BIN) continue;
+        // Σ_r ±u_r · bf16(x ⊙ v_r): B from tile r, A from the sign bits
+        // (bits 4s .. 4s + 3 of the lane's words are step s's columns)
+        for (int r = 0; r < R; ++r) {
+          uint32_t ua = 0u, ub = 0u;
+#pragma unroll
+          for (int i = 0; i < kMaxR; ++i)
+            if (i == r) { ua = u2a[i]; ub = u2b[i]; }
+          if (r >= kMaxR) {
+            const uint32_t la = bits16(u[(size_t)r * N + ra]);
+            const uint32_t lb = bits16(u[(size_t)r * N + rb]);
+            ua = la | (la << 16);
+            ub = lb | (lb << 16);
+          }
+          const bf16* vrow = xv + ((size_t)r * MT + 8 * t + g) * sx;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint4 b = *reinterpret_cast<const uint4*>(
+                vrow + xr_unit(u0 + j) * 8);
+            bw[4 * j] = b.x; bw[4 * j + 1] = b.y;
+            bw[4 * j + 2] = b.z; bw[4 * j + 3] = b.w;
+          }
+#pragma unroll
+          for (int s = 0; s < 8; ++s) {
+            const uint32_t fa = wa >> (4 * s), fb = wb >> (4 * s);
+            mma_bf16(c[t], sign_pair(ua, fa & 3u), sign_pair(ub, fb & 3u),
+                     sign_pair(ua, (fa >> 2) & 3u),
+                     sign_pair(ub, (fb >> 2) & 3u), bw[2 * s], bw[2 * s + 1]);
+          }
+        }
       }
-      cur_a = nxt_a;
-      cur_b = nxt_b;
     }
 
     const int na = row0 + g, nb = row0 + g + 8;
@@ -721,11 +1029,25 @@ nm_lr_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ vals,
     for (int t = 0; t < NTP; ++t) {
       const int mi = 8 * t + 2 * q, m = m0 + mi;
       float l0 = 0.f, l1 = 0.f, l2 = 0.f, l3 = 0.f;
-      for (int r = 0; r < R; ++r) {
-        const float ua = __bfloat162float(u[(size_t)r * N + ra]);
-        const float ub = __bfloat162float(u[(size_t)r * N + rb]);
-        const float p0 = p[r * MT + mi], p1 = p[r * MT + mi + 1];
-        l0 += p0 * ua; l1 += p1 * ua; l2 += p0 * ub; l3 += p1 * ub;
+      if (LR) {
+        for (int r = 0; r < R; ++r) {
+          const float ua = __bfloat162float(u[(size_t)r * N + ra]);
+          const float ub = __bfloat162float(u[(size_t)r * N + rb]);
+          const float p0 = p[r * MT + mi], p1 = p[r * MT + mi + 1];
+          l0 += p0 * ua; l1 += p1 * ua; l2 += p0 * ub; l3 += p1 * ub;
+        }
+      }
+      if (n_split > 1) {             // fp32 partial sums of this split
+        float* pt = a.part + (size_t)blockIdx.z * M * N;
+        if (m < M) {
+          if (na < N) pt[(size_t)m * N + na] = c[t][0];
+          if (nb < N) pt[(size_t)m * N + nb] = c[t][2];
+        }
+        if (m + 1 < M) {
+          if (na < N) pt[(size_t)(m + 1) * N + na] = c[t][1];
+          if (nb < N) pt[(size_t)(m + 1) * N + nb] = c[t][3];
+        }
+        continue;
       }
       if (m < M) {
         if (na < N) y[(size_t)m * N + na] = __float2bfloat16(c[t][0] + l0);
@@ -739,27 +1061,112 @@ nm_lr_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ vals,
       }
     }
   }
+  if (n_split == 1) return;
+
+  // The last block of this row tile to finish adds the splits' partial
+  // sums in split order (the same bits whichever block is last) and
+  // resets the tile's ticket for the next launch.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* ticket = a.tickets + blockIdx.x;
+    last_split = atomicAdd(ticket, 1) == n_split - 1;
+    if (last_split) *ticket = 0;
+  }
+  __syncthreads();
+  if (!last_split) return;
+  __threadfence();
+  const int n0 = blockIdx.x * kRows, nr = min(kRows, N - n0);
+  const size_t zs = (size_t)M * N;
+  for (int i = threadIdx.x; i < M * kRows; i += blockDim.x) {
+    const int m = i / kRows, nn = i - m * kRows;
+    if (nn >= nr) continue;
+    const float* pt = a.part + (size_t)m * N + n0 + nn;
+    float s = 0.f;
+    for (int z0 = 0; z0 < n_split; z0 += 8) {   // 8 loads in flight
+      float t[8];
+#pragma unroll
+      for (int z = 0; z < 8; ++z)
+        t[z] = z0 + z < n_split ? __ldcg(pt + (z0 + z) * zs) : 0.f;
+#pragma unroll
+      for (int z = 0; z < 8; ++z) s += t[z];   // in split order
+    }
+    y[(size_t)m * N + n0 + nn] = __float2bfloat16(s);
+  }
 }
 
-template <int NK, int MG>
-static int launch_nm_lr(const void* x, const void* vals, const void* idx,
-                        const void* u, const void* v, void* y, int E, int M,
-                        int N, int K, int R, void* stream) {
-  if (!aligned16(vals) || !aligned16(idx))
-    return (int)cudaErrorMisalignedAddress;
-  const int Kp = (K + 127) / 128 * 128;
-  const size_t per_tile = (size_t)8 * (Kp + 8) * sizeof(bf16) +
-                          (size_t)(kWarps + 1) * R * 8 * sizeof(float);
+// #19 and #18 (LR), and #2 (BIN), whose registers are capped at one
+// n-tile (the decode step's M <= 8) so that kBinMinBlocks blocks share an
+// SM; wider tiles would spill under the cap.
+constexpr int kBinMinBlocks = 2;
+
+template <class Src, int NTP, bool LR, bool BIN>
+__global__ void __launch_bounds__(kWarps * 32) tc_kernel(const TcArgs a) {
+  __shared__ __align__(8) uint64_t bars[Src::kRing ? kWarps * kRingStages : 1];
+  __shared__ int last_split;
+  tc_body<Src, NTP, LR, BIN>(a, bars, last_split);
+}
+
+template <class Src, int NTP, bool LR, bool BIN>
+__global__ void __launch_bounds__(kWarps * 32, NTP == 1 ? kBinMinBlocks : 1)
+    tc_bin_kernel(const TcArgs a) {
+  __shared__ __align__(8) uint64_t bars[Src::kRing ? kWarps * kRingStages : 1];
+  __shared__ int last_split;
+  tc_body<Src, NTP, LR, BIN>(a, bars, last_split);
+}
+
+// The batch tiles per pass and ring stages of a launch: the most n-tiles
+// (up to what M needs, kMaxNtp), then the most ring stages (kRingStages
+// down to 2) whose shared bytes let Src::kBlocks blocks share an SM (and
+// fit the card's opt-in limit), else as many blocks as fit. Returns the
+// tile count, 0 when nothing fits.
+template <class Src, bool LR, bool BIN>
+inline int pick_tc(int M, int kw, int R, int* stages, size_t* smem) {
+  int dev = 0, optin = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm,
+                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             dev) != cudaSuccess)
+    return 0;
+  const int Kp = (kw + 127) / 128 * 128;
+  for (int blocks = Src::kBlocks; blocks >= 1; --blocks) {
+    const size_t limit = min((size_t)optin, (size_t)per_sm / blocks - 1024);
+    for (int ntp = min((M + 7) / 8, kMaxNtp); ntp >= 1; --ntp) {
+      for (int st = Src::kRing ? kRingStages : 0;
+           st >= (Src::kRing ? 2 : 0); --st) {
+        const size_t bytes =
+            (size_t)8 * ntp * (Kp + 8) * sizeof(bf16) * (BIN ? 1 + R : 1) +
+            (LR ? slab::align16_up((size_t)(kWarps + 1) * R * 8 * ntp *
+                                   sizeof(float))
+                : 0) +
+            (size_t)st * kWarps * Src::kStage;
+        if (bytes <= limit) {
+          *stages = st;
+          *smem = bytes;
+          return ntp;
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+template <class Src, bool LR, bool BIN>
+static int launch_tc(TcArgs a, int E, int n_split, void* stream) {
   size_t smem = 0;
-  const int ntp = pick_ntp(M, per_tile, 0, &smem);
-  const dim3 grid((N + kRows - 1) / kRows, E);
+  const int ntp = pick_tc<Src, LR, BIN>(a.M, min(a.K, a.cps * 128), a.R,
+                                        &a.stages, &smem);
+  const dim3 grid((a.N + kRows - 1) / kRows, E, n_split);
   TC_DISPATCH_NTP(ntp, {
-    auto kern = nm_lr_tc_kernel<NK, MG, NTP>;
+    auto kern = [] {
+      if constexpr (BIN) return tc_bin_kernel<Src, NTP, LR, BIN>;
+      else return tc_kernel<Src, NTP, LR, BIN>;
+    }();
     cudaError_t e = slab::prepare(kern, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-        (const bf16*)x, (const bf16*)vals, (const int8_t*)idx,
-        (const bf16*)u, (const bf16*)v, (bf16*)y, M, N, K, R);
+    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(a);
   });
   return (int)cudaGetLastError();
 }
@@ -778,12 +1185,66 @@ extern "C" int slab_nm_lr_matmul_g(int dtype, const void* x,
   if (dtype != 1 || E <= 0 || E > slab::kMaxExperts || M <= 0 || N <= 0 ||
       K <= 0 || R <= 0 || m_pat <= 0 || K % m_pat)
     return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(vals) || !slab::aligned16(idx))
+    return (int)cudaErrorMisalignedAddress;
+  tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)vals,
+               (const int8_t*)idx, nullptr, (const tc::bf16*)u,
+               (const tc::bf16*)v, (tc::bf16*)y, nullptr, nullptr,
+               M, N, K, R, (K + 127) / 128, 0};
   if (n_keep == 2 && m_pat == 4)
-    return tc::launch_nm_lr<2, 4>(x, vals, idx, u, v, y, E, M, N, K, R,
-                                  stream);
+    return tc::launch_tc<tc::NmSrc<2, 4>, true, false>(a, E, 1, stream);
   if (n_keep == 4 && m_pat == 8)
-    return tc::launch_nm_lr<4, 8>(x, vals, idx, u, v, y, E, M, N, K, R,
-                                  stream);
+    return tc::launch_tc<tc::NmSrc<4, 8>, true, false>(a, E, 1, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype must be 1 (bfloat16) and K a multiple of 8 (rows on 16-byte
+// boundaries, for the bulk copies): other launches go to slab_matmul.cu's
+// kernel. x (E, M, K), ws (E, N, K), u (E, R, N), v (E, R, K), y (E, M,
+// N). Launches on ``stream``, allocates nothing, returns
+// cudaGetLastError().
+extern "C" int slab_lr_matmul_g(int dtype, const void* x, const void* ws,
+                                const void* u, const void* v, void* y, int E,
+                                int M, int N, int K, int R, void* stream) {
+  if (dtype != 1 || E <= 0 || E > slab::kMaxExperts || M <= 0 || N <= 0 ||
+      K <= 0 || K % 8 || R <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(ws)) return (int)cudaErrorMisalignedAddress;
+  tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)ws, nullptr, nullptr,
+               (const tc::bf16*)u, (const tc::bf16*)v, (tc::bf16*)y,
+               nullptr, nullptr, M, N, K, R, (K + 127) / 128, 0};
+  return tc::launch_tc<tc::DenseSrc, true, false>(a, E, 1, stream);
+}
+
+// dtype must be 1 (bfloat16) and the pattern 2:4 or 4:8: other launches
+// go to slab_matmul.cu's kernel. x (M, K), vals / idx (N, K/m, n), bp (N,
+// K/32), u (R, N), v (R, K), y (M, N); K split into n_split runs of cps
+// 128-column chunks (the last may be shorter), and with n_split > 1 part
+// (n_split, M, N) fp32 scratch and tickets (⌈N/128⌉ ints, zero; zero
+// again after the launch). Launches on ``stream``, allocates nothing,
+// returns cudaGetLastError().
+extern "C" int slab_nm_matmul(int dtype, const void* x, const void* vals,
+                              const void* idx, const void* bp, const void* u,
+                              const void* v, void* y, void* part,
+                              void* tickets, int M, int N, int K, int n_keep,
+                              int m_pat, int R, int n_split, int cps,
+                              void* stream) {
+  if (dtype != 1 || M <= 0 || N <= 0 || K <= 0 || K % 32 || R <= 0 ||
+      n_split <= 0 || cps <= 0 || (n_split - 1) * cps * 128 >= K ||
+      n_split * cps * 128 < K || n_split > 65535 ||
+      (n_split > 1 && (part == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(vals) || !slab::aligned16(idx) ||
+      !slab::aligned16(bp))
+    return (int)cudaErrorMisalignedAddress;
+  tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)vals,
+               (const int8_t*)idx, (const uint32_t*)bp, (const tc::bf16*)u,
+               (const tc::bf16*)v, (tc::bf16*)y, (float*)part, (int*)tickets,
+               M, N, K, R, cps, 0};
+  if (n_keep == 2 && m_pat == 4)
+    return tc::launch_tc<tc::NmSrc<2, 4>, false, true>(a, 1, n_split, stream);
+  if (n_keep == 4 && m_pat == 8)
+    return tc::launch_tc<tc::NmSrc<4, 8>, false, true>(a, 1, n_split, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -912,6 +1373,7 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
 
 // 16-byte units of one 8-entry block: vals, then 1 (uint16) or 2 (uint32)
 // of ids. A thread's ring slot holds unit u at slot[u · threads].

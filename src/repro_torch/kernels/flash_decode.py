@@ -27,7 +27,6 @@ plain PyTorch, for the CPU tests.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -89,9 +88,7 @@ def plan_splits(rows: int, kv: int, n_chunks: int, n_max: int,
     return -(-n_max // split_len), split_len
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+_sm_count = build.sm_count
 
 
 def _plan(dev, rows, kv, g, dh, n_max):

@@ -11,7 +11,9 @@ what its per-linear counterpart computes on x[e] and expert e's planes:
     nm_matmul_g          #8 per expert  (csrc/nm_sparse.cu)
     slab_matmul_g        #3 per expert  (csrc/slab_matmul.cu)
     slab_nm_matmul_g     #2 per expert  (csrc/slab_matmul.cu)
-    slab_lr_matmul_g     #6 per expert  (csrc/slab_matmul.cu)
+    slab_lr_matmul_g     #6 per expert  (csrc/grouped_tc.cu; f32, K not
+                                         a multiple of 8 and K too wide
+                                         to stage: slab_matmul.cu)
     slab_nm_lr_matmul_g  #7 per expert  (csrc/grouped_tc.cu; f32 and
                                          patterns other than 2:4 / 4:8:
                                          slab_matmul.cu)
@@ -21,10 +23,11 @@ Replace the nine kernels of ``repro/kernels/grouped.py`` (TPU), one for
 one. A CUDA kernel here is launched once for the whole bucket with the
 expert as the grid's y dimension, never E launches: its per-linear
 kernel, or for the bf16 ell_matmul_g, ell_lr_matmul_g,
-slab_ell_matmul_g and slab_nm_lr_matmul_g a kernel of its own redesigned
-for Hopper (``csrc/grouped_tc.cu``: 128 output rows a block, x staged
-once per 8-32 batch rows, the last two on the tensor cores); those four
-keep their first design (same C symbol in ``ell.cu`` /
+slab_ell_matmul_g, slab_nm_lr_matmul_g and slab_lr_matmul_g a kernel of
+its own redesigned for Hopper (``csrc/grouped_tc.cu``: 128 output rows a
+block, x staged once per 8-32 batch rows, the last three on the tensor
+cores, slab_lr_matmul_g's dense rows streamed by bulk copies); those
+five keep their first design (same C symbol in ``ell.cu`` /
 ``slab_matmul.cu``) for the launches the new kernel does not take, and
 count each library's launches apart. Operands use the kernel layout
 with a leading expert dim: x (E, M, K), u (E, R, N), v (E, R, K),
@@ -71,9 +74,13 @@ ELL_LR_G = build.CudaKernel("ell_lr_matmul_g", "grouped_tc.cu",
 ELL_LR_G_FIRST = build.CudaKernel("ell_lr_matmul_g", "ell.cu",
                                   _ELL_LR_G_TPU,
                                   key="ell_lr_matmul_g@ell.cu")
-SLAB_LR_G = build.CudaKernel(
-    "slab_lr_matmul_g", "slab_matmul.cu",
-    "src/repro/kernels/grouped.py:336 (slab_lr_matmul_g, pallas_call :348)")
+_SLAB_LR_G_TPU = ("src/repro/kernels/grouped.py:336 (slab_lr_matmul_g, "
+                  "pallas_call :348)")
+SLAB_LR_G = build.CudaKernel("slab_lr_matmul_g", "grouped_tc.cu",
+                             _SLAB_LR_G_TPU)
+SLAB_LR_G_FIRST = build.CudaKernel("slab_lr_matmul_g", "slab_matmul.cu",
+                                   _SLAB_LR_G_TPU,
+                                   key="slab_lr_matmul_g@slab_matmul.cu")
 _SLAB_NM_LR_G_TPU = ("src/repro/kernels/grouped.py:387 (slab_nm_lr_matmul_g, "
                      "pallas_call :402)")
 SLAB_NM_LR_G = build.CudaKernel("slab_nm_lr_matmul_g", "grouped_tc.cu",
@@ -98,7 +105,13 @@ TC_MIN_ROWS = 3
 # H100 block's ELL_TC_SMEM bytes of shared memory (ell_tc_smem). The
 # rest runs the first design, which holds x at 2 bytes a column.
 ELL_TC_MIN_ROWS = 3
-ELL_TC_SMEM = 227 * 1024
+ELL_TC_SMEM = slab_k.TC_SMEM
+# The bf16 slab_lr_matmul_g runs grouped_tc.cu's kernel from
+# LR_TC_MIN_ROWS rows per expert (chip_smoke.py's M sweep through each
+# library on deepseek-moe-16b's planes, PERF.md) where K is a multiple of
+# 8 (its rows arrive by 16-byte bulk copies) and its smallest tile fits
+# an H100 block (lr_tc_smem).
+LR_TC_MIN_ROWS = 1
 
 
 def ell_tc_smem(k: int, r: int, idx_bytes: int) -> int:
@@ -110,6 +123,18 @@ def ell_tc_smem(k: int, r: int, idx_bytes: int) -> int:
     kp = (k + 8) // 8 * 8
     ring = 4 * (1 + idx_bytes // 2) * 256 * 16
     return kp * 16 + ring + (8 + 1) * r * 8 * 4
+
+
+def lr_tc_smem(k: int, r: int) -> int:
+    """Shared bytes of grouped_tc.cu's slab_lr_matmul_g at its smallest
+    launch (tc::pick_tc): one tile of 8 batch rows of x at K rounded up to
+    128 plus 8 columns of 2 bytes, the projection sums of rank ``r`` and
+    the 8 warps' partial sums in fp32, and a ring of 2 stages of 16 rows
+    of 272 bytes for each of the 8 warps."""
+    kp = -(-k // 128) * 128
+    sums = -(-(8 + 1) * r * 8 * 4 // 16) * 16
+    return 8 * (kp + 8) * 2 + sums + 2 * 8 * 16 * 272
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -373,8 +398,27 @@ def slab_lr_matmul_g_plain(x, w_s, u, v) -> torch.Tensor:
     return _per_expert(slab_k.slab_lr_matmul_plain, x, w_s, u, v)
 
 
+def slab_lr_g_kernel(dtype, m: int, k: int, r: int = 1) -> build.CudaKernel:
+    """The library a launch at ``m`` rows per expert, ``k`` columns and
+    rank ``r`` runs: grouped_tc.cu for bf16 from LR_TC_MIN_ROWS rows where
+    K % 8 == 0 and its smallest tile fits slab_matmul.TC_SMEM; f32 (1e-5,
+    no TF32), fewer rows and other shapes the first design."""
+    if dtype == torch.bfloat16 and m >= LR_TC_MIN_ROWS and k % 8 == 0 \
+            and lr_tc_smem(k, r) <= slab_k.TC_SMEM:
+        return SLAB_LR_G
+    return SLAB_LR_G_FIRST
+
+
 def slab_lr_matmul_g(x, w_s, u, v) -> torch.Tensor:
     """Launch the grouped dense-masked + low-rank kernel (one launch)."""
+    _, m, k = _check_x(x)
+    kern = slab_lr_g_kernel(x.dtype, m, k, u.shape[1])
+    return launch_slab_lr_g(kern, x, w_s, u, v)
+
+
+def launch_slab_lr_g(kern, x, w_s, u, v) -> torch.Tensor:
+    """slab_lr_matmul_g through ``kern``'s library (SLAB_LR_G or
+    SLAB_LR_G_FIRST), counted on its counter."""
     n = w_s.shape[1]
     e, m, k, r = _check_rank(x, u, v, n)
     build.check_operand(w_s, "w_s", x.dtype, (e, n, k), x.device)
@@ -382,12 +426,12 @@ def slab_lr_matmul_g(x, w_s, u, v) -> torch.Tensor:
     y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    fn = build.function(SLAB_LR_G.source, SLAB_LR_G.name, _LR_ARGS)
+    fn = build.function(kern.source, kern.name, _LR_ARGS)
     err = fn(build.dtype_code(x.dtype), x.data_ptr(), w_s.data_ptr(),
              u.data_ptr(), v.data_ptr(), y.data_ptr(), e, m, n, k, r,
              build.stream_ptr(x.device))
-    build.check_launch(err, SLAB_LR_G.name, f"E={e} M={m} N={n} K={k} R={r}")
-    SLAB_LR_G.launches += 1
+    build.check_launch(err, kern.key, f"E={e} M={m} N={n} K={k} R={r}")
+    kern.launches += 1
     return y
 
 

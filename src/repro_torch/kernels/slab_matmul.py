@@ -1,6 +1,7 @@
 """Fused SLaB linears with a dense-masked or an N:M packed sparse part:
-the hand-written CUDA kernels (``csrc/slab_matmul.cu``) and their plain
-PyTorch versions.
+the hand-written CUDA kernels (``csrc/slab_matmul.cu``; the bf16 2:4 /
+4:8 slab_nm_matmul ``csrc/grouped_tc.cu``) and their plain PyTorch
+versions.
 
     slab_matmul, slab_nm_matmul  y = x @ W_Sᵀ + Σ_r ((x ⊙ v_r) @ Bᵀ) ⊙ u_r
     slab_lr_matmul               y = x @ W_Sᵀ + (x @ Vᵀ) @ U  (no binary)
@@ -9,6 +10,12 @@ PyTorch versions.
 Replace ``repro/kernels/slab_matmul.py::{slab_matmul, slab_nm_matmul,
 slab_lr_matmul, slab_nm_lr_matmul}`` (TPU). Operands use the kernel layout: x (M, K),
 u (R, N), v (R, K).
+
+slab_nm_matmul has two libraries under one C name, each counting its
+launches on its own ``CudaKernel``: the tensor-core kernel of
+``grouped_tc.cu`` (bf16 2:4 / 4:8, K split across blocks by
+``plan_nm_splits``) and the first design of ``slab_matmul.cu`` (f32,
+other patterns); ``slab_nm_kernel`` picks one.
 """
 from __future__ import annotations
 
@@ -19,12 +26,15 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import binlr_term, expand_nm, lowrank_term
 
+_SLAB_NM_TPU = ("src/repro/kernels/slab_matmul.py:117 (slab_nm_matmul, "
+                "pallas_call :135)")
 SLAB_DENSE = build.CudaKernel(
     "slab_matmul", "slab_matmul.cu",
     "src/repro/kernels/slab_matmul.py:64 (slab_matmul, pallas_call :77)")
-SLAB_NM = build.CudaKernel(
-    "slab_nm_matmul", "slab_matmul.cu",
-    "src/repro/kernels/slab_matmul.py:117 (slab_nm_matmul, pallas_call :135)")
+SLAB_NM = build.CudaKernel("slab_nm_matmul", "grouped_tc.cu", _SLAB_NM_TPU)
+SLAB_NM_FIRST = build.CudaKernel("slab_nm_matmul", "slab_matmul.cu",
+                                 _SLAB_NM_TPU,
+                                 key="slab_nm_matmul@slab_matmul.cu")
 SLAB_LR = build.CudaKernel(
     "slab_lr_matmul", "slab_matmul.cu",
     "src/repro/kernels/slab_matmul.py:180 (slab_lr_matmul, pallas_call :193)")
@@ -38,8 +48,28 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DENSE_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _NM_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+# grouped_tc.cu's slab_nm_matmul also takes the split's scratch (part,
+# tickets) and plan (n_split, chunks per split)
+_NM_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+               _I, _I, _I, _P]
 _LR_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _NM_LR_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+
+# The bf16 2:4 / 4:8 slab_nm_matmul runs grouped_tc.cu's kernel from
+# NM_TC_MIN_ROWS rows (chip_smoke.py's M sweep through each library at
+# (4096, 4096), PERF.md); fewer rows, f32 and the other patterns run the
+# first design.
+NM_TC_MIN_ROWS = 1
+# grouped_tc.cu's kernel splits K so that a launch gives about
+# NM_SPLIT_BLOCKS_PER_SM blocks of 128 rows to each SM, in splits of at
+# most NM_MAX_SPLIT_CHUNKS chunks (plan_nm_splits).
+NM_SPLIT_BLOCKS_PER_SM = 2
+NM_MAX_SPLIT_CHUNKS = 16
+CHUNK = 128          # columns of one chunk of the kernel's main loop
+ROWS = 128           # output rows of one block
+TC_SMEM = 227 * 1024  # shared memory an H100 block may opt into
+
+_SCRATCH = {}        # per device: the split's partial sums and tickets
 
 
 def _common_checks(x, b_packed, u, v, n: int):
@@ -88,8 +118,67 @@ def slab_nm_matmul_plain(x, vals, idx, m_pat: int, b_packed, u,
     return y.to(x.dtype)
 
 
+def plan_nm_splits(n: int, k: int, n_sm: int) -> tuple:
+    """(n_split, cps): K's CHUNK-column chunks cut into n_split runs of
+    cps chunks (the last may be shorter), enough that ⌈n / ROWS⌉ row
+    tiles x n_split blocks give NM_SPLIT_BLOCKS_PER_SM blocks to each of
+    n_sm SMs, never more runs than chunks and no run longer than
+    NM_MAX_SPLIT_CHUNKS. From shapes only."""
+    tiles = -(-n // ROWS)
+    chunks = -(-k // CHUNK)
+    want = -(-NM_SPLIT_BLOCKS_PER_SM * n_sm // tiles)
+    cps = -(-chunks // max(1, min(want, chunks)))
+    cps = min(cps, NM_MAX_SPLIT_CHUNKS)
+    return -(-chunks // cps), cps
+
+
+def nm_tc_smem(r: int) -> int:
+    """Shared bytes of grouped_tc.cu's slab_nm_matmul at its smallest
+    launch: one tile of 8 batch rows of x and one of bf16(x ⊙ v_r) for
+    each of the ``r`` ranks, each as wide as the widest split
+    (NM_MAX_SPLIT_CHUNKS chunks) plus 8 columns, 2 bytes a column."""
+    return (1 + r) * 8 * (NM_MAX_SPLIT_CHUNKS * CHUNK + 8) * 2
+
+
+def _scratch(dev, n_part: int, n_tickets: int):
+    """(part, tickets) on ``dev``: at least ``n_part`` fp32 partial sums
+    and ``n_tickets`` zero int32 tickets, kept between launches (launches
+    on one stream use them in turn; the kernel zeroes each ticket it used
+    before it ends), so a launch allocates nothing."""
+    part, tickets = _SCRATCH.get(dev, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
+                           device=dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 256), dtype=torch.int32,
+                              device=dev)
+    _SCRATCH[dev] = (part, tickets)
+    return part, tickets
+
+
+def slab_nm_kernel(dtype, n_keep: int, m_pat: int, m: int,
+                   r: int = 1) -> build.CudaKernel:
+    """The library a launch at ``m`` rows and rank ``r`` runs:
+    grouped_tc.cu for bf16 2:4 / 4:8 from NM_TC_MIN_ROWS rows where its
+    tiles fit TC_SMEM (nm_tc_smem), the first design for f32, the other
+    patterns, fewer rows and higher ranks."""
+    if dtype == torch.bfloat16 and (n_keep, m_pat) in ((2, 4), (4, 8)) \
+            and m >= NM_TC_MIN_ROWS and nm_tc_smem(r) <= TC_SMEM:
+        return SLAB_NM
+    return SLAB_NM_FIRST
+
+
 def slab_nm_matmul(x, vals, idx, m_pat: int, b_packed, u, v) -> torch.Tensor:
     """Launch the N:M CUDA kernel on the current stream."""
+    kern = slab_nm_kernel(x.dtype, vals.shape[-1], m_pat, x.shape[0],
+                          u.shape[0])
+    return launch_slab_nm(kern, x, vals, idx, m_pat, b_packed, u, v)
+
+
+def launch_slab_nm(kern, x, vals, idx, m_pat: int, b_packed, u,
+                   v) -> torch.Tensor:
+    """slab_nm_matmul through ``kern``'s library (SLAB_NM or
+    SLAB_NM_FIRST), counted on its counter."""
     n, n_grp, n_keep = vals.shape
     m, k, r, dev = _common_checks(x, b_packed, u, v, n)
     if n_grp * m_pat != k:
@@ -101,13 +190,28 @@ def slab_nm_matmul(x, vals, idx, m_pat: int, b_packed, u, v) -> torch.Tensor:
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    fn = build.function(SLAB_NM.source, SLAB_NM.name, _NM_ARGS)
-    err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), b_packed.data_ptr(), u.data_ptr(), v.data_ptr(),
-             y.data_ptr(), m, n, k, n_keep, m_pat, r, build.stream_ptr(dev))
-    build.check_launch(err, SLAB_NM.name,
-                       f"M={m} N={n} K={k} {n_keep}:{m_pat} R={r}")
-    SLAB_NM.launches += 1
+    detail = f"M={m} N={n} K={k} {n_keep}:{m_pat} R={r}"
+    if kern is SLAB_NM:
+        n_split, cps = plan_nm_splits(n, k, build.sm_count(dev.index or 0))
+        part = tickets = None
+        if n_split > 1:
+            part, tickets = _scratch(dev, n_split * m * n, -(-n // ROWS))
+        fn = build.function(kern.source, kern.name, _NM_TC_ARGS)
+        err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), b_packed.data_ptr(), u.data_ptr(),
+                 v.data_ptr(), y.data_ptr(),
+                 None if part is None else part.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(), m, n, k,
+                 n_keep, m_pat, r, n_split, cps, build.stream_ptr(dev))
+        detail += f" splits={n_split}x{cps * CHUNK}"
+    else:
+        fn = build.function(kern.source, kern.name, _NM_ARGS)
+        err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), b_packed.data_ptr(), u.data_ptr(),
+                 v.data_ptr(), y.data_ptr(), m, n, k, n_keep, m_pat, r,
+                 build.stream_ptr(dev))
+    build.check_launch(err, kern.key, detail)
+    kern.launches += 1
     return y
 
 

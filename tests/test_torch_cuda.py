@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
-card only: slab_nm_lr_matmul (#7), binlr_matmul (#9), flash_decode (#10)
-and flash_decode_paged (#11), and the grouped ell_matmul_g (#12),
-ell_lr_matmul_g (#13), slab_ell_matmul_g (#14) and slab_nm_lr_matmul_g
-(#19), whose bf16 launches run the kernels of csrc/grouped_tc.cu. Every
-test skips without a card (the kernels are CUDA C++ for sm_90a with no
-CPU mode).
+card only: slab_nm_matmul (#2), slab_nm_lr_matmul (#7), binlr_matmul
+(#9), flash_decode (#10) and flash_decode_paged (#11), and the grouped
+ell_matmul_g (#12), ell_lr_matmul_g (#13), slab_ell_matmul_g (#14),
+slab_lr_matmul_g (#18) and slab_nm_lr_matmul_g (#19), whose bf16
+launches (#2 at 2:4 and 4:8) run the kernels of csrc/grouped_tc.cu; #2
+and #18 also through each of their two libraries, #2 with K split
+across blocks (two launches bitwise equal). Every test skips without a
+card (the kernels are CUDA C++ for sm_90a with no CPU mode).
 
 This file imports neither JAX nor the reference package, so it runs on
 a machine with PyTorch alone:
@@ -565,3 +567,188 @@ def test_ell_matmul_g_any_entry_order(cuda, order):
     got = g_k.ell_matmul_g(x, vals, idx)
     assert g_k.ELL_G.launches == launches + 1
     _close(got, g_k.ell_matmul_g_plain(x, vals, idx), torch.bfloat16)
+
+
+# #2 slab_nm_matmul (2-D) at M 0-128 through each library: N 1411 off the
+# 128-row block, K 1376 off the 128-column chunk (K % 32 == 0: sign
+# words); one stored position in 50 moved out of [0, m), which the kernel
+# must skip (the plain version sees a zero at position 0).
+NM2_M = [0, 1, 4, 6, 8, 37, 128]
+
+
+def _nm2_operands(gen, n, k, m, pattern, rank, dtype):
+    """x, vals, idx (with bad positions), bp, u, v and the plain
+    version's vals / idx."""
+    n_keep, m_pat = map(int, pattern.split(":"))
+    dev = gen.device
+    w = _g_randn(gen, n, k, scale=0.05)
+    w_nm = torch.where(sparsity.nm_mask(w.abs(), n_keep, m_pat), w, 0.0)
+    nm = packing.pack_nm(w_nm.to(dtype), n_keep, m_pat, strict=True)
+    vals, idx = nm.values.contiguous(), nm.indices.contiguous()
+    bad = torch.rand(vals.shape, generator=gen, device=dev) < 0.02
+    off = torch.where(torch.rand(vals.shape, generator=gen, device=dev)
+                      < 0.5, -1, m_pat).to(torch.int8)
+    idx_k = torch.where(bad, off, idx)
+    vals_p = torch.where(bad, torch.zeros_like(vals), vals)
+    idx_p = torch.where(bad, torch.zeros_like(idx), idx)
+    signs = torch.where(_g_randn(gen, n, k) >= 0, 1, -1).to(torch.int8)
+    bp = packing.pack_sign_bits(signs)
+    x = _g_randn(gen, m, k).to(dtype)
+    u = _g_randn(gen, rank, n, scale=0.2).to(dtype)
+    v = _g_randn(gen, rank, k, scale=0.2).to(dtype)
+    return x, vals, idx_k, bp, u, v, vals_p, idx_p
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("pattern,rank", [("2:4", 1), ("4:8", 3)])
+@pytest.mark.parametrize("m", NM2_M)
+def test_slab_nm_matmul_each_library(cuda, m, pattern, rank, lib):
+    """bf16 through each library; M = 0 gives an empty result and no
+    launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1000 + m + rank)
+    m_pat = int(pattern.split(":")[1])
+    x, vals, idx, bp, u, v, vals_p, idx_p = _nm2_operands(
+        gen, 1411, 1376, m, pattern, rank, torch.bfloat16)
+    kern = slab_k.SLAB_NM if lib == "grouped_tc" else slab_k.SLAB_NM_FIRST
+    launches = kern.launches
+    got = slab_k.launch_slab_nm(kern, x, vals, idx, m_pat, bp, u, v)
+    assert kern.launches == launches + (m > 0)
+    if m == 0:
+        assert got.shape == (0, 1411) and got.dtype == torch.bfloat16
+        return
+    _close(got, slab_k.slab_nm_matmul_plain(x, vals_p, idx_p, m_pat, bp, u,
+                                            v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("pattern", ["2:4", "4:8"])
+@pytest.mark.parametrize("m", [1, 4, 37])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_slab_nm_matmul_kernel_matches_plain(cuda, dt, m, pattern):
+    """Through the wrapper: the launch counts on the library
+    slab_nm_kernel picks (grouped_tc.cu for bf16 from NM_TC_MIN_ROWS)."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1100 + m)
+    m_pat = int(pattern.split(":")[1])
+    x, vals, idx, bp, u, v, vals_p, idx_p = _nm2_operands(
+        gen, 1411, 1376, m, pattern, 1, dtype)
+    kern = slab_k.slab_nm_kernel(dtype, vals.shape[-1], m_pat, m)
+    assert kern is (slab_k.SLAB_NM if dtype == torch.bfloat16
+                    and m >= slab_k.NM_TC_MIN_ROWS else slab_k.SLAB_NM_FIRST)
+    launches = kern.launches
+    got = slab_k.slab_nm_matmul(x, vals, idx, m_pat, bp, u, v)
+    assert kern.launches == launches + 1
+    _close(got, slab_k.slab_nm_matmul_plain(x, vals_p, idx_p, m_pat, bp, u,
+                                            v), dtype)
+
+
+@pytest.mark.parametrize("rank", [5, 7])
+def test_slab_nm_matmul_high_ranks(cuda, rank):
+    """Rank 5 (past the 4 ranks whose u values stay in registers) on
+    grouped_tc.cu; at rank 7 its x ⊙ v_r tiles no longer fit a block and
+    the wrapper runs the first design."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1150 + rank)
+    x, vals, idx, bp, u, v, vals_p, idx_p = _nm2_operands(
+        gen, 1411, 1376, 6, "2:4", rank, torch.bfloat16)
+    kern = slab_k.slab_nm_kernel(torch.bfloat16, 2, 4, 6, rank)
+    assert kern is (slab_k.SLAB_NM if rank == 5 else slab_k.SLAB_NM_FIRST)
+    launches = kern.launches
+    got = slab_k.slab_nm_matmul(x, vals, idx, 4, bp, u, v)
+    assert kern.launches == launches + 1
+    _close(got, slab_k.slab_nm_matmul_plain(x, vals_p, idx_p, 4, bp, u, v),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("pattern", ["2:4", "4:8"])
+@pytest.mark.parametrize("shape", [(4096, 4096), (1024, 4096), (300, 4096)],
+                         ids=str)
+def test_slab_nm_matmul_splits_are_deterministic(cuda, shape, pattern):
+    """llama2-7b's (4096, 4096), phi3.5-moe's (1024, 4096) and a 3-tile
+    N at M 4 split K across blocks (plan_nm_splits); the last block of a
+    row tile adds the partial sums in split order, so the same launch
+    twice gives the same bits."""
+    n, k = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1200 + n)
+    m_pat = int(pattern.split(":")[1])
+    x, vals, idx, bp, u, v, vals_p, idx_p = _nm2_operands(
+        gen, n, k, 4, pattern, 1, torch.bfloat16)
+    n_split, _ = slab_k.plan_nm_splits(n, k, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert n_split > 1
+    run = lambda: slab_k.launch_slab_nm(slab_k.SLAB_NM, x, vals, idx, m_pat,
+                                        bp, u, v)
+    got = run()
+    _close(got, slab_k.slab_nm_matmul_plain(x, vals_p, idx_p, m_pat, bp, u,
+                                            v), torch.bfloat16)
+    for _ in range(3):
+        assert torch.equal(got, run())
+
+
+# grouped #18 slab_lr_matmul_g at M 0-128 through each library, E 1 and
+# 3 at (1411, 1376) (N off the 128-row block, K off the 128-column chunk:
+# a partial last bulk copy) and deepseek-moe-16b's 64 experts at (1408,
+# 2048); rank 3 at odd M, else 1.
+LR_M = [0, 1, 4, 6, 8, 37, 128]
+
+
+def _lr_g_operands(gen, e, m, k, dtype, rank, n=1411):
+    w = _g_randn(gen, e, n, k, scale=0.05)
+    ws = torch.where(_g_randn(gen, e, n, k) > 0.5, w, 0.0).to(dtype)
+    x = _g_randn(gen, e, m, k).to(dtype)
+    u = _g_randn(gen, e, rank, n, scale=0.2).to(dtype)
+    v = _g_randn(gen, e, rank, k, scale=0.2).to(dtype)
+    return x, ws.contiguous(), u, v
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("e", [1, 3, 64])
+@pytest.mark.parametrize("m", LR_M)
+def test_slab_lr_matmul_g_each_library(cuda, m, e, lib):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1300 + m + e)
+    n, k = (1408, 2048) if e == 64 else (1411, 1376)
+    x, ws, u, v = _lr_g_operands(gen, e, m, k, torch.bfloat16,
+                                 3 if m % 2 else 1, n)
+    kern = g_k.SLAB_LR_G if lib == "grouped_tc" else g_k.SLAB_LR_G_FIRST
+    launches = kern.launches
+    got = g_k.launch_slab_lr_g(kern, x, ws, u, v)
+    assert kern.launches == launches + (m > 0)
+    if m == 0:
+        assert got.shape == (e, 0, n) and got.dtype == torch.bfloat16
+        return
+    _close(got, g_k.slab_lr_matmul_g_plain(x, ws, u, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 6, 37])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_slab_lr_matmul_g_kernel_matches_plain(cuda, dt, m):
+    """Through the wrapper: the launch counts on the library
+    slab_lr_g_kernel picks (grouped_tc.cu for bf16 from
+    LR_TC_MIN_ROWS)."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1400 + m)
+    x, ws, u, v = _lr_g_operands(gen, 3, m, 1376, dtype, 1)
+    kern = g_k.slab_lr_g_kernel(dtype, m, 1376)
+    assert kern is (g_k.SLAB_LR_G if dtype == torch.bfloat16
+                    and m >= g_k.LR_TC_MIN_ROWS else g_k.SLAB_LR_G_FIRST)
+    launches = kern.launches
+    got = g_k.slab_lr_matmul_g(x, ws, u, v)
+    assert kern.launches == launches + 1
+    _close(got, g_k.slab_lr_matmul_g_plain(x, ws, u, v), dtype)
+
+
+@pytest.mark.parametrize("k,m", [(2048, 32), (1408, 32), (9984, 6)],
+                         ids=str)
+def test_slab_lr_matmul_g_ring_depths(cuda, k, m):
+    """Where x's tile and a 4-stage ring do not fit a block together the
+    kernel keeps the widest tile and runs fewer stages (2 at 32 rows of
+    K 2048 and at 8 rows of K 9984; 4 at K 1408)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1500 + k)
+    x, ws, u, v = _lr_g_operands(gen, 2, m, k, torch.bfloat16, 1, n=300)
+    got = g_k.launch_slab_lr_g(g_k.SLAB_LR_G, x, ws, u, v)
+    _close(got, g_k.slab_lr_matmul_g_plain(x, ws, u, v), torch.bfloat16)

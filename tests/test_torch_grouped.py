@@ -464,11 +464,54 @@ def test_ell_tc_smem_counts_the_launch_bytes():
     assert g_k.ell_tc_smem(1412, 3, 2) == 1416 * 16 + 32768 + 864
 
 
+@pytest.mark.parametrize("dtype,m,k,r,source", [
+    (torch.bfloat16, 1, 2048, 1, "grouped_tc.cu"),
+    (torch.bfloat16, 6, 1408, 3, "grouped_tc.cu"),
+    (torch.bfloat16, 128, 2048, 1, "grouped_tc.cu"),
+    (torch.bfloat16, 6, 1412, 1, "slab_matmul.cu"),
+    (torch.bfloat16, 6, 11008, 1, "slab_matmul.cu"),
+    (torch.float32, 6, 2048, 1, "slab_matmul.cu")])
+def test_slab_lr_g_library_choice(dtype, m, k, r, source):
+    """bf16 #18 runs grouped_tc.cu's kernel from LR_TC_MIN_ROWS rows per
+    expert where K % 8 == 0 (16-byte bulk copies of its rows) and one
+    tile fits shared memory; f32 and other shapes the first design, on
+    its own counter."""
+    from repro_torch.kernels import grouped as g_k
+    kern = g_k.slab_lr_g_kernel(dtype, m, k, r)
+    want = source if m >= g_k.LR_TC_MIN_ROWS else "slab_matmul.cu"
+    assert kern.source == want and kern.name == "slab_lr_matmul_g"
+    assert kern.key == ("slab_lr_matmul_g" if want == "grouped_tc.cu"
+                        else "slab_lr_matmul_g@slab_matmul.cu")
+
+
+def test_slab_lr_g_library_choice_below_the_crossover():
+    """Fewer rows per expert than LR_TC_MIN_ROWS run the first design."""
+    from repro_torch.kernels import grouped as g_k
+    for m in range(0, g_k.LR_TC_MIN_ROWS):
+        assert g_k.slab_lr_g_kernel(torch.bfloat16, m, 2048) \
+            is g_k.SLAB_LR_G_FIRST
+    assert g_k.slab_lr_g_kernel(torch.bfloat16, g_k.LR_TC_MIN_ROWS,
+                                2048) is g_k.SLAB_LR_G
+
+
+def test_lr_tc_smem_counts_the_launch_bytes():
+    """x at K rounded up to 128 plus 8 columns of 2 bytes for 8 rows,
+    9 · 8 fp32 projection sums per rank (rounded to 16 bytes), a 2-stage
+    ring of 16 rows of 272 bytes for each of 8 warps; K 10,112 fits an
+    H100 block, 10,120 does not."""
+    from repro_torch.kernels import grouped as g_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    assert g_k.lr_tc_smem(2048, 1) == 8 * 2056 * 2 + 288 + 69632
+    assert g_k.lr_tc_smem(1408, 3) == 8 * 1416 * 2 + 864 + 69632
+    assert g_k.lr_tc_smem(10112, 1) <= slab_k.TC_SMEM
+    assert g_k.lr_tc_smem(10120, 1) > slab_k.TC_SMEM
+
+
 def test_launch_counters_are_per_library():
     """Every library has a counter key of its own, and a reset zeroes
     them all."""
     keys = [k.key for k in ops.KERNELS]
-    assert len(set(keys)) == len(keys) == 24
+    assert len(set(keys)) == len(keys) == 26
     assert len({k.name for k in ops.KERNELS}) == 20
     for k in ops.KERNELS:
         k.launches = 1

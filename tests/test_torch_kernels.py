@@ -204,3 +204,102 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="expected"):
         slab_k.slab_matmul(t(x), t(w_s), bp, t(u).T, t(v).T.contiguous())
     assert ell_k.SLAB_ELL.launches == 0
+
+
+# ---------------------------------- #2's library choice and split plan
+
+
+@pytest.mark.parametrize("dtype,pattern,m,source", [
+    (torch.bfloat16, (2, 4), 1, "grouped_tc.cu"),
+    (torch.bfloat16, (2, 4), 4, "grouped_tc.cu"),
+    (torch.bfloat16, (4, 8), 128, "grouped_tc.cu"),
+    (torch.bfloat16, (1, 4), 4, "slab_matmul.cu"),
+    (torch.bfloat16, (2, 8), 4, "slab_matmul.cu"),
+    (torch.float32, (2, 4), 4, "slab_matmul.cu"),
+    (torch.float32, (4, 8), 128, "slab_matmul.cu")])
+def test_slab_nm_library_choice(dtype, pattern, m, source):
+    """bf16 2:4 / 4:8 #2 runs grouped_tc.cu's kernel from NM_TC_MIN_ROWS
+    rows; f32 and the other patterns the first design, on its own
+    counter."""
+    from repro_torch.kernels import slab_matmul as slab_k
+    kern = slab_k.slab_nm_kernel(dtype, *pattern, m)
+    want = source if m >= slab_k.NM_TC_MIN_ROWS else "slab_matmul.cu"
+    assert kern.source == want and kern.name == "slab_nm_matmul"
+    assert kern.key == ("slab_nm_matmul" if want == "grouped_tc.cu"
+                        else "slab_nm_matmul@slab_matmul.cu")
+
+
+def test_slab_nm_library_choice_by_rank():
+    """grouped_tc.cu's kernel stages x and one tile of bf16(x ⊙ v_r) per
+    rank for the widest split (nm_tc_smem): up to rank 6 they fit an
+    H100 block, from rank 7 the first design runs."""
+    from repro_torch.kernels import slab_matmul as slab_k
+    assert slab_k.nm_tc_smem(1) == 2 * 8 * (16 * 128 + 8) * 2
+    m = max(4, slab_k.NM_TC_MIN_ROWS)
+    for r in range(1, 9):
+        fits = slab_k.nm_tc_smem(r) <= slab_k.TC_SMEM
+        assert fits == (r <= 6)
+        assert slab_k.slab_nm_kernel(torch.bfloat16, 2, 4, m, r) is (
+            slab_k.SLAB_NM if fits else slab_k.SLAB_NM_FIRST)
+
+
+def test_slab_nm_library_choice_below_the_crossover():
+    """Fewer rows than NM_TC_MIN_ROWS run the first design."""
+    from repro_torch.kernels import slab_matmul as slab_k
+    for m in range(0, slab_k.NM_TC_MIN_ROWS):
+        assert slab_k.slab_nm_kernel(torch.bfloat16, 2, 4, m) \
+            is slab_k.SLAB_NM_FIRST
+    assert slab_k.slab_nm_kernel(torch.bfloat16, 2, 4,
+                                 slab_k.NM_TC_MIN_ROWS) is slab_k.SLAB_NM
+
+
+def test_slab_nm_counters_are_per_library():
+    """#2's two libraries count on their own keys in ops.launch_counts,
+    under one C name."""
+    from repro_torch.kernels import slab_matmul as slab_k
+    counts = ops.launch_counts()
+    assert {"slab_nm_matmul", "slab_nm_matmul@slab_matmul.cu"} <= set(counts)
+    assert slab_k.SLAB_NM.name == slab_k.SLAB_NM_FIRST.name
+    assert (slab_k.SLAB_NM.source, slab_k.SLAB_NM_FIRST.source) == (
+        "grouped_tc.cu", "slab_matmul.cu")
+    slab_k.SLAB_NM.launches = 3
+    assert ops.launch_counts()["slab_nm_matmul"] == 3
+    assert ops.launch_counts()["slab_nm_matmul@slab_matmul.cu"] == 0
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("n,k,n_sm", [
+    (4096, 4096, 132), (1024, 4096, 132), (11008, 4096, 132),
+    (4096, 11008, 132), (6400, 4096, 132), (32, 256, 132), (4096, 96, 132),
+    (100000, 4096, 132), (100000, 11008, 132), (4096, 4096, 1),
+    (1024, 4096, 78)])
+def test_nm_split_plan_covers_every_column_once(n, k, n_sm):
+    """plan_nm_splits is a function of the shapes alone: n_split ≥ 1 runs
+    of cps whole 128-column chunks (the last may be shorter) cover
+    columns 0 .. K - 1 once, no run is empty or longer than
+    NM_MAX_SPLIT_CHUNKS chunks, and there are no more runs than
+    chunks."""
+    from repro_torch.kernels import slab_matmul as slab_k
+    n_split, cps = slab_k.plan_nm_splits(n, k, n_sm)
+    assert n_split >= 1 and cps >= 1
+    runs = [(s * cps * 128, min(k, (s + 1) * cps * 128))
+            for s in range(n_split)]
+    assert all(lo < hi for lo, hi in runs)
+    assert cps <= slab_k.NM_MAX_SPLIT_CHUNKS
+    cover = np.zeros(k, dtype=int)
+    for lo, hi in runs:
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    assert n_split <= -(-k // 128)
+    assert slab_k.plan_nm_splits(n, k, n_sm) == (n_split, cps)
+
+
+@pytest.mark.parametrize("n,k", [(4096, 4096), (1024, 4096)])
+def test_nm_split_plan_fills_the_card(n, k):
+    """At llama2-7b's q/k/v/o (4096, 4096) and phi3.5-moe's k/v (1024,
+    4096) projections, whose 128-row tiles alone give 32 and 8 blocks,
+    the split gives at least one block to each of an H100's 132 SMs."""
+    from repro_torch.kernels import slab_matmul as slab_k
+    n_split, _ = slab_k.plan_nm_splits(n, k, 132)
+    assert n_split > 1
+    assert -(-n // 128) * n_split >= 132

@@ -350,7 +350,8 @@ def test_ctypes_argtypes_match_the_c_signatures():
     """Every wrapper's ctypes argtypes list has one entry per parameter
     of its ``extern "C"`` entry, a pointer (c_void_p) exactly where the C
     side takes one: ctypes passes an extra argument as a 32-bit int and
-    cuts a pointer."""
+    cuts a pointer. A second library under one C name may take its own
+    parameters (``by_source``)."""
     import ctypes
     import re
     from pathlib import Path
@@ -377,13 +378,16 @@ def test_ctypes_argtypes_match_the_c_signatures():
         "slab_nm_lr_matmul_g": g_k._NM_LR_ARGS,
         "binlr_matmul_g": g_k._BINLR_ARGS}
     assert set(argtypes) == {k.name for k in ops.KERNELS}
-    seen = set()
+    by_source = {("slab_nm_matmul", "grouped_tc.cu"): slab_k._NM_TC_ARGS}
+    seen, seen_by_source = set(), set()
     for src in build.SOURCES:
         text = (Path(build.CSRC) / src).read_text()
         for name, params in re.findall(
                 r'extern "C" int (\w+)\(([^)]*)\)', text):
             kinds = [ctypes.c_void_p if ("*" in p_) else ctypes.c_int
                      for p_ in params.split(",")]
-            assert argtypes[name] == kinds, name
+            assert by_source.get((name, src), argtypes[name]) == kinds, name
             seen.add(name)
+            seen_by_source.add((name, src))
     assert seen == set(argtypes)
+    assert set(by_source) <= seen_by_source
