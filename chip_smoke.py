@@ -42,12 +42,13 @@ Phases:
      beside the byte bound, the plain version and one torch.bmm on the
      reconstructed dense (E, K, N) stack, and at the first shape the
      kernel alone at each other M (the "M sweep" lines); #14 on both
-     models and #12, #13, #18 and #19 also checked and timed at M = 1, 2,
-     3, 4, 6, 8, 9, 16, 20, 32 (bf16, rank 1), through the wrapper (the
-     line names the library it ran at each M) and through each of their
-     two libraries, grouped_tc.cu and the first design; #18 also through
-     each library at the timed M; the first design of #12, #13 and #19
-     also timed at f32;
+     models, #17 on phi3.5-moe's and #12, #13, #18, #19 and #20 on
+     deepseek-moe-16b's also checked and timed at M = 1, 2, 3, 4, 6, 8,
+     9, 16, 20, 32 (bf16, rank 1), through the wrapper (the line names
+     the library it ran at each M) and through each of their two
+     libraries, grouped_tc.cu and the first design; #17, #18 and #20
+     also through each library at the timed M; the first design of #12,
+     #13, #17, #19 and #20 also timed at f32;
   3. the port's main paths at full width with cut depth: compress_model
      (16x128 calibration) -> pack_model -> greedy_decode (batch 4, prompt
      32, gen 16, square and ragged), once per packed variant, llama2-7b:
@@ -79,15 +80,16 @@ Phases:
        w  slab, CR 0.5, then W_S := 0                -> binlr (#9, #20)
      Launch counts are zeroed just before each greedy_decode and read
      just after, one counter per library: phase m's #14 (2 rows per
-     expert) must run only the first design (ell.cu), phases b and n's #2
-     and phases r, s, t, u and v's grouped kernel only grouped_tc.cu, and
-     phases q and x (f32) only ell.cu;
+     expert) must run only the first design (ell.cu), phases b and n's #2,
+     phase n's #17 and phases r, s, t, u, v and w's grouped kernel only
+     grouped_tc.cu, and phases q and x (f32) only ell.cu;
      final-step logits are held against the dense-equivalent
      (reconstructed-W) model — for the MoE models against dense experts
      (and dense shared experts) behind the same packed attention, whose
      expert choices must agree token for token (_hold_moe_logits says
-     why); phases a, b, m, r, s, t, u and v are profiled (b and u with
-     #2's and #18's device time per step and share of the busy time);
+     why); phases a, b, m, n, r, s, t, u, v and w are profiled (b, n, u
+     and w with #2's, #17's, #18's and #20's device time per step and
+     share of the busy time);
      phases e-i also print the eval perplexity (lm.loss_fn) of the
      uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
@@ -110,8 +112,8 @@ Phases:
        x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
           factor 64/6;
   4. one JSON line listing every ported kernel (all twenty; #2, #12,
-     #13, #14, #18 and #19 once per library, each with its own launch
-     counter: twenty-six entries), then the result line.
+     #13, #14, #17, #18, #19 and #20 once per library, each with its own
+     launch counter: twenty-eight entries), then the result line.
 
 Any failed check raises, and the script exits non-zero. It needs
 ``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
@@ -140,7 +142,8 @@ JSON_SHAPE = (4096, 4096)          # q/k/v/o: 4 of the 7 linears per layer
 SLEEP_CYCLES = 400_000             # ~0.2 ms of device sleep before a timed call
 # kernels whose two libraries are also checked and timed one by one at
 # every bf16 timed case (the JSON line reports each library's time)
-LIB_TIMED = ("slab_nm_matmul", "slab_lr_matmul_g")
+LIB_TIMED = ("slab_nm_matmul", "slab_lr_matmul_g", "slab_nm_matmul_g",
+             "binlr_matmul_g")
 # #2's per-library M sweep at JSON_SHAPE (bf16, rank 1, 2:4 and 4:8)
 NM_SWEEP_M = (1, 2, 4, 8, 16)
 
@@ -175,7 +178,8 @@ def environment():
         + " ".join(f"{s}={t:.2f}s" for s, t in per_src.items()))
     for s in build.SOURCES:
         log(f"  ptxas {s}: {_ptxas_summary(build.build_log(s))}")
-    log("  ptxas grouped_tc.cu tc bodies (#19, #18, #2): "
+    log("  ptxas grouped_tc.cu tc bodies (#19, #18, #2; tc_g_kernel: #17, "
+        "#20): "
         + _ptxas_tc(build.build_log("grouped_tc.cu")))
     return card
 
@@ -192,11 +196,13 @@ def _ptxas_summary(text: str) -> str:
 
 
 def _ptxas_tc(text: str) -> str:
-    """Registers and spill-store bytes of each tc_kernel / tc_bin_kernel
-    entry of a ``-Xptxas -v`` report, as kernel<source, n-tiles>."""
+    """Registers and spill-store bytes of each tc_kernel / tc_bin_kernel /
+    tc_g_kernel entry of a ``-Xptxas -v`` report, as kernel<source,
+    n-tiles>."""
     out = []
-    pat = re.compile(r"Compiling entry function '_ZN2tc(\d+)(tc_(?:bin_)?kernel)"
-                     r"INS_(?:\d+)(NmSrc|DenseSrc)(?:ILi(\d)ELi(\d)EE)?"
+    pat = re.compile(r"Compiling entry function '_ZN2tc(\d+)"
+                     r"(tc_(?:bin_|g_)?kernel)"
+                     r"INS_(?:\d+)(NmSrc|DenseSrc|NoSrc)(?:ILi(\d)ELi(\d)EE)?"
                      r"ELi(\d)E")
     lines = text.splitlines()
     for i, line in enumerate(lines):
@@ -603,7 +609,9 @@ G_SPECS = {
                  "slab_nm_matmul_g"),
         shapes=((6400, 4096), (4096, 6400)), experts=16,
         bucket=(3, 14, 0, 9, 6), batches=(1, 2, 20), timed_m=2,
-        odd=(4096, 6408), seed=2, sweep=("slab_ell_matmul_g",)),
+        odd=(4096, 6408), seed=2,
+        sweep=("slab_ell_matmul_g", "slab_nm_matmul_g"),
+        timed_f32=("slab_nm_matmul_g[2:4]",)),
     "deepseek-moe-16b": dict(
         kernels=("slab_ell_matmul_g", "ell_matmul_g", "ell_lr_matmul_g",
                  "slab_lr_matmul_g", "slab_nm_lr_matmul_g",
@@ -612,9 +620,9 @@ G_SPECS = {
         bucket=(9, 61, 0, 33, 17, 48, 5), batches=(1, 6, 20), timed_m=6,
         odd=(1411, 1412), seed=4,
         sweep=("slab_ell_matmul_g", "slab_nm_lr_matmul_g", "ell_matmul_g",
-               "ell_lr_matmul_g", "slab_lr_matmul_g"),
+               "ell_lr_matmul_g", "slab_lr_matmul_g", "binlr_matmul_g"),
         timed_f32=("slab_nm_lr_matmul_g[2:4]", "ell_matmul_g",
-                   "ell_lr_matmul_g")),
+                   "ell_lr_matmul_g", "binlr_matmul_g")),
 }
 G_TIMED = dict(dtype=torch.bfloat16, rank=1)
 READS_NM = ("nm_matmul_g", "slab_nm_matmul_g", "slab_nm_lr_matmul_g")
@@ -752,7 +760,11 @@ def _g_cases(planes, x, rank, kernels, wide_ids=False):
                 (nv, ni, b, u, v),
                 lambda nv=nv, ni=ni, nn=nn, mm=mm:
                     nm_dense(nv, ni, nn, mm)() + w_b(),
-                ops(nv.numel(), binary=True)))
+                ops(nv.numel(), binary=True),
+                libs={kk.key: (lambda kk=kk, nv=nv, ni=ni, mm=mm:
+                               g_k.launch_slab_nm_g(kk, x, nv, ni, mm, b, u,
+                                                    v))
+                      for kk in (g_k.SLAB_NM_G, g_k.SLAB_NM_G_FIRST)}))
     if b is not None and "slab_matmul_g" in want:
         ws = planes["dense"]
         out.append(Case(
@@ -766,7 +778,9 @@ def _g_cases(planes, x, rank, kernels, wide_ids=False):
             "binlr_matmul_g", "binlr_matmul_g",
             lambda: g_k.binlr_matmul_g(x, b, u, v),
             lambda: g_k.binlr_matmul_g_plain(x, b, u, v),
-            (b, u, v), w_b, ops(0, binary=True)))
+            (b, u, v), w_b, ops(0, binary=True),
+            libs={kk.key: (lambda kk=kk: g_k.launch_binlr_g(kk, x, b, u, v))
+                  for kk in (g_k.BINLR_G, g_k.BINLR_G_FIRST)}))
     if rank == 1 and "nm_matmul_g" in want:
         for pat, nv, ni, nn, mm in nms():
             out.append(Case(
@@ -1953,7 +1967,8 @@ PHASES = (
                profiled=True)),
     ("n", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.5,
                pattern="2:4", variant="slab-nm", kernel="slab_nm_matmul",
-               expert_kernel="slab_nm_matmul_g", tol=3e-2)),
+               expert_kernel="slab_nm_matmul_g", tol=3e-2, profiled=True,
+               focus=("#17 slab_nm_matmul_g", "tc_g_kernel<tc::NmSrc<2, 4>"))),
     ("o", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.2,
                pattern=None, variant="slab-dense", kernel="slab_matmul",
                expert_kernel="slab_matmul_g", tol=3e-2)),
@@ -1995,6 +2010,7 @@ PHASES = (
     ("w", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.5, pattern=None, variant="binlr", kernel="binlr_matmul",
                expert_kernel="binlr_matmul_g", tol=3e-2, zero_ws=True,
+               profiled=True, focus=("#20 binlr_matmul_g", "tc::NoSrc"),
                note="phase r's slab decompositions with W_S := 0, served "
                     "as W_L ⊙ W_B")),
 )
@@ -2009,13 +2025,15 @@ JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
 # ... and of each grouped kernel's library, by counter key: the G_SPECS
 # model and the timed case (at that model's first shape). #14's first
 # design reports phi3.5-moe at M 2, where its decode runs it; #12's, #13's
-# and #19's their f32 launches; #18's (and #2's, above) each library at
-# the timed case (LIB_TIMED: the case's "libs").
+# and #19's their f32 launches; #17's, #18's and #20's (and #2's, above)
+# each library at the timed case (LIB_TIMED: the case's "libs").
 G_JSON = {"slab_ell_matmul_g": ("deepseek-moe-16b", "slab_ell_matmul_g"),
           "slab_ell_matmul_g@ell.cu": ("phi3.5-moe", "slab_ell_matmul_g"),
           "nm_matmul_g": ("phi3.5-moe", "nm_matmul_g[2:4]"),
           "slab_matmul_g": ("phi3.5-moe", "slab_matmul_g"),
           "slab_nm_matmul_g": ("phi3.5-moe", "slab_nm_matmul_g[2:4]"),
+          "slab_nm_matmul_g@slab_matmul.cu": ("phi3.5-moe",
+                                              "slab_nm_matmul_g[2:4]"),
           "ell_matmul_g": ("deepseek-moe-16b", "ell_matmul_g"),
           "ell_matmul_g@ell.cu": ("deepseek-moe-16b", "ell_matmul_g f32"),
           "ell_lr_matmul_g": ("deepseek-moe-16b", "ell_lr_matmul_g"),
@@ -2028,7 +2046,9 @@ G_JSON = {"slab_ell_matmul_g": ("deepseek-moe-16b", "slab_ell_matmul_g"),
                                   "slab_nm_lr_matmul_g[2:4]"),
           "slab_nm_lr_matmul_g@slab_matmul.cu": (
               "deepseek-moe-16b", "slab_nm_lr_matmul_g[2:4] f32"),
-          "binlr_matmul_g": ("deepseek-moe-16b", "binlr_matmul_g")}
+          "binlr_matmul_g": ("deepseek-moe-16b", "binlr_matmul_g"),
+          "binlr_matmul_g@slab_matmul.cu": ("deepseek-moe-16b",
+                                            "binlr_matmul_g")}
 FLASH = ("flash_decode", "flash_decode_paged")
 
 

@@ -4,24 +4,29 @@
 //   slab_nm_lr_matmul_g:  y[e] = x[e] · (W_S + U Vᵀ)ᵀ              (#19)
 //   slab_lr_matmul_g:     the same with a dense W_S                (#18)
 //   slab_nm_matmul:       y = x · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ, N:M   (#2)
+//   slab_nm_matmul_g:     the same for every expert e              (#17)
+//   binlr_matmul_g:       y[e] = x[e] · (Σ_r u_r v_rᵀ ⊙ B)ᵀ        (#20)
 //   ell_matmul_g:         y[e] = x[e] · W_Sᵀ                       (#12)
 //   ell_lr_matmul_g:      y[e] = x[e] · W_Sᵀ + (x[e] · Vᵀ) · U     (#13)
 //
 // Replace repro/kernels/grouped.py::slab_ell_matmul_g (_kernel_slab_ell_g,
 // pallas_call at grouped.py:142), ::slab_nm_lr_matmul_g
 // (_kernel_nm_lr_g, pallas_call at grouped.py:402), ::slab_lr_matmul_g
-// (_kernel_dense_lr_g, pallas_call at grouped.py:348), ::ell_matmul_g
-// (_kernel_ell_g, pallas_call at grouped.py:64), ::ell_lr_matmul_g
-// (_kernel_ell_lr_g, pallas_call at grouped.py:103) and
-// repro/kernels/slab_matmul.py::slab_nm_matmul (_kernel_nm, pallas_call
-// at slab_matmul.py:135) for bf16 operands.
+// (_kernel_dense_lr_g, pallas_call at grouped.py:348),
+// ::slab_nm_matmul_g (_kernel_nm_full_g, pallas_call at grouped.py:297),
+// ::binlr_matmul_g (_kernel_binlr_g, pallas_call at grouped.py:450),
+// ::ell_matmul_g (_kernel_ell_g, pallas_call at grouped.py:64),
+// ::ell_lr_matmul_g (_kernel_ell_lr_g, pallas_call at grouped.py:103)
+// and repro/kernels/slab_matmul.py::slab_nm_matmul (_kernel_nm,
+// pallas_call at slab_matmul.py:135) for bf16 operands.
 // The first design (ell.cu, slab_matmul.cu) keeps the f32 launches,
-// which hold 1e-5 without TF32, #19's and #2's patterns other than 2:4 /
-// 4:8, and #12, #13 and #14 at 1-2 rows per expert, where its 2-byte
-// gathers are cheaper than these kernels' 16-byte ones
-// (grouped.TC_MIN_ROWS, grouped.ELL_TC_MIN_ROWS). #14, #19, #18 and #2
-// use the tensor cores; #12 and #13, whose work is all gather, do not
-// (their section below).
+// which hold 1e-5 without TF32, #19's, #17's and #2's patterns other
+// than 2:4 / 4:8, #17 and #2 at ranks whose x ⊙ v_r tiles do not fit a
+// block, #20 past rank 4, and #12, #13 and #14 at 1-2 rows per expert, where its
+// 2-byte gathers are cheaper than these kernels' 16-byte ones
+// (grouped.TC_MIN_ROWS, grouped.ELL_TC_MIN_ROWS). #14, #19, #18, #17, #20
+// and #2 use the tensor cores; #12 and #13, whose work is all gather, do
+// not (their section below).
 //
 // #14 and #19's bound on the H100: bytes. At the MoE decode shapes (1-32
 // rows per expert) each expert is a skinny GEMM: the E experts' planes (ELL vals +
@@ -100,6 +105,22 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// A read-only load that also asks L2 for the 256-byte block around it, so
+// that the next chunks of a row (sign words, 2:4 planes) arrive from L2
+// (builds without it were slower on an H100: PERF.md)
+__device__ __forceinline__ uint32_t ldg_l2(const uint32_t* p) {
+  uint32_t r;
+  asm("ld.global.nc.L2::256B.u32 %0, [%1];\n" : "=r"(r) : "l"(p));
+  return r;
+}
+__device__ __forceinline__ uint4 ldg_l2(const uint4* p) {
+  uint4 r;
+  asm("ld.global.nc.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
 }
 
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
@@ -267,7 +288,8 @@ __device__ __forceinline__ void block_span(size_t e0, size_t lo, size_t hi,
 }
 
 constexpr int kTileK = 128;     // columns of one sign-word chunk
-constexpr int kMaxR = 4;        // ranks whose u values stay in registers
+constexpr int kMaxR = 4;        // ranks whose u values (#14) or sums (#20)
+                                // stay in registers
 
 // One k16 step of Σ_r (±u_r) · bf16(x ⊙ v_r) into c: A is u_r's bits with
 // the sign bit set where the sign word's bit is clear (f: rows g / g + 8,
@@ -517,9 +539,9 @@ extern "C" int slab_ell_matmul_g(int dtype, int idx_bytes, const void* x,
 
 namespace tc {
 
-// ---------------------------------------------------------------- #19, #18, #2
+// ------------------------------------------------ #19, #18, #2, #17, #20
 //
-// One body, tc_kernel, serves three kernels whose weight rows meet x on
+// One body, tc_kernel, serves five kernels whose weight rows meet x on
 // the tensor cores in one k order:
 //
 //   slab_nm_lr_matmul_g  y[e] = x[e] · W_S[e]ᵀ + (x[e] · V[e]ᵀ) · U[e],
@@ -527,22 +549,28 @@ namespace tc {
 //   slab_lr_matmul_g     the same with a dense W_S                   (#18)
 //   slab_nm_matmul       y = x · W_Sᵀ + Σ_r u_r ⊙ (B · (x ⊙ v_r)ᵀ),
 //                        W_S in N:M form, B the ±1 sign words        (#2)
+//   slab_nm_matmul_g     #2 for every expert e                       (#17)
+//   binlr_matmul_g       y[e] = Σ_r u_r ⊙ (B[e] · (x[e] ⊙ v_r)ᵀ)     (#20)
 //
 // #18 replaces repro/kernels/grouped.py::slab_lr_matmul_g
-// (_kernel_dense_lr_g, pallas_call at grouped.py:348) and #2
+// (_kernel_dense_lr_g, pallas_call at grouped.py:348), #2
 // repro/kernels/slab_matmul.py::slab_nm_matmul (_kernel_nm, pallas_call
-// at slab_matmul.py:135), for bf16 operands (#2 at 2:4 and 4:8); their
-// f32 launches and #2's other patterns keep the first design
-// (slab_matmul.cu), which holds 1e-5 without TF32.
+// at slab_matmul.py:135), #17 repro/kernels/grouped.py::slab_nm_matmul_g
+// (_kernel_nm_full_g, pallas_call at grouped.py:297) and #20
+// ::binlr_matmul_g (_kernel_binlr_g, pallas_call at grouped.py:450), for
+// bf16 operands (#2 and #17 at 2:4 and 4:8); their f32 launches and the
+// other patterns keep the first design (slab_matmul.cu), which holds
+// 1e-5 without TF32.
 //
 // A block owns kRows = 128 output rows of one expert, a warp 16 (grid
-// (⌈N/128⌉, E, splits of K)); x is staged once per 8·NTP batch rows;
-// within each 128-column chunk lane q of a row group owns columns 32q ..
-// 32q + 31 (the k-slots 2q, 2q+1 / 2q+8, 2q+9 of step s are its columns
-// 4s, 4s+1 / 4s+2, 4s+3) on the A and the B side alike, and reads B as
-// four 16-byte loads of its x row. What differs is where A comes from
-// (the Src template):
-//  - NmSrc (#19, #2): decoded in registers from vals and positions read a
+// (⌈N/128 / tiles a block⌉, E, splits of K)); x is staged once per 8·NTP
+// batch rows, and a block may walk several row tiles of its expert
+// after staging once; within each 128-column chunk lane q of a row group
+// owns columns 32q .. 32q + 31 (the k-slots 2q, 2q+1 / 2q+8, 2q+9 of
+// step s are its columns 4s, 4s+1 / 4s+2, 4s+3) on the A and the B side
+// alike, and reads B as four 16-byte loads of its x row. What differs is
+// where A comes from (the Src template):
+//  - NmSrc (#19, #2, #17): decoded in registers from vals and positions read a
 //    chunk ahead of their use, two 16-byte value loads and one 16-byte
 //    position load a row; 2:4 is decoded by byte permutes, 4:8 by
 //    comparisons. A position outside [0, m) matches no column and
@@ -558,26 +586,46 @@ namespace tc {
 //    two rows a quarter-warp reads fall in different banks; within a row
 //    lanes q and q + 2 share a bank group (a 2-way conflict on the A
 //    loads, once a chunk).
-// #2 adds the ±1 term to the same accumulator as one more mma a rank and
-// step: A is ±u_r from the sign bits (sign word 4c + q of a row holds
-// exactly lane q's 32 columns of chunk c: bits 4s .. 4s + 3 are step
-// s's), B is bf16(x ⊙ v_r), rounded as the reference rounds it and
+//  - NoSrc (#20): no W_S, so no A and no mma for it, and no x tile.
+// #2, #17 and #20 add the ±1 term to the same accumulator as one more mma
+// a rank and step: A is ±u_r from the sign bits (sign word 4c + q of a
+// row holds exactly lane q's 32 columns of chunk c: bits 4s .. 4s + 3 are
+// step s's), B is bf16(x ⊙ v_r), rounded as the reference rounds it and
 // staged once a block beside x from the same loads (forming it from the
 // x fragment at every step, in every warp, took ~40 % of the kernel on
-// an H100). #2's per-linear shapes give few blocks of 128 rows ((4096,
-// 4096): 32 for 132 SMs), so K is split across blocks from the shapes
-// alone (kernels/slab_matmul.py::plan_nm_splits): each block stages only
-// its columns of x and x ⊙ v_r (the tiles stay small at any K) and writes
-// fp32 partial sums, and the last block of a row tile (counted by an
-// atomic ticket) adds them in split order, so two launches give the same
-// bits. #2 caps its registers so that two blocks share an SM; #19 and #18
-// run one split.
+// an H100). The sign bits become A by two instructions a register: once
+// a chunk the word is spread so that the bits of columns j and j + 1 lie
+// 16 apart (xspread), then a shift brings a step's pair to bits 15 and
+// 31, which flip the sign bits of ±u_r's two halves. #20 decodes A = ±1
+// once a step for all its ranks (at most kMaxR), one accumulator each,
+// and scales them by u_r after the sum (accum_binlr_terms' order). #2's
+// per-linear
+// shapes give few blocks of 128 rows ((4096, 4096): 32 for 132 SMs),
+// so K is split across blocks from the shapes alone
+// (kernels/slab_matmul.py::plan_nm_splits, which counts every expert's
+// row tiles): each block stages only its columns of x and x ⊙ v_r (the
+// tiles stay small at any K) and writes fp32 partial sums (splits, E, M,
+// N), and the last block of an expert's row tiles (counted by an atomic
+// ticket of that expert and block column) adds them in split order, so
+// two launches give the same bits. #2, #17 and #20 cap their registers
+// so that two blocks share an SM; #19 and #18 run one split.
+// #20 streams only K/8 bytes of sign words a row (256 B at K 2048), less
+// than a block's staging reads and writes (x and x ⊙ v_r): so its blocks
+// walk several consecutive row tiles of their expert after staging once
+// (kernels/slab_matmul.py::plan_tiles_per_block: about two blocks an SM,
+// one wave), its sign words are read a chunk ahead as one stream over
+// the block's tiles, and u comes from shared memory, staged with x ⊙ v_r.
 // Built and timed on an H100 while this was designed (PERF.md gives the
 // direction; the builds are not kept): #2's N:M planes through a
 // shared-memory ring (bulk copies or cp.async, 3-4 stages) lost to the
 // registers at every shape; #18's ring by cp.async lost to the bulk
 // copies, and with one block an SM and 4 stages it lost to two blocks
-// and 2 stages.
+// and 2 stages. For #20: 3 blocks an SM (registers capped at 85) spilled
+// and lost; sign words 4, 8 or 16 chunks ahead, two accumulators a row
+// pair and an L2 prefetch instruction a few chunks ahead did not help
+// (the last cost #17 and #19 8-30 %); a build whose A took one
+// instruction in place of two ran ~15 % faster, so the decode's issue
+// cost is a share of what binds (PERF.md §6).
 // #19's and #18's projection p = x·Vᵀ is formed once a block pass in fp32
 // from the staged x with a fixed reduction order; Σ_r p[m, r]·u_r[n] is
 // added in the epilogue, before the one rounding.
@@ -593,10 +641,10 @@ __device__ __forceinline__ int xr_elem(int k) {
 }
 
 // Stage batch rows m0 .. m0 + 8·ntp - 1 of x (rows ldx apart; zero rows
-// past M, zero columns from kw to Kp) with 16-byte stores; with xv (#2)
-// also bf16(x ⊙ v_r) for each of the R ranks (v_r: R rows ldx apart from
-// v) as tiles of the same layout from xv + r·8·ntp·sx, from the same
-// loads of x.
+// past M, zero columns from kw to Kp) with 16-byte stores (none with xr
+// null: #20 reads no x tile); with xv (#2, #17, #20) also bf16(x ⊙ v_r)
+// for each of the R ranks (v_r: R rows ldx apart from v) as tiles of the
+// same layout from xv + r·8·ntp·sx, from the same loads of x.
 __device__ __forceinline__ void stage_rows(bf16* xr, const bf16* __restrict__ x,
                                            int ldx, int m0, int M, int kw,
                                            int Kp, int sx, int ntp,
@@ -617,13 +665,16 @@ __device__ __forceinline__ void stage_rows(bf16* xr, const bf16* __restrict__ x,
     }
     return make_uint4(w[0], w[1], w[2], w[3]);
   };
+  // unrolled so that a thread's loads of several units are in flight at
+  // once
+#pragma unroll 4
   for (int i = threadIdx.x; i < ntp * 8 * nch; i += blockDim.x) {
     const int r = i / nch, ch = i - r * nch, c = ch * 8, m = m0 + r;
     const bool in = m < M && c < kw;
     const uint4 o = in ? load(x + (size_t)m * ldx + c, c)
                        : make_uint4(0, 0, 0, 0);
     const size_t at = (size_t)r * sx + xr_unit(ch) * 8;
-    *reinterpret_cast<uint4*>(xr + at) = o;
+    if (xr) *reinterpret_cast<uint4*>(xr + at) = o;
     for (int k = 0; k < R; ++k) {
       uint4 w = make_uint4(0, 0, 0, 0);
       if (in) {
@@ -643,7 +694,8 @@ __device__ __forceinline__ void stage_rows(bf16* xr, const bf16* __restrict__ x,
 // half). Entries of groups at or past K read as position -128, which
 // matches no column. ``vec``: every row's entries start on a 32-byte
 // boundary (K a multiple of 32), so they are two 16-byte value loads and
-// one 16-byte position load.
+// one 16-byte position load; ``wide``: at 2:4 they ask L2 for the rest of
+// their 256-byte blocks (ldg_l2).
 struct NmRaw {
   uint32_t v[8], p[4];
 };
@@ -652,13 +704,21 @@ template <int NK, int MG>
 __device__ __forceinline__ void nm_load(NmRaw& raw,
                                         const bf16* __restrict__ vals,
                                         const int8_t* __restrict__ idx,
-                                        size_t base, int c, int K, bool vec) {
+                                        size_t base, int c, int K, bool vec,
+                                        bool wide) {
   static_assert(32 / MG * NK == 16, "16 stored entries per 32 columns");
   const size_t e = base + (size_t)(c / MG) * NK;
   if (vec && c + 32 <= K) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(vals + e));
-    const uint4 b = __ldg(reinterpret_cast<const uint4*>(vals + e + 8));
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(idx + e));
+    // (4:8, whose decode binds, was slower with the L2 request)
+    auto ld = [wide](const void* p) {
+      const uint4* q4 = reinterpret_cast<const uint4*>(p);
+      if constexpr (NK == 2 && MG == 4)
+        if (wide) return ldg_l2(q4);
+      return __ldg(q4);
+    };
+    const uint4 a = ld(vals + e);
+    const uint4 b = ld(vals + e + 8);
+    const uint4 q = ld(idx + e);
     raw.v[0] = a.x; raw.v[1] = a.y; raw.v[2] = a.z; raw.v[3] = a.w;
     raw.v[4] = b.x; raw.v[5] = b.y; raw.v[6] = b.z; raw.v[7] = b.w;
     raw.p[0] = q.x; raw.p[1] = q.y; raw.p[2] = q.z; raw.p[3] = q.w;
@@ -749,45 +809,60 @@ struct TcArgs {
   const bf16* x;          // (E, M, K)
   const bf16* w;          // vals (E·N, K/m·n) or the dense W_S (E·N, K)
   const int8_t* idx;      // N:M positions, as vals
-  const uint32_t* bp;     // #2: sign words (N, K/32)
+  const uint32_t* bp;     // #2, #17, #20: sign words (E, N, K/32)
   const bf16* u;          // (E, R, N)
   const bf16* v;          // (E, R, K)
   bf16* y;                // (E, M, N)
-  float* part;            // #2 split: (splits, M, N) partial sums
-  int* tickets;           // #2 split: one per row tile, zero between launches
+  float* part;            // split: (splits, E, M, N) partial sums
+  int* tickets;           // split: one per expert and block column, zero
+                          // between launches
   int M, N, K, R;
   int cps;                // 128-column chunks a split covers
   int stages;             // DenseSrc: stages of each warp's ring
+  int tpb;                // row tiles a block walks
 };
+
+// Whether a launch's splits are 2048 columns or wider: then a row's
+// planes and sign words in a split fill whole 256-byte blocks, and their
+// loads ask L2 for the rest of the block (ldg_l2). Narrower splits (#2 at
+// its per-linear shapes) lost up to 8 % with it on an H100, #17 and #19
+// gained 3-5 % (PERF.md).
+__device__ __forceinline__ bool wide_split(const TcArgs& a) {
+  return min(a.K, a.cps * 128) >= 2048;
+}
 
 // A from N:M planes: the row pair's entries of the next chunk in
 // registers.
 template <int NK, int MG>
 struct NmSrc {
-  static constexpr bool kRing = false;
+  static constexpr bool kA = true, kRing = false;
   static constexpr int kStage = 0, kBlocks = 1;
   const bf16* vals;
   const int8_t* idx;
   size_t ba, bb;          // first entries of rows g and g + 8
   int K, q;
-  bool vec;
+  bool vec, wide;
   NmRaw na, nb;           // the next chunk's entries
 
-  __device__ __forceinline__ void init(const TcArgs& a, size_t ex, int row0,
-                                       int ra, int rb, unsigned char*,
+  __device__ __forceinline__ void init(const TcArgs& a, unsigned char*,
                                        uint64_t*, int lane) {
-    const size_t per_row = (size_t)(a.K / MG) * NK;
     vals = a.w;
     idx = a.idx;
-    ba = (ex * a.N + ra) * per_row;
-    bb = (ex * a.N + rb) * per_row;
     K = a.K;
     q = lane & 3;
     vec = K % 32 == 0;
+    wide = wide_split(a);
+  }
+  // rows ra (g) and rb (g + 8) of expert ex
+  __device__ __forceinline__ void at(const TcArgs& a, size_t ex, int,
+                                     int ra, int rb) {
+    const size_t per_row = (size_t)(a.K / MG) * NK;
+    ba = (ex * a.N + ra) * per_row;
+    bb = (ex * a.N + rb) * per_row;
   }
   __device__ __forceinline__ void load(int c) {
-    nm_load<NK, MG>(na, vals, idx, ba, c + 32 * q, K, vec);
-    nm_load<NK, MG>(nb, vals, idx, bb, c + 32 * q, K, vec);
+    nm_load<NK, MG>(na, vals, idx, ba, c + 32 * q, K, vec, wide);
+    nm_load<NK, MG>(nb, vals, idx, bb, c + 32 * q, K, vec, wide);
   }
   __device__ __forceinline__ void begin(int c0, int) { load(c0); }
   // chunk c's A words (rows g, g + 8; a[j]: columns 32q + 2j, + 1), the
@@ -807,7 +882,7 @@ struct NmSrc {
 // is 272 bytes (16 past 256), so the two rows a quarter-warp reads fall
 // in different banks.
 struct DenseSrc {
-  static constexpr bool kRing = true;
+  static constexpr bool kA = true, kRing = true;
   static constexpr int kRow = 272;
   static constexpr int kStage = 16 * kRow;
   static constexpr int kBlocks = 2;           // blocks an SM (shared memory)
@@ -815,18 +890,21 @@ struct DenseSrc {
   unsigned char* ring;    // this warp's stages
   uint64_t* bars;         // and their mbarriers
   int K, stages, lane;
-  uint32_t issued, used;  // chunks copied / read, over every pass
+  uint32_t issued, used;  // chunks copied / read, over every pass and tile
 
-  __device__ __forceinline__ void init(const TcArgs& a, size_t ex, int row0,
-                                       int, int, unsigned char* r,
+  __device__ __forceinline__ void init(const TcArgs& a, unsigned char* r,
                                        uint64_t* b, int l) {
-    row = a.w + (ex * a.N + min(row0 + (l & 15), a.N - 1)) * (size_t)a.K;
     ring = r;
     bars = b;
     K = a.K;
     stages = a.stages;
     lane = l;
     issued = used = 0;
+  }
+  // the warp's 16 rows from row0 of expert ex
+  __device__ __forceinline__ void at(const TcArgs& a, size_t ex, int row0,
+                                     int, int) {
+    row = a.w + (ex * a.N + min(row0 + (lane & 15), a.N - 1)) * (size_t)a.K;
   }
   __device__ __forceinline__ void issue(int c) {
     const int st = issued % stages;
@@ -865,25 +943,114 @@ struct DenseSrc {
   }
 };
 
+// No A (#20: a W_S of zeros is not stored): the body skips A's loads, its
+// mma and the x tile.
+struct NoSrc {
+  static constexpr bool kA = false, kRing = false;
+  static constexpr int kStage = 0, kBlocks = 1;
+  __device__ __forceinline__ void init(const TcArgs&, unsigned char*,
+                                       uint64_t*, int) {}
+  __device__ __forceinline__ void at(const TcArgs&, size_t, int, int, int) {}
+  __device__ __forceinline__ void begin(int, int) {}
+  __device__ __forceinline__ void next(int, int, uint32_t (&)[16],
+                                       uint32_t (&)[16]) {}
+};
+
+// A lane's sign word of a chunk spread for the ±1 A fragments: bits j and
+// j + 1 of the word (j even, j < 16) at bits j and j + 16 of lo, bits j +
+// 16 and j + 17 at bits j and j + 16 of hi. Step s's four columns 4s ..
+// 4s + 3 then sit at bits 15 and 31 of (lo or hi) << (15 - 4(s % 4)) and
+// << (13 - 4(s % 4)).
+__device__ __forceinline__ void xspread(uint32_t w, uint32_t& lo,
+                                        uint32_t& hi) {
+  lo = __byte_perm(w, w << 15, 0x7610);
+  hi = __byte_perm(w, w >> 1, 0x7632);
+}
+
+// The lane's four 16-byte units of a staged row in a chunk (columns 32q
+// .. 32q + 31) as the B words of the chunk's 8 steps: xr_unit(u) of u =
+// chunk / 8 + 4q + j is chunk / 8 + ((4q + j) ^ (q & 2)), so unit j is
+// at row + 32q + (8j ^ 8(q & 2)) elements.
+__device__ __forceinline__ void load_units(uint32_t (&bw)[16], const bf16* row,
+                                           int q) {
+  const bf16* at = row + 32 * q;
+  const int flip = 8 * (q & 2);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint4 b = *reinterpret_cast<const uint4*>(at + ((8 * j) ^ flip));
+    bw[4 * j] = b.x; bw[4 * j + 1] = b.y;
+    bw[4 * j + 2] = b.z; bw[4 * j + 3] = b.w;
+  }
+}
+
+// A bf16 value's bits twice, both sign bits flipped: the ±1 term's A
+// words before the sign bits of their columns flip them back.
+__device__ __forceinline__ uint32_t flipped_pair(bf16 v) {
+  const uint32_t b = bits16(v);
+  return (b | (b << 16)) ^ 0x80008000u;
+}
+
+// The A words of step s of the ±1 term (rows g and g + 8, k-slots 2q, 2q+1
+// and 2q+8, 2q+9: the step's columns 4s .. 4s + 3), from the spread sign
+// words sa (row g) and sb (row g + 8), whose step-s bits sit at 15 and 31
+// after a shift (xspread), and ua / ub (flipped_pair of ±u_r or of 1): a
+// set sign bit flips a sign back.
+__device__ __forceinline__ void bin_a(uint32_t (&A)[4],
+                                      const uint32_t (&sa)[2],
+                                      const uint32_t (&sb)[2], int s,
+                                      uint32_t ua, uint32_t ub) {
+  constexpr uint32_t kSigns = 0x80008000u;
+  const uint32_t fa = sa[s / 4], fb = sb[s / 4];
+  const int sh = 15 - 4 * (s % 4);
+  A[0] = ua ^ ((fa << sh) & kSigns);
+  A[1] = ub ^ ((fb << sh) & kSigns);
+  A[2] = ua ^ ((fa << (sh - 2)) & kSigns);
+  A[3] = ub ^ ((fb << (sh - 2)) & kSigns);
+}
+
+// One chunk of ±u_r · bf16(x ⊙ v_r) into c: B from a row of tile r (the
+// lane's units of the row, load_units), A from bin_a.
+__device__ __forceinline__ void bin_chunk(float (&c)[4], uint32_t ua,
+                                          uint32_t ub,
+                                          const uint32_t (&sa)[2],
+                                          const uint32_t (&sb)[2],
+                                          const bf16* row,
+                                          int q) {
+  uint32_t bw[16];
+  load_units(bw, row, q);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    uint32_t A[4];
+    bin_a(A, sa, sb, s, ua, ub);
+    mma_bf16(c, A[0], A[1], A[2], A[3], bw[2 * s], bw[2 * s + 1]);
+  }
+}
+
 // LR: the low-rank projection and its epilogue term (#19, #18). BIN: the
-// ±1 term (#2), with K split over gridDim.z.
+// ±1 term (#2, #17, #20), with K split over gridDim.z.
 template <class Src, int NTP, bool LR, bool BIN>
 __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
                                         int& last_split) {
   constexpr int MT = 8 * NTP;                 // batch rows per pass
+  constexpr bool kX = Src::kA || LR;          // the x tile is read
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int M = a.M, N = a.N, K = a.K, R = a.R;
-  const size_t ex = blockIdx.y;
+  const size_t ex = blockIdx.y, E = gridDim.y;
   const int n_split = gridDim.z;
   const int k_lo = blockIdx.z * a.cps * 128;  // this split's columns
   const int k_hi = min(K, k_lo + a.cps * 128);
   const int kw = k_hi - k_lo;
   const int Kp = (kw + 127) / 128 * 128, sx = Kp + 8;
+  const int tpb = BIN ? a.tpb : 1;            // this block's row tiles
+  const int t_lo = blockIdx.x * tpb;
+  const int t_hi = min((N + kRows - 1) / kRows, t_lo + tpb);
+  const int span = tpb * kRows;               // rows of the block's tiles
   bf16* xr = reinterpret_cast<bf16*>(smem_raw);                 // (MT, sx)
-  bf16* xv = xr + (size_t)MT * sx;        // BIN: R tiles of x ⊙ v_r
-  float* p = reinterpret_cast<float*>(xv + (BIN ? (size_t)R * MT * sx : 0));
+  bf16* xv = xr + (kX ? (size_t)MT * sx : 0);   // BIN: R tiles of x ⊙ v_r
+  bf16* us = xv + (BIN ? (size_t)R * MT * sx : 0);  // BIN: (R, span) of u
+  float* p = reinterpret_cast<float*>(us + (BIN ? (size_t)R * span : 0));
   float* part = p + (size_t)R * MT;       // LR: p (R, MT), (kWarps, R, MT)
   unsigned char* ring = reinterpret_cast<unsigned char*>(p) +
       (LR ? slab::align16_up((size_t)(kWarps + 1) * R * MT * sizeof(float))
@@ -892,196 +1059,234 @@ __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
   bf16* y = a.y + ex * M * N;
   const bf16* u = a.u + ex * R * N;
   const bf16* v = a.v + ex * R * K;
-  const int row0 = blockIdx.x * kRows + warp * 16;
-  const bool live = row0 < N;
-  const int ra = min(row0 + g, N - 1), rb = min(row0 + g + 8, N - 1);
 
   Src src;
-  src.init(a, ex, row0, ra, rb, ring + (size_t)warp * a.stages * Src::kStage,
+  src.init(a, ring + (size_t)warp * a.stages * Src::kStage,
            bars + warp * kRingStages, lane);
   if (Src::kRing) {                  // each warp's own ring, used at once
     if (lane < a.stages) mbar_init(&bars[warp * kRingStages + lane]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     __syncwarp();
   }
-  // BIN: the row pair's sign words and u_r's bits twice (as #14)
-  const uint32_t* bpa = BIN ? a.bp + (ex * N + ra) * (size_t)(K / 32) : nullptr;
-  const uint32_t* bpb = BIN ? a.bp + (ex * N + rb) * (size_t)(K / 32) : nullptr;
-  uint32_t u2a[kMaxR], u2b[kMaxR];
-#pragma unroll
-  for (int r = 0; r < kMaxR; ++r) {
-    const uint32_t ua = BIN && r < R ? bits16(u[(size_t)r * N + ra]) : 0u;
-    const uint32_t ub = BIN && r < R ? bits16(u[(size_t)r * N + rb]) : 0u;
-    u2a[r] = ua | (ua << 16);
-    u2b[r] = ub | (ub << 16);
-  }
-
-  // BIN: the lane's sign words of a chunk (zero past K), a chunk ahead
-  auto words = [&](int kc, uint32_t& wa, uint32_t& wb) {
-    const bool in = kc + 32 * q < K;
-    wa = in ? __ldg(bpa + kc / 32 + q) : 0u;
-    wb = in ? __ldg(bpb + kc / 32 + q) : 0u;
+  // BIN: the lane's sign words as one stream over the block's tiles in
+  // order, a chunk ahead of their use (#20 ran no faster 2, 4, 8 or 16
+  // ahead): (ft, fk) is the next chunk to load, of tile ft's rows, into
+  // wna / wnb
+  uint32_t wna, wnb;
+  int ft = t_hi, fk = k_lo;
+  auto aim = [&](int t) {
+    ft = t < t_hi && t * kRows + warp * 16 < N ? t : t_hi;  // only a last
+    fk = k_lo;                                               // tile has none
+  };
+  const bool whole = wide_split(a);
+  auto fetch = [&](uint32_t& wa, uint32_t& wb) {
+    if (ft >= t_hi) return;
+    const int r0 = ft * kRows + warp * 16;
+    const bool in = fk + 32 * q < K;      // zero past K
+    const uint32_t* pa = a.bp + (ex * N + min(r0 + g, N - 1)) *
+                                    (size_t)(K / 32) + fk / 32 + q;
+    const uint32_t* pb = a.bp + (ex * N + min(r0 + g + 8, N - 1)) *
+                                    (size_t)(K / 32) + fk / 32 + q;
+    wa = in ? (whole ? ldg_l2(pa) : __ldg(pa)) : 0u;
+    wb = in ? (whole ? ldg_l2(pb) : __ldg(pb)) : 0u;
+    fk += 128;
+    if (fk >= k_hi) aim(ft + 1);
   };
   for (int m0 = 0; m0 < M; m0 += MT) {
-    // the pass's first chunks of A (and sign words) load while x is
-    // staged (and projected)
-    uint32_t wna = 0u, wnb = 0u;
-    if (live) {
-      src.begin(k_lo, k_hi);
-      if (BIN) words(k_lo, wna, wnb);
-    }
-    __syncthreads();                 // the previous pass's readers are done
-    if (BIN)
-      stage_rows(xr, x + k_lo, K, m0, M, kw, Kp, sx, NTP, xv, v + k_lo, R);
-    else
-      stage_rows(xr, x + k_lo, K, m0, M, kw, Kp, sx, NTP);
-    __syncthreads();
-    if (LR) {
-      // p[r, m] = Σ_k x[m, k] · v_r[k] in fp32: every warp takes a
-      // strided share of K, the partial sums are added in warp order
-      for (int r = 0; r < R; ++r) {
-        float acc[MT];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-        for (int k = warp * 32 + lane; k < K; k += kWarps * 32) {
-          const float vk = __bfloat162float(v[(size_t)r * K + k]);
-          const int kk = xr_elem(k);
-#pragma unroll
-          for (int m = 0; m < MT; ++m)
-            acc[m] += __bfloat162float(xr[(size_t)m * sx + kk]) * vk;
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float t = slab::warp_sum(acc[m]);
-          if (lane == 0) part[((size_t)warp * R + r) * MT + m] = t;
+    for (int t = t_lo; t < t_hi; ++t) {
+      // the tile's rows; its first chunks of A load while x is staged (and
+      // projected) or the last tile's results are stored
+      const int row0 = t * kRows + warp * 16;
+      const bool live = row0 < N;
+      const int ra = min(row0 + g, N - 1), rb = min(row0 + g + 8, N - 1);
+      if constexpr (Src::kA) {
+        if (live) {
+          src.at(a, ex, row0, ra, rb);
+          src.begin(k_lo, k_hi);
         }
       }
-      __syncthreads();
-      for (int i = threadIdx.x; i < R * MT; i += blockDim.x) {
-        float t = 0.f;
-        for (int w = 0; w < kWarps; ++w) t += part[(size_t)w * R * MT + i];
-        p[i] = t;
+      if (t == t_lo) {
+        if constexpr (BIN) {
+          aim(t_lo);
+          fetch(wna, wnb);
+        }
+        __syncthreads();             // the previous pass's readers are done
+        stage_rows(kX ? xr : nullptr, x + k_lo, K, m0, M, kw, Kp, sx, NTP,
+                   BIN ? xv : nullptr, BIN ? v + k_lo : nullptr,
+                   BIN ? R : 0);
+        if constexpr (BIN) {
+          for (int i = threadIdx.x; i < R * span; i += blockDim.x) {
+            const int r = i / span, j = i - r * span;
+            us[i] = u[(size_t)r * N + min(t_lo * kRows + j, N - 1)];
+          }
+        }
+        __syncthreads();
+        if (LR) {
+          // p[r, m] = Σ_k x[m, k] · v_r[k] in fp32: every warp takes a
+          // strided share of K, the partial sums are added in warp order
+          for (int r = 0; r < R; ++r) {
+            float acc[MT];
+#pragma unroll
+            for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+            for (int k = warp * 32 + lane; k < K; k += kWarps * 32) {
+              const float vk = __bfloat162float(v[(size_t)r * K + k]);
+              const int kk = xr_elem(k);
+#pragma unroll
+              for (int m = 0; m < MT; ++m)
+                acc[m] += __bfloat162float(xr[(size_t)m * sx + kk]) * vk;
+            }
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              const float s = slab::warp_sum(acc[m]);
+              if (lane == 0) part[((size_t)warp * R + r) * MT + m] = s;
+            }
+          }
+          __syncthreads();
+          for (int i = threadIdx.x; i < R * MT; i += blockDim.x) {
+            float s = 0.f;
+            for (int w = 0; w < kWarps; ++w) s += part[(size_t)w * R * MT + i];
+            p[i] = s;
+          }
+          __syncthreads();
+        }
       }
-      __syncthreads();
-    }
-    if (!live) continue;
+      if (!live) continue;
+      // BIN: u of rows ra and rb in the staged (R, span) u
+      const int ja = ra - t_lo * kRows, jb = rb - t_lo * kRows;
 
-    float c[NTP][4];
+      // #20 (no A): its ranks in the reference's order, one accumulator
+      // each, scaled by u_r after the sum
+      constexpr int kRanked = Src::kA ? 0 : kMaxR;
+      float c[NTP][4], cr[kRanked ? kRanked : 1][NTP][4];
 #pragma unroll
-    for (int t = 0; t < NTP; ++t)
-      c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.f;
-    for (int kc = k_lo; kc < k_hi; kc += 128) {
-      uint32_t aa[16], ab[16];
-      src.next(kc, k_hi, aa, ab);
-      const uint32_t wa = wna, wb = wnb;
-      if (BIN && kc + 128 < k_hi) words(kc + 128, wna, wnb);
+      for (int tt = 0; tt < NTP; ++tt) {
+        c[tt][0] = c[tt][1] = c[tt][2] = c[tt][3] = 0.f;
 #pragma unroll
-      for (int t = 0; t < NTP; ++t) {
-        const bf16* xrow = xr + (size_t)(8 * t + g) * sx;
-        const int u0 = (kc - k_lo) / 8 + 4 * q;
-        uint32_t bw[16];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint4 b = *reinterpret_cast<const uint4*>(
-              xrow + xr_unit(u0 + j) * 8);
-          bw[4 * j] = b.x; bw[4 * j + 1] = b.y;
-          bw[4 * j + 2] = b.z; bw[4 * j + 3] = b.w;
+        for (int r = 0; r < kRanked; ++r)
+          cr[r][tt][0] = cr[r][tt][1] = cr[r][tt][2] = cr[r][tt][3] = 0.f;
+      }
+      for (int kc = k_lo; kc < k_hi; kc += 128) {
+        uint32_t aa[16], ab[16];
+        if constexpr (Src::kA) src.next(kc, k_hi, aa, ab);
+        uint32_t sa[2] = {0u, 0u}, sb[2] = {0u, 0u};  // BIN: spread words
+        if constexpr (BIN) {
+          xspread(wna, sa[0], sa[1]);
+          xspread(wnb, sb[0], sb[1]);
+          fetch(wna, wnb);
         }
 #pragma unroll
-        for (int s = 0; s < 8; ++s)
-          mma_bf16(c[t], aa[2 * s], ab[2 * s], aa[2 * s + 1], ab[2 * s + 1],
-                   bw[2 * s], bw[2 * s + 1]);
-        if (!BIN) continue;
-        // Σ_r ±u_r · bf16(x ⊙ v_r): B from tile r, A from the sign bits
-        // (bits 4s .. 4s + 3 of the lane's words are step s's columns)
-        for (int r = 0; r < R; ++r) {
-          uint32_t ua = 0u, ub = 0u;
+        for (int tt = 0; tt < NTP; ++tt) {
+          const size_t at = (size_t)(8 * tt + g) * sx + (kc - k_lo);
+          if constexpr (Src::kA) {
+            uint32_t bw[16];
+            load_units(bw, xr + at, q);
 #pragma unroll
-          for (int i = 0; i < kMaxR; ++i)
-            if (i == r) { ua = u2a[i]; ub = u2b[i]; }
-          if (r >= kMaxR) {
-            const uint32_t la = bits16(u[(size_t)r * N + ra]);
-            const uint32_t lb = bits16(u[(size_t)r * N + rb]);
-            ua = la | (la << 16);
-            ub = lb | (lb << 16);
+            for (int s = 0; s < 8; ++s)
+              mma_bf16(c[tt], aa[2 * s], ab[2 * s], aa[2 * s + 1],
+                       ab[2 * s + 1], bw[2 * s], bw[2 * s + 1]);
           }
-          const bf16* vrow = xv + ((size_t)r * MT + 8 * t + g) * sx;
+          if constexpr (BIN) {
+            // Σ_r ±u_r · bf16(x ⊙ v_r), B from tile r: #20's ranks (at
+            // most kMaxR) share A = ±1, decoded once a step (a build that
+            // decoded ±u_r for each rank was 10 % slower at rank 3, as
+            // fast at rank 1); #2 and #17, whose registers are capped,
+            // decode ±u_r into c
+            if constexpr (kRanked > 0) {
+              constexpr uint32_t kOne = 0xBF80BF80u;   // flipped_pair(1)
+              uint32_t A[8][4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint4 b = *reinterpret_cast<const uint4*>(
-                vrow + xr_unit(u0 + j) * 8);
-            bw[4 * j] = b.x; bw[4 * j + 1] = b.y;
-            bw[4 * j + 2] = b.z; bw[4 * j + 3] = b.w;
-          }
+              for (int s = 0; s < 8; ++s) bin_a(A[s], sa, sb, s, kOne, kOne);
 #pragma unroll
-          for (int s = 0; s < 8; ++s) {
-            const uint32_t fa = wa >> (4 * s), fb = wb >> (4 * s);
-            mma_bf16(c[t], sign_pair(ua, fa & 3u), sign_pair(ub, fb & 3u),
-                     sign_pair(ua, (fa >> 2) & 3u),
-                     sign_pair(ub, (fb >> 2) & 3u), bw[2 * s], bw[2 * s + 1]);
+              for (int r = 0; r < kRanked; ++r) {
+                if (r >= R) break;
+                uint32_t bw[16];
+                load_units(bw, xv + (size_t)r * MT * sx + at, q);
+#pragma unroll
+                for (int s = 0; s < 8; ++s)
+                  mma_bf16(cr[r][tt], A[s][0], A[s][1], A[s][2], A[s][3],
+                           bw[2 * s], bw[2 * s + 1]);
+              }
+            }
+            if constexpr (kRanked == 0) {
+              for (int r = 0; r < R; ++r)
+                bin_chunk(c[tt], flipped_pair(us[r * span + ja]),
+                          flipped_pair(us[r * span + jb]), sa, sb,
+                          xv + (size_t)r * MT * sx + at, q);
+            }
           }
         }
       }
-    }
+#pragma unroll
+      for (int r = 0; r < kRanked; ++r) {
+        if (r >= R) break;
+        const float fa = __bfloat162float(us[r * span + ja]);
+        const float fb = __bfloat162float(us[r * span + jb]);
+#pragma unroll
+        for (int tt = 0; tt < NTP; ++tt) {
+          c[tt][0] += cr[r][tt][0] * fa; c[tt][1] += cr[r][tt][1] * fa;
+          c[tt][2] += cr[r][tt][2] * fb; c[tt][3] += cr[r][tt][3] * fb;
+        }
+      }
 
-    const int na = row0 + g, nb = row0 + g + 8;
+      const int na = row0 + g, nb = row0 + g + 8;
 #pragma unroll
-    for (int t = 0; t < NTP; ++t) {
-      const int mi = 8 * t + 2 * q, m = m0 + mi;
-      float l0 = 0.f, l1 = 0.f, l2 = 0.f, l3 = 0.f;
-      if (LR) {
-        for (int r = 0; r < R; ++r) {
-          const float ua = __bfloat162float(u[(size_t)r * N + ra]);
-          const float ub = __bfloat162float(u[(size_t)r * N + rb]);
-          const float p0 = p[r * MT + mi], p1 = p[r * MT + mi + 1];
-          l0 += p0 * ua; l1 += p1 * ua; l2 += p0 * ub; l3 += p1 * ub;
+      for (int tt = 0; tt < NTP; ++tt) {
+        const int mi = 8 * tt + 2 * q, m = m0 + mi;
+        float l0 = 0.f, l1 = 0.f, l2 = 0.f, l3 = 0.f;
+        if (LR) {
+          for (int r = 0; r < R; ++r) {
+            const float ua = __bfloat162float(u[(size_t)r * N + ra]);
+            const float ub = __bfloat162float(u[(size_t)r * N + rb]);
+            const float p0 = p[r * MT + mi], p1 = p[r * MT + mi + 1];
+            l0 += p0 * ua; l1 += p1 * ua; l2 += p0 * ub; l3 += p1 * ub;
+          }
         }
-      }
-      if (n_split > 1) {             // fp32 partial sums of this split
-        float* pt = a.part + (size_t)blockIdx.z * M * N;
+        if (n_split > 1) {             // fp32 partial sums of this split
+          float* pt = a.part + ((size_t)blockIdx.z * E + ex) * M * N;
+          if (m < M) {
+            if (na < N) pt[(size_t)m * N + na] = c[tt][0];
+            if (nb < N) pt[(size_t)m * N + nb] = c[tt][2];
+          }
+          if (m + 1 < M) {
+            if (na < N) pt[(size_t)(m + 1) * N + na] = c[tt][1];
+            if (nb < N) pt[(size_t)(m + 1) * N + nb] = c[tt][3];
+          }
+          continue;
+        }
         if (m < M) {
-          if (na < N) pt[(size_t)m * N + na] = c[t][0];
-          if (nb < N) pt[(size_t)m * N + nb] = c[t][2];
+          if (na < N) y[(size_t)m * N + na] = __float2bfloat16(c[tt][0] + l0);
+          if (nb < N) y[(size_t)m * N + nb] = __float2bfloat16(c[tt][2] + l2);
         }
         if (m + 1 < M) {
-          if (na < N) pt[(size_t)(m + 1) * N + na] = c[t][1];
-          if (nb < N) pt[(size_t)(m + 1) * N + nb] = c[t][3];
+          if (na < N)
+            y[(size_t)(m + 1) * N + na] = __float2bfloat16(c[tt][1] + l1);
+          if (nb < N)
+            y[(size_t)(m + 1) * N + nb] = __float2bfloat16(c[tt][3] + l3);
         }
-        continue;
-      }
-      if (m < M) {
-        if (na < N) y[(size_t)m * N + na] = __float2bfloat16(c[t][0] + l0);
-        if (nb < N) y[(size_t)m * N + nb] = __float2bfloat16(c[t][2] + l2);
-      }
-      if (m + 1 < M) {
-        if (na < N)
-          y[(size_t)(m + 1) * N + na] = __float2bfloat16(c[t][1] + l1);
-        if (nb < N)
-          y[(size_t)(m + 1) * N + nb] = __float2bfloat16(c[t][3] + l3);
       }
     }
   }
   if (n_split == 1) return;
 
-  // The last block of this row tile to finish adds the splits' partial
-  // sums in split order (the same bits whichever block is last) and
-  // resets the tile's ticket for the next launch.
+  // The last block of this expert's block column to finish adds the
+  // splits' partial sums in split order (the same bits whichever block is
+  // last) and resets its ticket for the next launch.
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    int* ticket = a.tickets + blockIdx.x;
+    int* ticket = a.tickets + ex * gridDim.x + blockIdx.x;
     last_split = atomicAdd(ticket, 1) == n_split - 1;
     if (last_split) *ticket = 0;
   }
   __syncthreads();
   if (!last_split) return;
   __threadfence();
-  const int n0 = blockIdx.x * kRows, nr = min(kRows, N - n0);
-  const size_t zs = (size_t)M * N;
-  for (int i = threadIdx.x; i < M * kRows; i += blockDim.x) {
-    const int m = i / kRows, nn = i - m * kRows;
+  const int n0 = t_lo * kRows, nr = min(span, N - n0);
+  const size_t zs = E * M * N;
+  for (int i = threadIdx.x; i < M * span; i += blockDim.x) {
+    const int m = i / span, nn = i - m * span;
     if (nn >= nr) continue;
-    const float* pt = a.part + (size_t)m * N + n0 + nn;
+    const float* pt = a.part + (ex * M + m) * N + n0 + nn;
     float s = 0.f;
     for (int z0 = 0; z0 < n_split; z0 += 8) {   // 8 loads in flight
       float t[8];
@@ -1095,9 +1300,11 @@ __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
   }
 }
 
-// #19 and #18 (LR), and #2 (BIN), whose registers are capped at one
-// n-tile (the decode step's M <= 8) so that kBinMinBlocks blocks share an
-// SM; wider tiles would spill under the cap.
+// #19 and #18 (LR); #2 (BIN), whose registers are capped at one n-tile
+// (the decode step's M <= 8) so that kBinMinBlocks blocks share an SM
+// (wider tiles would spill under the cap; #20's NoSrc spilled at 3); #17
+// and #20 (BIN on experts) the same under a name of their own, so that a
+// profile tells them from #2.
 constexpr int kBinMinBlocks = 2;
 
 template <class Src, int NTP, bool LR, bool BIN>
@@ -1115,13 +1322,22 @@ __global__ void __launch_bounds__(kWarps * 32, NTP == 1 ? kBinMinBlocks : 1)
   tc_body<Src, NTP, LR, BIN>(a, bars, last_split);
 }
 
+template <class Src, int NTP, bool LR, bool BIN>
+__global__ void __launch_bounds__(kWarps * 32, NTP == 1 ? kBinMinBlocks : 1)
+    tc_g_kernel(const TcArgs a) {
+  __shared__ __align__(8) uint64_t bars[Src::kRing ? kWarps * kRingStages : 1];
+  __shared__ int last_split;
+  tc_body<Src, NTP, LR, BIN>(a, bars, last_split);
+}
+
 // The batch tiles per pass and ring stages of a launch: the most n-tiles
 // (up to what M needs, kMaxNtp), then the most ring stages (kRingStages
 // down to 2) whose shared bytes let Src::kBlocks blocks share an SM (and
 // fit the card's opt-in limit), else as many blocks as fit. Returns the
 // tile count, 0 when nothing fits.
 template <class Src, bool LR, bool BIN>
-inline int pick_tc(int M, int kw, int R, int* stages, size_t* smem) {
+inline int pick_tc(int M, int kw, int R, int tpb, int* stages,
+                   size_t* smem) {
   int dev = 0, optin = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -1131,13 +1347,15 @@ inline int pick_tc(int M, int kw, int R, int* stages, size_t* smem) {
                              dev) != cudaSuccess)
     return 0;
   const int Kp = (kw + 127) / 128 * 128;
+  const int tiles = (Src::kA || LR ? 1 : 0) + (BIN ? R : 0);
   for (int blocks = Src::kBlocks; blocks >= 1; --blocks) {
     const size_t limit = min((size_t)optin, (size_t)per_sm / blocks - 1024);
     for (int ntp = min((M + 7) / 8, kMaxNtp); ntp >= 1; --ntp) {
       for (int st = Src::kRing ? kRingStages : 0;
            st >= (Src::kRing ? 2 : 0); --st) {
         const size_t bytes =
-            (size_t)8 * ntp * (Kp + 8) * sizeof(bf16) * (BIN ? 1 + R : 1) +
+            (size_t)8 * ntp * (Kp + 8) * sizeof(bf16) * tiles +
+            (BIN ? (size_t)R * tpb * kRows * sizeof(bf16) : 0) +
             (LR ? slab::align16_up((size_t)(kWarps + 1) * R * 8 * ntp *
                                    sizeof(float))
                 : 0) +
@@ -1153,15 +1371,18 @@ inline int pick_tc(int M, int kw, int R, int* stages, size_t* smem) {
   return 0;
 }
 
-template <class Src, bool LR, bool BIN>
+// G: a grouped launch of the ±1 body (#17, #20), under tc_g_kernel.
+template <class Src, bool LR, bool BIN, bool G = false>
 static int launch_tc(TcArgs a, int E, int n_split, void* stream) {
   size_t smem = 0;
   const int ntp = pick_tc<Src, LR, BIN>(a.M, min(a.K, a.cps * 128), a.R,
-                                        &a.stages, &smem);
-  const dim3 grid((a.N + kRows - 1) / kRows, E, n_split);
+                                        a.tpb, &a.stages, &smem);
+  const int tiles = (a.N + kRows - 1) / kRows;
+  const dim3 grid((tiles + a.tpb - 1) / a.tpb, E, n_split);
   TC_DISPATCH_NTP(ntp, {
     auto kern = [] {
-      if constexpr (BIN) return tc_bin_kernel<Src, NTP, LR, BIN>;
+      if constexpr (G) return tc_g_kernel<Src, NTP, LR, BIN>;
+      else if constexpr (BIN) return tc_bin_kernel<Src, NTP, LR, BIN>;
       else return tc_kernel<Src, NTP, LR, BIN>;
     }();
     cudaError_t e = slab::prepare(kern, smem);
@@ -1190,7 +1411,7 @@ extern "C" int slab_nm_lr_matmul_g(int dtype, const void* x,
   tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)vals,
                (const int8_t*)idx, nullptr, (const tc::bf16*)u,
                (const tc::bf16*)v, (tc::bf16*)y, nullptr, nullptr,
-               M, N, K, R, (K + 127) / 128, 0};
+               M, N, K, R, (K + 127) / 128, 0, 1};
   if (n_keep == 2 && m_pat == 4)
     return tc::launch_tc<tc::NmSrc<2, 4>, true, false>(a, E, 1, stream);
   if (n_keep == 4 && m_pat == 8)
@@ -1212,9 +1433,24 @@ extern "C" int slab_lr_matmul_g(int dtype, const void* x, const void* ws,
   if (!slab::aligned16(ws)) return (int)cudaErrorMisalignedAddress;
   tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)ws, nullptr, nullptr,
                (const tc::bf16*)u, (const tc::bf16*)v, (tc::bf16*)y,
-               nullptr, nullptr, M, N, K, R, (K + 127) / 128, 0};
+               nullptr, nullptr, M, N, K, R, (K + 127) / 128, 0, 1};
   return tc::launch_tc<tc::DenseSrc, true, false>(a, E, 1, stream);
 }
+
+namespace tc {
+
+// The split plan of #2, #17 and #20 (kernels/slab_matmul.py::plan_nm_splits
+// and ::plan_tiles_per_block): n_split runs of cps chunks cover K, the
+// last one not empty, and a split has its scratch.
+inline bool split_ok(int K, int n_split, int cps, int tpb, const void* part,
+                     const void* tickets) {
+  return n_split > 0 && cps > 0 && tpb > 0 &&
+         (n_split - 1) * cps * 128 < K && n_split * cps * 128 >= K &&
+         n_split <= 65535 &&
+         (n_split == 1 || (part != nullptr && tickets != nullptr));
+}
+
+}  // namespace tc
 
 // dtype must be 1 (bfloat16) and the pattern 2:4 or 4:8: other launches
 // go to slab_matmul.cu's kernel. x (M, K), vals / idx (N, K/m, n), bp (N,
@@ -1230,9 +1466,7 @@ extern "C" int slab_nm_matmul(int dtype, const void* x, const void* vals,
                               int m_pat, int R, int n_split, int cps,
                               void* stream) {
   if (dtype != 1 || M <= 0 || N <= 0 || K <= 0 || K % 32 || R <= 0 ||
-      n_split <= 0 || cps <= 0 || (n_split - 1) * cps * 128 >= K ||
-      n_split * cps * 128 < K || n_split > 65535 ||
-      (n_split > 1 && (part == nullptr || tickets == nullptr)))
+      !tc::split_ok(K, n_split, cps, 1, part, tickets))
     return (int)cudaErrorInvalidValue;
   if (!slab::aligned16(vals) || !slab::aligned16(idx) ||
       !slab::aligned16(bp))
@@ -1240,12 +1474,67 @@ extern "C" int slab_nm_matmul(int dtype, const void* x, const void* vals,
   tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)vals,
                (const int8_t*)idx, (const uint32_t*)bp, (const tc::bf16*)u,
                (const tc::bf16*)v, (tc::bf16*)y, (float*)part, (int*)tickets,
-               M, N, K, R, cps, 0};
+               M, N, K, R, cps, 0, 1};
   if (n_keep == 2 && m_pat == 4)
     return tc::launch_tc<tc::NmSrc<2, 4>, false, true>(a, 1, n_split, stream);
   if (n_keep == 4 && m_pat == 8)
     return tc::launch_tc<tc::NmSrc<4, 8>, false, true>(a, 1, n_split, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// #2 for every expert of a bucket (#17): dtype must be 1 (bfloat16) and
+// the pattern 2:4 or 4:8, other launches go to slab_matmul.cu's kernel.
+// x (E, M, K), vals / idx (E, N, K/m, n), bp (E, N, K/32), u (E, R, N),
+// v (E, R, K), y (E, M, N); K split into n_split runs of cps chunks, and
+// with n_split > 1 part (n_split, E, M, N) fp32 scratch and tickets
+// (E·⌈N/128⌉ ints, zero; zero again after the launch). Launches on
+// ``stream``, allocates nothing, returns cudaGetLastError().
+extern "C" int slab_nm_matmul_g(int dtype, const void* x, const void* vals,
+                                const void* idx, const void* bp,
+                                const void* u, const void* v, void* y,
+                                void* part, void* tickets, int E, int M,
+                                int N, int K, int n_keep, int m_pat, int R,
+                                int n_split, int cps, void* stream) {
+  if (dtype != 1 || E <= 0 || E > slab::kMaxExperts || M <= 0 || N <= 0 ||
+      K <= 0 || K % 32 || R <= 0 ||
+      !tc::split_ok(K, n_split, cps, 1, part, tickets))
+    return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(vals) || !slab::aligned16(idx) ||
+      !slab::aligned16(bp))
+    return (int)cudaErrorMisalignedAddress;
+  tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)vals,
+               (const int8_t*)idx, (const uint32_t*)bp, (const tc::bf16*)u,
+               (const tc::bf16*)v, (tc::bf16*)y, (float*)part, (int*)tickets,
+               M, N, K, R, cps, 0, 1};
+  if (n_keep == 2 && m_pat == 4)
+    return tc::launch_tc<tc::NmSrc<2, 4>, false, true, true>(a, E, n_split,
+                                                             stream);
+  if (n_keep == 4 && m_pat == 8)
+    return tc::launch_tc<tc::NmSrc<4, 8>, false, true, true>(a, E, n_split,
+                                                             stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// #20: dtype must be 1 (bfloat16) and R at most kMaxR (an accumulator a
+// rank), other launches go to slab_matmul.cu's kernel. x (E, M, K), bp
+// (E, N, K/32), u (E, R, N), v (E, R, K), y (E, M, N); the split and its
+// scratch as slab_nm_matmul_g's, a block walking tpb row tiles of its
+// expert (tickets: E·⌈⌈N/128⌉ / tpb⌉). Launches on ``stream``, allocates
+// nothing, returns cudaGetLastError().
+extern "C" int binlr_matmul_g(int dtype, const void* x, const void* bp,
+                              const void* u, const void* v, void* y,
+                              void* part, void* tickets, int E, int M, int N,
+                              int K, int R, int n_split, int cps, int tpb,
+                              void* stream) {
+  if (dtype != 1 || E <= 0 || E > slab::kMaxExperts || M <= 0 || N <= 0 ||
+      K <= 0 || K % 32 || R <= 0 || R > tc::kMaxR ||
+      !tc::split_ok(K, n_split, cps, tpb, part, tickets))
+    return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(bp)) return (int)cudaErrorMisalignedAddress;
+  tc::TcArgs a{(const tc::bf16*)x, nullptr, nullptr, (const uint32_t*)bp,
+               (const tc::bf16*)u, (const tc::bf16*)v, (tc::bf16*)y,
+               (float*)part, (int*)tickets, M, N, K, R, cps, 0, tpb};
+  return tc::launch_tc<tc::NoSrc, false, true, true>(a, E, n_split, stream);
 }
 
 namespace tc {

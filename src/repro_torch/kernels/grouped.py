@@ -10,24 +10,31 @@ what its per-linear counterpart computes on x[e] and expert e's planes:
                                          rows per expert: ell.cu)
     nm_matmul_g          #8 per expert  (csrc/nm_sparse.cu)
     slab_matmul_g        #3 per expert  (csrc/slab_matmul.cu)
-    slab_nm_matmul_g     #2 per expert  (csrc/slab_matmul.cu)
+    slab_nm_matmul_g     #2 per expert  (csrc/grouped_tc.cu; f32,
+                                         patterns other than 2:4 / 4:8
+                                         and ranks whose tiles do not
+                                         fit: slab_matmul.cu)
     slab_lr_matmul_g     #6 per expert  (csrc/grouped_tc.cu; f32, K not
                                          a multiple of 8 and K too wide
                                          to stage: slab_matmul.cu)
     slab_nm_lr_matmul_g  #7 per expert  (csrc/grouped_tc.cu; f32 and
                                          patterns other than 2:4 / 4:8:
                                          slab_matmul.cu)
-    binlr_matmul_g       #9 per expert  (csrc/slab_matmul.cu)
+    binlr_matmul_g       #9 per expert  (csrc/grouped_tc.cu; f32 and
+                                         ranks past 4: slab_matmul.cu)
 
 Replace the nine kernels of ``repro/kernels/grouped.py`` (TPU), one for
 one. A CUDA kernel here is launched once for the whole bucket with the
 expert as the grid's y dimension, never E launches: its per-linear
 kernel, or for the bf16 ell_matmul_g, ell_lr_matmul_g,
-slab_ell_matmul_g, slab_nm_lr_matmul_g and slab_lr_matmul_g a kernel of
-its own redesigned for Hopper (``csrc/grouped_tc.cu``: 128 output rows a
-block, x staged once per 8-32 batch rows, the last three on the tensor
-cores, slab_lr_matmul_g's dense rows streamed by bulk copies); those
-five keep their first design (same C symbol in ``ell.cu`` /
+slab_ell_matmul_g, slab_nm_lr_matmul_g, slab_lr_matmul_g,
+slab_nm_matmul_g and binlr_matmul_g a kernel of its own redesigned for
+Hopper (``csrc/grouped_tc.cu``: 128 output rows a block, x staged once
+per 8-32 batch rows, the last five on the tensor cores,
+slab_lr_matmul_g's dense rows streamed by bulk copies, slab_nm_matmul_g
+and binlr_matmul_g with K split across blocks and binlr_matmul_g's
+blocks walking several row tiles: ``slab_matmul.tc_plan``); those seven
+keep their first design (same C symbol in ``ell.cu`` /
 ``slab_matmul.cu``) for the launches the new kernel does not take, and
 count each library's launches apart. Operands use the kernel layout
 with a leading expert dim: x (E, M, K), u (E, R, N), v (E, R, K),
@@ -60,9 +67,13 @@ NM_G = build.CudaKernel(
 SLAB_G = build.CudaKernel(
     "slab_matmul_g", "slab_matmul.cu",
     "src/repro/kernels/grouped.py:230 (slab_matmul_g, pallas_call :242)")
-SLAB_NM_G = build.CudaKernel(
-    "slab_nm_matmul_g", "slab_matmul.cu",
-    "src/repro/kernels/grouped.py:280 (slab_nm_matmul_g, pallas_call :297)")
+_SLAB_NM_G_TPU = ("src/repro/kernels/grouped.py:280 (slab_nm_matmul_g, "
+                  "pallas_call :297)")
+SLAB_NM_G = build.CudaKernel("slab_nm_matmul_g", "grouped_tc.cu",
+                             _SLAB_NM_G_TPU)
+SLAB_NM_G_FIRST = build.CudaKernel("slab_nm_matmul_g", "slab_matmul.cu",
+                                   _SLAB_NM_G_TPU,
+                                   key="slab_nm_matmul_g@slab_matmul.cu")
 _ELL_G_TPU = "src/repro/kernels/grouped.py:54 (ell_matmul_g, pallas_call :64)"
 ELL_G = build.CudaKernel("ell_matmul_g", "grouped_tc.cu", _ELL_G_TPU)
 ELL_G_FIRST = build.CudaKernel("ell_matmul_g", "ell.cu", _ELL_G_TPU,
@@ -88,9 +99,12 @@ SLAB_NM_LR_G = build.CudaKernel("slab_nm_lr_matmul_g", "grouped_tc.cu",
 SLAB_NM_LR_G_FIRST = build.CudaKernel("slab_nm_lr_matmul_g",
                                       "slab_matmul.cu", _SLAB_NM_LR_G_TPU,
                                       key="slab_nm_lr_matmul_g@slab_matmul.cu")
-BINLR_G = build.CudaKernel(
-    "binlr_matmul_g", "slab_matmul.cu",
-    "src/repro/kernels/grouped.py:437 (binlr_matmul_g, pallas_call :450)")
+_BINLR_G_TPU = ("src/repro/kernels/grouped.py:437 (binlr_matmul_g, "
+                "pallas_call :450)")
+BINLR_G = build.CudaKernel("binlr_matmul_g", "grouped_tc.cu", _BINLR_G_TPU)
+BINLR_G_FIRST = build.CudaKernel("binlr_matmul_g", "slab_matmul.cu",
+                                 _BINLR_G_TPU,
+                                 key="binlr_matmul_g@slab_matmul.cu")
 
 # The bf16 slab_ell_matmul_g runs grouped_tc.cu's kernel from this many
 # rows per expert; below, ell.cu's first design, whose 2-byte gathers
@@ -112,6 +126,16 @@ ELL_TC_SMEM = slab_k.TC_SMEM
 # 8 (its rows arrive by 16-byte bulk copies) and its smallest tile fits
 # an H100 block (lr_tc_smem).
 LR_TC_MIN_ROWS = 1
+# The bf16 slab_nm_matmul_g (2:4 / 4:8) and binlr_matmul_g run
+# grouped_tc.cu's ±1 body from these many rows per expert (chip_smoke.py's
+# M sweeps through each library, on phi3.5-moe's and deepseek-moe-16b's
+# planes, PERF.md) where their tiles fit an H100 block (nm_tc_smem,
+# binlr_tc_smem).
+SLAB_NM_G_TC_MIN_ROWS = 1
+BINLR_G_TC_MIN_ROWS = 1
+# grouped_tc.cu's binlr_matmul_g keeps one fp32 accumulator a rank in
+# registers (tc::kMaxR): higher ranks run the first design.
+BINLR_G_TC_MAX_RANK = 4
 
 
 def ell_tc_smem(k: int, r: int, idx_bytes: int) -> int:
@@ -149,6 +173,13 @@ _ELL_LR_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _LR_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _NM_LR_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _BINLR_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# grouped_tc.cu's slab_nm_matmul_g and binlr_matmul_g also take the
+# split's scratch (part, tickets) and plan (n_split, chunks per split;
+# binlr_matmul_g also the row tiles a block walks)
+_SLAB_NM_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _P]
+_BINLR_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _P]
 
 
 def _per_expert(plain, x, *planes) -> torch.Tensor:
@@ -302,23 +333,54 @@ def slab_nm_matmul_g_plain(x, vals, idx, m_pat: int, b_packed, u,
                        b_packed, u, v)
 
 
+def slab_nm_g_kernel(dtype, n_keep: int, m_pat: int, m: int,
+                     r: int = 1) -> build.CudaKernel:
+    """The library a launch at ``m`` rows per expert and rank ``r`` runs:
+    grouped_tc.cu for bf16 2:4 / 4:8 from SLAB_NM_G_TC_MIN_ROWS rows where
+    its tiles fit slab_matmul.TC_SMEM (as #2's: slab_matmul.nm_tc_smem);
+    f32 (1e-5, no TF32), the other patterns, fewer rows and higher ranks
+    the first design."""
+    if dtype == torch.bfloat16 and (n_keep, m_pat) in ((2, 4), (4, 8)) \
+            and m >= SLAB_NM_G_TC_MIN_ROWS \
+            and slab_k.nm_tc_smem(r) <= slab_k.TC_SMEM:
+        return SLAB_NM_G
+    return SLAB_NM_G_FIRST
+
+
 def slab_nm_matmul_g(x, vals, idx, m_pat: int, b_packed, u,
                      v) -> torch.Tensor:
     """Launch the grouped N:M SLaB kernel (one launch for the bucket)."""
+    kern = slab_nm_g_kernel(x.dtype, vals.shape[-1], m_pat, x.shape[1],
+                            u.shape[1])
+    return launch_slab_nm_g(kern, x, vals, idx, m_pat, b_packed, u, v)
+
+
+def launch_slab_nm_g(kern, x, vals, idx, m_pat: int, b_packed, u,
+                     v) -> torch.Tensor:
+    """slab_nm_matmul_g through ``kern``'s library (SLAB_NM_G or
+    SLAB_NM_G_FIRST), counted on its counter."""
     n = vals.shape[1]
     e, m, k, r = _check_binary(x, b_packed, u, v, n)
     _, n_keep = _check_nm(x, vals, idx, m_pat)
-    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    dev = x.device
+    y = torch.empty((e, m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    fn = build.function(SLAB_NM_G.source, SLAB_NM_G.name, _SLAB_NM_ARGS)
-    err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), b_packed.data_ptr(), u.data_ptr(), v.data_ptr(),
-             y.data_ptr(), e, m, n, k, n_keep, m_pat, r,
-             build.stream_ptr(x.device))
-    build.check_launch(err, SLAB_NM_G.name,
-                       f"E={e} M={m} N={n} K={k} {n_keep}:{m_pat} R={r}")
-    SLAB_NM_G.launches += 1
+    detail = f"E={e} M={m} N={n} K={k} {n_keep}:{m_pat} R={r}"
+    head = (build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), b_packed.data_ptr(), u.data_ptr(), v.data_ptr(),
+            y.data_ptr())
+    if kern is SLAB_NM_G:
+        n_split, cps, _, part, tickets = slab_k.tc_plan(dev, e, m, n, k)
+        fn = build.function(kern.source, kern.name, _SLAB_NM_TC_ARGS)
+        err = fn(*head, slab_k.ptr(part), slab_k.ptr(tickets), e, m, n, k,
+                 n_keep, m_pat, r, n_split, cps, build.stream_ptr(dev))
+        detail += f" splits={n_split}x{cps * slab_k.CHUNK}"
+    else:
+        fn = build.function(kern.source, kern.name, _SLAB_NM_ARGS)
+        err = fn(*head, e, m, n, k, n_keep, m_pat, r, build.stream_ptr(dev))
+    build.check_launch(err, kern.key, detail)
+    kern.launches += 1
     return y
 
 
@@ -478,17 +540,47 @@ def binlr_matmul_g_plain(x, b_packed, u, v) -> torch.Tensor:
     return _per_expert(binlr_k.binlr_matmul_plain, x, b_packed, u, v)
 
 
+def binlr_g_kernel(dtype, m: int, r: int = 1) -> build.CudaKernel:
+    """The library a launch at ``m`` rows per expert and rank ``r`` runs:
+    grouped_tc.cu for bf16 from BINLR_G_TC_MIN_ROWS rows up to rank
+    BINLR_G_TC_MAX_RANK (its x ⊙ v_r tiles then fit a block at any K, the
+    split keeping them within 16 chunks); f32 (1e-5, no TF32), fewer rows
+    and higher ranks the first design."""
+    if dtype == torch.bfloat16 and m >= BINLR_G_TC_MIN_ROWS \
+            and r <= BINLR_G_TC_MAX_RANK:
+        return BINLR_G
+    return BINLR_G_FIRST
+
+
 def binlr_matmul_g(x, b_packed, u, v) -> torch.Tensor:
     """Launch the grouped binary ⊙ rank-r kernel (one launch)."""
+    kern = binlr_g_kernel(x.dtype, x.shape[1], u.shape[1])
+    return launch_binlr_g(kern, x, b_packed, u, v)
+
+
+def launch_binlr_g(kern, x, b_packed, u, v) -> torch.Tensor:
+    """binlr_matmul_g through ``kern``'s library (BINLR_G or
+    BINLR_G_FIRST), counted on its counter; grouped_tc.cu's blocks walk
+    several row tiles (slab_matmul.plan_tiles_per_block)."""
     n = b_packed.shape[1]
     e, m, k, r = _check_binary(x, b_packed, u, v, n)
-    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    dev = x.device
+    y = torch.empty((e, m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    fn = build.function(BINLR_G.source, BINLR_G.name, _BINLR_ARGS)
-    err = fn(build.dtype_code(x.dtype), x.data_ptr(), b_packed.data_ptr(),
-             u.data_ptr(), v.data_ptr(), y.data_ptr(), e, m, n, k, r,
-             build.stream_ptr(x.device))
-    build.check_launch(err, BINLR_G.name, f"E={e} M={m} N={n} K={k} R={r}")
-    BINLR_G.launches += 1
+    detail = f"E={e} M={m} N={n} K={k} R={r}"
+    head = (build.dtype_code(x.dtype), x.data_ptr(), b_packed.data_ptr(),
+            u.data_ptr(), v.data_ptr(), y.data_ptr())
+    if kern is BINLR_G:
+        n_split, cps, tpb, part, tickets = slab_k.tc_plan(dev, e, m, n, k,
+                                                          walk=True)
+        fn = build.function(kern.source, kern.name, _BINLR_TC_ARGS)
+        err = fn(*head, slab_k.ptr(part), slab_k.ptr(tickets), e, m, n, k,
+                 r, n_split, cps, tpb, build.stream_ptr(dev))
+        detail += f" splits={n_split}x{cps * slab_k.CHUNK} tiles={tpb}"
+    else:
+        fn = build.function(kern.source, kern.name, _BINLR_ARGS)
+        err = fn(*head, e, m, n, k, r, build.stream_ptr(dev))
+    build.check_launch(err, kern.key, detail)
+    kern.launches += 1
     return y

@@ -15,7 +15,9 @@ slab_nm_matmul has two libraries under one C name, each counting its
 launches on its own ``CudaKernel``: the tensor-core kernel of
 ``grouped_tc.cu`` (bf16 2:4 / 4:8, K split across blocks by
 ``plan_nm_splits``) and the first design of ``slab_matmul.cu`` (f32,
-other patterns); ``slab_nm_kernel`` picks one.
+other patterns); ``slab_nm_kernel`` picks one. ``plan_nm_splits``,
+``plan_tiles_per_block`` and the split's scratch (``tc_plan``) also serve
+the grouped #17 and #20 on grouped_tc.cu (``kernels.grouped``).
 """
 from __future__ import annotations
 
@@ -118,18 +120,32 @@ def slab_nm_matmul_plain(x, vals, idx, m_pat: int, b_packed, u,
     return y.to(x.dtype)
 
 
-def plan_nm_splits(n: int, k: int, n_sm: int) -> tuple:
+def plan_nm_splits(n: int, k: int, n_sm: int, e: int = 1) -> tuple:
     """(n_split, cps): K's CHUNK-column chunks cut into n_split runs of
-    cps chunks (the last may be shorter), enough that ⌈n / ROWS⌉ row
-    tiles x n_split blocks give NM_SPLIT_BLOCKS_PER_SM blocks to each of
-    n_sm SMs, never more runs than chunks and no run longer than
-    NM_MAX_SPLIT_CHUNKS. From shapes only."""
-    tiles = -(-n // ROWS)
+    cps chunks (the last may be shorter), enough that ``e`` experts'
+    ⌈n / ROWS⌉ row tiles x n_split blocks give NM_SPLIT_BLOCKS_PER_SM
+    blocks to each of n_sm SMs, never more runs than chunks and no run
+    longer than NM_MAX_SPLIT_CHUNKS. From shapes only."""
+    tiles = e * -(-n // ROWS)
     chunks = -(-k // CHUNK)
     want = -(-NM_SPLIT_BLOCKS_PER_SM * n_sm // tiles)
     cps = -(-chunks // max(1, min(want, chunks)))
     cps = min(cps, NM_MAX_SPLIT_CHUNKS)
     return -(-chunks // cps), cps
+
+
+def plan_tiles_per_block(n: int, e: int, n_split: int, n_sm: int) -> int:
+    """Row tiles of ROWS rows that one block of grouped_tc.cu's ±1 body
+    walks after staging x ⊙ v_r once: the fewest that bring the launch's
+    e experts x n_split splits x ⌈n / ROWS⌉ tiles down to
+    NM_SPLIT_BLOCKS_PER_SM blocks for each of n_sm SMs, one wave (at
+    least 1, at most every tile of an expert). From shapes only."""
+    tiles = -(-n // ROWS)
+    want = NM_SPLIT_BLOCKS_PER_SM * n_sm
+    for tpb in range(1, tiles):
+        if e * n_split * -(-tiles // tpb) <= want:
+            return tpb
+    return tiles
 
 
 def nm_tc_smem(r: int) -> int:
@@ -154,6 +170,28 @@ def _scratch(dev, n_part: int, n_tickets: int):
                               device=dev)
     _SCRATCH[dev] = (part, tickets)
     return part, tickets
+
+
+def tc_plan(dev, e: int, m: int, n: int, k: int, walk: bool = False):
+    """(n_split, cps, tpb, part, tickets) of a launch of grouped_tc.cu's
+    ±1 body on ``dev``: the split of K (plan_nm_splits), the row tiles a
+    block walks (plan_tiles_per_block with ``walk``, else 1) and, for a
+    split, the scratch: (n_split, e, m, n) partial sums and one ticket per
+    expert and block column (None without a split)."""
+    n_sm = build.sm_count(dev.index or 0)
+    n_split, cps = plan_nm_splits(n, k, n_sm, e)
+    tpb = plan_tiles_per_block(n, e, n_split, n_sm) if walk else 1
+    part = tickets = None
+    if n_split > 1:
+        tiles = -(-n // ROWS)
+        cols = -(-tiles // tpb)            # block columns of an expert
+        part, tickets = _scratch(dev, n_split * e * m * n, e * cols)
+    return n_split, cps, tpb, part, tickets
+
+
+def ptr(t) -> int:
+    """A tensor's data pointer, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def slab_nm_kernel(dtype, n_keep: int, m_pat: int, m: int,
@@ -192,17 +230,12 @@ def launch_slab_nm(kern, x, vals, idx, m_pat: int, b_packed, u,
         return y
     detail = f"M={m} N={n} K={k} {n_keep}:{m_pat} R={r}"
     if kern is SLAB_NM:
-        n_split, cps = plan_nm_splits(n, k, build.sm_count(dev.index or 0))
-        part = tickets = None
-        if n_split > 1:
-            part, tickets = _scratch(dev, n_split * m * n, -(-n // ROWS))
+        n_split, cps, _, part, tickets = tc_plan(dev, 1, m, n, k)
         fn = build.function(kern.source, kern.name, _NM_TC_ARGS)
         err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
                  idx.data_ptr(), b_packed.data_ptr(), u.data_ptr(),
-                 v.data_ptr(), y.data_ptr(),
-                 None if part is None else part.data_ptr(),
-                 None if tickets is None else tickets.data_ptr(), m, n, k,
-                 n_keep, m_pat, r, n_split, cps, build.stream_ptr(dev))
+                 v.data_ptr(), y.data_ptr(), ptr(part), ptr(tickets), m, n,
+                 k, n_keep, m_pat, r, n_split, cps, build.stream_ptr(dev))
         detail += f" splits={n_split}x{cps * CHUNK}"
     else:
         fn = build.function(kern.source, kern.name, _NM_ARGS)

@@ -2,11 +2,13 @@
 card only: slab_nm_matmul (#2), slab_nm_lr_matmul (#7), binlr_matmul
 (#9), flash_decode (#10) and flash_decode_paged (#11), and the grouped
 ell_matmul_g (#12), ell_lr_matmul_g (#13), slab_ell_matmul_g (#14),
-slab_lr_matmul_g (#18) and slab_nm_lr_matmul_g (#19), whose bf16
-launches (#2 at 2:4 and 4:8) run the kernels of csrc/grouped_tc.cu; #2
-and #18 also through each of their two libraries, #2 with K split
-across blocks (two launches bitwise equal). Every test skips without a
-card (the kernels are CUDA C++ for sm_90a with no CPU mode).
+slab_nm_matmul_g (#17), slab_lr_matmul_g (#18), slab_nm_lr_matmul_g
+(#19) and binlr_matmul_g (#20), whose bf16 launches (#2 and #17 at 2:4
+and 4:8) run the kernels of csrc/grouped_tc.cu; #2, #17, #18 and #20
+also through each of their two libraries, #2 and #17 with K split
+across blocks and #20 with blocks walking several row tiles (two
+launches bitwise equal). Every test skips without a card (the kernels
+are CUDA C++ for sm_90a with no CPU mode).
 
 This file imports neither JAX nor the reference package, so it runs on
 a machine with PyTorch alone:
@@ -752,3 +754,162 @@ def test_slab_lr_matmul_g_ring_depths(cuda, k, m):
     x, ws, u, v = _lr_g_operands(gen, 2, m, k, torch.bfloat16, 1, n=300)
     got = g_k.launch_slab_lr_g(g_k.SLAB_LR_G, x, ws, u, v)
     _close(got, g_k.slab_lr_matmul_g_plain(x, ws, u, v), torch.bfloat16)
+
+
+# grouped #17 slab_nm_matmul_g and #20 binlr_matmul_g through each library
+# at M 1-37: E 1 and 3 at (1411, 1376) (N off the 128-row tile, K off the
+# 128-column chunk), #17 at E 16 at (1411, 4096) (K split in two) and #20
+# at deepseek-moe-16b's 64 experts at (1408, 2048) (blocks walking three
+# row tiles each); rank 1 and 3, #17 at 2:4 and 4:8.
+G17_M = [1, 2, 6, 20, 37]
+
+
+def _nm_g_operands(gen, e, n, k, m, pattern, rank, dtype):
+    """x, vals, idx, bp, u, v of e experts; the N:M planes pack the e·n
+    rows as one matrix."""
+    n_keep, m_pat = map(int, pattern.split(":"))
+    w = _g_randn(gen, e * n, k, scale=0.05)
+    w_nm = torch.where(sparsity.nm_mask(w.abs(), n_keep, m_pat), w, 0.0)
+    nm = packing.pack_nm(w_nm.to(dtype), n_keep, m_pat, strict=True)
+    vals = nm.values.reshape(e, n, k // m_pat, n_keep).contiguous()
+    idx = nm.indices.reshape(e, n, k // m_pat, n_keep).contiguous()
+    x, bp, u, v = _bin_g_operands(gen, e, n, k, m, rank, dtype)
+    return x, vals, idx, bp, u, v
+
+
+def _bin_g_operands(gen, e, n, k, m, rank, dtype):
+    """x, bp, u, v of e experts."""
+    signs = torch.where(_g_randn(gen, e * n, k) >= 0, 1, -1).to(torch.int8)
+    bp = packing.pack_sign_bits(signs).reshape(e, n, k // 32)
+    x = _g_randn(gen, e, m, k).to(dtype)
+    u = _g_randn(gen, e, rank, n, scale=0.2).to(dtype)
+    v = _g_randn(gen, e, rank, k, scale=0.2).to(dtype)
+    return x, bp, u, v
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("pattern,rank", [("2:4", 1), ("2:4", 3), ("4:8", 1),
+                                          ("4:8", 3)])
+@pytest.mark.parametrize("e", [1, 3, 16])
+@pytest.mark.parametrize("m", G17_M)
+def test_slab_nm_matmul_g_each_library(cuda, m, e, pattern, rank, lib):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1600 + m + e + rank)
+    n, k = (1411, 4096) if e == 16 else (1411, 1376)
+    x, vals, idx, bp, u, v = _nm_g_operands(gen, e, n, k, m, pattern, rank,
+                                            torch.bfloat16)
+    m_pat = int(pattern.split(":")[1])
+    kern = g_k.SLAB_NM_G if lib == "grouped_tc" else g_k.SLAB_NM_G_FIRST
+    launches = kern.launches
+    got = g_k.launch_slab_nm_g(kern, x, vals, idx, m_pat, bp, u, v)
+    assert kern.launches == launches + 1
+    _close(got, g_k.slab_nm_matmul_g_plain(x, vals, idx, m_pat, bp, u, v),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("e", [1, 3, 64])
+@pytest.mark.parametrize("m", G17_M)
+def test_binlr_matmul_g_each_library(cuda, m, e, rank, lib):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1700 + m + e + rank)
+    n, k = (1408, 2048) if e == 64 else (1411, 1376)
+    x, bp, u, v = _bin_g_operands(gen, e, n, k, m, rank, torch.bfloat16)
+    kern = g_k.BINLR_G if lib == "grouped_tc" else g_k.BINLR_G_FIRST
+    launches = kern.launches
+    got = g_k.launch_binlr_g(kern, x, bp, u, v)
+    assert kern.launches == launches + 1
+    _close(got, g_k.binlr_matmul_g_plain(x, bp, u, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 6, 37])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_slab_nm_matmul_g_kernel_matches_plain(cuda, dt, m):
+    """Through the wrapper: the launch counts on the library
+    slab_nm_g_kernel picks (grouped_tc.cu for bf16 2:4 / 4:8 from
+    SLAB_NM_G_TC_MIN_ROWS, the first design at f32: 1e-5)."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1800 + m)
+    x, vals, idx, bp, u, v = _nm_g_operands(gen, 3, 1411, 1376, m, "2:4", 1,
+                                            dtype)
+    kern = g_k.slab_nm_g_kernel(dtype, 2, 4, m)
+    assert kern is (g_k.SLAB_NM_G if dtype == torch.bfloat16
+                    and m >= g_k.SLAB_NM_G_TC_MIN_ROWS
+                    else g_k.SLAB_NM_G_FIRST)
+    launches = kern.launches
+    got = g_k.slab_nm_matmul_g(x, vals, idx, 4, bp, u, v)
+    assert kern.launches == launches + 1
+    _close(got, g_k.slab_nm_matmul_g_plain(x, vals, idx, 4, bp, u, v), dtype)
+
+
+@pytest.mark.parametrize("m", [1, 6, 37])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_binlr_matmul_g_kernel_matches_plain(cuda, dt, m):
+    """Through the wrapper: the launch counts on the library
+    binlr_g_kernel picks (grouped_tc.cu for bf16 from
+    BINLR_G_TC_MIN_ROWS, the first design at f32: 1e-5)."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1900 + m)
+    x, bp, u, v = _bin_g_operands(gen, 3, 1411, 1376, m, 1, dtype)
+    kern = g_k.binlr_g_kernel(dtype, m)
+    assert kern is (g_k.BINLR_G if dtype == torch.bfloat16
+                    and m >= g_k.BINLR_G_TC_MIN_ROWS else g_k.BINLR_G_FIRST)
+    launches = kern.launches
+    got = g_k.binlr_matmul_g(x, bp, u, v)
+    assert kern.launches == launches + 1
+    _close(got, g_k.binlr_matmul_g_plain(x, bp, u, v), dtype)
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("kernel", ["slab_nm_matmul_g", "binlr_matmul_g"])
+def test_grouped_binary_no_rows(cuda, kernel, lib):
+    """M = 0 gives an empty (E, 0, N) result and no launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1950)
+    if kernel == "slab_nm_matmul_g":
+        x, vals, idx, bp, u, v = _nm_g_operands(gen, 3, 300, 256, 0, "2:4",
+                                                1, torch.bfloat16)
+        kern = g_k.SLAB_NM_G if lib == "grouped_tc" else g_k.SLAB_NM_G_FIRST
+        run = lambda: g_k.launch_slab_nm_g(kern, x, vals, idx, 4, bp, u, v)
+    else:
+        x, bp, u, v = _bin_g_operands(gen, 3, 300, 256, 0, 1, torch.bfloat16)
+        kern = g_k.BINLR_G if lib == "grouped_tc" else g_k.BINLR_G_FIRST
+        run = lambda: g_k.launch_binlr_g(kern, x, bp, u, v)
+    launches = kern.launches
+    got = run()
+    assert kern.launches == launches
+    assert got.shape == (3, 0, 300) and got.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kernel,e,n,k", [
+    ("slab_nm_matmul_g", 16, 4096, 6400), ("slab_nm_matmul_g", 16, 6400, 4096),
+    ("binlr_matmul_g", 16, 4096, 6400), ("binlr_matmul_g", 64, 1408, 2048),
+    ("binlr_matmul_g", 64, 2048, 1408)], ids=str)
+def test_grouped_binary_launches_are_deterministic(cuda, kernel, e, n, k):
+    """phi3.5-moe's 16 experts at K 6400 and 4096 split K (partial sums
+    (splits, E, M, N), a ticket per expert and block column) and
+    deepseek-moe-16b's 64 walk several row tiles a block (#20): the same
+    launch twice gives the same bits, and matches the plain version."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2000 + n)
+    m = 2 if e == 16 else 6
+    n_split, _ = slab_k.plan_nm_splits(
+        n, k, torch.cuda.get_device_properties(cuda).multi_processor_count, e)
+    if kernel == "slab_nm_matmul_g":
+        x, vals, idx, bp, u, v = _nm_g_operands(gen, e, n, k, m, "2:4", 1,
+                                                torch.bfloat16)
+        run = lambda: g_k.launch_slab_nm_g(g_k.SLAB_NM_G, x, vals, idx, 4,
+                                           bp, u, v)
+        plain = lambda: g_k.slab_nm_matmul_g_plain(x, vals, idx, 4, bp, u, v)
+    else:
+        x, bp, u, v = _bin_g_operands(gen, e, n, k, m, 1, torch.bfloat16)
+        run = lambda: g_k.launch_binlr_g(g_k.BINLR_G, x, bp, u, v)
+        plain = lambda: g_k.binlr_matmul_g_plain(x, bp, u, v)
+    assert n_split > 1 or e == 64
+    got = run()
+    _close(got, plain(), torch.bfloat16)
+    for _ in range(3):
+        assert torch.equal(got, run())

@@ -507,11 +507,90 @@ def test_lr_tc_smem_counts_the_launch_bytes():
     assert g_k.lr_tc_smem(10120, 1) > slab_k.TC_SMEM
 
 
+@pytest.mark.parametrize("dtype,pattern,m,r,source", [
+    (torch.bfloat16, (2, 4), 1, 1, "grouped_tc.cu"),
+    (torch.bfloat16, (2, 4), 2, 3, "grouped_tc.cu"),
+    (torch.bfloat16, (4, 8), 37, 6, "grouped_tc.cu"),
+    (torch.bfloat16, (2, 4), 2, 7, "slab_matmul.cu"),
+    (torch.bfloat16, (1, 4), 2, 1, "slab_matmul.cu"),
+    (torch.bfloat16, (2, 8), 2, 1, "slab_matmul.cu"),
+    (torch.float32, (2, 4), 2, 1, "slab_matmul.cu"),
+    (torch.float32, (4, 8), 20, 3, "slab_matmul.cu")])
+def test_slab_nm_g_library_choice(dtype, pattern, m, r, source):
+    """bf16 2:4 / 4:8 #17 runs grouped_tc.cu's ±1 body from
+    SLAB_NM_G_TC_MIN_ROWS rows per expert up to rank 6 (its x and x ⊙ v_r
+    tiles fit an H100 block, as #2's); f32, the other patterns, fewer
+    rows and rank 7 the first design, on its own counter."""
+    from repro_torch.kernels import grouped as g_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    kern = g_k.slab_nm_g_kernel(dtype, *pattern, m, r)
+    want = source if m >= g_k.SLAB_NM_G_TC_MIN_ROWS else "slab_matmul.cu"
+    assert kern.source == want and kern.name == "slab_nm_matmul_g"
+    assert kern.key == ("slab_nm_matmul_g" if want == "grouped_tc.cu"
+                        else "slab_nm_matmul_g@slab_matmul.cu")
+    assert (want == "grouped_tc.cu") == (
+        slab_k.nm_tc_smem(r) <= slab_k.TC_SMEM and dtype == torch.bfloat16
+        and pattern in ((2, 4), (4, 8)) and m >= g_k.SLAB_NM_G_TC_MIN_ROWS)
+
+
+@pytest.mark.parametrize("dtype,m,r,source", [
+    (torch.bfloat16, 1, 1, "grouped_tc.cu"),
+    (torch.bfloat16, 6, 3, "grouped_tc.cu"),
+    (torch.bfloat16, 37, 4, "grouped_tc.cu"),
+    (torch.bfloat16, 6, 5, "slab_matmul.cu"),
+    (torch.float32, 6, 1, "slab_matmul.cu"),
+    (torch.float32, 1, 3, "slab_matmul.cu")])
+def test_binlr_g_library_choice(dtype, m, r, source):
+    """bf16 #20 runs grouped_tc.cu's ±1 body from BINLR_G_TC_MIN_ROWS rows
+    per expert up to rank BINLR_G_TC_MAX_RANK (4: an accumulator a rank in
+    registers); f32 and rank 5 the first design, on its own counter."""
+    from repro_torch.kernels import grouped as g_k
+    kern = g_k.binlr_g_kernel(dtype, m, r)
+    want = source if m >= g_k.BINLR_G_TC_MIN_ROWS else "slab_matmul.cu"
+    assert kern.source == want and kern.name == "binlr_matmul_g"
+    assert kern.key == ("binlr_matmul_g" if want == "grouped_tc.cu"
+                        else "binlr_matmul_g@slab_matmul.cu")
+
+
+def test_grouped_binary_library_choice_below_the_crossover():
+    """Fewer rows per expert than the MIN_ROWS constants run the first
+    design of #17 and #20."""
+    from repro_torch.kernels import grouped as g_k
+    for m in range(0, g_k.SLAB_NM_G_TC_MIN_ROWS):
+        assert g_k.slab_nm_g_kernel(torch.bfloat16, 2, 4, m) \
+            is g_k.SLAB_NM_G_FIRST
+    for m in range(0, g_k.BINLR_G_TC_MIN_ROWS):
+        assert g_k.binlr_g_kernel(torch.bfloat16, m) is g_k.BINLR_G_FIRST
+    assert g_k.slab_nm_g_kernel(torch.bfloat16, 2, 4,
+                                g_k.SLAB_NM_G_TC_MIN_ROWS) is g_k.SLAB_NM_G
+    assert g_k.binlr_g_kernel(torch.bfloat16,
+                              g_k.BINLR_G_TC_MIN_ROWS) is g_k.BINLR_G
+
+
+def test_binlr_g_tiles_fit_at_every_rank_it_takes():
+    """At the ranks grouped_tc.cu's #20 takes, its x ⊙ v_r tiles (8 batch
+    rows a rank at the widest split, 16 chunks of 128 plus 8 columns, 2
+    bytes each; no x tile) and the staged u of its row tiles fit an H100
+    block (two blocks an SM up to rank 3)."""
+    from repro_torch.kernels import grouped as g_k
+    from repro_torch.kernels import slab_matmul as slab_k
+
+    def smem(r):
+        tiles = r * 8 * (slab_k.NM_MAX_SPLIT_CHUNKS * slab_k.CHUNK + 8) * 2
+        return tiles + r * 4 * 128 * 2          # u of four row tiles
+    r = g_k.BINLR_G_TC_MAX_RANK
+    assert smem(r) <= slab_k.TC_SMEM
+    assert 2 * smem(3) <= 228 * 1024 - 2 * 1024
+    assert g_k.binlr_g_kernel(torch.bfloat16, 6, r) is g_k.BINLR_G
+    assert g_k.binlr_g_kernel(torch.bfloat16, 6, r + 1) \
+        is g_k.BINLR_G_FIRST
+
+
 def test_launch_counters_are_per_library():
     """Every library has a counter key of its own, and a reset zeroes
     them all."""
     keys = [k.key for k in ops.KERNELS]
-    assert len(set(keys)) == len(keys) == 26
+    assert len(set(keys)) == len(keys) == 28
     assert len({k.name for k in ops.KERNELS}) == 20
     for k in ops.KERNELS:
         k.launches = 1

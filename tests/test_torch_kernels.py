@@ -303,3 +303,55 @@ def test_nm_split_plan_fills_the_card(n, k):
     n_split, _ = slab_k.plan_nm_splits(n, k, 132)
     assert n_split > 1
     assert -(-n // 128) * n_split >= 132
+
+
+@pytest.mark.parametrize("n,k,want", [
+    ((4096, 4096, (8, 4))), ((1024, 4096, (32, 1))),
+    ((11008, 4096, (4, 8)))], ids=str)
+def test_nm_split_plan_at_one_expert_is_unchanged(n, k, want):
+    """#2's plan (one expert) on an H100's 132 SMs is what it was before
+    plan_nm_splits counted experts: llama2-7b's (4096, 4096) and
+    (11008, 4096), phi3.5-moe's (1024, 4096)."""
+    from repro_torch.kernels import slab_matmul as slab_k
+    assert slab_k.plan_nm_splits(n, k, 132) == want
+    assert slab_k.plan_nm_splits(n, k, 132, 1) == want
+
+
+@pytest.mark.parametrize("n,k,e,want", [
+    (6400, 4096, 16, (2, 16)), (4096, 6400, 16, (4, 16)),
+    (1408, 2048, 64, (1, 16)), (2048, 1408, 64, (1, 11)),
+    (1408, 2048, 1, (16, 1))], ids=str)
+def test_nm_split_plan_counts_every_experts_tiles(n, k, e, want):
+    """With E experts the row tiles of all of them fill the card, so at
+    phi3.5-moe's 16 experts K is split only to keep a split within
+    NM_MAX_SPLIT_CHUNKS chunks (a tile of x and x ⊙ v_r that fits two
+    blocks an SM); deepseek-moe-16b's 64 need no split."""
+    from repro_torch.kernels import slab_matmul as slab_k
+    assert slab_k.plan_nm_splits(n, k, 132, e) == want
+    n_split, cps = want
+    assert cps <= slab_k.NM_MAX_SPLIT_CHUNKS
+    assert (n_split - 1) * cps * 128 < k <= n_split * cps * 128
+
+
+@pytest.mark.parametrize("n,e,n_split,n_sm,want", [
+    (1408, 64, 1, 132, 3), (2048, 64, 1, 132, 4), (6400, 16, 2, 132, 7),
+    (4096, 1, 8, 132, 1), (300, 64, 1, 132, 1), (1408, 64, 1, 1, 11),
+    (100000, 1, 1, 132, 3)], ids=str)
+def test_tiles_per_block_plan(n, e, n_split, n_sm, want):
+    """plan_tiles_per_block: the fewest row tiles a block that bring the
+    launch to at most NM_SPLIT_BLOCKS_PER_SM blocks an SM, from shapes
+    alone: deepseek-moe-16b's 64 experts at (1408, 2048) and (2048, 1408)
+    walk 3 and 4 tiles a block (256 blocks for 132 SMs); launches that do
+    not fill the card walk one; never more than an expert's tiles."""
+    from repro_torch.kernels import slab_matmul as slab_k
+    tpb = slab_k.plan_tiles_per_block(n, e, n_split, n_sm)
+    assert tpb == want
+    tiles = -(-n // 128)
+    assert 1 <= tpb <= tiles
+    blocks = e * n_split * -(-tiles // tpb)
+    if tpb < tiles:
+        assert blocks <= slab_k.NM_SPLIT_BLOCKS_PER_SM * n_sm
+    if tpb > 1:
+        assert e * n_split * -(-tiles // (tpb - 1)) \
+            > slab_k.NM_SPLIT_BLOCKS_PER_SM * n_sm
+

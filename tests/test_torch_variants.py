@@ -378,7 +378,9 @@ def test_ctypes_argtypes_match_the_c_signatures():
         "slab_nm_lr_matmul_g": g_k._NM_LR_ARGS,
         "binlr_matmul_g": g_k._BINLR_ARGS}
     assert set(argtypes) == {k.name for k in ops.KERNELS}
-    by_source = {("slab_nm_matmul", "grouped_tc.cu"): slab_k._NM_TC_ARGS}
+    by_source = {("slab_nm_matmul", "grouped_tc.cu"): slab_k._NM_TC_ARGS,
+                 ("slab_nm_matmul_g", "grouped_tc.cu"): g_k._SLAB_NM_TC_ARGS,
+                 ("binlr_matmul_g", "grouped_tc.cu"): g_k._BINLR_TC_ARGS}
     seen, seen_by_source = set(), set()
     for src in build.SOURCES:
         text = (Path(build.CSRC) / src).read_text()
