@@ -15,10 +15,12 @@ Phases:
      kernels, int32 ELL ids at (4096, 4096), and the kernels without sign
      words also at (4099, 4100) (K not a multiple of 32, odd K_max); times
      at M = 4, bf16, rank 1 beside the byte bound, the plain version and
-     one torch.matmul against the reconstructed dense W; #2 slab_nm_matmul
-     at bf16 also through each of its two libraries (grouped_tc.cu, K
-     split across blocks, and the first design), and timed through each
-     at M 1, 2, 4, 8, 16 at (4096, 4096) (its "M sweep" lines). Then both
+     one torch.matmul against the reconstructed dense W; #2
+     slab_nm_matmul, #8 nm_matmul and #7 slab_nm_lr_matmul at bf16 also
+     through each of their two libraries (grouped_tc.cu, K split across
+     blocks, and the first design), and timed through the wrapper and
+     through each at M 1, 2, 4, 8, 16 at (4096, 4096), 2:4 and 4:8 (the
+     "M sweep" lines). Then both
      flash-decode kernels (paged #11, contiguous #10) against their plain
      versions at the decode shapes of llama2-7b (R 8, KV 32, G 1, dh 128)
      and stablelm-12b (R 8, KV 8, G 4, dh 160), and at qwen2-vl-2b's
@@ -81,15 +83,16 @@ Phases:
      Launch counts are zeroed just before each greedy_decode and read
      just after, one counter per library: phase m's #14 (2 rows per
      expert) must run only the first design (ell.cu), phases b and n's #2,
-     phase n's #17 and phases r, s, t, u, v and w's grouped kernel only
-     grouped_tc.cu, and phases q and x (f32) only ell.cu;
+     phases e and p's #8, phases i and v's #7, phase n's #17 and phases
+     r, s, t, u, v and w's grouped kernel only grouped_tc.cu, and phases
+     q and x (f32) only ell.cu;
      final-step logits are held against the dense-equivalent
      (reconstructed-W) model — for the MoE models against dense experts
      (and dense shared experts) behind the same packed attention, whose
      expert choices must agree token for token (_hold_moe_logits says
-     why); phases a, b, m, n, r, s, t, u, v and w are profiled (b, n, u
-     and w with #2's, #17's, #18's and #20's device time per step and
-     share of the busy time);
+     why); phases a, b, e, i, m, n, r, s, t, u, v and w are profiled (b,
+     e, i, n, u and w with #2's, #8's, #7's, #17's, #18's and #20's device
+     time per step and share of the busy time);
      phases e-i also print the eval perplexity (lm.loss_fn) of the
      uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
@@ -111,9 +114,9 @@ Phases:
           request terminal); no block leaked;
        x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
           factor 64/6;
-  4. one JSON line listing every ported kernel (all twenty; #2, #12,
-     #13, #14, #17, #18, #19 and #20 once per library, each with its own
-     launch counter: twenty-eight entries), then the result line.
+  4. one JSON line listing every ported kernel (all twenty; #2, #7, #8,
+     #12, #13, #14, #17, #18, #19 and #20 once per library, each with its
+     own launch counter: thirty entries), then the result line.
 
 Any failed check raises, and the script exits non-zero. It needs
 ``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
@@ -142,9 +145,11 @@ JSON_SHAPE = (4096, 4096)          # q/k/v/o: 4 of the 7 linears per layer
 SLEEP_CYCLES = 400_000             # ~0.2 ms of device sleep before a timed call
 # kernels whose two libraries are also checked and timed one by one at
 # every bf16 timed case (the JSON line reports each library's time)
-LIB_TIMED = ("slab_nm_matmul", "slab_lr_matmul_g", "slab_nm_matmul_g",
-             "binlr_matmul_g")
-# #2's per-library M sweep at JSON_SHAPE (bf16, rank 1, 2:4 and 4:8)
+LIB_TIMED = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul",
+             "slab_lr_matmul_g", "slab_nm_matmul_g", "binlr_matmul_g")
+# the per-linear M sweep of #2, #8 and #7 at JSON_SHAPE (bf16, rank 1, 2:4
+# and 4:8)
+NM_SWEEP = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul")
 NM_SWEEP_M = (1, 2, 4, 8, 16)
 
 
@@ -179,7 +184,7 @@ def environment():
     for s in build.SOURCES:
         log(f"  ptxas {s}: {_ptxas_summary(build.build_log(s))}")
     log("  ptxas grouped_tc.cu tc bodies (#19, #18, #2; tc_g_kernel: #17, "
-        "#20): "
+        "#20; tc_nm_kernel: #8, #7): "
         + _ptxas_tc(build.build_log("grouped_tc.cu")))
     return card
 
@@ -197,11 +202,11 @@ def _ptxas_summary(text: str) -> str:
 
 def _ptxas_tc(text: str) -> str:
     """Registers and spill-store bytes of each tc_kernel / tc_bin_kernel /
-    tc_g_kernel entry of a ``-Xptxas -v`` report, as kernel<source,
-    n-tiles>."""
+    tc_g_kernel / tc_nm_kernel entry of a ``-Xptxas -v`` report, as
+    kernel<source, n-tiles>."""
     out = []
     pat = re.compile(r"Compiling entry function '_ZN2tc(\d+)"
-                     r"(tc_(?:bin_|g_)?kernel)"
+                     r"(tc_(?:bin_|g_|nm_)?kernel)"
                      r"INS_(?:\d+)(NmSrc|DenseSrc|NoSrc)(?:ILi(\d)ELi(\d)EE)?"
                      r"ELi(\d)E")
     lines = text.splitlines()
@@ -387,7 +392,10 @@ def _cases(planes, x, rank, wide_ids=False):
             (nv, ni, u, v),
             lambda nv=nv, ni=ni, nn=nn, mm=mm: unpack_nm(
                 NMPacked(nv, ni, nn, mm, k)).float() + lr(),
-            ops(nv.numel(), lowrank=True)))
+            ops(nv.numel(), lowrank=True),
+            libs={kk.key: (lambda kk=kk, nv=nv, ni=ni, mm=mm:
+                           slab_k.launch_slab_nm_lr(kk, x, nv, ni, mm, u, v))
+                  for kk in (slab_k.SLAB_NM_LR, slab_k.SLAB_NM_LR_FIRST)}))
     if rank == 1:
         for pat in ("2:4", "4:8"):
             if pat not in planes:
@@ -402,7 +410,10 @@ def _cases(planes, x, rank, wide_ids=False):
                 (nv, ni),
                 lambda nv=nv, ni=ni, nn=nn, mm=mm: unpack_nm(
                     NMPacked(nv, ni, nn, mm, k)).float(),
-                ops(nv.numel())))
+                ops(nv.numel()),
+                libs={kk.key: (lambda kk=kk, nv=nv, ni=ni, mm=mm:
+                               nm_k.launch_nm(kk, x, nv, ni, mm))
+                      for kk in (nm_k.NM, nm_k.NM_FIRST)}))
     return out
 
 
@@ -497,10 +508,11 @@ def kernel_checks():
 
 
 def nm_sweep(flush):
-    """#2 slab_nm_matmul at JSON_SHAPE, bf16, rank 1, 2:4 and 4:8, at every
-    M of NM_SWEEP_M: checked against its plain version and timed through
-    the wrapper (each M tagged with the library it ran) and through each
-    of its two libraries."""
+    """#2 slab_nm_matmul, #8 nm_matmul and #7 slab_nm_lr_matmul at
+    JSON_SHAPE, bf16, rank 1, 2:4 and 4:8, at every M of NM_SWEEP_M:
+    checked against their plain versions and timed through the wrapper
+    (each M tagged with the library it ran) and through each of their two
+    libraries."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -512,7 +524,7 @@ def nm_sweep(flush):
     for m in NM_SWEEP_M:
         x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
         for c in _cases(planes, x, 1):
-            if c.kernel != "slab_nm_matmul":
+            if c.kernel not in NM_SWEEP:
                 continue
             where = f"N={n} K={k} M={m} (sweep)"
             before = ops.launch_counts()
@@ -537,7 +549,7 @@ def nm_sweep(flush):
         log(f"  M sweep {label} N={n} K={k} bf16 r1{how}: "
             + " ".join(f"M={m}: {t:.4f} ms" + (f" ({ran})" if ran else "")
                        for m, (t, ran) in sorted(by_m.items())))
-    log(f"slab_nm_matmul sweep: {n_checks} cases passed; worst "
+    log(f"nm sweep (#2, #8, #7): {n_checks} cases passed; worst "
         "max|err|/max|ref|: "
         + " ".join(f"{l}={w:.3g}" for l, w in worst.items()))
 
@@ -1934,7 +1946,8 @@ PHASES = (
                variant="slab-ell", kernel="slab_ell_matmul", tol=1e-4)),
     ("e", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
                variant="sparse-nm", kernel="nm_matmul", tol=3e-2,
-               method="wanda", options={}, ppl=True)),
+               method="wanda", options={}, ppl=True, profiled=True,
+               focus=("#8 nm_matmul", "tc_nm_kernel<tc::NmSrc<2, 4>"))),
     ("f", dict(n_layers=1, dtype=torch.bfloat16, cr=0.6, pattern=None,
                variant="sparse-ell", kernel="ell_matmul", tol=3e-2,
                method="sparsegpt", options={}, ppl=True,
@@ -1950,7 +1963,10 @@ PHASES = (
                options=dict(iters=8, include_binary=False), ppl=True)),
     ("i", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
                variant="lowrank-nm", kernel="slab_nm_lr_matmul", tol=3e-2,
-               options=dict(iters=8, include_binary=False), ppl=True)),
+               options=dict(iters=8, include_binary=False), ppl=True,
+               profiled=True,
+               focus=("#7 slab_nm_lr_matmul",
+                      "tc_nm_kernel<tc::NmSrc<2, 4>"))),
     ("j", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
                variant="binlr", kernel="binlr_matmul", tol=3e-2,
                zero_ws=True,

@@ -1,4 +1,4 @@
-// The bf16 kernels redesigned for Hopper, grouped-expert and one 2-D:
+// The bf16 kernels redesigned for Hopper, grouped-expert and 2-D:
 //
 //   slab_ell_matmul_g:    y[e] = x[e] · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ   (#14)
 //   slab_nm_lr_matmul_g:  y[e] = x[e] · (W_S + U Vᵀ)ᵀ              (#19)
@@ -6,6 +6,8 @@
 //   slab_nm_matmul:       y = x · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ, N:M   (#2)
 //   slab_nm_matmul_g:     the same for every expert e              (#17)
 //   binlr_matmul_g:       y[e] = x[e] · (Σ_r u_r v_rᵀ ⊙ B)ᵀ        (#20)
+//   nm_matmul:            y = x · W_Sᵀ, N:M                        (#8)
+//   slab_nm_lr_matmul:    y = x · (W_S + U Vᵀ)ᵀ, N:M               (#7)
 //   ell_matmul_g:         y[e] = x[e] · W_Sᵀ                       (#12)
 //   ell_lr_matmul_g:      y[e] = x[e] · W_Sᵀ + (x[e] · Vᵀ) · U     (#13)
 //
@@ -16,17 +18,19 @@
 // ::slab_nm_matmul_g (_kernel_nm_full_g, pallas_call at grouped.py:297),
 // ::binlr_matmul_g (_kernel_binlr_g, pallas_call at grouped.py:450),
 // ::ell_matmul_g (_kernel_ell_g, pallas_call at grouped.py:64),
-// ::ell_lr_matmul_g (_kernel_ell_lr_g, pallas_call at grouped.py:103)
-// and repro/kernels/slab_matmul.py::slab_nm_matmul (_kernel_nm,
-// pallas_call at slab_matmul.py:135) for bf16 operands.
-// The first design (ell.cu, slab_matmul.cu) keeps the f32 launches,
-// which hold 1e-5 without TF32, #19's, #17's and #2's patterns other
-// than 2:4 / 4:8, #17 and #2 at ranks whose x ⊙ v_r tiles do not fit a
-// block, #20 past rank 4, and #12, #13 and #14 at 1-2 rows per expert, where its
-// 2-byte gathers are cheaper than these kernels' 16-byte ones
-// (grouped.TC_MIN_ROWS, grouped.ELL_TC_MIN_ROWS). #14, #19, #18, #17, #20
-// and #2 use the tensor cores; #12 and #13, whose work is all gather, do
-// not (their section below).
+// ::ell_lr_matmul_g (_kernel_ell_lr_g, pallas_call at grouped.py:103),
+// repro/kernels/slab_matmul.py::slab_nm_matmul (_kernel_nm, pallas_call
+// at slab_matmul.py:135), ::slab_nm_lr_matmul (_kernel_nm_lr,
+// pallas_call at slab_matmul.py:247) and repro/kernels/nm_sparse.py::
+// nm_matmul (_kernel, pallas_call at nm_sparse.py:54) for bf16 operands.
+// The first design (ell.cu, slab_matmul.cu, nm_sparse.cu) keeps the f32
+// launches, which hold 1e-5 without TF32, #19's, #17's, #8's, #7's and
+// #2's patterns other than 2:4 / 4:8, #17 and #2 at ranks whose x ⊙ v_r
+// tiles do not fit a block, #20 past rank 4, and #12, #13 and #14 at 1-2
+// rows per expert, where its 2-byte gathers are cheaper than these
+// kernels' 16-byte ones (grouped.TC_MIN_ROWS, grouped.ELL_TC_MIN_ROWS).
+// #14, #19, #18, #17, #20, #8, #7 and #2 use the tensor cores; #12 and
+// #13, whose work is all gather, do not (their section below).
 //
 // #14 and #19's bound on the H100: bytes. At the MoE decode shapes (1-32
 // rows per expert) each expert is a skinny GEMM: the E experts' planes (ELL vals +
@@ -539,9 +543,9 @@ extern "C" int slab_ell_matmul_g(int dtype, int idx_bytes, const void* x,
 
 namespace tc {
 
-// ------------------------------------------------ #19, #18, #2, #17, #20
+// ------------------------------------ #19, #18, #2, #17, #20, #8, #7
 //
-// One body, tc_kernel, serves five kernels whose weight rows meet x on
+// One body, tc_kernel, serves seven kernels whose weight rows meet x on
 // the tensor cores in one k order:
 //
 //   slab_nm_lr_matmul_g  y[e] = x[e] · W_S[e]ᵀ + (x[e] · V[e]ᵀ) · U[e],
@@ -551,16 +555,21 @@ namespace tc {
 //                        W_S in N:M form, B the ±1 sign words        (#2)
 //   slab_nm_matmul_g     #2 for every expert e                       (#17)
 //   binlr_matmul_g       y[e] = Σ_r u_r ⊙ (B[e] · (x[e] ⊙ v_r)ᵀ)     (#20)
+//   nm_matmul            y = x · W_Sᵀ, W_S in N:M form               (#8)
+//   slab_nm_lr_matmul    y = x · W_Sᵀ + (x · Vᵀ) · U, N:M: #19 at E 1 (#7)
 //
 // #18 replaces repro/kernels/grouped.py::slab_lr_matmul_g
 // (_kernel_dense_lr_g, pallas_call at grouped.py:348), #2
 // repro/kernels/slab_matmul.py::slab_nm_matmul (_kernel_nm, pallas_call
 // at slab_matmul.py:135), #17 repro/kernels/grouped.py::slab_nm_matmul_g
 // (_kernel_nm_full_g, pallas_call at grouped.py:297) and #20
-// ::binlr_matmul_g (_kernel_binlr_g, pallas_call at grouped.py:450), for
-// bf16 operands (#2 and #17 at 2:4 and 4:8); their f32 launches and the
-// other patterns keep the first design (slab_matmul.cu), which holds
-// 1e-5 without TF32.
+// ::binlr_matmul_g (_kernel_binlr_g, pallas_call at grouped.py:450), #8
+// repro/kernels/nm_sparse.py::nm_matmul (_kernel, pallas_call at
+// nm_sparse.py:54) and #7 repro/kernels/slab_matmul.py::slab_nm_lr_matmul
+// (_kernel_nm_lr, pallas_call at slab_matmul.py:247), for bf16 operands
+// (#2, #17, #8 and #7 at 2:4 and 4:8); their f32 launches and the other
+// patterns keep the first design (slab_matmul.cu, nm_sparse.cu), which
+// holds 1e-5 without TF32.
 //
 // A block owns kRows = 128 output rows of one expert, a warp 16 (grid
 // (⌈N/128 / tiles a block⌉, E, splits of K)); x is staged once per 8·NTP
@@ -570,7 +579,7 @@ namespace tc {
 // step s are its columns 4s, 4s+1 / 4s+2, 4s+3) on the A and the B side
 // alike, and reads B as four 16-byte loads of its x row. What differs is
 // where A comes from (the Src template):
-//  - NmSrc (#19, #2, #17): decoded in registers from vals and positions read a
+//  - NmSrc (#19, #2, #17, #8, #7): decoded in registers from vals and positions read a
 //    chunk ahead of their use, two 16-byte value loads and one 16-byte
 //    position load a row; 2:4 is decoded by byte permutes, 4:8 by
 //    comparisons. A position outside [0, m) matches no column and
@@ -588,9 +597,9 @@ namespace tc {
 //    loads, once a chunk).
 //  - NoSrc (#20): no W_S, so no A and no mma for it, and no x tile.
 // #2, #17 and #20 add the ±1 term to the same accumulator as one more mma
-// a rank and step: A is ±u_r from the sign bits (sign word 4c + q of a
-// row holds exactly lane q's 32 columns of chunk c: bits 4s .. 4s + 3 are
-// step s's), B is bf16(x ⊙ v_r), rounded as the reference rounds it and
+// a rank and step (#8 and #7 have none): A is ±u_r from the sign bits
+// (sign word 4c + q of a row holds exactly lane q's 32 columns of chunk
+// c: bits 4s .. 4s + 3 are step s's), B is bf16(x ⊙ v_r), rounded as the reference rounds it and
 // staged once a block beside x from the same loads (forming it from the
 // x fragment at every step, in every warp, took ~40 % of the kernel on
 // an H100). The sign bits become A by two instructions a register: once
@@ -598,17 +607,23 @@ namespace tc {
 // 16 apart (xspread), then a shift brings a step's pair to bits 15 and
 // 31, which flip the sign bits of ±u_r's two halves. #20 decodes A = ±1
 // once a step for all its ranks (at most kMaxR), one accumulator each,
-// and scales them by u_r after the sum (accum_binlr_terms' order). #2's
-// per-linear
-// shapes give few blocks of 128 rows ((4096, 4096): 32 for 132 SMs),
-// so K is split across blocks from the shapes alone
-// (kernels/slab_matmul.py::plan_nm_splits, which counts every expert's
-// row tiles): each block stages only its columns of x and x ⊙ v_r (the
+// and scales them by u_r after the sum (accum_binlr_terms' order). The
+// per-linear shapes of #2, #8 and #7 give few blocks of 128 rows ((4096,
+// 4096): 32 for 132 SMs; (1024, 4096): 8), so K is split across blocks
+// from the shapes alone (kernels/slab_matmul.py::plan_nm_splits, which
+// counts every expert's row tiles): each block stages only its columns of x and x ⊙ v_r (the
 // tiles stay small at any K) and writes fp32 partial sums (splits, E, M,
 // N), and the last block of an expert's row tiles (counted by an atomic
 // ticket of that expert and block column) adds them in split order, so
-// two launches give the same bits. #2, #17 and #20 cap their registers
-// so that two blocks share an SM; #19 and #18 run one split.
+// two launches give the same bits. #7 carries its low-rank projection
+// through the split: a block projects x onto V over its split's columns
+// only, and under a split stores that partial projection (fp32, (splits,
+// block columns, M, R) after the partial sums) in place of adding it;
+// the last block sums the partial projections in split order too and
+// adds Σ_r p[m, r]·u_r[n] to the sum of the partial sums before the one
+// rounding (the reference's acc + acc_p·u). #2, #17, #20, #8 and #7 cap
+// their registers so that two blocks share an SM; #19 and #18 run one
+// split.
 // #20 streams only K/8 bytes of sign words a row (256 B at K 2048), less
 // than a block's staging reads and writes (x and x ⊙ v_r): so its blocks
 // walk several consecutive row tiles of their expert after staging once
@@ -626,9 +641,10 @@ namespace tc {
 // (the last cost #17 and #19 8-30 %); a build whose A took one
 // instruction in place of two ran ~15 % faster, so the decode's issue
 // cost is a share of what binds (PERF.md §6).
-// #19's and #18's projection p = x·Vᵀ is formed once a block pass in fp32
-// from the staged x with a fixed reduction order; Σ_r p[m, r]·u_r[n] is
-// added in the epilogue, before the one rounding.
+// The projection p = x·Vᵀ of #19, #18 and #7 is formed once a block pass
+// in fp32 from the staged x (the split's columns) with a fixed reduction
+// order; Σ_r p[m, r]·u_r[n] is added in the epilogue, or by the last
+// block of a split launch, before the one rounding.
 
 // The x tile is row-major, Kp = the staged columns rounded up to 128 plus
 // 8 of padding a row (16 bytes past a multiple of 128), with the 16-byte
@@ -831,6 +847,15 @@ __device__ __forceinline__ bool wide_split(const TcArgs& a) {
   return min(a.K, a.cps * 128) >= 2048;
 }
 
+// #7 under a split: the partial projections (splits, E, block columns, M,
+// R), fp32, after the partial sums (splits, E, M, N) in part; the slot of
+// split 0 for expert ex and this block's column.
+__device__ __forceinline__ float* proj_part(const TcArgs& a, size_t ex) {
+  const size_t E = gridDim.y;
+  return a.part + gridDim.z * E * a.M * a.N +
+         (ex * gridDim.x + blockIdx.x) * (size_t)a.M * a.R;
+}
+
 // A from N:M planes: the row pair's entries of the next chunk in
 // registers.
 template <int NK, int MG>
@@ -1026,9 +1051,11 @@ __device__ __forceinline__ void bin_chunk(float (&c)[4], uint32_t ua,
   }
 }
 
-// LR: the low-rank projection and its epilogue term (#19, #18). BIN: the
-// ±1 term (#2, #17, #20), with K split over gridDim.z.
-template <class Src, int NTP, bool LR, bool BIN>
+// LR: the low-rank projection and its epilogue term (#19, #18, #7). BIN:
+// the ±1 term (#2, #17, #20). SPLIT: K may be split over gridDim.z (#2,
+// #17, #20, #8, #7); without it (tc_kernel: #19, #18, one split) the
+// split's stores and reduction are not compiled.
+template <class Src, int NTP, bool LR, bool BIN, bool SPLIT = true>
 __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
                                         int& last_split) {
   constexpr int MT = 8 * NTP;                 // batch rows per pass
@@ -1038,7 +1065,7 @@ __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
   const int g = lane >> 2, q = lane & 3;
   const int M = a.M, N = a.N, K = a.K, R = a.R;
   const size_t ex = blockIdx.y, E = gridDim.y;
-  const int n_split = gridDim.z;
+  const int n_split = SPLIT ? (int)gridDim.z : 1;
   const int k_lo = blockIdx.z * a.cps * 128;  // this split's columns
   const int k_hi = min(K, k_lo + a.cps * 128);
   const int kw = k_hi - k_lo;
@@ -1122,15 +1149,17 @@ __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
         }
         __syncthreads();
         if (LR) {
-          // p[r, m] = Σ_k x[m, k] · v_r[k] in fp32: every warp takes a
-          // strided share of K, the partial sums are added in warp order
+          // p[r, m] = Σ_k x[m, k] · v_r[k] over the split's columns in
+          // fp32 (the x tile holds columns k_lo .. k_hi - 1): every warp
+          // takes a strided share, the partial sums are added in warp order
           for (int r = 0; r < R; ++r) {
             float acc[MT];
 #pragma unroll
             for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-            for (int k = warp * 32 + lane; k < K; k += kWarps * 32) {
+            for (int k = k_lo + warp * 32 + lane; k < k_hi;
+                 k += kWarps * 32) {
               const float vk = __bfloat162float(v[(size_t)r * K + k]);
-              const int kk = xr_elem(k);
+              const int kk = xr_elem(k - k_lo);
 #pragma unroll
               for (int m = 0; m < MT; ++m)
                 acc[m] += __bfloat162float(xr[(size_t)m * sx + kk]) * vk;
@@ -1146,6 +1175,11 @@ __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
             float s = 0.f;
             for (int w = 0; w < kWarps; ++w) s += part[(size_t)w * R * MT + i];
             p[i] = s;
+            // split: the partial projection goes to the last block
+            const int r = i / MT, m = m0 + i - r * MT;
+            if (n_split > 1 && m < M)
+              proj_part(a, ex)[((size_t)blockIdx.z * E * gridDim.x) * M * R +
+                               (size_t)m * R + r] = s;
           }
           __syncthreads();
         }
@@ -1233,7 +1267,7 @@ __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
       for (int tt = 0; tt < NTP; ++tt) {
         const int mi = 8 * tt + 2 * q, m = m0 + mi;
         float l0 = 0.f, l1 = 0.f, l2 = 0.f, l3 = 0.f;
-        if (LR) {
+        if (LR && n_split == 1) {
           for (int r = 0; r < R; ++r) {
             const float ua = __bfloat162float(u[(size_t)r * N + ra]);
             const float ub = __bfloat162float(u[(size_t)r * N + rb]);
@@ -1270,7 +1304,8 @@ __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
 
   // The last block of this expert's block column to finish adds the
   // splits' partial sums in split order (the same bits whichever block is
-  // last) and resets its ticket for the next launch.
+  // last), with LR Σ_r p[m, r]·u_r[n] of the partial projections summed
+  // in split order, and resets its ticket for the next launch.
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -1283,35 +1318,70 @@ __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
   __threadfence();
   const int n0 = t_lo * kRows, nr = min(span, N - n0);
   const size_t zs = E * M * N;
-  for (int i = threadIdx.x; i < M * span; i += blockDim.x) {
-    const int m = i / span, nn = i - m * span;
-    if (nn >= nr) continue;
-    const float* pt = a.part + (ex * M + m) * N + n0 + nn;
-    float s = 0.f;
-    for (int z0 = 0; z0 < n_split; z0 += 8) {   // 8 loads in flight
-      float t[8];
+  const float* pp = LR ? proj_part(a, ex) : nullptr;
+  const size_t pzs = E * gridDim.x * (size_t)M * R;   // one split's p
+  // LR: MT rows at a time, their partial projections summed in split
+  // order into p first (one load round trip for the rows, none an output)
+  for (int mc = 0; mc < M; mc += LR ? MT : M) {
+    const int mr = LR ? min(MT, M - mc) : M;
+    if (LR) {
+      for (int i = threadIdx.x; i < R * mr; i += blockDim.x) {
+        const int r = i / mr, m = mc + i - r * mr;
+        const float* pm = pp + (size_t)m * R + r;
+        float pr = 0.f;
+        for (int z0 = 0; z0 < n_split; z0 += 8) {   // 8 loads in flight
+          float t[8];
 #pragma unroll
-      for (int z = 0; z < 8; ++z)
-        t[z] = z0 + z < n_split ? __ldcg(pt + (z0 + z) * zs) : 0.f;
+          for (int z = 0; z < 8; ++z)
+            t[z] = z0 + z < n_split ? __ldcg(pm + (z0 + z) * pzs) : 0.f;
 #pragma unroll
-      for (int z = 0; z < 8; ++z) s += t[z];   // in split order
+          for (int z = 0; z < 8; ++z) pr += t[z];   // in split order
+        }
+        p[r * MT + m - mc] = pr;
+      }
+      __syncthreads();
     }
-    y[(size_t)m * N + n0 + nn] = __float2bfloat16(s);
+    for (int i = threadIdx.x; i < mr * span; i += blockDim.x) {
+      const int m = mc + i / span, nn = i - (m - mc) * span;
+      if (nn >= nr) continue;
+      // (rank 0's u, loaded beside the partial sums)
+      const float u0 = LR ? __bfloat162float(u[n0 + nn]) : 0.f;
+      const float* pt = a.part + (ex * M + m) * N + n0 + nn;
+      float s = 0.f;
+      for (int z0 = 0; z0 < n_split; z0 += 8) {   // 8 loads in flight
+        float t[8];
+#pragma unroll
+        for (int z = 0; z < 8; ++z)
+          t[z] = z0 + z < n_split ? __ldcg(pt + (z0 + z) * zs) : 0.f;
+#pragma unroll
+        for (int z = 0; z < 8; ++z) s += t[z];   // in split order
+      }
+      if (LR) {
+        float l = p[m - mc] * u0;
+        for (int r = 1; r < R; ++r)
+          l += p[r * MT + m - mc] *
+               __bfloat162float(u[(size_t)r * N + n0 + nn]);
+        s += l;
+      }
+      y[(size_t)m * N + n0 + nn] = __float2bfloat16(s);
+    }
+    if (LR) __syncthreads();              // p is read before the next rows
   }
 }
 
 // #19 and #18 (LR); #2 (BIN), whose registers are capped at one n-tile
 // (the decode step's M <= 8) so that kBinMinBlocks blocks share an SM
 // (wider tiles would spill under the cap; #20's NoSrc spilled at 3); #17
-// and #20 (BIN on experts) the same under a name of their own, so that a
-// profile tells them from #2.
+// and #20 (BIN on experts), and #8 and #7 (NmSrc per linear, no ±1 term,
+// K split), the same under names of their own, so that a profile tells
+// them from #2 and #19.
 constexpr int kBinMinBlocks = 2;
 
 template <class Src, int NTP, bool LR, bool BIN>
 __global__ void __launch_bounds__(kWarps * 32) tc_kernel(const TcArgs a) {
   __shared__ __align__(8) uint64_t bars[Src::kRing ? kWarps * kRingStages : 1];
   __shared__ int last_split;
-  tc_body<Src, NTP, LR, BIN>(a, bars, last_split);
+  tc_body<Src, NTP, LR, BIN, false>(a, bars, last_split);   // one split
 }
 
 template <class Src, int NTP, bool LR, bool BIN>
@@ -1329,6 +1399,18 @@ __global__ void __launch_bounds__(kWarps * 32, NTP == 1 ? kBinMinBlocks : 1)
   __shared__ int last_split;
   tc_body<Src, NTP, LR, BIN>(a, bars, last_split);
 }
+
+template <class Src, int NTP, bool LR, bool BIN>
+__global__ void __launch_bounds__(kWarps * 32, NTP == 1 ? kBinMinBlocks : 1)
+    tc_nm_kernel(const TcArgs a) {
+  __shared__ __align__(8) uint64_t bars[Src::kRing ? kWarps * kRingStages : 1];
+  __shared__ int last_split;
+  tc_body<Src, NTP, LR, BIN>(a, bars, last_split);
+}
+
+// The __global__ name a launch runs under: tc_kernel (#19, #18),
+// tc_bin_kernel (#2), tc_g_kernel (#17, #20), tc_nm_kernel (#8, #7).
+enum class Entry { kTc, kBin, kG, kNm };
 
 // The batch tiles per pass and ring stages of a launch: the most n-tiles
 // (up to what M needs, kMaxNtp), then the most ring stages (kRingStages
@@ -1371,8 +1453,8 @@ inline int pick_tc(int M, int kw, int R, int tpb, int* stages,
   return 0;
 }
 
-// G: a grouped launch of the ±1 body (#17, #20), under tc_g_kernel.
-template <class Src, bool LR, bool BIN, bool G = false>
+template <class Src, bool LR, bool BIN,
+          Entry kEntry = BIN ? Entry::kBin : Entry::kTc>
 static int launch_tc(TcArgs a, int E, int n_split, void* stream) {
   size_t smem = 0;
   const int ntp = pick_tc<Src, LR, BIN>(a.M, min(a.K, a.cps * 128), a.R,
@@ -1381,8 +1463,12 @@ static int launch_tc(TcArgs a, int E, int n_split, void* stream) {
   const dim3 grid((tiles + a.tpb - 1) / a.tpb, E, n_split);
   TC_DISPATCH_NTP(ntp, {
     auto kern = [] {
-      if constexpr (G) return tc_g_kernel<Src, NTP, LR, BIN>;
-      else if constexpr (BIN) return tc_bin_kernel<Src, NTP, LR, BIN>;
+      if constexpr (kEntry == Entry::kG)
+        return tc_g_kernel<Src, NTP, LR, BIN>;
+      else if constexpr (kEntry == Entry::kNm)
+        return tc_nm_kernel<Src, NTP, LR, BIN>;
+      else if constexpr (kEntry == Entry::kBin)
+        return tc_bin_kernel<Src, NTP, LR, BIN>;
       else return tc_kernel<Src, NTP, LR, BIN>;
     }();
     cudaError_t e = slab::prepare(kern, smem);
@@ -1482,6 +1568,65 @@ extern "C" int slab_nm_matmul(int dtype, const void* x, const void* vals,
   return (int)cudaErrorInvalidValue;
 }
 
+// #8: dtype must be 1 (bfloat16) and the pattern 2:4 or 4:8: other
+// launches go to nm_sparse.cu's kernel. x (M, K), vals / idx (N, K/m, n),
+// y (M, N), any K the pattern divides (at K % 32 != 0 the planes are read
+// entry by entry); K split into n_split runs of cps 128-column chunks (the
+// last may be shorter), and with n_split > 1 part (n_split, M, N) fp32
+// scratch and tickets (⌈N/128⌉ ints, zero; zero again after the launch).
+// Launches on ``stream``, allocates nothing, returns cudaGetLastError().
+extern "C" int nm_matmul(int dtype, const void* x, const void* vals,
+                         const void* idx, void* y, void* part, void* tickets,
+                         int M, int N, int K, int n_keep, int m_pat,
+                         int n_split, int cps, void* stream) {
+  if (dtype != 1 || M <= 0 || N <= 0 || K <= 0 || m_pat <= 0 || K % m_pat ||
+      !tc::split_ok(K, n_split, cps, 1, part, tickets))
+    return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(vals) || !slab::aligned16(idx))
+    return (int)cudaErrorMisalignedAddress;
+  tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)vals,
+               (const int8_t*)idx, nullptr, nullptr, nullptr, (tc::bf16*)y,
+               (float*)part, (int*)tickets, M, N, K, 0, cps, 0, 1};
+  if (n_keep == 2 && m_pat == 4)
+    return tc::launch_tc<tc::NmSrc<2, 4>, false, false, tc::Entry::kNm>(
+        a, 1, n_split, stream);
+  if (n_keep == 4 && m_pat == 8)
+    return tc::launch_tc<tc::NmSrc<4, 8>, false, false, tc::Entry::kNm>(
+        a, 1, n_split, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// #7 (#19 at one expert, K split): dtype must be 1 (bfloat16) and the
+// pattern 2:4 or 4:8: other launches go to slab_matmul.cu's kernel. x (M,
+// K), vals / idx (N, K/m, n), u (R, N), v (R, K), y (M, N), any K the
+// pattern divides; the split as nm_matmul's, with n_split > 1 part
+// holding the (n_split, M, N) partial sums and after them the (n_split,
+// ⌈N/128⌉, M, R) partial projections. Launches on ``stream``, allocates
+// nothing, returns cudaGetLastError().
+extern "C" int slab_nm_lr_matmul(int dtype, const void* x, const void* vals,
+                                 const void* idx, const void* u,
+                                 const void* v, void* y, void* part,
+                                 void* tickets, int M, int N, int K,
+                                 int n_keep, int m_pat, int R, int n_split,
+                                 int cps, void* stream) {
+  if (dtype != 1 || M <= 0 || N <= 0 || K <= 0 || R <= 0 || m_pat <= 0 ||
+      K % m_pat || !tc::split_ok(K, n_split, cps, 1, part, tickets))
+    return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(vals) || !slab::aligned16(idx))
+    return (int)cudaErrorMisalignedAddress;
+  tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)vals,
+               (const int8_t*)idx, nullptr, (const tc::bf16*)u,
+               (const tc::bf16*)v, (tc::bf16*)y, (float*)part, (int*)tickets,
+               M, N, K, R, cps, 0, 1};
+  if (n_keep == 2 && m_pat == 4)
+    return tc::launch_tc<tc::NmSrc<2, 4>, true, false, tc::Entry::kNm>(
+        a, 1, n_split, stream);
+  if (n_keep == 4 && m_pat == 8)
+    return tc::launch_tc<tc::NmSrc<4, 8>, true, false, tc::Entry::kNm>(
+        a, 1, n_split, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 // #2 for every expert of a bucket (#17): dtype must be 1 (bfloat16) and
 // the pattern 2:4 or 4:8, other launches go to slab_matmul.cu's kernel.
 // x (E, M, K), vals / idx (E, N, K/m, n), bp (E, N, K/32), u (E, R, N),
@@ -1507,11 +1652,11 @@ extern "C" int slab_nm_matmul_g(int dtype, const void* x, const void* vals,
                (const tc::bf16*)v, (tc::bf16*)y, (float*)part, (int*)tickets,
                M, N, K, R, cps, 0, 1};
   if (n_keep == 2 && m_pat == 4)
-    return tc::launch_tc<tc::NmSrc<2, 4>, false, true, true>(a, E, n_split,
-                                                             stream);
+    return tc::launch_tc<tc::NmSrc<2, 4>, false, true, tc::Entry::kG>(
+        a, E, n_split, stream);
   if (n_keep == 4 && m_pat == 8)
-    return tc::launch_tc<tc::NmSrc<4, 8>, false, true, true>(a, E, n_split,
-                                                             stream);
+    return tc::launch_tc<tc::NmSrc<4, 8>, false, true, tc::Entry::kG>(
+        a, E, n_split, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1534,7 +1679,8 @@ extern "C" int binlr_matmul_g(int dtype, const void* x, const void* bp,
   tc::TcArgs a{(const tc::bf16*)x, nullptr, nullptr, (const uint32_t*)bp,
                (const tc::bf16*)u, (const tc::bf16*)v, (tc::bf16*)y,
                (float*)part, (int*)tickets, M, N, K, R, cps, 0, tpb};
-  return tc::launch_tc<tc::NoSrc, false, true, true>(a, E, n_split, stream);
+  return tc::launch_tc<tc::NoSrc, false, true, tc::Entry::kG>(a, E, n_split,
+                                                              stream);
 }
 
 namespace tc {

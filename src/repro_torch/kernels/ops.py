@@ -26,7 +26,8 @@ from repro_torch.kernels import slab_matmul as slab_k
 
 KERNELS = (ell_k.SLAB_ELL, slab_k.SLAB_NM, slab_k.SLAB_NM_FIRST,
            slab_k.SLAB_DENSE, ell_k.ELL, ell_k.ELL_LR, slab_k.SLAB_LR,
-           slab_k.SLAB_NM_LR, nm_k.NM, binlr_k.BINLR, fd_k.FLASH_DECODE,
+           slab_k.SLAB_NM_LR, slab_k.SLAB_NM_LR_FIRST, nm_k.NM,
+           nm_k.NM_FIRST, binlr_k.BINLR, fd_k.FLASH_DECODE,
            fd_k.FLASH_DECODE_PAGED, g_k.SLAB_ELL_G, g_k.SLAB_ELL_G_FIRST,
            g_k.NM_G, g_k.SLAB_G, g_k.SLAB_NM_G, g_k.SLAB_NM_G_FIRST,
            g_k.ELL_G, g_k.ELL_G_FIRST, g_k.ELL_LR_G, g_k.ELL_LR_G_FIRST,
@@ -44,7 +45,8 @@ def launch_counts() -> dict:
     that picks between two (``grouped.ell_matmul_g``,
     ``ell_lr_matmul_g``, ``slab_ell_matmul_g``, ``slab_nm_lr_matmul_g``,
     ``slab_lr_matmul_g``, ``slab_nm_matmul_g``, ``binlr_matmul_g``,
-    ``slab_matmul.slab_nm_matmul``) shows which one ran."""
+    ``slab_matmul.slab_nm_matmul``, ``slab_matmul.slab_nm_lr_matmul``,
+    ``nm_sparse.nm_matmul``) shows which one ran."""
     return {k.key: k.launches for k in KERNELS}
 
 

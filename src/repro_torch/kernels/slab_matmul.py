@@ -1,7 +1,7 @@
 """Fused SLaB linears with a dense-masked or an N:M packed sparse part:
 the hand-written CUDA kernels (``csrc/slab_matmul.cu``; the bf16 2:4 /
-4:8 slab_nm_matmul ``csrc/grouped_tc.cu``) and their plain PyTorch
-versions.
+4:8 slab_nm_matmul and slab_nm_lr_matmul ``csrc/grouped_tc.cu``) and
+their plain PyTorch versions.
 
     slab_matmul, slab_nm_matmul  y = x @ W_Sᵀ + Σ_r ((x ⊙ v_r) @ Bᵀ) ⊙ u_r
     slab_lr_matmul               y = x @ W_Sᵀ + (x @ Vᵀ) @ U  (no binary)
@@ -11,13 +11,14 @@ Replace ``repro/kernels/slab_matmul.py::{slab_matmul, slab_nm_matmul,
 slab_lr_matmul, slab_nm_lr_matmul}`` (TPU). Operands use the kernel layout: x (M, K),
 u (R, N), v (R, K).
 
-slab_nm_matmul has two libraries under one C name, each counting its
-launches on its own ``CudaKernel``: the tensor-core kernel of
-``grouped_tc.cu`` (bf16 2:4 / 4:8, K split across blocks by
-``plan_nm_splits``) and the first design of ``slab_matmul.cu`` (f32,
-other patterns); ``slab_nm_kernel`` picks one. ``plan_nm_splits``,
-``plan_tiles_per_block`` and the split's scratch (``tc_plan``) also serve
-the grouped #17 and #20 on grouped_tc.cu (``kernels.grouped``).
+slab_nm_matmul and slab_nm_lr_matmul each have two libraries under one
+C name, each counting its launches on its own ``CudaKernel``: the
+tensor-core kernel of ``grouped_tc.cu`` (bf16 2:4 / 4:8, K split across
+blocks by ``plan_nm_splits``) and the first design of ``slab_matmul.cu``
+(f32, other patterns); ``slab_nm_kernel`` / ``slab_nm_lr_kernel`` pick
+one. ``plan_nm_splits``, ``plan_tiles_per_block`` and the split's scratch
+(``tc_plan``) also serve #8 (``kernels.nm_sparse``) and the grouped #17
+and #20 (``kernels.grouped``) on grouped_tc.cu.
 """
 from __future__ import annotations
 
@@ -41,10 +42,13 @@ SLAB_LR = build.CudaKernel(
     "slab_lr_matmul", "slab_matmul.cu",
     "src/repro/kernels/slab_matmul.py:180 (slab_lr_matmul, pallas_call :193)")
 
-SLAB_NM_LR = build.CudaKernel(
-    "slab_nm_lr_matmul", "slab_matmul.cu",
-    "src/repro/kernels/slab_matmul.py:231 (slab_nm_lr_matmul, pallas_call "
-    ":247)")
+_SLAB_NM_LR_TPU = ("src/repro/kernels/slab_matmul.py:231 "
+                   "(slab_nm_lr_matmul, pallas_call :247)")
+SLAB_NM_LR = build.CudaKernel("slab_nm_lr_matmul", "grouped_tc.cu",
+                              _SLAB_NM_LR_TPU)
+SLAB_NM_LR_FIRST = build.CudaKernel("slab_nm_lr_matmul", "slab_matmul.cu",
+                                    _SLAB_NM_LR_TPU,
+                                    key="slab_nm_lr_matmul@slab_matmul.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,12 +60,17 @@ _NM_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                _I, _I, _I, _P]
 _LR_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _NM_LR_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+# ... and grouped_tc.cu's slab_nm_lr_matmul the same scratch and plan
+_NM_LR_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _I, _I, _I, _P]
 
 # The bf16 2:4 / 4:8 slab_nm_matmul runs grouped_tc.cu's kernel from
 # NM_TC_MIN_ROWS rows (chip_smoke.py's M sweep through each library at
 # (4096, 4096), PERF.md); fewer rows, f32 and the other patterns run the
 # first design.
 NM_TC_MIN_ROWS = 1
+# ... and the bf16 2:4 / 4:8 slab_nm_lr_matmul from NM_LR_TC_MIN_ROWS rows
+NM_LR_TC_MIN_ROWS = 1
 # grouped_tc.cu's kernel splits K so that a launch gives about
 # NM_SPLIT_BLOCKS_PER_SM blocks of 128 rows to each SM, in splits of at
 # most NM_MAX_SPLIT_CHUNKS chunks (plan_nm_splits).
@@ -172,12 +181,15 @@ def _scratch(dev, n_part: int, n_tickets: int):
     return part, tickets
 
 
-def tc_plan(dev, e: int, m: int, n: int, k: int, walk: bool = False):
+def tc_plan(dev, e: int, m: int, n: int, k: int, walk: bool = False,
+            rank: int = 0):
     """(n_split, cps, tpb, part, tickets) of a launch of grouped_tc.cu's
-    ±1 body on ``dev``: the split of K (plan_nm_splits), the row tiles a
-    block walks (plan_tiles_per_block with ``walk``, else 1) and, for a
-    split, the scratch: (n_split, e, m, n) partial sums and one ticket per
-    expert and block column (None without a split)."""
+    split body on ``dev``: the split of K (plan_nm_splits), the row tiles
+    a block walks (plan_tiles_per_block with ``walk``, else 1) and, for a
+    split, the scratch: (n_split, e, m, n) partial sums, with ``rank``
+    (#7's low-rank term) then the (n_split, e, block columns, m, rank)
+    partial projections, and one ticket per expert and block column (None
+    without a split)."""
     n_sm = build.sm_count(dev.index or 0)
     n_split, cps = plan_nm_splits(n, k, n_sm, e)
     tpb = plan_tiles_per_block(n, e, n_split, n_sm) if walk else 1
@@ -185,7 +197,8 @@ def tc_plan(dev, e: int, m: int, n: int, k: int, walk: bool = False):
     if n_split > 1:
         tiles = -(-n // ROWS)
         cols = -(-tiles // tpb)            # block columns of an expert
-        part, tickets = _scratch(dev, n_split * e * m * n, e * cols)
+        part, tickets = _scratch(
+            dev, n_split * e * m * (n + cols * rank), e * cols)
     return n_split, cps, tpb, part, tickets
 
 
@@ -286,8 +299,46 @@ def slab_nm_lr_matmul_plain(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def slab_nm_lr_split_plain(x, vals, idx, m_pat: int, u, v, n_split: int,
+                           cps: int) -> torch.Tensor:
+    """grouped_tc.cu's slab_nm_lr_matmul arithmetic under a split of K, in
+    plain PyTorch (fp32, for the CPU tests): split s covers columns [s ·
+    cps · CHUNK, (s + 1) · cps · CHUNK) and gives a partial W_S sum and a
+    partial projection x · V_sᵀ; both are summed in split order, then acc
+    + p · U is rounded once to x.dtype (the reference's acc + acc_p · u)."""
+    w = expand_nm(vals, idx, m_pat, torch.float32)
+    xf, vf = x.float(), v.float()
+    k = x.shape[1]
+    acc = torch.zeros(x.shape[0], w.shape[0], device=x.device)
+    p = torch.zeros(x.shape[0], v.shape[0], device=x.device)
+    for s in range(n_split):
+        cols = slice(s * cps * CHUNK, min(k, (s + 1) * cps * CHUNK))
+        acc = acc + xf[:, cols] @ w[:, cols].T
+        p = p + xf[:, cols] @ vf[:, cols].T
+    return (acc + p @ u.float()).to(x.dtype)
+
+
+def slab_nm_lr_kernel(dtype, n_keep: int, m_pat: int,
+                      m: int) -> build.CudaKernel:
+    """The library a launch at ``m`` rows runs: grouped_tc.cu for bf16
+    2:4 / 4:8 from NM_LR_TC_MIN_ROWS rows (any K the pattern divides, any
+    rank), the first design for f32, the other patterns and fewer rows."""
+    if dtype == torch.bfloat16 and (n_keep, m_pat) in ((2, 4), (4, 8)) \
+            and m >= NM_LR_TC_MIN_ROWS:
+        return SLAB_NM_LR
+    return SLAB_NM_LR_FIRST
+
+
 def slab_nm_lr_matmul(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
     """Launch the N:M + low-rank CUDA kernel on the current stream."""
+    kern = slab_nm_lr_kernel(x.dtype, vals.shape[-1], m_pat, x.shape[0])
+    return launch_slab_nm_lr(kern, x, vals, idx, m_pat, u, v)
+
+
+def launch_slab_nm_lr(kern, x, vals, idx, m_pat: int, u,
+                      v) -> torch.Tensor:
+    """slab_nm_lr_matmul through ``kern``'s library (SLAB_NM_LR or
+    SLAB_NM_LR_FIRST), counted on its counter."""
     m, k = x.shape
     n, n_grp, n_keep = vals.shape
     r = u.shape[0]
@@ -304,11 +355,18 @@ def slab_nm_lr_matmul(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    fn = build.function(SLAB_NM_LR.source, SLAB_NM_LR.name, _NM_LR_ARGS)
-    err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(), m, n,
-             k, n_keep, m_pat, r, build.stream_ptr(dev))
-    build.check_launch(err, SLAB_NM_LR.name,
-                       f"M={m} N={n} K={k} {n_keep}:{m_pat} R={r}")
-    SLAB_NM_LR.launches += 1
+    detail = f"M={m} N={n} K={k} {n_keep}:{m_pat} R={r}"
+    head = (build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr())
+    if kern is SLAB_NM_LR:
+        n_split, cps, _, part, tickets = tc_plan(dev, 1, m, n, k, rank=r)
+        fn = build.function(kern.source, kern.name, _NM_LR_TC_ARGS)
+        err = fn(*head, ptr(part), ptr(tickets), m, n, k, n_keep, m_pat, r,
+                 n_split, cps, build.stream_ptr(dev))
+        detail += f" splits={n_split}x{cps * CHUNK}"
+    else:
+        fn = build.function(kern.source, kern.name, _NM_LR_ARGS)
+        err = fn(*head, m, n, k, n_keep, m_pat, r, build.stream_ptr(dev))
+    build.check_launch(err, kern.key, detail)
+    kern.launches += 1
     return y

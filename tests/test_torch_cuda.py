@@ -1,13 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
-card only: slab_nm_matmul (#2), slab_nm_lr_matmul (#7), binlr_matmul
-(#9), flash_decode (#10) and flash_decode_paged (#11), and the grouped
-ell_matmul_g (#12), ell_lr_matmul_g (#13), slab_ell_matmul_g (#14),
-slab_nm_matmul_g (#17), slab_lr_matmul_g (#18), slab_nm_lr_matmul_g
-(#19) and binlr_matmul_g (#20), whose bf16 launches (#2 and #17 at 2:4
-and 4:8) run the kernels of csrc/grouped_tc.cu; #2, #17, #18 and #20
-also through each of their two libraries, #2 and #17 with K split
-across blocks and #20 with blocks walking several row tiles (two
-launches bitwise equal). Every test skips without a card (the kernels
+card only: slab_nm_matmul (#2), slab_nm_lr_matmul (#7), nm_matmul (#8),
+binlr_matmul (#9), flash_decode (#10) and flash_decode_paged (#11), and
+the grouped ell_matmul_g (#12), ell_lr_matmul_g (#13), slab_ell_matmul_g
+(#14), slab_nm_matmul_g (#17), slab_lr_matmul_g (#18),
+slab_nm_lr_matmul_g (#19) and binlr_matmul_g (#20), whose bf16 launches
+(#2, #7, #8 and #17 at 2:4 and 4:8) run the kernels of
+csrc/grouped_tc.cu; #2, #7, #8, #17, #18 and #20 also through each of
+their two libraries, #2, #7, #8 and #17 with K split across blocks and
+#20 with blocks walking several row tiles (two launches bitwise
+equal). Every test skips without a card (the kernels
 are CUDA C++ for sm_90a with no CPU mode).
 
 This file imports neither JAX nor the reference package, so it runs on
@@ -26,6 +27,7 @@ from repro_torch.core import packing, sparsity
 from repro_torch.kernels import binlr as binlr_k
 from repro_torch.kernels import flash_decode as fd_k
 from repro_torch.kernels import grouped as g_k
+from repro_torch.kernels import nm_sparse as nm_k
 from repro_torch.kernels import slab_matmul as slab_k
 from repro_torch.models.attention import _quantize_token
 
@@ -911,5 +913,174 @@ def test_grouped_binary_launches_are_deterministic(cuda, kernel, e, n, k):
     assert n_split > 1 or e == 64
     got = run()
     _close(got, plain(), torch.bfloat16)
+    for _ in range(3):
+        assert torch.equal(got, run())
+
+
+# #8 nm_matmul and #7 slab_nm_lr_matmul per linear: through each library
+# at M 0-128 (37 and 128 take several 32-row passes of the tensor-core
+# kernel, each with its own partial projections), N 1411 off the 128-row
+# block, K 1376 off the 128-column chunk, one stored position in 50 moved
+# out of [0, m); #7 at ranks 1, 3 and 5.
+NM_LIN_M = [0, 1, 4, 8, 37, 128]
+
+
+def _nm_lin_operands(gen, n, k, m, pattern, rank, dtype):
+    """x, vals, idx (with bad positions), u, v and the plain version's
+    vals / idx (no sign words: any K the pattern divides)."""
+    n_keep, m_pat = map(int, pattern.split(":"))
+    dev = gen.device
+    w = _g_randn(gen, n, k, scale=0.05)
+    w_nm = torch.where(sparsity.nm_mask(w.abs(), n_keep, m_pat), w, 0.0)
+    nm = packing.pack_nm(w_nm.to(dtype), n_keep, m_pat, strict=True)
+    vals, idx = nm.values.contiguous(), nm.indices.contiguous()
+    bad = torch.rand(vals.shape, generator=gen, device=dev) < 0.02
+    off = torch.where(torch.rand(vals.shape, generator=gen, device=dev)
+                      < 0.5, -1, m_pat).to(torch.int8)
+    idx_k = torch.where(bad, off, idx)
+    vals_p = torch.where(bad, torch.zeros_like(vals), vals)
+    idx_p = torch.where(bad, torch.zeros_like(idx), idx)
+    x = _g_randn(gen, m, k).to(dtype)
+    u = _g_randn(gen, rank, n, scale=0.2).to(dtype)
+    v = _g_randn(gen, rank, k, scale=0.2).to(dtype)
+    return x, vals, idx_k, u, v, vals_p, idx_p
+
+
+def _nm_lin(kernel, kern, x, vals, idx, m_pat, u, v):
+    """One launch of #8 (kernel "nm_matmul") or #7 through ``kern``'s
+    library, and its plain version's call."""
+    if kernel == "nm_matmul":
+        return (lambda: nm_k.launch_nm(kern, x, vals, idx, m_pat),
+                lambda vp, ip: nm_k.nm_matmul_plain(x, vp, ip, m_pat))
+    return (lambda: slab_k.launch_slab_nm_lr(kern, x, vals, idx, m_pat, u, v),
+            lambda vp, ip: slab_k.slab_nm_lr_matmul_plain(x, vp, ip, m_pat,
+                                                          u, v))
+
+
+def _nm_lin_libs(kernel):
+    return ((nm_k.NM, nm_k.NM_FIRST) if kernel == "nm_matmul"
+            else (slab_k.SLAB_NM_LR, slab_k.SLAB_NM_LR_FIRST))
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("pattern", ["2:4", "4:8"])
+@pytest.mark.parametrize("m", NM_LIN_M)
+def test_nm_matmul_each_library(cuda, m, pattern, lib):
+    """#8 at bf16 through each library; M = 0 gives an empty result and
+    no launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3000 + m)
+    m_pat = int(pattern.split(":")[1])
+    x, vals, idx, u, v, vals_p, idx_p = _nm_lin_operands(
+        gen, 1411, 1376, m, pattern, 1, torch.bfloat16)
+    kern = _nm_lin_libs("nm_matmul")[lib == "first"]
+    run, plain = _nm_lin("nm_matmul", kern, x, vals, idx, m_pat, u, v)
+    launches = kern.launches
+    got = run()
+    assert kern.launches == launches + (m > 0)
+    if m == 0:
+        assert got.shape == (0, 1411) and got.dtype == torch.bfloat16
+        return
+    _close(got, plain(vals_p, idx_p), torch.bfloat16)
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("pattern,rank", [("2:4", 1), ("4:8", 3), ("2:4", 5)])
+@pytest.mark.parametrize("m", NM_LIN_M)
+def test_slab_nm_lr_matmul_each_library(cuda, m, pattern, rank, lib):
+    """#7 at bf16 through each library, ranks 1, 3 and 5; M = 0 gives an
+    empty result and no launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3100 + m + rank)
+    m_pat = int(pattern.split(":")[1])
+    x, vals, idx, u, v, vals_p, idx_p = _nm_lin_operands(
+        gen, 1411, 1376, m, pattern, rank, torch.bfloat16)
+    kern = _nm_lin_libs("slab_nm_lr_matmul")[lib == "first"]
+    run, plain = _nm_lin("slab_nm_lr_matmul", kern, x, vals, idx, m_pat, u,
+                         v)
+    launches = kern.launches
+    got = run()
+    assert kern.launches == launches + (m > 0)
+    if m == 0:
+        assert got.shape == (0, 1411) and got.dtype == torch.bfloat16
+        return
+    _close(got, plain(vals_p, idx_p), torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["nm_matmul", "slab_nm_lr_matmul"])
+@pytest.mark.parametrize("pattern", ["2:4", "4:8"])
+@pytest.mark.parametrize("m", [1, 4, 37])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_nm_lin_kernel_matches_plain(cuda, dt, m, pattern, kernel):
+    """#8 and #7 through the wrapper at bf16 and f32: the launch counts on
+    the library nm_kernel / slab_nm_lr_kernel picks (grouped_tc.cu for
+    bf16 from the crossover)."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3200 + m)
+    n_keep, m_pat = map(int, pattern.split(":"))
+    x, vals, idx, u, v, vals_p, idx_p = _nm_lin_operands(
+        gen, 1411, 1376, m, pattern, 3, dtype)
+    if kernel == "nm_matmul":
+        kern = nm_k.nm_kernel(dtype, n_keep, m_pat, m)
+        lo = nm_k.NM_TC_MIN_ROWS
+        got = lambda: nm_k.nm_matmul(x, vals, idx, m_pat)
+    else:
+        kern = slab_k.slab_nm_lr_kernel(dtype, n_keep, m_pat, m)
+        lo = slab_k.NM_LR_TC_MIN_ROWS
+        got = lambda: slab_k.slab_nm_lr_matmul(x, vals, idx, m_pat, u, v)
+    new, first = _nm_lin_libs(kernel)
+    assert kern is (new if dtype == torch.bfloat16 and m >= lo else first)
+    launches = kern.launches
+    out = got()
+    assert kern.launches == launches + 1
+    _, plain = _nm_lin(kernel, kern, x, vals, idx, m_pat, u, v)
+    _close(out, plain(vals_p, idx_p), dtype)
+
+
+@pytest.mark.parametrize("kernel", ["nm_matmul", "slab_nm_lr_matmul"])
+@pytest.mark.parametrize("m", [1, 4, 37])
+def test_nm_lin_odd_shape(cuda, kernel, m):
+    """chip_smoke.py's ODD_SHAPE (4099, 4100) at 2:4: K % 32 != 0, so the
+    tensor-core kernel reads the planes entry by entry, and its last
+    128-column chunk holds 4 columns; through the wrapper."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3300 + m)
+    x, vals, idx, u, v, vals_p, idx_p = _nm_lin_operands(
+        gen, 4099, 4100, m, "2:4", 3, torch.bfloat16)
+    new, _ = _nm_lin_libs(kernel)
+    _, plain = _nm_lin(kernel, new, x, vals, idx, 4, u, v)
+    launches = new.launches
+    if kernel == "nm_matmul":
+        got = nm_k.nm_matmul(x, vals, idx, 4)
+    else:
+        got = slab_k.slab_nm_lr_matmul(x, vals, idx, 4, u, v)
+    assert new.launches == launches + 1
+    _close(got, plain(vals_p, idx_p), torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["nm_matmul", "slab_nm_lr_matmul"])
+@pytest.mark.parametrize("pattern", ["2:4", "4:8"])
+@pytest.mark.parametrize("shape", [(4096, 4096), (1024, 4096), (2048, 2816)],
+                         ids=str)
+def test_nm_lin_splits_are_deterministic(cuda, shape, pattern, kernel):
+    """llama2-7b's (4096, 4096), phi3.5-moe's (1024, 4096) (32 splits of
+    one chunk) and deepseek-moe-16b's shared w_down (2048, 2816) at M 4
+    split K across blocks; the last block of a row tile adds the partial
+    sums (and #7's partial projections) in split order, so the same
+    launch twice gives the same bits."""
+    n, k = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3400 + n + k)
+    m_pat = int(pattern.split(":")[1])
+    x, vals, idx, u, v, vals_p, idx_p = _nm_lin_operands(
+        gen, n, k, 4, pattern, 3, torch.bfloat16)
+    n_split, _ = slab_k.plan_nm_splits(n, k, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert n_split > 1
+    new, _ = _nm_lin_libs(kernel)
+    run, plain = _nm_lin(kernel, new, x, vals, idx, m_pat, u, v)
+    got = run()
+    _close(got, plain(vals_p, idx_p), torch.bfloat16)
     for _ in range(3):
         assert torch.equal(got, run())

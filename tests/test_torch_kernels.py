@@ -355,3 +355,169 @@ def test_tiles_per_block_plan(n, e, n_split, n_sm, want):
         assert e * n_split * -(-tiles // (tpb - 1)) \
             > slab_k.NM_SPLIT_BLOCKS_PER_SM * n_sm
 
+
+
+# ------------------ #8's and #7's library choice, split plan and arithmetic
+
+
+@pytest.mark.parametrize("kernel", ["nm_matmul", "slab_nm_lr_matmul"])
+@pytest.mark.parametrize("dtype,pattern,m,source", [
+    (torch.bfloat16, (2, 4), 1, "grouped_tc.cu"),
+    (torch.bfloat16, (2, 4), 4, "grouped_tc.cu"),
+    (torch.bfloat16, (4, 8), 8, "grouped_tc.cu"),
+    (torch.bfloat16, (4, 8), 128, "grouped_tc.cu"),
+    (torch.bfloat16, (1, 4), 4, "first"),
+    (torch.bfloat16, (2, 8), 4, "first"),
+    (torch.float32, (2, 4), 4, "first"),
+    (torch.float32, (4, 8), 128, "first")])
+def test_nm_and_nm_lr_library_choice(kernel, dtype, pattern, m, source):
+    """bf16 2:4 / 4:8 #8 and #7 run grouped_tc.cu's kernel from their row
+    crossovers (NM_TC_MIN_ROWS, NM_LR_TC_MIN_ROWS); f32 and the other
+    patterns the first design (nm_sparse.cu, slab_matmul.cu), each on its
+    own counter under one C name."""
+    from repro_torch.kernels import nm_sparse as nm_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    if kernel == "nm_matmul":
+        kern = nm_k.nm_kernel(dtype, *pattern, m)
+        lo, first = nm_k.NM_TC_MIN_ROWS, "nm_sparse.cu"
+    else:
+        kern = slab_k.slab_nm_lr_kernel(dtype, *pattern, m)
+        lo, first = slab_k.NM_LR_TC_MIN_ROWS, "slab_matmul.cu"
+    want = source if source == "first" or m < lo else "grouped_tc.cu"
+    want = first if want == "first" else want
+    assert kern.source == want and kern.name == kernel
+    assert kern.key == (kernel if want == "grouped_tc.cu"
+                        else f"{kernel}@{first}")
+
+
+@pytest.mark.parametrize("rank", [1, 3, 5])
+@pytest.mark.parametrize("n,k,m", [(4096, 4096, 4), (1024, 4096, 37),
+                                   (2048, 2816, 128)], ids=str)
+def test_nm_lr_scratch_holds_partial_projections(monkeypatch, n, k, m,
+                                                 rank):
+    """grouped_tc.cu's #7 at any rank (slab_nm_lr_kernel does not look at
+    it): with K split, tc_plan's scratch holds the (n_split, M, N)
+    partial sums and after them the (n_split, ⌈N/128⌉, M, R) partial
+    projections, and one ticket per block column (an H100's 132 SMs)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import slab_matmul as slab_k
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(slab_k, "_SCRATCH", {})
+    assert slab_k.slab_nm_lr_kernel(torch.bfloat16, 2, 4, m) \
+        is slab_k.SLAB_NM_LR
+    dev = torch.device("cpu")
+    n_split, cps, tpb, part, tickets = slab_k.tc_plan(dev, 1, m, n, k,
+                                                      rank=rank)
+    assert (n_split, cps) == slab_k.plan_nm_splits(n, k, 132) and tpb == 1
+    cols = -(-n // 128)
+    assert n_split > 1
+    assert part.numel() >= n_split * m * n + n_split * cols * m * rank
+    assert tickets.numel() >= cols and not tickets.any()
+    assert slab_k.tc_plan(dev, 1, m, n, k)[3].numel() >= n_split * m * n
+
+
+def test_nm_and_nm_lr_below_the_crossover():
+    """Fewer rows than the crossover run the first design."""
+    from repro_torch.kernels import nm_sparse as nm_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    for m in range(0, nm_k.NM_TC_MIN_ROWS):
+        assert nm_k.nm_kernel(torch.bfloat16, 2, 4, m) is nm_k.NM_FIRST
+    for m in range(0, slab_k.NM_LR_TC_MIN_ROWS):
+        assert slab_k.slab_nm_lr_kernel(torch.bfloat16, 2, 4, m) \
+            is slab_k.SLAB_NM_LR_FIRST
+    assert nm_k.nm_kernel(torch.bfloat16, 4, 8, nm_k.NM_TC_MIN_ROWS) \
+        is nm_k.NM
+    assert slab_k.slab_nm_lr_kernel(torch.bfloat16, 4, 8,
+                                    slab_k.NM_LR_TC_MIN_ROWS) \
+        is slab_k.SLAB_NM_LR
+
+
+@pytest.mark.parametrize("kernel", ["nm_matmul", "slab_nm_lr_matmul"])
+def test_nm_and_nm_lr_counters_are_per_library(kernel):
+    """#8's and #7's two libraries count on their own keys in
+    ops.launch_counts, under one C name."""
+    from repro_torch.kernels import nm_sparse as nm_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    new, first, src = ((nm_k.NM, nm_k.NM_FIRST, "nm_sparse.cu")
+                       if kernel == "nm_matmul" else
+                       (slab_k.SLAB_NM_LR, slab_k.SLAB_NM_LR_FIRST,
+                        "slab_matmul.cu"))
+    counts = ops.launch_counts()
+    assert {kernel, f"{kernel}@{src}"} <= set(counts)
+    assert new.name == first.name == kernel
+    assert (new.source, first.source) == ("grouped_tc.cu", src)
+    new.launches = 5
+    assert ops.launch_counts()[kernel] == 5
+    assert ops.launch_counts()[f"{kernel}@{src}"] == 0
+    ops.reset_launch_counts()
+
+
+# the (N, K) of the per-linear #8 / #7 launches on the main path: llama2-7b
+# (phases e, i), phi3.5-moe's attention (p) and deepseek-moe-16b's
+# attention and shared MLP (v); the plan on an H100's 132 SMs
+PATH_SPLITS = [((4096, 4096), (8, 4)), ((11008, 4096), (4, 8)),
+               ((4096, 11008), (9, 10)), ((1024, 4096), (32, 1)),
+               ((2048, 2048), (16, 1)), ((2816, 2048), (8, 2)),
+               ((2048, 2816), (11, 2))]
+
+
+@pytest.mark.parametrize("shape,want", PATH_SPLITS, ids=str)
+def test_nm_split_plan_at_the_path_shapes(shape, want):
+    """At every (N, K) that phases e, i, p and v give #8 and #7, the split
+    gives each of an H100's 132 SMs at least one block of 128 rows, its
+    runs cover K once, and none is longer than NM_MAX_SPLIT_CHUNKS
+    chunks."""
+    from repro_torch.kernels import slab_matmul as slab_k
+    n, k = shape
+    assert slab_k.plan_nm_splits(n, k, 132) == want
+    n_split, cps = want
+    assert n_split > 1 and cps <= slab_k.NM_MAX_SPLIT_CHUNKS
+    assert (n_split - 1) * cps * 128 < k <= n_split * cps * 128
+    assert -(-n // 128) * n_split >= 132
+
+
+def _nm_lr_np(seed, m, n, k, rank, pattern):
+    """Seeded numpy x, N:M-pruned W, u (R, N), v (R, K)."""
+    rng = np.random.default_rng(seed)
+    n_keep, m_pat = map(int, pattern.split(":"))
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) * 0.1).astype(np.float32)
+    g = np.abs(w).reshape(n, k // m_pat, m_pat)
+    thr = -np.sort(-g, axis=-1)[..., n_keep - 1:n_keep]
+    w = np.where((g >= thr).reshape(n, k), w, 0.0).astype(np.float32)
+    u = (rng.standard_normal((rank, n)) * 0.2).astype(np.float32)
+    v = (rng.standard_normal((rank, k)) * 0.2).astype(np.float32)
+    return x, w, u, v
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("k,cps,pattern", [
+    (256, 1, "2:4"), (384, 1, "4:8"), (320, 1, "2:4"), (512, 2, "4:8")],
+    ids=str)
+def test_nm_lr_split_arithmetic_matches_reference(k, cps, pattern, rank, m):
+    """grouped_tc.cu's #7 under a split of K (slab_nm_lr_split_plain: each
+    split's partial W_S sum and partial projection, both summed in split
+    order, then acc + p·U rounded once) against the reference kernel in
+    interpret mode on the same numpy inputs: 2 or 3 splits, the last one
+    shorter at K 320, f32 at max|diff| / max|ref| < 1e-5."""
+    from repro.kernels import slab_matmul as ref_slab
+    from repro_torch.kernels import slab_matmul as slab_k
+    n = 96
+    n_keep, m_pat = map(int, pattern.split(":"))
+    x, w, u, v = _nm_lr_np(300 + k + rank + m, m, n, k, rank, pattern)
+    nm = ref_packing.pack_nm(jnp.asarray(w), n_keep, m_pat)
+    want = ref_slab.slab_nm_lr_matmul(
+        jnp.asarray(x), nm.values, nm.indices, m_pat, jnp.asarray(u),
+        jnp.asarray(v), interpret=True)
+    n_split = -(-k // (cps * 128))
+    assert n_split in (2, 3)
+    tt = functools.partial(bridge.tensor, device="cpu")
+    got = slab_k.slab_nm_lr_split_plain(tt(x), tt(nm.values),
+                                        tt(nm.indices), m_pat, tt(u), tt(v),
+                                        n_split, cps)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert _rel(got, want) < TOL
+    one = slab_k.slab_nm_lr_matmul_plain(tt(x), tt(nm.values),
+                                         tt(nm.indices), m_pat, tt(u), tt(v))
+    assert _rel(got, one) < TOL
