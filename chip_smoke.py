@@ -16,10 +16,12 @@ Phases:
      words also at (4099, 4100) (K not a multiple of 32, odd K_max); times
      at M = 4, bf16, rank 1 beside the byte bound, the plain version and
      one torch.matmul against the reconstructed dense W; #2
-     slab_nm_matmul, #8 nm_matmul and #7 slab_nm_lr_matmul at bf16 also
-     through each of their two libraries (grouped_tc.cu, K split across
-     blocks, and the first design), and timed through the wrapper and
-     through each at M 1, 2, 4, 8, 16 at (4096, 4096), 2:4 and 4:8 (the
+     slab_nm_matmul, #8 nm_matmul and #7 slab_nm_lr_matmul (K split
+     across blocks) and #1 slab_ell_matmul and #5 ell_lr_matmul (each
+     row's entries split across blocks; #1 also with int32 ids) at bf16
+     also through each of their two libraries (grouped_tc.cu and the
+     first design), and timed through the wrapper and through each at M
+     1, 2, 3, 4, 8, 16 at (4096, 4096), #2, #8 and #7 at 2:4 and 4:8 (the
      "M sweep" lines). Then both
      flash-decode kernels (paged #11, contiguous #10) against their plain
      versions at the decode shapes of llama2-7b (R 8, KV 32, G 1, dh 128)
@@ -82,17 +84,18 @@ Phases:
        w  slab, CR 0.5, then W_S := 0                -> binlr (#9, #20)
      Launch counts are zeroed just before each greedy_decode and read
      just after, one counter per library: phase m's #14 (2 rows per
-     expert) must run only the first design (ell.cu), phases b and n's #2,
-     phases e and p's #8, phases i and v's #7, phase n's #17 and phases
-     r, s, t, u, v and w's grouped kernel only grouped_tc.cu, and phases
-     q and x (f32) only ell.cu;
+     expert) must run only the first design (ell.cu), phases a, l, m and
+     r's #1, phases g and t's #5, phases b and n's #2, phases e and p's
+     #8, phases i and v's #7, phase n's #17 and phases r, s, t, u, v and
+     w's grouped kernel only grouped_tc.cu, and phases d, k, q and x
+     (f32) only ell.cu;
      final-step logits are held against the dense-equivalent
      (reconstructed-W) model — for the MoE models against dense experts
      (and dense shared experts) behind the same packed attention, whose
      expert choices must agree token for token (_hold_moe_logits says
-     why); phases a, b, e, i, m, n, r, s, t, u, v and w are profiled (b,
-     e, i, n, u and w with #2's, #8's, #7's, #17's, #18's and #20's device
-     time per step and share of the busy time);
+     why); phases a, b, e, g, i, m, n, r, s, t, u, v and w are profiled
+     (a, b, e, g, i, n, u and w with #1's, #2's, #8's, #5's, #7's, #17's,
+     #18's and #20's device time per step and share of the busy time);
      phases e-i also print the eval perplexity (lm.loss_fn) of the
      uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
@@ -114,9 +117,10 @@ Phases:
           request terminal); no block leaked;
        x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
           factor 64/6;
-  4. one JSON line listing every ported kernel (all twenty; #2, #7, #8,
-     #12, #13, #14, #17, #18, #19 and #20 once per library, each with its
-     own launch counter: thirty entries), then the result line.
+  4. one JSON line listing every ported kernel (all twenty; #1, #2, #5,
+     #7, #8, #12, #13, #14, #17, #18, #19 and #20 once per library, each
+     with its own launch counter: thirty-two entries), then the result
+     line.
 
 Any failed check raises, and the script exits non-zero. It needs
 ``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
@@ -146,11 +150,13 @@ SLEEP_CYCLES = 400_000             # ~0.2 ms of device sleep before a timed call
 # kernels whose two libraries are also checked and timed one by one at
 # every bf16 timed case (the JSON line reports each library's time)
 LIB_TIMED = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul",
-             "slab_lr_matmul_g", "slab_nm_matmul_g", "binlr_matmul_g")
-# the per-linear M sweep of #2, #8 and #7 at JSON_SHAPE (bf16, rank 1, 2:4
-# and 4:8)
-NM_SWEEP = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul")
-NM_SWEEP_M = (1, 2, 4, 8, 16)
+             "slab_ell_matmul", "ell_lr_matmul", "slab_lr_matmul_g",
+             "slab_nm_matmul_g", "binlr_matmul_g")
+# the per-linear M sweep of #2, #8 and #7 (2:4 and 4:8) and of #1 and #5
+# at JSON_SHAPE (bf16, rank 1)
+NM_SWEEP = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul",
+            "slab_ell_matmul", "ell_lr_matmul")
+NM_SWEEP_M = (1, 2, 3, 4, 8, 16)
 
 
 def log(msg: str) -> None:
@@ -186,6 +192,9 @@ def environment():
     log("  ptxas grouped_tc.cu tc bodies (#19, #18, #2; tc_g_kernel: #17, "
         "#20; tc_nm_kernel: #8, #7): "
         + _ptxas_tc(build.build_log("grouped_tc.cu")))
+    log("  ptxas grouped_tc.cu ell_split_kernel<ids, LR (#5, #13), BIN "
+        "(#1; #12 neither), n-tiles, rows a column, split>: "
+        + _ptxas_ell_split(build.build_log("grouped_tc.cu")))
     return card
 
 
@@ -220,6 +229,29 @@ def _ptxas_tc(text: str) -> str:
         regs = re.search(r"Used (\d+) registers", tail)
         spill = re.search(r"(\d+) bytes spill stores", tail)
         out.append(f"{kern}<{src},{ntp}> {regs.group(1) if regs else '?'}r"
+                   f"/{spill.group(1) if spill else '?'}sp")
+    return " ".join(out)
+
+
+def _ptxas_ell_split(text: str) -> str:
+    """Registers and spill-store bytes of each ell_split_kernel entry (#1,
+    #5, #12, #13) of a ``-Xptxas -v`` report, as <ids, LR, BIN, n-tiles,
+    rows a column, SPLIT>."""
+    out = []
+    pat = re.compile(r"Compiling entry function '_ZN2tc\d+ell_split_kernel"
+                     r"I([tj])Lb([01])ELb([01])ELi(\d)ELi(\d)ELb([01])E")
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        m = pat.search(line)
+        if not m:
+            continue
+        ids, lr, bn, ntp, mr, split = m.groups()
+        tail = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", tail)
+        spill = re.search(r"(\d+) bytes spill stores", tail)
+        out.append(f"<{'u16' if ids == 't' else 'u32'},{lr},{bn},{ntp},"
+                   f"{mr},{split}> "
+                   f"{regs.group(1) if regs else '?'}r"
                    f"/{spill.group(1) if spill else '?'}sp")
     return " ".join(out)
 
@@ -300,6 +332,15 @@ def _cases(planes, x, rank, wide_ids=False):
     n = u.shape[1]
     lr = lambda: u.float().T @ v.float()                     # (N, K)
 
+    def ell_libs(new, first, call, idx, binary):
+        """#1's / #5's libraries by counter key: the split kernel only
+        where its x fits a block (ell.ell_split_smem: the wrapper never
+        picks it elsewhere)."""
+        fits = ell_k.ell_split_smem(k, rank, idx.element_size(),
+                                    binary) <= slab_k.TC_SMEM
+        return {kk.key: (lambda kk=kk: call(kk))
+                for kk in (new, first) if fits or kk is first}
+
     def ell_dense(p):
         return lambda: ell_unpack(ELLPacked(p[0], p[1], k)).float()
 
@@ -315,14 +356,24 @@ def _cases(planes, x, rank, wide_ids=False):
     if "b" in planes:
         b = planes["b"]
         w_b = lambda: lr() * unpack_sign_bits(b, k, torch.float32)
-        vals, idx = planes["slab"]
-        out.append(Case(
-            "slab_ell_matmul", "slab_ell_matmul",
-            lambda: ell_k.slab_ell_matmul(x, vals, idx, b, u, v),
-            lambda: ell_k.slab_ell_matmul_plain(x, vals, idx, b, u, v),
-            (vals, idx, b, u, v),
-            lambda: ell_dense(planes["slab"])() + w_b(),
-            ops(vals.numel(), binary=True)))
+        slabs = [("", planes["slab"])]
+        if wide_ids:
+            slabs.append(("[int32]", (planes["slab"][0],
+                                      as_unsigned(planes["slab"][1]).int())))
+        for tag, (vals, idx) in slabs:
+            out.append(Case(
+                f"slab_ell_matmul{tag}", "slab_ell_matmul",
+                lambda vals=vals, idx=idx: ell_k.slab_ell_matmul(
+                    x, vals, idx, b, u, v),
+                lambda vals=vals, idx=idx: ell_k.slab_ell_matmul_plain(
+                    x, vals, idx, b, u, v),
+                (vals, idx, b, u, v),
+                lambda vals=vals, idx=idx: ell_dense((vals, idx))() + w_b(),
+                ops(vals.numel(), binary=True),
+                libs=ell_libs(ell_k.SLAB_ELL, ell_k.SLAB_ELL_FIRST,
+                              lambda kk, vals=vals, idx=idx:
+                              ell_k.launch_slab_ell(kk, x, vals, idx, b, u,
+                                                    v), idx, True)))
         for pat in ("2:4", "4:8"):
             nv, ni = planes[pat]
             nn, mm = map(int, pat.split(":"))
@@ -370,7 +421,11 @@ def _cases(planes, x, rank, wide_ids=False):
             lambda lv=lv, li=li: ell_k.ell_lr_matmul(x, lv, li, u, v),
             lambda lv=lv, li=li: ell_k.ell_lr_matmul_plain(x, lv, li, u, v),
             (lv, li, u, v), lambda lv=lv, li=li: ell_dense((lv, li))() + lr(),
-            ops(lv.numel(), lowrank=True)))
+            ops(lv.numel(), lowrank=True),
+            libs=ell_libs(ell_k.ELL_LR, ell_k.ELL_LR_FIRST,
+                          lambda kk, lv=lv, li=li:
+                          ell_k.launch_ell_lr(kk, x, lv, li, u, v), li,
+                          False)))
     ws = planes["dense"]
     out.append(Case(
         "slab_lr_matmul", "slab_lr_matmul",
@@ -508,8 +563,9 @@ def kernel_checks():
 
 
 def nm_sweep(flush):
-    """#2 slab_nm_matmul, #8 nm_matmul and #7 slab_nm_lr_matmul at
-    JSON_SHAPE, bf16, rank 1, 2:4 and 4:8, at every M of NM_SWEEP_M:
+    """#2 slab_nm_matmul, #8 nm_matmul and #7 slab_nm_lr_matmul (2:4 and
+    4:8) and #1 slab_ell_matmul and #5 ell_lr_matmul (uint16 ids) at
+    JSON_SHAPE, bf16, rank 1, at every M of NM_SWEEP_M:
     checked against their plain versions and timed through the wrapper
     (each M tagged with the library it ran) and through each of their two
     libraries."""
@@ -549,7 +605,8 @@ def nm_sweep(flush):
         log(f"  M sweep {label} N={n} K={k} bf16 r1{how}: "
             + " ".join(f"M={m}: {t:.4f} ms" + (f" ({ran})" if ran else "")
                        for m, (t, ran) in sorted(by_m.items())))
-    log(f"nm sweep (#2, #8, #7): {n_checks} cases passed; worst "
+    log(f"per-linear sweep (#2, #8, #7, #1, #5): {n_checks} cases passed; "
+        "worst "
         "max|err|/max|ref|: "
         + " ".join(f"{l}={w:.3g}" for l, w in worst.items()))
 
@@ -1693,7 +1750,7 @@ def engine_phase_k():
             prefill_chunk=8), device="cuda")
         done, wall, counts = _run_engine(
             eng, trace(n_req), f"phase k {tag}",
-            ("slab_ell_matmul", "flash_decode_paged"), clock="steps")
+            ("slab_ell_matmul@ell.cu", "flash_decode_paged"), clock="steps")
         for r in done:
             if r.status != "finished":
                 raise AssertionError(f"phase k: rid {r.rid} {r.status}")
@@ -1903,7 +1960,7 @@ def moe_engine_phase(tag, arch):
                 for i, (p, n, a) in enumerate(specs)]
         done, wall, counts = _run_engine(
             eng, reqs, f"phase {tag} {run}",
-            ("slab_ell_matmul", "slab_ell_matmul_g@ell.cu",
+            ("slab_ell_matmul@ell.cu", "slab_ell_matmul_g@ell.cu",
              "flash_decode_paged"),
             clock="steps")
         n_equal = 0
@@ -1935,7 +1992,9 @@ def moe_engine_phase(tag, arch):
 PHASES = (
     ("a", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
                variant="slab-ell", kernel="slab_ell_matmul", tol=3e-2,
-               profiled=True)),
+               profiled=True,
+               focus=("#1 slab_ell_matmul",
+                      "ell_split_kernel<unsigned short, false, true"))),
     ("b", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
                variant="slab-nm", kernel="slab_nm_matmul", tol=3e-2,
                profiled=True,
@@ -1943,7 +2002,8 @@ PHASES = (
     ("c", dict(n_layers=2, dtype=torch.bfloat16, cr=0.2, pattern=None,
                variant="slab-dense", kernel="slab_matmul", tol=3e-2)),
     ("d", dict(n_layers=2, dtype=torch.float32, cr=0.5, pattern=None,
-               variant="slab-ell", kernel="slab_ell_matmul", tol=1e-4)),
+               variant="slab-ell", kernel="slab_ell_matmul@ell.cu",
+               tol=1e-4)),
     ("e", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
                variant="sparse-nm", kernel="nm_matmul", tol=3e-2,
                method="wanda", options={}, ppl=True, profiled=True,
@@ -1957,7 +2017,10 @@ PHASES = (
                     "no kernel runs")),
     ("g", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
                variant="lowrank-ell", kernel="ell_lr_matmul", tol=3e-2,
-               options=dict(iters=8, include_binary=False), ppl=True)),
+               options=dict(iters=8, include_binary=False), ppl=True,
+               profiled=True,
+               focus=("#5 ell_lr_matmul",
+                      "ell_split_kernel<unsigned short, true, false"))),
     ("h", dict(n_layers=2, dtype=torch.bfloat16, cr=0.4, pattern=None,
                variant="lowrank-dense", kernel="slab_lr_matmul", tol=3e-2,
                options=dict(iters=8, include_binary=False), ppl=True)),
@@ -2098,7 +2161,7 @@ def main():
     mark("kernels")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     nm_sweep(flush)
-    mark("nm sweep")
+    mark("per-linear sweep")
     fd_timed, fd_worst = flash_checks(flush)
     mark("flash")
     g_timed, g_worst = {}, {}

@@ -10,6 +10,8 @@
 //   slab_nm_lr_matmul:    y = x · (W_S + U Vᵀ)ᵀ, N:M               (#7)
 //   ell_matmul_g:         y[e] = x[e] · W_Sᵀ                       (#12)
 //   ell_lr_matmul_g:      y[e] = x[e] · W_Sᵀ + (x[e] · Vᵀ) · U     (#13)
+//   slab_ell_matmul:      y = x · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ, ELL   (#1)
+//   ell_lr_matmul:        y = x · W_Sᵀ + (x · Vᵀ) · U, ELL         (#5)
 //
 // Replace repro/kernels/grouped.py::slab_ell_matmul_g (_kernel_slab_ell_g,
 // pallas_call at grouped.py:142), ::slab_nm_lr_matmul_g
@@ -21,16 +23,20 @@
 // ::ell_lr_matmul_g (_kernel_ell_lr_g, pallas_call at grouped.py:103),
 // repro/kernels/slab_matmul.py::slab_nm_matmul (_kernel_nm, pallas_call
 // at slab_matmul.py:135), ::slab_nm_lr_matmul (_kernel_nm_lr,
-// pallas_call at slab_matmul.py:247) and repro/kernels/nm_sparse.py::
-// nm_matmul (_kernel, pallas_call at nm_sparse.py:54) for bf16 operands.
+// pallas_call at slab_matmul.py:247), repro/kernels/nm_sparse.py::
+// nm_matmul (_kernel, pallas_call at nm_sparse.py:54) and
+// repro/kernels/ell.py::slab_ell_matmul (_kernel_slab_ell, pallas_call at
+// ell.py:209) and ::ell_lr_matmul (_kernel_ell_lr, pallas_call at
+// ell.py:149) for bf16 operands.
 // The first design (ell.cu, slab_matmul.cu, nm_sparse.cu) keeps the f32
 // launches, which hold 1e-5 without TF32, #19's, #17's, #8's, #7's and
 // #2's patterns other than 2:4 / 4:8, #17 and #2 at ranks whose x ⊙ v_r
-// tiles do not fit a block, #20 past rank 4, and #12, #13 and #14 at 1-2
+// tiles do not fit a block, #20 past rank 4, #12, #13 and #14 at 1-2
 // rows per expert, where its 2-byte gathers are cheaper than these
-// kernels' 16-byte ones (grouped.TC_MIN_ROWS, grouped.ELL_TC_MIN_ROWS).
-// #14, #19, #18, #17, #20, #8, #7 and #2 use the tensor cores; #12 and
-// #13, whose work is all gather, do not (their section below).
+// kernels' 16-byte ones (grouped.TC_MIN_ROWS, grouped.ELL_TC_MIN_ROWS),
+// and #1 and #5 where x does not fit a block (their section below).
+// #14, #19, #18, #17, #20, #8, #7, #2 and #1's ±1 term use the tensor
+// cores; #12, #13 and #5, whose work is all gather, do not.
 //
 // #14 and #19's bound on the H100: bytes. At the MoE decode shapes (1-32
 // rows per expert) each expert is a skinny GEMM: the E experts' planes (ELL vals +
@@ -85,6 +91,8 @@
 //  - The first design's L2 prefetch of each warp's planes is gone: builds
 //    with it ran slower (the demand loads are already whole 128-byte
 //    lines, issued ahead).
+#include <type_traits>
+
 #include "slab_common.cuh"
 
 namespace tc {
@@ -1701,8 +1709,9 @@ namespace tc {
 //    (⌈N/128⌉, E)) and stages x once per 8·NTP batch rows with 16-byte
 //    stores into NTP column planes (stage_cols_any: any K, a zero tail
 //    and one zero column past K), so a gather is one 16-byte shared load
-//    for 8 batch rows; #13's projection is formed once per block pass in
-//    fp32 with a fixed reduction order and added before the one
+//    for 8 batch rows (at M <= 4, columns of M rounded up to 1, 2 or 4:
+//    stage_cols_narrow); #13's projection is formed once per block pass
+//    in fp32 with a fixed reduction order and added before the one
 //    rounding;
 //  - a group of kEllLanes = 8 lanes streams one row at a time, each lane
 //    an 8-entry block (16 bytes of vals, 16 or 32 of ids) per step, so a
@@ -1723,7 +1732,8 @@ namespace tc {
 // slower still; x as fp32 (no unpacking, twice the shared bytes) lost by
 // a wide margin; rings of 2 or 8 steps, blocks loaded into registers
 // instead of the ring and 16- or 32-lane groups did not help; 16 warps a
-// block gained a few percent and were not taken.
+// block gained a few percent and were not taken. The kernel is
+// ell_split_kernel (below, with #1 and #5), each row one run of entries.
 constexpr int kEllWarps = 8;      // warps per block, 16 output rows each
 constexpr int kEllStages = 4;     // steps (8-entry blocks) in flight per thread
 constexpr int kEllLanes = 8;      // lanes that stream one row together
@@ -1879,11 +1889,13 @@ __device__ __forceinline__ void ell_entry(float (&acc)[NTP][8],
   }
 }
 
-// Sum v[0..7] over the row group's 8 lanes; lane l ends with the sum of
-// v[l & 7] in v[0] (a reduce-scatter over lane bits 2, 1, 0).
+// Sum v[0 .. MR - 1] over the row group's 8 lanes; lane l ends with the
+// sum of v[l & (MR - 1)] in v[0] (a reduce-scatter over the lane bits
+// below MR, then, for MR < 8, a sum over the others).
+template <int MR = 8>
 __device__ __forceinline__ void ell_reduce(float (&v)[8], int lane) {
 #pragma unroll
-  for (int h = 4; h >= 1; h >>= 1) {
+  for (int h = MR / 2; h >= 1; h >>= 1) {
     const bool up = lane & h;
 #pragma unroll
     for (int i = 0; i < h; ++i) {
@@ -1892,145 +1904,488 @@ __device__ __forceinline__ void ell_reduce(float (&v)[8], int lane) {
       v[i] = keep + __shfl_xor_sync(0xffffffffu, send, h);
     }
   }
+#pragma unroll
+  for (int h = MR; h < 8; h <<= 1)
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], h);
 }
 
-// #12 (LR false) and #13 (LR true): y[e] = x[e] · W_S[e]ᵀ (+ (x[e] ·
-// V[e]ᵀ) · U[e]). A block owns kEllRows output rows of one expert, a warp
-// 16 of them; a group of kEllLanes lanes streams kEllRowsPerGroup of
-// those rows one after the other, lane k of the group taking the 8-entry
-// blocks at 8k, 8k + 8·kEllLanes, ... of the row, so a group's load is
-// one contiguous 16·kEllLanes-byte run of each plane.
-template <typename I, int NTP, bool LR>
-__global__ void __launch_bounds__(kEllThreads)
-ell_gather_kernel(const bf16* __restrict__ x, const bf16* __restrict__ vals,
-                  const I* __restrict__ idx, const bf16* __restrict__ u,
-                  const bf16* __restrict__ v, bf16* __restrict__ y, int M,
-                  int N, int K, int kmax, int R) {
+// ---------------------------------------------------------------- #1, #5
+//
+//   slab_ell_matmul:  y = x · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ, W_S in ELL form  (#1)
+//   ell_lr_matmul:    y = x · W_Sᵀ + (x · Vᵀ) · U, W_S in ELL form        (#5)
+//
+// Replace repro/kernels/ell.py::slab_ell_matmul (_kernel_slab_ell,
+// pallas_call at ell.py:209) and ::ell_lr_matmul (_kernel_ell_lr,
+// pallas_call at ell.py:149) for bf16 operands; f32 launches, fewer rows
+// than ell.SLAB_ELL_TC_MIN_ROWS / ELL_LR_TC_MIN_ROWS and shapes whose
+// staged x does not fit a block (ell.ell_split_smem) keep the first
+// design (ell.cu).
+//
+// Bound on the H100: bytes. The planes (bf16 vals + 16-bit ids, K_max ≈
+// 0.437·K for slab-ell at CR 0.5 and ≈ K/2 for lowrank-ell, plus #1's K/8
+// bytes of sign words a row) are 0.94x and 1.0x the dense bf16 matrix,
+// against 2·M FLOP a stored entry at M 1-8. The first design (one warp a
+// row, 16 rows a block) staged x in every block with scalar stores and
+// ran at 16-24 % of the bound. This is #12 / #13's gather (the same
+// kernel, ell_split_kernel) at E = 1, where its blocks of 128 rows are
+// too few for the card ((4096, 4096): 32 for 132 SMs). So each row's
+// entries are split across blocks. The reference reads a row's entries in
+// any order (_gather_accum), and a block cannot know which of them fall
+// in a column range without searching the row: block (tile, z) takes the
+// run of entries [z·epb, (z + 1)·epb) of each of its rows, counted from
+// the 8-entry boundary at or below the row's first entry (epb a multiple
+// of one group step, kEllStep; kernels/slab_matmul.py::plan_ell_splits,
+// from shapes only), so only a row's first and last 8-entry blocks are
+// partial and no run pays a step for its own edges; since the entries may
+// name any column, it stages all of x: at M <= 4 as columns of 1, 2 or 4
+// batch rows (2, 4 or 8 bytes, stage_cols_narrow: the gather's shared
+// load and FMAs shrink with M), else as 8-row column planes
+// (stage_cols_any; 64 KB at K 4096 and 8 batch rows, 172 KB at K 11008).
+// #1's ±1 term is split by columns as tc_body splits it: split z owns the
+// sign-word columns [z·cps·128, (z + 1)·cps·128), stages bf16(x ⊙ v_r)
+// over those columns only (stage_rows) and runs the term on the tensor
+// cores as #2 does (bin_chunk: A = ±u_r from the sign words, asked for
+// four chunks at a time; B the staged tile) before the gather. The two
+// terms map rows to lanes differently (a gather group owns a whole row,
+// an mma row group rows g and g + 8), so each warp passes its ±1 sums
+// through shared memory and the gather adds them before a row's store:
+// W_S and the ±1 term make one fp32 partial. Each block stores fp32
+// partial sums (splits, M, N); the last block of a row tile (an atomic
+// ticket) adds them in split order, so two launches give the same bits,
+// and rounds once. #5 projects x onto V in every block over its share of
+// K (from the staged x) and stores that partial projection; the
+// last block sums them in split order and adds Σ_r p[m, r]·u_r[n] before
+// the rounding (the reference's acc + p·u). A launch of one split (#12,
+// #13, and #1 / #5 at K_max + 7 <= 64 or N past ~16,900) stores y itself.
+// #5's ring has bytes of its own and is asked for as soon as x is staged,
+// so its first steps arrive while the block projects; #1's ring takes
+// the bytes of the x ⊙ v_r tiles and is asked for after the ±1 term. No
+// L2 prefetch (it slowed these kernels' grouped forms). Each choice was
+// timed on an H100 against the alternative it replaced (runs counted
+// from each row's first entry, #5's projection over all of K in the last
+// block or in every block, 8-row columns at every M, #1's ring with bytes
+// of its own asked for before x is staged, #5's ring sharing the
+// projection's bytes): PERF.md §6.
+constexpr int kEllStep = 8 * kEllLanes;   // entries of one group step
+
+// The operands of one ell_split_kernel launch (E experts: grid y).
+struct EllArgs {
+  const bf16* x;          // (E, M, K)
+  const bf16* vals;       // (E, N, K_max)
+  const void* idx;        // (E, N, K_max) uint16 or uint32 ids
+  const uint32_t* bp;     // #1: sign words (E, N, K/32)
+  const bf16* u;          // #1, #5, #13: (E, R, N)
+  const bf16* v;          // #1, #5, #13: (E, R, K)
+  bf16* y;                // (E, M, N)
+  float* part;            // split (E = 1): (splits, M, N) partial sums,
+                          // then #5's (splits, row tiles, M, R) partial
+                          // projections
+  int* tickets;           // split: one per row tile, zero between launches
+  int M, N, K, kmax, R;   // R 0 for #12
+  int epb;                // entries of each row a split takes
+  int cps;                // #1: 128-column chunks of the ±1 term a split takes
+};
+
+// Shared bytes of a launch at ntp n-tiles of mr batch rows a column (mr
+// < 8: one tile of x at 2·mr bytes a column): x's columns; then for LR
+// (#5, #13) the projection (R, 8·ntp), the gather's ring and the warps'
+// projection sums (kEllWarps, R, 8·ntp); for BIN (#1) the ±1 sums of each
+// warp's rows (kEllWarps·16, 8·ntp), then one region that holds the x ⊙
+// v_r tiles (split columns rounded up to 128, plus 8) with u of the
+// block's rows, and after the ±1 term the ring; for #12 the ring.
+template <typename I, bool LR, bool BIN>
+inline size_t ell_split_smem(int ntp, int mr, int K, int R, int cps) {
+  const size_t mt = 8 * ntp;
+  const size_t ring = (size_t)ell_ring_units<I>() * 16;
+  const size_t cols = mr < 8 ? slab::align16_up((size_t)ell_kp(K) * 2 * mr)
+                             : (size_t)ntp * ell_kp(K) * 16;
+  if (BIN) {
+    const size_t sx = (size_t)min((K + 127) / 128, cps) * 128 + 8;
+    return cols + (size_t)kEllWarps * 16 * mt * 4 +
+           slab::align16_up(max(ring, (size_t)R * mt * sx * 2 +
+                                          (size_t)R * kEllRows * 2));
+  }
+  return cols + ring +
+         (LR ? slab::align16_up((size_t)R * mt * 4) +
+                   (size_t)kEllWarps * R * mt * 4
+             : 0);
+}
+
+// stage_cols_any for MR < 8 batch rows (M <= MR): x's rows m0 .. m0 + MR
+// - 1 (zero past M) interleaved, one column of MR bf16 after another (2·MR
+// bytes), kp columns, zero from K on. A thread takes 8 columns: MR
+// 16-byte loads, byte permutes, MR 16-byte stores.
+template <int MR>
+__device__ __forceinline__ void stage_cols_narrow(uint4* xs,
+                                                  const bf16* __restrict__ x,
+                                                  int m0, int M, int K,
+                                                  int kp) {
+  const int nkb = kp / 8;
+  const bool vec = aligned16(x) && K % 8 == 0;
+  for (int kb = threadIdx.x; kb < nkb; kb += blockDim.x) {
+    uint32_t w[MR][4];
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      const int m = m0 + r;
+      const bf16* p = x + (size_t)m * K + kb * 8;
+      if (m < M && vec && kb * 8 < K) {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+        w[r][0] = q.x; w[r][1] = q.y; w[r][2] = q.z; w[r][3] = q.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = kb * 8 + 2 * j;
+          const uint32_t lo = m < M && c < K ? bits16(p[2 * j]) : 0u;
+          const uint32_t hi = m < M && c + 1 < K ? bits16(p[2 * j + 1]) : 0u;
+          w[r][j] = lo | (hi << 16);
+        }
+      }
+    }
+    uint4* out = xs + (size_t)kb * MR;
+    if constexpr (MR == 1) {
+      out[0] = make_uint4(w[0][0], w[0][1], w[0][2], w[0][3]);
+    } else if constexpr (MR == 2) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u)        // columns 4u .. 4u + 3
+        out[u] = make_uint4(__byte_perm(w[0][2 * u], w[1][2 * u], 0x5410),
+                            __byte_perm(w[0][2 * u], w[1][2 * u], 0x7632),
+                            __byte_perm(w[0][2 * u + 1], w[1][2 * u + 1], 0x5410),
+                            __byte_perm(w[0][2 * u + 1], w[1][2 * u + 1], 0x7632));
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)        // columns 2u, 2u + 1
+        out[u] = make_uint4(__byte_perm(w[0][u], w[1][u], 0x5410),
+                            __byte_perm(w[2][u], w[3][u], 0x5410),
+                            __byte_perm(w[0][u], w[1][u], 0x7632),
+                            __byte_perm(w[2][u], w[3][u], 0x7632));
+    }
+  }
+}
+
+// ell_entry for MR < 8 batch rows from stage_cols_narrow's columns: one
+// 2·MR-byte shared load and MR FMAs an entry.
+template <typename I, int MR>
+__device__ __forceinline__ void ell_entry_narrow(float (&acc)[8],
+                                                 const uint4* xs, int K,
+                                                 const EllBlock<I>& b,
+                                                 int j) {
+  const uint32_t col = min(b.i.at(j), (uint32_t)K);
+  const uint32_t vw = word_of(b.v, j >> 1);
+  const float w = (j & 1) ? hi_f(vw) : lo_f(vw);
+  if constexpr (MR == 1) {
+    acc[0] += w * lo_f(reinterpret_cast<const uint16_t*>(xs)[col]);
+  } else if constexpr (MR == 2) {
+    const uint32_t q = reinterpret_cast<const uint32_t*>(xs)[col];
+    acc[0] += w * lo_f(q); acc[1] += w * hi_f(q);
+  } else {
+    const uint2 q = reinterpret_cast<const uint2*>(xs)[col];
+    acc[0] += w * lo_f(q.x); acc[1] += w * hi_f(q.x);
+    acc[2] += w * lo_f(q.y); acc[3] += w * hi_f(q.y);
+  }
+}
+
+// p[r, m] = Σ_k x[m, k] · v_r[k] over columns [c0, c1) in fp32 for the
+// pass's batch rows, from x's staged columns (zero past M; MR < 8: MR
+// rows a column, else NTP planes of 8): every warp takes a strided share
+// of the columns, the partial sums (pw: (kEllWarps, R, 8·NTP)) are added
+// in warp order. Every thread calls it; it ends on a barrier.
+template <int NTP, int MR>
+__device__ __forceinline__ void ell_project_x(float* p, float* pw,
+                                              const uint4* xs, int kp,
+                                              const bf16* __restrict__ v,
+                                              int K, int c0, int c1, int R) {
+  constexpr int MT = 8 * NTP, MW = MR < 8 ? MR : MT;   // rows, staged rows
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = 0; r < R; ++r) {
+    float acc[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+#pragma unroll 2
+    for (int k = c0 + threadIdx.x; k < c1; k += kEllThreads) {
+      const float vk = __bfloat162float(v[(size_t)r * K + k]);
+      if constexpr (MR < 8) {
+        const bf16* col = reinterpret_cast<const bf16*>(xs) + (size_t)k * MR;
+#pragma unroll
+        for (int m = 0; m < MW; ++m) acc[m] += __bfloat162float(col[m]) * vk;
+      } else {
+#pragma unroll
+        for (int t = 0; t < NTP; ++t) {
+          float xv[8];
+          ell_col(xv, xs + (size_t)t * kp, k);
+#pragma unroll
+          for (int m = 0; m < 8; ++m) acc[8 * t + m] += xv[m] * vk;
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float s = slab::warp_sum(acc[m]);
+      if (lane == 0) pw[((size_t)warp * R + r) * MT + m] = s;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * MT; i += kEllThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kEllWarps; ++w) s += pw[(size_t)w * R * MT + i];
+    p[i] = s;
+  }
+  __syncthreads();
+}
+
+// #12 (neither term), #13 (LR), #1 (BIN) and #5 (LR at E = 1, split):
+// y[e] = x[e] · W_S[e]ᵀ (+ the term). Grid (⌈N/128⌉, E, splits): a block
+// owns kEllRows output rows of one expert, a warp 16 of them; a group of
+// kEllLanes lanes streams kEllRowsPerGroup of those rows one after the
+// other, lane k of the group taking the 8-entry blocks at 8k, 8k +
+// kEllStep, ... of the split's run of the row, so a group's load is one
+// contiguous 16·kEllLanes-byte run of each plane. MR < 8 (M <= MR, one
+// n-tile) stages and gathers MR batch rows a column (2·MR bytes) in place
+// of 8. NTP and MR last, so that a profile's name part
+// "ell_split_kernel<unsigned short, false, true" finds #1 at any tile
+// (#12 is <..., false, false, ...>; #13 and #5 differ by SPLIT, and every
+// #5 launch on the main path splits). A
+// block's phases, each in flight while the one before it runs: it asks
+// for #1's first sign words, stages x (#1 also x ⊙ v_r and u), asks for
+// the gather's first ring steps where the ring has bytes of its own (not
+// #1), projects its share of K (LR), runs the ±1 term (#1) and asks for
+// #1's ring, then gathers. SPLIT (more than one split) compiles the
+// partial sums and the tail; without it a block stores y (#12 / #13 then
+// use 88-104 registers at one n-tile, two blocks an SM; with the split
+// code they used 156, one block, and ran 15 % slower). Registers are
+// capped for two blocks an SM at one n-tile with the ±1 term or at M <=
+// 4; #5 at 5-8 rows is not capped (it spilled 20 bytes capped).
+template <typename I, bool LR, bool BIN, int NTP, int MR, bool SPLIT>
+__global__ void __launch_bounds__(kEllThreads,
+                                  NTP == 1 && (BIN || MR < 8) ? 2 : 1)
+    ell_split_kernel(const EllArgs a) {
   constexpr int MT = 8 * NTP;                 // batch rows per pass
   constexpr int D = kEllStages, U = ell_units<I>();
   constexpr int L = kEllLanes, RG = kEllRowsPerGroup;
+  static_assert(MR == 8 || NTP == 1, "narrow columns take one n-tile");
+  static_assert(!(LR && BIN), "one second term at most");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int kp = ell_kp(K);
-  uint4* xs = reinterpret_cast<uint4*>(smem_raw);     // NTP planes (kp, 8)
-  uint4* ring = xs + (size_t)NTP * kp;                // ell_ring_units
-  float* p = reinterpret_cast<float*>(ring + ell_ring_units<I>());  // (R, MT)
-  float* part = p + (size_t)R * MT;                   // (kEllWarps, R, MT)
+  const int M = a.M, N = a.N, K = a.K, kmax = a.kmax, R = a.R;
+  const int kp = ell_kp(K), n_split = SPLIT ? gridDim.z : 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k8 = 8 * (lane % L);              // the lane's entry in a run
-  const size_t ex = blockIdx.y;
-  x += ex * M * K;
-  y += ex * M * N;
-  if (LR) {
-    u += ex * R * N;
-    v += ex * R * K;
-  }
-  const int row0 = blockIdx.x * kEllRows + warp * 16 + (lane / L) * RG;
-  const bool live = blockIdx.x * kEllRows + warp * 16 < N;
-  // every row takes nc steps of 8·L entries from the 8-entry boundary at
-  // or below its start (rows past N read the last row and store nothing)
-  const int nc = (kmax + 7 + 8 * L - 1) / (8 * L);
+  const size_t ex = blockIdx.y;               // the expert
+  const size_t row_e = ex * N;                // its first row in the planes
+  const bf16* __restrict__ x = a.x + ex * M * K;
+  const bf16* __restrict__ vals = a.vals;
+  const I* __restrict__ idx = static_cast<const I*>(a.idx);
+  const bf16* __restrict__ u = a.u + ex * R * N;
+  const bf16* __restrict__ v = a.v + ex * R * K;
+  bf16* __restrict__ y = a.y + ex * M * N;
+  const int n0 = blockIdx.x * kEllRows;       // the block's first row
+  const int z = SPLIT ? blockIdx.z : 0;
+  // this split's run of a row: its entries from z·epb past the 8-entry
+  // boundary at or below the row's first entry, epb of them
+  const size_t z_lo = (size_t)z * a.epb;
+  // #1: this split's columns of the ±1 term, [k_lo, k_hi)
+  const int k_lo = BIN ? min(K, z * a.cps * 128) : 0;
+  const int k_hi = BIN ? min(K, k_lo + a.cps * 128) : 0;
+  const int kw = k_hi - k_lo, sx = (kw + 127) / 128 * 128 + 8;
+  // #5: this split's share of K for its partial projection, [p_lo, p_hi)
+  const int p_cols = (K + n_split - 1) / n_split;
+  const int p_lo = min(K, z * p_cols), p_hi = min(K, p_lo + p_cols);
+  const size_t cols = MR < 8 ? slab::align16_up((size_t)kp * 2 * MR)
+                             : (size_t)NTP * kp * 16;
+  uint4* xs = reinterpret_cast<uint4*>(smem_raw);               // x's columns
+  float* p = reinterpret_cast<float*>(smem_raw + cols);         // LR: (R, MT)
+  float* gs = p + (LR ? slab::align16_up((size_t)R * MT * 4) / 4 : 0);
+  uint4* ring = reinterpret_cast<uint4*>(
+      gs + (BIN ? kEllWarps * 16 * MT : 0));  // BIN: gs (kEllWarps·16, MT)
+  bf16* xv = reinterpret_cast<bf16*>(ring);           // BIN: R tiles (MT, sx)
+  bf16* us = xv + (size_t)R * MT * sx;                // BIN: (R, kEllRows)
+  float* pw = reinterpret_cast<float*>(ring + ell_ring_units<I>());
+                                                      // LR: (kEllWarps, R, MT)
+  // LR split: this block's slot of the partial projections
+  const int tiles = gridDim.x;
+  float* proj = a.part + (size_t)n_split * M * N;
+  auto proj_at = [&](int zz, int m, int r) {
+    return proj + (((size_t)zz * tiles + blockIdx.x) * M + m) * R + r;
+  };
+
+  // the gather over the split's run: group lane / L streams rows r0 ..
+  // r0 + RG - 1 of the block, nc steps a row (rows past N read the last
+  // row and store nothing; a run past a row's end reads nothing and
+  // gathers zeros)
+  const int k8 = 8 * (lane % L);
+  const int r0 = warp * 16 + (lane / L) * RG;
+  const bool live = n0 + warp * 16 < N;
+  const int nc = a.epb / kEllStep;
   auto start = [&](int i) {           // the row's first entry
-    return (ex * N + min(row0 + i, N - 1)) * (size_t)kmax;
+    return (row_e + min(n0 + r0 + i, N - 1)) * (size_t)kmax;
   };
   auto slot = [&](int s) {
     return ring + (size_t)(s % D) * U * kEllThreads + threadIdx.x;
   };
-  // the group's steps in order: row fi, run fc. next(e0): the next
-  // step's first entry, false past the row's end or the group's rows
-  int fi, fc;
+  // the group's steps in order: row fi, step fc of the run. next(e0): the
+  // next step's first entry, false past the row's end or the group's rows
+  int fi, fc, f;                      // f: the step copy_next copies
   auto next = [&](size_t& e0) {
     if (fi >= RG) return false;
     const size_t lo = start(fi);
-    e0 = (lo & ~size_t(7)) + (size_t)fc * 8 * L + k8;
+    e0 = (lo & ~size_t(7)) + z_lo + (size_t)fc * kEllStep + k8;
     if (++fc == nc) {
       fc = 0;
       ++fi;
     }
     return e0 < lo + kmax;
   };
-  int f;                              // the step copy_next copies
   auto copy_next = [&]() {
     size_t e0;
     if (next(e0)) ell_copy<I>(slot(f), vals, idx, e0);
     ++f;
     cp_async_commit();
   };
-
-  for (int m0 = 0; m0 < M; m0 += MT) {
-    __syncthreads();                 // the previous pass's readers are done
-    stage_cols_any(xs, x, m0, M, K, kp, NTP);
-    __syncthreads();
-    if (LR) {
-      // p[r, m] = Σ_k x[m, k] · v_r[k] in fp32 from the staged x: every
-      // warp takes a strided share of the columns, the partial sums are
-      // added in warp order
-      for (int r = 0; r < R; ++r) {
-        float acc[MT];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-        for (int k = threadIdx.x; k < K; k += kEllThreads) {
-          const float vk = __bfloat162float(v[(size_t)r * K + k]);
-#pragma unroll
-          for (int t = 0; t < NTP; ++t) {
-            float xv[8];
-            ell_col(xv, xs + (size_t)t * kp, k);
-#pragma unroll
-            for (int m = 0; m < 8; ++m) acc[8 * t + m] += xv[m] * vk;
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float s = slab::warp_sum(acc[m]);
-          if (lane == 0) part[((size_t)warp * R + r) * MT + m] = s;
-        }
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < R * MT; i += kEllThreads) {
-        float s = 0.f;
-        for (int w = 0; w < kEllWarps; ++w)
-          s += part[(size_t)w * R * MT + i];
-        p[i] = s;
-      }
-      __syncthreads();
-    }
-    if (!live) continue;
-
-    // a ring of D steps per thread: step f's block arrives by cp.async
-    // while the D - 1 steps before it are gathered; a thread reads back
-    // only what it copied, so no barrier is needed
+  // a ring of D steps per thread: step f's block arrives by cp.async
+  // while the D - 1 steps before it are gathered; a thread reads back
+  // only what it copied, so no barrier is needed
+  auto ring_begin = [&]() {
     f = fi = fc = 0;
 #pragma unroll
     for (int d = 0; d < D - 1; ++d) copy_next();
+  };
+  // #1: the lane's rows g and g + 8 of the warp (ja, jb in the block) and
+  // their sign words of four chunks at a time, asked for a batch ahead
+  const int g = lane >> 2, q = lane & 3;
+  const int ja = min(n0 + warp * 16 + g, N - 1) - n0;
+  const int jb = min(n0 + warp * 16 + g + 8, N - 1) - n0;
+  const uint32_t* pa = a.bp + (row_e + n0 + ja) * (K / 32) + q;
+  const uint32_t* pb = a.bp + (row_e + n0 + jb) * (K / 32) + q;
+  uint32_t wa[4], wb[4];
+  auto fetch4 = [&](int kc0) {        // zero past the split and past K
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kc = kc0 + 128 * j;
+      const bool in = kc < k_hi && kc + 32 * q < K;
+      wa[j] = in ? __ldg(pa + kc / 32) : 0u;
+      wb[j] = in ? __ldg(pb + kc / 32) : 0u;
+    }
+  };
+
+  for (int m0 = 0; m0 < M; m0 += MT) {
+    __syncthreads();                 // the previous pass's readers are done
+    if (BIN && live) fetch4(k_lo);
+    if constexpr (MR < 8)
+      stage_cols_narrow<MR>(xs, x, m0, M, K, kp);
+    else
+      stage_cols_any(xs, x, m0, M, K, kp, NTP);
+    if constexpr (BIN) {
+      stage_rows(nullptr, x + k_lo, K, m0, M, kw, sx - 8, sx, NTP, xv,
+                 v + k_lo, R);
+      for (int i = threadIdx.x; i < R * kEllRows; i += kEllThreads) {
+        const int r = i / kEllRows, j = i - r * kEllRows;
+        us[i] = u[(size_t)r * N + min(n0 + j, N - 1)];
+      }
+    }
+    if (!BIN && live) ring_begin();
+    __syncthreads();
+    if (LR && !SPLIT) {              // all of K, added at the stores
+      ell_project_x<NTP, MR>(p, pw, xs, kp, v, K, 0, K, R);
+    } else if (LR) {               // its share of K, for the last block
+      ell_project_x<NTP, MR>(p, pw, xs, kp, v, K, p_lo, p_hi, R);
+      for (int i = threadIdx.x; i < R * MT; i += kEllThreads) {
+        const int r = i / MT, m = i - r * MT;
+        if (m0 + m < M) *proj_at(z, m0 + m, r) = p[i];
+      }
+    }
+
+    if constexpr (BIN) {
+      // Σ_r ±u_r · bf16(x ⊙ v_r) over the split's columns on the tensor
+      // cores (rows g and g + 8 of the warp, batch rows 2q, 2q + 1 of each
+      // n-tile), into gs for the gather's stores
+      if (live) {
+        float c[NTP][4];
+#pragma unroll
+        for (int t = 0; t < NTP; ++t) c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.f;
+        for (int kc0 = k_lo; kc0 < k_hi; kc0 += 4 * 128) {
+          uint32_t ca[4], cb[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            ca[j] = wa[j];
+            cb[j] = wb[j];
+          }
+          if (kc0 + 4 * 128 < k_hi) fetch4(kc0 + 4 * 128);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int kc = kc0 + 128 * j;
+            if (kc >= k_hi) break;
+            uint32_t sa[2], sb[2];
+            xspread(ca[j], sa[0], sa[1]);
+            xspread(cb[j], sb[0], sb[1]);
+#pragma unroll
+            for (int t = 0; t < NTP; ++t) {
+              const bf16* row = xv + (size_t)(8 * t + g) * sx + (kc - k_lo);
+              for (int r = 0; r < R; ++r)
+                bin_chunk(c[t], flipped_pair(us[r * kEllRows + ja]),
+                          flipped_pair(us[r * kEllRows + jb]), sa, sb,
+                          row + (size_t)r * MT * sx, q);
+            }
+          }
+        }
+        float* gw = gs + (size_t)warp * 16 * MT;
+#pragma unroll
+        for (int t = 0; t < NTP; ++t) {
+          const int mi = 8 * t + 2 * q;
+          gw[g * MT + mi] = c[t][0];
+          gw[g * MT + mi + 1] = c[t][1];
+          gw[(g + 8) * MT + mi] = c[t][2];
+          gw[(g + 8) * MT + mi + 1] = c[t][3];
+        }
+      }
+      __syncthreads();               // gs is written; x ⊙ v_r and u are
+    }                                // read (the ring takes their bytes)
+    if (!live) continue;
+
+    if (BIN) ring_begin();
     float acc[NTP][8];
 #pragma unroll
     for (int t = 0; t < NTP; ++t)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[t][j] = 0.f;
-    int i = 0, c = 0;                 // the step's row and run
+    int i = 0, c = 0;                 // the step's row and step in the row
     for (int s = 0; s < RG * nc; ++s) {
       copy_next();                   // step s + D - 1
       cp_async_wait<D - 1>();        // step s has landed
       EllBlock<I> b;
       ell_read<I>(b, slot(s));
       const size_t lo = start(i);
-      ell_mask<I>(b, (lo & ~size_t(7)) + (size_t)c * 8 * L + k8, lo, lo + kmax);
+      ell_mask<I>(b, (lo & ~size_t(7)) + z_lo + (size_t)c * kEllStep + k8, lo,
+                  lo + kmax);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) ell_entry<I, NTP>(acc, xs, kp, K, b, j);
+      for (int j = 0; j < 8; ++j) {
+        if constexpr (MR < 8)
+          ell_entry_narrow<I, MR>(acc[0], xs, K, b, j);
+        else
+          ell_entry<I, NTP>(acc, xs, kp, K, b, j);
+      }
       if (++c < nc) continue;
-      // the row is done: reduce over the group, add the low-rank term,
-      // store batch row m = lane & 7 of each n-tile, start the next row
-      const int n = row0 + i, m = lane & 7;
+      // the row's split is done: reduce over the group, add the ±1 sums,
+      // store batch row m of each n-tile (the partial sum, or with one
+      // split y), start the next row
+      const int rr = r0 + i, n = n0 + rr, m = lane & (MR - 1);
+      const bool mine = (lane & 7) < MR;
 #pragma unroll
       for (int t = 0; t < NTP; ++t) {
-        ell_reduce(acc[t], lane);
+        ell_reduce<MR>(acc[t], lane);
         float out = acc[t][0];
-        if (LR) {   // Σ_r p[r, m] · u_r[n] in fp32, before the one rounding
-          for (int r = 0; r < R; ++r)
-            out += p[r * MT + 8 * t + m] *
-                   __bfloat162float(u[(size_t)r * N + min(n, N - 1)]);
+        if (BIN) out += gs[(size_t)rr * MT + 8 * t + m];
+        const int mm = m0 + 8 * t + m;
+        if (mine && n < N && mm < M) {
+          if constexpr (SPLIT) {
+            a.part[((size_t)z * M + mm) * N + n] = out;
+          } else {
+            if (LR) {   // Σ_r p[r, m] · u_r[n] in fp32, before the rounding
+              float l = 0.f;
+              for (int r = 0; r < R; ++r)
+                l += p[r * MT + 8 * t + m] *
+                     __bfloat162float(u[(size_t)r * N + n]);
+              out += l;
+            }
+            y[(size_t)mm * N + n] = __float2bfloat16(out);
+          }
         }
-        if (n < N && m0 + 8 * t + m < M)
-          y[(size_t)(m0 + 8 * t + m) * N + n] = __float2bfloat16(out);
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[t][j] = 0.f;
       }
@@ -2039,63 +2394,166 @@ ell_gather_kernel(const bf16* __restrict__ x, const bf16* __restrict__ vals,
     }
     cp_async_wait<0>();
   }
+  if constexpr (!SPLIT) return;
+
+  // The last block of this row tile to finish adds the splits' partial
+  // sums in split order (the same bits whichever block is last), #5 with
+  // Σ_r p[m, r]·u_r[n], p the partial projections summed in split order,
+  // and resets its ticket for the next launch.
+  __threadfence();
+  __syncthreads();
+  bool last = false;
+  if (threadIdx.x == 0) {
+    int* ticket = a.tickets + blockIdx.x;
+    last = atomicAdd(ticket, 1) == n_split - 1;
+    if (last) *ticket = 0;
+  }
+  if (!__syncthreads_or(last)) return;
+  __threadfence();
+  const int nr = min(kEllRows, N - n0);
+  const size_t zs = (size_t)M * N;
+  for (int mc = 0; mc < M; mc += LR ? MT : M) {
+    const int mr = LR ? min(MT, M - mc) : M;
+    if constexpr (LR) {
+      __syncthreads();               // p is free
+      // p: the partial projections summed in split order
+      for (int i = threadIdx.x; i < R * mr; i += kEllThreads) {
+        const int r = i / mr, m = i - r * mr;
+        float pr = 0.f;
+        for (int z0 = 0; z0 < n_split; z0 += 8) {   // 8 loads in flight
+          float t[8];
+#pragma unroll
+          for (int zz = 0; zz < 8; ++zz)
+            t[zz] = z0 + zz < n_split ? __ldcg(proj_at(z0 + zz, mc + m, r))
+                                      : 0.f;
+#pragma unroll
+          for (int zz = 0; zz < 8; ++zz) pr += t[zz];   // in split order
+        }
+        p[r * MT + m] = pr;
+      }
+      __syncthreads();
+    }
+    for (int i = threadIdx.x; i < mr * kEllRows; i += kEllThreads) {
+      const int m = mc + i / kEllRows, nn = i % kEllRows;
+      if (nn >= nr) continue;
+      const float* pt = a.part + (size_t)m * N + n0 + nn;
+      float s = 0.f;
+      for (int z0 = 0; z0 < n_split; z0 += 8) {   // 8 loads in flight
+        float t[8];
+#pragma unroll
+        for (int zz = 0; zz < 8; ++zz)
+          t[zz] = z0 + zz < n_split ? __ldcg(pt + (z0 + zz) * zs) : 0.f;
+#pragma unroll
+        for (int zz = 0; zz < 8; ++zz) s += t[zz];   // in split order
+      }
+      if (LR) {
+        float l = 0.f;
+        for (int r = 0; r < R; ++r)
+          l += p[r * MT + m - mc] *
+               __bfloat162float(u[(size_t)r * N + n0 + nn]);
+        s += l;
+      }
+      y[(size_t)m * N + n0 + nn] = __float2bfloat16(s);
+    }
+    if (LR) __syncthreads();         // p is read before the next rows
+  }
 }
 
-template <typename I, bool LR>
-static int launch_ell(const void* x, const void* vals, const void* idx,
-                      const void* u, const void* v, void* y, int E, int M,
-                      int N, int K, int kmax, int R, void* stream) {
-  if (!aligned16(vals) || !aligned16(idx))
-    return (int)cudaErrorMisalignedAddress;
-  const size_t per_tile =
-      (size_t)ell_kp(K) * 16 +
-      (LR ? (size_t)(kEllWarps + 1) * R * 8 * sizeof(float) : 0);
-  size_t smem = 0;
-  const int ntp = pick_ntp(M, per_tile, (size_t)ell_ring_units<I>() * 16,
-                           &smem);
-  const dim3 grid((N + kEllRows - 1) / kEllRows, E);
-  TC_DISPATCH_NTP(ntp, {
-    auto kern = ell_gather_kernel<I, NTP, LR>;
+// The plan (kernels/slab_matmul.py::plan_ell_splits): n_split runs of epb
+// entries (a multiple of kEllStep) cover K_max entries from any 8-entry
+// boundary (K_max + 7), #1's runs of cps chunks cover K, and a split runs
+// at one expert with its scratch.
+inline bool ell_split_ok(int E, int K, int kmax, int n_split, int epb,
+                         int cps, bool bin, const void* part,
+                         const void* tickets) {
+  return E > 0 && E <= slab::kMaxExperts && n_split > 0 &&
+         n_split <= 65535 && epb > 0 && epb % kEllStep == 0 &&
+         (long long)n_split * epb >= (long long)kmax + 7 &&
+         (!bin || (cps > 0 && (long long)n_split * cps * 128 >= K)) &&
+         (n_split == 1 || (E == 1 && part != nullptr && tickets != nullptr));
+}
+
+// Entries a run takes when each row is one run (#12, #13): all K_max of
+// them from any 8-entry boundary, in whole group steps.
+inline int ell_one_run(int kmax) {
+  return (kmax + 7 + kEllStep - 1) / kEllStep * kEllStep;
+}
+
+// The batch rows a column at M <= 4 (1, 2 or 4: one n-tile), else the
+// most n-tiles (up to what M needs, kMaxNtp) whose shared bytes fit the
+// card's opt-in limit; none fitting launches nothing and returns
+// cudaErrorInvalidValue.
+template <typename I, bool LR, bool BIN>
+static int launch_ell_split(const EllArgs& a, int E, int n_split,
+                            void* stream) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
+  const int mr = a.M <= 1 ? 1 : a.M <= 2 ? 2 : a.M <= 4 ? 4 : 8;
+  auto bytes = [&](int ntp) {
+    return ell_split_smem<I, LR, BIN>(ntp, mr, a.K, a.R, a.cps);
+  };
+  int ntp = min((a.M + 7) / 8, kMaxNtp);
+  while (ntp >= 1 && bytes(ntp) > (size_t)optin) --ntp;
+  const size_t smem = ntp >= 1 ? bytes(ntp) : 0;
+  const dim3 grid((a.N + kEllRows - 1) / kEllRows, E, n_split);
+  auto run = [&](auto kern) {
     cudaError_t e = slab::prepare(kern, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, kEllThreads, smem, (cudaStream_t)stream>>>(
-        (const bf16*)x, (const bf16*)vals, (const I*)idx, (const bf16*)u,
-        (const bf16*)v, (bf16*)y, M, N, K, kmax, R);
-  });
-  return (int)cudaGetLastError();
+    kern<<<grid, kEllThreads, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  };
+  auto pick = [&](auto split) {
+    constexpr bool S = decltype(split)::value;
+    if (ntp == 1 && mr == 1) return run(ell_split_kernel<I, LR, BIN, 1, 1, S>);
+    if (ntp == 1 && mr == 2) return run(ell_split_kernel<I, LR, BIN, 1, 2, S>);
+    if (ntp == 1 && mr == 4) return run(ell_split_kernel<I, LR, BIN, 1, 4, S>);
+    TC_DISPATCH_NTP(ntp, {
+      return run(ell_split_kernel<I, LR, BIN, NTP, 8, S>);
+    });
+    return (int)cudaGetLastError();
+  };
+  if constexpr (LR || BIN)           // #12 never splits
+    if (n_split > 1) return pick(std::true_type{});
+  return pick(std::false_type{});
 }
 
-template <bool LR>
-static int dispatch_ell(int dtype, int idx_bytes, const void* x,
-                        const void* vals, const void* idx, const void* u,
-                        const void* v, void* y, int E, int M, int N, int K,
-                        int kmax, int R, void* stream) {
-  if (dtype != 1 || E <= 0 || E > slab::kMaxExperts || M <= 0 || N <= 0 ||
-      K <= 0 || kmax <= 0 || (LR && R <= 0))
+template <bool LR, bool BIN>
+static int dispatch_ell_split(int dtype, int idx_bytes, const EllArgs& a,
+                              int E, int n_split, void* stream) {
+  if (dtype != 1 || a.M <= 0 || a.N <= 0 || a.K <= 0 || a.kmax <= 0 ||
+      (LR || BIN ? a.R <= 0 : a.R != 0) || (BIN && a.K % 32) ||
+      !ell_split_ok(E, a.K, a.kmax, n_split, a.epb, a.cps, BIN, a.part,
+                    a.tickets))
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(a.vals) || !aligned16(a.idx) || (BIN && !aligned16(a.bp)))
+    return (int)cudaErrorMisalignedAddress;
   if (idx_bytes == 2)
-    return launch_ell<uint16_t, LR>(x, vals, idx, u, v, y, E, M, N, K, kmax,
-                                    R, stream);
+    return launch_ell_split<uint16_t, LR, BIN>(a, E, n_split, stream);
   if (idx_bytes == 4)
-    return launch_ell<uint32_t, LR>(x, vals, idx, u, v, y, E, M, N, K, kmax,
-                                    R, stream);
+    return launch_ell_split<uint32_t, LR, BIN>(a, E, n_split, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tc
 
-// dtype must be 1 (bfloat16): f32 launches, launches at fewer rows per
-// expert than grouped.ELL_TC_MIN_ROWS, and shapes whose one tile does not
-// fit shared memory (grouped.ell_tc_smem) go to ell.cu's kernel.
+// #12 / #13: dtype must be 1 (bfloat16): f32 launches, launches at fewer
+// rows per expert than grouped.ELL_TC_MIN_ROWS, and shapes whose one tile
+// does not fit shared memory (grouped.ell_tc_smem) go to ell.cu's kernel.
 // idx_bytes: 2 (uint16 ids) or 4. x (E, M, K), vals / idx (E, N, K_max),
-// u (E, R, N), v (E, R, K), y (E, M, N). Launches on ``stream``,
-// allocates nothing, returns cudaGetLastError().
+// u (E, R, N), v (E, R, K), y (E, M, N); each row is one run (no split).
+// Launches on ``stream``, allocates nothing, returns cudaGetLastError().
 extern "C" int ell_matmul_g(int dtype, int idx_bytes, const void* x,
                             const void* vals, const void* idx, void* y,
                             int E, int M, int N, int K, int kmax,
                             void* stream) {
-  return tc::dispatch_ell<false>(dtype, idx_bytes, x, vals, idx, nullptr,
-                                 nullptr, y, E, M, N, K, kmax, 0, stream);
+  const tc::EllArgs a{(const tc::bf16*)x, (const tc::bf16*)vals, idx,
+                      nullptr, nullptr, nullptr, (tc::bf16*)y, nullptr,
+                      nullptr, M, N, K, kmax, 0, tc::ell_one_run(kmax), 0};
+  return tc::dispatch_ell_split<false, false>(dtype, idx_bytes, a, E, 1,
+                                              stream);
 }
 
 extern "C" int ell_lr_matmul_g(int dtype, int idx_bytes, const void* x,
@@ -2103,6 +2561,53 @@ extern "C" int ell_lr_matmul_g(int dtype, int idx_bytes, const void* x,
                                const void* u, const void* v, void* y, int E,
                                int M, int N, int K, int kmax, int R,
                                void* stream) {
-  return tc::dispatch_ell<true>(dtype, idx_bytes, x, vals, idx, u, v, y, E,
-                                M, N, K, kmax, R, stream);
+  const tc::EllArgs a{(const tc::bf16*)x, (const tc::bf16*)vals, idx,
+                      nullptr, (const tc::bf16*)u, (const tc::bf16*)v,
+                      (tc::bf16*)y, nullptr, nullptr, M, N, K, kmax, R,
+                      tc::ell_one_run(kmax), 0};
+  return tc::dispatch_ell_split<true, false>(dtype, idx_bytes, a, E, 1,
+                                             stream);
+}
+
+// #1: dtype must be 1 (bfloat16) and K a multiple of 32 (the sign words):
+// f32 launches, fewer rows than ell.SLAB_ELL_TC_MIN_ROWS and shapes whose
+// staged x does not fit (ell.ell_split_smem) go to ell.cu's kernel.
+// idx_bytes: 2 (uint16 ids) or 4. x (M, K), vals / idx (N, K_max), bp (N,
+// K/32), u (R, N), v (R, K), y (M, N); each row's entries split into
+// n_split runs of epb (a multiple of 64), the ±1 term's columns into runs
+// of cps 128-column chunks, and with n_split > 1 part (n_split, M, N) fp32
+// scratch and tickets (⌈N/128⌉ ints, zero; zero again after the launch).
+// Launches on ``stream``, allocates nothing, returns cudaGetLastError().
+extern "C" int slab_ell_matmul(int dtype, int idx_bytes, const void* x,
+                               const void* vals, const void* idx,
+                               const void* bp, const void* u, const void* v,
+                               void* y, void* part, void* tickets, int M,
+                               int N, int K, int kmax, int R, int n_split,
+                               int epb, int cps, void* stream) {
+  const tc::EllArgs a{(const tc::bf16*)x, (const tc::bf16*)vals, idx,
+                      (const uint32_t*)bp, (const tc::bf16*)u,
+                      (const tc::bf16*)v, (tc::bf16*)y, (float*)part,
+                      (int*)tickets, M, N, K, kmax, R, epb, cps};
+  return tc::dispatch_ell_split<false, true>(dtype, idx_bytes, a, 1, n_split,
+                                             stream);
+}
+
+// #5: dtype must be 1 (bfloat16), any K: f32 launches, fewer rows than
+// ell.ELL_LR_TC_MIN_ROWS and shapes whose staged x does not fit go to
+// ell.cu's kernel. Operands and split as slab_ell_matmul's, without sign
+// words or column runs, and with n_split > 1 part also holds (n_split,
+// ⌈N/128⌉, M, R) partial projections. Launches on ``stream``, allocates
+// nothing, returns cudaGetLastError().
+extern "C" int ell_lr_matmul(int dtype, int idx_bytes, const void* x,
+                             const void* vals, const void* idx,
+                             const void* u, const void* v, void* y,
+                             void* part, void* tickets, int M, int N, int K,
+                             int kmax, int R, int n_split, int epb,
+                             void* stream) {
+  const tc::EllArgs a{(const tc::bf16*)x, (const tc::bf16*)vals, idx,
+                      nullptr, (const tc::bf16*)u, (const tc::bf16*)v,
+                      (tc::bf16*)y, (float*)part, (int*)tickets, M, N, K,
+                      kmax, R, epb, 0};
+  return tc::dispatch_ell_split<true, false>(dtype, idx_bytes, a, 1, n_split,
+                                             stream);
 }

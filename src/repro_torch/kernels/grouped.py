@@ -139,14 +139,13 @@ BINLR_G_TC_MAX_RANK = 4
 
 
 def ell_tc_smem(k: int, r: int, idx_bytes: int) -> int:
-    """Shared bytes of grouped_tc.cu's gather kernel at one tile of 8
-    batch rows (its launch_ell): x as ell_kp(K) 16-byte columns, a ring
-    of 4 steps of 8-entry blocks for each of 256 threads (vals and ids,
-    16 bytes per 8 vals or uint16 ids), and for a rank-``r`` projection
-    its sums and the 8 warps' partial sums in fp32."""
-    kp = (k + 8) // 8 * 8
-    ring = 4 * (1 + idx_bytes // 2) * 256 * 16
-    return kp * 16 + ring + (8 + 1) * r * 8 * 4
+    """Shared bytes of grouped_tc.cu's gather (ell_split_kernel, which
+    #12 and #13 share with #1 and #5) at one tile of 8 batch rows: x as
+    ell_kp(K) 16-byte columns, a ring of 4 steps of 8-entry blocks for
+    each of 256 threads (vals and ids, 16 bytes per 8 vals or uint16 ids),
+    and for a rank-``r`` projection its sums and the 8 warps' partial sums
+    in fp32 (ell.ell_split_smem)."""
+    return ell_k.ell_split_smem(k, r, idx_bytes)
 
 
 def lr_tc_smem(k: int, r: int) -> int:

@@ -18,7 +18,8 @@ blocks by ``plan_nm_splits``) and the first design of ``slab_matmul.cu``
 (f32, other patterns); ``slab_nm_kernel`` / ``slab_nm_lr_kernel`` pick
 one. ``plan_nm_splits``, ``plan_tiles_per_block`` and the split's scratch
 (``tc_plan``) also serve #8 (``kernels.nm_sparse``) and the grouped #17
-and #20 (``kernels.grouped``) on grouped_tc.cu.
+and #20 (``kernels.grouped``) on grouped_tc.cu; ``plan_ell_splits`` and
+``ell_plan`` split the ELL rows of #1 and #5 (``kernels.ell``) there.
 """
 from __future__ import annotations
 
@@ -78,6 +79,7 @@ NM_SPLIT_BLOCKS_PER_SM = 2
 NM_MAX_SPLIT_CHUNKS = 16
 CHUNK = 128          # columns of one chunk of the kernel's main loop
 ROWS = 128           # output rows of one block
+ELL_STEP = 64        # entries a gather group of 8 lanes takes a step
 TC_SMEM = 227 * 1024  # shared memory an H100 block may opt into
 
 _SCRATCH = {}        # per device: the split's partial sums and tickets
@@ -141,6 +143,48 @@ def plan_nm_splits(n: int, k: int, n_sm: int, e: int = 1) -> tuple:
     cps = -(-chunks // max(1, min(want, chunks)))
     cps = min(cps, NM_MAX_SPLIT_CHUNKS)
     return -(-chunks // cps), cps
+
+
+def plan_ell_splits(n: int, k: int, k_max: int, n_sm: int,
+                    binary: bool = False) -> tuple:
+    """(n_split, epb, cps) of grouped_tc.cu's split ELL gather (#1, #5):
+    each row's K_max entries, counted from the 8-entry boundary at or
+    below its first (K_max + 7 at most), cut into n_split runs of epb
+    entries, a multiple of ELL_STEP (one step of a gather group), enough
+    that the ⌈n / ROWS⌉ row tiles x n_split blocks give at most
+    NM_SPLIT_BLOCKS_PER_SM blocks to each of n_sm SMs (at least one run,
+    never more runs than steps). With ``binary`` (#1) the ±1 term's
+    CHUNK-column chunks of K are cut into runs of cps chunks, one a
+    split, no run longer than NM_MAX_SPLIT_CHUNKS (which may add splits
+    with no entries); without, cps is 0. From shapes only."""
+    tiles = -(-n // ROWS)
+    steps = -(-(k_max + 7) // ELL_STEP)
+    want = max(1, NM_SPLIT_BLOCKS_PER_SM * n_sm // tiles)
+    sps = -(-steps // min(want, steps))
+    n_split = -(-steps // sps)
+    cps = 0
+    if binary:
+        chunks = -(-k // CHUNK)
+        n_split = max(n_split, -(-chunks // NM_MAX_SPLIT_CHUNKS))
+        cps = -(-chunks // n_split)
+    return n_split, sps * ELL_STEP, cps
+
+
+def ell_plan(dev, m: int, n: int, k: int, k_max: int,
+             binary: bool = False, rank: int = 0):
+    """(n_split, epb, cps, part, tickets) of a launch of grouped_tc.cu's
+    split ELL gather on ``dev``: plan_ell_splits on its SMs and, for a
+    split, the scratch: (n_split, m, n) partial sums, with ``rank`` (#5's
+    low-rank term) then the (n_split, row tiles, m, rank) partial
+    projections, and one ticket per row tile (None without a split)."""
+    n_split, epb, cps = plan_ell_splits(
+        n, k, k_max, build.sm_count(dev.index or 0), binary)
+    part = tickets = None
+    if n_split > 1:
+        tiles = -(-n // ROWS)
+        part, tickets = _scratch(dev, n_split * m * (n + tiles * rank),
+                                 tiles)
+    return n_split, epb, cps, part, tickets
 
 
 def plan_tiles_per_block(n: int, e: int, n_split: int, n_sm: int) -> int:

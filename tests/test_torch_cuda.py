@@ -1,14 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
-card only: slab_nm_matmul (#2), slab_nm_lr_matmul (#7), nm_matmul (#8),
-binlr_matmul (#9), flash_decode (#10) and flash_decode_paged (#11), and
-the grouped ell_matmul_g (#12), ell_lr_matmul_g (#13), slab_ell_matmul_g
-(#14), slab_nm_matmul_g (#17), slab_lr_matmul_g (#18),
-slab_nm_lr_matmul_g (#19) and binlr_matmul_g (#20), whose bf16 launches
-(#2, #7, #8 and #17 at 2:4 and 4:8) run the kernels of
-csrc/grouped_tc.cu; #2, #7, #8, #17, #18 and #20 also through each of
-their two libraries, #2, #7, #8 and #17 with K split across blocks and
-#20 with blocks walking several row tiles (two launches bitwise
-equal). Every test skips without a card (the kernels
+card only: slab_ell_matmul (#1), slab_nm_matmul (#2), ell_lr_matmul
+(#5), slab_nm_lr_matmul (#7), nm_matmul (#8), binlr_matmul (#9),
+flash_decode (#10) and flash_decode_paged (#11), and the grouped
+ell_matmul_g (#12), ell_lr_matmul_g (#13), slab_ell_matmul_g (#14),
+slab_nm_matmul_g (#17), slab_lr_matmul_g (#18), slab_nm_lr_matmul_g
+(#19) and binlr_matmul_g (#20), whose bf16 launches (#2, #7, #8 and #17
+at 2:4 and 4:8) run the kernels of csrc/grouped_tc.cu; #1, #2, #5, #7,
+#8, #17, #18 and #20 also through each of their two libraries, #2, #7,
+#8 and #17 with K split across blocks, #1 and #5 with each row's entries
+split across blocks and #20 with blocks walking several row tiles (two
+launches bitwise equal). Every test skips without a card (the kernels
 are CUDA C++ for sm_90a with no CPU mode).
 
 This file imports neither JAX nor the reference package, so it runs on
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.core import packing, sparsity
 from repro_torch.kernels import binlr as binlr_k
+from repro_torch.kernels import ell as ell_k
 from repro_torch.kernels import flash_decode as fd_k
 from repro_torch.kernels import grouped as g_k
 from repro_torch.kernels import nm_sparse as nm_k
@@ -1084,3 +1086,255 @@ def test_nm_lin_splits_are_deterministic(cuda, shape, pattern, kernel):
     _close(got, plain(vals_p, idx_p), torch.bfloat16)
     for _ in range(3):
         assert torch.equal(got, run())
+
+
+# #1 slab_ell_matmul and #5 ell_lr_matmul per linear: through each library
+# at M 0-128 (37 and 128 take several passes of the split kernel, each
+# restaging x), N 1411 off the 128-row tile, K 1376 off the 128-column
+# chunk, ranks 1, 3 and 5. K_max is odd and past the fullest row: every row
+# ends in ELL pads and starts off a 16-byte boundary.
+ELL_LIN_M = [0, 1, 4, 8, 37, 128]
+
+
+def _ell_lin_operands(gen, n, k, m, rank, dtype, binary, wide=False,
+                      order=None, per_row=None):
+    """x, vals, idx, bp (None without ``binary``), u, v of one linear;
+    ``wide``: int32 ids; ``order``: each row's entries "shuffled",
+    "reversed" or with every third entry repeating its left neighbour's
+    column ("duplicates", whose values add); ``per_row``: that many
+    nonzeros in each row (else ~44 % of K)."""
+    dev = gen.device
+    w = _g_randn(gen, n, k, scale=0.05)
+    score = _g_randn(gen, n, k)
+    if per_row is not None:
+        keep = torch.zeros_like(score, dtype=torch.bool)
+        keep.scatter_(1, score.topk(per_row, dim=1).indices, True)
+    else:
+        keep = score > 0.15
+    ws = torch.where(keep, w, 0.0)
+    ell = packing.ell_pack(ws.to(dtype),
+                           nnz=(packing.ell_row_nnz_max(ws) + 2) | 1)
+    vals, idx = ell.values, ell.indices
+    if order == "shuffled":
+        perm = torch.argsort(torch.rand(vals.shape, generator=gen,
+                                        device=dev), dim=1)
+        vals, idx = vals.gather(1, perm), idx.gather(1, perm)
+    elif order == "reversed":
+        vals, idx = vals.flip(1), idx.flip(1)
+    elif order == "duplicates":
+        idx = idx.clone()
+        idx[:, 3::3] = idx[:, 2:-1:3][:, :idx[:, 3::3].shape[1]]
+    if wide:
+        idx = packing.as_unsigned(idx).int()
+    bp = None
+    if binary:
+        signs = torch.where(_g_randn(gen, n, k) >= 0, 1, -1).to(torch.int8)
+        bp = packing.pack_sign_bits(signs)
+    x = _g_randn(gen, m, k).to(dtype)
+    u = _g_randn(gen, rank, n, scale=0.2).to(dtype)
+    v = _g_randn(gen, rank, k, scale=0.2).to(dtype)
+    return (x, vals.contiguous(), idx.contiguous(), bp, u.contiguous(),
+            v.contiguous())
+
+
+def _ell_lin(kernel, kern, x, vals, idx, bp, u, v):
+    """One launch of #1 (kernel "slab_ell_matmul") or #5 through
+    ``kern``'s library, and its plain version's call."""
+    if kernel == "slab_ell_matmul":
+        return (lambda: ell_k.launch_slab_ell(kern, x, vals, idx, bp, u, v),
+                lambda: ell_k.slab_ell_matmul_plain(x, vals, idx, bp, u, v))
+    return (lambda: ell_k.launch_ell_lr(kern, x, vals, idx, u, v),
+            lambda: ell_k.ell_lr_matmul_plain(x, vals, idx, u, v))
+
+
+def _ell_lin_libs(kernel):
+    return ((ell_k.SLAB_ELL, ell_k.SLAB_ELL_FIRST)
+            if kernel == "slab_ell_matmul"
+            else (ell_k.ELL_LR, ell_k.ELL_LR_FIRST))
+
+
+@pytest.mark.parametrize("kernel", ["slab_ell_matmul", "ell_lr_matmul"])
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("rank", [1, 3, 5])
+@pytest.mark.parametrize("m", ELL_LIN_M)
+def test_ell_lin_each_library(cuda, m, rank, lib, kernel):
+    """#1 and #5 at bf16 through each library, ranks 1, 3 and 5; M = 0
+    gives an empty result and no launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4000 + m + rank)
+    x, vals, idx, bp, u, v = _ell_lin_operands(
+        gen, 1411, 1376, m, rank, torch.bfloat16,
+        kernel == "slab_ell_matmul")
+    kern = _ell_lin_libs(kernel)[lib == "first"]
+    run, plain = _ell_lin(kernel, kern, x, vals, idx, bp, u, v)
+    launches = kern.launches
+    got = run()
+    assert kern.launches == launches + (m > 0)
+    if m == 0:
+        assert got.shape == (0, 1411) and got.dtype == torch.bfloat16
+        return
+    _close(got, plain(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["slab_ell_matmul", "ell_lr_matmul"])
+@pytest.mark.parametrize("m", [1, 4, 37])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_ell_lin_kernel_matches_plain(cuda, dt, m, kernel):
+    """#1 and #5 through the wrapper at bf16 and f32, rank 3: the launch
+    counts on the library slab_ell_kernel / ell_lr_kernel picks
+    (grouped_tc.cu for bf16 from the crossover)."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4100 + m)
+    binary = kernel == "slab_ell_matmul"
+    x, vals, idx, bp, u, v = _ell_lin_operands(gen, 1411, 1376, m, 3, dtype,
+                                               binary)
+    if binary:
+        kern = ell_k.slab_ell_kernel(dtype, m, 1376, 3, 2)
+        lo = ell_k.SLAB_ELL_TC_MIN_ROWS
+        got = lambda: ell_k.slab_ell_matmul(x, vals, idx, bp, u, v)
+    else:
+        kern = ell_k.ell_lr_kernel(dtype, m, 1376, 3, 2)
+        lo = ell_k.ELL_LR_TC_MIN_ROWS
+        got = lambda: ell_k.ell_lr_matmul(x, vals, idx, u, v)
+    new, first = _ell_lin_libs(kernel)
+    assert kern is (new if dtype == torch.bfloat16 and m >= lo else first)
+    launches = kern.launches
+    out = got()
+    assert kern.launches == launches + 1
+    _, plain = _ell_lin(kernel, kern, x, vals, idx, bp, u, v)
+    _close(out, plain(), dtype)
+
+
+@pytest.mark.parametrize("kernel", ["slab_ell_matmul", "ell_lr_matmul"])
+@pytest.mark.parametrize("m", [1, 4, 37])
+def test_ell_lin_int32_ids(cuda, kernel, m):
+    """uint32 ids (ELL planes past D_in 2^16) on the split kernel."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4200 + m)
+    x, vals, idx, bp, u, v = _ell_lin_operands(
+        gen, 1411, 1376, m, 1, torch.bfloat16, kernel == "slab_ell_matmul",
+        wide=True)
+    assert idx.dtype == torch.int32
+    run, plain = _ell_lin(kernel, _ell_lin_libs(kernel)[0], x, vals, idx, bp,
+                          u, v)
+    _close(run(), plain(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 4, 37])
+def test_ell_lr_matmul_odd_shape(cuda, m):
+    """chip_smoke.py's ODD_SHAPE (4099, 4100): K off every multiple of 8
+    (rows of x start off 16 bytes, the staged x has a zero tail), through
+    the wrapper and through the split kernel."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4300 + m)
+    x, vals, idx, _, u, v = _ell_lin_operands(gen, 4099, 4100, m, 3,
+                                              torch.bfloat16, False)
+    want = ell_k.ell_lr_matmul_plain(x, vals, idx, u, v)
+    kern = ell_k.ell_lr_kernel(torch.bfloat16, m, 4100, 3, 2)
+    launches = kern.launches
+    _close(ell_k.ell_lr_matmul(x, vals, idx, u, v), want, torch.bfloat16)
+    assert kern.launches == launches + 1
+    _close(ell_k.launch_ell_lr(ell_k.ELL_LR, x, vals, idx, u, v), want,
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["slab_ell_matmul", "ell_lr_matmul"])
+@pytest.mark.parametrize("order", ["shuffled", "reversed", "duplicates"])
+def test_ell_lin_any_entry_order(cuda, order, kernel):
+    """The ELL format does not promise sorted ids: each row's entries in
+    any order, and rows that repeat a column (their values add), give the
+    plain version's result on the split kernel."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4400)
+    x, vals, idx, bp, u, v = _ell_lin_operands(
+        gen, 1411, 1376, 4, 1, torch.bfloat16, kernel == "slab_ell_matmul",
+        order=order)
+    new = _ell_lin_libs(kernel)[0]
+    run, plain = _ell_lin(kernel, new, x, vals, idx, bp, u, v)
+    _close(run(), plain(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["slab_ell_matmul", "ell_lr_matmul"])
+@pytest.mark.parametrize("shape", [(4096, 4096), (1024, 4096), (2048, 2816)],
+                         ids=str)
+def test_ell_lin_splits_are_deterministic(cuda, shape, kernel):
+    """llama2-7b's (4096, 4096), phi3.5-moe's (1024, 4096) (the widest
+    split) and deepseek-moe-16b's shared w_down (2048, 2816) at M 4 split
+    each row's entries across blocks; the last block of a row tile adds
+    the partial sums in split order, so the same launch twice gives the
+    same bits."""
+    n, k = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4500 + n + k)
+    binary = kernel == "slab_ell_matmul"
+    x, vals, idx, bp, u, v = _ell_lin_operands(gen, n, k, 4, 3,
+                                               torch.bfloat16, binary)
+    n_split, _, _ = slab_k.plan_ell_splits(
+        n, k, vals.shape[1],
+        torch.cuda.get_device_properties(cuda).multi_processor_count, binary)
+    assert n_split > 1
+    new = _ell_lin_libs(kernel)[0]
+    run, plain = _ell_lin(kernel, new, x, vals, idx, bp, u, v)
+    got = run()
+    _close(got, plain(), torch.bfloat16)
+    for _ in range(3):
+        assert torch.equal(got, run())
+
+
+@pytest.mark.parametrize("kernel", ["slab_ell_matmul", "ell_lr_matmul"])
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("m", [1, 4, 37])
+@pytest.mark.parametrize("n,k,per_row", [(300, 256, 40), (17000, 512, 150)],
+                         ids=["short_rows", "many_tiles"])
+def test_ell_lin_one_split(cuda, n, k, per_row, m, rank, kernel):
+    """Where the plan gives one split (K_max + 7 <= 64 entries a row, or
+    more than NM_SPLIT_BLOCKS_PER_SM blocks an SM of row tiles alone) the
+    split kernel stores y itself, #5 with its projection over all of K
+    added at the stores: the plain version's result, the same bits
+    twice."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4600 + n + m + rank)
+    binary = kernel == "slab_ell_matmul"
+    x, vals, idx, bp, u, v = _ell_lin_operands(
+        gen, n, k, m, rank, torch.bfloat16, binary, per_row=per_row)
+    n_split, _, _ = slab_k.plan_ell_splits(
+        n, k, vals.shape[1],
+        torch.cuda.get_device_properties(cuda).multi_processor_count, binary)
+    assert n_split == 1
+    new = _ell_lin_libs(kernel)[0]
+    run, plain = _ell_lin(kernel, new, x, vals, idx, bp, u, v)
+    got = run()
+    _close(got, plain(), torch.bfloat16)
+    assert torch.equal(got, run())
+
+
+@pytest.mark.parametrize("kernel", ["slab_ell_matmul", "ell_lr_matmul"])
+def test_ell_lin_shared_memory_edge(cuda, kernel):
+    """At the widest K whose x (and #1's widest x ⊙ v_r tiles, or #5's
+    projection sums) ell.ell_split_smem fits an H100 block, at 8 rows
+    (one full tile), the wrapper runs the split kernel and it launches
+    and agrees with the plain version (the C side's layout is no larger
+    than the Python mirror's); 32 columns wider, the first design
+    runs."""
+    binary = kernel == "slab_ell_matmul"
+    fits = lambda kk: ell_k.ell_split_smem(kk, 1, 2, binary) \
+        <= slab_k.TC_SMEM  # noqa: E731
+    k = 16384
+    while not fits(k):
+        k -= 32
+    pick = ell_k.slab_ell_kernel if binary else ell_k.ell_lr_kernel
+    new, first = _ell_lin_libs(kernel)
+    assert pick(torch.bfloat16, 8, k, 1, 2) is new
+    assert pick(torch.bfloat16, 8, k + 32, 1, 2) is first
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4700)
+    x, vals, idx, bp, u, v = _ell_lin_operands(
+        gen, 256, k, 8, 1, torch.bfloat16, binary)
+    call = (lambda: ell_k.slab_ell_matmul(x, vals, idx, bp, u, v)) \
+        if binary else (lambda: ell_k.ell_lr_matmul(x, vals, idx, u, v))
+    launches = new.launches
+    got = call()
+    assert new.launches == launches + 1
+    _, plain = _ell_lin(kernel, new, x, vals, idx, bp, u, v)
+    _close(got, plain(), torch.bfloat16)

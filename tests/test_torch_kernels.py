@@ -17,6 +17,7 @@ from repro.kernels import ref as ref_oracles
 from repro_torch import bridge
 from repro_torch.core import packing
 from repro_torch.kernels import common, ops, ref
+from repro_torch.kernels import slab_matmul as slab_k
 
 TOL = 1e-5
 N, K = 96, 256
@@ -203,7 +204,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                               t(v).T.contiguous())
     with pytest.raises(ValueError, match="expected"):
         slab_k.slab_matmul(t(x), t(w_s), bp, t(u).T, t(v).T.contiguous())
-    assert ell_k.SLAB_ELL.launches == 0
+    assert ell_k.SLAB_ELL.launches == ell_k.SLAB_ELL_FIRST.launches == 0
 
 
 # ---------------------------------- #2's library choice and split plan
@@ -520,4 +521,245 @@ def test_nm_lr_split_arithmetic_matches_reference(k, cps, pattern, rank, m):
     assert _rel(got, want) < TOL
     one = slab_k.slab_nm_lr_matmul_plain(tt(x), tt(nm.values),
                                          tt(nm.indices), m_pat, tt(u), tt(v))
+    assert _rel(got, one) < TOL
+
+
+# ------------- #1's and #5's library choice, split plan and arithmetic
+
+
+@pytest.mark.parametrize("kernel", ["slab_ell_matmul", "ell_lr_matmul"])
+@pytest.mark.parametrize("dtype,m,k,r,idx_bytes,source", [
+    (torch.bfloat16, 1, 4096, 1, 2, "grouped_tc.cu"),
+    (torch.bfloat16, 4, 4096, 1, 4, "grouped_tc.cu"),
+    (torch.bfloat16, 128, 11008, 1, 2, "grouped_tc.cu"),
+    (torch.bfloat16, 4, 11008, 1, 4, "grouped_tc.cu"),
+    (torch.bfloat16, 4, 4096, 3, 2, "grouped_tc.cu"),
+    (torch.bfloat16, 4, 11008, 2, 2, "rank"),
+    (torch.bfloat16, 4, 16384, 1, 2, "first"),
+    (torch.float32, 4, 4096, 1, 2, "first"),
+    (torch.float32, 37, 2048, 3, 4, "first")])
+def test_ell_lin_library_choice(kernel, dtype, m, k, r, idx_bytes, source):
+    """bf16 #1 and #5 run grouped_tc.cu's split gather from their row
+    crossovers where ell_split_smem fits an H100 block: all of x at K
+    11008, not at 16384; #1's x ⊙ v_r tiles of the widest split also at
+    rank 1 (not 2) at K 11008, #5's projection at any of these ranks. f32
+    runs the first design (ell.cu), each library on its own counter under
+    one C name."""
+    from repro_torch.kernels import ell as ell_k
+    binary = kernel == "slab_ell_matmul"
+    pick = ell_k.slab_ell_kernel if binary else ell_k.ell_lr_kernel
+    lo = ell_k.SLAB_ELL_TC_MIN_ROWS if binary else ell_k.ELL_LR_TC_MIN_ROWS
+    kern = pick(dtype, m, k, r, idx_bytes)
+    new = source == "grouped_tc.cu" or (source == "rank" and not binary)
+    want = "grouped_tc.cu" if new and m >= lo else "ell.cu"
+    assert kern.source == want and kern.name == kernel
+    assert kern.key == (kernel if want == "grouped_tc.cu"
+                        else f"{kernel}@ell.cu")
+    if dtype == torch.bfloat16:
+        fits = ell_k.ell_split_smem(k, r, idx_bytes, binary) \
+            <= slab_k.TC_SMEM
+        assert fits == new
+
+
+def test_ell_lin_below_the_crossover():
+    """Fewer rows than the crossover run the first design."""
+    from repro_torch.kernels import ell as ell_k
+    for m in range(0, ell_k.SLAB_ELL_TC_MIN_ROWS):
+        assert ell_k.slab_ell_kernel(torch.bfloat16, m, 4096) \
+            is ell_k.SLAB_ELL_FIRST
+    for m in range(0, ell_k.ELL_LR_TC_MIN_ROWS):
+        assert ell_k.ell_lr_kernel(torch.bfloat16, m, 4096) \
+            is ell_k.ELL_LR_FIRST
+    assert ell_k.slab_ell_kernel(torch.bfloat16,
+                                 ell_k.SLAB_ELL_TC_MIN_ROWS, 4096) \
+        is ell_k.SLAB_ELL
+    assert ell_k.ell_lr_kernel(torch.bfloat16, ell_k.ELL_LR_TC_MIN_ROWS,
+                               4100) is ell_k.ELL_LR
+
+
+@pytest.mark.parametrize("kernel", ["slab_ell_matmul", "ell_lr_matmul"])
+def test_ell_lin_counters_are_per_library(kernel):
+    """#1's and #5's two libraries count on their own keys in
+    ops.launch_counts, under one C name."""
+    from repro_torch.kernels import ell as ell_k
+    new, first = ((ell_k.SLAB_ELL, ell_k.SLAB_ELL_FIRST)
+                  if kernel == "slab_ell_matmul"
+                  else (ell_k.ELL_LR, ell_k.ELL_LR_FIRST))
+    counts = ops.launch_counts()
+    assert {kernel, f"{kernel}@ell.cu"} <= set(counts)
+    assert new.name == first.name == kernel
+    assert (new.source, first.source) == ("grouped_tc.cu", "ell.cu")
+    new.launches = 5
+    assert ops.launch_counts()[kernel] == 5
+    assert ops.launch_counts()[f"{kernel}@ell.cu"] == 0
+    ops.reset_launch_counts()
+
+
+# the (N, K, K_max) of the per-linear #1 / #5 launches on the main path:
+# llama2-7b's slab-ell (phase a; K_max 0.437·K) and lowrank-ell (g; K/2),
+# phi3.5-moe's attention (m) and deepseek-moe-16b's attention and shared
+# MLP (r; t at K/2); the plan on an H100's 132 SMs
+ELL_PATH_SPLITS = [
+    ((4096, 4096, 1789, True), (8, 256, 4)),
+    ((11008, 4096, 1789, True), (3, 640, 11)),
+    ((4096, 11008, 4810, True), (8, 640, 11)),
+    ((1024, 4096, 1789, True), (29, 64, 2)),
+    ((2048, 2048, 894, True), (15, 64, 2)),
+    ((2816, 2048, 894, True), (8, 128, 2)),
+    ((2048, 2816, 1230, True), (10, 128, 3)),
+    ((4096, 4096, 2048, False), (7, 320, 0)),
+    ((11008, 4096, 2048, False), (3, 704, 0)),
+    ((4096, 11008, 5504, False), (8, 704, 0)),
+    ((2048, 2048, 1024, False), (9, 128, 0)),
+    ((2816, 2048, 1024, False), (9, 128, 0)),
+    ((2048, 2816, 1408, False), (12, 128, 0))]
+
+
+@pytest.mark.parametrize("shape,want", ELL_PATH_SPLITS, ids=str)
+def test_ell_split_plan_at_the_path_shapes(shape, want):
+    """At every (N, K, K_max) that phases a, g, m, r and t give #1 and #5,
+    the runs cover a row's entries from any 8-entry boundary once, every
+    SM gets a block and none gets more than NM_SPLIT_BLOCKS_PER_SM; #1's
+    column runs cover K in at most NM_MAX_SPLIT_CHUNKS chunks each."""
+    n, k, k_max, binary = shape
+    assert slab_k.plan_ell_splits(n, k, k_max, 132, binary) == want
+    n_split, epb, cps = want
+    assert n_split > 1 and epb % slab_k.ELL_STEP == 0
+    assert (n_split - 1) * epb < k_max + 7 <= n_split * epb
+    tiles = -(-n // slab_k.ROWS)
+    assert 132 <= tiles * n_split <= slab_k.NM_SPLIT_BLOCKS_PER_SM * 132
+    if binary:
+        assert 0 < cps <= slab_k.NM_MAX_SPLIT_CHUNKS
+        assert n_split * cps * slab_k.CHUNK >= k
+
+
+@pytest.mark.parametrize("n,k,k_max,n_sm", [
+    (128, 256, 1, 132), (96, 256, 113, 132), (4096, 65536, 30000, 132),
+    (50000, 4096, 2048, 132), (300, 512, 200, 8)], ids=str)
+def test_ell_split_plan_covers_every_entry_once(n, k, k_max, n_sm):
+    """Any shape: whole steps a run, runs covering K_max + 7 entries,
+    none of them past the last step that holds an entry, and for #1
+    column runs of at most NM_MAX_SPLIT_CHUNKS chunks covering K (which
+    may add runs past the entries: they gather zeros)."""
+    for binary in (False, True):
+        n_split, epb, cps = slab_k.plan_ell_splits(n, k, k_max, n_sm,
+                                                   binary)
+        assert n_split >= 1 and epb % slab_k.ELL_STEP == 0
+        assert n_split * epb >= k_max + 7
+        if not binary:
+            assert (n_split - 1) * epb < k_max + 7
+            assert cps == 0
+        else:
+            assert 0 < cps <= slab_k.NM_MAX_SPLIT_CHUNKS
+            assert (n_split - 1) * cps * slab_k.CHUNK < k \
+                <= n_split * cps * slab_k.CHUNK
+
+
+@pytest.mark.parametrize("binary,rank", [(True, 0), (False, 1),
+                                         (False, 3), (False, 5)])
+def test_ell_scratch_holds_partial_sums(monkeypatch, binary, rank):
+    """A split launch's scratch holds (n_split, M, N) partial sums, for
+    #5 then the (n_split, row tiles, M, R) partial projections, and one
+    zero ticket per row tile (an H100's 132 SMs)."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(slab_k, "_SCRATCH", {})
+    dev = torch.device("cpu")
+    n_split, epb, cps, part, tickets = slab_k.ell_plan(
+        dev, 37, 1411, 1376, 601, binary, rank)
+    assert (n_split, epb, cps) == slab_k.plan_ell_splits(1411, 1376, 601,
+                                                         132, binary)
+    assert n_split > 1
+    assert part.numel() >= n_split * 37 * 1411 + n_split * 12 * 37 * rank
+    assert tickets.numel() >= 12 and not tickets.any()
+
+
+def _ell_np(seed, m, n, k, rank, keep=0.44):
+    """Seeded numpy x, W_S keeping the top-|w| ``keep`` of each row, ±1
+    W_B, u (R, N), v (R, K)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) * 0.1).astype(np.float32)
+    kk = int(keep * k)
+    thr = -np.sort(-np.abs(w), axis=1)[:, kk - 1:kk]
+    w = np.where(np.abs(w) >= thr, w, 0.0).astype(np.float32)
+    w_b = np.where(rng.random((n, k)) < 0.5, 1, -1).astype(np.int8)
+    u = (rng.standard_normal((rank, n)) * 0.2).astype(np.float32)
+    v = (rng.standard_normal((rank, k)) * 0.2).astype(np.float32)
+    return x, w, w_b, u, v
+
+
+def _shuffled_ell(w, seed):
+    """Reference ELL planes of ``w``, K_max odd and past the fullest row
+    (rows start off the 8-entry boundary and end in pads), with each
+    row's entries in a random order (numpy, the same permutation for vals
+    and ids)."""
+    w = jnp.asarray(w)
+    ep = ref_packing.ell_pack(w, nnz=(ref_packing.ell_row_nnz_max(w) + 2)
+                              | 1)
+    vals, idx = np.asarray(ep.values), np.asarray(ep.indices)
+    perm = np.argsort(np.random.default_rng(seed).random(vals.shape), axis=1)
+    return (np.take_along_axis(vals, perm, 1),
+            np.take_along_axis(idx, perm, 1))
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("k,epb,cps", [(256, 64, 1), (384, 128, 2),
+                                       (512, 128, 2)], ids=str)
+def test_slab_ell_split_arithmetic_matches_reference(k, epb, cps, rank, m):
+    """grouped_tc.cu's #1 under a split (slab_ell_split_plain: each
+    split's run of every row plus its columns' ±1 term in one partial,
+    the partials summed in split order, rounded once) against the
+    reference kernel in interpret mode on the same numpy inputs, each
+    row's entries shuffled: 2 or 3 splits (K_max odd: rows start off the
+    8-entry boundary), f32 at max|diff| / max|ref| < 1e-5."""
+    from repro.kernels import ell as ref_ell
+    from repro_torch.kernels import ell as ell_k
+    n = 96
+    x, w, w_b, u, v = _ell_np(500 + k + rank + m, m, n, k, rank)
+    vals, idx = _shuffled_ell(w, k + rank)
+    bp = ref_packing.pack_sign_bits(jnp.asarray(w_b))
+    want = ref_ell.slab_ell_matmul(
+        jnp.asarray(x), jnp.asarray(vals), jnp.asarray(idx), bp,
+        jnp.asarray(u), jnp.asarray(v), interpret=True)
+    n_split = -(-(vals.shape[1] + 7) // epb)
+    assert n_split in (2, 3) and vals.shape[1] % 8
+    assert n_split * cps * 128 >= k
+    tt = functools.partial(bridge.tensor, device="cpu")
+    got = ell_k.slab_ell_split_plain(tt(x), tt(vals), tt(idx), tt(bp),
+                                     tt(u), tt(v), n_split, epb, cps)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert _rel(got, want) < TOL
+    one = ell_k.slab_ell_matmul_plain(tt(x), tt(vals), tt(idx), tt(bp),
+                                      tt(u), tt(v))
+    assert _rel(got, one) < TOL
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("k,epb", [(256, 64), (300, 128), (512, 128)],
+                         ids=str)
+def test_ell_lr_split_arithmetic_matches_reference(k, epb, rank, m):
+    """grouped_tc.cu's #5 under a split (ell_lr_split_plain: each split's
+    run of every row summed in split order, then acc + p·U rounded once)
+    against the reference kernel in interpret mode on the same numpy
+    inputs, each row's entries shuffled: 2 or 3 splits, K 300 off every
+    multiple of 8, f32 at max|diff| / max|ref| < 1e-5."""
+    from repro.kernels import ell as ref_ell
+    from repro_torch.kernels import ell as ell_k
+    n = 96
+    x, w, _, u, v = _ell_np(600 + k + rank + m, m, n, k, rank, keep=0.5)
+    vals, idx = _shuffled_ell(w, k + rank + 1)
+    want = ref_ell.ell_lr_matmul(
+        jnp.asarray(x), jnp.asarray(vals), jnp.asarray(idx),
+        jnp.asarray(u), jnp.asarray(v), interpret=True)
+    n_split = -(-(vals.shape[1] + 7) // epb)
+    assert n_split in (2, 3)
+    tt = functools.partial(bridge.tensor, device="cpu")
+    got = ell_k.ell_lr_split_plain(tt(x), tt(vals), tt(idx), tt(u), tt(v),
+                                   n_split, epb)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert _rel(got, want) < TOL
+    one = ell_k.ell_lr_matmul_plain(tt(x), tt(vals), tt(idx), tt(u), tt(v))
     assert _rel(got, one) < TOL

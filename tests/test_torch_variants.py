@@ -293,7 +293,7 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
         nm_k.nm_matmul(t(x), t(nm.values), t(nm.indices), 4)
     assert ell_k.ELL.launches == ell_k.ELL_LR.launches == 0
     assert slab_k.SLAB_LR.launches == nm_k.NM.launches == 0
-    assert nm_k.NM_FIRST.launches == 0
+    assert nm_k.NM_FIRST.launches == ell_k.ELL_LR_FIRST.launches == 0
 
 
 def test_slice3_cuda_wrappers_refuse_cpu_tensors():
@@ -385,7 +385,10 @@ def test_ctypes_argtypes_match_the_c_signatures():
                  ("binlr_matmul_g", "grouped_tc.cu"): g_k._BINLR_TC_ARGS,
                  ("nm_matmul", "grouped_tc.cu"): nm_k._TC_ARGS,
                  ("slab_nm_lr_matmul", "grouped_tc.cu"):
-                     slab_k._NM_LR_TC_ARGS}
+                     slab_k._NM_LR_TC_ARGS,
+                 ("slab_ell_matmul", "grouped_tc.cu"):
+                     ell_k._SLAB_ELL_TC_ARGS,
+                 ("ell_lr_matmul", "grouped_tc.cu"): ell_k._ELL_LR_TC_ARGS}
     seen, seen_by_source = set(), set()
     for src in build.SOURCES:
         text = (Path(build.CSRC) / src).read_text()
