@@ -16,13 +16,14 @@ Phases:
      words also at (4099, 4100) (K not a multiple of 32, odd K_max); times
      at M = 4, bf16, rank 1 beside the byte bound, the plain version and
      one torch.matmul against the reconstructed dense W; #2
-     slab_nm_matmul, #8 nm_matmul and #7 slab_nm_lr_matmul (K split
-     across blocks) and #1 slab_ell_matmul and #5 ell_lr_matmul (each
-     row's entries split across blocks; #1 also with int32 ids) at bf16
-     also through each of their two libraries (grouped_tc.cu and the
-     first design), and timed through the wrapper and through each at M
-     1, 2, 3, 4, 8, 16 at (4096, 4096), #2, #8 and #7 at 2:4 and 4:8 (the
-     "M sweep" lines). Then both
+     slab_nm_matmul, #8 nm_matmul, #7 slab_nm_lr_matmul and #3
+     slab_matmul (K split across blocks) and #1 slab_ell_matmul and #5
+     ell_lr_matmul (each row's entries split across blocks; #1 also with
+     int32 ids) at bf16 also through each of their two libraries
+     (grouped_tc.cu and the first design), and timed through the wrapper
+     and through each at M 1, 2, 3, 4, 8, 16 at (4096, 4096), #2, #8 and
+     #7 at 2:4 and 4:8 (the "M sweep" lines); every f32 call of a kernel
+     with two libraries must run its first design. Then both
      flash-decode kernels (paged #11, contiguous #10) against their plain
      versions at the decode shapes of llama2-7b (R 8, KV 32, G 1, dh 128)
      and stablelm-12b (R 8, KV 8, G 4, dh 160), and at qwen2-vl-2b's
@@ -50,9 +51,10 @@ Phases:
      deepseek-moe-16b's also checked and timed at M = 1, 2, 3, 4, 6, 8,
      9, 16, 20, 32 (bf16, rank 1), through the wrapper (the line names
      the library it ran at each M) and through each of their two
-     libraries, grouped_tc.cu and the first design; #17, #18 and #20
-     also through each library at the timed M; the first design of #12,
-     #13, #17, #19 and #20 also timed at f32;
+     libraries, grouped_tc.cu and the first design (#16 on phi3.5-moe's
+     too); #16, #17, #18 and #20 also through each library at the timed
+     M; the first design of #12, #13, #17, #19 and #20 also timed at
+     f32;
   3. the port's main paths at full width with cut depth: compress_model
      (16x128 calibration) -> pack_model -> greedy_decode (batch 4, prompt
      32, gen 16, square and ragged), once per packed variant, llama2-7b:
@@ -85,17 +87,18 @@ Phases:
      Launch counts are zeroed just before each greedy_decode and read
      just after, one counter per library: phase m's #14 (2 rows per
      expert) must run only the first design (ell.cu), phases a, l, m and
-     r's #1, phases g and t's #5, phases b and n's #2, phases e and p's
-     #8, phases i and v's #7, phase n's #17 and phases r, s, t, u, v and
-     w's grouped kernel only grouped_tc.cu, and phases d, k, q and x
-     (f32) only ell.cu;
+     r's #1, phases g and t's #5, phases b and n's #2, phases c and o's
+     #3, phases e and p's #8, phases i and v's #7, phase n's #17, phase
+     o's #16 and phases r, s, t, u, v and w's grouped kernel only
+     grouped_tc.cu, and phases d, k, q and x (f32) only ell.cu;
      final-step logits are held against the dense-equivalent
      (reconstructed-W) model — for the MoE models against dense experts
      (and dense shared experts) behind the same packed attention, whose
      expert choices must agree token for token (_hold_moe_logits says
-     why); phases a, b, e, g, i, m, n, r, s, t, u, v and w are profiled
-     (a, b, e, g, i, n, u and w with #1's, #2's, #8's, #5's, #7's, #17's,
-     #18's and #20's device time per step and share of the busy time);
+     why); phases a, b, c, e, g, i, m, n, o, r, s, t, u, v and w are
+     profiled (a, b, c, e, g, i, n, o, u and w with #1's, #2's, #3's,
+     #8's, #5's, #7's, #17's, #16's, #18's and #20's device time per step
+     and share of the busy time);
      phases e-i also print the eval perplexity (lm.loss_fn) of the
      uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
@@ -117,10 +120,10 @@ Phases:
           request terminal); no block leaked;
        x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
           factor 64/6;
-  4. one JSON line listing every ported kernel (all twenty; #1, #2, #5,
-     #7, #8, #12, #13, #14, #17, #18, #19 and #20 once per library, each
-     with its own launch counter: thirty-two entries), then the result
-     line.
+  4. one JSON line listing every ported kernel (all twenty; #1, #2, #3,
+     #5, #7, #8, #12, #13, #14, #16, #17, #18, #19 and #20 once per
+     library, each with its own launch counter: thirty-four entries), then
+     the result line.
 
 Any failed check raises, and the script exits non-zero. It needs
 ``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
@@ -150,12 +153,13 @@ SLEEP_CYCLES = 400_000             # ~0.2 ms of device sleep before a timed call
 # kernels whose two libraries are also checked and timed one by one at
 # every bf16 timed case (the JSON line reports each library's time)
 LIB_TIMED = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul",
-             "slab_ell_matmul", "ell_lr_matmul", "slab_lr_matmul_g",
-             "slab_nm_matmul_g", "binlr_matmul_g")
-# the per-linear M sweep of #2, #8 and #7 (2:4 and 4:8) and of #1 and #5
-# at JSON_SHAPE (bf16, rank 1)
+             "slab_ell_matmul", "ell_lr_matmul", "slab_matmul",
+             "slab_lr_matmul_g", "slab_nm_matmul_g", "binlr_matmul_g",
+             "slab_matmul_g")
+# the per-linear M sweep of #2, #8 and #7 (2:4 and 4:8) and of #1, #5 and
+# #3 at JSON_SHAPE (bf16, rank 1)
 NM_SWEEP = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul",
-            "slab_ell_matmul", "ell_lr_matmul")
+            "slab_ell_matmul", "ell_lr_matmul", "slab_matmul")
 NM_SWEEP_M = (1, 2, 3, 4, 8, 16)
 
 
@@ -189,8 +193,9 @@ def environment():
         + " ".join(f"{s}={t:.2f}s" for s, t in per_src.items()))
     for s in build.SOURCES:
         log(f"  ptxas {s}: {_ptxas_summary(build.build_log(s))}")
-    log("  ptxas grouped_tc.cu tc bodies (#19, #18, #2; tc_g_kernel: #17, "
-        "#20; tc_nm_kernel: #8, #7): "
+    log("  ptxas grouped_tc.cu tc bodies (tc_kernel: #19, #18; "
+        "tc_bin_kernel: #2, #3; tc_g_kernel: #17, #20, #16; tc_nm_kernel: "
+        "#8, #7): "
         + _ptxas_tc(build.build_log("grouped_tc.cu")))
     log("  ptxas grouped_tc.cu ell_split_kernel<ids, LR (#5, #13), BIN "
         "(#1; #12 neither), n-tiles, rows a column, split>: "
@@ -397,7 +402,10 @@ def _cases(planes, x, rank, wide_ids=False):
             lambda: slab_k.slab_matmul(x, ws, b, u, v),
             lambda: slab_k.slab_matmul_plain(x, ws, b, u, v),
             (ws, b, u, v), lambda: ws.float() + w_b(),
-            ops(ws.numel(), binary=True)))
+            ops(ws.numel(), binary=True),
+            libs={kk.key: (lambda kk=kk: slab_k.launch_slab_dense(
+                kk, x, ws, b, u, v))
+                  for kk in (slab_k.SLAB_DENSE, slab_k.SLAB_DENSE_FIRST)}))
         out.append(Case(
             "binlr_matmul", "binlr_matmul",
             lambda: binlr_k.binlr_matmul(x, b, u, v),
@@ -477,14 +485,15 @@ def _nbytes(*ts) -> int:
 
 
 def time_ms(fn, flush, reps=20) -> float:
-    """Mean device time of one call, by CUDA events, with the 50 MB L2
-    flushed before each call (the serve path streams cold weights). A
+    """Median device time of one call over ``reps``, by CUDA events, with
+    the 50 MB L2 flushed before each call (the serve path streams cold
+    weights); the median, so that one stalled call does not move it. A
     device sleep of SLEEP_CYCLES after the flush keeps the card busy
     while the host runs the wrapper, so the events see the call's device
     time and none of its host-side launch cost."""
     fn()
     sync()
-    total = 0.0
+    times = []
     for _ in range(reps):
         flush.zero_()
         torch.cuda._sleep(SLEEP_CYCLES)
@@ -494,8 +503,10 @@ def time_ms(fn, flush, reps=20) -> float:
         fn()
         e.record()
         e.synchronize()
-        total += s.elapsed_time(e)
-    return total / reps
+        times.append(s.elapsed_time(e))
+    times.sort()
+    mid = len(times) // 2
+    return times[mid] if len(times) % 2 else (times[mid - 1] + times[mid]) / 2
 
 
 def _check_case(c, x, n, dtype, rank, worst, where, kern=None, ref=None):
@@ -518,6 +529,21 @@ def _check_case(c, x, n, dtype, rank, worst, where, kern=None, ref=None):
     return got, ref
 
 
+def _first_design_at_f32(c, dtype, before, where):
+    """Raise unless an f32 call through the wrapper of a kernel with two
+    libraries (``c.libs``) launched its first design (the counter key
+    ``symbol@source``): the redesigned kernels take bf16 only."""
+    from repro_torch.kernels import ops
+    if dtype != torch.float32 or not c.libs:
+        return
+    ran = {kk for kk, v in ops.launch_counts().items()
+           if v > before[kk]} & set(c.libs)
+    first = {kk for kk in c.libs if "@" in kk}
+    if ran != first:
+        raise AssertionError(f"{c.label} {where} f32 launched {sorted(ran)}"
+                             f", expected the first design {sorted(first)}")
+
+
 def kernel_checks():
     """Every kernel vs its plain version; returns per-kernel records."""
     from repro_torch.kernels import ops
@@ -537,8 +563,10 @@ def kernel_checks():
                     wide = (n, k) == JSON_SHAPE
                     for c in _cases(planes, x, rank, wide_ids=wide):
                         where = f"N={n} K={k} M={m}"
+                        before = ops.launch_counts()
                         got, ref = _check_case(c, x, n, dtype, rank, worst,
                                                where)
+                        _first_design_at_f32(c, dtype, before, where)
                         n_checks += 1
                         libs = {}
                         if c.kernel in LIB_TIMED and dtype == torch.bfloat16:
@@ -564,8 +592,8 @@ def kernel_checks():
 
 def nm_sweep(flush):
     """#2 slab_nm_matmul, #8 nm_matmul and #7 slab_nm_lr_matmul (2:4 and
-    4:8) and #1 slab_ell_matmul and #5 ell_lr_matmul (uint16 ids) at
-    JSON_SHAPE, bf16, rank 1, at every M of NM_SWEEP_M:
+    4:8), #1 slab_ell_matmul and #5 ell_lr_matmul (uint16 ids) and #3
+    slab_matmul at JSON_SHAPE, bf16, rank 1, at every M of NM_SWEEP_M:
     checked against their plain versions and timed through the wrapper
     (each M tagged with the library it ran) and through each of their two
     libraries."""
@@ -605,7 +633,7 @@ def nm_sweep(flush):
         log(f"  M sweep {label} N={n} K={k} bf16 r1{how}: "
             + " ".join(f"M={m}: {t:.4f} ms" + (f" ({ran})" if ran else "")
                        for m, (t, ran) in sorted(by_m.items())))
-    log(f"per-linear sweep (#2, #8, #7, #1, #5): {n_checks} cases passed; "
+    log(f"per-linear sweep (#2, #8, #7, #1, #5, #3): {n_checks} cases passed; "
         "worst "
         "max|err|/max|ref|: "
         + " ".join(f"{l}={w:.3g}" for l, w in worst.items()))
@@ -679,7 +707,7 @@ G_SPECS = {
         shapes=((6400, 4096), (4096, 6400)), experts=16,
         bucket=(3, 14, 0, 9, 6), batches=(1, 2, 20), timed_m=2,
         odd=(4096, 6408), seed=2,
-        sweep=("slab_ell_matmul_g", "slab_nm_matmul_g"),
+        sweep=("slab_ell_matmul_g", "slab_nm_matmul_g", "slab_matmul_g"),
         timed_f32=("slab_nm_matmul_g[2:4]",)),
     "deepseek-moe-16b": dict(
         kernels=("slab_ell_matmul_g", "ell_matmul_g", "ell_lr_matmul_g",
@@ -841,7 +869,10 @@ def _g_cases(planes, x, rank, kernels, wide_ids=False):
             lambda: g_k.slab_matmul_g(x, ws, b, u, v),
             lambda: g_k.slab_matmul_g_plain(x, ws, b, u, v),
             (ws, b, u, v), lambda: ws.float() + w_b(),
-            ops(ws.numel(), binary=True)))
+            ops(ws.numel(), binary=True),
+            libs={kk.key: (lambda kk=kk: g_k.launch_slab_g(kk, x, ws, b, u,
+                                                           v))
+                  for kk in (g_k.SLAB_G, g_k.SLAB_G_FIRST)}))
     if b is not None and "binlr_matmul_g" in want:
         out.append(Case(
             "binlr_matmul_g", "binlr_matmul_g",
@@ -940,8 +971,11 @@ def grouped_checks(flush, model):
                                     device="cuda").to(dtype)
                     wide = (n, k) == spec["shapes"][0] and e == n_exp
                     for c in _g_cases(pl, x, rank, kernels, wide_ids=wide):
+                        before = ops.launch_counts()
                         got, ref = _check_case(c, x, n, dtype, rank, worst,
                                                f"E={e} N={n} K={k} M={m}")
+                        _first_design_at_f32(c, dtype, before,
+                                             f"E={e} N={n} K={k} M={m}")
                         n_checks += 1
                         at_timed = (e == n_exp and dtype == G_TIMED["dtype"]
                                     and rank == G_TIMED["rank"])
@@ -2000,7 +2034,9 @@ PHASES = (
                profiled=True,
                focus=("#2 slab_nm_matmul", "NmSrc<2, 4>, 1, false, true>"))),
     ("c", dict(n_layers=2, dtype=torch.bfloat16, cr=0.2, pattern=None,
-               variant="slab-dense", kernel="slab_matmul", tol=3e-2)),
+               variant="slab-dense", kernel="slab_matmul", tol=3e-2,
+               profiled=True,
+               focus=("#3 slab_matmul", "tc_bin_kernel<tc::DenseSrc"))),
     ("d", dict(n_layers=2, dtype=torch.float32, cr=0.5, pattern=None,
                variant="slab-ell", kernel="slab_ell_matmul@ell.cu",
                tol=1e-4)),
@@ -2050,7 +2086,8 @@ PHASES = (
                focus=("#17 slab_nm_matmul_g", "tc_g_kernel<tc::NmSrc<2, 4>"))),
     ("o", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.2,
                pattern=None, variant="slab-dense", kernel="slab_matmul",
-               expert_kernel="slab_matmul_g", tol=3e-2)),
+               expert_kernel="slab_matmul_g", tol=3e-2, profiled=True,
+               focus=("#16 slab_matmul_g", "tc_g_kernel<tc::DenseSrc"))),
     ("p", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.5,
                pattern="2:4", variant="sparse-nm", kernel="nm_matmul",
                expert_kernel="nm_matmul_g", tol=3e-2, method="wanda",
@@ -2080,7 +2117,7 @@ PHASES = (
                kernel="slab_lr_matmul", expert_kernel="slab_lr_matmul_g",
                tol=3e-2, options=dict(iters=8, include_binary=False),
                profiled=True,
-               focus=("#18 slab_lr_matmul_g", "tc::DenseSrc"))),
+               focus=("#18 slab_lr_matmul_g", "tc_kernel<tc::DenseSrc"))),
     ("v", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.5, pattern="2:4", variant="lowrank-nm",
                kernel="slab_nm_lr_matmul",
@@ -2104,12 +2141,14 @@ JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
 # ... and of each grouped kernel's library, by counter key: the G_SPECS
 # model and the timed case (at that model's first shape). #14's first
 # design reports phi3.5-moe at M 2, where its decode runs it; #12's, #13's
-# and #19's their f32 launches; #17's, #18's and #20's (and #2's, above)
-# each library at the timed case (LIB_TIMED: the case's "libs").
+# and #19's their f32 launches; #16's, #17's, #18's and #20's (and #1's,
+# #2's, #3's, #5's, #7's and #8's, above) each library at the timed case
+# (LIB_TIMED: the case's "libs").
 G_JSON = {"slab_ell_matmul_g": ("deepseek-moe-16b", "slab_ell_matmul_g"),
           "slab_ell_matmul_g@ell.cu": ("phi3.5-moe", "slab_ell_matmul_g"),
           "nm_matmul_g": ("phi3.5-moe", "nm_matmul_g[2:4]"),
           "slab_matmul_g": ("phi3.5-moe", "slab_matmul_g"),
+          "slab_matmul_g@slab_matmul.cu": ("phi3.5-moe", "slab_matmul_g"),
           "slab_nm_matmul_g": ("phi3.5-moe", "slab_nm_matmul_g[2:4]"),
           "slab_nm_matmul_g@slab_matmul.cu": ("phi3.5-moe",
                                               "slab_nm_matmul_g[2:4]"),

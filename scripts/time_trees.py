@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the ELL gather kernels of several checkouts on one CUDA card.
+"""Time kernels of several checkouts on one CUDA card.
 
-    python3 scripts/time_trees.py TREE [TREE ...]
+    python3 scripts/time_trees.py [--cases ell|dense] TREE [TREE ...]
     python3 scripts/time_trees.py .proof/parent .
+    python3 scripts/time_trees.py --cases dense . .proof/variant
 
 Each TREE is a checkout (``git archive`` of a commit, unpacked under a
 gitignored directory, or a copy with one design choice changed). The
@@ -10,15 +11,25 @@ script builds every tree's CUDA kernels at once (one process a tree),
 then runs the trees in turn and again in reverse order (A B ... B A), one
 process each, so that a drift of the card over the run falls on every
 tree alike. A tree's process imports its own ``src/`` and times, through
-its wrappers' ``launch_*`` with the split library of grouped_tc.cu, #1
-slab_ell_matmul and #5 ell_lr_matmul at the main path's per-linear (N,
-K) and M 1, 4 and 8 (at M 1 also through the first design, ell.cu), and
-#12 ell_matmul_g / #13 ell_lr_matmul_g at deepseek-moe-16b's expert
-shapes (E 64, M 6); bf16, rank 1, synthetic planes from this checkout's
-chip_smoke.py, timed as chip_smoke.py times a kernel (CUDA events, L2
-flushed, a device sleep before each call), each result first held to its
-plain version at chip_smoke.TOL. One line per case: each tree's mean of
-its two runs, then the two runs.
+its wrappers' ``launch_*``:
+
+- ``ell`` (the default): with the split library of grouped_tc.cu, #1
+  slab_ell_matmul and #5 ell_lr_matmul at the main path's per-linear (N,
+  K) and M 1, 4 and 8 (at M 1 also through the first design, ell.cu),
+  and #12 ell_matmul_g / #13 ell_lr_matmul_g at deepseek-moe-16b's
+  expert shapes (E 64, M 6);
+- ``dense``: the DenseSrc kernels of grouped_tc.cu, #3 slab_matmul at
+  the per-linear (N, K) and M 1, 4 and 8, #16 slab_matmul_g at
+  phi3.5-moe's expert shapes (E 16, M 2) and #18 slab_lr_matmul_g at
+  deepseek-moe-16b's (E 64, M 6), with the first design of #3 and #16 at
+  M 4 / 2 and one torch.matmul / torch.bmm on W_S's bytes beside them
+  (the trees of this change and later);
+
+bf16, rank 1, synthetic planes from this checkout's chip_smoke.py, timed
+as chip_smoke.py times a kernel (CUDA events, L2 flushed, a device sleep
+before each call), each kernel's result first held to its plain version
+at chip_smoke.TOL. One line per case: each tree's mean of its two runs,
+then the two runs.
 """
 from __future__ import annotations
 
@@ -34,10 +45,65 @@ LIN_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008), (1024, 4096),
 LIN_M = (1, 4, 8)
 G_SHAPES = ((1408, 2048), (2048, 1408))
 G_E, G_M = 64, 6
+DENSE_SHAPES = LIN_SHAPES[:4]
+PHI_SHAPES = ((6400, 4096), (4096, 6400))
+PHI_E, PHI_M = 16, 2
 
 
-def _cases(torch, cs):
+def _dense_cases(torch, cs):
+    """(label, launch, plain) of the ``dense`` set; plain is None for a
+    library call."""
+    from repro_torch.kernels import grouped as g_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    bf16 = torch.bfloat16
+    for n, k in DENSE_SHAPES:
+        p = cs._planes(n, k, bf16, 1, gen)
+        u, v, b, ws = p["u"], p["v"], p["b"], p["dense"]
+        del p
+        for m in LIN_M:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            libs = [("", slab_k.SLAB_DENSE)]
+            if m == 4:
+                libs.append((" first design", slab_k.SLAB_DENSE_FIRST))
+                yield (f"torch.matmul ({n}, {k}) M {m}",
+                       lambda x=x: torch.matmul(x, ws.T), None)
+            for tag, kern in libs:
+                yield (f"#3{tag} ({n}, {k}) M {m}",
+                       lambda x=x, kern=kern: slab_k.launch_slab_dense(
+                           kern, x, ws, b, u, v),
+                       lambda x=x: slab_k.slab_matmul_plain(x, ws, b, u, v))
+    for n, k in PHI_SHAPES:
+        p = cs._g_planes(PHI_E, n, k, bf16, 1, gen, ("slab_matmul_g",))
+        x = torch.randn((PHI_E, PHI_M, k), generator=gen,
+                        device="cuda").to(bf16)
+        u, v, b, ws = p["u"], p["v"], p["b"], p["dense"]
+        del p
+        for tag, kern in (("", g_k.SLAB_G), (" first design",
+                                             g_k.SLAB_G_FIRST)):
+            yield (f"#16{tag} ({n}, {k}) E {PHI_E} M {PHI_M}",
+                   lambda kern=kern: g_k.launch_slab_g(kern, x, ws, b, u, v),
+                   lambda: g_k.slab_matmul_g_plain(x, ws, b, u, v))
+        w_t = ws.transpose(1, 2).contiguous()
+        yield (f"torch.bmm ({n}, {k}) E {PHI_E} M {PHI_M}",
+               lambda w_t=w_t: torch.bmm(x, w_t), None)
+    for n, k in G_SHAPES:
+        p = cs._g_planes(G_E, n, k, bf16, 1, gen, ("slab_lr_matmul_g",))
+        x = torch.randn((G_E, G_M, k), generator=gen,
+                        device="cuda").to(bf16)
+        u, v, ws = p["u"], p["v"], p["dense"]
+        del p
+        yield (f"#18 ({n}, {k}) E {G_E} M {G_M}",
+               lambda: g_k.launch_slab_lr_g(g_k.SLAB_LR_G, x, ws, u, v),
+               lambda: g_k.slab_lr_matmul_g_plain(x, ws, u, v))
+
+
+def _cases(torch, cs, which="ell"):
     """(label, launch, plain) of every case, operands made on the card."""
+    if which == "dense":
+        yield from _dense_cases(torch, cs)
+        return
     from repro_torch.kernels import ell as ell_k
     from repro_torch.kernels import grouped as g_k
     gen = torch.Generator(device="cuda")
@@ -83,7 +149,7 @@ def _cases(torch, cs):
         del p
 
 
-def worker(tree: Path, build_only: bool) -> int:
+def worker(tree: Path, build_only: bool, which: str) -> int:
     """In ``tree``: build its kernels, or time every case (one JSON object
     {label: ms} on the last line of standard output)."""
     sys.path.insert(0, str(tree / "src"))
@@ -99,18 +165,20 @@ def worker(tree: Path, build_only: bool) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     out = {}
-    for label, launch, plain in _cases(torch, cs):
-        got, want = launch().float(), plain().float()
-        rel = float((got - want).abs().max() / want.abs().max())
-        if not rel < cs.TOL[torch.bfloat16]:
-            raise AssertionError(f"{tree}: {label}: rel {rel}")
+    for label, launch, plain in _cases(torch, cs, which):
+        if plain is not None:
+            got, want = launch().float(), plain().float()
+            rel = float((got - want).abs().max() / want.abs().max())
+            if not rel < cs.TOL[torch.bfloat16]:
+                raise AssertionError(f"{tree}: {label}: rel {rel}")
+            del got, want
         out[label] = cs.time_ms(launch, flush, reps=30)
     print(json.dumps(out))
     return 0
 
 
-def _run(tree: Path, build_only: bool) -> subprocess.Popen:
-    cmd = [sys.executable, __file__, "--worker", str(tree)]
+def _run(tree: Path, build_only: bool, which: str) -> subprocess.Popen:
+    cmd = [sys.executable, __file__, "--worker", "--cases", which, str(tree)]
     if build_only:
         cmd.append("--build-only")
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
@@ -119,13 +187,15 @@ def _run(tree: Path, build_only: bool) -> subprocess.Popen:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts to time")
+    ap.add_argument("--cases", choices=("ell", "dense"), default="ell",
+                    help="which kernels to time (see above)")
     ap.add_argument("--worker", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(Path(args.trees[0]), args.build_only)
+        return worker(Path(args.trees[0]), args.build_only, args.cases)
     import torch
     if not torch.cuda.is_available():
         print("time_trees: torch.cuda.is_available() is false; this script "
@@ -136,13 +206,13 @@ def main() -> int:
         if not (t / "src" / "repro_torch").is_dir():
             print(f"time_trees: no src/repro_torch in {t}", file=sys.stderr)
             return 3
-    builds = [_run(t, True) for t in trees]
+    builds = [_run(t, True, args.cases) for t in trees]
     if any(p.wait() for p in builds):
         print("time_trees: a build failed", file=sys.stderr)
         return 1
     runs = {i: [] for i in range(len(trees))}
     for i in [*range(len(trees)), *reversed(range(len(trees)))]:
-        p = _run(trees[i], False)
+        p = _run(trees[i], False, args.cases)
         text, _ = p.communicate()
         if p.returncode:
             print(f"time_trees: {trees[i]} failed", file=sys.stderr)

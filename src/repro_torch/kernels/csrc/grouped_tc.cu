@@ -12,6 +12,8 @@
 //   ell_lr_matmul_g:      y[e] = x[e] · W_Sᵀ + (x[e] · Vᵀ) · U     (#13)
 //   slab_ell_matmul:      y = x · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ, ELL   (#1)
 //   ell_lr_matmul:        y = x · W_Sᵀ + (x · Vᵀ) · U, ELL         (#5)
+//   slab_matmul:          y = x · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ, dense (#3)
+//   slab_matmul_g:        the same for every expert e              (#16)
 //
 // Replace repro/kernels/grouped.py::slab_ell_matmul_g (_kernel_slab_ell_g,
 // pallas_call at grouped.py:142), ::slab_nm_lr_matmul_g
@@ -27,16 +29,19 @@
 // nm_matmul (_kernel, pallas_call at nm_sparse.py:54) and
 // repro/kernels/ell.py::slab_ell_matmul (_kernel_slab_ell, pallas_call at
 // ell.py:209) and ::ell_lr_matmul (_kernel_ell_lr, pallas_call at
-// ell.py:149) for bf16 operands.
+// ell.py:149), repro/kernels/slab_matmul.py::slab_matmul (_kernel_dense,
+// pallas_call at slab_matmul.py:77) and repro/kernels/grouped.py::
+// slab_matmul_g (_kernel_dense_g, pallas_call at grouped.py:242) for bf16
+// operands.
 // The first design (ell.cu, slab_matmul.cu, nm_sparse.cu) keeps the f32
 // launches, which hold 1e-5 without TF32, #19's, #17's, #8's, #7's and
-// #2's patterns other than 2:4 / 4:8, #17 and #2 at ranks whose x ⊙ v_r
-// tiles do not fit a block, #20 past rank 4, #12, #13 and #14 at 1-2
+// #2's patterns other than 2:4 / 4:8, #17, #2, #3 and #16 at ranks whose
+// x ⊙ v_r tiles do not fit a block, #20 past rank 4, #12, #13 and #14 at 1-2
 // rows per expert, where its 2-byte gathers are cheaper than these
 // kernels' 16-byte ones (grouped.TC_MIN_ROWS, grouped.ELL_TC_MIN_ROWS),
 // and #1 and #5 where x does not fit a block (their section below).
-// #14, #19, #18, #17, #20, #8, #7, #2 and #1's ±1 term use the tensor
-// cores; #12, #13 and #5, whose work is all gather, do not.
+// #14, #19, #18, #17, #20, #8, #7, #2, #3, #16 and #1's ±1 term use the
+// tensor cores; #12, #13 and #5, whose work is all gather, do not.
 //
 // #14 and #19's bound on the H100: bytes. At the MoE decode shapes (1-32
 // rows per expert) each expert is a skinny GEMM: the E experts' planes (ELL vals +
@@ -91,6 +96,8 @@
 //  - The first design's L2 prefetch of each warp's planes is gone: builds
 //    with it ran slower (the demand loads are already whole 128-byte
 //    lines, issued ahead).
+#include <cuda.h>
+
 #include <type_traits>
 
 #include "slab_common.cuh"
@@ -99,7 +106,6 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 using slab::aligned16;
-using slab::bulk_copy;
 using slab::mbar_expect;
 using slab::mbar_init;
 using slab::mbar_wait;
@@ -551,10 +557,10 @@ extern "C" int slab_ell_matmul_g(int dtype, int idx_bytes, const void* x,
 
 namespace tc {
 
-// ------------------------------------ #19, #18, #2, #17, #20, #8, #7
+// -------------------------- #19, #18, #2, #17, #20, #8, #7, #3, #16
 //
-// One body, tc_kernel, serves seven kernels whose weight rows meet x on
-// the tensor cores in one k order:
+// One body, tc_body, serves nine kernels whose weight rows meet x on the
+// tensor cores in one k order:
 //
 //   slab_nm_lr_matmul_g  y[e] = x[e] · W_S[e]ᵀ + (x[e] · V[e]ᵀ) · U[e],
 //                        W_S in N:M form                             (#19)
@@ -565,6 +571,9 @@ namespace tc {
 //   binlr_matmul_g       y[e] = Σ_r u_r ⊙ (B[e] · (x[e] ⊙ v_r)ᵀ)     (#20)
 //   nm_matmul            y = x · W_Sᵀ, W_S in N:M form               (#8)
 //   slab_nm_lr_matmul    y = x · W_Sᵀ + (x · Vᵀ) · U, N:M: #19 at E 1 (#7)
+//   slab_matmul          y = x · W_Sᵀ + Σ_r u_r ⊙ (B · (x ⊙ v_r)ᵀ),
+//                        W_S dense                                   (#3)
+//   slab_matmul_g        #3 for every expert e                       (#16)
 //
 // #18 replaces repro/kernels/grouped.py::slab_lr_matmul_g
 // (_kernel_dense_lr_g, pallas_call at grouped.py:348), #2
@@ -574,7 +583,10 @@ namespace tc {
 // ::binlr_matmul_g (_kernel_binlr_g, pallas_call at grouped.py:450), #8
 // repro/kernels/nm_sparse.py::nm_matmul (_kernel, pallas_call at
 // nm_sparse.py:54) and #7 repro/kernels/slab_matmul.py::slab_nm_lr_matmul
-// (_kernel_nm_lr, pallas_call at slab_matmul.py:247), for bf16 operands
+// (_kernel_nm_lr, pallas_call at slab_matmul.py:247), #3
+// repro/kernels/slab_matmul.py::slab_matmul (_kernel_dense, pallas_call
+// at slab_matmul.py:77) and #16 repro/kernels/grouped.py::slab_matmul_g
+// (_kernel_dense_g, pallas_call at grouped.py:242), for bf16 operands
 // (#2, #17, #8 and #7 at 2:4 and 4:8); their f32 launches and the other
 // patterns keep the first design (slab_matmul.cu, nm_sparse.cu), which
 // holds 1e-5 without TF32.
@@ -592,20 +604,21 @@ namespace tc {
 //    position load a row; 2:4 is decoded by byte permutes, 4:8 by
 //    comparisons. A position outside [0, m) matches no column and
 //    contributes 0.
-//  - DenseSrc (#18): its bound is the dense expert stack's bytes, what
-//    one torch.bmm streams, so the design is the stream. Each warp's 16
-//    rows of a chunk arrive by one bulk copy a row (cp.async.bulk on an
-//    mbarrier: the tensor memory accelerator, no per-lane address work)
-//    into a ring of stages of its own, every stage in flight while the
-//    warp works from registers, and the ring is sized so that two blocks
-//    share an SM (one block's start, x staged and projected, overlaps the
-//    other's stream). A row of a stage is 272 bytes (16 past 256), so the
-//    two rows a quarter-warp reads fall in different banks; within a row
-//    lanes q and q + 2 share a bank group (a 2-way conflict on the A
-//    loads, once a chunk).
+//  - DenseSrc (#18, #3, #16): its bound is the dense rows' bytes (#3 and
+//    #16 add K/8 bytes of sign words a row, 1.0625x what one
+//    torch.matmul or torch.bmm streams), so the design is the stream.
+//    Each warp's 16 rows of a chunk arrive by two 2-D copies of a tensor
+//    map (cp.async.bulk.tensor on an mbarrier: the tensor memory
+//    accelerator, no per-lane address work; 16 rows x 64 columns each,
+//    the 128-byte swizzle) into a ring of stages of its own, every stage
+//    in flight while the warp works from registers, and the ring is sized
+//    so that two blocks share an SM (one block's start, x staged and
+//    projected, overlaps the other's stream). The swizzle puts the two
+//    rows a quarter-warp reads in different bank groups; lanes q and q +
+//    2 share one (a 2-way conflict on the A loads, once a chunk).
 //  - NoSrc (#20): no W_S, so no A and no mma for it, and no x tile.
-// #2, #17 and #20 add the ±1 term to the same accumulator as one more mma
-// a rank and step (#8 and #7 have none): A is ±u_r from the sign bits
+// #2, #17, #3, #16 and #20 add the ±1 term to the same accumulator as one
+// more mma a rank and step (#8 and #7 have none): A is ±u_r from the sign bits
 // (sign word 4c + q of a row holds exactly lane q's 32 columns of chunk
 // c: bits 4s .. 4s + 3 are step s's), B is bf16(x ⊙ v_r), rounded as the reference rounds it and
 // staged once a block beside x from the same loads (forming it from the
@@ -616,10 +629,14 @@ namespace tc {
 // 31, which flip the sign bits of ±u_r's two halves. #20 decodes A = ±1
 // once a step for all its ranks (at most kMaxR), one accumulator each,
 // and scales them by u_r after the sum (accum_binlr_terms' order). The
-// per-linear shapes of #2, #8 and #7 give few blocks of 128 rows ((4096,
-// 4096): 32 for 132 SMs; (1024, 4096): 8), so K is split across blocks
-// from the shapes alone (kernels/slab_matmul.py::plan_nm_splits, which
-// counts every expert's row tiles): each block stages only its columns of x and x ⊙ v_r (the
+// per-linear shapes of #2, #8, #7 and #3 give few blocks of 128 rows
+// ((4096, 4096): 32 for 132 SMs; (1024, 4096): 8), so K is split across
+// blocks from the shapes alone (kernels/slab_matmul.py::plan_nm_splits,
+// which counts every expert's row tiles; #3 and #16 by
+// ::plan_dense_splits, one wave of two blocks an SM where the runs may be
+// that wide, the runs no wider than two blocks' shared memory with
+// DenseSrc's 2-stage ring allows, ::dense_split_cap: 11 chunks at rank 1,
+// so #16's 800 row tiles split only to fit): each block stages only its columns of x and x ⊙ v_r (the
 // tiles stay small at any K) and writes fp32 partial sums (splits, E, M,
 // N), and the last block of an expert's row tiles (counted by an atomic
 // ticket of that expert and block column) adds them in split order, so
@@ -629,9 +646,9 @@ namespace tc {
 // block columns, M, R) after the partial sums) in place of adding it;
 // the last block sums the partial projections in split order too and
 // adds Σ_r p[m, r]·u_r[n] to the sum of the partial sums before the one
-// rounding (the reference's acc + acc_p·u). #2, #17, #20, #8 and #7 cap
-// their registers so that two blocks share an SM; #19 and #18 run one
-// split.
+// rounding (the reference's acc + acc_p·u). #2, #17, #20, #8, #7, #3 and
+// #16 cap their registers so that two blocks share an SM; #19 and #18 run
+// one split.
 // #20 streams only K/8 bytes of sign words a row (256 B at K 2048), less
 // than a block's staging reads and writes (x and x ⊙ v_r): so its blocks
 // walk several consecutive row tiles of their expert after staging once
@@ -643,7 +660,10 @@ namespace tc {
 // shared-memory ring (bulk copies or cp.async, 3-4 stages) lost to the
 // registers at every shape; #18's ring by cp.async lost to the bulk
 // copies, and with one block an SM and 4 stages it lost to two blocks
-// and 2 stages. For #20: 3 blocks an SM (registers capped at 85) spilled
+// and 2 stages; one 1-D bulk copy a row (rows padded to 272 bytes in
+// place of the swizzle) lost to the two tensor-map boxes by 4-6 % on
+// #16, #18 and #3; splits cut for two blocks an SM whatever the waves
+// (plan_nm_splits) lost 10-12 % to one wave at #3's MLP shapes. For #20: 3 blocks an SM (registers capped at 85) spilled
 // and lost; sign words 4, 8 or 16 chunks ahead, two accumulators a row
 // pair and an L2 prefetch instruction a few chunks ahead did not help
 // (the last cost #17 and #19 8-30 %); a build whose A took one
@@ -666,7 +686,7 @@ __device__ __forceinline__ int xr_elem(int k) {
 
 // Stage batch rows m0 .. m0 + 8·ntp - 1 of x (rows ldx apart; zero rows
 // past M, zero columns from kw to Kp) with 16-byte stores (none with xr
-// null: #20 reads no x tile); with xv (#2, #17, #20) also bf16(x ⊙ v_r)
+// null: #20 reads no x tile); with xv (BIN) also bf16(x ⊙ v_r)
 // for each of the R ranks (v_r: R rows ldx apart from v) as tiles of the
 // same layout from xv + r·8·ntp·sx, from the same loads of x.
 __device__ __forceinline__ void stage_rows(bf16* xr, const bf16* __restrict__ x,
@@ -833,7 +853,7 @@ struct TcArgs {
   const bf16* x;          // (E, M, K)
   const bf16* w;          // vals (E·N, K/m·n) or the dense W_S (E·N, K)
   const int8_t* idx;      // N:M positions, as vals
-  const uint32_t* bp;     // #2, #17, #20: sign words (E, N, K/32)
+  const uint32_t* bp;     // BIN: sign words (E, N, K/32)
   const bf16* u;          // (E, R, N)
   const bf16* v;          // (E, R, K)
   bf16* y;                // (E, M, N)
@@ -869,7 +889,7 @@ __device__ __forceinline__ float* proj_part(const TcArgs& a, size_t ex) {
 template <int NK, int MG>
 struct NmSrc {
   static constexpr bool kA = true, kRing = false;
-  static constexpr int kStage = 0, kBlocks = 1;
+  static constexpr int kStage = 0, kBlocks = 1, kAlign = 0;
   const bf16* vals;
   const int8_t* idx;
   size_t ba, bb;          // first entries of rows g and g + 8
@@ -877,8 +897,8 @@ struct NmSrc {
   bool vec, wide;
   NmRaw na, nb;           // the next chunk's entries
 
-  __device__ __forceinline__ void init(const TcArgs& a, unsigned char*,
-                                       uint64_t*, int lane) {
+  __device__ __forceinline__ void init(const TcArgs& a, const CUtensorMap*,
+                                       unsigned char*, uint64_t*, int lane) {
     vals = a.w;
     idx = a.idx;
     K = a.K;
@@ -909,24 +929,43 @@ struct NmSrc {
   }
 };
 
-// A from dense rows: each warp's ring of stages in shared memory, one
-// bulk copy a row and chunk (lanes 0-15 copy rows row0 .. row0 + 15; rows
-// past N the last row, whose results are not stored). A row of a stage
-// is 272 bytes (16 past 256), so the two rows a quarter-warp reads fall
-// in different banks.
+// One box of 16 rows x 64 columns of a tensor map (cp.async.bulk.tensor,
+// the 128-byte swizzle) into shared memory, counted on the mbarrier `bar`.
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map,
+                                         int col, int row, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          slab::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+      "r"(slab::smem_u32(bar))
+      : "memory");
+}
+
+// A from dense rows: each warp's ring of stages in shared memory. Lane 0
+// copies a chunk of the warp's 16 rows as two boxes of the launch's
+// tensor map (columns c .. c + 63 and c + 64 .. c + 127; rows past the
+// plane and columns past K arrive as zeros, the second box is skipped
+// past K), so a stage is two halves of 16 rows of 128 bytes whose 16-byte
+// unit u of row r sits at u ^ (r % 8): the two rows a quarter-warp reads
+// fall in different bank groups. The ring starts on a 1024-byte boundary
+// (the swizzle's span).
 struct DenseSrc {
   static constexpr bool kA = true, kRing = true;
-  static constexpr int kRow = 272;
-  static constexpr int kStage = 16 * kRow;
+  static constexpr int kHalf = 16 * 128;      // 16 rows of 64 columns
+  static constexpr int kStage = 2 * kHalf;
   static constexpr int kBlocks = 2;           // blocks an SM (shared memory)
-  const bf16* row;        // lane < 16: its row of W_S
+  static constexpr int kAlign = 1024;
+  const CUtensorMap* map;
   unsigned char* ring;    // this warp's stages
   uint64_t* bars;         // and their mbarriers
-  int K, stages, lane;
+  int K, stages, lane, row;  // row: the warp's first row in the map
   uint32_t issued, used;  // chunks copied / read, over every pass and tile
 
-  __device__ __forceinline__ void init(const TcArgs& a, unsigned char* r,
-                                       uint64_t* b, int l) {
+  __device__ __forceinline__ void init(const TcArgs& a, const CUtensorMap* m,
+                                       unsigned char* r, uint64_t* b,
+                                       int l) {
+    map = m;
     ring = r;
     bars = b;
     K = a.K;
@@ -937,33 +976,39 @@ struct DenseSrc {
   // the warp's 16 rows from row0 of expert ex
   __device__ __forceinline__ void at(const TcArgs& a, size_t ex, int row0,
                                      int, int) {
-    row = a.w + (ex * a.N + min(row0 + (lane & 15), a.N - 1)) * (size_t)a.K;
+    row = (int)(ex * a.N) + row0;
   }
   __device__ __forceinline__ void issue(int c) {
     const int st = issued % stages;
-    const uint32_t bytes = (uint32_t)min(128, K - c) * 2u;
-    if (lane == 0) mbar_expect(&bars[st], 16u * bytes);
-    if (lane < 16)
-      bulk_copy(ring + st * kStage + lane * kRow, row + c, bytes, &bars[st]);
+    if (lane == 0) {
+      const bool two = c + 64 < K;
+      mbar_expect(&bars[st], two ? 2u * kHalf : (uint32_t)kHalf);
+      tma_rows(ring + st * kStage, map, c, row, &bars[st]);
+      if (two)
+        tma_rows(ring + st * kStage + kHalf, map, c + 64, row, &bars[st]);
+    }
     ++issued;
   }
   __device__ __forceinline__ void begin(int c0, int c1) {
     for (int i = 0; i < stages && c0 + 128 * i < c1; ++i) issue(c0 + 128 * i);
   }
   // chunk c's A words from its stage (zero past K); the stage then takes
-  // the chunk `stages` ahead
+  // the chunk `stages` ahead. Lane q's 32 columns are units 4(q & 1) ..
+  // 4(q & 1) + 3 of half q >> 1.
   __device__ __forceinline__ void next(int c, int c1, uint32_t (&aa)[16],
                                        uint32_t (&ab)[16]) {
     const int st = used % stages;
     mbar_wait(&bars[st], (used / stages) & 1u);
     const int g = lane >> 2, q = lane & 3;
-    const unsigned char* pa = ring + st * kStage + g * kRow + 64 * q;
-    const unsigned char* pb = pa + 8 * kRow;
+    const unsigned char* pa =
+        ring + st * kStage + (q >> 1) * kHalf + g * 128;
+    const unsigned char* pb = pa + 8 * 128;
     const int left = K - c - 32 * q;        // this lane's columns left
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      uint4 wa = *reinterpret_cast<const uint4*>(pa + 16 * j);
-      uint4 wb = *reinterpret_cast<const uint4*>(pb + 16 * j);
+      const int at = ((4 * (q & 1) + j) ^ g) * 16;
+      uint4 wa = *reinterpret_cast<const uint4*>(pa + at);
+      uint4 wb = *reinterpret_cast<const uint4*>(pb + at);
       if (8 * j >= left) wa = wb = make_uint4(0, 0, 0, 0);
       aa[4 * j] = wa.x; aa[4 * j + 1] = wa.y;
       aa[4 * j + 2] = wa.z; aa[4 * j + 3] = wa.w;
@@ -971,6 +1016,10 @@ struct DenseSrc {
       ab[4 * j + 2] = wb.z; ab[4 * j + 3] = wb.w;
     }
     __syncwarp();                         // every lane has read the stage
+    // ... and those generic-proxy reads come before the async proxy's
+    // copy into it (without the fence #18's results went wrong now and
+    // then on an H100)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     if (c + 128 * stages < c1) issue(c + 128 * stages);
     ++used;
   }
@@ -980,9 +1029,9 @@ struct DenseSrc {
 // mma and the x tile.
 struct NoSrc {
   static constexpr bool kA = false, kRing = false;
-  static constexpr int kStage = 0, kBlocks = 1;
-  __device__ __forceinline__ void init(const TcArgs&, unsigned char*,
-                                       uint64_t*, int) {}
+  static constexpr int kStage = 0, kBlocks = 1, kAlign = 0;
+  __device__ __forceinline__ void init(const TcArgs&, const CUtensorMap*,
+                                       unsigned char*, uint64_t*, int) {}
   __device__ __forceinline__ void at(const TcArgs&, size_t, int, int, int) {}
   __device__ __forceinline__ void begin(int, int) {}
   __device__ __forceinline__ void next(int, int, uint32_t (&)[16],
@@ -1060,12 +1109,14 @@ __device__ __forceinline__ void bin_chunk(float (&c)[4], uint32_t ua,
 }
 
 // LR: the low-rank projection and its epilogue term (#19, #18, #7). BIN:
-// the ±1 term (#2, #17, #20). SPLIT: K may be split over gridDim.z (#2,
-// #17, #20, #8, #7); without it (tc_kernel: #19, #18, one split) the
-// split's stores and reduction are not compiled.
+// the ±1 term (#2, #17, #20, #3, #16). SPLIT: K may be split over
+// gridDim.z (#2, #17, #20, #8, #7, #3, #16); without it (tc_kernel: #19,
+// #18, one split) the split's stores and reduction are not compiled.
+// `map`: DenseSrc's tensor map, a kernel parameter.
 template <class Src, int NTP, bool LR, bool BIN, bool SPLIT = true>
-__device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
-                                        int& last_split) {
+__device__ __forceinline__ void tc_body(const TcArgs& a,
+                                        const CUtensorMap* map,
+                                        uint64_t* bars, int& last_split) {
   constexpr int MT = 8 * NTP;                 // batch rows per pass
   constexpr bool kX = Src::kA || LR;          // the x tile is read
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1090,13 +1141,15 @@ __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
   unsigned char* ring = reinterpret_cast<unsigned char*>(p) +
       (LR ? slab::align16_up((size_t)(kWarps + 1) * R * MT * sizeof(float))
           : 0);
+  if constexpr (Src::kAlign > 0)         // on the boundary, in the window
+    ring += (Src::kAlign - slab::smem_u32(ring) % Src::kAlign) % Src::kAlign;
   const bf16* x = a.x + ex * M * K;
   bf16* y = a.y + ex * M * N;
   const bf16* u = a.u + ex * R * N;
   const bf16* v = a.v + ex * R * K;
 
   Src src;
-  src.init(a, ring + (size_t)warp * a.stages * Src::kStage,
+  src.init(a, map, ring + (size_t)warp * a.stages * Src::kStage,
            bars + warp * kRingStages, lane);
   if (Src::kRing) {                  // each warp's own ring, used at once
     if (lane < a.stages) mbar_init(&bars[warp * kRingStages + lane]);
@@ -1377,47 +1430,49 @@ __device__ __forceinline__ void tc_body(const TcArgs& a, uint64_t* bars,
   }
 }
 
-// #19 and #18 (LR); #2 (BIN), whose registers are capped at one n-tile
-// (the decode step's M <= 8) so that kBinMinBlocks blocks share an SM
-// (wider tiles would spill under the cap; #20's NoSrc spilled at 3); #17
-// and #20 (BIN on experts), and #8 and #7 (NmSrc per linear, no ±1 term,
-// K split), the same under names of their own, so that a profile tells
-// them from #2 and #19.
+// #19 and #18 (LR); #2 and #3 (BIN), whose registers are capped at one
+// n-tile (the decode step's M <= 8) so that kBinMinBlocks blocks share an
+// SM (wider tiles would spill under the cap; #20's NoSrc spilled at 3);
+// #17, #20 and #16 (BIN on experts), and #8 and #7 (NmSrc per linear, no
+// ±1 term, K split), the same under names of their own, so that a
+// profile tells them from #2 and #19.
 constexpr int kBinMinBlocks = 2;
 
 template <class Src, int NTP, bool LR, bool BIN>
-__global__ void __launch_bounds__(kWarps * 32) tc_kernel(const TcArgs a) {
+__global__ void __launch_bounds__(kWarps * 32)
+    tc_kernel(const TcArgs a, const __grid_constant__ CUtensorMap map) {
   __shared__ __align__(8) uint64_t bars[Src::kRing ? kWarps * kRingStages : 1];
   __shared__ int last_split;
-  tc_body<Src, NTP, LR, BIN, false>(a, bars, last_split);   // one split
+  tc_body<Src, NTP, LR, BIN, false>(a, &map, bars, last_split);  // 1 split
 }
 
 template <class Src, int NTP, bool LR, bool BIN>
 __global__ void __launch_bounds__(kWarps * 32, NTP == 1 ? kBinMinBlocks : 1)
-    tc_bin_kernel(const TcArgs a) {
+    tc_bin_kernel(const TcArgs a, const __grid_constant__ CUtensorMap map) {
   __shared__ __align__(8) uint64_t bars[Src::kRing ? kWarps * kRingStages : 1];
   __shared__ int last_split;
-  tc_body<Src, NTP, LR, BIN>(a, bars, last_split);
+  tc_body<Src, NTP, LR, BIN>(a, &map, bars, last_split);
 }
 
 template <class Src, int NTP, bool LR, bool BIN>
 __global__ void __launch_bounds__(kWarps * 32, NTP == 1 ? kBinMinBlocks : 1)
-    tc_g_kernel(const TcArgs a) {
+    tc_g_kernel(const TcArgs a, const __grid_constant__ CUtensorMap map) {
   __shared__ __align__(8) uint64_t bars[Src::kRing ? kWarps * kRingStages : 1];
   __shared__ int last_split;
-  tc_body<Src, NTP, LR, BIN>(a, bars, last_split);
+  tc_body<Src, NTP, LR, BIN>(a, &map, bars, last_split);
 }
 
 template <class Src, int NTP, bool LR, bool BIN>
 __global__ void __launch_bounds__(kWarps * 32, NTP == 1 ? kBinMinBlocks : 1)
-    tc_nm_kernel(const TcArgs a) {
+    tc_nm_kernel(const TcArgs a, const __grid_constant__ CUtensorMap map) {
   __shared__ __align__(8) uint64_t bars[Src::kRing ? kWarps * kRingStages : 1];
   __shared__ int last_split;
-  tc_body<Src, NTP, LR, BIN>(a, bars, last_split);
+  tc_body<Src, NTP, LR, BIN>(a, &map, bars, last_split);
 }
 
 // The __global__ name a launch runs under: tc_kernel (#19, #18),
-// tc_bin_kernel (#2), tc_g_kernel (#17, #20), tc_nm_kernel (#8, #7).
+// tc_bin_kernel (#2, #3), tc_g_kernel (#17, #20, #16), tc_nm_kernel (#8,
+// #7).
 enum class Entry { kTc, kBin, kG, kNm };
 
 // The batch tiles per pass and ring stages of a launch: the most n-tiles
@@ -1449,7 +1504,7 @@ inline int pick_tc(int M, int kw, int R, int tpb, int* stages,
             (LR ? slab::align16_up((size_t)(kWarps + 1) * R * 8 * ntp *
                                    sizeof(float))
                 : 0) +
-            (size_t)st * kWarps * Src::kStage;
+            (size_t)st * kWarps * Src::kStage + Src::kAlign;
         if (bytes <= limit) {
           *stages = st;
           *smem = bytes;
@@ -1461,9 +1516,41 @@ inline int pick_tc(int M, int kw, int R, int tpb, int* stages,
   return 0;
 }
 
+// The tensor map of DenseSrc's rows: the (rows, K) bf16 plane in boxes of
+// 16 rows x 64 columns, the 128-byte swizzle, zeros past the plane.
+// cuTensorMapEncodeTiled comes through the runtime's driver entry point,
+// so the library links no libcuda.
+inline int encode_rows(CUtensorMap* map, const void* w, int rows, int K) {
+  using Encode = decltype(&cuTensorMapEncodeTiled);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, 16}, elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <class Src, bool LR, bool BIN,
           Entry kEntry = BIN ? Entry::kBin : Entry::kTc>
 static int launch_tc(TcArgs a, int E, int n_split, void* stream) {
+  CUtensorMap map{};
+  if constexpr (Src::kRing) {
+    const int e = encode_rows(&map, a.w, E * a.N, a.K);
+    if (e) return e;
+  }
   size_t smem = 0;
   const int ntp = pick_tc<Src, LR, BIN>(a.M, min(a.K, a.cps * 128), a.R,
                                         a.tpb, &a.stages, &smem);
@@ -1481,7 +1568,7 @@ static int launch_tc(TcArgs a, int E, int n_split, void* stream) {
     }();
     cudaError_t e = slab::prepare(kern, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(a);
+    kern<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(a, map);
   });
   return (int)cudaGetLastError();
 }
@@ -1533,9 +1620,10 @@ extern "C" int slab_lr_matmul_g(int dtype, const void* x, const void* ws,
 
 namespace tc {
 
-// The split plan of #2, #17 and #20 (kernels/slab_matmul.py::plan_nm_splits
-// and ::plan_tiles_per_block): n_split runs of cps chunks cover K, the
-// last one not empty, and a split has its scratch.
+// The split plan of #2, #17, #20, #3 and #16
+// (kernels/slab_matmul.py::plan_nm_splits, ::plan_dense_splits and
+// ::plan_tiles_per_block): n_split runs of cps chunks cover K, the last
+// one not empty, and a split has its scratch.
 inline bool split_ok(int K, int n_split, int cps, int tpb, const void* part,
                      const void* tickets) {
   return n_split > 0 && cps > 0 && tpb > 0 &&
@@ -1689,6 +1777,63 @@ extern "C" int binlr_matmul_g(int dtype, const void* x, const void* bp,
                (float*)part, (int*)tickets, M, N, K, R, cps, 0, tpb};
   return tc::launch_tc<tc::NoSrc, false, true, tc::Entry::kG>(a, E, n_split,
                                                               stream);
+}
+
+namespace tc {
+
+// #3 and #16: DenseSrc's ring of dense W_S rows plus the ±1 term, K split
+// as #2's and #17's; #3 runs as tc_bin_kernel (#2's entry), #16 as
+// tc_g_kernel (#17's), so that a profile tells them apart by entry and
+// source.
+template <Entry kEntry>
+inline int launch_slab_dense(const void* x, const void* ws, const void* bp,
+                             const void* u, const void* v, void* y,
+                             void* part, void* tickets, int E, int M, int N,
+                             int K, int R, int n_split, int cps,
+                             void* stream) {
+  if (E <= 0 || E > slab::kMaxExperts || M <= 0 || N <= 0 || K <= 0 ||
+      K % 32 || R <= 0 || !split_ok(K, n_split, cps, 1, part, tickets))
+    return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(ws) || !slab::aligned16(bp))
+    return (int)cudaErrorMisalignedAddress;
+  TcArgs a{(const bf16*)x, (const bf16*)ws, nullptr, (const uint32_t*)bp,
+           (const bf16*)u, (const bf16*)v, (bf16*)y, (float*)part,
+           (int*)tickets, M, N, K, R, cps, 0, 1};
+  return launch_tc<DenseSrc, false, true, kEntry>(a, E, n_split, stream);
+}
+
+}  // namespace tc
+
+// #3: dtype must be 1 (bfloat16) and K a multiple of 32 (sign words; the
+// dense rows then start on 16-byte boundaries for the bulk copies): other
+// launches go to slab_matmul.cu's kernel. x (M, K), ws (N, K), bp (N,
+// K/32), u (R, N), v (R, K), y (M, N); K split into n_split runs of cps
+// chunks (kernels/slab_matmul.py::dense_split_cap keeps a run's tiles and
+// a 2-stage ring within two blocks an SM), with n_split > 1 part
+// (n_split, M, N) fp32 scratch and tickets (⌈N/128⌉ ints, zero; zero
+// again after the launch). Launches on ``stream``, allocates nothing,
+// returns cudaGetLastError().
+extern "C" int slab_matmul(int dtype, const void* x, const void* ws,
+                           const void* bp, const void* u, const void* v,
+                           void* y, void* part, void* tickets, int M, int N,
+                           int K, int R, int n_split, int cps,
+                           void* stream) {
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return tc::launch_slab_dense<tc::Entry::kBin>(
+      x, ws, bp, u, v, y, part, tickets, 1, M, N, K, R, n_split, cps, stream);
+}
+
+// #16, #3 for every expert of a bucket: as slab_matmul with x (E, M, K),
+// ws (E, N, K), bp (E, N, K/32), u (E, R, N), v (E, R, K), y (E, M, N),
+// part (n_split, E, M, N) and tickets E·⌈N/128⌉.
+extern "C" int slab_matmul_g(int dtype, const void* x, const void* ws,
+                             const void* bp, const void* u, const void* v,
+                             void* y, void* part, void* tickets, int E,
+                             int M, int N, int K, int R, int n_split,
+                             int cps, void* stream) {
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return tc::launch_slab_dense<tc::Entry::kG>(
+      x, ws, bp, u, v, y, part, tickets, E, M, N, K, R, n_split, cps, stream);
 }
 
 namespace tc {

@@ -9,7 +9,9 @@ what its per-linear counterpart computes on x[e] and expert e's planes:
     slab_ell_matmul_g    #1 per expert  (csrc/grouped_tc.cu; f32 and 1-2
                                          rows per expert: ell.cu)
     nm_matmul_g          #8 per expert  (csrc/nm_sparse.cu)
-    slab_matmul_g        #3 per expert  (csrc/slab_matmul.cu)
+    slab_matmul_g        #3 per expert  (csrc/grouped_tc.cu; f32 and
+                                         ranks whose tiles do not fit:
+                                         slab_matmul.cu)
     slab_nm_matmul_g     #2 per expert  (csrc/grouped_tc.cu; f32,
                                          patterns other than 2:4 / 4:8
                                          and ranks whose tiles do not
@@ -28,13 +30,13 @@ one. A CUDA kernel here is launched once for the whole bucket with the
 expert as the grid's y dimension, never E launches: its per-linear
 kernel, or for the bf16 ell_matmul_g, ell_lr_matmul_g,
 slab_ell_matmul_g, slab_nm_lr_matmul_g, slab_lr_matmul_g,
-slab_nm_matmul_g and binlr_matmul_g a kernel of its own redesigned for
-Hopper (``csrc/grouped_tc.cu``: 128 output rows a block, x staged once
-per 8-32 batch rows, the last five on the tensor cores,
-slab_lr_matmul_g's dense rows streamed by bulk copies, slab_nm_matmul_g
-and binlr_matmul_g with K split across blocks and binlr_matmul_g's
-blocks walking several row tiles: ``slab_matmul.tc_plan``); those seven
-keep their first design (same C symbol in ``ell.cu`` /
+slab_matmul_g, slab_nm_matmul_g and binlr_matmul_g a kernel of its own
+redesigned for Hopper (``csrc/grouped_tc.cu``: 128 output rows a block,
+x staged once per 8-32 batch rows, the last six on the tensor cores,
+slab_lr_matmul_g's and slab_matmul_g's dense rows streamed by bulk
+copies, slab_matmul_g, slab_nm_matmul_g and binlr_matmul_g with K split
+across blocks and binlr_matmul_g's blocks walking several row tiles:
+``slab_matmul.tc_plan``); those eight keep their first design (same C symbol in ``ell.cu`` /
 ``slab_matmul.cu``) for the launches the new kernel does not take, and
 count each library's launches apart. Operands use the kernel layout
 with a leading expert dim: x (E, M, K), u (E, R, N), v (E, R, K),
@@ -64,9 +66,12 @@ SLAB_ELL_G_FIRST = build.CudaKernel("slab_ell_matmul_g", "ell.cu",
 NM_G = build.CudaKernel(
     "nm_matmul_g", "nm_sparse.cu",
     "src/repro/kernels/grouped.py:183 (nm_matmul_g, pallas_call :195)")
-SLAB_G = build.CudaKernel(
-    "slab_matmul_g", "slab_matmul.cu",
-    "src/repro/kernels/grouped.py:230 (slab_matmul_g, pallas_call :242)")
+_SLAB_G_TPU = ("src/repro/kernels/grouped.py:230 (slab_matmul_g, "
+               "pallas_call :242)")
+SLAB_G = build.CudaKernel("slab_matmul_g", "grouped_tc.cu", _SLAB_G_TPU)
+SLAB_G_FIRST = build.CudaKernel("slab_matmul_g", "slab_matmul.cu",
+                                _SLAB_G_TPU,
+                                key="slab_matmul_g@slab_matmul.cu")
 _SLAB_NM_G_TPU = ("src/repro/kernels/grouped.py:280 (slab_nm_matmul_g, "
                   "pallas_call :297)")
 SLAB_NM_G = build.CudaKernel("slab_nm_matmul_g", "grouped_tc.cu",
@@ -123,8 +128,8 @@ ELL_TC_SMEM = slab_k.TC_SMEM
 # The bf16 slab_lr_matmul_g runs grouped_tc.cu's kernel from
 # LR_TC_MIN_ROWS rows per expert (chip_smoke.py's M sweep through each
 # library on deepseek-moe-16b's planes, PERF.md) where K is a multiple of
-# 8 (its rows arrive by 16-byte bulk copies) and its smallest tile fits
-# an H100 block (lr_tc_smem).
+# 8 (its rows, 16-byte aligned, are a tensor map's) and its smallest tile
+# fits an H100 block (lr_tc_smem).
 LR_TC_MIN_ROWS = 1
 # The bf16 slab_nm_matmul_g (2:4 / 4:8) and binlr_matmul_g run
 # grouped_tc.cu's ±1 body from these many rows per expert (chip_smoke.py's
@@ -133,6 +138,10 @@ LR_TC_MIN_ROWS = 1
 # binlr_tc_smem).
 SLAB_NM_G_TC_MIN_ROWS = 1
 BINLR_G_TC_MIN_ROWS = 1
+# ... and the bf16 slab_matmul_g from SLAB_G_TC_MIN_ROWS rows per expert
+# where a run of one chunk fits two blocks an SM
+# (slab_matmul.dense_split_cap)
+SLAB_G_TC_MIN_ROWS = 1
 # grouped_tc.cu's binlr_matmul_g keeps one fp32 accumulator a rank in
 # registers (tc::kMaxR): higher ranks run the first design.
 BINLR_G_TC_MAX_RANK = 4
@@ -153,10 +162,11 @@ def lr_tc_smem(k: int, r: int) -> int:
     launch (tc::pick_tc): one tile of 8 batch rows of x at K rounded up to
     128 plus 8 columns of 2 bytes, the projection sums of rank ``r`` and
     the 8 warps' partial sums in fp32, and a ring of 2 stages of 16 rows
-    of 272 bytes for each of the 8 warps."""
+    of 256 bytes for each of the 8 warps, aligned for the tensor map's
+    swizzle (slab_matmul.DENSE_RING)."""
     kp = -(-k // 128) * 128
     sums = -(-(8 + 1) * r * 8 * 4 // 16) * 16
-    return 8 * (kp + 8) * 2 + sums + 2 * 8 * 16 * 272
+    return 8 * (kp + 8) * 2 + sums + slab_k.DENSE_RING
 
 
 _P = ctypes.c_void_p
@@ -177,6 +187,8 @@ _BINLR_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 # binlr_matmul_g also the row tiles a block walks)
 _SLAB_NM_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _P]
+_SLAB_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 _I, _P]
 _BINLR_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   _I, _P]
 
@@ -308,21 +320,49 @@ def slab_matmul_g_plain(x, w_s, b_packed, u, v) -> torch.Tensor:
     return _per_expert(slab_k.slab_matmul_plain, x, w_s, b_packed, u, v)
 
 
+def slab_g_kernel(dtype, m: int, r: int = 1) -> build.CudaKernel:
+    """The library a launch at ``m`` rows per expert and rank ``r`` runs:
+    grouped_tc.cu for bf16 from SLAB_G_TC_MIN_ROWS rows where a run of one
+    chunk fits two blocks an SM (as #3's: slab_matmul.dense_split_cap);
+    f32 (1e-5, no TF32), fewer rows and higher ranks the first design."""
+    if dtype == torch.bfloat16 and m >= SLAB_G_TC_MIN_ROWS \
+            and slab_k.dense_split_cap(r) >= 1:
+        return SLAB_G
+    return SLAB_G_FIRST
+
+
 def slab_matmul_g(x, w_s, b_packed, u, v) -> torch.Tensor:
     """Launch the grouped dense-masked SLaB kernel (one launch)."""
+    kern = slab_g_kernel(x.dtype, x.shape[1], u.shape[1])
+    return launch_slab_g(kern, x, w_s, b_packed, u, v)
+
+
+def launch_slab_g(kern, x, w_s, b_packed, u, v) -> torch.Tensor:
+    """slab_matmul_g through ``kern``'s library (SLAB_G or SLAB_G_FIRST),
+    counted on its counter."""
     n = w_s.shape[1]
     e, m, k, r = _check_binary(x, b_packed, u, v, n)
     build.check_operand(w_s, "w_s", x.dtype, (e, n, k), x.device)
     build.check_aligned(w_s, "w_s")
-    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    dev = x.device
+    y = torch.empty((e, m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    fn = build.function(SLAB_G.source, SLAB_G.name, _SLAB_ARGS)
-    err = fn(build.dtype_code(x.dtype), x.data_ptr(), w_s.data_ptr(),
-             b_packed.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(),
-             e, m, n, k, r, build.stream_ptr(x.device))
-    build.check_launch(err, SLAB_G.name, f"E={e} M={m} N={n} K={k} R={r}")
-    SLAB_G.launches += 1
+    detail = f"E={e} M={m} N={n} K={k} R={r}"
+    head = (build.dtype_code(x.dtype), x.data_ptr(), w_s.data_ptr(),
+            b_packed.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr())
+    if kern is SLAB_G:
+        n_split, cps, _, part, tickets = slab_k.tc_plan(dev, e, m, n, k,
+                                                        dense_rank=r)
+        fn = build.function(kern.source, kern.name, _SLAB_TC_ARGS)
+        err = fn(*head, slab_k.ptr(part), slab_k.ptr(tickets), e, m, n, k,
+                 r, n_split, cps, build.stream_ptr(dev))
+        detail += f" splits={n_split}x{cps * slab_k.CHUNK}"
+    else:
+        fn = build.function(kern.source, kern.name, _SLAB_ARGS)
+        err = fn(*head, e, m, n, k, r, build.stream_ptr(dev))
+    build.check_launch(err, kern.key, detail)
+    kern.launches += 1
     return y
 
 

@@ -1,7 +1,7 @@
 """Fused SLaB linears with a dense-masked or an N:M packed sparse part:
-the hand-written CUDA kernels (``csrc/slab_matmul.cu``; the bf16 2:4 /
-4:8 slab_nm_matmul and slab_nm_lr_matmul ``csrc/grouped_tc.cu``) and
-their plain PyTorch versions.
+the hand-written CUDA kernels (``csrc/slab_matmul.cu``; the bf16
+slab_matmul and the bf16 2:4 / 4:8 slab_nm_matmul and slab_nm_lr_matmul
+``csrc/grouped_tc.cu``) and their plain PyTorch versions.
 
     slab_matmul, slab_nm_matmul  y = x @ W_Sᵀ + Σ_r ((x ⊙ v_r) @ Bᵀ) ⊙ u_r
     slab_lr_matmul               y = x @ W_Sᵀ + (x @ Vᵀ) @ U  (no binary)
@@ -11,15 +11,18 @@ Replace ``repro/kernels/slab_matmul.py::{slab_matmul, slab_nm_matmul,
 slab_lr_matmul, slab_nm_lr_matmul}`` (TPU). Operands use the kernel layout: x (M, K),
 u (R, N), v (R, K).
 
-slab_nm_matmul and slab_nm_lr_matmul each have two libraries under one
-C name, each counting its launches on its own ``CudaKernel``: the
-tensor-core kernel of ``grouped_tc.cu`` (bf16 2:4 / 4:8, K split across
-blocks by ``plan_nm_splits``) and the first design of ``slab_matmul.cu``
-(f32, other patterns); ``slab_nm_kernel`` / ``slab_nm_lr_kernel`` pick
-one. ``plan_nm_splits``, ``plan_tiles_per_block`` and the split's scratch
-(``tc_plan``) also serve #8 (``kernels.nm_sparse``) and the grouped #17
-and #20 (``kernels.grouped``) on grouped_tc.cu; ``plan_ell_splits`` and
-``ell_plan`` split the ELL rows of #1 and #5 (``kernels.ell``) there.
+slab_matmul, slab_nm_matmul and slab_nm_lr_matmul each have two
+libraries under one C name, each counting its launches on its own
+``CudaKernel``: the tensor-core kernel of ``grouped_tc.cu`` (bf16;
+slab_nm_* at 2:4 / 4:8; K split across blocks by ``plan_nm_splits``,
+slab_matmul's by ``plan_dense_splits``) and the first
+design of ``slab_matmul.cu`` (f32, other patterns); ``slab_dense_kernel``
+/ ``slab_nm_kernel`` / ``slab_nm_lr_kernel`` pick one.
+``plan_nm_splits``, ``plan_tiles_per_block`` and the split's scratch
+(``tc_plan``) also serve #8 (``kernels.nm_sparse``) and the grouped #16,
+#17 and #20 (``kernels.grouped``) on grouped_tc.cu; ``plan_ell_splits``
+and ``ell_plan`` split the ELL rows of #1 and #5 (``kernels.ell``)
+there.
 """
 from __future__ import annotations
 
@@ -32,9 +35,13 @@ from repro_torch.kernels.common import binlr_term, expand_nm, lowrank_term
 
 _SLAB_NM_TPU = ("src/repro/kernels/slab_matmul.py:117 (slab_nm_matmul, "
                 "pallas_call :135)")
-SLAB_DENSE = build.CudaKernel(
-    "slab_matmul", "slab_matmul.cu",
-    "src/repro/kernels/slab_matmul.py:64 (slab_matmul, pallas_call :77)")
+_SLAB_DENSE_TPU = ("src/repro/kernels/slab_matmul.py:64 (slab_matmul, "
+                   "pallas_call :77)")
+SLAB_DENSE = build.CudaKernel("slab_matmul", "grouped_tc.cu",
+                              _SLAB_DENSE_TPU)
+SLAB_DENSE_FIRST = build.CudaKernel("slab_matmul", "slab_matmul.cu",
+                                    _SLAB_DENSE_TPU,
+                                    key="slab_matmul@slab_matmul.cu")
 SLAB_NM = build.CudaKernel("slab_nm_matmul", "grouped_tc.cu", _SLAB_NM_TPU)
 SLAB_NM_FIRST = build.CudaKernel("slab_nm_matmul", "slab_matmul.cu",
                                  _SLAB_NM_TPU,
@@ -54,6 +61,10 @@ SLAB_NM_LR_FIRST = build.CudaKernel("slab_nm_lr_matmul", "slab_matmul.cu",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DENSE_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+# grouped_tc.cu's slab_matmul also takes the split's scratch (part,
+# tickets) and plan (n_split, chunks per split)
+_DENSE_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _I, _P]
 _NM_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 # grouped_tc.cu's slab_nm_matmul also takes the split's scratch (part,
 # tickets) and plan (n_split, chunks per split)
@@ -72,6 +83,9 @@ _NM_LR_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
 NM_TC_MIN_ROWS = 1
 # ... and the bf16 2:4 / 4:8 slab_nm_lr_matmul from NM_LR_TC_MIN_ROWS rows
 NM_LR_TC_MIN_ROWS = 1
+# ... and the bf16 slab_matmul from SLAB_DENSE_TC_MIN_ROWS rows where one
+# chunk of its tiles fits beside the ring (dense_split_cap)
+SLAB_DENSE_TC_MIN_ROWS = 1
 # grouped_tc.cu's kernel splits K so that a launch gives about
 # NM_SPLIT_BLOCKS_PER_SM blocks of 128 rows to each SM, in splits of at
 # most NM_MAX_SPLIT_CHUNKS chunks (plan_nm_splits).
@@ -81,6 +95,10 @@ CHUNK = 128          # columns of one chunk of the kernel's main loop
 ROWS = 128           # output rows of one block
 ELL_STEP = 64        # entries a gather group of 8 lanes takes a step
 TC_SMEM = 227 * 1024  # shared memory an H100 block may opt into
+TC_SMEM_HALF = 228 * 1024 // 2 - 1024   # ... where two blocks share an SM
+# DenseSrc's 2-stage ring: 8 warps' 16 rows of 256 bytes, plus the 1024
+# bytes that align it for the tensor map's 128-byte swizzle
+DENSE_RING = 2 * 8 * 16 * 256 + 1024
 
 _SCRATCH = {}        # per device: the split's partial sums and tickets
 
@@ -105,8 +123,85 @@ def slab_matmul_plain(x, w_s, b_packed, u, v) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def slab_dense_split_plain(x, w_s, b_packed, u, v, n_split: int,
+                           cps: int) -> torch.Tensor:
+    """grouped_tc.cu's slab_matmul arithmetic under a split of K, in plain
+    PyTorch (fp32, for the CPU tests): split s covers columns [s · cps ·
+    CHUNK, (s + 1) · cps · CHUNK) and gives one partial, its W_S sum plus
+    its ±1 term; the partials are summed in split order and rounded once
+    to x.dtype."""
+    k = x.shape[1]
+    step = cps * CHUNK
+    acc = torch.zeros(x.shape[0], w_s.shape[0], device=x.device)
+    for s in range(n_split):
+        cols = slice(s * step, min(k, (s + 1) * step))
+        words = slice(cols.start // 32, cols.stop // 32)
+        acc = acc + (x[:, cols].float() @ w_s[:, cols].float().T
+                     + binlr_term(x[:, cols], b_packed[:, words], u,
+                                  v[:, cols]))
+    return acc.to(x.dtype)
+
+
+def dense_tc_smem(r: int, cps: int, ntp: int = 1) -> int:
+    """Shared bytes of grouped_tc.cu's slab_matmul / slab_matmul_g at a run
+    of ``cps`` chunks (tc::pick_tc): ``ntp`` tiles of 8 batch rows of x and
+    of bf16(x ⊙ v_r) for each of the ``r`` ranks, cps chunks plus 8
+    columns wide at 2 bytes, u of one row tile for each rank, and the
+    2-stage ring (DENSE_RING)."""
+    return 16 * ntp * (cps * CHUNK + 8) * (1 + r) + r * ROWS * 2 + DENSE_RING
+
+
+def plan_dense_splits(n: int, k: int, n_sm: int, e: int,
+                      cap: int) -> tuple:
+    """(n_split, cps) of grouped_tc.cu's slab_matmul / slab_matmul_g: as
+    plan_nm_splits, but enough runs that ``e`` experts' ⌈n / ROWS⌉ row
+    tiles x n_split blocks give at most NM_SPLIT_BLOCKS_PER_SM blocks to
+    each of n_sm SMs (one wave, as plan_ell_splits; at least one run), no
+    run longer than ``cap`` chunks (dense_split_cap), which may add runs.
+    From shapes only."""
+    tiles = e * -(-n // ROWS)
+    chunks = -(-k // CHUNK)
+    want = max(1, NM_SPLIT_BLOCKS_PER_SM * n_sm // tiles)
+    cps = min(-(-chunks // min(want, chunks)), cap)
+    return -(-chunks // cps), cps
+
+
+def dense_split_cap(r: int, m: int = 1) -> int:
+    """The widest run of K (in chunks) of grouped_tc.cu's slab_matmul at
+    rank ``r`` and ``m`` rows whose tiles and 2-stage ring let two blocks
+    share an H100 SM (TC_SMEM_HALF; two blocks with 2 stages ran ahead of
+    one with 4, PERF.md): at the most n-tiles M needs (up to 4) that fit
+    one chunk, as tc::pick_tc then picks them. 0 when none fits. From
+    shapes only."""
+    for ntp in range(min(max(-(-m // 8), 1), 4), 0, -1):
+        cps = 0
+        while dense_tc_smem(r, cps + 1, ntp) <= TC_SMEM_HALF:
+            cps += 1
+        if cps:
+            return cps
+    return 0
+
+
+def slab_dense_kernel(dtype, m: int, r: int = 1) -> build.CudaKernel:
+    """The library a launch at ``m`` rows and rank ``r`` runs:
+    grouped_tc.cu for bf16 from SLAB_DENSE_TC_MIN_ROWS rows where a run of
+    one chunk fits two blocks an SM (dense_split_cap), the first design
+    for f32, fewer rows and higher ranks."""
+    if dtype == torch.bfloat16 and m >= SLAB_DENSE_TC_MIN_ROWS \
+            and dense_split_cap(r) >= 1:
+        return SLAB_DENSE
+    return SLAB_DENSE_FIRST
+
+
 def slab_matmul(x, w_s, b_packed, u, v) -> torch.Tensor:
     """Launch the dense-masked CUDA kernel on the current stream."""
+    kern = slab_dense_kernel(x.dtype, x.shape[0], u.shape[0])
+    return launch_slab_dense(kern, x, w_s, b_packed, u, v)
+
+
+def launch_slab_dense(kern, x, w_s, b_packed, u, v) -> torch.Tensor:
+    """slab_matmul through ``kern``'s library (SLAB_DENSE or
+    SLAB_DENSE_FIRST), counted on its counter."""
     n = w_s.shape[0]
     m, k, r, dev = _common_checks(x, b_packed, u, v, n)
     build.check_operand(w_s, "w_s", x.dtype, (n, k), dev)
@@ -114,12 +209,21 @@ def slab_matmul(x, w_s, b_packed, u, v) -> torch.Tensor:
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    fn = build.function(SLAB_DENSE.source, SLAB_DENSE.name, _DENSE_ARGS)
-    err = fn(build.dtype_code(x.dtype), x.data_ptr(), w_s.data_ptr(),
-             b_packed.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(),
-             m, n, k, r, build.stream_ptr(dev))
-    build.check_launch(err, SLAB_DENSE.name, f"M={m} N={n} K={k} R={r}")
-    SLAB_DENSE.launches += 1
+    detail = f"M={m} N={n} K={k} R={r}"
+    head = (build.dtype_code(x.dtype), x.data_ptr(), w_s.data_ptr(),
+            b_packed.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr())
+    if kern is SLAB_DENSE:
+        n_split, cps, _, part, tickets = tc_plan(dev, 1, m, n, k,
+                                                 dense_rank=r)
+        fn = build.function(kern.source, kern.name, _DENSE_TC_ARGS)
+        err = fn(*head, ptr(part), ptr(tickets), m, n, k, r, n_split, cps,
+                 build.stream_ptr(dev))
+        detail += f" splits={n_split}x{cps * CHUNK}"
+    else:
+        fn = build.function(kern.source, kern.name, _DENSE_ARGS)
+        err = fn(*head, m, n, k, r, build.stream_ptr(dev))
+    build.check_launch(err, kern.key, detail)
+    kern.launches += 1
     return y
 
 
@@ -226,16 +330,21 @@ def _scratch(dev, n_part: int, n_tickets: int):
 
 
 def tc_plan(dev, e: int, m: int, n: int, k: int, walk: bool = False,
-            rank: int = 0):
+            rank: int = 0, dense_rank: int = 0):
     """(n_split, cps, tpb, part, tickets) of a launch of grouped_tc.cu's
-    split body on ``dev``: the split of K (plan_nm_splits), the row tiles
+    split body on ``dev``: the split of K (plan_nm_splits; with
+    ``dense_rank``, #3's and #16's rank, plan_dense_splits), the row tiles
     a block walks (plan_tiles_per_block with ``walk``, else 1) and, for a
     split, the scratch: (n_split, e, m, n) partial sums, with ``rank``
     (#7's low-rank term) then the (n_split, e, block columns, m, rank)
     partial projections, and one ticket per expert and block column (None
     without a split)."""
     n_sm = build.sm_count(dev.index or 0)
-    n_split, cps = plan_nm_splits(n, k, n_sm, e)
+    if dense_rank:
+        n_split, cps = plan_dense_splits(n, k, n_sm, e,
+                                         dense_split_cap(dense_rank, m))
+    else:
+        n_split, cps = plan_nm_splits(n, k, n_sm, e)
     tpb = plan_tiles_per_block(n, e, n_split, n_sm) if walk else 1
     part = tickets = None
     if n_split > 1:

@@ -1,13 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
-card only: slab_ell_matmul (#1), slab_nm_matmul (#2), ell_lr_matmul
-(#5), slab_nm_lr_matmul (#7), nm_matmul (#8), binlr_matmul (#9),
-flash_decode (#10) and flash_decode_paged (#11), and the grouped
-ell_matmul_g (#12), ell_lr_matmul_g (#13), slab_ell_matmul_g (#14),
-slab_nm_matmul_g (#17), slab_lr_matmul_g (#18), slab_nm_lr_matmul_g
-(#19) and binlr_matmul_g (#20), whose bf16 launches (#2, #7, #8 and #17
-at 2:4 and 4:8) run the kernels of csrc/grouped_tc.cu; #1, #2, #5, #7,
-#8, #17, #18 and #20 also through each of their two libraries, #2, #7,
-#8 and #17 with K split across blocks, #1 and #5 with each row's entries
+card only: slab_ell_matmul (#1), slab_nm_matmul (#2), slab_matmul (#3),
+ell_lr_matmul (#5), slab_nm_lr_matmul (#7), nm_matmul (#8),
+binlr_matmul (#9), flash_decode (#10) and flash_decode_paged (#11), and
+the grouped ell_matmul_g (#12), ell_lr_matmul_g (#13),
+slab_ell_matmul_g (#14), slab_matmul_g (#16), slab_nm_matmul_g (#17),
+slab_lr_matmul_g (#18), slab_nm_lr_matmul_g (#19) and binlr_matmul_g
+(#20), whose bf16 launches (#2, #7, #8 and #17 at 2:4 and 4:8) run the
+kernels of csrc/grouped_tc.cu; #1, #2, #3, #5, #7, #8, #16, #17, #18
+and #20 also through each of their two libraries, #2, #3, #7, #8, #16
+and #17 with K split across blocks, #1 and #5 with each row's entries
 split across blocks and #20 with blocks walking several row tiles (two
 launches bitwise equal). Every test skips without a card (the kernels
 are CUDA C++ for sm_90a with no CPU mode).
@@ -751,8 +752,8 @@ def test_slab_lr_matmul_g_kernel_matches_plain(cuda, dt, m):
                          ids=str)
 def test_slab_lr_matmul_g_ring_depths(cuda, k, m):
     """Where x's tile and a 4-stage ring do not fit a block together the
-    kernel keeps the widest tile and runs fewer stages (2 at 32 rows of
-    K 2048 and at 8 rows of K 9984; 4 at K 1408)."""
+    kernel keeps the widest tile and runs fewer stages (3 at 32 rows of
+    K 2048, 2 at 8 rows of K 9984; 4 at K 1408)."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(1500 + k)
     x, ws, u, v = _lr_g_operands(gen, 2, m, k, torch.bfloat16, 1, n=300)
@@ -1338,3 +1339,120 @@ def test_ell_lin_shared_memory_edge(cuda, kernel):
     assert new.launches == launches + 1
     _, plain = _ell_lin(kernel, new, x, vals, idx, bp, u, v)
     _close(got, plain(), torch.bfloat16)
+
+
+# #3 slab_matmul and #16 slab_matmul_g (dense W_S + the ±1 term): through
+# each library at M 0-37, N 1411 off the 128-row tile, K 1376 off the
+# 128-column chunk (a partial last bulk copy and sign-word chunk), ranks
+# 1, 3 and 5; #16 at 16 experts and at a bucket of 5 of them gathered out
+# of order. Through the wrapper at bf16 and f32; the widest splits of the
+# main path (#3 at (4096, 11008), #16 at K 6400) bitwise repeatable.
+DENSE_M = [0, 1, 2, 4, 8, 37]
+DENSE_BUCKET = (3, 14, 0, 9, 6)
+
+
+def _dense_operands(gen, e, n, k, m, rank, dtype):
+    """x, ws, bp, u, v of ``e`` experts (e = 0: one linear, no expert
+    dim)."""
+    ee = max(e, 1)
+    w = _g_randn(gen, ee, n, k, scale=0.05)
+    ws = torch.where(_g_randn(gen, ee, n, k) > 0.5, w, 0.0).to(dtype)
+    x, bp, u, v = _bin_g_operands(gen, ee, n, k, m, rank, dtype)
+    ops_ = (x, ws.contiguous(), bp, u, v)
+    return ops_ if e else tuple(t[0].contiguous() for t in ops_)
+
+
+def _dense_run(kern, x, ws, bp, u, v):
+    """One launch through ``kern``'s library (#3 or #16 by x's dims) and
+    its plain version's call."""
+    if x.dim() == 3:
+        return (lambda: g_k.launch_slab_g(kern, x, ws, bp, u, v),
+                lambda: g_k.slab_matmul_g_plain(x, ws, bp, u, v))
+    return (lambda: slab_k.launch_slab_dense(kern, x, ws, bp, u, v),
+            lambda: slab_k.slab_matmul_plain(x, ws, bp, u, v))
+
+
+def _dense_libs(e):
+    return ((g_k.SLAB_G, g_k.SLAB_G_FIRST) if e
+            else (slab_k.SLAB_DENSE, slab_k.SLAB_DENSE_FIRST))
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("rank", [1, 3, 5])
+@pytest.mark.parametrize("e", [0, 16, 5], ids=("3", "16-e16", "16-bucket"))
+@pytest.mark.parametrize("m", DENSE_M)
+def test_slab_matmul_each_library(cuda, m, e, rank, lib):
+    """bf16 through each library; M = 0 gives an empty result and no
+    launch. The bucket is 5 of 16 experts' planes gathered out of
+    order, as expert_matmul hands a group its experts."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4800 + m + e + rank)
+    n, k = 1411, 1376
+    if e == 5:
+        sel = torch.tensor(DENSE_BUCKET, device=cuda)
+        x, ws, bp, u, v = (t.index_select(0, sel).contiguous() for t in
+                           _dense_operands(gen, 16, n, k, m, rank,
+                                           torch.bfloat16))
+    else:
+        x, ws, bp, u, v = _dense_operands(gen, e, n, k, m, rank,
+                                          torch.bfloat16)
+    new, first = _dense_libs(e)
+    kern = new if lib == "grouped_tc" else first
+    run, plain = _dense_run(kern, x, ws, bp, u, v)
+    launches = kern.launches
+    got = run()
+    assert kern.launches == launches + (m > 0)
+    if m == 0:
+        assert got.shape == x.shape[:-1] + (n,)
+        assert got.dtype == torch.bfloat16
+        return
+    _close(got, plain(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("e", [0, 16], ids=("3", "16"))
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 37])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_slab_matmul_kernel_matches_plain(cuda, dt, m, e):
+    """Through the wrapper: the launch counts on the library
+    slab_dense_kernel / slab_g_kernel picks (grouped_tc.cu for bf16 from
+    the crossover, the first design at f32: 1e-5)."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4900 + m + e)
+    x, ws, bp, u, v = _dense_operands(gen, e, 1411, 1376, m, 1, dtype)
+    if e:
+        kern = g_k.slab_g_kernel(dtype, m)
+        call = lambda: g_k.slab_matmul_g(x, ws, bp, u, v)
+    else:
+        kern = slab_k.slab_dense_kernel(dtype, m)
+        call = lambda: slab_k.slab_matmul(x, ws, bp, u, v)
+    lo = g_k.SLAB_G_TC_MIN_ROWS if e else slab_k.SLAB_DENSE_TC_MIN_ROWS
+    new, first = _dense_libs(e)
+    assert kern is (new if dtype == torch.bfloat16 and m >= lo else first)
+    launches = kern.launches
+    got = call()
+    assert kern.launches == launches + 1
+    _close(got, _dense_run(kern, x, ws, bp, u, v)[1](), dtype)
+
+
+@pytest.mark.parametrize("e,n,k,m,rank", [
+    (0, 4096, 11008, 4, 1), (0, 4096, 4096, 4, 3), (0, 1024, 4096, 2, 1),
+    (16, 4096, 6400, 2, 1), (16, 6400, 4096, 2, 3)], ids=str)
+def test_slab_matmul_splits_are_deterministic(cuda, e, n, k, m, rank):
+    """The widest splits of the main path (#3 at (4096, 11008): 8 runs of
+    11 chunks; #16 at K 6400: 5 runs of 11) and rank 3's narrower runs:
+    the last block of a row tile adds the partial sums in split order,
+    so the same launch twice gives the same bits, and both agree with the
+    plain version."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5000 + n + k)
+    x, ws, bp, u, v = _dense_operands(gen, e, n, k, m, rank, torch.bfloat16)
+    n_split, _ = slab_k.plan_dense_splits(
+        n, k, torch.cuda.get_device_properties(cuda).multi_processor_count,
+        max(e, 1), slab_k.dense_split_cap(rank, m))
+    assert n_split > 1
+    run, plain = _dense_run(_dense_libs(e)[0], x, ws, bp, u, v)
+    got = run()
+    _close(got, plain(), torch.bfloat16)
+    for _ in range(3):
+        assert torch.equal(got, run())

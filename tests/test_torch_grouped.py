@@ -497,14 +497,15 @@ def test_slab_lr_g_library_choice_below_the_crossover():
 def test_lr_tc_smem_counts_the_launch_bytes():
     """x at K rounded up to 128 plus 8 columns of 2 bytes for 8 rows,
     9 · 8 fp32 projection sums per rank (rounded to 16 bytes), a 2-stage
-    ring of 16 rows of 272 bytes for each of 8 warps; K 10,112 fits an
-    H100 block, 10,120 does not."""
+    ring of 16 rows of 256 bytes for each of 8 warps and 1024 bytes to
+    align it for the tensor map's swizzle; K 10,240 fits an H100 block,
+    10,248 does not."""
     from repro_torch.kernels import grouped as g_k
     from repro_torch.kernels import slab_matmul as slab_k
-    assert g_k.lr_tc_smem(2048, 1) == 8 * 2056 * 2 + 288 + 69632
-    assert g_k.lr_tc_smem(1408, 3) == 8 * 1416 * 2 + 864 + 69632
-    assert g_k.lr_tc_smem(10112, 1) <= slab_k.TC_SMEM
-    assert g_k.lr_tc_smem(10120, 1) > slab_k.TC_SMEM
+    assert g_k.lr_tc_smem(2048, 1) == 8 * 2056 * 2 + 288 + 66560
+    assert g_k.lr_tc_smem(1408, 3) == 8 * 1416 * 2 + 864 + 66560
+    assert g_k.lr_tc_smem(10240, 1) <= slab_k.TC_SMEM
+    assert g_k.lr_tc_smem(10248, 1) > slab_k.TC_SMEM
 
 
 @pytest.mark.parametrize("dtype,pattern,m,r,source", [
@@ -590,7 +591,7 @@ def test_launch_counters_are_per_library():
     """Every library has a counter key of its own, and a reset zeroes
     them all."""
     keys = [k.key for k in ops.KERNELS]
-    assert len(set(keys)) == len(keys) == 32
+    assert len(set(keys)) == len(keys) == 34
     assert len({k.name for k in ops.KERNELS}) == 20
     for k in ops.KERNELS:
         k.launches = 1

@@ -763,3 +763,179 @@ def test_ell_lr_split_arithmetic_matches_reference(k, epb, rank, m):
     assert _rel(got, want) < TOL
     one = ell_k.ell_lr_matmul_plain(tt(x), tt(vals), tt(idx), tt(u), tt(v))
     assert _rel(got, one) < TOL
+
+
+# ------------- #3's and #16's library choice, split plan and arithmetic
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=("3", "16"))
+@pytest.mark.parametrize("dtype,m,r,new", [
+    (torch.bfloat16, 1, 1, True), (torch.bfloat16, 2, 1, True),
+    (torch.bfloat16, 4, 3, True), (torch.bfloat16, 128, 5, True),
+    (torch.bfloat16, 4, 19, True), (torch.bfloat16, 4, 20, False),
+    (torch.float32, 4, 1, False), (torch.float32, 37, 3, False)])
+def test_slab_dense_library_choice(grouped, dtype, m, r, new):
+    """bf16 #3 and #16 run grouped_tc.cu's DenseSrc body from their row
+    crossovers up to the rank where one chunk of x and x ⊙ v_r beside the
+    2-stage ring no longer lets two blocks share an SM (dense_split_cap:
+    rank 19); f32 and higher ranks the first design (slab_matmul.cu), each
+    library on its own counter under one C name."""
+    from repro_torch.kernels import grouped as g_k
+    if grouped:
+        kern, lo = g_k.slab_g_kernel(dtype, m, r), g_k.SLAB_G_TC_MIN_ROWS
+        name = "slab_matmul_g"
+    else:
+        kern = slab_k.slab_dense_kernel(dtype, m, r)
+        lo, name = slab_k.SLAB_DENSE_TC_MIN_ROWS, "slab_matmul"
+    want = "grouped_tc.cu" if new and m >= lo else "slab_matmul.cu"
+    assert kern.source == want and kern.name == name
+    assert kern.key == (name if want == "grouped_tc.cu"
+                        else f"{name}@slab_matmul.cu")
+    assert (slab_k.dense_split_cap(r) >= 1) == (r <= 19)
+
+
+def test_slab_dense_below_the_crossover():
+    """Fewer rows than the crossover run the first design."""
+    from repro_torch.kernels import grouped as g_k
+    for m in range(0, slab_k.SLAB_DENSE_TC_MIN_ROWS):
+        assert slab_k.slab_dense_kernel(torch.bfloat16, m) \
+            is slab_k.SLAB_DENSE_FIRST
+    for m in range(0, g_k.SLAB_G_TC_MIN_ROWS):
+        assert g_k.slab_g_kernel(torch.bfloat16, m) is g_k.SLAB_G_FIRST
+    assert slab_k.slab_dense_kernel(
+        torch.bfloat16, slab_k.SLAB_DENSE_TC_MIN_ROWS) is slab_k.SLAB_DENSE
+    assert g_k.slab_g_kernel(torch.bfloat16, g_k.SLAB_G_TC_MIN_ROWS) \
+        is g_k.SLAB_G
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=("3", "16"))
+def test_slab_dense_counters_are_per_library(grouped):
+    """#3's and #16's two libraries count on their own keys in
+    ops.launch_counts, under one C name."""
+    from repro_torch.kernels import grouped as g_k
+    new, first = ((g_k.SLAB_G, g_k.SLAB_G_FIRST) if grouped
+                  else (slab_k.SLAB_DENSE, slab_k.SLAB_DENSE_FIRST))
+    counts = ops.launch_counts()
+    assert {new.key, f"{new.name}@slab_matmul.cu"} <= set(counts)
+    assert new.name == first.name
+    assert (new.source, first.source) == ("grouped_tc.cu", "slab_matmul.cu")
+    new.launches = 4
+    assert ops.launch_counts()[new.key] == 4
+    assert ops.launch_counts()[first.key] == 0
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("r,m,cap", [(1, 1, 11), (1, 8, 11), (3, 4, 5),
+                                     (1, 16, 5), (1, 128, 2), (5, 128, 1),
+                                     (19, 1, 1)], ids=str)
+def test_dense_split_cap_fits_two_blocks(r, m, cap):
+    """The widest run of chunks whose tiles (the n-tiles M needs, as
+    tc::pick_tc picks them, fewer where none fits) and a 2-stage ring of
+    16 rows of 256 bytes for each of 8 warps, with 1024 bytes to align it,
+    fit half an H100 SM's 228 KB less its 1 KB a block: 11 chunks at rank
+    1 (#2's widest run of 16 would not), 5 at rank 3."""
+    assert slab_k.DENSE_RING == 2 * 8 * 16 * 256 + 1024
+    assert slab_k.TC_SMEM_HALF == 115712
+    assert slab_k.dense_split_cap(r, m) == cap
+    ntp = next(t for t in range(min(-(-m // 8), 4), 0, -1)
+               if slab_k.dense_tc_smem(r, 1, t) <= slab_k.TC_SMEM_HALF)
+    assert slab_k.dense_tc_smem(r, cap, ntp) <= slab_k.TC_SMEM_HALF \
+        < slab_k.dense_tc_smem(r, cap + 1, ntp)
+    assert slab_k.dense_tc_smem(1, 16) > slab_k.TC_SMEM_HALF
+
+
+# the (N, K, E, rank) of the #3 / #16 launches on the main path (M <= 8):
+# llama2-7b's attention and MLP (phase c), phi3.5-moe's attention and
+# experts (o); the plan on an H100's 132 SMs
+DENSE_PATH_SPLITS = [
+    ((4096, 4096, 1, 1), (8, 4)), ((11008, 4096, 1, 1), (3, 11)),
+    ((4096, 11008, 1, 1), (8, 11)), ((1024, 4096, 1, 1), (32, 1)),
+    ((6400, 4096, 16, 1), (3, 11)), ((4096, 6400, 16, 1), (5, 11)),
+    ((4096, 11008, 1, 3), (18, 5)), ((6400, 4096, 16, 3), (7, 5))]
+
+
+@pytest.mark.parametrize("shape,want", DENSE_PATH_SPLITS, ids=str)
+def test_dense_split_plan_at_the_path_shapes(shape, want):
+    """At every (N, K) that phases c and o give #3 and #16, the split
+    covers K once in runs no wider than dense_split_cap, so two blocks
+    share an SM; at rank 1 #3's fills the card in one wave (at least one
+    block of 128 rows for each SM, at most two), #16's 16 experts fill it
+    unsplit and split only to fit, as rank 3's narrower runs do."""
+    n, k, e, r = shape
+    cap = slab_k.dense_split_cap(r, 4)
+    assert slab_k.plan_dense_splits(n, k, 132, e, cap) == want
+    n_split, cps = want
+    assert cps <= cap and (n_split - 1) * cps * 128 < k <= n_split * cps * 128
+    assert slab_k.dense_tc_smem(r, cps) <= slab_k.TC_SMEM_HALF
+    tiles = e * -(-n // 128)
+    assert tiles * n_split >= 132
+    if cps < cap:
+        assert tiles * n_split <= 2 * 132
+    else:
+        assert n_split == -(-k // (cap * 128))
+
+
+def _dense_np(seed, e, m, n, k, rank):
+    """Seeded numpy x (E, M, K), W_S keeping about 44 % of each row, ±1
+    W_B, u (E, R, N), v (E, R, K)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((e, m, k)).astype(np.float32)
+    w = (rng.standard_normal((e, n, k)) * 0.1).astype(np.float32)
+    w = np.where(rng.random((e, n, k)) < 0.44, w, 0.0).astype(np.float32)
+    w_b = np.where(rng.random((e, n, k)) < 0.5, 1, -1).astype(np.int8)
+    u = (rng.standard_normal((e, rank, n)) * 0.2).astype(np.float32)
+    v = (rng.standard_normal((e, rank, k)) * 0.2).astype(np.float32)
+    return x, w, w_b, u, v
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("k,cps", [(256, 1), (320, 1), (512, 2)], ids=str)
+def test_slab_dense_split_arithmetic_matches_reference(k, cps, rank, m):
+    """grouped_tc.cu's #3 under a split of K (slab_dense_split_plain: each
+    split's W_S sum and ±1 term over its columns in one partial, the
+    partials summed in split order, rounded once) against the reference
+    kernel in interpret mode on the same numpy inputs: 2 or 3 splits, the
+    last one shorter at K 320, f32 at max|diff| / max|ref| < 1e-5."""
+    from repro.kernels import slab_matmul as ref_slab
+    n = 96
+    x, w, w_b, u, v = (a[0] for a in _dense_np(700 + k + rank + m, 1, m, n,
+                                                k, rank))
+    bp = ref_packing.pack_sign_bits(jnp.asarray(w_b))
+    want = ref_slab.slab_matmul(jnp.asarray(x), jnp.asarray(w), bp,
+                                jnp.asarray(u), jnp.asarray(v),
+                                interpret=True)
+    n_split = -(-k // (cps * 128))
+    assert n_split in (2, 3)
+    tt = functools.partial(bridge.tensor, device="cpu")
+    got = slab_k.slab_dense_split_plain(tt(x), tt(w), tt(bp), tt(u), tt(v),
+                                        n_split, cps)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert _rel(got, want) < TOL
+    one = slab_k.slab_matmul_plain(tt(x), tt(w), tt(bp), tt(u), tt(v))
+    assert _rel(got, one) < TOL
+
+
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("k,cps,m", [(256, 1, 1), (384, 1, 5)], ids=str)
+def test_slab_dense_g_split_arithmetic_matches_reference(k, cps, m, rank):
+    """#16 under a split of K, each expert's partials summed in split order
+    (slab_dense_split_plain per expert), against the reference's grouped
+    kernel in interpret mode: 3 experts, 2 or 3 splits, f32 at
+    max|diff| / max|ref| < 1e-5."""
+    from repro.kernels import grouped as ref_g
+    e, n = 3, 96
+    x, w, w_b, u, v = _dense_np(800 + k + rank + m, e, m, n, k, rank)
+    bp = np.stack([np.asarray(ref_packing.pack_sign_bits(jnp.asarray(b)))
+                   for b in w_b])
+    want = ref_g.slab_matmul_g(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(bp), jnp.asarray(u),
+                               jnp.asarray(v), interpret=True)
+    n_split = -(-k // (cps * 128))
+    assert n_split in (2, 3)
+    tt = functools.partial(bridge.tensor, device="cpu")
+    got = torch.stack([slab_k.slab_dense_split_plain(
+        tt(x[i]), tt(w[i]), tt(bp[i]), tt(u[i]), tt(v[i]), n_split, cps)
+        for i in range(e)])
+    assert got.shape == (e, m, n) and got.dtype == torch.float32
+    assert _rel(got, want) < TOL
