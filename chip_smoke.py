@@ -16,14 +16,15 @@ Phases:
      words also at (4099, 4100) (K not a multiple of 32, odd K_max); times
      at M = 4, bf16, rank 1 beside the byte bound, the plain version and
      one torch.matmul against the reconstructed dense W; #2
-     slab_nm_matmul, #8 nm_matmul, #7 slab_nm_lr_matmul and #3
-     slab_matmul (K split across blocks) and #1 slab_ell_matmul and #5
-     ell_lr_matmul (each row's entries split across blocks; #1 also with
-     int32 ids) at bf16 also through each of their two libraries
-     (grouped_tc.cu and the first design), and timed through the wrapper
-     and through each at M 1, 2, 3, 4, 8, 16 at (4096, 4096), #2, #8 and
-     #7 at 2:4 and 4:8 (the "M sweep" lines); every f32 call of a kernel
-     with two libraries must run its first design. Then both
+     slab_nm_matmul, #8 nm_matmul, #7 slab_nm_lr_matmul, #3 slab_matmul
+     and #6 slab_lr_matmul (K split across blocks) and #1
+     slab_ell_matmul, #5 ell_lr_matmul and #4 ell_matmul (each row's
+     entries split across blocks; also with int32 ids) at bf16 also
+     through each of their two libraries (grouped_tc.cu and the first
+     design), and timed through the wrapper and through each at M 1, 2,
+     3, 4, 8, 16 at (4096, 4096), #2, #8 and #7 at 2:4 and 4:8 (the "M
+     sweep" lines); every f32 call of a kernel with two libraries must
+     run its first design. Then both
      flash-decode kernels (paged #11, contiguous #10) against their plain
      versions at the decode shapes of llama2-7b (R 8, KV 32, G 1, dh 128)
      and stablelm-12b (R 8, KV 8, G 4, dh 160), and at qwen2-vl-2b's
@@ -87,7 +88,8 @@ Phases:
      Launch counts are zeroed just before each greedy_decode and read
      just after, one counter per library: phase m's #14 (2 rows per
      expert) must run only the first design (ell.cu), phases a, l, m and
-     r's #1, phases g and t's #5, phases b and n's #2, phases c and o's
+     r's #1, phases g and t's #5, phases f and s's #4, phases h and u's
+     #6, phases b and n's #2, phases c and o's
      #3, phases e and p's #8, phases i and v's #7, phase n's #17, phase
      o's #16 and phases r, s, t, u, v and w's grouped kernel only
      grouped_tc.cu, and phases d, k, q and x (f32) only ell.cu;
@@ -95,10 +97,11 @@ Phases:
      (reconstructed-W) model — for the MoE models against dense experts
      (and dense shared experts) behind the same packed attention, whose
      expert choices must agree token for token (_hold_moe_logits says
-     why); phases a, b, c, e, g, i, m, n, o, r, s, t, u, v and w are
-     profiled (a, b, c, e, g, i, n, o, u and w with #1's, #2's, #3's,
-     #8's, #5's, #7's, #17's, #16's, #18's and #20's device time per step
-     and share of the busy time);
+     why); phases a, b, c, e, f, g, h, i, m, n, o, r, s, t, u, v and w
+     are profiled (a, b, c, e, f, g, h, i, n, o, s, u and w with #1's,
+     #2's, #3's, #8's, #4's, #5's, #6's, #7's, #17's, #16's, #12's and
+     #4's, #18's and #6's and #20's device time per step and share of
+     the busy time);
      phases e-i also print the eval perplexity (lm.loss_fn) of the
      uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
@@ -120,9 +123,9 @@ Phases:
           request terminal); no block leaked;
        x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
           factor 64/6;
-  4. one JSON line listing every ported kernel (all twenty; #1, #2, #3,
-     #5, #7, #8, #12, #13, #14, #16, #17, #18, #19 and #20 once per
-     library, each with its own launch counter: thirty-four entries), then
+  4. one JSON line listing every ported kernel (all twenty; #1-#8,
+     #12, #13, #14, #16, #17, #18, #19 and #20 once per library, each
+     with its own launch counter: thirty-six entries), then
      the result line.
 
 Any failed check raises, and the script exits non-zero. It needs
@@ -154,12 +157,13 @@ SLEEP_CYCLES = 400_000             # ~0.2 ms of device sleep before a timed call
 # every bf16 timed case (the JSON line reports each library's time)
 LIB_TIMED = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul",
              "slab_ell_matmul", "ell_lr_matmul", "slab_matmul",
-             "slab_lr_matmul_g", "slab_nm_matmul_g", "binlr_matmul_g",
-             "slab_matmul_g")
-# the per-linear M sweep of #2, #8 and #7 (2:4 and 4:8) and of #1, #5 and
-# #3 at JSON_SHAPE (bf16, rank 1)
+             "ell_matmul", "slab_lr_matmul", "slab_lr_matmul_g",
+             "slab_nm_matmul_g", "binlr_matmul_g", "slab_matmul_g")
+# the per-linear M sweep of #2, #8 and #7 (2:4 and 4:8) and of #1, #5, #3,
+# #4 and #6 at JSON_SHAPE (bf16, rank 1)
 NM_SWEEP = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul",
-            "slab_ell_matmul", "ell_lr_matmul", "slab_matmul")
+            "slab_ell_matmul", "ell_lr_matmul", "slab_matmul", "ell_matmul",
+            "slab_lr_matmul")
 NM_SWEEP_M = (1, 2, 3, 4, 8, 16)
 
 
@@ -195,10 +199,10 @@ def environment():
         log(f"  ptxas {s}: {_ptxas_summary(build.build_log(s))}")
     log("  ptxas grouped_tc.cu tc bodies (tc_kernel: #19, #18; "
         "tc_bin_kernel: #2, #3; tc_g_kernel: #17, #20, #16; tc_nm_kernel: "
-        "#8, #7): "
+        "#8, #7, #6): "
         + _ptxas_tc(build.build_log("grouped_tc.cu")))
     log("  ptxas grouped_tc.cu ell_split_kernel<ids, LR (#5, #13), BIN "
-        "(#1; #12 neither), n-tiles, rows a column, split>: "
+        "(#1; #12 and #4 neither), n-tiles, rows a column, split>: "
         + _ptxas_ell_split(build.build_log("grouped_tc.cu")))
     return card
 
@@ -240,7 +244,7 @@ def _ptxas_tc(text: str) -> str:
 
 def _ptxas_ell_split(text: str) -> str:
     """Registers and spill-store bytes of each ell_split_kernel entry (#1,
-    #5, #12, #13) of a ``-Xptxas -v`` report, as <ids, LR, BIN, n-tiles,
+    #4, #5, #12, #13) of a ``-Xptxas -v`` report, as <ids, LR, BIN, n-tiles,
     rows a column, SPLIT>."""
     out = []
     pat = re.compile(r"Compiling entry function '_ZN2tc\d+ell_split_kernel"
@@ -337,11 +341,11 @@ def _cases(planes, x, rank, wide_ids=False):
     n = u.shape[1]
     lr = lambda: u.float().T @ v.float()                     # (N, K)
 
-    def ell_libs(new, first, call, idx, binary):
-        """#1's / #5's libraries by counter key: the split kernel only
-        where its x fits a block (ell.ell_split_smem: the wrapper never
-        picks it elsewhere)."""
-        fits = ell_k.ell_split_smem(k, rank, idx.element_size(),
+    def ell_libs(new, first, call, idx, binary, r=rank):
+        """#1's / #5's / #4's (r 0) libraries by counter key: the split
+        kernel only where its x fits a block (ell.ell_split_smem: the
+        wrapper never picks it elsewhere)."""
+        fits = ell_k.ell_split_smem(k, r, idx.element_size(),
                                     binary) <= slab_k.TC_SMEM
         return {kk.key: (lambda kk=kk: call(kk))
                 for kk in (new, first) if fits or kk is first}
@@ -423,7 +427,11 @@ def _cases(planes, x, rank, wide_ids=False):
                 f"ell_matmul{tag}", "ell_matmul",
                 lambda ev=ev, ei=ei: ell_k.ell_matmul(x, ev, ei),
                 lambda ev=ev, ei=ei: ell_k.ell_matmul_plain(x, ev, ei),
-                (ev, ei), ell_dense((ev, ei)), ops(ev.numel())))
+                (ev, ei), ell_dense((ev, ei)), ops(ev.numel()),
+                libs=ell_libs(ell_k.ELL, ell_k.ELL_FIRST,
+                              lambda kk, ev=ev, ei=ei:
+                              ell_k.launch_ell(kk, x, ev, ei), ei, False,
+                              r=0)))
         out.append(Case(
             f"ell_lr_matmul{tag}", "ell_lr_matmul",
             lambda lv=lv, li=li: ell_k.ell_lr_matmul(x, lv, li, u, v),
@@ -440,7 +448,12 @@ def _cases(planes, x, rank, wide_ids=False):
         lambda: slab_k.slab_lr_matmul(x, ws, u, v),
         lambda: slab_k.slab_lr_matmul_plain(x, ws, u, v),
         (ws, u, v), lambda: ws.float() + lr(),
-        ops(ws.numel(), lowrank=True)))
+        ops(ws.numel(), lowrank=True),
+        # (the tensor map's rows need K % 8 == 0: the wrapper never picks
+        # grouped_tc.cu elsewhere)
+        libs={kk.key: (lambda kk=kk: slab_k.launch_slab_lr(kk, x, ws, u, v))
+              for kk in (slab_k.SLAB_LR, slab_k.SLAB_LR_FIRST)
+              if k % 8 == 0 or kk is slab_k.SLAB_LR_FIRST}))
     for pat in ("2:4", "4:8"):
         if pat not in planes:
             continue
@@ -592,8 +605,9 @@ def kernel_checks():
 
 def nm_sweep(flush):
     """#2 slab_nm_matmul, #8 nm_matmul and #7 slab_nm_lr_matmul (2:4 and
-    4:8), #1 slab_ell_matmul and #5 ell_lr_matmul (uint16 ids) and #3
-    slab_matmul at JSON_SHAPE, bf16, rank 1, at every M of NM_SWEEP_M:
+    4:8), #1 slab_ell_matmul, #5 ell_lr_matmul and #4 ell_matmul (uint16
+    ids), #3 slab_matmul and #6 slab_lr_matmul at JSON_SHAPE, bf16, rank
+    1, at every M of NM_SWEEP_M:
     checked against their plain versions and timed through the wrapper
     (each M tagged with the library it ran) and through each of their two
     libraries."""
@@ -633,7 +647,8 @@ def nm_sweep(flush):
         log(f"  M sweep {label} N={n} K={k} bf16 r1{how}: "
             + " ".join(f"M={m}: {t:.4f} ms" + (f" ({ran})" if ran else "")
                        for m, (t, ran) in sorted(by_m.items())))
-    log(f"per-linear sweep (#2, #8, #7, #1, #5, #3): {n_checks} cases passed; "
+    log(f"per-linear sweep (#2, #8, #7, #1, #5, #3, #4, #6): {n_checks} "
+        "cases passed; "
         "worst "
         "max|err|/max|ref|: "
         + " ".join(f"{l}={w:.3g}" for l, w in worst.items()))
@@ -1377,9 +1392,11 @@ def _device_profile(run, steps, step_ms, label, focus=None):
     ``step_ms``, the same step's unprofiled wall time: busy / wall is the
     card's busy share, the rest is time the host holds it back. Prints
     the five kernels that take the most, and with ``focus`` = (what,
-    name part) the device time per step of the kernels whose names hold
-    that part (spaces ignored) and its share of the busy time. Returns the busy share (None when the profiler saw no
-    device time), and with ``focus`` also that time per step."""
+    name part), or a tuple of such pairs, the device time per step of
+    the kernels whose names hold that part (spaces ignored; a part may be
+    a tuple of strings that must all appear) and its share of the busy
+    time. Returns the busy share (None when the profiler saw no device
+    time), and with ``focus`` also the first focus's time per step."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1401,15 +1418,19 @@ def _device_profile(run, steps, step_ms, label, focus=None):
             f"x{e.count // steps:<3d} {e.key[:90]}")
     if not focus:
         return share
-    what, part = focus
-    hit = [e for e in kern
-           if part.replace(" ", "") in e.key.replace(" ", "")]
-    ms = sum(e.self_device_time_total for e in hit) / 1e3 / steps
-    log(f"  profile {label}: {what} {ms:.4f} ms per step "
-        f"({ms / busy_ms:.3f} of busy) in "
-        f"{sum(e.count for e in hit) / steps:g} launches ("
-        + ", ".join(e.key.split("(")[0][:60] for e in hit) + ")")
-    return share, ms
+    first = None
+    for what, part in ((focus,) if isinstance(focus[0], str) else focus):
+        parts = [p.replace(" ", "") for p in
+                 ((part,) if isinstance(part, str) else part)]
+        hit = [e for e in kern
+               if all(p in e.key.replace(" ", "") for p in parts)]
+        ms = sum(e.self_device_time_total for e in hit) / 1e3 / steps
+        log(f"  profile {label}: {what} {ms:.4f} ms per step "
+            f"({ms / busy_ms:.3f} of busy) in "
+            f"{sum(e.count for e in hit) / steps:g} launches ("
+            + ", ".join(e.key.split("(")[0][:60] for e in hit) + ")")
+        first = ms if first is None else first
+    return share, first
 
 
 def _perplexity(cfg, params, batch) -> float:
@@ -2023,6 +2044,12 @@ def moe_engine_phase(tag, arch):
     return launches
 
 
+# kernel-name parts of the profiles: #4 is ell_split_kernel with neither
+# term and SPLIT (every main-path launch splits), #12 the same unsplit;
+# #6 runs DenseSrc under tc_nm_kernel (#18 under tc_kernel)
+ELL4_SPLIT = ("ell_split_kernel<unsigned short, false, false", ", true>")
+ELL12 = ("ell_split_kernel<unsigned short, false, false", ", false>")
+LR6 = "tc_nm_kernel<tc::DenseSrc"
 PHASES = (
     ("a", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
                variant="slab-ell", kernel="slab_ell_matmul", tol=3e-2,
@@ -2046,7 +2073,8 @@ PHASES = (
                focus=("#8 nm_matmul", "tc_nm_kernel<tc::NmSrc<2, 4>"))),
     ("f", dict(n_layers=1, dtype=torch.bfloat16, cr=0.6, pattern=None,
                variant="sparse-ell", kernel="ell_matmul", tol=3e-2,
-               method="sparsegpt", options={}, ppl=True,
+               method="sparsegpt", options={}, ppl=True, profiled=True,
+               focus=("#4 ell_matmul", ELL4_SPLIT),
                note="CR 0.6, not 0.5: at CR 0.5 and bf16 a pruner's "
                     "K_max is D_in/2, ELL does not win on bytes, the "
                     "linears pack as sparse-dense (a plain matmul) and "
@@ -2059,7 +2087,8 @@ PHASES = (
                       "ell_split_kernel<unsigned short, true, false"))),
     ("h", dict(n_layers=2, dtype=torch.bfloat16, cr=0.4, pattern=None,
                variant="lowrank-dense", kernel="slab_lr_matmul", tol=3e-2,
-               options=dict(iters=8, include_binary=False), ppl=True)),
+               options=dict(iters=8, include_binary=False), ppl=True,
+               profiled=True, focus=("#6 slab_lr_matmul", LR6))),
     ("i", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern="2:4",
                variant="lowrank-nm", kernel="slab_nm_lr_matmul", tol=3e-2,
                options=dict(iters=8, include_binary=False), ppl=True,
@@ -2105,6 +2134,8 @@ PHASES = (
                cr=0.6, pattern=None, variant="sparse-ell",
                kernel="ell_matmul", expert_kernel="ell_matmul_g", tol=3e-2,
                method="sparsegpt", options={}, profiled=True,
+               focus=(("#12 ell_matmul_g", ELL12),
+                      ("#4 ell_matmul", ELL4_SPLIT)),
                note="CR 0.6, not 0.5: at CR 0.5 and bf16 a pruner's K_max "
                     "is D_in/2 and ELL does not win on bytes")),
     ("t", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
@@ -2117,7 +2148,8 @@ PHASES = (
                kernel="slab_lr_matmul", expert_kernel="slab_lr_matmul_g",
                tol=3e-2, options=dict(iters=8, include_binary=False),
                profiled=True,
-               focus=("#18 slab_lr_matmul_g", "tc_kernel<tc::DenseSrc"))),
+               focus=(("#18 slab_lr_matmul_g", "tc_kernel<tc::DenseSrc"),
+                      ("#6 slab_lr_matmul", LR6)))),
     ("v", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.5, pattern="2:4", variant="lowrank-nm",
                kernel="slab_nm_lr_matmul",
@@ -2130,7 +2162,9 @@ PHASES = (
                note="phase r's slab decompositions with W_S := 0, served "
                     "as W_L ⊙ W_B")),
 )
-# the timed case of each kernel that the JSON line reports
+# the timed case of each kernel that the JSON line reports, by C name:
+# both libraries of #1-#8 (ell_matmul and ell_matmul@ell.cu, ...) report
+# the same case, each with its own time (LIB_TIMED: the case's "libs")
 JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
               "slab_nm_matmul": "slab_nm_matmul[2:4]",
               "slab_matmul": "slab_matmul", "ell_matmul": "ell_matmul",

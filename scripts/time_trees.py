@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time kernels of several checkouts on one CUDA card.
 
-    python3 scripts/time_trees.py [--cases ell|dense] TREE [TREE ...]
+    python3 scripts/time_trees.py [--cases ell|dense|flash] TREE [TREE ...]
     python3 scripts/time_trees.py .proof/parent .
     python3 scripts/time_trees.py --cases dense . .proof/variant
 
@@ -16,14 +16,20 @@ its wrappers' ``launch_*``:
 - ``ell`` (the default): with the split library of grouped_tc.cu, #1
   slab_ell_matmul and #5 ell_lr_matmul at the main path's per-linear (N,
   K) and M 1, 4 and 8 (at M 1 also through the first design, ell.cu),
-  and #12 ell_matmul_g / #13 ell_lr_matmul_g at deepseek-moe-16b's
-  expert shapes (E 64, M 6);
+  #4 ell_matmul at the same (N, K) and M (through ``ell.ell_matmul``:
+  the library it picks in that tree), and #12 ell_matmul_g / #13
+  ell_lr_matmul_g at deepseek-moe-16b's expert shapes (E 64, M 6);
 - ``dense``: the DenseSrc kernels of grouped_tc.cu, #3 slab_matmul at
   the per-linear (N, K) and M 1, 4 and 8, #16 slab_matmul_g at
   phi3.5-moe's expert shapes (E 16, M 2) and #18 slab_lr_matmul_g at
   deepseek-moe-16b's (E 64, M 6), with the first design of #3 and #16 at
   M 4 / 2 and one torch.matmul / torch.bmm on W_S's bytes beside them
-  (the trees of this change and later);
+  (the trees that have ``slab_matmul.launch_slab_dense``), and #6
+  slab_lr_matmul at the per-linear (N, K) and M 1, 4 and 8 (through
+  ``slab_matmul.slab_lr_matmul``: the library it picks in that tree);
+- ``flash``: #11 flash_decode_paged and #10 flash_decode at chip_smoke's
+  timed shapes (llama2-7b R 8, KV 32, G 1, dh 128, blocks of 16, lengths
+  0-4096; the engine's 4 rows up to 320 tokens);
 
 bf16, rank 1, synthetic planes from this checkout's chip_smoke.py, timed
 as chip_smoke.py times a kernel (CUDA events, L2 flushed, a device sleep
@@ -64,6 +70,9 @@ def _dense_cases(torch, cs):
         del p
         for m in LIN_M:
             x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            yield (f"#6 ({n}, {k}) M {m}",
+                   lambda x=x: slab_k.slab_lr_matmul(x, ws, u, v),
+                   lambda x=x: slab_k.slab_lr_matmul_plain(x, ws, u, v))
             libs = [("", slab_k.SLAB_DENSE)]
             if m == 4:
                 libs.append((" first design", slab_k.SLAB_DENSE_FIRST))
@@ -99,10 +108,36 @@ def _dense_cases(torch, cs):
                lambda: g_k.slab_lr_matmul_g_plain(x, ws, u, v))
 
 
+def _flash_cases(torch, cs):
+    """(label, launch, plain) of the ``flash`` set."""
+    from repro_torch.kernels import flash_decode as fd_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    bs = cs.FD_TIMED["bs"]
+    for lengths, s in ((cs._fd_lengths(bs), cs.FD_MAX),
+                       (list(cs.FD_ENGINE["lengths"]), cs.FD_ENGINE["s"])):
+        for name, paged in (("#11", True), ("#10", False)):
+            a = cs._fd_inputs("llama2-7b", bs, s, torch.bfloat16, False, gen,
+                              paged, lengths)
+            args = {kk: vv for kk, vv in a.items() if not kk.startswith("_")}
+            label = f"{name} llama2-7b R {len(lengths)} S {s}"
+            if paged:
+                yield (label, lambda args=args: fd_k.flash_decode_paged(**args),
+                       lambda args=args: fd_k.flash_decode_paged_plain(**args))
+            else:
+                yield (label,
+                       lambda args=args: fd_k.flash_decode(**args, bs=bs),
+                       lambda args=args: fd_k.flash_decode_plain(**args,
+                                                                 bs=bs))
+
+
 def _cases(torch, cs, which="ell"):
     """(label, launch, plain) of every case, operands made on the card."""
     if which == "dense":
         yield from _dense_cases(torch, cs)
+        return
+    if which == "flash":
+        yield from _flash_cases(torch, cs)
         return
     from repro_torch.kernels import ell as ell_k
     from repro_torch.kernels import grouped as g_k
@@ -114,8 +149,12 @@ def _cases(torch, cs, which="ell"):
         u, v, b = p["u"], p["v"], p["b"]
         sv, si = p["slab"]
         lv, li = p["ell_lr"]
+        ev, ei = p["ell"]
         for m in LIN_M:
             x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            yield (f"#4 ({n}, {k}) M {m}",
+                   lambda x=x: ell_k.ell_matmul(x, ev, ei),
+                   lambda x=x: ell_k.ell_matmul_plain(x, ev, ei))
             libs = [("", ell_k.SLAB_ELL, ell_k.ELL_LR)]
             if m == 1:
                 libs.append((" first design", ell_k.SLAB_ELL_FIRST,
@@ -187,7 +226,8 @@ def _run(tree: Path, build_only: bool, which: str) -> subprocess.Popen:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts to time")
-    ap.add_argument("--cases", choices=("ell", "dense"), default="ell",
+    ap.add_argument("--cases", choices=("ell", "dense", "flash"),
+                    default="ell",
                     help="which kernels to time (see above)")
     ap.add_argument("--worker", action="store_true",
                     help=argparse.SUPPRESS)
@@ -220,9 +260,12 @@ def main() -> int:
         runs[i].append(json.loads(text.strip().splitlines()[-1]))
     print(f"card: {torch.cuda.get_device_name(0)}; trees: "
           + " ".join(f"[{i}] {t}" for i, t in enumerate(trees)))
-    for label in runs[0][0]:
+    for label in dict.fromkeys(k for i in runs for k in runs[i][0]):
         cells = []
         for i in runs:
+            if label not in runs[i][0]:
+                cells.append(f"[{i}] -")
+                continue
             a, b = (r[label] for r in runs[i])
             cells.append(f"[{i}] {(a + b) / 2:.4f} ({a:.4f} {b:.4f})")
         print(f"{label}: " + "  ".join(cells))

@@ -60,7 +60,12 @@
 // each (same C symbol; grouped.slab_ell_g_kernel / ell_g_kernel pick the
 // library), so here they serve f32, 1-2 rows per expert and K too wide
 // for grouped_tc.cu's staged x, counted as slab_ell_matmul_g@ell.cu,
-// ell_matmul_g@ell.cu and ell_lr_matmul_g@ell.cu.
+// ell_matmul_g@ell.cu and ell_lr_matmul_g@ell.cu. So, likewise, are the
+// 2-D ell_matmul, ell_lr_matmul and slab_ell_matmul: their bf16 launches
+// from a row crossover run grouped_tc.cu's split gather (ell.ell_kernel,
+// ::ell_lr_kernel and ::slab_ell_kernel pick the library), and these
+// serve f32, fewer rows and wider K, counted as ell_matmul@ell.cu,
+// ell_lr_matmul@ell.cu and slab_ell_matmul@ell.cu.
 #include "slab_common.cuh"
 
 namespace slab {

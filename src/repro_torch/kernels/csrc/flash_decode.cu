@@ -319,6 +319,12 @@ attend_kernel(const Params p) {
     if (VEC) mbar_wait(&bars[t % kStages], (t / kStages) & 1);
     cp_async_wait<kStages - 2>();
     __syncthreads();                 // tile t landed; stage t-1 is free
+    // The barrier orders every thread's reads of stage t-1 (generic proxy)
+    // before this point; each thread that then issues a bulk copy into
+    // that stage (async proxy) fences the two proxies itself, so the copy
+    // cannot overtake those reads. Every thread runs the fence (one a
+    // tile), so whichever lanes issue are covered.
+    if (VEC) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     const int tn = t + kStages - 1;
     if (tn < n_tiles) issue(tn, row_next);
     cp_async_commit();

@@ -14,6 +14,8 @@
 //   ell_lr_matmul:        y = x · W_Sᵀ + (x · Vᵀ) · U, ELL         (#5)
 //   slab_matmul:          y = x · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ, dense (#3)
 //   slab_matmul_g:        the same for every expert e              (#16)
+//   ell_matmul:           y = x · W_Sᵀ, ELL                        (#4)
+//   slab_lr_matmul:       y = x · W_Sᵀ + (x · Vᵀ) · U, dense       (#6)
 //
 // Replace repro/kernels/grouped.py::slab_ell_matmul_g (_kernel_slab_ell_g,
 // pallas_call at grouped.py:142), ::slab_nm_lr_matmul_g
@@ -28,9 +30,11 @@
 // pallas_call at slab_matmul.py:247), repro/kernels/nm_sparse.py::
 // nm_matmul (_kernel, pallas_call at nm_sparse.py:54) and
 // repro/kernels/ell.py::slab_ell_matmul (_kernel_slab_ell, pallas_call at
-// ell.py:209) and ::ell_lr_matmul (_kernel_ell_lr, pallas_call at
-// ell.py:149), repro/kernels/slab_matmul.py::slab_matmul (_kernel_dense,
-// pallas_call at slab_matmul.py:77) and repro/kernels/grouped.py::
+// ell.py:209), ::ell_lr_matmul (_kernel_ell_lr, pallas_call at
+// ell.py:149) and ::ell_matmul (_kernel_ell, pallas_call at ell.py:105),
+// repro/kernels/slab_matmul.py::slab_matmul (_kernel_dense, pallas_call
+// at slab_matmul.py:77) and ::slab_lr_matmul (_kernel_dense_lr,
+// pallas_call at slab_matmul.py:193) and repro/kernels/grouped.py::
 // slab_matmul_g (_kernel_dense_g, pallas_call at grouped.py:242) for bf16
 // operands.
 // The first design (ell.cu, slab_matmul.cu, nm_sparse.cu) keeps the f32
@@ -39,9 +43,11 @@
 // x ⊙ v_r tiles do not fit a block, #20 past rank 4, #12, #13 and #14 at 1-2
 // rows per expert, where its 2-byte gathers are cheaper than these
 // kernels' 16-byte ones (grouped.TC_MIN_ROWS, grouped.ELL_TC_MIN_ROWS),
-// and #1 and #5 where x does not fit a block (their section below).
-// #14, #19, #18, #17, #20, #8, #7, #2, #3, #16 and #1's ±1 term use the
-// tensor cores; #12, #13 and #5, whose work is all gather, do not.
+// #1, #4 and #5 where x does not fit a block (their section below), #6 at
+// K % 8 != 0.
+// #14, #19, #18, #17, #20, #8, #7, #2, #3, #16, #6 and #1's ±1 term use
+// the tensor cores; #12, #13, #4 and #5, whose work is all gather, do
+// not.
 //
 // #14 and #19's bound on the H100: bytes. At the MoE decode shapes (1-32
 // rows per expert) each expert is a skinny GEMM: the E experts' planes (ELL vals +
@@ -557,9 +563,9 @@ extern "C" int slab_ell_matmul_g(int dtype, int idx_bytes, const void* x,
 
 namespace tc {
 
-// -------------------------- #19, #18, #2, #17, #20, #8, #7, #3, #16
+// ---------------------- #19, #18, #2, #17, #20, #8, #7, #3, #16, #6
 //
-// One body, tc_body, serves nine kernels whose weight rows meet x on the
+// One body, tc_body, serves ten kernels whose weight rows meet x on the
 // tensor cores in one k order:
 //
 //   slab_nm_lr_matmul_g  y[e] = x[e] · W_S[e]ᵀ + (x[e] · V[e]ᵀ) · U[e],
@@ -574,6 +580,8 @@ namespace tc {
 //   slab_matmul          y = x · W_Sᵀ + Σ_r u_r ⊙ (B · (x ⊙ v_r)ᵀ),
 //                        W_S dense                                   (#3)
 //   slab_matmul_g        #3 for every expert e                       (#16)
+//   slab_lr_matmul       y = x · W_Sᵀ + (x · Vᵀ) · U, W_S dense: #18
+//                        at E 1                                      (#6)
 //
 // #18 replaces repro/kernels/grouped.py::slab_lr_matmul_g
 // (_kernel_dense_lr_g, pallas_call at grouped.py:348), #2
@@ -585,11 +593,13 @@ namespace tc {
 // nm_sparse.py:54) and #7 repro/kernels/slab_matmul.py::slab_nm_lr_matmul
 // (_kernel_nm_lr, pallas_call at slab_matmul.py:247), #3
 // repro/kernels/slab_matmul.py::slab_matmul (_kernel_dense, pallas_call
-// at slab_matmul.py:77) and #16 repro/kernels/grouped.py::slab_matmul_g
-// (_kernel_dense_g, pallas_call at grouped.py:242), for bf16 operands
-// (#2, #17, #8 and #7 at 2:4 and 4:8); their f32 launches and the other
-// patterns keep the first design (slab_matmul.cu, nm_sparse.cu), which
-// holds 1e-5 without TF32.
+// at slab_matmul.py:77), #16 repro/kernels/grouped.py::slab_matmul_g
+// (_kernel_dense_g, pallas_call at grouped.py:242) and #6
+// repro/kernels/slab_matmul.py::slab_lr_matmul (_kernel_dense_lr,
+// pallas_call at slab_matmul.py:193), for bf16 operands (#2, #17, #8 and
+// #7 at 2:4 and 4:8); their f32 launches and the other patterns keep the
+// first design (slab_matmul.cu, nm_sparse.cu), which holds 1e-5 without
+// TF32.
 //
 // A block owns kRows = 128 output rows of one expert, a warp 16 (grid
 // (⌈N/128 / tiles a block⌉, E, splits of K)); x is staged once per 8·NTP
@@ -604,7 +614,7 @@ namespace tc {
 //    position load a row; 2:4 is decoded by byte permutes, 4:8 by
 //    comparisons. A position outside [0, m) matches no column and
 //    contributes 0.
-//  - DenseSrc (#18, #3, #16): its bound is the dense rows' bytes (#3 and
+//  - DenseSrc (#18, #3, #16, #6): its bound is the dense rows' bytes (#3 and
 //    #16 add K/8 bytes of sign words a row, 1.0625x what one
 //    torch.matmul or torch.bmm streams), so the design is the stream.
 //    Each warp's 16 rows of a chunk arrive by two 2-D copies of a tensor
@@ -629,26 +639,27 @@ namespace tc {
 // 31, which flip the sign bits of ±u_r's two halves. #20 decodes A = ±1
 // once a step for all its ranks (at most kMaxR), one accumulator each,
 // and scales them by u_r after the sum (accum_binlr_terms' order). The
-// per-linear shapes of #2, #8, #7 and #3 give few blocks of 128 rows
+// per-linear shapes of #2, #8, #7, #3 and #6 give few blocks of 128 rows
 // ((4096, 4096): 32 for 132 SMs; (1024, 4096): 8), so K is split across
 // blocks from the shapes alone (kernels/slab_matmul.py::plan_nm_splits,
-// which counts every expert's row tiles; #3 and #16 by
+// which counts every expert's row tiles; #3, #16 and #6 by
 // ::plan_dense_splits, one wave of two blocks an SM where the runs may be
 // that wide, the runs no wider than two blocks' shared memory with
-// DenseSrc's 2-stage ring allows, ::dense_split_cap: 11 chunks at rank 1,
-// so #16's 800 row tiles split only to fit): each block stages only its columns of x and x ⊙ v_r (the
+// DenseSrc's 2-stage ring allows, ::dense_split_cap: 11 chunks at rank 1
+// with the ±1 term's tiles, 23 with #6's projection sums, so #16's 800
+// row tiles split only to fit): each block stages only its columns of x and x ⊙ v_r (the
 // tiles stay small at any K) and writes fp32 partial sums (splits, E, M,
 // N), and the last block of an expert's row tiles (counted by an atomic
 // ticket of that expert and block column) adds them in split order, so
-// two launches give the same bits. #7 carries its low-rank projection
-// through the split: a block projects x onto V over its split's columns
+// two launches give the same bits. #7 and #6 carry their low-rank
+// projection through the split: a block projects x onto V over its split's columns
 // only, and under a split stores that partial projection (fp32, (splits,
 // block columns, M, R) after the partial sums) in place of adding it;
 // the last block sums the partial projections in split order too and
 // adds Σ_r p[m, r]·u_r[n] to the sum of the partial sums before the one
-// rounding (the reference's acc + acc_p·u). #2, #17, #20, #8, #7, #3 and
-// #16 cap their registers so that two blocks share an SM; #19 and #18 run
-// one split.
+// rounding (the reference's acc + acc_p·u). #2, #17, #20, #8, #7, #3,
+// #16 and #6 cap their registers so that two blocks share an SM; #19 and
+// #18 run one split.
 // #20 streams only K/8 bytes of sign words a row (256 B at K 2048), less
 // than a block's staging reads and writes (x and x ⊙ v_r): so its blocks
 // walk several consecutive row tiles of their expert after staging once
@@ -669,7 +680,7 @@ namespace tc {
 // (the last cost #17 and #19 8-30 %); a build whose A took one
 // instruction in place of two ran ~15 % faster, so the decode's issue
 // cost is a share of what binds (PERF.md §6).
-// The projection p = x·Vᵀ of #19, #18 and #7 is formed once a block pass
+// The projection p = x·Vᵀ of #19, #18, #7 and #6 is formed once a block pass
 // in fp32 from the staged x (the split's columns) with a fixed reduction
 // order; Σ_r p[m, r]·u_r[n] is added in the epilogue, or by the last
 // block of a split launch, before the one rounding.
@@ -1433,9 +1444,9 @@ __device__ __forceinline__ void tc_body(const TcArgs& a,
 // #19 and #18 (LR); #2 and #3 (BIN), whose registers are capped at one
 // n-tile (the decode step's M <= 8) so that kBinMinBlocks blocks share an
 // SM (wider tiles would spill under the cap; #20's NoSrc spilled at 3);
-// #17, #20 and #16 (BIN on experts), and #8 and #7 (NmSrc per linear, no
+// #17, #20 and #16 (BIN on experts), and #8, #7 and #6 (per linear, no
 // ±1 term, K split), the same under names of their own, so that a
-// profile tells them from #2 and #19.
+// profile tells them from #2, #19 and #18.
 constexpr int kBinMinBlocks = 2;
 
 template <class Src, int NTP, bool LR, bool BIN>
@@ -1470,9 +1481,12 @@ __global__ void __launch_bounds__(kWarps * 32, NTP == 1 ? kBinMinBlocks : 1)
   tc_body<Src, NTP, LR, BIN>(a, &map, bars, last_split);
 }
 
-// The __global__ name a launch runs under: tc_kernel (#19, #18),
-// tc_bin_kernel (#2, #3), tc_g_kernel (#17, #20, #16), tc_nm_kernel (#8,
-// #7).
+// The __global__ name a launch runs under: tc_kernel (grouped, one split:
+// #19, #18), tc_bin_kernel (per linear with the ±1 term: #2, #3),
+// tc_g_kernel (grouped with the ±1 term: #17, #20, #16), tc_nm_kernel
+// (per linear without it, K split: #8 and #7 on NmSrc, #6 on DenseSrc, so
+// that a profile tells #6, tc_nm_kernel<tc::DenseSrc, ...>, from #18,
+// tc_kernel<tc::DenseSrc, ...>).
 enum class Entry { kTc, kBin, kG, kNm };
 
 // The batch tiles per pass and ring stages of a launch: the most n-tiles
@@ -1779,6 +1793,41 @@ extern "C" int binlr_matmul_g(int dtype, const void* x, const void* bp,
                                                               stream);
 }
 
+// #6 (#18 at one linear, K split): dtype must be 1 (bfloat16) and K a
+// multiple of 8 (the tensor map's row stride is a multiple of 16 bytes):
+// other launches go to slab_matmul.cu's kernel. x (M, K), ws (N, K), u (R,
+// N), v (R, K), y (M, N); K split into n_split runs of cps 128-column
+// chunks (kernels/slab_matmul.py::plan_dense_splits, runs no wider than
+// dense_split_cap's low-rank form), and with n_split > 1 part holding the
+// (n_split, M, N) partial sums and after them the (n_split, ⌈N/128⌉, M, R)
+// partial projections, and tickets (⌈N/128⌉ ints, zero; zero again after
+// the launch).
+//
+// Bound on the H100: bytes (the dense W_S at 2 bytes a weight, 2·M FLOP
+// each). The first design (slab_matmul.cu's slab_lr_kernel, one warp a
+// row, 16 rows a block) formed the projection x · Vᵀ over all of K in
+// every one of its blocks, streamed W_S through CUDA-core FMAs and asked
+// L2 for each row ahead; it ran at 31 % of the bound at (4096, 4096).
+// Here it is #18's body (DenseSrc's tensor-map ring, tensor cores) at E =
+// 1 with K split across the card as #3's is, the projection formed once
+// a block over its split's columns and carried through the split as #7's
+// is.
+extern "C" int slab_lr_matmul(int dtype, const void* x, const void* ws,
+                              const void* u, const void* v, void* y,
+                              void* part, void* tickets, int M, int N,
+                              int K, int R, int n_split, int cps,
+                              void* stream) {
+  if (dtype != 1 || M <= 0 || N <= 0 || K <= 0 || K % 8 || R <= 0 ||
+      !tc::split_ok(K, n_split, cps, 1, part, tickets))
+    return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(ws)) return (int)cudaErrorMisalignedAddress;
+  tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)ws, nullptr, nullptr,
+               (const tc::bf16*)u, (const tc::bf16*)v, (tc::bf16*)y,
+               (float*)part, (int*)tickets, M, N, K, R, cps, 0, 1};
+  return tc::launch_tc<tc::DenseSrc, true, false, tc::Entry::kNm>(
+      a, 1, n_split, stream);
+}
+
 namespace tc {
 
 // #3 and #16: DenseSrc's ring of dense W_S rows plus the ±1 term, K split
@@ -2054,24 +2103,27 @@ __device__ __forceinline__ void ell_reduce(float (&v)[8], int lane) {
     v[0] += __shfl_xor_sync(0xffffffffu, v[0], h);
 }
 
-// ---------------------------------------------------------------- #1, #5
+// ------------------------------------------------------------ #1, #5, #4
 //
 //   slab_ell_matmul:  y = x · (W_S + Σ_r u_r v_rᵀ ⊙ B)ᵀ, W_S in ELL form  (#1)
 //   ell_lr_matmul:    y = x · W_Sᵀ + (x · Vᵀ) · U, W_S in ELL form        (#5)
+//   ell_matmul:       y = x · W_Sᵀ, W_S in ELL form                       (#4)
 //
 // Replace repro/kernels/ell.py::slab_ell_matmul (_kernel_slab_ell,
-// pallas_call at ell.py:209) and ::ell_lr_matmul (_kernel_ell_lr,
-// pallas_call at ell.py:149) for bf16 operands; f32 launches, fewer rows
-// than ell.SLAB_ELL_TC_MIN_ROWS / ELL_LR_TC_MIN_ROWS and shapes whose
-// staged x does not fit a block (ell.ell_split_smem) keep the first
-// design (ell.cu).
+// pallas_call at ell.py:209), ::ell_lr_matmul (_kernel_ell_lr,
+// pallas_call at ell.py:149) and ::ell_matmul (_kernel_ell, pallas_call at
+// ell.py:105) for bf16 operands; f32 launches, fewer rows than
+// ell.SLAB_ELL_TC_MIN_ROWS / ELL_LR_TC_MIN_ROWS / ELL_TC_MIN_ROWS and
+// shapes whose staged x does not fit a block (ell.ell_split_smem) keep
+// the first design (ell.cu).
 //
 // Bound on the H100: bytes. The planes (bf16 vals + 16-bit ids, K_max ≈
-// 0.437·K for slab-ell at CR 0.5 and ≈ K/2 for lowrank-ell, plus #1's K/8
-// bytes of sign words a row) are 0.94x and 1.0x the dense bf16 matrix,
-// against 2·M FLOP a stored entry at M 1-8. The first design (one warp a
-// row, 16 rows a block) staged x in every block with scalar stores and
-// ran at 16-24 % of the bound. This is #12 / #13's gather (the same
+// 0.437·K for slab-ell at CR 0.5, ≈ K/2 for lowrank-ell and ≈ 0.4·K for
+// sparse-ell at CR 0.6, plus #1's K/8 bytes of sign words a row) are
+// 0.94x, 1.0x and 0.8x the dense bf16 matrix, against 2·M FLOP a stored
+// entry at M 1-8. The first design (one warp a row, 16 rows a block)
+// staged x in every block with scalar stores and ran at 16-24 % of the
+// bound. This is #12 / #13's gather (the same
 // kernel, ell_split_kernel) at E = 1, where its blocks of 128 rows are
 // too few for the card ((4096, 4096): 32 for 132 SMs). So each row's
 // entries are split across blocks. The reference reads a row's entries in
@@ -2100,10 +2152,11 @@ __device__ __forceinline__ void ell_reduce(float (&v)[8], int lane) {
 // and rounds once. #5 projects x onto V in every block over its share of
 // K (from the staged x) and stores that partial projection; the
 // last block sums them in split order and adds Σ_r p[m, r]·u_r[n] before
-// the rounding (the reference's acc + p·u). A launch of one split (#12,
-// #13, and #1 / #5 at K_max + 7 <= 64 or N past ~16,900) stores y itself.
-// #5's ring has bytes of its own and is asked for as soon as x is staged,
-// so its first steps arrive while the block projects; #1's ring takes
+// the rounding (the reference's acc + p·u). #4 is the split gather with
+// neither term: its partial sums alone. A launch of one split (#12, #13,
+// and #1 / #4 / #5 at K_max + 7 <= 64 or N past ~16,900) stores y itself.
+// #5's and #4's ring has bytes of its own and is asked for as soon as x
+// is staged, so #5's first steps arrive while the block projects; #1's ring takes
 // the bytes of the x ⊙ v_r tiles and is asked for after the ±1 term. No
 // L2 prefetch (it slowed these kernels' grouped forms). Each choice was
 // timed on an H100 against the alternative it replaced (runs counted
@@ -2277,7 +2330,8 @@ __device__ __forceinline__ void ell_project_x(float* p, float* pw,
   __syncthreads();
 }
 
-// #12 (neither term), #13 (LR), #1 (BIN) and #5 (LR at E = 1, split):
+// #12 (neither term), #13 (LR), #1 (BIN), #5 (LR at E = 1, split) and
+// #4 (neither term at E = 1, split):
 // y[e] = x[e] · W_S[e]ᵀ (+ the term). Grid (⌈N/128⌉, E, splits): a block
 // owns kEllRows output rows of one expert, a warp 16 of them; a group of
 // kEllLanes lanes streams kEllRowsPerGroup of those rows one after the
@@ -2287,8 +2341,9 @@ __device__ __forceinline__ void ell_project_x(float* p, float* pw,
 // n-tile) stages and gathers MR batch rows a column (2·MR bytes) in place
 // of 8. NTP and MR last, so that a profile's name part
 // "ell_split_kernel<unsigned short, false, true" finds #1 at any tile
-// (#12 is <..., false, false, ...>; #13 and #5 differ by SPLIT, and every
-// #5 launch on the main path splits). A
+// (#12 is <..., false, false, ...>, and #4 the same with SPLIT; #13 and
+// #5 differ by SPLIT, and every #4 and #5 launch on the main path
+// splits). A
 // block's phases, each in flight while the one before it runs: it asks
 // for #1's first sign words, stages x (#1 also x ⊙ v_r and u), asks for
 // the gather's first ring steps where the ring has bytes of its own (not
@@ -2660,8 +2715,10 @@ static int launch_ell_split(const EllArgs& a, int E, int n_split,
     });
     return (int)cudaGetLastError();
   };
-  if constexpr (LR || BIN)           // #12 never splits
-    if (n_split > 1) return pick(std::true_type{});
+  // SPLIT only where a launch splits: #12 and #13 (one run a row) and the
+  // one-split launches of #1, #4 and #5 keep the split's tail out of
+  // their code
+  if (n_split > 1) return pick(std::true_type{});
   return pick(std::false_type{});
 }
 
@@ -2735,6 +2792,22 @@ extern "C" int slab_ell_matmul(int dtype, int idx_bytes, const void* x,
                       (int*)tickets, M, N, K, kmax, R, epb, cps};
   return tc::dispatch_ell_split<false, true>(dtype, idx_bytes, a, 1, n_split,
                                              stream);
+}
+
+// #4: dtype must be 1 (bfloat16), any K: f32 launches, fewer rows than
+// ell.ELL_TC_MIN_ROWS and shapes whose staged x does not fit go to ell.cu's
+// kernel. Operands and split as ell_lr_matmul's, without the low-rank term
+// (with n_split > 1 part holds the (n_split, M, N) partial sums only).
+// Launches on ``stream``, allocates nothing, returns cudaGetLastError().
+extern "C" int ell_matmul(int dtype, int idx_bytes, const void* x,
+                          const void* vals, const void* idx, void* y,
+                          void* part, void* tickets, int M, int N, int K,
+                          int kmax, int n_split, int epb, void* stream) {
+  const tc::EllArgs a{(const tc::bf16*)x, (const tc::bf16*)vals, idx,
+                      nullptr, nullptr, nullptr, (tc::bf16*)y, (float*)part,
+                      (int*)tickets, M, N, K, kmax, 0, epb, 0};
+  return tc::dispatch_ell_split<false, false>(dtype, idx_bytes, a, 1,
+                                              n_split, stream);
 }
 
 // #5: dtype must be 1 (bfloat16), any K: f32 launches, fewer rows than

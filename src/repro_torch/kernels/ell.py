@@ -1,7 +1,7 @@
 """Row-padded ELL linears: the hand-written CUDA kernels and their plain
 PyTorch versions. W_S streams as vals (N, K_max) + column ids (N, K_max):
 
-    ell_matmul       y = x @ W_Sᵀ                       (csrc/ell.cu)
+    ell_matmul       y = x @ W_Sᵀ
     ell_lr_matmul    y = x @ W_Sᵀ + (x @ Vᵀ) @ U        (fp32 projection)
     slab_ell_matmul  y = x @ W_Sᵀ + Σ_r ((x ⊙ v_r) @ Bᵀ) ⊙ u_r
 
@@ -9,13 +9,12 @@ Replace ``repro/kernels/ell.py::{ell_matmul, ell_lr_matmul,
 slab_ell_matmul}`` (TPU). Operands use the kernel layout: x (M, K),
 u (R, N), v (R, K); ``kernels.ops`` maps the public layouts onto it.
 
-slab_ell_matmul and ell_lr_matmul each have two libraries under one C
-name, each counting its launches on its own ``CudaKernel``: the split
-gather of ``csrc/grouped_tc.cu`` (bf16 from a row crossover where x fits
-a block, each row's entries split across blocks by
-``slab_matmul.plan_ell_splits``) and the first design of ``csrc/ell.cu``
-(f32, fewer rows, wider K); ``slab_ell_kernel`` / ``ell_lr_kernel`` pick
-one.
+Each has two libraries under one C name, each counting its launches on
+its own ``CudaKernel``: the split gather of ``csrc/grouped_tc.cu`` (bf16
+from a row crossover where x fits a block, each row's entries split
+across blocks by ``slab_matmul.plan_ell_splits``) and the first design
+of ``csrc/ell.cu`` (f32, fewer rows, wider K); ``ell_kernel`` /
+``slab_ell_kernel`` / ``ell_lr_kernel`` pick one.
 """
 from __future__ import annotations
 
@@ -34,9 +33,10 @@ SLAB_ELL = build.CudaKernel("slab_ell_matmul", "grouped_tc.cu",
                             _SLAB_ELL_TPU)
 SLAB_ELL_FIRST = build.CudaKernel("slab_ell_matmul", "ell.cu", _SLAB_ELL_TPU,
                                   key="slab_ell_matmul@ell.cu")
-ELL = build.CudaKernel(
-    "ell_matmul", "ell.cu",
-    "src/repro/kernels/ell.py:92 (ell_matmul, pallas_call :105)")
+_ELL_TPU = "src/repro/kernels/ell.py:92 (ell_matmul, pallas_call :105)"
+ELL = build.CudaKernel("ell_matmul", "grouped_tc.cu", _ELL_TPU)
+ELL_FIRST = build.CudaKernel("ell_matmul", "ell.cu", _ELL_TPU,
+                             key="ell_matmul@ell.cu")
 _ELL_LR_TPU = "src/repro/kernels/ell.py:134 (ell_lr_matmul, pallas_call :149)"
 ELL_LR = build.CudaKernel("ell_lr_matmul", "grouped_tc.cu", _ELL_LR_TPU)
 ELL_LR_FIRST = build.CudaKernel("ell_lr_matmul", "ell.cu", _ELL_LR_TPU,
@@ -52,17 +52,22 @@ _ELL_LR_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 # chunks per split)
 _SLAB_ELL_TC_ARGS = [_I, _I] + [_P] * 9 + [_I] * 8 + [_P]
 _ELL_LR_TC_ARGS = [_I, _I] + [_P] * 8 + [_I] * 7 + [_P]
+_ELL_TC_ARGS = [_I, _I] + [_P] * 6 + [_I] * 6 + [_P]
 
-# The bf16 slab_ell_matmul and ell_lr_matmul run grouped_tc.cu's split
-# gather from these many rows (chip_smoke.py's M sweep through each
-# library at (4096, 4096), PERF.md) where ell_split_smem fits an H100
-# block; fewer rows, f32 and wider K run the first design. #1's split
+# The bf16 slab_ell_matmul, ell_lr_matmul and ell_matmul run
+# grouped_tc.cu's split gather from these many rows (chip_smoke.py's M
+# sweep through each library at (4096, 4096), PERF.md) where
+# ell_split_smem fits an H100 block; fewer rows, f32 and wider K run the
+# first design. #1's split
 # library wins from M 2; at M 1 the two are within ~20 % either way
 # (PERF.md §6 records the first design ahead in most runs), and 1 keeps
 # phase l's one-row decode steps on the split library. #5's first design
-# is faster at M 1 and 2 (no ±1 term to amortise the split's fixed cost).
+# is faster at M 1 and 2 (no ±1 term to amortise the split's fixed cost);
+# #4's, with neither term, at M 1 only (its split library is ~3 % ahead
+# at M 2).
 SLAB_ELL_TC_MIN_ROWS = 1
 ELL_LR_TC_MIN_ROWS = 3
+ELL_TC_MIN_ROWS = 2
 RING_STEPS = 4       # grouped_tc.cu's kEllStages
 THREADS = 256        # ... and kEllThreads
 
@@ -77,7 +82,8 @@ def ell_split_smem(k: int, r: int, idx_bytes: int,
     sharing its bytes with the bf16 x ⊙ v_r tiles of the widest split
     (slab_matmul.NM_MAX_SPLIT_CHUNKS chunks plus 8 columns) and u of 128
     rows; otherwise, for a rank-``r`` projection (#5, #13; r 0 for #12),
-    its sums (r, 8) and the 8 warps' partial sums in fp32."""
+    its sums (r, 8) and the 8 warps' partial sums in fp32; with r 0 (#4,
+    #12) x and the ring alone."""
     kp = (k + 8) // 8 * 8
     ring = RING_STEPS * (1 + idx_bytes // 2) * THREADS * 16
     if binary:
@@ -116,18 +122,47 @@ def ell_matmul_plain(x, vals, idx) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def ell_kernel(dtype, m: int, k: int,
+               idx_bytes: int = 2) -> build.CudaKernel:
+    """The library a launch at ``m`` rows, ``k`` columns and ids of
+    ``idx_bytes`` runs: grouped_tc.cu for bf16 from ELL_TC_MIN_ROWS rows
+    where ell_split_smem (x and the ring) fits an H100 block; f32 (1e-5,
+    no TF32), fewer rows and wider K the first design."""
+    if dtype == torch.bfloat16 and m >= ELL_TC_MIN_ROWS \
+            and ell_split_smem(k, 0, idx_bytes) <= slab_k.TC_SMEM:
+        return ELL
+    return ELL_FIRST
+
+
 def ell_matmul(x, vals, idx) -> torch.Tensor:
     """Launch the ELL CUDA kernel on PyTorch's current stream."""
+    m, k = x.shape
+    return launch_ell(ell_kernel(x.dtype, m, k, idx.element_size()), x,
+                      vals, idx)
+
+
+def launch_ell(kern, x, vals, idx) -> torch.Tensor:
+    """ell_matmul through ``kern``'s library (ELL or ELL_FIRST), counted
+    on its counter."""
     m, k, n, k_max = _check_ell(x, vals, idx)
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    dev = x.device
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    fn = build.function(ELL.source, ELL.name, _ELL_ARGS)
-    err = fn(build.dtype_code(x.dtype), idx.element_size(), x.data_ptr(),
-             vals.data_ptr(), idx.data_ptr(), y.data_ptr(), m, n, k, k_max,
-             build.stream_ptr(x.device))
-    build.check_launch(err, ELL.name, f"M={m} N={n} K={k} K_max={k_max}")
-    ELL.launches += 1
+    detail = f"M={m} N={n} K={k} K_max={k_max}"
+    head = (build.dtype_code(x.dtype), idx.element_size(), x.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), y.data_ptr())
+    if kern is ELL:
+        n_split, epb, _, part, tickets = slab_k.ell_plan(dev, m, n, k, k_max)
+        fn = build.function(kern.source, kern.name, _ELL_TC_ARGS)
+        err = fn(*head, slab_k.ptr(part), slab_k.ptr(tickets), m, n, k,
+                 k_max, n_split, epb, build.stream_ptr(dev))
+        detail += f" splits={n_split}x{epb}"
+    else:
+        fn = build.function(kern.source, kern.name, _ELL_ARGS)
+        err = fn(*head, m, n, k, k_max, build.stream_ptr(dev))
+    build.check_launch(err, kern.key, detail)
+    kern.launches += 1
     return y
 
 
@@ -208,17 +243,22 @@ def ell_lr_split_plain(x, vals, idx, u, v, n_split: int,
     its share of the columns, [s · ⌈K / n_split⌉, (s + 1) · ⌈K /
     n_split⌉); the partial sums and the partial projections are each
     added in split order, then acc + p · U is rounded once to x.dtype
-    (the reference's acc + p · u)."""
+    (the reference's acc + p · u). With u = v = None (ell_matmul, #4) the
+    partial sums alone."""
     k = x.shape[1]
     share = -(-k // n_split)
-    xf, vf = x.float(), v.float()
+    xf = x.float()
     acc = torch.zeros(x.shape[0], vals.shape[0], device=x.device)
-    p = torch.zeros(x.shape[0], v.shape[0], device=x.device)
+    p = None if v is None else torch.zeros(x.shape[0], v.shape[0],
+                                           device=x.device)
     for s in range(n_split):
         cols = slice(min(k, s * share), min(k, (s + 1) * share))
         acc = acc + xf @ _split_rows(vals, idx, k, s, epb).T
-        p = p + xf[:, cols] @ vf[:, cols].T
-    return (acc + p @ u.float()).to(x.dtype)
+        if p is not None:
+            p = p + xf[:, cols] @ v[:, cols].float().T
+    if p is not None:
+        acc = acc + p @ u.float()
+    return acc.to(x.dtype)
 
 
 def slab_ell_matmul_plain(x, vals, idx, b_packed, u, v) -> torch.Tensor:

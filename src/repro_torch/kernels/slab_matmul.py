@@ -1,7 +1,8 @@
 """Fused SLaB linears with a dense-masked or an N:M packed sparse part:
 the hand-written CUDA kernels (``csrc/slab_matmul.cu``; the bf16
-slab_matmul and the bf16 2:4 / 4:8 slab_nm_matmul and slab_nm_lr_matmul
-``csrc/grouped_tc.cu``) and their plain PyTorch versions.
+slab_matmul and slab_lr_matmul and the bf16 2:4 / 4:8 slab_nm_matmul and
+slab_nm_lr_matmul ``csrc/grouped_tc.cu``) and their plain PyTorch
+versions.
 
     slab_matmul, slab_nm_matmul  y = x @ W_Sᵀ + Σ_r ((x ⊙ v_r) @ Bᵀ) ⊙ u_r
     slab_lr_matmul               y = x @ W_Sᵀ + (x @ Vᵀ) @ U  (no binary)
@@ -11,13 +12,13 @@ Replace ``repro/kernels/slab_matmul.py::{slab_matmul, slab_nm_matmul,
 slab_lr_matmul, slab_nm_lr_matmul}`` (TPU). Operands use the kernel layout: x (M, K),
 u (R, N), v (R, K).
 
-slab_matmul, slab_nm_matmul and slab_nm_lr_matmul each have two
-libraries under one C name, each counting its launches on its own
-``CudaKernel``: the tensor-core kernel of ``grouped_tc.cu`` (bf16;
-slab_nm_* at 2:4 / 4:8; K split across blocks by ``plan_nm_splits``,
-slab_matmul's by ``plan_dense_splits``) and the first
-design of ``slab_matmul.cu`` (f32, other patterns); ``slab_dense_kernel``
-/ ``slab_nm_kernel`` / ``slab_nm_lr_kernel`` pick one.
+Each has two libraries under one C name, each counting its launches on
+its own ``CudaKernel``: the tensor-core kernel of ``grouped_tc.cu``
+(bf16; slab_nm_* at 2:4 / 4:8; K split across blocks by
+``plan_nm_splits``, slab_matmul's and slab_lr_matmul's by
+``plan_dense_splits``) and the first design of ``slab_matmul.cu`` (f32,
+other patterns); ``slab_dense_kernel`` / ``slab_lr_kernel`` /
+``slab_nm_kernel`` / ``slab_nm_lr_kernel`` pick one.
 ``plan_nm_splits``, ``plan_tiles_per_block`` and the split's scratch
 (``tc_plan``) also serve #8 (``kernels.nm_sparse``) and the grouped #16,
 #17 and #20 (``kernels.grouped``) on grouped_tc.cu; ``plan_ell_splits``
@@ -46,9 +47,12 @@ SLAB_NM = build.CudaKernel("slab_nm_matmul", "grouped_tc.cu", _SLAB_NM_TPU)
 SLAB_NM_FIRST = build.CudaKernel("slab_nm_matmul", "slab_matmul.cu",
                                  _SLAB_NM_TPU,
                                  key="slab_nm_matmul@slab_matmul.cu")
-SLAB_LR = build.CudaKernel(
-    "slab_lr_matmul", "slab_matmul.cu",
-    "src/repro/kernels/slab_matmul.py:180 (slab_lr_matmul, pallas_call :193)")
+_SLAB_LR_TPU = ("src/repro/kernels/slab_matmul.py:180 (slab_lr_matmul, "
+                "pallas_call :193)")
+SLAB_LR = build.CudaKernel("slab_lr_matmul", "grouped_tc.cu", _SLAB_LR_TPU)
+SLAB_LR_FIRST = build.CudaKernel("slab_lr_matmul", "slab_matmul.cu",
+                                 _SLAB_LR_TPU,
+                                 key="slab_lr_matmul@slab_matmul.cu")
 
 _SLAB_NM_LR_TPU = ("src/repro/kernels/slab_matmul.py:231 "
                    "(slab_nm_lr_matmul, pallas_call :247)")
@@ -71,6 +75,8 @@ _NM_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _NM_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                _I, _I, _I, _P]
 _LR_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+# ... and grouped_tc.cu's slab_lr_matmul the split's scratch and plan
+_LR_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _NM_LR_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 # ... and grouped_tc.cu's slab_nm_lr_matmul the same scratch and plan
 _NM_LR_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -86,6 +92,10 @@ NM_LR_TC_MIN_ROWS = 1
 # ... and the bf16 slab_matmul from SLAB_DENSE_TC_MIN_ROWS rows where one
 # chunk of its tiles fits beside the ring (dense_split_cap)
 SLAB_DENSE_TC_MIN_ROWS = 1
+# ... and the bf16 slab_lr_matmul from SLAB_LR_TC_MIN_ROWS rows at K % 8
+# == 0 where one chunk of x beside the ring fits (dense_split_cap's
+# low-rank form)
+SLAB_LR_TC_MIN_ROWS = 1
 # grouped_tc.cu's kernel splits K so that a launch gives about
 # NM_SPLIT_BLOCKS_PER_SM blocks of 128 rows to each SM, in splits of at
 # most NM_MAX_SPLIT_CHUNKS chunks (plan_nm_splits).
@@ -142,13 +152,20 @@ def slab_dense_split_plain(x, w_s, b_packed, u, v, n_split: int,
     return acc.to(x.dtype)
 
 
-def dense_tc_smem(r: int, cps: int, ntp: int = 1) -> int:
-    """Shared bytes of grouped_tc.cu's slab_matmul / slab_matmul_g at a run
-    of ``cps`` chunks (tc::pick_tc): ``ntp`` tiles of 8 batch rows of x and
+def dense_tc_smem(r: int, cps: int, ntp: int = 1,
+                  lowrank: bool = False) -> int:
+    """Shared bytes of grouped_tc.cu's DenseSrc body at a run of ``cps``
+    chunks with the 2-stage ring (DENSE_RING), as tc::pick_tc counts them:
+    for slab_matmul / slab_matmul_g ``ntp`` tiles of 8 batch rows of x and
     of bf16(x ⊙ v_r) for each of the ``r`` ranks, cps chunks plus 8
-    columns wide at 2 bytes, u of one row tile for each rank, and the
-    2-stage ring (DENSE_RING)."""
-    return 16 * ntp * (cps * CHUNK + 8) * (1 + r) + r * ROWS * 2 + DENSE_RING
+    columns wide at 2 bytes, and u of one row tile for each rank; with
+    ``lowrank`` (slab_lr_matmul) the x tile alone and the projection's
+    sums, p (r, 8·ntp) and the 8 warps' partial sums, in fp32 (rounded up
+    to 16 bytes)."""
+    tile = 16 * ntp * (cps * CHUNK + 8)
+    if lowrank:
+        return tile + -(-(8 + 1) * r * 8 * ntp * 4 // 16) * 16 + DENSE_RING
+    return tile * (1 + r) + r * ROWS * 2 + DENSE_RING
 
 
 def plan_dense_splits(n: int, k: int, n_sm: int, e: int,
@@ -166,16 +183,16 @@ def plan_dense_splits(n: int, k: int, n_sm: int, e: int,
     return -(-chunks // cps), cps
 
 
-def dense_split_cap(r: int, m: int = 1) -> int:
-    """The widest run of K (in chunks) of grouped_tc.cu's slab_matmul at
-    rank ``r`` and ``m`` rows whose tiles and 2-stage ring let two blocks
-    share an H100 SM (TC_SMEM_HALF; two blocks with 2 stages ran ahead of
-    one with 4, PERF.md): at the most n-tiles M needs (up to 4) that fit
-    one chunk, as tc::pick_tc then picks them. 0 when none fits. From
-    shapes only."""
+def dense_split_cap(r: int, m: int = 1, lowrank: bool = False) -> int:
+    """The widest run of K (in chunks) of grouped_tc.cu's slab_matmul (or
+    with ``lowrank`` slab_lr_matmul) at rank ``r`` and ``m`` rows whose
+    tiles and 2-stage ring let two blocks share an H100 SM (TC_SMEM_HALF;
+    two blocks with 2 stages ran ahead of one with 4, PERF.md): at the
+    most n-tiles M needs (up to 4) that fit one chunk, as tc::pick_tc
+    then picks them. 0 when none fits. From shapes only."""
     for ntp in range(min(max(-(-m // 8), 1), 4), 0, -1):
         cps = 0
-        while dense_tc_smem(r, cps + 1, ntp) <= TC_SMEM_HALF:
+        while dense_tc_smem(r, cps + 1, ntp, lowrank) <= TC_SMEM_HALF:
             cps += 1
         if cps:
             return cps
@@ -333,16 +350,18 @@ def tc_plan(dev, e: int, m: int, n: int, k: int, walk: bool = False,
             rank: int = 0, dense_rank: int = 0):
     """(n_split, cps, tpb, part, tickets) of a launch of grouped_tc.cu's
     split body on ``dev``: the split of K (plan_nm_splits; with
-    ``dense_rank``, #3's and #16's rank, plan_dense_splits), the row tiles
-    a block walks (plan_tiles_per_block with ``walk``, else 1) and, for a
-    split, the scratch: (n_split, e, m, n) partial sums, with ``rank``
-    (#7's low-rank term) then the (n_split, e, block columns, m, rank)
+    ``dense_rank``, the rank of a DenseSrc launch, plan_dense_splits,
+    capped by dense_split_cap: #3's and #16's ±1 tiles, or with ``rank``
+    as well #6's projection sums), the row tiles a block walks
+    (plan_tiles_per_block with ``walk``, else 1) and, for a split, the
+    scratch: (n_split, e, m, n) partial sums, with ``rank`` (#7's and
+    #6's low-rank term) then the (n_split, e, block columns, m, rank)
     partial projections, and one ticket per expert and block column (None
     without a split)."""
     n_sm = build.sm_count(dev.index or 0)
     if dense_rank:
-        n_split, cps = plan_dense_splits(n, k, n_sm, e,
-                                         dense_split_cap(dense_rank, m))
+        n_split, cps = plan_dense_splits(
+            n, k, n_sm, e, dense_split_cap(dense_rank, m, bool(rank)))
     else:
         n_split, cps = plan_nm_splits(n, k, n_sm, e)
     tpb = plan_tiles_per_block(n, e, n_split, n_sm) if walk else 1
@@ -421,9 +440,48 @@ def slab_lr_matmul_plain(x, w_s, u, v) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def slab_lr_split_plain(x, w_s, u, v, n_split: int,
+                        cps: int) -> torch.Tensor:
+    """grouped_tc.cu's slab_lr_matmul arithmetic under a split of K, in
+    plain PyTorch (fp32, for the CPU tests): split s covers columns [s ·
+    cps · CHUNK, (s + 1) · cps · CHUNK) of the dense W_S (N, K) and gives
+    a partial W_S sum and a partial projection x · V_sᵀ; both are summed
+    in split order, then acc + p · U is rounded once to x.dtype (the
+    reference's acc + acc_p · u)."""
+    xf, wf, vf = x.float(), w_s.float(), v.float()
+    k = x.shape[1]
+    acc = torch.zeros(x.shape[0], w_s.shape[0], device=x.device)
+    p = torch.zeros(x.shape[0], v.shape[0], device=x.device)
+    for s in range(n_split):
+        cols = slice(s * cps * CHUNK, min(k, (s + 1) * cps * CHUNK))
+        acc = acc + xf[:, cols] @ wf[:, cols].T
+        p = p + xf[:, cols] @ vf[:, cols].T
+    return (acc + p @ u.float()).to(x.dtype)
+
+
+def slab_lr_kernel(dtype, m: int, k: int, r: int = 1) -> build.CudaKernel:
+    """The library a launch at ``m`` rows, ``k`` columns and rank ``r``
+    runs: grouped_tc.cu for bf16 from SLAB_LR_TC_MIN_ROWS rows at K % 8 ==
+    0 (the tensor map's row stride) where a run of one chunk fits two
+    blocks an SM (dense_split_cap's low-rank form), the first design for
+    f32, fewer rows, other K and higher ranks."""
+    if dtype == torch.bfloat16 and m >= SLAB_LR_TC_MIN_ROWS and k % 8 == 0 \
+            and dense_split_cap(r, lowrank=True) >= 1:
+        return SLAB_LR
+    return SLAB_LR_FIRST
+
+
 def slab_lr_matmul(x, w_s, u, v) -> torch.Tensor:
     """Launch the dense-masked + low-rank CUDA kernel on the current
     stream."""
+    m, k = x.shape
+    kern = slab_lr_kernel(x.dtype, m, k, u.shape[0])
+    return launch_slab_lr(kern, x, w_s, u, v)
+
+
+def launch_slab_lr(kern, x, w_s, u, v) -> torch.Tensor:
+    """slab_lr_matmul through ``kern``'s library (SLAB_LR or
+    SLAB_LR_FIRST), counted on its counter."""
     m, k = x.shape
     n = w_s.shape[0]
     r = u.shape[0]
@@ -436,12 +494,21 @@ def slab_lr_matmul(x, w_s, u, v) -> torch.Tensor:
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    fn = build.function(SLAB_LR.source, SLAB_LR.name, _LR_ARGS)
-    err = fn(build.dtype_code(x.dtype), x.data_ptr(), w_s.data_ptr(),
-             u.data_ptr(), v.data_ptr(), y.data_ptr(), m, n, k, r,
-             build.stream_ptr(dev))
-    build.check_launch(err, SLAB_LR.name, f"M={m} N={n} K={k} R={r}")
-    SLAB_LR.launches += 1
+    detail = f"M={m} N={n} K={k} R={r}"
+    head = (build.dtype_code(x.dtype), x.data_ptr(), w_s.data_ptr(),
+            u.data_ptr(), v.data_ptr(), y.data_ptr())
+    if kern is SLAB_LR:
+        n_split, cps, _, part, tickets = tc_plan(dev, 1, m, n, k, rank=r,
+                                                 dense_rank=r)
+        fn = build.function(kern.source, kern.name, _LR_TC_ARGS)
+        err = fn(*head, ptr(part), ptr(tickets), m, n, k, r, n_split, cps,
+                 build.stream_ptr(dev))
+        detail += f" splits={n_split}x{cps * CHUNK}"
+    else:
+        fn = build.function(kern.source, kern.name, _LR_ARGS)
+        err = fn(*head, m, n, k, r, build.stream_ptr(dev))
+    build.check_launch(err, kern.key, detail)
+    kern.launches += 1
     return y
 
 
@@ -455,20 +522,10 @@ def slab_nm_lr_matmul_plain(x, vals, idx, m_pat: int, u, v) -> torch.Tensor:
 def slab_nm_lr_split_plain(x, vals, idx, m_pat: int, u, v, n_split: int,
                            cps: int) -> torch.Tensor:
     """grouped_tc.cu's slab_nm_lr_matmul arithmetic under a split of K, in
-    plain PyTorch (fp32, for the CPU tests): split s covers columns [s ·
-    cps · CHUNK, (s + 1) · cps · CHUNK) and gives a partial W_S sum and a
-    partial projection x · V_sᵀ; both are summed in split order, then acc
-    + p · U is rounded once to x.dtype (the reference's acc + acc_p · u)."""
-    w = expand_nm(vals, idx, m_pat, torch.float32)
-    xf, vf = x.float(), v.float()
-    k = x.shape[1]
-    acc = torch.zeros(x.shape[0], w.shape[0], device=x.device)
-    p = torch.zeros(x.shape[0], v.shape[0], device=x.device)
-    for s in range(n_split):
-        cols = slice(s * cps * CHUNK, min(k, (s + 1) * cps * CHUNK))
-        acc = acc + xf[:, cols] @ w[:, cols].T
-        p = p + xf[:, cols] @ vf[:, cols].T
-    return (acc + p @ u.float()).to(x.dtype)
+    plain PyTorch (fp32, for the CPU tests): slab_lr_split_plain on the
+    expanded W_S."""
+    return slab_lr_split_plain(x, expand_nm(vals, idx, m_pat, torch.float32),
+                               u, v, n_split, cps)
 
 
 def slab_nm_lr_kernel(dtype, n_keep: int, m_pat: int,

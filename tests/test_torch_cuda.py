@@ -1,16 +1,18 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
 card only: slab_ell_matmul (#1), slab_nm_matmul (#2), slab_matmul (#3),
-ell_lr_matmul (#5), slab_nm_lr_matmul (#7), nm_matmul (#8),
+ell_matmul (#4), ell_lr_matmul (#5), slab_lr_matmul (#6),
+slab_nm_lr_matmul (#7), nm_matmul (#8),
 binlr_matmul (#9), flash_decode (#10) and flash_decode_paged (#11), and
 the grouped ell_matmul_g (#12), ell_lr_matmul_g (#13),
 slab_ell_matmul_g (#14), slab_matmul_g (#16), slab_nm_matmul_g (#17),
 slab_lr_matmul_g (#18), slab_nm_lr_matmul_g (#19) and binlr_matmul_g
 (#20), whose bf16 launches (#2, #7, #8 and #17 at 2:4 and 4:8) run the
-kernels of csrc/grouped_tc.cu; #1, #2, #3, #5, #7, #8, #16, #17, #18
-and #20 also through each of their two libraries, #2, #3, #7, #8, #16
-and #17 with K split across blocks, #1 and #5 with each row's entries
+kernels of csrc/grouped_tc.cu; #1-#8, #16, #17, #18 and #20
+also through each of their two libraries, #2, #3, #6, #7, #8, #16 and
+#17 with K split across blocks, #1, #4 and #5 with each row's entries
 split across blocks and #20 with blocks walking several row tiles (two
-launches bitwise equal). Every test skips without a card (the kernels
+launches bitwise equal; #4, #6, #10 and #11 over 20 launches). Every
+test skips without a card (the kernels
 are CUDA C++ for sm_90a with no CPU mode).
 
 This file imports neither JAX nor the reference package, so it runs on
@@ -1456,3 +1458,215 @@ def test_slab_matmul_splits_are_deterministic(cuda, e, n, k, m, rank):
     _close(got, plain(), torch.bfloat16)
     for _ in range(3):
         assert torch.equal(got, run())
+
+
+# #4 ell_matmul (the split gather with no second term) and #6
+# slab_lr_matmul (DenseSrc's ring with the projection through the K split):
+# through each library at M 0-128, N 1411 off the 128-row tile, K 1376 off
+# the 128-column chunk; through the wrapper at bf16 and f32; #4 with int32
+# ids and at (4099, 4100); #6 at K off a multiple of 8 (the first design
+# only); the splits of the main path bitwise repeatable over 20 calls.
+LIN46_M = [0, 1, 2, 3, 4, 8, 37, 128]
+
+
+def _ell4_run(kern, x, vals, idx):
+    return (lambda: ell_k.launch_ell(kern, x, vals, idx),
+            lambda: ell_k.ell_matmul_plain(x, vals, idx))
+
+
+def _lr6_operands(gen, n, k, m, rank, dtype):
+    x, ws, u, v = _lr_g_operands(gen, 1, m, k, dtype, rank, n)
+    return x[0].contiguous(), ws[0].contiguous(), u[0].contiguous(), \
+        v[0].contiguous()
+
+
+def _lr6_run(kern, x, ws, u, v):
+    return (lambda: slab_k.launch_slab_lr(kern, x, ws, u, v),
+            lambda: slab_k.slab_lr_matmul_plain(x, ws, u, v))
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("m", LIN46_M)
+def test_ell_matmul_each_library(cuda, m, lib):
+    """#4 at bf16 through each library; M = 0 gives an empty result and
+    no launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5100 + m)
+    x, vals, idx, _, _, _ = _ell_lin_operands(gen, 1411, 1376, m, 1,
+                                              torch.bfloat16, False)
+    kern = ell_k.ELL if lib == "grouped_tc" else ell_k.ELL_FIRST
+    run, plain = _ell4_run(kern, x, vals, idx)
+    launches = kern.launches
+    got = run()
+    assert kern.launches == launches + (m > 0)
+    if m == 0:
+        assert got.shape == (0, 1411) and got.dtype == torch.bfloat16
+        return
+    _close(got, plain(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 37])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_ell_matmul_kernel_matches_plain(cuda, dt, m):
+    """#4 through the wrapper: the launch counts on the library
+    ell_kernel picks (grouped_tc.cu for bf16 from ELL_TC_MIN_ROWS, the
+    first design at f32: 1e-5)."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5200 + m)
+    x, vals, idx, _, _, _ = _ell_lin_operands(gen, 1411, 1376, m, 1, dtype,
+                                              False)
+    kern = ell_k.ell_kernel(dtype, m, 1376, 2)
+    assert kern is (ell_k.ELL if dtype == torch.bfloat16
+                    and m >= ell_k.ELL_TC_MIN_ROWS else ell_k.ELL_FIRST)
+    launches = kern.launches
+    got = ell_k.ell_matmul(x, vals, idx)
+    assert kern.launches == launches + 1
+    _close(got, ell_k.ell_matmul_plain(x, vals, idx), dtype)
+
+
+@pytest.mark.parametrize("order", [None, "shuffled", "duplicates"])
+@pytest.mark.parametrize("m", [1, 4, 37])
+def test_ell_matmul_int32_ids(cuda, m, order):
+    """uint32 ids (ELL planes past D_in 2^16) on the split kernel, each
+    row's entries in any order."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5300 + m)
+    x, vals, idx, _, _, _ = _ell_lin_operands(
+        gen, 1411, 1376, m, 1, torch.bfloat16, False, wide=True,
+        order=order)
+    assert idx.dtype == torch.int32
+    run, plain = _ell4_run(ell_k.ELL, x, vals, idx)
+    _close(run(), plain(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 4, 37])
+def test_ell_matmul_odd_shape(cuda, m):
+    """chip_smoke.py's ODD_SHAPE (4099, 4100), K_max odd: through the
+    wrapper and through the split kernel."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5400 + m)
+    x, vals, idx, _, _, _ = _ell_lin_operands(gen, 4099, 4100, m, 1,
+                                              torch.bfloat16, False)
+    want = ell_k.ell_matmul_plain(x, vals, idx)
+    _close(ell_k.ell_matmul(x, vals, idx), want, torch.bfloat16)
+    _close(ell_k.launch_ell(ell_k.ELL, x, vals, idx), want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (1024, 4096), (2048, 2816),
+                                   (4096, 11008)], ids=str)
+def test_ell_matmul_splits_are_deterministic(cuda, shape):
+    """The main path's #4 shapes at M 4 split each row's entries across
+    blocks; the last block of a row tile adds the partial sums in split
+    order, so 20 launches give the same bits."""
+    n, k = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5500 + n + k)
+    x, vals, idx, _, _, _ = _ell_lin_operands(gen, n, k, 4, 1,
+                                              torch.bfloat16, False)
+    n_split, _, _ = slab_k.plan_ell_splits(
+        n, k, vals.shape[1],
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert n_split > 1
+    run, plain = _ell4_run(ell_k.ELL, x, vals, idx)
+    got = run()
+    _close(got, plain(), torch.bfloat16)
+    for _ in range(20):
+        assert torch.equal(got, run())
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("rank", [1, 3, 5])
+@pytest.mark.parametrize("m", LIN46_M)
+def test_slab_lr_matmul_each_library(cuda, m, rank, lib):
+    """#6 at bf16 through each library, ranks 1, 3 and 5; M = 0 gives an
+    empty result and no launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5600 + m + rank)
+    x, ws, u, v = _lr6_operands(gen, 1411, 1376, m, rank, torch.bfloat16)
+    kern = slab_k.SLAB_LR if lib == "grouped_tc" else slab_k.SLAB_LR_FIRST
+    run, plain = _lr6_run(kern, x, ws, u, v)
+    launches = kern.launches
+    got = run()
+    assert kern.launches == launches + (m > 0)
+    if m == 0:
+        assert got.shape == (0, 1411) and got.dtype == torch.bfloat16
+        return
+    _close(got, plain(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 37])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_slab_lr_matmul_kernel_matches_plain(cuda, dt, m):
+    """#6 through the wrapper, rank 3: the launch counts on the library
+    slab_lr_kernel picks (grouped_tc.cu for bf16 from
+    SLAB_LR_TC_MIN_ROWS, the first design at f32: 1e-5)."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5700 + m)
+    x, ws, u, v = _lr6_operands(gen, 1411, 1376, m, 3, dtype)
+    kern = slab_k.slab_lr_kernel(dtype, m, 1376, 3)
+    assert kern is (slab_k.SLAB_LR if dtype == torch.bfloat16
+                    and m >= slab_k.SLAB_LR_TC_MIN_ROWS
+                    else slab_k.SLAB_LR_FIRST)
+    launches = kern.launches
+    got = slab_k.slab_lr_matmul(x, ws, u, v)
+    assert kern.launches == launches + 1
+    _close(got, slab_k.slab_lr_matmul_plain(x, ws, u, v), dtype)
+
+
+@pytest.mark.parametrize("m", [1, 4, 37])
+def test_slab_lr_matmul_k_off_eight(cuda, m):
+    """At K % 8 != 0 (rows of W_S off 16 bytes: no tensor map) the wrapper
+    runs the first design, and the new library refuses the launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5800 + m)
+    x, ws, u, v = _lr6_operands(gen, 1411, 1380, m, 1, torch.bfloat16)
+    assert slab_k.slab_lr_kernel(torch.bfloat16, m, 1380, 1) \
+        is slab_k.SLAB_LR_FIRST
+    first = slab_k.SLAB_LR_FIRST.launches
+    _close(slab_k.slab_lr_matmul(x, ws, u, v),
+           slab_k.slab_lr_matmul_plain(x, ws, u, v), torch.bfloat16)
+    assert slab_k.SLAB_LR_FIRST.launches == first + 1
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        slab_k.launch_slab_lr(slab_k.SLAB_LR, x, ws, u, v)
+
+
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("shape", [(4096, 4096), (4096, 11008), (2048, 2048),
+                                   (2048, 2816)], ids=str)
+def test_slab_lr_matmul_splits_are_deterministic(cuda, shape, rank):
+    """The main path's #6 shapes at M 4 split K across blocks; the last
+    block of a row tile adds the partial sums and the partial projections
+    in split order, so 20 launches give the same bits."""
+    n, k = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5900 + n + k + rank)
+    x, ws, u, v = _lr6_operands(gen, n, k, 4, rank, torch.bfloat16)
+    n_split, _ = slab_k.plan_dense_splits(
+        n, k, torch.cuda.get_device_properties(cuda).multi_processor_count,
+        1, slab_k.dense_split_cap(rank, 4, lowrank=True))
+    assert n_split > 1
+    run, plain = _lr6_run(slab_k.SLAB_LR, x, ws, u, v)
+    got = run()
+    _close(got, plain(), torch.bfloat16)
+    for _ in range(20):
+        assert torch.equal(got, run())
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=("model", "int8"))
+@pytest.mark.parametrize("paged", [False, True], ids=("contig", "paged"))
+@pytest.mark.parametrize("gdh", [(1, 128), (4, 160)], ids=str)
+def test_flash_decode_ring_refills_are_deterministic(cuda, gdh, paged,
+                                                     quant):
+    """#10 and #11 refill a ring stage by bulk copies only after a proxy
+    fence behind the generic reads of it: 20 launches over many splits
+    and tiles give the same bits, and the plain version's result."""
+    g, dh = gdh
+    rng = np.random.default_rng(31 + g + paged + 2 * quant)
+    kern, plain = _split_case(rng, 16, g, dh, torch.bfloat16, quant, paged,
+                              cuda)
+    got = kern()
+    _close(got, plain(), torch.bfloat16)
+    for _ in range(20):
+        assert torch.equal(got, kern())

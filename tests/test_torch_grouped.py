@@ -591,7 +591,7 @@ def test_launch_counters_are_per_library():
     """Every library has a counter key of its own, and a reset zeroes
     them all."""
     keys = [k.key for k in ops.KERNELS]
-    assert len(set(keys)) == len(keys) == 34
+    assert len(set(keys)) == len(keys) == 36
     assert len({k.name for k in ops.KERNELS}) == 20
     for k in ops.KERNELS:
         k.launches = 1

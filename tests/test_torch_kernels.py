@@ -939,3 +939,255 @@ def test_slab_dense_g_split_arithmetic_matches_reference(k, cps, m, rank):
         for i in range(e)])
     assert got.shape == (e, m, n) and got.dtype == torch.float32
     assert _rel(got, want) < TOL
+
+
+# ------------- #4's and #6's library choice, split plan and arithmetic
+
+
+@pytest.mark.parametrize("dtype,m,k,idx_bytes,new", [
+    (torch.bfloat16, 3, 4096, 2, True), (torch.bfloat16, 4, 4096, 4, True),
+    (torch.bfloat16, 128, 11008, 2, True),
+    (torch.bfloat16, 4, 11008, 4, True), (torch.bfloat16, 4, 4100, 2, True),
+    (torch.bfloat16, 2, 4096, 2, True), (torch.bfloat16, 1, 4096, 2, True),
+    (torch.bfloat16, 4, 16384, 2, False),
+    (torch.bfloat16, 4, 12480, 2, False),
+    (torch.float32, 4, 4096, 2, False), (torch.float32, 37, 2048, 4, False)],
+    ids=str)
+def test_ell_library_choice(dtype, m, k, idx_bytes, new):
+    """bf16 #4 runs grouped_tc.cu's split gather from ELL_TC_MIN_ROWS rows
+    (2) where x and the ring fit an H100 block (``new``: ell_split_smem at
+    rank 0, 208 KB at K 11008 with uint16 ids, 225 KB with uint32; not at
+    K 12480 or 16384), at any K; below the crossover, past that K and at
+    f32 the first design (ell.cu), each library on its own counter under
+    one C name."""
+    from repro_torch.kernels import ell as ell_k
+    assert ell_k.ELL_TC_MIN_ROWS == 2
+    kern = ell_k.ell_kernel(dtype, m, k, idx_bytes)
+    want = "grouped_tc.cu" if new and m >= ell_k.ELL_TC_MIN_ROWS \
+        else "ell.cu"
+    assert kern.source == want and kern.name == "ell_matmul"
+    assert kern.key == ("ell_matmul" if want == "grouped_tc.cu"
+                        else "ell_matmul@ell.cu")
+    if dtype == torch.bfloat16:
+        assert (ell_k.ell_split_smem(k, 0, idx_bytes) <= slab_k.TC_SMEM) \
+            == new
+    assert ell_k.ell_split_smem(11008, 0, 2) == 11016 * 16 + 4 * 2 * 256 * 16
+
+
+@pytest.mark.parametrize("dtype,m,k,r,new", [
+    (torch.bfloat16, 1, 4096, 1, True), (torch.bfloat16, 4, 4096, 3, True),
+    (torch.bfloat16, 128, 11008, 1, True),
+    (torch.bfloat16, 4, 2056, 163, True),
+    (torch.bfloat16, 4, 4100, 1, False), (torch.bfloat16, 4, 4099, 1, False),
+    (torch.bfloat16, 4, 4096, 164, False),
+    (torch.float32, 4, 4096, 1, False), (torch.float32, 37, 2048, 3, False)],
+    ids=str)
+def test_slab_lr_library_choice(dtype, m, k, r, new):
+    """bf16 #6 runs grouped_tc.cu's DenseSrc body from SLAB_LR_TC_MIN_ROWS
+    rows at K % 8 == 0 (the tensor map's row stride) up to the rank whose
+    projection sums beside one chunk of x and the 2-stage ring no longer
+    let two blocks share an SM (dense_split_cap's low-rank form: rank
+    163); f32, other K and higher ranks the first design
+    (slab_matmul.cu), each library on its own counter under one C
+    name."""
+    kern = slab_k.slab_lr_kernel(dtype, m, k, r)
+    want = "grouped_tc.cu" if new and m >= slab_k.SLAB_LR_TC_MIN_ROWS \
+        else "slab_matmul.cu"
+    assert kern.source == want and kern.name == "slab_lr_matmul"
+    assert kern.key == ("slab_lr_matmul" if want == "grouped_tc.cu"
+                        else "slab_lr_matmul@slab_matmul.cu")
+    assert (slab_k.dense_split_cap(r, lowrank=True) >= 1) == (r <= 163)
+
+
+def test_ell_and_slab_lr_below_the_crossover():
+    """Fewer rows than the crossover run the first design."""
+    from repro_torch.kernels import ell as ell_k
+    for m in range(0, ell_k.ELL_TC_MIN_ROWS):
+        assert ell_k.ell_kernel(torch.bfloat16, m, 4096) is ell_k.ELL_FIRST
+    for m in range(0, slab_k.SLAB_LR_TC_MIN_ROWS):
+        assert slab_k.slab_lr_kernel(torch.bfloat16, m, 4096) \
+            is slab_k.SLAB_LR_FIRST
+    assert ell_k.ell_kernel(torch.bfloat16, ell_k.ELL_TC_MIN_ROWS, 4100) \
+        is ell_k.ELL
+    assert slab_k.slab_lr_kernel(torch.bfloat16, slab_k.SLAB_LR_TC_MIN_ROWS,
+                                 4096) is slab_k.SLAB_LR
+
+
+@pytest.mark.parametrize("kernel", ["ell_matmul", "slab_lr_matmul"])
+def test_ell_and_slab_lr_counters_are_per_library(kernel):
+    """#4's and #6's two libraries count on their own keys in
+    ops.launch_counts, under one C name."""
+    from repro_torch.kernels import ell as ell_k
+    new, first, src = ((ell_k.ELL, ell_k.ELL_FIRST, "ell.cu")
+                       if kernel == "ell_matmul" else
+                       (slab_k.SLAB_LR, slab_k.SLAB_LR_FIRST,
+                        "slab_matmul.cu"))
+    counts = ops.launch_counts()
+    assert {kernel, f"{kernel}@{src}"} <= set(counts)
+    assert new.name == first.name == kernel
+    assert (new.source, first.source) == ("grouped_tc.cu", src)
+    new.launches = 3
+    assert ops.launch_counts()[kernel] == 3
+    assert ops.launch_counts()[f"{kernel}@{src}"] == 0
+    first.launches = 2
+    assert ops.launch_counts()[kernel] == 3
+    ops.reset_launch_counts()
+    assert not ops.launch_counts()[kernel]
+
+
+# the (N, K, K_max) of the per-linear #4 launches on the main path: llama2-7b
+# at CR 0.6 (phase f; K_max 0.4·K) and deepseek-moe-16b's attention and
+# shared MLP (s); the plan on an H100's 132 SMs
+ELL4_PATH_SPLITS = [
+    ((4096, 4096, 1638), (7, 256)), ((11008, 4096, 1638), (3, 576)),
+    ((4096, 11008, 4403), (8, 576)), ((2048, 2048, 819), (13, 64)),
+    ((2816, 2048, 819), (7, 128)), ((2048, 2816, 1126), (9, 128))]
+
+
+@pytest.mark.parametrize("shape,want", ELL4_PATH_SPLITS, ids=str)
+def test_ell4_split_plan_at_the_path_shapes(shape, want):
+    """At every (N, K, K_max) that phases f and s give #4, each row's
+    entries split (no second term: the plan without column runs), the
+    runs cover a row's entries from any 8-entry boundary once, and every
+    SM gets a block and none more than NM_SPLIT_BLOCKS_PER_SM."""
+    n, k, k_max = shape
+    n_split, epb = want
+    assert slab_k.plan_ell_splits(n, k, k_max, 132) == (n_split, epb, 0)
+    assert n_split > 1 and epb % slab_k.ELL_STEP == 0
+    assert (n_split - 1) * epb < k_max + 7 <= n_split * epb
+    tiles = -(-n // slab_k.ROWS)
+    assert 132 <= tiles * n_split <= slab_k.NM_SPLIT_BLOCKS_PER_SM * 132
+
+
+def test_ell4_scratch_holds_partial_sums(monkeypatch):
+    """#4's split launch asks ell_plan for (n_split, M, N) partial sums
+    and one zero ticket per row tile, no projection (rank 0)."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(slab_k, "_SCRATCH", {})
+    dev = torch.device("cpu")
+    n_split, epb, cps, part, tickets = slab_k.ell_plan(dev, 4, 4096, 4096,
+                                                       1638)
+    assert (n_split, epb, cps) == (7, 256, 0)
+    assert part.numel() >= 7 * 4 * 4096 and part.dtype == torch.float32
+    assert tickets.numel() >= 32 and not tickets.any()
+
+
+# the (N, K) of the per-linear #6 launches on the main path: llama2-7b
+# (phase h) and deepseek-moe-16b's attention and shared MLP (u), at M 4;
+# the plan on an H100's 132 SMs, ranks 1 and 3
+LR6_PATH_SPLITS = [
+    ((4096, 4096), (8, 4)), ((11008, 4096), (3, 11)),
+    ((4096, 11008), (8, 11)), ((2048, 2048), (16, 1)),
+    ((2816, 2048), (8, 2)), ((2048, 2816), (11, 2))]
+
+
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("shape,want", LR6_PATH_SPLITS, ids=str)
+def test_slab_lr_split_plan_at_the_path_shapes(monkeypatch, shape, want,
+                                               rank):
+    """tc_plan plans #6 by plan_dense_splits with dense_split_cap's
+    low-rank form (23 chunks at M 4, ranks 1 and 3: #3's ±1 tiles would
+    cap rank 3 at 5): one wave, every SM a block, at most two; runs
+    cover K once; the scratch holds the partial sums and after them the
+    (n_split, ⌈N/128⌉, M, R) partial projections."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(slab_k, "_SCRATCH", {})
+    n, k = shape
+    m = 4
+    cap = slab_k.dense_split_cap(rank, m, lowrank=True)
+    assert cap == 23 and slab_k.dense_split_cap(rank, m) < cap
+    n_split, cps, tpb, part, tickets = slab_k.tc_plan(
+        torch.device("cpu"), 1, m, n, k, rank=rank, dense_rank=rank)
+    assert (n_split, cps) == want and tpb == 1
+    assert (n_split - 1) * cps * 128 < k <= n_split * cps * 128
+    tiles = -(-n // 128)
+    assert 132 <= tiles * n_split <= 2 * 132
+    assert part.numel() >= n_split * m * n + n_split * tiles * m * rank
+    assert tickets.numel() >= tiles and not tickets.any()
+
+
+@pytest.mark.parametrize("r,m,cap", [(1, 1, 23), (1, 8, 23), (3, 4, 23),
+                                     (1, 16, 11), (1, 37, 5), (3, 128, 5),
+                                     (64, 1, 14), (163, 1, 1)], ids=str)
+def test_slab_lr_split_cap_fits_two_blocks(r, m, cap):
+    """dense_tc_smem's low-rank form is tc::pick_tc<DenseSrc, LR>'s count:
+    the n-tiles' rows of x over the run plus 8 columns at 2 bytes, the
+    projection's sums p (r, 8·ntp) and the 8 warps' (8, r, 8·ntp) in fp32
+    rounded up to 16 bytes, and the 2-stage ring with its 1024 bytes of
+    alignment (no x ⊙ v_r tiles, no u); its widest run fits half an H100
+    SM's 228 KB less 1 KB a block, and one chunk more does not."""
+    def pick_tc(ntp, cps):
+        kp = cps * 128
+        lr = -(-(8 + 1) * r * 8 * ntp * 4 // 16) * 16
+        return 8 * ntp * (kp + 8) * 2 + lr + 2 * 8 * 4096 + 1024
+    assert slab_k.dense_split_cap(r, m, lowrank=True) == cap
+    ntp = next(t for t in range(min(-(-m // 8), 4), 0, -1)
+               if pick_tc(t, 1) <= slab_k.TC_SMEM_HALF)
+    for cps in (1, cap, cap + 1):
+        assert slab_k.dense_tc_smem(r, cps, ntp, lowrank=True) \
+            == pick_tc(ntp, cps)
+    assert pick_tc(ntp, cap) <= slab_k.TC_SMEM_HALF < pick_tc(ntp, cap + 1)
+    assert 2 * (pick_tc(ntp, cap) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("wide", [False, True], ids=("uint16", "uint32"))
+@pytest.mark.parametrize("k,epb", [(256, 64), (300, 128), (512, 128)],
+                         ids=str)
+def test_ell_split_arithmetic_matches_reference(k, epb, wide, m):
+    """grouped_tc.cu's #4 under a split of each row's entries
+    (ell_lr_split_plain with no low-rank term: each split's run of every
+    row, the partial sums added in split order, rounded once) against the
+    reference kernel in interpret mode on the same numpy inputs: N 97
+    (odd), each row's entries shuffled, K_max odd, uint16 or uint32 ids,
+    2 or 3 splits, f32 at max|diff| / max|ref| < 1e-5."""
+    from repro.kernels import ell as ref_ell
+    from repro_torch.kernels import ell as ell_k
+    n = 97
+    x, w, _, _, _ = _ell_np(900 + k + m + wide, m, n, k, 1, keep=0.4)
+    vals, idx = _shuffled_ell(w, k + m)
+    if wide:
+        idx = idx.astype(np.uint32)
+    want = ref_ell.ell_matmul(jnp.asarray(x), jnp.asarray(vals),
+                              jnp.asarray(idx), interpret=True)
+    n_split = -(-(vals.shape[1] + 7) // epb)
+    assert n_split in (2, 3) and vals.shape[1] % 2
+    tt = functools.partial(bridge.tensor, device="cpu")
+    ti = tt(idx)
+    assert ti.element_size() == (4 if wide else 2)
+    got = ell_k.ell_lr_split_plain(tt(x), tt(vals), ti, None, None, n_split,
+                                   epb)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert _rel(got, want) < TOL
+    assert _rel(ell_k.ell_matmul_plain(tt(x), tt(vals), ti), got) < TOL
+    assert _rel(ops.ell_matmul(tt(x), tt(vals), ti), want) < TOL
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("k,cps", [(256, 1), (320, 1), (512, 2)], ids=str)
+def test_slab_lr_split_arithmetic_matches_reference(k, cps, rank, m):
+    """grouped_tc.cu's #6 under a split of K (slab_lr_split_plain: each
+    split's partial W_S sum and partial projection, both summed in split
+    order, then acc + p·U rounded once) against the reference kernel in
+    interpret mode on the same numpy inputs: N 97 (odd), 2 or 3 splits,
+    the last one shorter at K 320, ranks 1 and 3, f32 at max|diff| /
+    max|ref| < 1e-5."""
+    from repro.kernels import slab_matmul as ref_slab
+    n = 97
+    x, w, _, u, v = (a[0] for a in _dense_np(1000 + k + rank + m, 1, m, n,
+                                              k, rank))
+    want = ref_slab.slab_lr_matmul(jnp.asarray(x), jnp.asarray(w),
+                                   jnp.asarray(u), jnp.asarray(v),
+                                   interpret=True)
+    n_split = -(-k // (cps * 128))
+    assert n_split in (2, 3)
+    tt = functools.partial(bridge.tensor, device="cpu")
+    got = slab_k.slab_lr_split_plain(tt(x), tt(w), tt(u), tt(v), n_split,
+                                     cps)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert _rel(got, want) < TOL
+    one = slab_k.slab_lr_matmul_plain(tt(x), tt(w), tt(u), tt(v))
+    assert _rel(got, one) < TOL

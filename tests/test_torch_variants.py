@@ -390,7 +390,9 @@ def test_ctypes_argtypes_match_the_c_signatures():
                      ell_k._SLAB_ELL_TC_ARGS,
                  ("ell_lr_matmul", "grouped_tc.cu"): ell_k._ELL_LR_TC_ARGS,
                  ("slab_matmul", "grouped_tc.cu"): slab_k._DENSE_TC_ARGS,
-                 ("slab_matmul_g", "grouped_tc.cu"): g_k._SLAB_TC_ARGS}
+                 ("slab_matmul_g", "grouped_tc.cu"): g_k._SLAB_TC_ARGS,
+                 ("ell_matmul", "grouped_tc.cu"): ell_k._ELL_TC_ARGS,
+                 ("slab_lr_matmul", "grouped_tc.cu"): slab_k._LR_TC_ARGS}
     seen, seen_by_source = set(), set()
     for src in build.SOURCES:
         text = (Path(build.CSRC) / src).read_text()
