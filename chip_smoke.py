@@ -16,8 +16,8 @@ Phases:
      words also at (4099, 4100) (K not a multiple of 32, odd K_max); times
      at M = 4, bf16, rank 1 beside the byte bound, the plain version and
      one torch.matmul against the reconstructed dense W; #2
-     slab_nm_matmul, #8 nm_matmul, #7 slab_nm_lr_matmul, #3 slab_matmul
-     and #6 slab_lr_matmul (K split across blocks) and #1
+     slab_nm_matmul, #8 nm_matmul, #7 slab_nm_lr_matmul, #3 slab_matmul,
+     #6 slab_lr_matmul and #9 binlr_matmul (K split across blocks) and #1
      slab_ell_matmul, #5 ell_lr_matmul and #4 ell_matmul (each row's
      entries split across blocks; also with int32 ids) at bf16 also
      through each of their two libraries (grouped_tc.cu and the first
@@ -48,13 +48,13 @@ Phases:
      beside the byte bound, the plain version and one torch.bmm on the
      reconstructed dense (E, K, N) stack, and at the first shape the
      kernel alone at each other M (the "M sweep" lines); #14 on both
-     models, #17 on phi3.5-moe's and #12, #13, #18, #19 and #20 on
+     models, #15 and #17 on phi3.5-moe's and #12, #13, #18, #19 and #20 on
      deepseek-moe-16b's also checked and timed at M = 1, 2, 3, 4, 6, 8,
      9, 16, 20, 32 (bf16, rank 1), through the wrapper (the line names
      the library it ran at each M) and through each of their two
      libraries, grouped_tc.cu and the first design (#16 on phi3.5-moe's
-     too); #16, #17, #18 and #20 also through each library at the timed
-     M; the first design of #12, #13, #17, #19 and #20 also timed at
+     too); #15, #16, #17, #18 and #20 also through each library at the
+     timed M; the first design of #12, #13, #17, #19 and #20 also timed at
      f32;
   3. the port's main paths at full width with cut depth: compress_model
      (16x128 calibration) -> pack_model -> greedy_decode (batch 4, prompt
@@ -90,18 +90,19 @@ Phases:
      expert) must run only the first design (ell.cu), phases a, l, m and
      r's #1, phases g and t's #5, phases f and s's #4, phases h and u's
      #6, phases b and n's #2, phases c and o's
-     #3, phases e and p's #8, phases i and v's #7, phase n's #17, phase
-     o's #16 and phases r, s, t, u, v and w's grouped kernel only
-     grouped_tc.cu, and phases d, k, q and x (f32) only ell.cu;
+     #3, phases e and p's #8, phases i and v's #7, phases j and w's #9,
+     phase n's #17, phase o's #16, phase p's #15 and phases r, s, t, u, v
+     and w's grouped kernel only grouped_tc.cu, and phases d, k, q and x
+     (f32) only ell.cu;
      final-step logits are held against the dense-equivalent
      (reconstructed-W) model — for the MoE models against dense experts
      (and dense shared experts) behind the same packed attention, whose
      expert choices must agree token for token (_hold_moe_logits says
-     why); phases a, b, c, e, f, g, h, i, m, n, o, r, s, t, u, v and w
-     are profiled (a, b, c, e, f, g, h, i, n, o, s, u and w with #1's,
-     #2's, #3's, #8's, #4's, #5's, #6's, #7's, #17's, #16's, #12's and
-     #4's, #18's and #6's and #20's device time per step and share of
-     the busy time);
+     why); phases a, b, c, e, f, g, h, i, j, m, n, o, p, r, s, t, u, v
+     and w are profiled (a, b, c, e, f, g, h, i, j, n, o, p, s, u and w
+     with #1's, #2's, #3's, #8's, #4's, #5's, #6's, #7's, #9's, #17's,
+     #16's, #15's and #8's, #12's and #4's, #18's and #6's and #20's and
+     #9's device time per step and share of the busy time);
      phases e-i also print the eval perplexity (lm.loss_fn) of the
      uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
@@ -123,10 +124,9 @@ Phases:
           request terminal); no block leaked;
        x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
           factor 64/6;
-  4. one JSON line listing every ported kernel (all twenty; #1-#8,
-     #12, #13, #14, #16, #17, #18, #19 and #20 once per library, each
-     with its own launch counter: thirty-six entries), then
-     the result line.
+  4. one JSON line listing every ported kernel (all twenty; #1-#9 and
+     #12-#20 once per library, each with its own launch counter:
+     thirty-eight entries), then the result line.
 
 Any failed check raises, and the script exits non-zero. It needs
 ``torch.cuda.is_available()`` and the repository's ``src/`` beside it.
@@ -157,13 +157,14 @@ SLEEP_CYCLES = 400_000             # ~0.2 ms of device sleep before a timed call
 # every bf16 timed case (the JSON line reports each library's time)
 LIB_TIMED = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul",
              "slab_ell_matmul", "ell_lr_matmul", "slab_matmul",
-             "ell_matmul", "slab_lr_matmul", "slab_lr_matmul_g",
-             "slab_nm_matmul_g", "binlr_matmul_g", "slab_matmul_g")
+             "ell_matmul", "slab_lr_matmul", "binlr_matmul",
+             "slab_lr_matmul_g", "slab_nm_matmul_g", "binlr_matmul_g",
+             "slab_matmul_g", "nm_matmul_g")
 # the per-linear M sweep of #2, #8 and #7 (2:4 and 4:8) and of #1, #5, #3,
-# #4 and #6 at JSON_SHAPE (bf16, rank 1)
+# #4, #6 and #9 at JSON_SHAPE (bf16, rank 1)
 NM_SWEEP = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul",
             "slab_ell_matmul", "ell_lr_matmul", "slab_matmul", "ell_matmul",
-            "slab_lr_matmul")
+            "slab_lr_matmul", "binlr_matmul")
 NM_SWEEP_M = (1, 2, 3, 4, 8, 16)
 
 
@@ -197,9 +198,9 @@ def environment():
         + " ".join(f"{s}={t:.2f}s" for s, t in per_src.items()))
     for s in build.SOURCES:
         log(f"  ptxas {s}: {_ptxas_summary(build.build_log(s))}")
-    log("  ptxas grouped_tc.cu tc bodies (tc_kernel: #19, #18; "
-        "tc_bin_kernel: #2, #3; tc_g_kernel: #17, #20, #16; tc_nm_kernel: "
-        "#8, #7, #6): "
+    log("  ptxas grouped_tc.cu tc bodies <Src, n-tiles, LR, BIN> "
+        "(tc_kernel: #19, #18; tc_bin_kernel: #2, #3, #9; tc_g_kernel: "
+        "#17, #20, #16, #15; tc_nm_kernel: #8, #7, #6): "
         + _ptxas_tc(build.build_log("grouped_tc.cu")))
     log("  ptxas grouped_tc.cu ell_split_kernel<ids, LR (#5, #13), BIN "
         "(#1; #12 and #4 neither), n-tiles, rows a column, split>: "
@@ -221,23 +222,24 @@ def _ptxas_summary(text: str) -> str:
 def _ptxas_tc(text: str) -> str:
     """Registers and spill-store bytes of each tc_kernel / tc_bin_kernel /
     tc_g_kernel / tc_nm_kernel entry of a ``-Xptxas -v`` report, as
-    kernel<source, n-tiles>."""
+    kernel<source, n-tiles, LR, BIN>."""
     out = []
     pat = re.compile(r"Compiling entry function '_ZN2tc(\d+)"
                      r"(tc_(?:bin_|g_|nm_)?kernel)"
                      r"INS_(?:\d+)(NmSrc|DenseSrc|NoSrc)(?:ILi(\d)ELi(\d)EE)?"
-                     r"ELi(\d)E")
+                     r"ELi(\d)ELb([01])ELb([01])E")
     lines = text.splitlines()
     for i, line in enumerate(lines):
         m = pat.search(line)
         if not m:
             continue
-        _, kern, src, nk, mg, ntp = m.groups()
+        _, kern, src, nk, mg, ntp, lr, bn = m.groups()
         src = f"{src}<{nk},{mg}>" if nk else src
         tail = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", tail)
         spill = re.search(r"(\d+) bytes spill stores", tail)
-        out.append(f"{kern}<{src},{ntp}> {regs.group(1) if regs else '?'}r"
+        out.append(f"{kern}<{src},{ntp},{lr},{bn}> "
+                   f"{regs.group(1) if regs else '?'}r"
                    f"/{spill.group(1) if spill else '?'}sp")
     return " ".join(out)
 
@@ -414,7 +416,10 @@ def _cases(planes, x, rank, wide_ids=False):
             "binlr_matmul", "binlr_matmul",
             lambda: binlr_k.binlr_matmul(x, b, u, v),
             lambda: binlr_k.binlr_matmul_plain(x, b, u, v),
-            (b, u, v), w_b, ops(0, binary=True)))
+            (b, u, v), w_b, ops(0, binary=True),
+            libs={kk.key: (lambda kk=kk: binlr_k.launch_binlr(kk, x, b, u,
+                                                              v))
+                  for kk in (binlr_k.BINLR, binlr_k.BINLR_FIRST)}))
     ells = [("", planes["ell"], planes["ell_lr"])]
     if wide_ids:
         ells.append(("[int32]",
@@ -606,8 +611,8 @@ def kernel_checks():
 def nm_sweep(flush):
     """#2 slab_nm_matmul, #8 nm_matmul and #7 slab_nm_lr_matmul (2:4 and
     4:8), #1 slab_ell_matmul, #5 ell_lr_matmul and #4 ell_matmul (uint16
-    ids), #3 slab_matmul and #6 slab_lr_matmul at JSON_SHAPE, bf16, rank
-    1, at every M of NM_SWEEP_M:
+    ids), #3 slab_matmul, #6 slab_lr_matmul and #9 binlr_matmul at
+    JSON_SHAPE, bf16, rank 1, at every M of NM_SWEEP_M:
     checked against their plain versions and timed through the wrapper
     (each M tagged with the library it ran) and through each of their two
     libraries."""
@@ -647,7 +652,7 @@ def nm_sweep(flush):
         log(f"  M sweep {label} N={n} K={k} bf16 r1{how}: "
             + " ".join(f"M={m}: {t:.4f} ms" + (f" ({ran})" if ran else "")
                        for m, (t, ran) in sorted(by_m.items())))
-    log(f"per-linear sweep (#2, #8, #7, #1, #5, #3, #4, #6): {n_checks} "
+    log(f"per-linear sweep (#2, #8, #7, #1, #5, #3, #4, #6, #9): {n_checks} "
         "cases passed; "
         "worst "
         "max|err|/max|ref|: "
@@ -722,7 +727,8 @@ G_SPECS = {
         shapes=((6400, 4096), (4096, 6400)), experts=16,
         bucket=(3, 14, 0, 9, 6), batches=(1, 2, 20), timed_m=2,
         odd=(4096, 6408), seed=2,
-        sweep=("slab_ell_matmul_g", "slab_nm_matmul_g", "slab_matmul_g"),
+        sweep=("slab_ell_matmul_g", "slab_nm_matmul_g", "slab_matmul_g",
+               "nm_matmul_g"),
         timed_f32=("slab_nm_matmul_g[2:4]",)),
     "deepseek-moe-16b": dict(
         kernels=("slab_ell_matmul_g", "ell_matmul_g", "ell_lr_matmul_g",
@@ -903,7 +909,10 @@ def _g_cases(planes, x, rank, kernels, wide_ids=False):
                 lambda nv=nv, ni=ni, mm=mm: g_k.nm_matmul_g(x, nv, ni, mm),
                 lambda nv=nv, ni=ni, mm=mm: g_k.nm_matmul_g_plain(
                     x, nv, ni, mm),
-                (nv, ni), nm_dense(nv, ni, nn, mm), ops(nv.numel())))
+                (nv, ni), nm_dense(nv, ni, nn, mm), ops(nv.numel()),
+                libs={kk.key: (lambda kk=kk, nv=nv, ni=ni, mm=mm:
+                               g_k.launch_nm_g(kk, x, nv, ni, mm))
+                      for kk in (g_k.NM_G, g_k.NM_G_FIRST)}))
     if rank == 1 and "ell_matmul_g" in want:
         for tag, (vals, idx) in ells("ell"):
             out.append(Case(
@@ -2050,6 +2059,10 @@ def moe_engine_phase(tag, arch):
 ELL4_SPLIT = ("ell_split_kernel<unsigned short, false, false", ", true>")
 ELL12 = ("ell_split_kernel<unsigned short, false, false", ", false>")
 LR6 = "tc_nm_kernel<tc::DenseSrc"
+# #9 runs NoSrc under tc_bin_kernel (#20 under tc_g_kernel); #15 NmSrc
+# under tc_g_kernel without the ±1 term (#17 with it)
+BIN9 = "tc_bin_kernel<tc::NoSrc"
+NM15 = ("tc_g_kernel<tc::NmSrc<2, 4>", "false, false>")
 PHASES = (
     ("a", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
                variant="slab-ell", kernel="slab_ell_matmul", tol=3e-2,
@@ -2097,7 +2110,7 @@ PHASES = (
                       "tc_nm_kernel<tc::NmSrc<2, 4>"))),
     ("j", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
                variant="binlr", kernel="binlr_matmul", tol=3e-2,
-               zero_ws=True,
+               zero_ws=True, profiled=True, focus=("#9 binlr_matmul", BIN9),
                note="phase a's slab decompositions with W_S := 0, served "
                     "as W_L ⊙ W_B; logits against that dense-equivalent")),
     # phi3.5-moe: attention through the per-linear kernel, every expert
@@ -2120,7 +2133,9 @@ PHASES = (
     ("p", dict(arch="phi3_5_moe", n_layers=1, dtype=torch.bfloat16, cr=0.5,
                pattern="2:4", variant="sparse-nm", kernel="nm_matmul",
                expert_kernel="nm_matmul_g", tol=3e-2, method="wanda",
-               options={})),
+               options={}, profiled=True,
+               focus=(("#15 nm_matmul_g", NM15),
+                      ("#8 nm_matmul", "tc_nm_kernel<tc::NmSrc<2, 4>")))),
     # deepseek-moe-16b (64 experts, top-6, shared experts): attention and
     # the shared MLP through the per-linear kernel, every routed expert
     # leaf through its grouped kernel; 1 layer (_hold_moe_logits). At 6
@@ -2158,7 +2173,9 @@ PHASES = (
     ("w", dict(arch="deepseek_moe_16b", n_layers=1, dtype=torch.bfloat16,
                cr=0.5, pattern=None, variant="binlr", kernel="binlr_matmul",
                expert_kernel="binlr_matmul_g", tol=3e-2, zero_ws=True,
-               profiled=True, focus=("#20 binlr_matmul_g", "tc::NoSrc"),
+               profiled=True,
+               focus=(("#20 binlr_matmul_g", "tc_g_kernel<tc::NoSrc"),
+                      ("#9 binlr_matmul", BIN9)),
                note="phase r's slab decompositions with W_S := 0, served "
                     "as W_L ⊙ W_B")),
 )
@@ -2175,12 +2192,13 @@ JSON_LABEL = {"slab_ell_matmul": "slab_ell_matmul",
 # ... and of each grouped kernel's library, by counter key: the G_SPECS
 # model and the timed case (at that model's first shape). #14's first
 # design reports phi3.5-moe at M 2, where its decode runs it; #12's, #13's
-# and #19's their f32 launches; #16's, #17's, #18's and #20's (and #1's,
-# #2's, #3's, #5's, #7's and #8's, above) each library at the timed case
-# (LIB_TIMED: the case's "libs").
+# and #19's their f32 launches; #15's, #16's, #17's, #18's and #20's (and
+# #1's-#9's, above) each library at the timed case (LIB_TIMED: the case's
+# "libs").
 G_JSON = {"slab_ell_matmul_g": ("deepseek-moe-16b", "slab_ell_matmul_g"),
           "slab_ell_matmul_g@ell.cu": ("phi3.5-moe", "slab_ell_matmul_g"),
           "nm_matmul_g": ("phi3.5-moe", "nm_matmul_g[2:4]"),
+          "nm_matmul_g@nm_sparse.cu": ("phi3.5-moe", "nm_matmul_g[2:4]"),
           "slab_matmul_g": ("phi3.5-moe", "slab_matmul_g"),
           "slab_matmul_g@slab_matmul.cu": ("phi3.5-moe", "slab_matmul_g"),
           "slab_nm_matmul_g": ("phi3.5-moe", "slab_nm_matmul_g[2:4]"),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time kernels of several checkouts on one CUDA card.
 
-    python3 scripts/time_trees.py [--cases ell|dense|flash] TREE [TREE ...]
+    python3 scripts/time_trees.py [--cases ell|dense|flash|binlr|nm_g] \
+        TREE [TREE ...]
     python3 scripts/time_trees.py .proof/parent .
     python3 scripts/time_trees.py --cases dense . .proof/variant
 
@@ -30,6 +31,12 @@ its wrappers' ``launch_*``:
 - ``flash``: #11 flash_decode_paged and #10 flash_decode at chip_smoke's
   timed shapes (llama2-7b R 8, KV 32, G 1, dh 128, blocks of 16, lengths
   0-4096; the engine's 4 rows up to 320 tokens);
+- ``binlr``: #9 binlr_matmul at llama2-7b's (N, K) and M 4 and 8 (through
+  ``binlr.binlr_matmul``: the library it picks in that tree), with one
+  torch.matmul on the dense W_L ⊙ W_B at M 4 beside it;
+- ``nm_g``: #15 nm_matmul_g (2:4) at phi3.5-moe's expert shapes (E 16, M
+  2, through ``grouped.nm_matmul_g``), with one torch.bmm on the dense
+  (E, K, N) stack beside it;
 
 bf16, rank 1, synthetic planes from this checkout's chip_smoke.py, timed
 as chip_smoke.py times a kernel (CUDA events, L2 flushed, a device sleep
@@ -131,6 +138,53 @@ def _flash_cases(torch, cs):
                                                                  bs=bs))
 
 
+def _binlr_cases(torch, cs):
+    """(label, launch, plain) of the ``binlr`` set."""
+    from repro_torch.core.packing import unpack_sign_bits
+    from repro_torch.kernels import binlr as binlr_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    bf16 = torch.bfloat16
+    for n, k in LIN_SHAPES[:3]:
+        p = cs._planes(n, k, bf16, 1, gen)
+        u, v, b = p["u"], p["v"], p["b"]
+        del p
+        w_hat = ((u.float().T @ v.float())
+                 * unpack_sign_bits(b, k, torch.float32)).to(bf16)
+        for m in (4, 8):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            yield (f"#9 ({n}, {k}) M {m}",
+                   lambda x=x: binlr_k.binlr_matmul(x, b, u, v),
+                   lambda x=x: binlr_k.binlr_matmul_plain(x, b, u, v))
+            if m == 4:
+                yield (f"torch.matmul ({n}, {k}) M {m}",
+                       lambda x=x, w_hat=w_hat: torch.matmul(x, w_hat.T),
+                       None)
+
+
+def _nm_g_cases(torch, cs):
+    """(label, launch, plain) of the ``nm_g`` set."""
+    from repro_torch.core.packing import NMPacked, unpack_nm
+    from repro_torch.kernels import grouped as g_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    bf16 = torch.bfloat16
+    for n, k in PHI_SHAPES:
+        p = cs._g_planes(PHI_E, n, k, bf16, 1, gen, ("nm_matmul_g",))
+        nv, ni = p["2:4"]
+        del p
+        x = torch.randn((PHI_E, PHI_M, k), generator=gen,
+                        device="cuda").to(bf16)
+        yield (f"#15 ({n}, {k}) E {PHI_E} M {PHI_M}",
+               lambda nv=nv, ni=ni: g_k.nm_matmul_g(x, nv, ni, 4),
+               lambda nv=nv, ni=ni: g_k.nm_matmul_g_plain(x, nv, ni, 4))
+        w_t = torch.stack([unpack_nm(NMPacked(nv[e], ni[e], 2, 4, k))
+                           for e in range(PHI_E)]).transpose(1, 2)
+        w_t = w_t.contiguous()
+        yield (f"torch.bmm ({n}, {k}) E {PHI_E} M {PHI_M}",
+               lambda x=x, w_t=w_t: torch.bmm(x, w_t), None)
+
+
 def _cases(torch, cs, which="ell"):
     """(label, launch, plain) of every case, operands made on the card."""
     if which == "dense":
@@ -138,6 +192,12 @@ def _cases(torch, cs, which="ell"):
         return
     if which == "flash":
         yield from _flash_cases(torch, cs)
+        return
+    if which == "binlr":
+        yield from _binlr_cases(torch, cs)
+        return
+    if which == "nm_g":
+        yield from _nm_g_cases(torch, cs)
         return
     from repro_torch.kernels import ell as ell_k
     from repro_torch.kernels import grouped as g_k
@@ -226,7 +286,8 @@ def _run(tree: Path, build_only: bool, which: str) -> subprocess.Popen:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts to time")
-    ap.add_argument("--cases", choices=("ell", "dense", "flash"),
+    ap.add_argument("--cases",
+                    choices=("ell", "dense", "flash", "binlr", "nm_g"),
                     default="ell",
                     help="which kernels to time (see above)")
     ap.add_argument("--worker", action="store_true",

@@ -563,9 +563,9 @@ extern "C" int slab_ell_matmul_g(int dtype, int idx_bytes, const void* x,
 
 namespace tc {
 
-// ---------------------- #19, #18, #2, #17, #20, #8, #7, #3, #16, #6
+// -------------- #19, #18, #2, #17, #20, #8, #7, #3, #16, #6, #15, #9
 //
-// One body, tc_body, serves ten kernels whose weight rows meet x on the
+// One body, tc_body, serves twelve kernels whose weight rows meet x on the
 // tensor cores in one k order:
 //
 //   slab_nm_lr_matmul_g  y[e] = x[e] · W_S[e]ᵀ + (x[e] · V[e]ᵀ) · U[e],
@@ -582,6 +582,8 @@ namespace tc {
 //   slab_matmul_g        #3 for every expert e                       (#16)
 //   slab_lr_matmul       y = x · W_Sᵀ + (x · Vᵀ) · U, W_S dense: #18
 //                        at E 1                                      (#6)
+//   nm_matmul_g          #8 for every expert e                       (#15)
+//   binlr_matmul         y = Σ_r u_r ⊙ (B · (x ⊙ v_r)ᵀ): #20 at E 1   (#9)
 //
 // #18 replaces repro/kernels/grouped.py::slab_lr_matmul_g
 // (_kernel_dense_lr_g, pallas_call at grouped.py:348), #2
@@ -596,10 +598,12 @@ namespace tc {
 // at slab_matmul.py:77), #16 repro/kernels/grouped.py::slab_matmul_g
 // (_kernel_dense_g, pallas_call at grouped.py:242) and #6
 // repro/kernels/slab_matmul.py::slab_lr_matmul (_kernel_dense_lr,
-// pallas_call at slab_matmul.py:193), for bf16 operands (#2, #17, #8 and
-// #7 at 2:4 and 4:8); their f32 launches and the other patterns keep the
-// first design (slab_matmul.cu, nm_sparse.cu), which holds 1e-5 without
-// TF32.
+// pallas_call at slab_matmul.py:193), #15 repro/kernels/grouped.py::
+// nm_matmul_g (_kernel_nm_g, pallas_call at grouped.py:195) and #9
+// repro/kernels/binlr.py::binlr_matmul (_kernel, pallas_call at
+// binlr.py:65), for bf16 operands (#2, #17, #8, #7 and #15 at 2:4 and
+// 4:8); their f32 launches and the other patterns keep the first design
+// (slab_matmul.cu, nm_sparse.cu), which holds 1e-5 without TF32.
 //
 // A block owns kRows = 128 output rows of one expert, a warp 16 (grid
 // (⌈N/128 / tiles a block⌉, E, splits of K)); x is staged once per 8·NTP
@@ -609,7 +613,7 @@ namespace tc {
 // step s are its columns 4s, 4s+1 / 4s+2, 4s+3) on the A and the B side
 // alike, and reads B as four 16-byte loads of its x row. What differs is
 // where A comes from (the Src template):
-//  - NmSrc (#19, #2, #17, #8, #7): decoded in registers from vals and positions read a
+//  - NmSrc (#19, #2, #17, #8, #7, #15): decoded in registers from vals and positions read a
 //    chunk ahead of their use, two 16-byte value loads and one 16-byte
 //    position load a row; 2:4 is decoded by byte permutes, 4:8 by
 //    comparisons. A position outside [0, m) matches no column and
@@ -626,9 +630,9 @@ namespace tc {
 //    projected, overlaps the other's stream). The swizzle puts the two
 //    rows a quarter-warp reads in different bank groups; lanes q and q +
 //    2 share one (a 2-way conflict on the A loads, once a chunk).
-//  - NoSrc (#20): no W_S, so no A and no mma for it, and no x tile.
-// #2, #17, #3, #16 and #20 add the ±1 term to the same accumulator as one
-// more mma a rank and step (#8 and #7 have none): A is ±u_r from the sign bits
+//  - NoSrc (#20, #9): no W_S, so no A and no mma for it, and no x tile.
+// #2, #17, #3, #16, #20 and #9 add the ±1 term to the same accumulator as
+// one more mma a rank and step (#8, #7 and #15 have none): A is ±u_r from the sign bits
 // (sign word 4c + q of a row holds exactly lane q's 32 columns of chunk
 // c: bits 4s .. 4s + 3 are step s's), B is bf16(x ⊙ v_r), rounded as the reference rounds it and
 // staged once a block beside x from the same loads (forming it from the
@@ -636,10 +640,10 @@ namespace tc {
 // an H100). The sign bits become A by two instructions a register: once
 // a chunk the word is spread so that the bits of columns j and j + 1 lie
 // 16 apart (xspread), then a shift brings a step's pair to bits 15 and
-// 31, which flip the sign bits of ±u_r's two halves. #20 decodes A = ±1
-// once a step for all its ranks (at most kMaxR), one accumulator each,
+// 31, which flip the sign bits of ±u_r's two halves. #20 and #9 decode A =
+// ±1 once a step for all their ranks (at most kMaxR), one accumulator each,
 // and scales them by u_r after the sum (accum_binlr_terms' order). The
-// per-linear shapes of #2, #8, #7, #3 and #6 give few blocks of 128 rows
+// per-linear shapes of #2, #8, #7, #3, #6 and #9 give few blocks of 128 rows
 // ((4096, 4096): 32 for 132 SMs; (1024, 4096): 8), so K is split across
 // blocks from the shapes alone (kernels/slab_matmul.py::plan_nm_splits,
 // which counts every expert's row tiles; #3, #16 and #6 by
@@ -658,10 +662,10 @@ namespace tc {
 // the last block sums the partial projections in split order too and
 // adds Σ_r p[m, r]·u_r[n] to the sum of the partial sums before the one
 // rounding (the reference's acc + acc_p·u). #2, #17, #20, #8, #7, #3,
-// #16 and #6 cap their registers so that two blocks share an SM; #19 and
-// #18 run one split.
-// #20 streams only K/8 bytes of sign words a row (256 B at K 2048), less
-// than a block's staging reads and writes (x and x ⊙ v_r): so its blocks
+// #16, #6, #15 and #9 cap their registers so that two blocks share an SM;
+// #19 and #18 run one split.
+// #20 and #9 stream only K/8 bytes of sign words a row (256 B at K 2048),
+// less than a block's staging reads and writes (x and x ⊙ v_r): so their blocks
 // walk several consecutive row tiles of their expert after staging once
 // (kernels/slab_matmul.py::plan_tiles_per_block: about two blocks an SM,
 // one wave), its sign words are read a chunk ahead as one stream over
@@ -1120,8 +1124,8 @@ __device__ __forceinline__ void bin_chunk(float (&c)[4], uint32_t ua,
 }
 
 // LR: the low-rank projection and its epilogue term (#19, #18, #7). BIN:
-// the ±1 term (#2, #17, #20, #3, #16). SPLIT: K may be split over
-// gridDim.z (#2, #17, #20, #8, #7, #3, #16); without it (tc_kernel: #19,
+// the ±1 term (#2, #17, #20, #3, #16, #9). SPLIT: K may be split over
+// gridDim.z (#2, #17, #20, #8, #7, #3, #16, #6, #15, #9); without it (tc_kernel: #19,
 // #18, one split) the split's stores and reduction are not compiled.
 // `map`: DenseSrc's tensor map, a kernel parameter.
 template <class Src, int NTP, bool LR, bool BIN, bool SPLIT = true>
@@ -1444,9 +1448,10 @@ __device__ __forceinline__ void tc_body(const TcArgs& a,
 // #19 and #18 (LR); #2 and #3 (BIN), whose registers are capped at one
 // n-tile (the decode step's M <= 8) so that kBinMinBlocks blocks share an
 // SM (wider tiles would spill under the cap; #20's NoSrc spilled at 3);
-// #17, #20 and #16 (BIN on experts), and #8, #7 and #6 (per linear, no
-// ±1 term, K split), the same under names of their own, so that a
-// profile tells them from #2, #19 and #18.
+// #9 under #2's name; #17, #20, #16 (BIN on experts) and #15 (experts, no
+// ±1 term), and #8, #7 and #6 (per linear, no ±1 term, K split), the same
+// under names of their own, so that a profile tells them from #2, #19 and
+// #18.
 constexpr int kBinMinBlocks = 2;
 
 template <class Src, int NTP, bool LR, bool BIN>
@@ -1482,8 +1487,9 @@ __global__ void __launch_bounds__(kWarps * 32, NTP == 1 ? kBinMinBlocks : 1)
 }
 
 // The __global__ name a launch runs under: tc_kernel (grouped, one split:
-// #19, #18), tc_bin_kernel (per linear with the ±1 term: #2, #3),
-// tc_g_kernel (grouped with the ±1 term: #17, #20, #16), tc_nm_kernel
+// #19, #18), tc_bin_kernel (per linear with the ±1 term: #2, #3, #9),
+// tc_g_kernel (grouped, K split: #17, #20, #16 and #15, which has no ±1
+// term: tc_g_kernel<tc::NmSrc<…>, NTP, false, false>), tc_nm_kernel
 // (per linear without it, K split: #8 and #7 on NmSrc, #6 on DenseSrc, so
 // that a profile tells #6, tc_nm_kernel<tc::DenseSrc, ...>, from #18,
 // tc_kernel<tc::DenseSrc, ...>).
@@ -1770,6 +1776,46 @@ extern "C" int slab_nm_matmul_g(int dtype, const void* x, const void* vals,
   return (int)cudaErrorInvalidValue;
 }
 
+// #15, #8 for every expert of a bucket: dtype must be 1 (bfloat16) and the
+// pattern 2:4 or 4:8, other launches go to nm_sparse.cu's kernel. x (E, M,
+// K), vals / idx (E, N, K/m, n), y (E, M, N), any K the pattern divides;
+// K split into n_split runs of cps chunks, and with n_split > 1 part
+// (n_split, E, M, N) fp32 scratch and tickets (E·⌈N/128⌉ ints, zero; zero
+// again after the launch). Launches on ``stream``, allocates nothing,
+// returns cudaGetLastError().
+//
+// Bound on the H100: bytes (E experts' N:M planes, 0.75 of the dense bf16
+// bytes at 2:4). The first design (nm_sparse.cu's nm_kernel, one warp a
+// row, 16 rows a block) staged each expert's x column-major with 2-byte
+// stores in every block, asked L2 for each row ahead and did a CUDA-core
+// FMA per kept entry and batch row: 52 % of the bound at phi3.5-moe's
+// (6400, 4096). Here it is #17's body without the ±1 term: the planes
+// decoded in registers a chunk ahead, the tensor cores, and K split only
+// as far as a split's x tile needs (plan_nm_splits with every expert's
+// row tiles).
+extern "C" int nm_matmul_g(int dtype, const void* x, const void* vals,
+                           const void* idx, void* y, void* part,
+                           void* tickets, int E, int M, int N, int K,
+                           int n_keep, int m_pat, int n_split, int cps,
+                           void* stream) {
+  if (dtype != 1 || E <= 0 || E > slab::kMaxExperts || M <= 0 || N <= 0 ||
+      K <= 0 || m_pat <= 0 || K % m_pat ||
+      !tc::split_ok(K, n_split, cps, 1, part, tickets))
+    return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(vals) || !slab::aligned16(idx))
+    return (int)cudaErrorMisalignedAddress;
+  tc::TcArgs a{(const tc::bf16*)x, (const tc::bf16*)vals,
+               (const int8_t*)idx, nullptr, nullptr, nullptr, (tc::bf16*)y,
+               (float*)part, (int*)tickets, M, N, K, 0, cps, 0, 1};
+  if (n_keep == 2 && m_pat == 4)
+    return tc::launch_tc<tc::NmSrc<2, 4>, false, false, tc::Entry::kG>(
+        a, E, n_split, stream);
+  if (n_keep == 4 && m_pat == 8)
+    return tc::launch_tc<tc::NmSrc<4, 8>, false, false, tc::Entry::kG>(
+        a, E, n_split, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 // #20: dtype must be 1 (bfloat16) and R at most kMaxR (an accumulator a
 // rank), other launches go to slab_matmul.cu's kernel. x (E, M, K), bp
 // (E, N, K/32), u (E, R, N), v (E, R, K), y (E, M, N); the split and its
@@ -1791,6 +1837,36 @@ extern "C" int binlr_matmul_g(int dtype, const void* x, const void* bp,
                (float*)part, (int*)tickets, M, N, K, R, cps, 0, tpb};
   return tc::launch_tc<tc::NoSrc, false, true, tc::Entry::kG>(a, E, n_split,
                                                               stream);
+}
+
+// #9 (#20 at one linear): dtype must be 1 (bfloat16) and R at most kMaxR,
+// other launches go to slab_matmul.cu's kernel. x (M, K), bp (N, K/32), u
+// (R, N), v (R, K), y (M, N); the split and its scratch as
+// slab_nm_matmul's, a block walking tpb row tiles (tickets:
+// ⌈⌈N/128⌉ / tpb⌉). Launches on ``stream``, allocates nothing, returns
+// cudaGetLastError().
+//
+// Bound on the H100: bytes, K/8 of sign words a row (1/16 of the dense bf16
+// bytes), far below what a call's fixed cost allows at llama2-7b's shapes.
+// The first design (slab_matmul.cu's binlr_kernel, one warp a row, 16 rows
+// a block) staged x ⊙ v_r over all of K in every block and walked each
+// row's sign words serially with a CUDA-core FMA a bit: 4 % of the bound at
+// (4096, 4096). Here it runs as tc_bin_kernel (#2's and #3's entry), so a
+// profile tells it from #20's tc_g_kernel<tc::NoSrc, ...>.
+extern "C" int binlr_matmul(int dtype, const void* x, const void* bp,
+                            const void* u, const void* v, void* y,
+                            void* part, void* tickets, int M, int N, int K,
+                            int R, int n_split, int cps, int tpb,
+                            void* stream) {
+  if (dtype != 1 || M <= 0 || N <= 0 || K <= 0 || K % 32 || R <= 0 ||
+      R > tc::kMaxR || !tc::split_ok(K, n_split, cps, tpb, part, tickets))
+    return (int)cudaErrorInvalidValue;
+  if (!slab::aligned16(bp)) return (int)cudaErrorMisalignedAddress;
+  tc::TcArgs a{(const tc::bf16*)x, nullptr, nullptr, (const uint32_t*)bp,
+               (const tc::bf16*)u, (const tc::bf16*)v, (tc::bf16*)y,
+               (float*)part, (int*)tickets, M, N, K, R, cps, 0, tpb};
+  return tc::launch_tc<tc::NoSrc, false, true, tc::Entry::kBin>(a, 1, n_split,
+                                                                stream);
 }
 
 // #6 (#18 at one linear, K split): dtype must be 1 (bfloat16) and K a

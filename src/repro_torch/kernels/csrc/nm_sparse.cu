@@ -29,6 +29,11 @@
 // (slab_common.cuh), one launch per bucket of E experts; at the MoE
 // decode shapes (M = 2 rows per expert) a GEMV per expert, bound by the
 // E experts' plane bytes.
+//
+// Both entries are the first design: the bf16 nm_matmul and nm_matmul_g at
+// 2:4 / 4:8 run grouped_tc.cu's tensor-core kernels (same C names), and
+// these keep f32, the other patterns and the launches below the crossovers
+// (kernels/nm_sparse.py::nm_kernel, kernels/grouped.py::nm_g_kernel).
 #include "slab_common.cuh"
 
 namespace slab {

@@ -59,13 +59,16 @@
 // read from L2 rather than wait on device memory. N:M positions are
 // checked against m before x is indexed.
 //
-// The bf16 slab_nm_matmul and slab_nm_matmul_g at 2:4 / 4:8, the bf16
-// slab_lr_matmul and slab_lr_matmul_g and the bf16 binlr_matmul_g run
-// grouped_tc.cu's redesigned kernels (same C names); the entries here are
-// their first design, which keeps f32, the other patterns and the shapes
-// and ranks those kernels do not take (kernels/slab_matmul.py::
-// slab_nm_kernel, ::slab_lr_kernel, kernels/grouped.py::slab_nm_g_kernel,
-// ::slab_lr_g_kernel, ::binlr_g_kernel).
+// The bf16 slab_matmul and slab_matmul_g, slab_nm_matmul and
+// slab_nm_matmul_g at 2:4 / 4:8, slab_nm_lr_matmul and slab_nm_lr_matmul_g
+// at 2:4 / 4:8, slab_lr_matmul and slab_lr_matmul_g, and binlr_matmul and
+// binlr_matmul_g run grouped_tc.cu's redesigned kernels (same C names); the
+// entries here are their first design, which keeps f32, the other patterns
+// and the shapes, ranks and row counts those kernels do not take
+// (kernels/slab_matmul.py::slab_dense_kernel, ::slab_nm_kernel,
+// ::slab_nm_lr_kernel, ::slab_lr_kernel, kernels/binlr.py::binlr_kernel,
+// kernels/grouped.py::slab_g_kernel, ::slab_nm_g_kernel,
+// ::slab_nm_lr_g_kernel, ::slab_lr_g_kernel, ::binlr_g_kernel).
 //
 // The grouped-expert forms (replace repro/kernels/grouped.py::
 // slab_matmul_g, _kernel_dense_g, pallas_call at grouped.py:242;

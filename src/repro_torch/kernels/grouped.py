@@ -8,7 +8,9 @@ what its per-linear counterpart computes on x[e] and expert e's planes:
     ell_lr_matmul_g      #5 per expert  (the same)
     slab_ell_matmul_g    #1 per expert  (csrc/grouped_tc.cu; f32 and 1-2
                                          rows per expert: ell.cu)
-    nm_matmul_g          #8 per expert  (csrc/nm_sparse.cu)
+    nm_matmul_g          #8 per expert  (csrc/grouped_tc.cu; f32 and
+                                         patterns other than 2:4 / 4:8:
+                                         nm_sparse.cu)
     slab_matmul_g        #3 per expert  (csrc/grouped_tc.cu; f32 and
                                          ranks whose tiles do not fit:
                                          slab_matmul.cu)
@@ -27,18 +29,18 @@ what its per-linear counterpart computes on x[e] and expert e's planes:
 
 Replace the nine kernels of ``repro/kernels/grouped.py`` (TPU), one for
 one. A CUDA kernel here is launched once for the whole bucket with the
-expert as the grid's y dimension, never E launches: its per-linear
-kernel, or for the bf16 ell_matmul_g, ell_lr_matmul_g,
-slab_ell_matmul_g, slab_nm_lr_matmul_g, slab_lr_matmul_g,
-slab_matmul_g, slab_nm_matmul_g and binlr_matmul_g a kernel of its own
-redesigned for Hopper (``csrc/grouped_tc.cu``: 128 output rows a block,
-x staged once per 8-32 batch rows, the last six on the tensor cores,
-slab_lr_matmul_g's and slab_matmul_g's dense rows streamed by bulk
-copies, slab_matmul_g, slab_nm_matmul_g and binlr_matmul_g with K split
-across blocks and binlr_matmul_g's blocks walking several row tiles:
-``slab_matmul.tc_plan``); those eight keep their first design (same C symbol in ``ell.cu`` /
-``slab_matmul.cu``) for the launches the new kernel does not take, and
-count each library's launches apart. Operands use the kernel layout
+expert as the grid's y dimension, never E launches: for the bf16
+launches a kernel redesigned for Hopper (``csrc/grouped_tc.cu``: 128
+output rows a block, x staged once per 8-32 batch rows; all but
+ell_matmul_g, ell_lr_matmul_g and slab_ell_matmul_g on the tensor cores
+through one body, ``tc::tc_body``; slab_lr_matmul_g's and
+slab_matmul_g's dense rows streamed by bulk copies; slab_matmul_g,
+slab_nm_matmul_g, binlr_matmul_g and nm_matmul_g with K split across
+blocks and binlr_matmul_g's blocks walking several row tiles:
+``slab_matmul.tc_plan``). Each keeps its first design (same C symbol in
+``ell.cu`` / ``slab_matmul.cu`` / ``nm_sparse.cu``: the per-linear
+kernel on the expert grid) for the launches the new kernel does not
+take, and counts each library's launches apart. Operands use the kernel layout
 with a leading expert dim: x (E, M, K), u (E, R, N), v (E, R, K),
 planes (E, N, ...); ``kernels.ops`` maps the public layouts onto it.
 The plain versions loop over the experts through the per-linear plain
@@ -63,9 +65,10 @@ SLAB_ELL_G = build.CudaKernel("slab_ell_matmul_g", "grouped_tc.cu",
 SLAB_ELL_G_FIRST = build.CudaKernel("slab_ell_matmul_g", "ell.cu",
                                     _SLAB_ELL_G_TPU,
                                     key="slab_ell_matmul_g@ell.cu")
-NM_G = build.CudaKernel(
-    "nm_matmul_g", "nm_sparse.cu",
-    "src/repro/kernels/grouped.py:183 (nm_matmul_g, pallas_call :195)")
+_NM_G_TPU = "src/repro/kernels/grouped.py:183 (nm_matmul_g, pallas_call :195)"
+NM_G = build.CudaKernel("nm_matmul_g", "grouped_tc.cu", _NM_G_TPU)
+NM_G_FIRST = build.CudaKernel("nm_matmul_g", "nm_sparse.cu", _NM_G_TPU,
+                              key="nm_matmul_g@nm_sparse.cu")
 _SLAB_G_TPU = ("src/repro/kernels/grouped.py:230 (slab_matmul_g, "
                "pallas_call :242)")
 SLAB_G = build.CudaKernel("slab_matmul_g", "grouped_tc.cu", _SLAB_G_TPU)
@@ -134,17 +137,17 @@ LR_TC_MIN_ROWS = 1
 # The bf16 slab_nm_matmul_g (2:4 / 4:8) and binlr_matmul_g run
 # grouped_tc.cu's ±1 body from these many rows per expert (chip_smoke.py's
 # M sweeps through each library, on phi3.5-moe's and deepseek-moe-16b's
-# planes, PERF.md) where their tiles fit an H100 block (nm_tc_smem,
-# binlr_tc_smem).
+# planes, PERF.md) where their tiles fit an H100 block (nm_tc_smem; for
+# binlr_matmul_g up to rank binlr.TC_MAX_RANK), and the bf16 nm_matmul_g
+# (2:4 / 4:8) the same body without the ±1 term from NM_G_TC_MIN_ROWS
+# (chip_smoke.py's M sweep on phi3.5-moe's planes).
 SLAB_NM_G_TC_MIN_ROWS = 1
 BINLR_G_TC_MIN_ROWS = 1
+NM_G_TC_MIN_ROWS = 1
 # ... and the bf16 slab_matmul_g from SLAB_G_TC_MIN_ROWS rows per expert
 # where a run of one chunk fits two blocks an SM
 # (slab_matmul.dense_split_cap)
 SLAB_G_TC_MIN_ROWS = 1
-# grouped_tc.cu's binlr_matmul_g keeps one fp32 accumulator a rank in
-# registers (tc::kMaxR): higher ranks run the first design.
-BINLR_G_TC_MAX_RANK = 4
 
 
 def ell_tc_smem(k: int, r: int, idx_bytes: int) -> int:
@@ -174,6 +177,10 @@ _I = ctypes.c_int
 _SLAB_ELL_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _P]
 _NM_ARGS = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+# grouped_tc.cu's nm_matmul_g also takes the split's scratch (part,
+# tickets) and plan (n_split, chunks per split)
+_NM_TC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+               _P]
 _SLAB_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _SLAB_NM_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                  _P]
@@ -299,20 +306,47 @@ def nm_matmul_g_plain(x, vals, idx, m_pat: int) -> torch.Tensor:
     return _per_expert(nm_k.nm_matmul_plain, x, vals, idx, m_pat)
 
 
+def nm_g_kernel(dtype, n_keep: int, m_pat: int,
+                m: int) -> build.CudaKernel:
+    """The library a launch at ``m`` rows per expert runs: grouped_tc.cu
+    for bf16 2:4 / 4:8 from NM_G_TC_MIN_ROWS rows (any K the pattern
+    divides); f32 (1e-5, no TF32), the other patterns and fewer rows the
+    first design."""
+    if dtype == torch.bfloat16 and (n_keep, m_pat) in ((2, 4), (4, 8)) \
+            and m >= NM_G_TC_MIN_ROWS:
+        return NM_G
+    return NM_G_FIRST
+
+
 def nm_matmul_g(x, vals, idx, m_pat: int) -> torch.Tensor:
     """Launch the grouped N:M kernel (one launch for the bucket)."""
+    kern = nm_g_kernel(x.dtype, vals.shape[-1], m_pat, x.shape[1])
+    return launch_nm_g(kern, x, vals, idx, m_pat)
+
+
+def launch_nm_g(kern, x, vals, idx, m_pat: int) -> torch.Tensor:
+    """nm_matmul_g through ``kern``'s library (NM_G or NM_G_FIRST),
+    counted on its counter."""
     e, m, k = _check_x(x)
     n, n_keep = _check_nm(x, vals, idx, m_pat)
-    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    dev = x.device
+    y = torch.empty((e, m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    fn = build.function(NM_G.source, NM_G.name, _NM_ARGS)
-    err = fn(build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), y.data_ptr(), e, m, n, k, n_keep, m_pat,
-             build.stream_ptr(x.device))
-    build.check_launch(err, NM_G.name,
-                       f"E={e} M={m} N={n} K={k} {n_keep}:{m_pat}")
-    NM_G.launches += 1
+    detail = f"E={e} M={m} N={n} K={k} {n_keep}:{m_pat}"
+    head = (build.dtype_code(x.dtype), x.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), y.data_ptr())
+    if kern is NM_G:
+        n_split, cps, _, part, tickets = slab_k.tc_plan(dev, e, m, n, k)
+        fn = build.function(kern.source, kern.name, _NM_TC_ARGS)
+        err = fn(*head, slab_k.ptr(part), slab_k.ptr(tickets), e, m, n, k,
+                 n_keep, m_pat, n_split, cps, build.stream_ptr(dev))
+        detail += f" splits={n_split}x{cps * slab_k.CHUNK}"
+    else:
+        fn = build.function(kern.source, kern.name, _NM_ARGS)
+        err = fn(*head, e, m, n, k, n_keep, m_pat, build.stream_ptr(dev))
+    build.check_launch(err, kern.key, detail)
+    kern.launches += 1
     return y
 
 
@@ -582,11 +616,10 @@ def binlr_matmul_g_plain(x, b_packed, u, v) -> torch.Tensor:
 def binlr_g_kernel(dtype, m: int, r: int = 1) -> build.CudaKernel:
     """The library a launch at ``m`` rows per expert and rank ``r`` runs:
     grouped_tc.cu for bf16 from BINLR_G_TC_MIN_ROWS rows up to rank
-    BINLR_G_TC_MAX_RANK (its x ⊙ v_r tiles then fit a block at any K, the
-    split keeping them within 16 chunks); f32 (1e-5, no TF32), fewer rows
-    and higher ranks the first design."""
+    binlr.TC_MAX_RANK (as #9's: binlr.binlr_kernel); f32 (1e-5, no TF32),
+    fewer rows and higher ranks the first design."""
     if dtype == torch.bfloat16 and m >= BINLR_G_TC_MIN_ROWS \
-            and r <= BINLR_G_TC_MAX_RANK:
+            and r <= binlr_k.TC_MAX_RANK:
         return BINLR_G
     return BINLR_G_FIRST
 

@@ -27,14 +27,14 @@ from repro_torch.kernels import slab_matmul as slab_k
 KERNELS = (ell_k.SLAB_ELL, ell_k.SLAB_ELL_FIRST, slab_k.SLAB_NM,
            slab_k.SLAB_NM_FIRST, slab_k.SLAB_DENSE, slab_k.SLAB_DENSE_FIRST,
            ell_k.ELL, ell_k.ELL_FIRST, ell_k.ELL_LR, ell_k.ELL_LR_FIRST,
-           slab_k.SLAB_LR, slab_k.SLAB_LR_FIRST, slab_k.SLAB_NM_LR, slab_k.SLAB_NM_LR_FIRST, nm_k.NM,
-           nm_k.NM_FIRST, binlr_k.BINLR, fd_k.FLASH_DECODE,
-           fd_k.FLASH_DECODE_PAGED, g_k.SLAB_ELL_G, g_k.SLAB_ELL_G_FIRST,
-           g_k.NM_G, g_k.SLAB_G, g_k.SLAB_G_FIRST, g_k.SLAB_NM_G,
-           g_k.SLAB_NM_G_FIRST, g_k.ELL_G, g_k.ELL_G_FIRST, g_k.ELL_LR_G,
-           g_k.ELL_LR_G_FIRST, g_k.SLAB_LR_G, g_k.SLAB_LR_G_FIRST,
-           g_k.SLAB_NM_LR_G, g_k.SLAB_NM_LR_G_FIRST, g_k.BINLR_G,
-           g_k.BINLR_G_FIRST)
+           slab_k.SLAB_LR, slab_k.SLAB_LR_FIRST, slab_k.SLAB_NM_LR,
+           slab_k.SLAB_NM_LR_FIRST, nm_k.NM, nm_k.NM_FIRST, binlr_k.BINLR,
+           binlr_k.BINLR_FIRST, fd_k.FLASH_DECODE, fd_k.FLASH_DECODE_PAGED,
+           g_k.SLAB_ELL_G, g_k.SLAB_ELL_G_FIRST, g_k.NM_G, g_k.NM_G_FIRST,
+           g_k.SLAB_G, g_k.SLAB_G_FIRST, g_k.SLAB_NM_G, g_k.SLAB_NM_G_FIRST,
+           g_k.ELL_G, g_k.ELL_G_FIRST, g_k.ELL_LR_G, g_k.ELL_LR_G_FIRST,
+           g_k.SLAB_LR_G, g_k.SLAB_LR_G_FIRST, g_k.SLAB_NM_LR_G,
+           g_k.SLAB_NM_LR_G_FIRST, g_k.BINLR_G, g_k.BINLR_G_FIRST)
 
 
 def reset_launch_counts() -> None:
@@ -47,7 +47,8 @@ def launch_counts() -> dict:
     that picks between two (``grouped.ell_matmul_g``,
     ``ell_lr_matmul_g``, ``slab_ell_matmul_g``, ``slab_nm_lr_matmul_g``,
     ``slab_lr_matmul_g``, ``slab_matmul_g``, ``slab_nm_matmul_g``,
-    ``binlr_matmul_g``, ``slab_matmul.slab_matmul``,
+    ``binlr_matmul_g``, ``nm_matmul_g``, ``binlr.binlr_matmul``,
+    ``slab_matmul.slab_matmul``,
     ``slab_matmul.slab_lr_matmul``, ``slab_matmul.slab_nm_matmul``,
     ``slab_matmul.slab_nm_lr_matmul``, ``nm_sparse.nm_matmul``,
     ``ell.ell_matmul``, ``ell.slab_ell_matmul``, ``ell.ell_lr_matmul``)

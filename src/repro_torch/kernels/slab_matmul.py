@@ -20,8 +20,9 @@ its own ``CudaKernel``: the tensor-core kernel of ``grouped_tc.cu``
 other patterns); ``slab_dense_kernel`` / ``slab_lr_kernel`` /
 ``slab_nm_kernel`` / ``slab_nm_lr_kernel`` pick one.
 ``plan_nm_splits``, ``plan_tiles_per_block`` and the split's scratch
-(``tc_plan``) also serve #8 (``kernels.nm_sparse``) and the grouped #16,
-#17 and #20 (``kernels.grouped``) on grouped_tc.cu; ``plan_ell_splits``
+(``tc_plan``) also serve #8 (``kernels.nm_sparse``), #9
+(``kernels.binlr``) and the grouped #15, #16, #17 and #20
+(``kernels.grouped``) on grouped_tc.cu; ``plan_ell_splits``
 and ``ell_plan`` split the ELL rows of #1 and #5 (``kernels.ell``)
 there.
 """
@@ -139,16 +140,18 @@ def slab_dense_split_plain(x, w_s, b_packed, u, v, n_split: int,
     PyTorch (fp32, for the CPU tests): split s covers columns [s · cps ·
     CHUNK, (s + 1) · cps · CHUNK) and gives one partial, its W_S sum plus
     its ±1 term; the partials are summed in split order and rounded once
-    to x.dtype."""
+    to x.dtype. With ``w_s`` None the partial is the ±1 term alone:
+    binlr_matmul's split (#9)."""
     k = x.shape[1]
     step = cps * CHUNK
-    acc = torch.zeros(x.shape[0], w_s.shape[0], device=x.device)
+    acc = torch.zeros(x.shape[0], b_packed.shape[0], device=x.device)
     for s in range(n_split):
         cols = slice(s * step, min(k, (s + 1) * step))
         words = slice(cols.start // 32, cols.stop // 32)
-        acc = acc + (x[:, cols].float() @ w_s[:, cols].float().T
-                     + binlr_term(x[:, cols], b_packed[:, words], u,
-                                  v[:, cols]))
+        part = binlr_term(x[:, cols], b_packed[:, words], u, v[:, cols])
+        if w_s is not None:
+            part = x[:, cols].float() @ w_s[:, cols].float().T + part
+        acc = acc + part
     return acc.to(x.dtype)
 
 
@@ -447,16 +450,19 @@ def slab_lr_split_plain(x, w_s, u, v, n_split: int,
     cps · CHUNK, (s + 1) · cps · CHUNK) of the dense W_S (N, K) and gives
     a partial W_S sum and a partial projection x · V_sᵀ; both are summed
     in split order, then acc + p · U is rounded once to x.dtype (the
-    reference's acc + acc_p · u)."""
-    xf, wf, vf = x.float(), w_s.float(), v.float()
+    reference's acc + acc_p · u). With ``u`` and ``v`` None there is no
+    projection: acc alone (nm_matmul's split, #8)."""
+    xf, wf = x.float(), w_s.float()
     k = x.shape[1]
     acc = torch.zeros(x.shape[0], w_s.shape[0], device=x.device)
-    p = torch.zeros(x.shape[0], v.shape[0], device=x.device)
+    p = None if v is None else torch.zeros(x.shape[0], v.shape[0],
+                                           device=x.device)
     for s in range(n_split):
         cols = slice(s * cps * CHUNK, min(k, (s + 1) * cps * CHUNK))
         acc = acc + xf[:, cols] @ wf[:, cols].T
-        p = p + xf[:, cols] @ vf[:, cols].T
-    return (acc + p @ u.float()).to(x.dtype)
+        if p is not None:
+            p = p + xf[:, cols] @ v[:, cols].float().T
+    return (acc if p is None else acc + p @ u.float()).to(x.dtype)
 
 
 def slab_lr_kernel(dtype, m: int, k: int, r: int = 1) -> build.CudaKernel:
@@ -523,7 +529,8 @@ def slab_nm_lr_split_plain(x, vals, idx, m_pat: int, u, v, n_split: int,
                            cps: int) -> torch.Tensor:
     """grouped_tc.cu's slab_nm_lr_matmul arithmetic under a split of K, in
     plain PyTorch (fp32, for the CPU tests): slab_lr_split_plain on the
-    expanded W_S."""
+    expanded W_S; with ``u`` and ``v`` None, nm_matmul's (#8; per expert,
+    nm_matmul_g's, #15)."""
     return slab_lr_split_plain(x, expand_nm(vals, idx, m_pat, torch.float32),
                                u, v, n_split, cps)
 

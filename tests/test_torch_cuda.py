@@ -6,13 +6,13 @@ binlr_matmul (#9), flash_decode (#10) and flash_decode_paged (#11), and
 the grouped ell_matmul_g (#12), ell_lr_matmul_g (#13),
 slab_ell_matmul_g (#14), slab_matmul_g (#16), slab_nm_matmul_g (#17),
 slab_lr_matmul_g (#18), slab_nm_lr_matmul_g (#19) and binlr_matmul_g
-(#20), whose bf16 launches (#2, #7, #8 and #17 at 2:4 and 4:8) run the
-kernels of csrc/grouped_tc.cu; #1-#8, #16, #17, #18 and #20
-also through each of their two libraries, #2, #3, #6, #7, #8, #16 and
-#17 with K split across blocks, #1, #4 and #5 with each row's entries
-split across blocks and #20 with blocks walking several row tiles (two
-launches bitwise equal; #4, #6, #10 and #11 over 20 launches). Every
-test skips without a card (the kernels
+(#20), whose bf16 launches (#2, #7, #8, #15 and #17 at 2:4 and 4:8) run
+the kernels of csrc/grouped_tc.cu; #1-#9, #15, #16, #17, #18 and #20
+also through each of their two libraries, #2, #3, #6, #7, #8, #9, #15,
+#16 and #17 with K split across blocks, #1, #4 and #5 with each row's
+entries split across blocks and #9 and #20 with blocks walking several
+row tiles (two launches bitwise equal; #4, #6, #9, #10, #11 and #15 over
+20 launches). Every test skips without a card (the kernels
 are CUDA C++ for sm_90a with no CPU mode).
 
 This file imports neither JAX nor the reference package, so it runs on
@@ -1670,3 +1670,136 @@ def test_flash_decode_ring_refills_are_deterministic(cuda, gdh, paged,
     _close(got, plain(), torch.bfloat16)
     for _ in range(20):
         assert torch.equal(got, kern())
+
+
+# #15 nm_matmul_g and #9 binlr_matmul through each library: #15 at E 1
+# (1411, 1376), a bucket of 5 experts gathered out of order from 16 and
+# E 16 at (1411, 6408) (K % 32 != 0: the planes read entry by entry, K
+# split in four runs, the last chunk 8 columns), 2:4 and 4:8; #9 at
+# (1411, 1376) (N off the 128-row tile, K off the 128-column chunk, K
+# split in 11 runs), ranks 1 and 3; M 0 gives an empty result and no
+# launch.
+G15_M = [0, 1, 2, 6, 20]
+BUCKET = (3, 14, 0, 9, 6)
+
+
+def _nm15_operands(gen, e, n, k, m, pattern, dtype):
+    """x, vals, idx of e experts (E 5: a bucket of BUCKET gathered from
+    16); the N:M planes pack the experts' rows as one matrix."""
+    n_keep, m_pat = map(int, pattern.split(":"))
+    e_all = 16 if e == len(BUCKET) else e
+    w = _g_randn(gen, e_all * n, k, scale=0.05)
+    w_nm = torch.where(sparsity.nm_mask(w.abs(), n_keep, m_pat), w, 0.0)
+    nm = packing.pack_nm(w_nm.to(dtype), n_keep, m_pat, strict=True)
+    vals = nm.values.reshape(e_all, n, k // m_pat, n_keep)
+    idx = nm.indices.reshape(e_all, n, k // m_pat, n_keep)
+    if e_all != e:
+        sel = torch.tensor(BUCKET, device=gen.device)
+        vals, idx = vals.index_select(0, sel), idx.index_select(0, sel)
+    x = _g_randn(gen, e, m, k).to(dtype)
+    return x, vals.contiguous(), idx.contiguous()
+
+
+def _nm15_libs():
+    return {"grouped_tc": g_k.NM_G, "first": g_k.NM_G_FIRST}
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("pattern", ["2:4", "4:8"])
+@pytest.mark.parametrize("e", [1, 5, 16])
+@pytest.mark.parametrize("m", G15_M)
+def test_nm_matmul_g_each_library(cuda, m, e, pattern, lib):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6000 + m + e)
+    n, k = (1411, 6408) if e == 16 else (1411, 1376)
+    m_pat = int(pattern.split(":")[1])
+    x, vals, idx = _nm15_operands(gen, e, n, k, m, pattern, torch.bfloat16)
+    kern = _nm15_libs()[lib]
+    launches = kern.launches
+    got = g_k.launch_nm_g(kern, x, vals, idx, m_pat)
+    assert kern.launches == launches + (m > 0)
+    if m == 0:
+        assert got.shape == (e, 0, n) and got.dtype == torch.bfloat16
+        return
+    _close(got, g_k.nm_matmul_g_plain(x, vals, idx, m_pat), torch.bfloat16)
+
+
+@pytest.mark.parametrize("lib", ["grouped_tc", "first"])
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("m", [0, 1, 2, 4, 8, 20, 37])
+def test_binlr_matmul_each_library(cuda, m, rank, lib):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6100 + m + rank)
+    x, bp, u, v = (t[0] for t in _bin_g_operands(gen, 1, 1411, 1376, m,
+                                                 rank, torch.bfloat16))
+    kern = binlr_k.BINLR if lib == "grouped_tc" else binlr_k.BINLR_FIRST
+    launches = kern.launches
+    got = binlr_k.launch_binlr(kern, x, bp, u, v)
+    assert kern.launches == launches + (m > 0)
+    if m == 0:
+        assert got.shape == (0, 1411) and got.dtype == torch.bfloat16
+        return
+    _close(got, binlr_k.binlr_matmul_plain(x, bp, u, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["nm_matmul_g", "binlr_matmul"])
+@pytest.mark.parametrize("m", [1, 6])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_nm_g_and_binlr_wrappers_pick_the_library(cuda, dt, m, kernel):
+    """Through the wrapper: the launch counts on the library nm_g_kernel /
+    binlr_kernel picks (grouped_tc.cu for bf16 from the crossover, the
+    first design at f32: 1e-5)."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6200 + m)
+    if kernel == "nm_matmul_g":
+        x, vals, idx = _nm15_operands(gen, 5, 1411, 1376, m, "2:4", dtype)
+        kern = g_k.nm_g_kernel(dtype, 2, 4, m)
+        new, first = g_k.NM_G, g_k.NM_G_FIRST
+        lo = g_k.NM_G_TC_MIN_ROWS
+        run = lambda: g_k.nm_matmul_g(x, vals, idx, 4)
+        plain = lambda: g_k.nm_matmul_g_plain(x, vals, idx, 4)
+    else:
+        x, bp, u, v = (t[0] for t in _bin_g_operands(gen, 1, 1411, 1376, m,
+                                                     3, dtype))
+        kern = binlr_k.binlr_kernel(dtype, m, 3)
+        new, first = binlr_k.BINLR, binlr_k.BINLR_FIRST
+        lo = binlr_k.BINLR_TC_MIN_ROWS
+        run = lambda: binlr_k.binlr_matmul(x, bp, u, v)
+        plain = lambda: binlr_k.binlr_matmul_plain(x, bp, u, v)
+    assert kern is (new if dtype == torch.bfloat16 and m >= lo else first)
+    launches = kern.launches
+    got = run()
+    assert kern.launches == launches + 1
+    _close(got, plain(), dtype)
+
+
+@pytest.mark.parametrize("case", [
+    ("nm_matmul_g", 16, 6400, 4096), ("nm_matmul_g", 16, 4096, 6400),
+    ("binlr_matmul", 1, 4096, 4096), ("binlr_matmul", 1, 11008, 4096),
+    ("binlr_matmul", 1, 4096, 11008)], ids=str)
+def test_nm_g_and_binlr_splits_are_deterministic(cuda, case):
+    """The main path's shapes: #15 at phi3.5-moe's 16 experts, M 2 (K
+    split in 2 and 4 runs), #9 at llama2-7b's, M 4 (K split, blocks
+    walking 2 row tiles at the MLP shapes); the last block of an expert's
+    block column adds the partial sums in split order and resets its
+    ticket, so 20 launches give the same bits."""
+    kernel, e, n, k = case
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6300 + n + k)
+    if kernel == "nm_matmul_g":
+        x, vals, idx = _nm15_operands(gen, e, n, k, 2, "2:4", torch.bfloat16)
+        run = lambda: g_k.launch_nm_g(g_k.NM_G, x, vals, idx, 4)
+        plain = lambda: g_k.nm_matmul_g_plain(x, vals, idx, 4)
+    else:
+        x, bp, u, v = (t[0] for t in _bin_g_operands(gen, 1, n, k, 4, 1,
+                                                     torch.bfloat16))
+        run = lambda: binlr_k.launch_binlr(binlr_k.BINLR, x, bp, u, v)
+        plain = lambda: binlr_k.binlr_matmul_plain(x, bp, u, v)
+    n_split, _ = slab_k.plan_nm_splits(
+        n, k, torch.cuda.get_device_properties(cuda).multi_processor_count, e)
+    assert n_split > 1
+    got = run()
+    _close(got, plain(), torch.bfloat16)
+    for _ in range(20):
+        assert torch.equal(got, run())

@@ -543,14 +543,36 @@ def test_slab_nm_g_library_choice(dtype, pattern, m, r, source):
     (torch.float32, 1, 3, "slab_matmul.cu")])
 def test_binlr_g_library_choice(dtype, m, r, source):
     """bf16 #20 runs grouped_tc.cu's ±1 body from BINLR_G_TC_MIN_ROWS rows
-    per expert up to rank BINLR_G_TC_MAX_RANK (4: an accumulator a rank in
-    registers); f32 and rank 5 the first design, on its own counter."""
+    per expert up to rank binlr.TC_MAX_RANK (4: an accumulator a rank in
+    registers, as #9's); f32 and rank 5 the first design, on its own
+    counter."""
     from repro_torch.kernels import grouped as g_k
     kern = g_k.binlr_g_kernel(dtype, m, r)
     want = source if m >= g_k.BINLR_G_TC_MIN_ROWS else "slab_matmul.cu"
     assert kern.source == want and kern.name == "binlr_matmul_g"
     assert kern.key == ("binlr_matmul_g" if want == "grouped_tc.cu"
                         else "binlr_matmul_g@slab_matmul.cu")
+
+
+@pytest.mark.parametrize("dtype,pattern,m,source", [
+    (torch.bfloat16, (2, 4), 1, "grouped_tc.cu"),
+    (torch.bfloat16, (2, 4), 2, "grouped_tc.cu"),
+    (torch.bfloat16, (4, 8), 37, "grouped_tc.cu"),
+    (torch.bfloat16, (1, 4), 2, "nm_sparse.cu"),
+    (torch.bfloat16, (2, 8), 2, "nm_sparse.cu"),
+    (torch.float32, (2, 4), 2, "nm_sparse.cu"),
+    (torch.float32, (4, 8), 20, "nm_sparse.cu")])
+def test_nm_g_library_choice(dtype, pattern, m, source):
+    """bf16 2:4 / 4:8 #15 runs grouped_tc.cu's body (#17's without the
+    ±1 term) from NM_G_TC_MIN_ROWS rows per expert; f32, the other
+    patterns and fewer rows the first design (nm_sparse.cu), on its own
+    counter."""
+    from repro_torch.kernels import grouped as g_k
+    kern = g_k.nm_g_kernel(dtype, *pattern, m)
+    want = source if m >= g_k.NM_G_TC_MIN_ROWS else "nm_sparse.cu"
+    assert kern.source == want and kern.name == "nm_matmul_g"
+    assert kern.key == ("nm_matmul_g" if want == "grouped_tc.cu"
+                        else "nm_matmul_g@nm_sparse.cu")
 
 
 def test_grouped_binary_library_choice_below_the_crossover():
@@ -573,13 +595,14 @@ def test_binlr_g_tiles_fit_at_every_rank_it_takes():
     rows a rank at the widest split, 16 chunks of 128 plus 8 columns, 2
     bytes each; no x tile) and the staged u of its row tiles fit an H100
     block (two blocks an SM up to rank 3)."""
+    from repro_torch.kernels import binlr as binlr_k
     from repro_torch.kernels import grouped as g_k
     from repro_torch.kernels import slab_matmul as slab_k
 
     def smem(r):
         tiles = r * 8 * (slab_k.NM_MAX_SPLIT_CHUNKS * slab_k.CHUNK + 8) * 2
         return tiles + r * 4 * 128 * 2          # u of four row tiles
-    r = g_k.BINLR_G_TC_MAX_RANK
+    r = binlr_k.TC_MAX_RANK
     assert smem(r) <= slab_k.TC_SMEM
     assert 2 * smem(3) <= 228 * 1024 - 2 * 1024
     assert g_k.binlr_g_kernel(torch.bfloat16, 6, r) is g_k.BINLR_G
@@ -591,7 +614,7 @@ def test_launch_counters_are_per_library():
     """Every library has a counter key of its own, and a reset zeroes
     them all."""
     keys = [k.key for k in ops.KERNELS]
-    assert len(set(keys)) == len(keys) == 36
+    assert len(set(keys)) == len(keys) == 38
     assert len({k.name for k in ops.KERNELS}) == 20
     for k in ops.KERNELS:
         k.launches = 1

@@ -418,9 +418,20 @@ def test_nm_lr_scratch_holds_partial_projections(monkeypatch, n, k, m,
 
 
 def test_nm_and_nm_lr_below_the_crossover():
-    """Fewer rows than the crossover run the first design."""
+    """Fewer rows than the crossover run the first design (#8, #7, #9,
+    #15)."""
+    from repro_torch.kernels import binlr as binlr_k
+    from repro_torch.kernels import grouped as g_k
     from repro_torch.kernels import nm_sparse as nm_k
     from repro_torch.kernels import slab_matmul as slab_k
+    for m in range(0, binlr_k.BINLR_TC_MIN_ROWS):
+        assert binlr_k.binlr_kernel(torch.bfloat16, m) is binlr_k.BINLR_FIRST
+    for m in range(0, g_k.NM_G_TC_MIN_ROWS):
+        assert g_k.nm_g_kernel(torch.bfloat16, 2, 4, m) is g_k.NM_G_FIRST
+    assert binlr_k.binlr_kernel(torch.bfloat16, binlr_k.BINLR_TC_MIN_ROWS) \
+        is binlr_k.BINLR
+    assert g_k.nm_g_kernel(torch.bfloat16, 4, 8, g_k.NM_G_TC_MIN_ROWS) \
+        is g_k.NM_G
     for m in range(0, nm_k.NM_TC_MIN_ROWS):
         assert nm_k.nm_kernel(torch.bfloat16, 2, 4, m) is nm_k.NM_FIRST
     for m in range(0, slab_k.NM_LR_TC_MIN_ROWS):
@@ -433,16 +444,22 @@ def test_nm_and_nm_lr_below_the_crossover():
         is slab_k.SLAB_NM_LR
 
 
-@pytest.mark.parametrize("kernel", ["nm_matmul", "slab_nm_lr_matmul"])
+@pytest.mark.parametrize("kernel", ["nm_matmul", "slab_nm_lr_matmul",
+                                    "binlr_matmul", "nm_matmul_g"])
 def test_nm_and_nm_lr_counters_are_per_library(kernel):
-    """#8's and #7's two libraries count on their own keys in
-    ops.launch_counts, under one C name."""
+    """#8's, #7's, #9's and #15's two libraries count on their own keys
+    in ops.launch_counts, under one C name."""
+    from repro_torch.kernels import binlr as binlr_k
+    from repro_torch.kernels import grouped as g_k
     from repro_torch.kernels import nm_sparse as nm_k
     from repro_torch.kernels import slab_matmul as slab_k
-    new, first, src = ((nm_k.NM, nm_k.NM_FIRST, "nm_sparse.cu")
-                       if kernel == "nm_matmul" else
-                       (slab_k.SLAB_NM_LR, slab_k.SLAB_NM_LR_FIRST,
-                        "slab_matmul.cu"))
+    new, first, src = {
+        "nm_matmul": (nm_k.NM, nm_k.NM_FIRST, "nm_sparse.cu"),
+        "slab_nm_lr_matmul": (slab_k.SLAB_NM_LR, slab_k.SLAB_NM_LR_FIRST,
+                              "slab_matmul.cu"),
+        "binlr_matmul": (binlr_k.BINLR, binlr_k.BINLR_FIRST,
+                         "slab_matmul.cu"),
+        "nm_matmul_g": (g_k.NM_G, g_k.NM_G_FIRST, "nm_sparse.cu")}[kernel]
     counts = ops.launch_counts()
     assert {kernel, f"{kernel}@{src}"} <= set(counts)
     assert new.name == first.name == kernel
@@ -1191,3 +1208,167 @@ def test_slab_lr_split_arithmetic_matches_reference(k, cps, rank, m):
     assert _rel(got, want) < TOL
     one = slab_k.slab_lr_matmul_plain(tt(x), tt(w), tt(u), tt(v))
     assert _rel(got, one) < TOL
+
+
+# ------------- #9's and #15's library choice, split plan and arithmetic
+
+
+@pytest.mark.parametrize("dtype,m,r,new", [
+    (torch.bfloat16, 1, 1, True), (torch.bfloat16, 4, 3, True),
+    (torch.bfloat16, 37, 4, True), (torch.bfloat16, 4, 5, False),
+    (torch.float32, 4, 1, False), (torch.float32, 1, 3, False)], ids=str)
+def test_binlr_library_choice(dtype, m, r, new):
+    """bf16 #9 runs grouped_tc.cu's ±1 body (#20's, at one expert) from
+    BINLR_TC_MIN_ROWS rows up to rank TC_MAX_RANK (4: an accumulator a
+    rank in registers); f32 and rank 5 the first design (slab_matmul.cu),
+    each library on its own counter under one C name."""
+    from repro_torch.kernels import binlr as binlr_k
+    kern = binlr_k.binlr_kernel(dtype, m, r)
+    want = ("grouped_tc.cu" if new and m >= binlr_k.BINLR_TC_MIN_ROWS
+            else "slab_matmul.cu")
+    assert kern.source == want and kern.name == "binlr_matmul"
+    assert kern.key == ("binlr_matmul" if want == "grouped_tc.cu"
+                        else "binlr_matmul@slab_matmul.cu")
+    assert binlr_k.TC_MAX_RANK == 4
+
+
+# the (N, K) of #9's launches on the main path (M 4): llama2-7b (phase j)
+# and deepseek-moe-16b's attention and shared MLP (w); (n_split, cps, row
+# tiles a block) on an H100's 132 SMs
+BINLR_PATH_PLANS = [
+    ((4096, 4096), (8, 4, 1)), ((11008, 4096), (4, 8, 2)),
+    ((4096, 11008), (9, 10, 2)), ((2048, 2048), (16, 1, 1)),
+    ((2816, 2048), (8, 2, 1)), ((2048, 2816), (11, 2, 1))]
+
+
+@pytest.mark.parametrize("shape,want", BINLR_PATH_PLANS, ids=str)
+def test_binlr_split_plan_at_the_path_shapes(monkeypatch, shape, want):
+    """At every (N, K) that phases j and w give #9, tc_plan (walk, as
+    #20's) splits K into runs that cover it once, each no longer than
+    NM_MAX_SPLIT_CHUNKS chunks, and lets a block walk the fewest row
+    tiles that bring the launch to one wave of at most two blocks an SM;
+    the scratch holds (n_split, M, N) partial sums and a ticket for each
+    block column."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(slab_k, "_SCRATCH", {})
+    n, k = shape
+    m = 4
+    n_split, cps, tpb, part, tickets = slab_k.tc_plan(
+        torch.device("cpu"), 1, m, n, k, walk=True)
+    assert (n_split, cps, tpb) == want
+    assert cps <= slab_k.NM_MAX_SPLIT_CHUNKS
+    assert (n_split - 1) * cps * 128 < k <= n_split * cps * 128
+    cols = -(-(-(-n // 128)) // tpb)
+    assert n_split * cols <= 2 * 132
+    assert part.numel() >= n_split * m * n
+    assert tickets.numel() >= cols and not tickets.any()
+
+
+@pytest.mark.parametrize("shape,want", [((6400, 4096), (2, 16)),
+                                        ((4096, 6400), (4, 16))], ids=str)
+def test_nm_g_split_plan_at_the_path_shapes(monkeypatch, shape, want):
+    """phi3.5-moe's 16 experts (phase p) fill the card unsplit, so #15's
+    K is split only to keep a run within NM_MAX_SPLIT_CHUNKS chunks: 2
+    runs of 16 at (6400, 4096), 4 at (4096, 6400) (the last shorter);
+    no block walks tiles, and the scratch holds (n_split, E, M, N)
+    partial sums and a ticket for each expert and block column."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(slab_k, "_SCRATCH", {})
+    n, k = shape
+    e, m = 16, 2
+    n_split, cps, tpb, part, tickets = slab_k.tc_plan(
+        torch.device("cpu"), e, m, n, k)
+    assert (n_split, cps) == want and tpb == 1
+    assert (n_split - 1) * cps * 128 < k <= n_split * cps * 128
+    runs = [(s * cps * 128, min(k, (s + 1) * cps * 128))
+            for s in range(n_split)]
+    cover = np.zeros(k, dtype=int)
+    for lo, hi in runs:
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    assert part.numel() >= n_split * e * m * n
+    assert tickets.numel() >= e * -(-n // 128) and not tickets.any()
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("rank", [1, 3])
+@pytest.mark.parametrize("k,cps", [(256, 1), (320, 1), (512, 2)], ids=str)
+def test_binlr_split_arithmetic_matches_reference(k, cps, rank, m):
+    """grouped_tc.cu's #9 under a split of K (slab_dense_split_plain with
+    no W_S: each split's ±1 term over its columns, the partials summed in
+    split order, rounded once) against the reference kernel in interpret
+    mode on the same numpy inputs: 2 or 3 splits, the last one shorter at
+    K 320, f32 at max|diff| / max|ref| < 1e-5."""
+    from repro.kernels import binlr as ref_binlr
+    n = 96
+    x, _, w_b, u, v = (a[0] for a in _dense_np(1100 + k + rank + m, 1, m,
+                                                n, k, rank))
+    bp = ref_packing.pack_sign_bits(jnp.asarray(w_b))
+    want = ref_binlr.binlr_matmul(jnp.asarray(x), bp, jnp.asarray(u),
+                                  jnp.asarray(v), interpret=True)
+    n_split = -(-k // (cps * 128))
+    assert n_split in (2, 3)
+    tt = functools.partial(bridge.tensor, device="cpu")
+    got = slab_k.slab_dense_split_plain(tt(x), None, tt(bp), tt(u), tt(v),
+                                        n_split, cps)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert _rel(got, want) < TOL
+    from repro_torch.kernels import binlr as binlr_k
+    one = binlr_k.binlr_matmul_plain(tt(x), tt(bp), tt(u), tt(v))
+    assert _rel(got, one) < TOL
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("pattern", ["2:4", "4:8"])
+@pytest.mark.parametrize("k,cps", [(256, 1), (320, 1)], ids=str)
+def test_nm_g_split_arithmetic_matches_reference(k, cps, pattern, m):
+    """grouped_tc.cu's #15 under a split of K, each expert's partial W_S
+    sums added in split order and rounded once (slab_nm_lr_split_plain
+    with no low-rank term, per expert) against the reference's grouped
+    kernel in interpret mode on the same numpy inputs: 3 experts, 2 or 3
+    splits, the last one shorter at K 320, f32 at max|diff| / max|ref| <
+    1e-5."""
+    from repro.kernels import grouped as ref_g
+    e, n = 3, 96
+    n_keep, m_pat = map(int, pattern.split(":"))
+    planes = [_nm_lr_np(1200 + k + m + i, m, n, k, 1, pattern)
+              for i in range(e)]
+    x = np.stack([p[0] for p in planes])
+    packed = [ref_packing.pack_nm(jnp.asarray(p[1]), n_keep, m_pat)
+              for p in planes]
+    vals = np.stack([np.asarray(p.values) for p in packed])
+    idx = np.stack([np.asarray(p.indices) for p in packed])
+    want = ref_g.nm_matmul_g(jnp.asarray(x), jnp.asarray(vals),
+                             jnp.asarray(idx), m_pat, interpret=True)
+    n_split = -(-k // (cps * 128))
+    assert n_split in (2, 3)
+    tt = functools.partial(bridge.tensor, device="cpu")
+    got = torch.stack([slab_k.slab_nm_lr_split_plain(
+        tt(x[i]), tt(vals[i]), tt(idx[i]), m_pat, None, None, n_split, cps)
+        for i in range(e)])
+    assert got.shape == (e, m, n) and got.dtype == torch.float32
+    assert _rel(got, want) < TOL
+    from repro_torch.kernels import grouped as g_k
+    one = g_k.nm_matmul_g_plain(tt(x), tt(vals), tt(idx), m_pat)
+    assert _rel(got, one) < TOL
+
+
+@pytest.mark.parametrize("pattern", ["2:4", "4:8"])
+@pytest.mark.parametrize("k,cps", [(256, 1), (320, 1)], ids=str)
+def test_nm_split_arithmetic_matches_reference(k, cps, pattern):
+    """#8 under a split of K (slab_nm_lr_split_plain with no low-rank
+    term) against the reference kernel in interpret mode: 2 or 3 splits,
+    M 5, f32 at max|diff| / max|ref| < 1e-5."""
+    from repro.kernels import nm_sparse as ref_nm
+    n_keep, m_pat = map(int, pattern.split(":"))
+    x, w, _, _ = _nm_lr_np(1300 + k, 5, 96, k, 1, pattern)
+    nm = ref_packing.pack_nm(jnp.asarray(w), n_keep, m_pat)
+    want = ref_nm.nm_matmul(jnp.asarray(x), nm.values, nm.indices, m_pat,
+                            interpret=True)
+    tt = functools.partial(bridge.tensor, device="cpu")
+    got = slab_k.slab_nm_lr_split_plain(tt(x), tt(nm.values),
+                                        tt(nm.indices), m_pat, None, None,
+                                        -(-k // (cps * 128)), cps)
+    assert got.shape == (5, 96) and _rel(got, want) < TOL

@@ -321,6 +321,7 @@ def test_slice3_cuda_wrappers_refuse_cpu_tensors():
         fd_k.flash_decode_paged(q, cache, cache,
                                 torch.zeros(2, 1, dtype=torch.int32), lens)
     assert slab_k.SLAB_NM_LR.launches == binlr_k.BINLR.launches == 0
+    assert binlr_k.BINLR_FIRST.launches == 0
     assert slab_k.SLAB_NM_LR_FIRST.launches == 0
     assert fd_k.FLASH_DECODE.launches == fd_k.FLASH_DECODE_PAGED.launches \
         == 0
@@ -383,6 +384,8 @@ def test_ctypes_argtypes_match_the_c_signatures():
     by_source = {("slab_nm_matmul", "grouped_tc.cu"): slab_k._NM_TC_ARGS,
                  ("slab_nm_matmul_g", "grouped_tc.cu"): g_k._SLAB_NM_TC_ARGS,
                  ("binlr_matmul_g", "grouped_tc.cu"): g_k._BINLR_TC_ARGS,
+                 ("binlr_matmul", "grouped_tc.cu"): binlr_k._TC_ARGS,
+                 ("nm_matmul_g", "grouped_tc.cu"): g_k._NM_TC_ARGS,
                  ("nm_matmul", "grouped_tc.cu"): nm_k._TC_ARGS,
                  ("slab_nm_lr_matmul", "grouped_tc.cu"):
                      slab_k._NM_LR_TC_ARGS,
