@@ -124,6 +124,25 @@ Phases:
           request terminal); no block leaked;
        x  deepseek-moe-16b f32, 1 layer: the same as q, drop-free at
           factor 64/6;
+     then compression plans and the budget allocator, bf16, 2 layers,
+     calibration 16x128 streamed as CalibrationSpec(batch_size=4):
+       y  llama3.2-3b (d_model 3072, 24 x 128 heads, kv 8, d_ff 8192,
+          vocab 128256, rope theta 500000), compress_model under the plan
+          '1/attn.wo=skip; attn.*=sparsegpt@cr=0.6;
+          0/mlp.*=wanda@pattern=2:4; *=slab' (slab 8 iterations), then
+          pack_model(plan=...): #4 (sparse-ell attention), #8 (sparse-nm,
+          layer 0's MLP) and #1 (slab-ell, layer 1's MLP) in one model
+          beside a dense attn.wo; every stats row's variant is what
+          pack_model packed, each kernel only through grouped_tc.cu;
+       z  llama2-7b: collect_model_stats once (n_forwards = layers x
+          chunks), allocate_plan(budget=0.5, template='*=slab') from those
+          statistics (the CR table and the probe's time logged),
+          compress_model(stats=...) with no forwards; the achieved and
+          the measured global CR within 0.025 of 0.5, every linear packed
+          (slab-ell #1, or slab-dense #3 where a CR falls below ELL's byte
+          crossover);
+     both with their busy / wall ms a step against the dense-equivalent
+     model's and the last-position logits within 3e-2 of it;
   4. one JSON line listing every ported kernel (all twenty; #1-#9 and
      #12-#20 once per library, each with its own launch counter:
      thirty-eight entries), then the result line.
@@ -1530,86 +1549,26 @@ def _only_through(counts, key, where):
                 f"{name[key]} launch here should count on {key}")
 
 
-def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
-                profiled=False, method="slab", options=None, note="",
-                ppl=False, zero_ws=False, arch="llama2_7b",
-                expert_kernel=None, focus=None):
-    """compress_model -> pack_model -> greedy_decode of ``arch`` at full
-    width cut to ``n_layers``; ``kernel`` serves every 2-D linear and, on
-    a MoE model, ``expert_kernel`` every expert leaf (one launch per
-    group). ``focus`` (what, kernel name part): the profile's device time
-    of that kernel. Returns the launches of the main-path runs per
-    kernel."""
-    from repro_torch import configs
-    from repro_torch.core.packed_model import pack_model
-    from repro_torch.core.pipeline import compress_model
-    from repro_torch.core.slab import SLaBConfig
-    from repro_torch.data import SyntheticCorpus, calibration_batch
+def _serve_and_hold(tag, cfg, packed, dense_c, need, tol, profiled=True,
+                    focus=None):
+    """greedy_decode of ``packed`` (BATCH prompts of PROMPT tokens, GEN
+    new ones), square and then RAGGED, each run with the launch counts
+    zeroed just before and read just after: every kernel of ``need`` must
+    launch at least its count in each run, only through its library.
+    Then the dense-equivalent model's square decode (the yardstick), both
+    profiled with ``profiled`` (busy / wall ms a step, ``focus`` as
+    _greedy_profile takes it); the ragged run's full-length row must
+    equal the square run's, and the last-position logits must lie within
+    ``tol`` of the dense-equivalent's (_hold_moe_logits on a MoE model).
+    Returns the launches of ``need``'s kernels over both runs."""
+    from repro_torch.data import SyntheticCorpus
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import greedy_decode
-    from repro_torch.models import lm
-
-    full = configs.get(arch, smoke=False)
-    cfg = full.with_(n_layers=n_layers, dtype=dtype)
-    options = dict(iters=8) if options is None else options
-    opt_s = "".join(f" {k}={v}" for k, v in options.items())
-    moe_s = (f" experts {cfg.n_experts} top-{cfg.top_k} capacity factor "
-             f"{cfg.capacity_factor}" if cfg.family == "moe" else "")
-    if cfg.shared_ff:
-        moe_s += f" shared_ff {cfg.shared_ff}"
-    log(f"phase {tag}: {full.name} d_model {cfg.d_model} heads "
-        f"{cfg.n_heads}x{cfg.d_head} kv {cfg.n_kv} d_ff {cfg.d_ff}{moe_s} "
-        f"vocab {cfg.vocab} {dtype} {method}{opt_s} cr {cr} pattern "
-        f"{pattern}; reduced: n_layers {full.n_layers}->{n_layers}"
-        + (f"; {note}" if note else ""))
-    params = lm.init(cfg, seed=0, device="cuda")
-    calib = calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128)
-    eval_batch = next(SyntheticCorpus(cfg.vocab, seed=0).eval_batches(
-        1, BATCH, 129))
-    ppl_orig = _perplexity(cfg, params, eval_batch) if ppl else None
-    t0 = time.monotonic()
-    dense_c, stats, decs = compress_model(
-        cfg, params, calib, method=method,
-        scfg=SLaBConfig(cr=cr, pattern=pattern, **options),
-        keep_decompositions=True, device="cuda")
-    sync()
-    t_comp = time.monotonic() - t0
-    del params
-    if zero_ws:
-        decs = _zero_sparse_part(cfg, dense_c, decs, dtype)
-    packed, rep = pack_model(dense_c, decs, pattern=pattern, dtype=dtype)
-    del decs
-    n_lin, groups = _check_packed(cfg, packed, rep, variant)
-    err_rel = max(s.err_after / s.err_before for s in stats)
-    log(f"  compressed {len(stats)} leaves in {t_comp:.1f}s (measured CR "
-        f"{sum(s.cr for s in stats) / len(stats):.4f}, worst weighted "
-        f"err_after/err_before {err_rel:.4f}"
-        + ("; then W_S := 0" if zero_ws else "")
-        + f"); packed {rep.n_packed} [{variant}={rep.by_variant[variant]}]")
-    for var, (pb, db) in sorted(rep.bytes_by_variant.items()):
-        log(f"  bytes/{var}: {pb / 1e6:.3f} MB packed vs {db / 1e6:.3f} MB "
-            f"dense per linear ({pb / db:.4f}x)")
-    if groups:
-        pb, db = _expert_bytes(packed, dense_c)
-        log(f"  experts: every one of {cfg.n_experts} per leaf {variant}, "
-            f"0 dense; {pb / 1e6:.1f} MB packed vs {db / 1e6:.1f} MB dense "
-            f"({pb / db:.4f}x); groups per leaf "
-            + " ".join(f"{k}={v}" for k, v in groups.items()))
-    if ppl:
-        log(f"  eval perplexity (lm.loss_fn, {BATCH}x128 synthetic tokens): "
-            f"uncompressed {ppl_orig:.2f}, compressed packed "
-            f"{_perplexity(cfg, packed, eval_batch):.2f}, compressed "
-            f"dense-equivalent {_perplexity(cfg, dense_c, eval_batch):.2f}")
-
     prompts = SyntheticCorpus(cfg.vocab, seed=0).batch(
         0, BATCH, PROMPT)["inputs"]
     greedy_decode(cfg, packed, prompts, 2, device="cuda")   # warm-up
     sync()
     steps = PROMPT + GEN - 1
-    n_flat = n_lin - cfg.n_experts * len(groups)      # 2-D linears
-    need = {kernel: n_flat * steps}
-    if expert_kernel:
-        need[expert_kernel] = len(groups) * steps     # >= 1 per leaf
     launched = dict.fromkeys(need, 0)
     runs = {}
     for mode, lengths in (("square", None), ("ragged", RAGGED)):
@@ -1624,13 +1583,14 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
         for kname, n_need in need.items():
             if counts[kname] < n_need:
                 raise AssertionError(
-                    f"{kname} launched {counts[kname]} times in the {mode} "
-                    f"run, expected >= {n_need}")
+                    f"phase {tag}: {kname} launched {counts[kname]} times "
+                    f"in the {mode} run, expected >= {n_need}")
             _only_through(counts, kname, f"phase {tag} {mode} run")
             launched[kname] += counts[kname]
         if tuple(gen.shape) != (BATCH, GEN) or not bool(
                 ((gen >= 0) & (gen < cfg.vocab)).all()):
-            raise AssertionError(f"bad generation {tuple(gen.shape)}")
+            raise AssertionError(f"phase {tag}: bad generation "
+                                 f"{tuple(gen.shape)}")
         n_tok = BATCH * (PROMPT + GEN) if lengths is None \
             else sum(lengths) + BATCH * GEN
         log(f"  greedy_decode {mode}: {n_tok / dt:.1f} tok/s, "
@@ -1656,8 +1616,8 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
     if cfg.family != "moe" and not torch.equal(sq[0], rg[0]):
         # (a MoE row's output depends on its step's other rows through
         # the expert capacity, so the ragged batch may route it apart)
-        raise AssertionError("ragged row 0 (full-length prompt) differs "
-                             "from the square run")
+        raise AssertionError(f"phase {tag}: ragged row 0 (full-length "
+                             f"prompt) differs from the square run")
     seq = torch.cat([torch.as_tensor(prompts, device="cuda").long(),
                      sq[:, :-1]], dim=1)
     if cfg.family == "moe":
@@ -1666,6 +1626,87 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
         _hold_logits(tag, _final_logits(cfg, packed, seq),
                      _final_logits(cfg, dense_c, seq), tol,
                      "packed vs dense-equivalent")
+    return launched
+
+
+def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
+                profiled=False, method="slab", options=None, note="",
+                ppl=False, zero_ws=False, arch="llama2_7b",
+                expert_kernel=None, focus=None):
+    """compress_model -> pack_model -> greedy_decode of ``arch`` at full
+    width cut to ``n_layers``; ``kernel`` serves every 2-D linear and, on
+    a MoE model, ``expert_kernel`` every expert leaf (one launch per
+    group). ``focus`` (what, kernel name part): the profile's device time
+    of that kernel. Returns the launches of the main-path runs per
+    kernel."""
+    from repro_torch import configs
+    from repro_torch.core.packed_model import pack_model
+    from repro_torch.core.pipeline import compress_model
+    from repro_torch.core.plan import plan_for_method
+    from repro_torch.core.slab import SLaBConfig
+    from repro_torch.data import SyntheticCorpus, calibration_batch
+    from repro_torch.models import lm
+
+    full = configs.get(arch, smoke=False)
+    cfg = full.with_(n_layers=n_layers, dtype=dtype)
+    options = dict(iters=8) if options is None else options
+    opt_s = "".join(f" {k}={v}" for k, v in options.items())
+    moe_s = (f" experts {cfg.n_experts} top-{cfg.top_k} capacity factor "
+             f"{cfg.capacity_factor}" if cfg.family == "moe" else "")
+    if cfg.shared_ff:
+        moe_s += f" shared_ff {cfg.shared_ff}"
+    log(f"phase {tag}: {full.name} d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}x{cfg.d_head} kv {cfg.n_kv} d_ff {cfg.d_ff}{moe_s} "
+        f"vocab {cfg.vocab} {dtype} {method}{opt_s} cr {cr} pattern "
+        f"{pattern}; reduced: n_layers {full.n_layers}->{n_layers}"
+        + (f"; {note}" if note else ""))
+    params = lm.init(cfg, seed=0, device="cuda")
+    calib = calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128)
+    eval_batch = next(SyntheticCorpus(cfg.vocab, seed=0).eval_batches(
+        1, BATCH, 129))
+    ppl_orig = _perplexity(cfg, params, eval_batch) if ppl else None
+    t0 = time.monotonic()
+    plan = plan_for_method(method, SLaBConfig(cr=cr, pattern=pattern,
+                                              **options))
+    dense_c, stats, decs = compress_model(
+        cfg, params, calib, plan=plan, keep_decompositions=True,
+        device="cuda")
+    sync()
+    t_comp = time.monotonic() - t0
+    del params
+    if zero_ws:
+        decs = _zero_sparse_part(cfg, dense_c, decs, dtype)
+    packed, rep = pack_model(dense_c, decs, plan=plan, dtype=dtype)
+    del decs
+    n_lin, groups = _check_packed(cfg, packed, rep, variant)
+    err_rel = max(s.err_after / s.err_before for s in stats)
+    log(f"  compressed {len(stats)} leaves in {t_comp:.1f}s (measured CR "
+        f"{sum(s.cr for s in stats) / len(stats):.4f}, worst weighted "
+        f"err_after/err_before {err_rel:.4f}"
+        + ("; then W_S := 0" if zero_ws else "")
+        + f"); packed {rep.n_packed} [{variant}={rep.by_variant[variant]}]")
+    for var, (pb, db) in sorted(rep.bytes_by_variant.items()):
+        log(f"  bytes/{var}: {pb / 1e6:.3f} MB packed vs {db / 1e6:.3f} MB "
+            f"dense per linear ({pb / db:.4f}x)")
+    if groups:
+        pb, db = _expert_bytes(packed, dense_c)
+        log(f"  experts: every one of {cfg.n_experts} per leaf {variant}, "
+            f"0 dense; {pb / 1e6:.1f} MB packed vs {db / 1e6:.1f} MB dense "
+            f"({pb / db:.4f}x); groups per leaf "
+            + " ".join(f"{k}={v}" for k, v in groups.items()))
+    if ppl:
+        log(f"  eval perplexity (lm.loss_fn, {BATCH}x128 synthetic tokens): "
+            f"uncompressed {ppl_orig:.2f}, compressed packed "
+            f"{_perplexity(cfg, packed, eval_batch):.2f}, compressed "
+            f"dense-equivalent {_perplexity(cfg, dense_c, eval_batch):.2f}")
+
+    steps = PROMPT + GEN - 1
+    n_flat = n_lin - cfg.n_experts * len(groups)      # 2-D linears
+    need = {kernel: n_flat * steps}
+    if expert_kernel:
+        need[expert_kernel] = len(groups) * steps     # >= 1 per leaf
+    launched = _serve_and_hold(tag, cfg, packed, dense_c, need, tol,
+                               profiled=profiled, focus=focus)
     del packed, dense_c
     torch.cuda.empty_cache()
     return launched
@@ -2053,6 +2094,202 @@ def moe_engine_phase(tag, arch):
     return launches
 
 
+PLAN_Y = ("1/attn.wo=skip; attn.*=sparsegpt@cr=0.6; "
+          "0/mlp.*=wanda@pattern=2:4; *=slab")
+CALIB_CHUNK = 4          # phases y and z stream 16 x 128 tokens in 4 chunks
+
+
+@contextlib.contextmanager
+def _count_layer_forwards():
+    """Count ``models.lm._layer_fwd`` calls (the calibration forwards of
+    the compression pipeline) while the context is open."""
+    from repro_torch.models import lm
+    orig, n = lm._layer_fwd, [0]
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return orig(*a, **kw)
+
+    lm._layer_fwd = counted
+    try:
+        yield n
+    finally:
+        lm._layer_fwd = orig
+
+
+def _packed_variants(cfg, packed):
+    """(layer, path) -> the variant pack_model gave each 2-D linear, or
+    "dense" for a weight it left dense."""
+    from repro_torch.core.packed_model import PackedLinear
+    from repro_torch.core.pipeline import _get, linear_paths
+    out = {}
+    for l, lp in enumerate(packed["layers"]):
+        for pth in linear_paths(cfg):
+            w = _get(lp, pth)
+            out[(l, pth)] = (w.variant if isinstance(w, PackedLinear)
+                             else "dense")
+    return out
+
+
+def _cut_model(arch, n_layers, what):
+    """``arch`` at full width cut to ``n_layers``, bf16, random weights
+    from seed 0, and its 16 x 128 calibration tokens streamed in chunks
+    of CALIB_CHUNK."""
+    from repro_torch import configs
+    from repro_torch.core.plan import CalibrationSpec
+    from repro_torch.data import calibration_batch
+    from repro_torch.models import lm
+    full = configs.get(arch, smoke=False)
+    cfg = full.with_(n_layers=n_layers, dtype=torch.bfloat16)
+    log(f"  {full.name} d_model {cfg.d_model} heads {cfg.n_heads}x"
+        f"{cfg.d_head} kv {cfg.n_kv} d_ff {cfg.d_ff} vocab {cfg.vocab} "
+        f"rope theta {cfg.rope_theta:g} bf16, {what}; reduced: n_layers "
+        f"{full.n_layers}->{n_layers}")
+    params = lm.init(cfg, seed=0, device="cuda")
+    spec = CalibrationSpec(calibration_batch(cfg.vocab, seed=0, n_seq=16,
+                                             seq_len=128),
+                           batch_size=CALIB_CHUNK)
+    return cfg, params, spec
+
+
+def plan_phase_y():
+    """Phase y: llama3.2-3b at full width, 2 layers, bf16, compressed by
+    ``compress_model`` under the mixed plan PLAN_Y (SparseGPT attention at
+    CR 0.6 with layer 1's attn.wo left dense, Wanda 2:4 on layer 0's MLP,
+    SLaB 8 iterations on layer 1's) from 16 x 128 calibration tokens
+    streamed in chunks of 4, then ``pack_model(plan=...)``: one model
+    serves #4 (sparse-ell), #8 (sparse-nm) and #1 (slab-ell) side by side
+    with a dense linear. Every stats row's variant must be what pack_model
+    packed; each of the three kernels launches through grouped_tc.cu."""
+    from repro_torch.core.packed_model import pack_model
+    from repro_torch.core.pipeline import compress_model
+    from repro_torch.core.plan import CompressionPlan
+    from repro_torch.core.slab import SLaBConfig
+    log("phase y: compression plan '" + PLAN_Y + "'")
+    cfg, params, spec = _cut_model("llama3_2_3b", 2,
+                                   "plan base: slab iters 8")
+    plan = CompressionPlan.parse(PLAN_Y, base=SLaBConfig(iters=8))
+    t0 = time.monotonic()
+    with _count_layer_forwards() as n_fwd:
+        dense_c, rows, decs = compress_model(
+            cfg, params, spec, plan=plan, keep_decompositions=True,
+            device="cuda")
+    sync()
+    t_comp = time.monotonic() - t0
+    del params
+    chunks = len(spec.batches())
+    log(f"  compressed {len(rows)} linears "
+        f"({'/'.join(sorted({s.method for s in rows}))}) in {t_comp:.1f}s "
+        f"from {chunks} calibration chunks of {CALIB_CHUNK}: n_forwards "
+        f"{n_fwd[0]} (capture {cfg.n_layers * chunks} + propagation "
+        f"{cfg.n_layers * chunks})")
+    if n_fwd[0] != 2 * cfg.n_layers * chunks:
+        raise AssertionError(f"phase y: {n_fwd[0]} layer forwards")
+    packed, rep = pack_model(dense_c, decs, dtype=cfg.dtype, plan=plan)
+    del decs
+    got = _packed_variants(cfg, packed)
+    want = {(l, pth): ("dense" if (l, pth) == (1, "attn.wo")
+                       else "sparse-ell" if pth.startswith("attn.")
+                       else "sparse-nm" if l == 0 else "slab-ell")
+            for l, pth in got}
+    for s in rows:
+        log(f"    L{s.layer} {s.name:<12} {s.method:<9} cr_req "
+            f"{s.cr_requested:.3f} cr {s.cr:.4f} err {s.err_before:.4g} -> "
+            f"{s.err_after:.4g}  row {s.variant}, packed "
+            f"{got[(s.layer, s.name)]}")
+        if s.variant != got[(s.layer, s.name)]:
+            raise AssertionError(
+                f"phase y: L{s.layer}/{s.name} row variant {s.variant}, "
+                f"packed {got[(s.layer, s.name)]}")
+    if got != want:
+        raise AssertionError(f"phase y: packed {got}, expected {want}")
+    log(f"  packed {rep.n_packed} ["
+        + " ".join(f"{v}={c}" for v, c in sorted(rep.by_variant.items()))
+        + "], left dense: "
+        + ", ".join(f"L{l}/{p}" for (l, p), v in got.items() if v == "dense"))
+    steps = PROMPT + GEN - 1
+    counts = _serve_and_hold("y", cfg, packed, dense_c, {
+        "ell_matmul": 7 * steps, "nm_matmul": 3 * steps,
+        "slab_ell_matmul": 3 * steps}, 3e-2)
+    del packed, dense_c
+    torch.cuda.empty_cache()
+    return counts
+
+
+def budget_phase_z():
+    """Phase z: llama2-7b at full width, 2 layers, bf16: one streamed
+    calibration pass (``collect_model_stats``, 16 x 128 tokens in chunks
+    of 4), ``allocate_plan(budget=0.5, template="*=slab")`` from those
+    statistics, ``compress_model(stats=...)`` (no further forwards),
+    ``pack_model(plan=...)`` and greedy_decode. Holds n_forwards =
+    n_layers x chunks, the achieved and the measured global CR within
+    0.025 of 0.5, and every linear packed: slab-ell (#1), or slab-dense
+    (#3) where a CR lands below ELL's byte crossover at bf16."""
+    from repro_torch.core.allocator import allocate_plan, measured_global_cr
+    from repro_torch.core.packed_model import pack_model
+    from repro_torch.core.pipeline import collect_model_stats, compress_model
+    from repro_torch.core.slab import SLaBConfig
+    log("phase z: budget allocation, allocate_plan(budget=0.5, "
+        "template='*=slab')")
+    cfg, params, spec = _cut_model("llama2_7b", 2, "slab iters 8")
+    chunks = len(spec.batches())
+    t0 = time.monotonic()
+    stats = collect_model_stats(cfg, params, spec, plan="*=slab",
+                                device="cuda")
+    sync()
+    t_stats = time.monotonic() - t0
+    log(f"  one calibration pass in {t_stats:.2f}s: n_forwards "
+        f"{stats.n_forwards} ({cfg.n_layers} layers x {chunks} chunks)")
+    if stats.n_forwards != cfg.n_layers * chunks:
+        raise AssertionError(f"phase z: n_forwards {stats.n_forwards}")
+    t0 = time.monotonic()
+    alloc = allocate_plan(cfg, params, budget=0.5, template="*=slab",
+                          stats=stats, base=SLaBConfig(iters=8),
+                          device="cuda")
+    t_probe = time.monotonic() - t0
+    log(f"  allocated {len(alloc.crs)} CR groups in {t_probe:.2f}s (probe "
+        f"and water-filling, float64 sums): achieved {alloc.achieved:.4f}")
+    for ln in alloc.table().splitlines():
+        log("    " + ln)
+    if abs(alloc.achieved - 0.5) > 0.025:
+        raise AssertionError(f"phase z: achieved {alloc.achieved}")
+    t0 = time.monotonic()
+    with _count_layer_forwards() as n_fwd:
+        dense_c, rows, decs = compress_model(
+            cfg, params, None, plan=alloc.plan, stats=alloc.stats,
+            keep_decompositions=True, device="cuda")
+    sync()
+    t_comp = time.monotonic() - t0
+    if n_fwd[0]:
+        raise AssertionError(f"phase z: compress_model(stats=) ran "
+                             f"{n_fwd[0]} layer forwards")
+    g = measured_global_cr(dense_c, rows)
+    log(f"  compressed {len(rows)} linears from the statistics in "
+        f"{t_comp:.2f}s (0 layer forwards): measured global CR {g:.4f}")
+    if abs(g - 0.5) > 0.025:
+        raise AssertionError(f"phase z: measured global CR {g}")
+    del params
+    packed, rep = pack_model(dense_c, decs, dtype=cfg.dtype,
+                             plan=alloc.plan)
+    del decs
+    got = _packed_variants(cfg, packed)
+    if set(got.values()) - {"slab-ell", "slab-dense"}:
+        raise AssertionError(f"phase z: packed {got}")
+    for s in rows:
+        log(f"    L{s.layer} {s.name:<12} cr_req {s.cr_requested:.2f} cr "
+            f"{s.cr:.4f} packed {got[(s.layer, s.name)]}")
+    log(f"  packed {rep.n_packed} ["
+        + " ".join(f"{v}={c}" for v, c in sorted(rep.by_variant.items()))
+        + "]")
+    steps = PROMPT + GEN - 1
+    need = {{"slab-ell": "slab_ell_matmul", "slab-dense": "slab_matmul"}[v]:
+            c * steps for v, c in rep.by_variant.items()}
+    counts = _serve_and_hold("z", cfg, packed, dense_c, need, 3e-2)
+    del packed, dense_c
+    torch.cuda.empty_cache()
+    return counts
+
+
 # kernel-name parts of the profiles: #4 is ell_split_kernel with neither
 # term and SPLIT (every main-path launch splits), #12 the same unsplit;
 # #6 runs DenseSrc under tc_nm_kernel (#18 under tc_kernel)
@@ -2275,6 +2512,10 @@ def main():
     mark("l")
     for tag, arch in (("q", "phi3_5_moe"), ("x", "deepseek_moe_16b")):
         for kname, c in moe_engine_phase(tag, arch).items():
+            launches[kname] += c
+        mark(tag)
+    for tag, phase in (("y", plan_phase_y), ("z", budget_phase_z)):
+        for kname, c in phase().items():
             launches[kname] += c
         mark(tag)
 

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.packed_model import ExpertPackedStack, PackedLinear
+from repro_torch.core.pipeline import ModelTapStats
 from repro_torch.core.slab import SLaBDecomposition
 from repro_torch.models.attention import KVCache
 from repro_torch.serving.paged_cache import PagedKVCache
@@ -89,6 +90,16 @@ def hessian(h, device=None) -> torch.Tensor:
     if t.dim() != 2 or t.shape[0] != t.shape[1]:
         raise ValueError(f"a Hessian is square, not {tuple(t.shape)}")
     return t
+
+
+def tap_stats(ref_stats, device=None) -> ModelTapStats:
+    """A reference ``ModelTapStats`` (norms and Hessians keyed (layer,
+    path), ``n_forwards``) -> the port's, so that both allocators and
+    both ``compress_model(stats=...)`` read the same statistics."""
+    return ModelTapStats(
+        {k: tensor(v, device) for k, v in ref_stats.norms.items()},
+        {k: tensor(v, device) for k, v in ref_stats.hessians.items()},
+        int(ref_stats.n_forwards))
 
 
 def packed_linear(pl, device=None) -> PackedLinear:

@@ -7,7 +7,8 @@ from typing import List
 
 from repro_torch.models.common import ArchConfig
 
-ARCH_IDS: List[str] = ["llama2_7b", "stablelm_12b", "phi3_5_moe",
+ARCH_IDS: List[str] = ["llama2_7b", "stablelm_12b", "mistral_nemo_12b",
+                       "llama3_2_3b", "nemotron_4_340b", "phi3_5_moe",
                        "deepseek_moe_16b"]
 
 

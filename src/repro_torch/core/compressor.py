@@ -61,6 +61,14 @@ class Compressor:
                  ) -> CompressedLinear:
         raise NotImplementedError
 
+    def keep_fraction_for(self, cr: float, d_out: int, d_in: int) -> float:
+        """Fraction of W_S entries this method keeps at compression ratio
+        ``cr`` on a (d_out, d_in) matrix: the budget allocator's probe
+        hook (``core.allocator``). The base is pure pruning (survivors
+        keep their full bit-width); methods that spend budget on binary
+        or low-rank terms override. <= 0 means ``cr`` is infeasible."""
+        return 1.0 - cr
+
 
 _REGISTRY: Dict[str, Type[Compressor]] = {}
 
@@ -121,6 +129,15 @@ class SLaBCompressor(Compressor):
         dec = slab_decompose(w, stats.norms, self.scfg)
         return CompressedLinear(reconstruct(dec), dec,
                                 compression_ratio(dec, self.scfg.bits))
+
+    def keep_fraction_for(self, cr: float, d_out: int, d_in: int) -> float:
+        try:
+            return keep_fraction(cr, self.scfg.bits, d_out, d_in,
+                                 rank=self.scfg.rank,
+                                 include_binary=self.scfg.include_binary,
+                                 include_lowrank=self.scfg.include_lowrank)
+        except ValueError:
+            return 0.0
 
 
 @register("wanda")
@@ -230,6 +247,14 @@ class HassleFreeCompressor(Compressor):
             w_b=torch.zeros((0, 0), dtype=torch.int8, device=w.device))
         return CompressedLinear((w_s + low).float(), dec,
                                 compression_ratio(dec, self.scfg.bits))
+
+    def keep_fraction_for(self, cr: float, d_out: int, d_in: int) -> float:
+        try:
+            return keep_fraction(cr, self.scfg.bits, d_out, d_in,
+                                 rank=max(self.scfg.rank, 1),
+                                 include_binary=False, include_lowrank=True)
+        except ValueError:
+            return 0.0
 
 
 @register("sola")

@@ -450,15 +450,22 @@ class PackReport(NamedTuple):
 
 def pack_model(params: dict,
                decs: Dict[Tuple[int, str], SLaBDecomposition],
-               pattern: Optional[str] = None,
+               plan=None,
                dtype=torch.float32) -> Tuple[dict, PackReport]:
     """Replace every decomposed linear of the per-layer params with its
     PackedLinear at the serving ``dtype``, and every 3-D expert leaf
     (whose decs arrive as a tuple, one per expert) with an
     ``ExpertPackedStack``. ``decs`` comes from
-    ``core.pipeline.compress_model(keep_decompositions=True)``. Returns
-    (params, PackReport); the input params are not modified."""
+    ``core.pipeline.compress_model(keep_decompositions=True)``, and
+    ``plan`` (anything ``CompressionPlan.parse`` takes) is the one they
+    were compressed under: each dec packs with the N:M pattern of its
+    own resolved rule, so one path may mix variants across layers. With
+    no plan every dec packs unstructured. Returns (params, PackReport);
+    the input params are not modified."""
     from repro_torch.core.pipeline import _copy_tree, _get, _set
+    if plan is not None:
+        from repro_torch.core.plan import CompressionPlan
+        plan = CompressionPlan.parse(plan)
     out = dict(params)
     out["layers"] = _copy_tree(params["layers"])
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -478,6 +485,8 @@ def pack_model(params: dict,
     for (l, name) in sorted(decs, key=lambda k: (k[1], k[0])):
         dec = decs[(l, name)]
         old = _get(out["layers"][l], name)
+        r = plan.resolve(l, name) if plan is not None else None
+        pattern = r.scfg.pattern if r is not None else None
         if name not in paths:
             paths.append(name)
         if type(dec) is tuple:          # one dec per expert of a 3-D leaf

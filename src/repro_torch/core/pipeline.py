@@ -1,17 +1,31 @@
 """Layer-wise one-shot compression loop (port of
-``repro.core.pipeline``, one method per call, dense and moe families).
+``repro.core.pipeline``, dense and moe families), with calibration
+statistics from activation taps and per-linear policy from a
+``core.plan.CompressionPlan``.
 
   for each transformer layer, in order:
-    (1) forward the calibration set through the already-compressed
-        prefix to the layer's inputs,
-    (2) run the layer's real forward (``models.lm._layer_fwd``) under one
-        ``tap_capture``: the ``linear()`` chokepoint reports every
+    (1) forward the calibration set, streamed in ``CalibrationSpec``
+        chunks, through the already-compressed prefix to the layer's
+        inputs,
+    (2) run the layer's real forward (``models.lm._layer_fwd``) under
+        one ``tap_capture``: the ``linear()`` chokepoint reports every
         linear's exact input, reduced on the fly to ‖X‖₂ column norms
-        and, when the method's ``needs`` holds "hessian", to the X^T X
-        Gram matrix,
-    (3) compress every linear with the method's compressor,
+        and, for the linears whose resolved compressor's ``needs`` holds
+        "hessian", to the X^T X Gram matrix, accumulated across chunks,
+    (3) resolve every linear through the plan and compress it with the
+        matched compressor at the rule's config (unmatched and ``skip``
+        linears stay dense),
     (4) replace the weights and continue forward with the compressed
         layer's outputs (error propagation).
+
+Statistics and compression are separable: ``collect_model_stats`` runs
+ONE streaming pass over the uncompressed model (each layer's capture
+forward is also the propagation) and returns a ``ModelTapStats``;
+``compress_model(..., stats=...)`` compresses from it with no forwards.
+The budget allocator (``core.allocator``) probes its per-layer CRs from
+those statistics and hands both the concrete plan and the statistics
+back, so allocate + compress costs one calibration pass; a plan that
+``wants_allocation`` goes through it automatically.
 
 Params hold one dict per layer (``params["layers"][l]``); weights are
 stored (D_in, D_out) in the model and transposed to the paper's
@@ -23,13 +37,13 @@ decompositions travel as a tuple, one per expert.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import compressor as compressor_lib
+from repro_torch.core import plan as plan_lib
 from repro_torch.core import scores as scores_lib
 from repro_torch.core.compressor import LinearStats
 from repro_torch.core.slab import SLaBConfig
@@ -46,6 +60,20 @@ class CompressStats:
     cr: float           # measured compression ratio
     method: str = ""
     variant: str = ""   # packed-serving variant ("" = none)
+    cr_requested: float = 0.0   # the CR the resolved plan rule asked for
+
+
+@dataclasses.dataclass
+class ModelTapStats:
+    """Whole-model tap statistics from ONE streaming calibration pass,
+    keyed ``(layer, path)``: norms (D_in,) (stacked (E, D_in) for MoE
+    experts) and Hessians (D_in, D_in) / (E, D_in, D_in). ``n_forwards``
+    counts the ``models.lm._layer_fwd`` calls consumed: ``n_layers *
+    n_chunks`` for one pass."""
+
+    norms: Dict[Tuple[int, str], torch.Tensor]
+    hessians: Dict[Tuple[int, str], torch.Tensor]
+    n_forwards: int = 0
 
 
 def _get(d: dict, path: str):
@@ -92,23 +120,137 @@ def linear_paths(cfg: ArchConfig) -> List[str]:
     return paths + ["mlp.w_up", "mlp.w_down"]
 
 
+def shared_linear_paths(cfg: ArchConfig) -> List[str]:
+    """The hybrid family's shared-block linears: none in the dense and
+    moe families (the hybrid family is not ported)."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    return []
+
+
 def _capture_layer(cfg: ArchConfig, params: dict, lp: dict, idx: int,
                    chunks: List[torch.Tensor],
                    positions: List[torch.Tensor],
-                   paths: Sequence[str], hessian_names: Set[str]
+                   paths: Sequence[str], hessian_names: Set[str],
+                   propagate: bool = False
                    ) -> Tuple[Dict[str, torch.Tensor],
                               Dict[str, torch.Tensor]]:
     """Run layer ``idx``'s real forward over every calibration chunk under
-    ONE tap capture; returns (‖X‖₂ column norms, X^T X Hessians of
-    ``hessian_names``), keyed by path."""
+    ONE tap capture, so statistics accumulate across chunks; returns
+    (‖X‖₂ column norms, X^T X Hessians of ``hessian_names``), keyed by
+    path. ``propagate`` writes each chunk's output back into ``chunks``
+    (the uncompressed-model pass, where the capture forward is also the
+    propagation)."""
     with tap_capture(hessian=bool(hessian_names),
                      hessian_names=hessian_names) as tap:
         for i in range(len(chunks)):
-            lm._layer_fwd(cfg, params, lp, idx, chunks[i], positions[i])
+            out, _ = lm._layer_fwd(cfg, params, lp, idx, chunks[i],
+                                   positions[i])
+            if propagate:
+                chunks[i] = out
     norms = {p: tap.norms(p) for p in paths if tap.has(p)}
     hess = {p: tap.hessian(p) for p in paths
             if tap.hessian(p) is not None}
     return norms, hess
+
+
+def layer_tap_stats(cfg: ArchConfig, params: dict, lp: dict, idx: int,
+                    h: torch.Tensor, positions: torch.Tensor,
+                    hessian: bool = False,
+                    hessian_names: Optional[Set[str]] = None
+                    ) -> Tuple[Dict[str, torch.Tensor],
+                               Dict[str, torch.Tensor]]:
+    """Single-batch wrapper around ``_capture_layer``: (act_norms,
+    hessians) of layer ``idx`` on its input ``h``, keyed by path;
+    ``hessians`` is empty unless requested (``hessian`` for every path,
+    or ``hessian_names``)."""
+    paths = linear_paths(cfg) + shared_linear_paths(cfg)
+    names = (set(paths) if hessian and hessian_names is None
+             else set(hessian_names or ()))
+    return _capture_layer(cfg, params, lp, idx, [h], [positions], paths,
+                          names)
+
+
+def _calib_chunks(cfg: ArchConfig, params: dict, calib, dev
+                  ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The embedded calibration chunks of ``calib`` (an (N, S) id array
+    or a ``CalibrationSpec``) and their positions, on ``dev``."""
+    spec = (calib if isinstance(calib, plan_lib.CalibrationSpec)
+            else plan_lib.CalibrationSpec(calib))
+    chunks, positions = [], []
+    for t in spec.batches():
+        h = lm.embed_inputs(cfg, params,
+                            torch.as_tensor(t, device=dev).long())
+        chunks.append(h)
+        positions.append(positions_for(cfg, h.shape[0], h.shape[1],
+                                       device=dev))
+    return chunks, positions
+
+
+def stats_on(stats: ModelTapStats, dev: torch.device) -> ModelTapStats:
+    """``stats`` with every norm and Hessian on ``dev``."""
+    return ModelTapStats({k: v.to(dev) for k, v in stats.norms.items()},
+                         {k: v.to(dev) for k, v in stats.hessians.items()},
+                         stats.n_forwards)
+
+
+def _device_for(params: dict, device, what: str) -> torch.device:
+    """``resolve_device(device)``, which must be where ``params`` live."""
+    dev = resolve_device(device)
+    if params["embed"].device.type != dev.type:
+        raise ValueError(f"params live on {params['embed'].device}, "
+                         f"{what} was asked to run on {dev}")
+    return dev
+
+
+@torch.no_grad()
+def collect_model_stats(cfg: ArchConfig, params: dict, calib,
+                        plan=None, hessian_names=None,
+                        progress: Optional[Callable[[str], None]] = None,
+                        device=None) -> ModelTapStats:
+    """ONE streaming calibration pass over the *uncompressed* model,
+    tapping every layer's statistics (the allocator's probe and the
+    input of ``compress_model(stats=...)``).
+
+    Each layer's capture forward is also the propagation to the next
+    layer (the weights do not change), so the pass costs ``n_layers *
+    n_chunks`` ``_layer_fwd`` calls. Hessians are accumulated for the
+    linears whose plan-resolved compressor needs them (``@auto`` rules
+    probed at the base config); ``hessian_names`` overrides (a set of
+    paths, or True for all). Runs on ``device`` (CUDA unless ``"cpu"``),
+    where ``params`` must live."""
+    dev = _device_for(params, device, "collect_model_stats")
+    if plan is not None:
+        plan = plan_lib.CompressionPlan.parse(plan)
+    chunks, positions = _calib_chunks(cfg, params, calib, dev)
+    norms: Dict[Tuple[int, str], torch.Tensor] = {}
+    hessians: Dict[Tuple[int, str], torch.Tensor] = {}
+    n_fwd = 0
+    paths = linear_paths(cfg)
+    for l in range(cfg.n_layers):
+        if hessian_names is True:
+            hnames = set(paths)
+        elif hessian_names is not None:
+            hnames = set(hessian_names) & set(paths)
+        elif plan is not None:
+            hnames = set()
+            for p in paths:
+                r = plan.resolve(l, p, allow_auto=True)
+                if r is not None and "hessian" in r.needs:
+                    hnames.add(p)
+        else:
+            hnames = set()
+        acts, hess = _capture_layer(cfg, params, params["layers"][l], l,
+                                    chunks, positions, paths, hnames,
+                                    propagate=True)
+        n_fwd += len(chunks)
+        for pth, an in acts.items():
+            norms[(l, pth)] = an
+        for pth, hz in hess.items():
+            hessians[(l, pth)] = hz
+        if progress:
+            progress(f"stats layer {l + 1}/{cfg.n_layers} tapped")
+    return ModelTapStats(norms, hessians, n_fwd)
 
 
 def _weighted_errs(w: torch.Tensor, w_new: torch.Tensor,
@@ -142,10 +284,11 @@ def _expert_hessians(hz: Optional[torch.Tensor], n_exp: int, d_in: int
 def _compress_experts(layer: int, pth: str, w: torch.Tensor,
                       an: Optional[torch.Tensor],
                       hz: Optional[torch.Tensor],
-                      comp: compressor_lib.Compressor):
+                      r: plan_lib.ResolvedCompression):
     """Compress a 3-D (E, D_in, D_out) expert leaf expert by expert.
     The decs travel as a tuple (``core.packed_model.pack_model`` packs
     it into an ``ExpertPackedStack``); the stats' variant is "expert"."""
+    comp = r.compressor
     hz_e = _expert_hessians(hz, w.shape[0], w.shape[1])
     outs, crs, e_decs = [], [], []
     eb2 = ea2 = 0.0
@@ -164,19 +307,21 @@ def _compress_experts(layer: int, pth: str, w: torch.Tensor,
     w_new = torch.stack(outs).contiguous()
     cr = float(np.mean(crs)) if crs else comp.scfg.cr
     dec = tuple(e_decs) if all(d is not None for d in e_decs) else None
-    return w_new, dec, CompressStats(layer, pth, float(np.sqrt(eb2)),
-                                     float(np.sqrt(ea2)), cr, comp.name,
-                                     "expert" if dec is not None else "")
+    return w_new, dec, CompressStats(
+        layer, pth, float(np.sqrt(eb2)), float(np.sqrt(ea2)), cr, r.method,
+        "expert" if dec is not None else "",
+        cr_requested=float(r.scfg.cr))
 
 
 def _compress_leaf(layer: int, pth: str, w: torch.Tensor,
                    an: Optional[torch.Tensor], hz: Optional[torch.Tensor],
-                   comp: compressor_lib.Compressor):
-    """Compress one (D_in, D_out) model weight, or a 3-D expert leaf.
-    Returns (new weight, dec-or-None, CompressStats); the stats name the
-    dec's variant."""
+                   r: plan_lib.ResolvedCompression):
+    """Compress one (D_in, D_out) model weight, or a 3-D expert leaf, with
+    the resolved compressor ``r``. Returns (new weight, dec-or-None,
+    CompressStats); the stats name the dec's variant."""
     if w.dim() == 3:
-        return _compress_experts(layer, pth, w, an, hz, comp)
+        return _compress_experts(layer, pth, w, an, hz, r)
+    comp = r.compressor
     cl = comp.compress(w.T.float(), LinearStats(norms=an, hessian=hz))
     w_new = cl.dense.T.to(w.dtype).contiguous()
     err_b, err_a = _weighted_errs(w, w_new, an)
@@ -184,51 +329,83 @@ def _compress_leaf(layer: int, pth: str, w: torch.Tensor,
     variant = ""
     if cl.dec is not None:
         from repro_torch.core.packed_model import variant_of
-        variant = variant_of(cl.dec, comp.scfg.pattern) or ""
+        variant = variant_of(cl.dec, r.scfg.pattern) or ""
     return w_new, cl.dec, CompressStats(layer, pth, err_b, err_a, cr,
-                                        comp.name, variant)
+                                        r.method, variant,
+                                        cr_requested=float(r.scfg.cr))
 
 
 @torch.no_grad()
 def compress_model(cfg: ArchConfig, params: dict, calib,
                    method: str = "slab",
                    scfg: SLaBConfig = SLaBConfig(),
+                   plan=None,
+                   progress: Optional[Callable[[str], None]] = None,
                    keep_decompositions: bool = False,
+                   stats: Optional[ModelTapStats] = None,
                    device=None):
-    """Run the layer-wise protocol with one method (any name of
-    ``core.compressor.available()``) on every linear.
-    Returns (new params, stats[, decs]); ``decs`` maps (layer, path) to
-    the decomposition for ``core.packed_model.pack_model``.
+    """Run the layer-wise protocol. Returns (new params, stats[, decs]);
+    ``decs`` maps (layer, path) to the decomposition for
+    ``core.packed_model.pack_model``.
 
-    ``calib`` is an (N, S) int array of calibration token ids. Runs on
+    ``calib`` is an (N, S) int array of calibration token ids, or a
+    ``plan.CalibrationSpec`` that streams it in chunks (the tap
+    statistics accumulate across chunks). ``plan`` is anything
+    ``CompressionPlan.parse`` takes; when None, ``method`` / ``scfg``
+    are sugar for one catch-all rule. Hessians are tapped only for the
+    linears whose resolved compressor needs them. ``stats`` (from ``collect_model_stats``)
+    compresses from precollected statistics: no calibration forwards run
+    (``calib`` may be None) and no error propagates. A plan that
+    ``wants_allocation`` first goes through
+    ``core.allocator.allocate_plan``, which collects ``stats`` when not
+    given, so allocate + compress costs one calibration pass. Runs on
     ``device`` (CUDA unless ``"cpu"`` is passed), where ``params`` must
     already live."""
-    dev = resolve_device(device)
-    if params["embed"].device.type != dev.type:
-        raise ValueError(f"params live on {params['embed'].device}, "
-                         f"compress_model was asked to run on {dev}")
-    comp = compressor_lib.get(method, scfg)
-    toks = torch.as_tensor(np.asarray(calib), device=dev).long()
-    h = lm.embed_inputs(cfg, params, toks)
-    chunks = [h]
-    positions = [positions_for(cfg, h.shape[0], h.shape[1], device=dev)]
+    dev = _device_for(params, device, "compress_model")
+    plan = (plan_lib.CompressionPlan.parse(plan, base=scfg)
+            if plan is not None else plan_lib.plan_for_method(method, scfg))
+    if plan.wants_allocation:
+        from repro_torch.core import allocator as allocator_lib
+        allocation = allocator_lib.allocate_plan(
+            cfg, params, calib, plan=plan, stats=stats, progress=progress,
+            device=dev)
+        plan, stats = allocation.plan, allocation.stats
+    precollected = stats is not None
+    if precollected:
+        stats = stats_on(stats, dev)
+    chunks: List[torch.Tensor] = []
+    positions: List[torch.Tensor] = []
+    if not precollected:
+        if calib is None:
+            raise ValueError("compress_model needs calibration data "
+                             "(or precollected stats=)")
+        chunks, positions = _calib_chunks(cfg, params, calib, dev)
 
     out = dict(params)
     out["layers"] = _copy_tree(params["layers"])
     out_stats: List[CompressStats] = []
     decs: Dict[Tuple[int, str], object] = {}
     paths = linear_paths(cfg)
-    hess_names = set(paths) if "hessian" in comp.needs else set()
     for l in range(cfg.n_layers):
         lp = out["layers"][l]
-        acts, hess = _capture_layer(cfg, out, lp, l, chunks, positions,
-                                    paths, hess_names)
+        resolved = {p: plan.resolve(l, p) for p in paths}
+        if precollected:
+            acts = {p: stats.norms[(l, p)] for p in paths
+                    if (l, p) in stats.norms}
+            hess = {p: stats.hessians[(l, p)] for p in paths
+                    if (l, p) in stats.hessians}
+        else:
+            hess_names = {p for p, r in resolved.items()
+                          if r is not None and "hessian" in r.needs}
+            acts, hess = _capture_layer(cfg, out, lp, l, chunks, positions,
+                                        paths, hess_names)
         for pth in paths:
+            r = resolved[pth]
             w = _get(lp, pth)
-            if w is None:
+            if r is None or w is None:
                 continue
             w_new, dec, st = _compress_leaf(l, pth, w, acts.get(pth),
-                                            hess.get(pth), comp)
+                                            hess.get(pth), r)
             if keep_decompositions and dec is not None:
                 decs[(l, pth)] = dec
             out_stats.append(st)
@@ -236,6 +413,8 @@ def compress_model(cfg: ArchConfig, params: dict, calib,
         for i in range(len(chunks)):
             chunks[i], _ = lm._layer_fwd(cfg, out, lp, l, chunks[i],
                                          positions[i])
+        if progress:
+            progress(f"layer {l + 1}/{cfg.n_layers} compressed")
     if keep_decompositions:
         return out, out_stats, decs
     return out, out_stats

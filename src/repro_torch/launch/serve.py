@@ -1,7 +1,9 @@
 """Serving entry point (port of ``repro.launch.serve``): init -> optional
 compression from synthetic calibration (SLaB or one of the paper's
-baselines, ``--compress``) -> optional packing onto the CUDA kernels ->
-prefill + greedy decode of one static batch, or (``--engine``) an
+baselines, ``--compress``; a per-linear ``CompressionPlan``, ``--plan``;
+per-linear CRs from the budget allocator, ``--budget``; calibration
+streamed in chunks, ``--calib-batch``) -> optional packing onto the CUDA
+kernels -> prefill + greedy decode of one static batch, or (``--engine``) an
 open-loop request trace through the continuous-batching engine on a
 paged KV cache (``--kv-quant`` for an int8 cache).
 
@@ -13,6 +15,11 @@ paged KV cache (``--kv-quant`` for an int8 cache).
   python -m repro_torch.launch.serve --arch phi3_5_moe --packed --device cpu
   python -m repro_torch.launch.serve --arch deepseek_moe_16b --packed \
       --compress hassle --pattern 2:4 --device cpu
+  python -m repro_torch.launch.serve --arch stablelm_12b --packed \
+      --plan '0/attn.wo=skip; attn.*=sparsegpt@cr=0.6; *=slab' \
+      --calib-batch 4 --device cpu
+  python -m repro_torch.launch.serve --arch stablelm_12b --packed \
+      --budget 0.5 --device cpu
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 refuses to start.
@@ -29,6 +36,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.core import compressor as compressor_lib
 from repro_torch.core.pipeline import compress_model
+from repro_torch.core.plan import CalibrationSpec, CompressionPlan
 from repro_torch.core.slab import SLaBConfig
 from repro_torch.data import SyntheticCorpus, calibration_batch
 from repro_torch.models import lm
@@ -105,7 +113,17 @@ def main(argv: Optional[list] = None):
                          "full-size config)")
     ap.add_argument("--compress",
                     choices=["none"] + compressor_lib.available(),
-                    default="slab")
+                    default="slab",
+                    help="single-method sugar for --plan '*=<method>'")
+    ap.add_argument("--plan", default=None,
+                    help="CompressionPlan spec: inline DSL "
+                         "('attn.*=sparsegpt; *=slab@cr=0.4'), JSON, or "
+                         "@/path/to/plan.json; overrides --compress")
+    ap.add_argument("--budget", type=float, default=None,
+                    help="global CR budget: allocate per-layer CRs by "
+                         "sensitivity water-filling (core.allocator) "
+                         "over --plan/--compress, from one calibration "
+                         "pass")
     ap.add_argument("--packed", action="store_true",
                     help="serve through the hand-written CUDA kernels "
                          "(their plain versions on --device cpu)")
@@ -142,6 +160,9 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--calib-seqs", type=int, default=16)
+    ap.add_argument("--calib-batch", type=int, default=0,
+                    help="stream calibration in chunks of this many "
+                         "sequences (0 = single batch)")
     ap.add_argument("--calib-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -155,32 +176,14 @@ def main(argv: Optional[list] = None):
     n_params = sum(t.numel() for t in _tensors(params))
     print(f"{cfg.name}: {n_params / 1e6:.2f}M params on {dev}")
 
-    if args.compress != "none":
-        scfg = SLaBConfig(cr=args.cr, pattern=args.pattern, iters=args.iters)
-        calib = calibration_batch(cfg.vocab, seed=args.seed,
-                                  n_seq=args.calib_seqs,
-                                  seq_len=args.calib_len)
-        t0 = time.monotonic()
-        params, stats, decs = compress_model(cfg, params, calib,
-                                             method=args.compress, scfg=scfg,
-                                             keep_decompositions=True,
-                                             device=dev)
-        cr_meas = float(np.mean([s.cr for s in stats])) if stats else 0.0
-        print(f"compressed {len(stats)} linears ({args.compress}) at "
-              f"measured CR={cr_meas:.3f} in {time.monotonic() - t0:.1f}s")
-        if args.packed:
-            from repro_torch.core.packed_model import pack_model
-            params, rep = pack_model(params, decs, pattern=args.pattern,
-                                     dtype=cfg.dtype)
-            variants = " ".join(f"{v}={c}"
-                                for v, c in sorted(rep.by_variant.items()))
-            print(f"packed serving: {rep.n_packed} linears on the kernel "
-                  f"path across {len(rep.paths)} paths [{variants}]")
-            for var, (pb, db) in sorted(rep.bytes_by_variant.items()):
-                flag = "  <-- exceeds dense" if pb > db else ""
-                print(f"  bytes/{var}: {pb / 1e3:.1f} kB packed vs "
-                      f"{db / 1e3:.1f} kB dense ({pb / db:.2f}x){flag}")
-            print_experts(params, rep)
+    scfg = SLaBConfig(cr=args.cr, pattern=args.pattern, iters=args.iters)
+    plan = (CompressionPlan.parse(args.plan, base=scfg)
+            if args.plan else None)
+    if args.budget is not None and plan is None and args.compress == "none":
+        ap.error("--budget needs something to allocate: give --plan or "
+                 "a --compress method")
+    if plan is not None or args.compress != "none":
+        params = compress_and_pack(cfg, params, args, scfg, plan, dev)
 
     if args.engine:
         serve_engine(cfg, params, args, dev)
@@ -197,6 +200,63 @@ def main(argv: Optional[list] = None):
     print(f"served {args.batch} seqs x ({args.prompt_len}+{args.gen_len}) "
           f"tokens in {dt:.1f}s ({n_tok / dt:.1f} tok/s)")
     print("sample generation:", gen[0, :16].cpu().numpy())
+
+
+def compress_and_pack(cfg, params, args, scfg, plan, dev):
+    """Compress ``params`` under ``plan`` (or ``--compress``), after
+    allocating per-layer CRs when ``--budget`` is given, print the
+    compressed linears and, with ``--plan`` or ``--budget``, each one's
+    requested and measured CR and weighted errors; with ``--packed``,
+    pack the decompositions. Returns the params to serve."""
+    calib = calibration_batch(cfg.vocab, seed=args.seed,
+                              n_seq=args.calib_seqs, seq_len=args.calib_len)
+    if args.calib_batch:
+        calib = CalibrationSpec(calib, batch_size=args.calib_batch)
+    t0 = time.monotonic()
+    stats_pre = None
+    if args.budget is not None:
+        from repro_torch.core.allocator import allocate_plan
+        alloc = allocate_plan(
+            cfg, params, calib, budget=args.budget,
+            template=plan if plan is not None else f"*={args.compress}",
+            base=scfg, device=dev)
+        plan, stats_pre = alloc.plan, alloc.stats
+        print(f"allocated {len(alloc.crs)} CR groups at budget "
+              f"{alloc.budget:.3f} (achieved {alloc.achieved:.3f}, one "
+              f"calibration pass, {alloc.stats.n_forwards} layer forwards)")
+    params, stats, decs = compress_model(
+        cfg, params, calib, method=args.compress, scfg=scfg, plan=plan,
+        keep_decompositions=True, stats=stats_pre, device=dev)
+    by_method = sorted({s.method for s in stats})
+    cr_meas = float(np.mean([s.cr for s in stats])) if stats else 0.0
+    print(f"compressed {len(stats)} linears ({'/'.join(by_method)}) at "
+          f"measured CR={cr_meas:.3f} in {time.monotonic() - t0:.1f}s")
+    if args.plan is not None or args.budget is not None:
+        # per-linear CR table: the plan's and the allocator's decisions
+        print(f"{'layer':>5}  {'path':<20} {'method':<10} "
+              f"{'cr_req':>7} {'cr':>7} {'err_before':>11} "
+              f"{'err_after':>10}")
+        for s in stats:
+            print(f"{s.layer:>5}  {s.name:<20} {s.method:<10} "
+                  f"{s.cr_requested:>7.3f} {s.cr:>7.3f} "
+                  f"{s.err_before:>11.4g} {s.err_after:>10.4g}")
+    if not args.packed:
+        return params
+    from repro_torch.core.packed_model import pack_model
+    params, rep = pack_model(
+        params, decs, dtype=cfg.dtype,
+        plan=(plan if plan is not None else
+              CompressionPlan.parse(f"*={args.compress}", base=scfg)))
+    variants = " ".join(f"{v}={c}"
+                        for v, c in sorted(rep.by_variant.items()))
+    print(f"packed serving: {rep.n_packed} linears on the kernel "
+          f"path across {len(rep.paths)} paths [{variants}]")
+    for var, (pb, db) in sorted(rep.bytes_by_variant.items()):
+        flag = "  <-- exceeds dense" if pb > db else ""
+        print(f"  bytes/{var}: {pb / 1e3:.1f} kB packed vs "
+              f"{db / 1e3:.1f} kB dense ({pb / db:.2f}x){flag}")
+    print_experts(params, rep)
+    return params
 
 
 def print_experts(params: dict, rep) -> None:

@@ -45,6 +45,7 @@ from repro_torch.core import slab
 from repro_torch.core.packed_model import (ExpertPackedStack, PackedLinear,
                                            pack_model)
 from repro_torch.core.pipeline import _get, compress_model, linear_paths
+from repro_torch.core.plan import plan_for_method
 from repro_torch.launch.serve import greedy_decode
 from repro_torch.models import common, lm, moe
 
@@ -220,7 +221,8 @@ class Chain:
                   for k, d in self.decs_r.items()}
         self.packed, self.rep = pack_model(
             bridge.params(_np_tree(self.dense_r), cfg.n_layers, device="cpu"), decs_b,
-            pattern=self.pattern, dtype=torch.float32)
+            plan=plan_for_method(method, slab.SLaBConfig(**kw)),
+            dtype=torch.float32)
 
 
 def _zero_ws(dec):

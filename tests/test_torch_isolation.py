@@ -31,7 +31,9 @@ def test_port_files_exist():
             "baselines.py", "compressor.py", "binlr.py", "flash_decode.py",
             "paged_cache.py", "scheduler.py", "faults.py",
             "engine.py", "moe.py", "grouped.py",
-            "deepseek_moe_16b.py"} <= names
+            "deepseek_moe_16b.py", "plan.py", "allocator.py",
+            "llama3_2_3b.py", "mistral_nemo_12b.py",
+            "nemotron_4_340b.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -50,7 +52,8 @@ def no_card():
 
 def test_entry_points_refuse_the_cpu_unless_asked(no_card):
     from repro_torch import configs
-    from repro_torch.core.pipeline import compress_model
+    from repro_torch.core.allocator import allocate_plan
+    from repro_torch.core.pipeline import collect_model_stats, compress_model
     from repro_torch.launch import serve
     from repro_torch.models import lm
     cfg = configs.get("stablelm_12b", smoke=True).with_(
@@ -63,11 +66,24 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         compress_model(cfg, params, calib)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        collect_model_stats(cfg, params, calib)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        allocate_plan(cfg, params, calib, budget=0.5)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--arch", "stablelm_12b", "--budget", "0.5"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.greedy_decode(cfg, params, prompts, 2)
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--arch", "stablelm_12b"])
     out = serve.greedy_decode(cfg, params, prompts, 2, device="cpu")
     assert out.shape == (1, 2)
+    taps = collect_model_stats(cfg, params, calib, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        allocate_plan(cfg, params, budget=0.5, stats=taps)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compress_model(cfg, params, None, stats=taps)
+    alloc = allocate_plan(cfg, params, budget=0.5, stats=taps, device="cpu")
+    assert alloc.stats.n_forwards == taps.n_forwards
     _, stats = compress_model(cfg, params, calib, device="cpu")
     assert len(stats) == 7
     moe_cfg = configs.get("phi3_5_moe", smoke=True)
@@ -85,3 +101,60 @@ def test_serve_cli_runs_packed_on_the_cpu_when_asked(capsys):
     assert "packed serving: 14 linears" in out
     assert "across 7 paths [slab-ell=14]" in out
     assert "sample generation:" in out
+
+
+CLI_SMALL = ["--arch", "stablelm_12b", "--packed", "--device", "cpu",
+             "--iters", "1", "--calib-seqs", "4", "--calib-len", "16",
+             "--calib-batch", "2", "--batch", "2", "--prompt-len", "4",
+             "--gen-len", "2"]
+
+
+def _cr_table(out):
+    """The per-linear CR table's rows: (layer, path, method, cr_req, cr)."""
+    lines = out.splitlines()
+    start = next(i for i, ln in enumerate(lines)
+                 if ln.split()[:4] == ["layer", "path", "method", "cr_req"])
+    rows = []
+    for ln in lines[start + 1:]:
+        f = ln.split()
+        if len(f) != 7 or not f[0].isdigit():
+            break
+        rows.append((int(f[0]), f[1], f[2], float(f[3]), float(f[4])))
+    return rows
+
+
+def test_serve_cli_plan_streams_and_packs_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(CLI_SMALL + ["--plan", "0/attn.wo=skip; "
+                            "attn.*=sparsegpt@cr=0.6; "
+                            "0/mlp.*=wanda@pattern=2:4; *=slab"])
+    out = capsys.readouterr().out
+    assert "compressed 13 linears (slab/sparsegpt/wanda)" in out
+    rows = _cr_table(out)
+    assert [(l, p) for l, p, *_ in rows if p == "attn.wo"] == [(1, "attn.wo")]
+    for l, p, method, cr_req, cr in rows:
+        want = ("sparsegpt" if p.startswith("attn.")
+                else "wanda" if l == 0 else "slab")
+        assert method == want, (l, p)
+        assert cr_req == (0.6 if method == "sparsegpt" else 0.5)
+        assert abs(cr - cr_req) < 0.02
+    assert len(rows) == 13
+    assert ("packed serving: 13 linears on the kernel path across 7 paths "
+            "[slab-ell=3 sparse-ell=7 sparse-nm=3]") in out
+    assert "sample generation:" in out
+
+
+def test_serve_cli_budget_allocates_in_one_pass_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(CLI_SMALL + ["--budget", "0.5"])
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines() if ln.startswith("allocated"))
+    assert line.startswith("allocated 14 CR groups at budget 0.500 "
+                           "(achieved 0.5")
+    assert line.endswith("one calibration pass, 4 layer forwards)")
+    rows = _cr_table(out)
+    assert len(rows) == 14 and {r[2] for r in rows} == {"slab"}
+    assert len({r[3] for r in rows}) > 1
+    assert "packed serving: 14 linears" in out
+    with pytest.raises(SystemExit):
+        serve.main(CLI_SMALL + ["--budget", "0.5", "--compress", "none"])

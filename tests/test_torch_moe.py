@@ -42,6 +42,7 @@ from repro_torch import bridge, configs
 from repro_torch.core import slab
 from repro_torch.core.packed_model import ExpertPackedStack, pack_model
 from repro_torch.core.pipeline import compress_model
+from repro_torch.core.plan import plan_for_method
 from repro_torch.launch.serve import greedy_decode
 from repro_torch.models import common, lm, moe
 from repro_torch.models.common import positions_for
@@ -249,8 +250,9 @@ def packed(models, compressed):
     decs = {k: (bridge.expert_decompositions(d, device="cpu") if type(d) is tuple
                 else bridge.decomposition(d, device="cpu")) for k, d in decs_r.items()}
     dense = bridge.params(_np_tree(dense_r), cfg.n_layers, device="cpu")
-    packed_p, rep = pack_model(dense, decs, pattern=pattern,
-                               dtype=torch.float32)
+    packed_p, rep = pack_model(
+        dense, decs, plan=plan_for_method(method, slab.SLaBConfig(
+            pattern=pattern)), dtype=torch.float32)
     return pattern, dense, decs_r, packed_r, packed_p, rep
 
 

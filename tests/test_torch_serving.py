@@ -27,6 +27,7 @@ from repro.serving.paged_cache import BlockAllocator as RefAllocator
 from repro_torch import bridge, configs
 from repro_torch.core.packed_model import pack_model
 from repro_torch.core.pipeline import compress_model
+from repro_torch.core.plan import plan_for_method
 from repro_torch.core.slab import SLaBConfig
 from repro_torch.data import calibration_batch
 from repro_torch.launch.serve import greedy_decode
@@ -375,11 +376,12 @@ def test_engine_packed_slab_2_4_trace(make_engine):
     cfg = configs.get("stablelm_12b", smoke=True).with_(dtype=torch.float32)
     params = lm.init(cfg, seed=0, device="cpu")
     cal = calibration_batch(cfg.vocab, n_seq=4, seq_len=32)
-    dense_c, _, decs = compress_model(
-        cfg, params, cal, method="slab",
-        scfg=SLaBConfig(cr=0.5, iters=3, pattern="2:4"),
-        keep_decompositions=True, device="cpu")
-    packed, rep = pack_model(dense_c, decs, pattern="2:4")
+    plan = plan_for_method("slab", SLaBConfig(cr=0.5, iters=3,
+                                              pattern="2:4"))
+    dense_c, _, decs = compress_model(cfg, params, cal, plan=plan,
+                                      keep_decompositions=True,
+                                      device="cpu")
+    packed, rep = pack_model(dense_c, decs, plan=plan)
     assert rep.by_variant == {"slab-nm": 14}
     reqs = _trace(cfg, [(7, 5, 0.0), (13, 7, 3.0), (4, 9, 6.0)], seed=2)
     eng = make_engine(cfg, packed, EngineConfig(

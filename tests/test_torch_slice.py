@@ -25,6 +25,8 @@ from repro.models.common import positions_for as ref_positions_for
 from repro_torch import bridge, configs
 from repro_torch.core.packed_model import PackedLinear, pack_model
 from repro_torch.core.pipeline import linear_paths
+from repro_torch.core.plan import plan_for_method
+from repro_torch.core.slab import SLaBConfig
 from repro_torch.launch.serve import greedy_decode
 from repro_torch.models import lm
 from repro_torch.models.common import positions_for
@@ -107,8 +109,9 @@ def packed(request, models):
                                  pattern=pattern, dtype=jnp.float32)
     decs = {k: bridge.decomposition(d, device="cpu") for k, d in decs_r.items()}
     dense = bridge.params(_np_tree(dense_r), cfg.n_layers, device="cpu")
-    packed_p, rep = pack_model(dense, decs, pattern=pattern,
-                               dtype=torch.float32)
+    packed_p, rep = pack_model(
+        dense, decs, plan=plan_for_method("slab", SLaBConfig(
+            pattern=pattern)), dtype=torch.float32)
     variant = "slab-nm" if pattern else "slab-ell"
     assert rep.by_variant == {variant: cfg.n_layers * len(linear_paths(cfg))}
     for lp in packed_p["layers"]:
