@@ -143,6 +143,23 @@ Phases:
           crossover);
      both with their busy / wall ms a step against the dense-equivalent
      model's and the last-position logits within 3e-2 of it;
+     then ``ops.slab_linear_kernel`` (a ``SLaBPacked`` bundle) at (4096,
+     4096), M 4, bf16: a 2:4 bundle through #2 and an unstructured one
+     (ELL, unpacked) through #3, each counted once on grouped_tc.cu and
+     held against ``apply.slab_linear`` within 3e-2; then training:
+       T  llama2-7b, 2 layers, bf16 parameters, f32 moments:
+          make_train_fn(microbatches=2, remat="nothing") fitting one
+          batch of 8 x 512 synthetic tokens for 10 steps (finite losses,
+          the last below the first; step 1 under "none", "dots" and
+          "blocks:2" gives the
+          same loss; step ms, tokens/s, the profiled busy share and peak
+          memory); launch.train at 1 layer with commits every 4 steps
+          and a failure injected at step 6, bitwise equal to an
+          uninterrupted run, and one timed commit (in a temporary
+          directory of the checkout, removed after); then the trained
+          model SLaB-compressed (CR 0.5), packed slab-ell and served
+          through #1 (grouped_tc.cu) as phase a, logits within 3e-2 of
+          the trained dense-equivalent, with its perplexities;
   4. one JSON line listing every ported kernel (all twenty; #1-#9 and
      #12-#20 once per library, each with its own launch counter:
      thirty-eight entries), then the result line.
@@ -155,12 +172,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
@@ -187,6 +206,9 @@ NM_SWEEP = ("slab_nm_matmul", "nm_matmul", "slab_nm_lr_matmul",
 NM_SWEEP_M = (1, 2, 3, 4, 8, 16)
 
 
+CARD = ["card not read yet"]       # nvidia-smi's name and power limit
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -204,6 +226,7 @@ def environment():
         timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         "nvidia-smi: " + smi.stderr.strip()
+    CARD[0] = card
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
@@ -1414,7 +1437,8 @@ def _greedy_profile(cfg, params, prompts, step_ms, label, focus=None):
                     PROMPT + 4 - 1, step_ms, label, focus)
 
 
-def _device_profile(run, steps, step_ms, label, focus=None):
+def _device_profile(run, steps, step_ms, label, focus=None,
+                    unit="decode step"):
     """Device busy time per step from torch.profiler (kernel events
     only) over ``run()``, which takes ``steps`` steps, set against
     ``step_ms``, the same step's unprofiled wall time: busy / wall is the
@@ -1438,7 +1462,7 @@ def _device_profile(run, steps, step_ms, label, focus=None):
             "(busy share not measured)")
         return (None, None) if focus else None
     share = min(busy_ms / step_ms, 1.0)
-    log(f"  profile {label}: device busy {busy_ms:.3f} ms per decode step "
+    log(f"  profile {label}: device busy {busy_ms:.3f} ms per {unit} "
         f"of {step_ms:.3f} ms wall (busy share {share:.3f})")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
     for e in top:
@@ -2290,6 +2314,246 @@ def budget_phase_z():
     return counts
 
 
+SLK_SHAPE = (4096, 4096)     # llama2-7b's q/k/v/o
+SLK_M = 4
+
+
+def slab_linear_kernel_check():
+    """``ops.slab_linear_kernel`` (the entry point of a ``SLaBPacked``
+    bundle) at SLK_SHAPE, M 4, bf16: a SLaB decomposition at CR 0.5 2:4
+    packs N:M and goes through #2 slab_nm_matmul, one at CR 0.5
+    unstructured packs ELL (every row keeps the same count), is unpacked
+    and goes through #3 slab_matmul; each only through grouped_tc.cu
+    (counts zeroed just before the call, read just after), held against
+    ``apply.slab_linear`` at f32 within 3e-2."""
+    from repro_torch.core.apply import slab_linear
+    from repro_torch.core.packing import NMPacked, pack_decomposition
+    from repro_torch.core.slab import SLaBConfig, slab_decompose
+    from repro_torch.kernels import ops
+    n, k = SLK_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    w = torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5
+    norms = torch.rand(k, generator=gen, device="cuda") + 0.5
+    x = torch.randn(SLK_M, k, generator=gen, device="cuda")
+    launched = {}
+    for pattern, key in (("2:4", "slab_nm_matmul"), (None, "slab_matmul")):
+        dec = slab_decompose(w, norms, SLaBConfig(cr=0.5, iters=4,
+                                                  pattern=pattern))
+        pk = pack_decomposition(dec, pattern)
+        ops.reset_launch_counts()
+        sync()
+        y = ops.slab_linear_kernel(x.bfloat16(), pk)
+        sync()
+        counts = ops.launch_counts()
+        if counts[key] != 1:
+            raise AssertionError(f"slab_linear_kernel ({pattern}): {key} "
+                                 f"launched {counts[key]} times")
+        _only_through(counts, key, f"slab_linear_kernel ({pattern})")
+        launched[key] = launched.get(key, 0) + counts[key]
+        want = slab_linear(x, dec)
+        kind = "N:M" if isinstance(pk.sparse, NMPacked) else \
+            type(pk.sparse).__name__
+        log(f"  slab_linear_kernel {n}x{k} M {SLK_M} bf16, sparse part "
+            f"{kind} ({pattern or 'unstructured'}): {key} x"
+            f"{counts[key]}, y {tuple(y.shape)} {y.dtype}")
+        _hold_logits("slab_linear_kernel", y.float(), want, 3e-2,
+                     f"{key} vs apply.slab_linear (f32)")
+    return launched
+
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MB = 8, 512, 10, 2
+REPLAY_STEPS = 8
+
+
+def _train_setup(n_layers):
+    from repro_torch import configs
+    from repro_torch.optim.adamw import AdamWConfig
+    full = configs.get("llama2_7b", smoke=False)
+    cfg = full.with_(n_layers=n_layers, dtype=torch.bfloat16)
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    return full, cfg, acfg
+
+
+def _tree_equal(a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def train_phase():
+    """Phase T: llama2-7b at full width, 2 layers, bf16 parameters, f32
+    moments. ``make_train_fn(microbatches=2, remat="nothing")`` takes
+    TRAIN_STEPS steps on one SyntheticCorpus batch (batch 8, seq 512):
+    every loss finite, the last below the first; step 1 under "none",
+    "dots" and "blocks:2" gives the loss of "nothing". Then
+    ``launch.train`` at 1 layer, commits every 4 steps (the last 2 kept),
+    a failure injected at step 6, in a temporary directory of the
+    checkout removed afterwards: its final parameters and moments
+    bitwise equal to an uninterrupted run's. Then the 2-layer trained
+    model is SLaB-compressed (CR 0.5, 8 iterations, 16 x 128 calibration
+    tokens from the corpus), packed (slab-ell) and served through
+    ``_serve_and_hold``: #1 only through grouped_tc.cu, logits within
+    3e-2 of the trained dense-equivalent."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import save_pytree
+    from repro_torch.core.packed_model import pack_model
+    from repro_torch.core.pipeline import compress_model
+    from repro_torch.core.plan import plan_for_method
+    from repro_torch.core.slab import SLaBConfig
+    from repro_torch.data import SyntheticCorpus, calibration_batch
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.step import make_train_fn
+    from repro_torch.tree import tree_map
+
+    full, cfg, acfg = _train_setup(2)
+    n_par = lm.param_count(cfg)
+    log(f"phase T: {full.name} d_model {cfg.d_model} heads {cfg.n_heads}x"
+        f"{cfg.d_head} d_ff {cfg.d_ff} vocab {cfg.vocab}, bf16 params "
+        f"({n_par / 1e6:.1f} M), f32 moments, AdamW lr {acfg.lr} warm-up "
+        f"{acfg.warmup_steps}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"microbatches {TRAIN_MB}; reduced: n_layers {full.n_layers}->2")
+    corpus = SyntheticCorpus(cfg.vocab, seed=0)
+
+    def batch(step):
+        return {k: torch.from_numpy(v).cuda() for k, v in
+                corpus.batch(step, TRAIN_BATCH, TRAIN_SEQ).items()}
+
+    params0 = lm.init(cfg, seed=0, device="cuda")
+    first = {}
+    for remat in ("none", "dots", "blocks:2"):
+        p = tree_map(torch.clone, params0)
+        torch.cuda.reset_peak_memory_stats()
+        _, _, m = make_train_fn(cfg, acfg, TRAIN_MB, remat)(
+            p, adamw_init(p, acfg), batch(0))
+        first[remat] = float(m["loss"])
+        log(f"  step 1 under remat {remat!r}: loss {first[remat]:.6f}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del p, m
+    torch.cuda.empty_cache()
+    step = make_train_fn(cfg, acfg, TRAIN_MB, "nothing")
+    params, opt = params0, adamw_init(params0, acfg)
+    del params0
+    torch.cuda.reset_peak_memory_stats()
+    # one batch, every step: at full width ten steps of fresh batches
+    # show no falling loss (each token is seen ~1.3 times in all, too
+    # few to learn the corpus's chains), fitting one batch does
+    fit = batch(0)
+    losses, times = [], []
+    for s in range(TRAIN_STEPS - 1):
+        sync()
+        t0 = time.monotonic()
+        params, opt, m = step(params, opt, fit)
+        losses.append(float(m["loss"]))
+        times.append(time.monotonic() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(times[1:])) * 1e3
+    last = TRAIN_STEPS - 1
+
+    def run_last():
+        nonlocal params, opt
+        params, opt, mm = step(params, opt, fit)
+        losses.append(float(mm["loss"]))
+
+    share = _device_profile(run_last, 1, step_ms, "train step",
+                            unit="train step")
+    log(f"  losses (remat 'nothing', batch 0 every step): "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"  train step {step_ms:.2f} ms (median of steps 2-{last}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tokens/s, busy "
+        f"share {share}, max_memory_allocated {peak / 2**30:.2f} GiB "
+        f"[{CARD[0]}]")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase T: losses {losses}")
+    for remat, v in first.items():
+        if abs(v - losses[0]) > 1e-6 * abs(losses[0]):
+            raise AssertionError(f"phase T: step 1 under {remat!r} "
+                                 f"{v} != {losses[0]} under 'nothing'")
+    t_dur = {}
+
+    # ---- launch.train at 1 layer: injected failure, replay ----
+    _, cfg1, _ = _train_setup(1)
+    root = Path(__file__).resolve().parent
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=root)
+    try:
+        free = shutil.disk_usage(tmp).free
+        per_commit = lm.param_count(cfg1) * (2 + 4 + 4)
+        log(f"  replay: llama2-7b 1 layer ({lm.param_count(cfg1) / 1e6:.1f}"
+            f" M params), a commit ~{per_commit / 1e9:.2f} GB; free disk "
+            f"{free / 1e9:.1f} GB")
+        if free < 3.5 * per_commit:
+            raise AssertionError(f"phase T: {free / 1e9:.1f} GB free, "
+                                 f"the replay needs ~{3.5 * per_commit / 1e9:.1f}")
+        kw = dict(smoke=False, steps=REPLAY_STEPS, batch=TRAIN_BATCH,
+                  seq=TRAIN_SEQ, microbatches=TRAIN_MB, remat="nothing",
+                  lr=acfg.lr, log_every=REPLAY_STEPS, device="cuda")
+        t0 = time.monotonic()
+        clean, l_clean = train(cfg1, ckpt_dir=None, **kw)
+        t_dur["uninterrupted"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        faulty, l_faulty = train(cfg1, ckpt_dir=os.path.join(tmp, "run"),
+                                 ckpt_every=4, inject_failure_at=6, **kw)
+        t_dur["with failure"] = time.monotonic() - t0
+        same = (_tree_equal(clean["params"], faulty["params"])
+                and _tree_equal(clean["opt"], faulty["opt"]))
+        log(f"  replay: {len(l_faulty)} steps run for {REPLAY_STEPS} "
+            f"(restored the step-4 commit after the failure at 6), losses "
+            f"{'equal' if l_faulty[6:] == l_clean[4:] else 'DIFFER'} "
+            f"after the replay; final params and moments bitwise "
+            f"{'equal' if same else 'DIFFERENT'}; seconds {t_dur}")
+        if not same or l_faulty[6:] != l_clean[4:]:
+            raise AssertionError("phase T: the replayed run differs")
+        shutil.rmtree(os.path.join(tmp, "run"))
+        state = {"params": faulty["params"], "opt": faulty["opt"]}
+        sync()
+        t0 = time.monotonic()
+        save_pytree(state, os.path.join(tmp, "timed"))
+        t_commit = time.monotonic() - t0
+        log(f"  one commit (save_pytree, synchronous): {t_commit:.2f} s for "
+            f"{per_commit / 1e9:.2f} GB ({per_commit / 1e9 / t_commit:.2f} "
+            f"GB/s, host copy included) [{CARD[0]}]")
+        del clean, faulty, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- compress the trained 2-layer model, pack, serve ----
+    eval_batch = next(corpus.eval_batches(1, BATCH, 129))
+    with torch.no_grad():
+        ppl_dense = _perplexity(cfg, params, eval_batch)
+    calib = calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128)
+    plan = plan_for_method("slab", SLaBConfig(cr=0.5, iters=8))
+    t0 = time.monotonic()
+    dense_c, stats, decs = compress_model(
+        cfg, params, calib, plan=plan, keep_decompositions=True,
+        device="cuda")
+    sync()
+    t_comp = time.monotonic() - t0
+    del params, opt
+    packed, rep = pack_model(dense_c, decs, plan=plan, dtype=cfg.dtype)
+    del decs
+    n_lin, _ = _check_packed(cfg, packed, rep, "slab-ell")
+    with torch.no_grad():
+        ppl_c = _perplexity(cfg, dense_c, eval_batch)
+        ppl_p = _perplexity(cfg, packed, eval_batch)
+    log(f"  compressed the trained model in {t_comp:.1f}s (measured CR "
+        f"{sum(x.cr for x in stats) / len(stats):.4f}), packed "
+        f"{rep.n_packed} [slab-ell={rep.by_variant['slab-ell']}]; "
+        f"perplexity ({BATCH}x128 eval tokens): trained dense "
+        f"{ppl_dense:.2f}, compressed dense-equivalent {ppl_c:.2f}, "
+        f"packed {ppl_p:.2f} [{CARD[0]}]")
+    steps = PROMPT + GEN - 1
+    launched = _serve_and_hold("T", cfg, packed, dense_c,
+                               {"slab_ell_matmul": n_lin * steps}, 3e-2,
+                               profiled=False)
+    del packed, dense_c
+    torch.cuda.empty_cache()
+    return launched
+
+
 # kernel-name parts of the profiles: #4 is ell_split_kernel with neither
 # term and SPLIT (every main-path launch splits), #12 the same unsplit;
 # #6 runs DenseSrc under tc_nm_kernel (#18 under tc_kernel)
@@ -2514,7 +2778,11 @@ def main():
         for kname, c in moe_engine_phase(tag, arch).items():
             launches[kname] += c
         mark(tag)
-    for tag, phase in (("y", plan_phase_y), ("z", budget_phase_z)):
+    for tag, phase in (("y", plan_phase_y), ("z", budget_phase_z),
+                       ("slab_linear_kernel", slab_linear_kernel_check),
+                       ("T", train_phase)):
+        if tag == "slab_linear_kernel":
+            log("slab_linear_kernel: the SLaBPacked entry point")
         for kname, c in phase().items():
             launches[kname] += c
         mark(tag)

@@ -53,19 +53,52 @@ def _tree(x, device):
     return tensor(x, device)
 
 
+def _is_packed_stack(x) -> bool:
+    return hasattr(x, "owner_group") and hasattr(x, "dense_members")
+
+
+def _is_packed_linear(x) -> bool:
+    return hasattr(x, "variant") and hasattr(x, "sparse_vals")
+
+
+def _is_expert_stack(x) -> bool:
+    return hasattr(x, "n_experts") and hasattr(x, "groups")
+
+
+def _layer_leaf(leaf, l: int, device):
+    """Layer ``l`` of one reference ``layers`` leaf, in the port's form:
+    a ``PackedStack`` gives the leaf of the group that owns the layer
+    (``owner_group``) or of its dense remainder."""
+    if _is_packed_stack(leaf):
+        gi = leaf.owner_group(l)
+        if gi < 0:
+            return tensor(leaf.dense[leaf.dense_members.index(l)],
+                          device).contiguous()
+        return _layer_leaf(leaf.groups[gi], leaf.members[gi].index(l),
+                           device)
+    if _is_expert_stack(leaf):
+        return expert_packed_stack(leaf, device, index=l)
+    if _is_packed_linear(leaf):
+        return packed_linear(leaf, device, index=l)
+    return tensor(np.asarray(leaf)[l], device).contiguous()
+
+
 def params(ref_params: dict, n_layers: int, device=None) -> dict:
     """Reference params (stacked ``layers`` leaves with a leading L dim)
-    -> the port's layout: one dict per layer."""
+    -> the port's layout: one dict per layer. A ``layers`` leaf may be
+    packed, as ``pack_plan_decs`` leaves it: a layer-stacked
+    ``PackedLinear`` or ``ExpertPackedStack``, or a ``PackedStack`` (a
+    mixed or partial plan), which each layer unstacks into its own
+    ``PackedLinear``, ``ExpertPackedStack`` or dense weight."""
     out = {k: _tree(v, device) for k, v in ref_params.items()
            if k != "layers"}
-    stacked = _tree(ref_params["layers"], device)
 
     def at(t, l):
         if isinstance(t, dict):
             return {k: at(v, l) for k, v in t.items()}
-        return t[l].contiguous()
+        return _layer_leaf(t, l, device)
 
-    out["layers"] = [at(stacked, l) for l in range(n_layers)]
+    out["layers"] = [at(ref_params["layers"], l) for l in range(n_layers)]
     return out
 
 
@@ -102,10 +135,14 @@ def tap_stats(ref_stats, device=None) -> ModelTapStats:
         int(ref_stats.n_forwards))
 
 
-def packed_linear(pl, device=None) -> PackedLinear:
-    """A reference per-layer ``PackedLinear`` -> the port's."""
+def packed_linear(pl, device=None, index=None) -> PackedLinear:
+    """A reference per-layer ``PackedLinear`` -> the port's; with
+    ``index``, position ``index`` of a layer-stacked one."""
     def opt(a):
-        return None if a is None else tensor(a, device).contiguous()
+        if a is None:
+            return None
+        a = np.asarray(a)
+        return tensor(a if index is None else a[index], device).contiguous()
 
     return PackedLinear(opt(pl.sparse_vals), opt(pl.sparse_idx),
                         opt(pl.b_packed), opt(pl.u), opt(pl.v),
@@ -114,15 +151,19 @@ def packed_linear(pl, device=None) -> PackedLinear:
                         rank=int(pl.rank))
 
 
-def expert_packed_stack(ref_eps, device=None) -> ExpertPackedStack:
+def expert_packed_stack(ref_eps, device=None,
+                        index=None) -> ExpertPackedStack:
     """A reference per-layer ``ExpertPackedStack`` -> the port's: its
     groups (planes with a leading expert dim, of any variant: a plane
     the variant lacks stays None, ids and sign words arrive as their
-    int16 / int32 views), the dense remainder and the member ids."""
-    dense = (None if ref_eps.dense is None
-             else tensor(ref_eps.dense, device).contiguous())
+    int16 / int32 views), the dense remainder and the member ids; with
+    ``index``, position ``index`` of a layer-stacked one."""
+    dense = None
+    if ref_eps.dense is not None:
+        d = np.asarray(ref_eps.dense)
+        dense = tensor(d if index is None else d[index], device).contiguous()
     return ExpertPackedStack(
-        tuple(packed_linear(g, device) for g in ref_eps.groups), dense,
+        tuple(packed_linear(g, device, index) for g in ref_eps.groups), dense,
         tuple(tuple(int(e) for e in m) for m in ref_eps.members),
         tuple(int(e) for e in ref_eps.dense_members),
         int(ref_eps.n_experts))

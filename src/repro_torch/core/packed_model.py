@@ -20,8 +20,12 @@ through a hand-written CUDA kernel, picked by the variant tag:
 
 Unstructured sparse parts route to row-padded ELL whenever it wins on
 bytes at the serving dtype (``packing.ell_wins_bytes``), else they stay
-dense-masked. ``PackedStack`` is not ported: the port keeps one
-PackedLinear per layer.
+dense-masked. ``PackedStack`` has no class here: the port keeps one leaf
+per layer (a PackedLinear, or the dense weight where a plan left the
+layer dense), so each layer of a path already carries its own variant
+and there is no layer scan to keep whole. The reference's segments
+(maximal runs of layers with the same packed signature,
+``segment_runs``) are still reported, as ``PackReport.segments``.
 
 A 3-D MoE expert leaf packs into an ``ExpertPackedStack``: experts with
 the same packed signature stack into one group (planes with a leading
@@ -433,46 +437,166 @@ def linear(x: torch.Tensor, w, tap: Optional[str] = None) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------
+# Layer segments (the reference's scan groups, over the per-layer list)
+# ------------------------------------------------------------------
+
+def describe(leaf) -> str:
+    """A packed leaf's descriptor as the reference prints it: variant,
+    N:M pattern or ELL pad width, rank; an expert stack's groups; a
+    dense weight is "dense"."""
+    if isinstance(leaf, ExpertPackedStack):
+        return leaf.describe()
+    if not isinstance(leaf, PackedLinear):
+        return "dense"
+    d = leaf.variant
+    if leaf.m_pat:
+        d += f"({leaf.sparse_vals.shape[-1]}:{leaf.m_pat})"
+    elif leaf.variant.endswith("-ell"):
+        d += f"(kmax={leaf.sparse_vals.shape[-1]})"
+    if leaf.rank:
+        d += f" r{leaf.rank}"
+    return d
+
+
+def leaf_signature(leaf) -> Optional[Tuple]:
+    """The reference's layer-stacking key of one layer's leaf: two layers
+    of a path with equal signatures would share a stacked group there.
+    None for a dense weight (the reference's dense remainder)."""
+    if isinstance(leaf, ExpertPackedStack):
+        return (("experts", leaf.members, leaf.dense_members,
+                 leaf.n_experts)
+                + tuple(_pack_signature(g) for g in leaf.groups)
+                + ((None if leaf.dense is None
+                    else (tuple(leaf.dense.shape),
+                          _dtype_name(leaf.dense))),))
+    if isinstance(leaf, PackedLinear):
+        return _pack_signature(leaf)
+    return None
+
+
+def _leaf_paths(lp: dict, prefix: str = "") -> List[str]:
+    out = []
+    for k, v in sorted(lp.items()):
+        if isinstance(v, dict):
+            out += _leaf_paths(v, f"{prefix}{k}.")
+        else:
+            out.append(prefix + k)
+    return out
+
+
+def segment_runs(layers: list, n_layers: int
+                 ) -> Tuple[Tuple[int, int], ...]:
+    """The layer axis of the per-layer list ``layers`` (a model's
+    ``params["layers"]``) cut into maximal contiguous runs [lo, hi) in
+    which every leaf keeps one packed signature (``leaf_signature``):
+    where the reference scans one stacked segment a run. A homogeneous
+    model is one run."""
+    from repro_torch.core.pipeline import _get
+    paths = _leaf_paths(layers[0]) if n_layers else []
+
+    def sig(l):
+        return [leaf_signature(_get(layers[l], p)) for p in paths]
+
+    runs: List[Tuple[int, int]] = []
+    lo, prev = 0, sig(0) if n_layers else None
+    for l in range(1, n_layers):
+        cur = sig(l)
+        if cur != prev:
+            runs.append((lo, l))
+            lo, prev = l, cur
+    runs.append((lo, n_layers))
+    return tuple(runs)
+
+
+def has_hetero(layers: list) -> bool:
+    """True when some path's layers carry different packed signatures
+    (the reference holds such a path as a ``PackedStack``)."""
+    return len(segment_runs(layers, len(layers))) > 1
+
+
+def layer_slice_range(layers: list, lo: int, hi: int) -> list:
+    """The per-layer leaves of the run [lo, hi)."""
+    if not 0 <= lo < hi <= len(layers):
+        raise ValueError(f"layers [{lo},{hi}) outside 0..{len(layers)}")
+    return layers[lo:hi]
+
+
+class Segment(NamedTuple):
+    """One contiguous same-signature layer run of a packed model."""
+    lo: int
+    hi: int                            # exclusive
+    sig: Tuple[Tuple[str, str], ...]   # (path, descriptor) per packed path
+
+
+def _model_segments(layers: list, n_layers: int,
+                    paths: Sequence[str]) -> Tuple[Segment, ...]:
+    """``segment_runs`` with, per run, the (path, descriptor) of each
+    packed path at the run's first layer (what ``serve`` prints)."""
+    from repro_torch.core.pipeline import _get
+    return tuple(Segment(lo, hi, tuple((p, describe(_get(layers[lo], p)))
+                                       for p in paths))
+                 for lo, hi in segment_runs(layers, n_layers))
+
+
+# ------------------------------------------------------------------
 # Whole-model packing
 # ------------------------------------------------------------------
 
 class PackReport(NamedTuple):
     """What pack_model did: packed-linear counts per variant (each expert
     of a MoE leaf counts as one linear), the packed paths, per-variant
-    (packed, dense) bytes per linear, and the experts left dense, named
-    ``L{layer}/{path}[expert {e}]``."""
+    (packed, dense) bytes per linear with the weights left dense under
+    ``"dense-fallback"``, the (layer, path) linears left dense for want
+    of packable terms (an expert as ``path[expert e]``), and the layer
+    segments."""
     n_packed: int
     by_variant: Dict[str, int]
     paths: List[str]
     bytes_by_variant: Dict[str, Tuple[float, float]]
-    fallback: Tuple[str, ...] = ()
+    fallback: Tuple[Tuple[int, str], ...] = ()
+    segments: Tuple[Segment, ...] = ()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def pack_model(params: dict,
                decs: Dict[Tuple[int, str], SLaBDecomposition],
                plan=None,
                dtype=torch.float32) -> Tuple[dict, PackReport]:
-    """Replace every decomposed linear of the per-layer params with its
-    PackedLinear at the serving ``dtype``, and every 3-D expert leaf
-    (whose decs arrive as a tuple, one per expert) with an
+    """Replace every servable decomposed linear of the per-layer params
+    with its PackedLinear at the serving ``dtype``, and every 3-D expert
+    leaf (whose decs arrive as a tuple, one per expert) with an
     ``ExpertPackedStack``. ``decs`` comes from
     ``core.pipeline.compress_model(keep_decompositions=True)``, and
     ``plan`` (anything ``CompressionPlan.parse`` takes) is the one they
     were compressed under: each dec packs with the N:M pattern of its
     own resolved rule, so one path may mix variants across layers. With
-    no plan every dec packs unstructured. Returns (params, PackReport);
-    the input params are not modified."""
+    no plan every dec packs unstructured. A dec with no packable terms
+    stays dense and is listed in ``fallback``.
+
+    The bytes are the reference's ``pack_plan_decs``': still-dense bytes
+    (unservable decs, the layers of a packed path that the plan left
+    uncovered, unservable experts) aggregate under ``"dense-fallback"``,
+    so a partially packed model's bytes are its true bytes. As there, an
+    unservable dec of a path packed elsewhere counts both as a fallback
+    and as an uncovered layer. Returns (params, PackReport); the input
+    params are not modified."""
     from repro_torch.core.pipeline import _copy_tree, _get, _set
     if plan is not None:
         from repro_torch.core.plan import CompressionPlan
         plan = CompressionPlan.parse(plan)
+    layers = params["layers"]
+    n_layers = len(layers)
     out = dict(params)
-    out["layers"] = _copy_tree(params["layers"])
+    out["layers"] = _copy_tree(layers)
     itemsize = torch.empty((), dtype=dtype).element_size()
     by_variant: Dict[str, int] = {}
     agg: Dict[str, List[float]] = {}
-    paths: List[str] = []
-    fallback: List[str] = []
+    fallback: List[Tuple[int, str]] = []
+    covered: Dict[str, List[int]] = {}          # 2-D paths: packed layers
+    expert_layers: Dict[str, List[int]] = {}
 
     def account(var: str, packed_b: float, dense_b: float, n: int = 1):
         a = agg.setdefault(var, [0.0, 0.0, 0])
@@ -487,25 +611,53 @@ def pack_model(params: dict,
         old = _get(out["layers"][l], name)
         r = plan.resolve(l, name) if plan is not None else None
         pattern = r.scfg.pattern if r is not None else None
-        if name not in paths:
-            paths.append(name)
+        if old is None:
+            fallback.append((l, name))
+            continue
         if type(dec) is tuple:          # one dec per expert of a 3-D leaf
             eps = pack_expert_stack(old, dec, pattern, dtype)
             _set(out["layers"][l], name, eps)
-            per_e = old[0].numel() * old.element_size()
+            expert_layers.setdefault(name, []).append(l)
+            per_e = _nbytes(old[0])
             for grp, mem in zip(eps.groups, eps.members):
                 account(grp.variant, grp.nbytes(), per_e * len(mem),
                         len(mem))
             for e in eps.dense_members:
-                fallback.append(f"L{l}/{name}[expert {e}]")
+                fallback.append((l, f"{name}[expert {e}]"))
                 account("dense-fallback", per_e, per_e)
             continue
-        k_max = None if pattern else ell_row_nnz_max(dec.w_s)
-        var = variant_of(dec, pattern, itemsize=itemsize, k_max=k_max)
+        var = k_max = None
+        if dec.w_s is not None and dec.w_s.dim() == 2:
+            k_max = None if pattern else ell_row_nnz_max(dec.w_s)
+            var = variant_of(dec, pattern, itemsize=itemsize, k_max=k_max)
+        if var is None:
+            fallback.append((l, name))
+            continue
         pl = pack_linear(dec, pattern, dtype, variant=var,
                          ell_nnz=k_max if var.endswith("-ell") else None)
         _set(out["layers"][l], name, pl)
-        account(var, pl.nbytes(), old.numel() * old.element_size())
+        covered.setdefault(name, []).append(l)
+        account(var, pl.nbytes(), _nbytes(old))
+
+    # the layers of a packed path that no dec covered stay dense
+    for name, got in covered.items():
+        for l in range(n_layers):
+            if l not in got:
+                b = _nbytes(_get(layers[l], name))
+                account("dense-fallback", b, b)
+    for name, got in expert_layers.items():
+        for l in range(n_layers):
+            if l not in got:
+                w = _get(layers[l], name)
+                account("dense-fallback", _nbytes(w), _nbytes(w),
+                        w.shape[0])
+    # unservable decs stayed dense: their bytes count toward the model
+    for (l, fname) in fallback:
+        if "[expert " not in fname:         # expert slices counted above
+            w = _get(layers[l], fname)
+            if w is not None:
+                account("dense-fallback", _nbytes(w), _nbytes(w))
+
     per_linear = {var: (p / n, d / n) for var, (p, d, n) in agg.items()}
     for var, (p, d) in sorted(per_linear.items()):
         if p > d:
@@ -513,5 +665,9 @@ def pack_model(params: dict,
                 f"packed variant {var!r} stores {p / d:.2f}x its dense "
                 f"bytes ({p / 1e3:.1f} kB vs {d / 1e3:.1f} kB per linear)",
                 stacklevel=2)
+    paths = sorted(covered) + sorted(expert_layers)
+    segments = _model_segments(out["layers"], n_layers, paths)
     return out, PackReport(sum(by_variant.values()), by_variant, paths,
-                           per_linear, tuple(fallback))
+                           per_linear,
+                           tuple(sorted(fallback, key=lambda k: (k[1], k[0]))),
+                           segments)

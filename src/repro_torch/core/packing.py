@@ -8,6 +8,9 @@ the formats the CUDA kernels stream from device memory.
 - ELL packed: unstructured W_S -> row-padded values (Do, K_max) + column
               ids (kept ids sorted; short rows pad with value 0 at a
               zero column).
+- SLaBPacked: one compressed linear's serving bundle (sparse part in
+              one of the formats above, u, v, sign words), the input of
+              ``kernels.ops.slab_linear_kernel``.
 
 torch has few ops on uint16/uint32, so the unsigned planes are carried
 as bit-identical signed views: sign words as int32, ELL ids as int16
@@ -95,6 +98,12 @@ def pack_nm(w_s: torch.Tensor, n: int, m: int,
     return NMPacked(vals.to(w_s.dtype), idx.to(torch.int8), n, m, d_in)
 
 
+def nm_packed_bits(p: NMPacked, bits: int = 16) -> int:
+    """Storage cost: values at ``bits`` + ceil(log2(m)) bits per index."""
+    idx_bits = max(1, math.ceil(math.log2(p.m)))
+    return p.values.numel() * bits + p.indices.numel() * idx_bits
+
+
 def unpack_nm(p: NMPacked) -> torch.Tensor:
     d_out = p.values.shape[0]
     g = torch.zeros((d_out, p.d_in // p.m, p.m), dtype=p.values.dtype,
@@ -147,3 +156,34 @@ def ell_unpack(p: ELLPacked) -> torch.Tensor:
     out = torch.zeros((d_out, p.d_in), dtype=p.values.dtype,
                       device=p.values.device)
     return out.scatter_add_(1, as_unsigned(p.indices), p.values)
+
+
+# --------------------------- SLaB packed bundle ------------------------
+
+class SLaBPacked(NamedTuple):
+    """Serving format of one compressed linear: an N:M or ELL sparse part,
+    or the dense-masked W_S itself; u / v as (Do,) / (Di,) at rank 1,
+    (Do, r) / (Di, r) otherwise; sign words (Do, Di/32)."""
+    sparse: "NMPacked | ELLPacked | torch.Tensor"
+    u: torch.Tensor
+    v: torch.Tensor
+    b_packed: torch.Tensor
+    d_out: int
+    d_in: int
+
+
+def pack_decomposition(dec, pattern: str | None = None) -> SLaBPacked:
+    """Pack a full SLaB decomposition: N:M with ``pattern``, else ELL when
+    every row keeps the same count (the (1, D_in) comparison group), else
+    the dense-masked W_S."""
+    from repro_torch.core import sparsity as sp
+    d_out, d_in = dec.w_s.shape
+    if pattern is not None:
+        n, m = sp.parse_pattern(pattern)
+        sparse = pack_nm(dec.w_s, n, m)
+    else:
+        nnz = sp.mask_nnz_per_row_uniform(dec.w_s != 0)
+        sparse = ell_pack(dec.w_s, nnz) if nnz is not None else dec.w_s
+    u = dec.u[:, 0] if dec.u.dim() == 2 and dec.u.shape[1] == 1 else dec.u
+    v = dec.v[:, 0] if dec.v.dim() == 2 and dec.v.shape[1] == 1 else dec.v
+    return SLaBPacked(sparse, u, v, pack_sign_bits(dec.w_b), d_out, d_in)

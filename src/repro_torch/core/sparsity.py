@@ -74,3 +74,11 @@ def prune_mask(scores: torch.Tensor, keep_frac: float,
                                                           -math.inf))
     return group_topk_mask(scores, keep_frac, group)
 
+
+
+def mask_nnz_per_row_uniform(mask: torch.Tensor) -> Optional[int]:
+    """The nnz every row has, when every row has the same (true for
+    (1, D_in) comparison groups), else None. Decides ELL packability."""
+    nnz = mask.sum(1)
+    first = int(nnz[0])
+    return first if bool((nnz == first).all()) else None

@@ -255,3 +255,17 @@ def flash_decode_paged_attention(q, k_pool, v_pool, block_tables, lengths,
     fn = (fd_k.flash_decode_paged_plain if _on_cpu(q)
           else fd_k.flash_decode_paged)
     return fn(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
+
+
+def slab_linear_kernel(x, packed) -> torch.Tensor:
+    """One SLaB-compressed linear from its ``core.packing.SLaBPacked``
+    bundle: an N:M sparse part through #2 ``slab_nm_matmul``, a dense or
+    ELL one (unpacked first) through #3 ``slab_matmul``."""
+    from repro_torch.core.packing import ELLPacked, NMPacked, ell_unpack
+    sp = packed.sparse
+    if isinstance(sp, NMPacked):
+        return slab_nm_matmul(x, sp.values, sp.indices, sp.m,
+                              packed.b_packed, packed.u, packed.v)
+    w_s = ell_unpack(sp) if isinstance(sp, ELLPacked) else sp
+    return slab_matmul(x, w_s.to(x.dtype), packed.b_packed, packed.u,
+                       packed.v)

@@ -250,7 +250,17 @@ def compress_and_pack(cfg, params, args, scfg, plan, dev):
     variants = " ".join(f"{v}={c}"
                         for v, c in sorted(rep.by_variant.items()))
     print(f"packed serving: {rep.n_packed} linears on the kernel "
-          f"path across {len(rep.paths)} paths [{variants}]")
+          f"path across {len(rep.paths)} paths [{variants}]; dense "
+          f"fallback: {len(rep.fallback)}")
+    if rep.fallback:
+        print("  dense-fallback linears:",
+              ", ".join(f"L{l}/{p}" for l, p in rep.fallback))
+    print(f"segment layout: {len(rep.segments)} segment(s) over "
+          f"{cfg.n_layers} layers")
+    for seg in rep.segments:
+        span = (f"L{seg.lo}" if seg.hi == seg.lo + 1
+                else f"L{seg.lo}-L{seg.hi - 1}")
+        print(f"  {span}: " + "  ".join(f"{p}={d}" for p, d in seg.sig))
     for var, (pb, db) in sorted(rep.bytes_by_variant.items()):
         flag = "  <-- exceeds dense" if pb > db else ""
         print(f"  bytes/{var}: {pb / 1e3:.1f} kB packed vs "
@@ -273,7 +283,8 @@ def print_experts(params: dict, rep) -> None:
     n_groups = [len(eps.groups) for _, _, eps in stacks]
     print(f"experts: {len(stacks)} leaves ["
           + " ".join(f"{v}={c}" for v, c in sorted(counts.items()))
-          + f"]; dense experts: {len(rep.fallback)}; groups per leaf "
+          + f"]; dense experts: "
+          f"{sum('[expert ' in p for _, p in rep.fallback)}; groups per leaf "
           f"{min(n_groups)}-{max(n_groups)}")
     for l, path, eps in stacks:
         print(f"  L{l}/{path}: {len(eps.groups)} groups {eps.describe()}")

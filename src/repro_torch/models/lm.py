@@ -13,12 +13,25 @@ also be a ``core.packed_model.PackedLinear``. ``decode_step`` runs on a
 contiguous cache with one host-int offset for the batch;
 ``paged_decode_step`` (the serving engine's) on a paged cache with a
 device tensor of per-row lengths.
+
+``forward`` and ``loss_fn`` record gradients when the caller is in grad
+mode (training); the serving entry points run under ``no_grad``. Their
+``remat_policy`` checkpoints each layer, or each block of
+``remat_block`` layers, with ``torch.utils.checkpoint``: one of the
+selective-checkpoint policies below (``nothing_saveable`` recomputes
+the whole layer in the backward pass, ``dots_saveable`` keeps the
+matmul outputs, ``everything_saveable`` keeps all), or None for no
+checkpoint.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import functools
+from typing import Callable, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -62,8 +75,24 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     reference's JAX PRNG stream cannot be reproduced; tests bridge the
     reference's weights instead). Runs on CUDA unless ``device="cpu"``."""
     _check_family(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    return _init_on(cfg, seed, resolve_device(device))
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The params' structure, shapes and dtypes on the ``meta`` device:
+    nothing is allocated (the checkpoint template)."""
+    _check_family(cfg)
+    return _init_on(cfg, 0, torch.device("meta"))
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """Parameters of ``cfg``'s model (counted on the ``meta`` device)."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() for t in tree_leaves(abstract_params(cfg)))
+
+
+def _init_on(cfg: ArchConfig, seed: int, dev: torch.device) -> dict:
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
     layers = [{"attn_norm": ones(), "mlp_norm": ones(),
@@ -97,7 +126,7 @@ def embed_inputs(cfg: ArchConfig, params: dict,
                  inputs: torch.Tensor) -> torch.Tensor:
     """Token ids -> table lookup; float inputs pass through."""
     if not inputs.is_floating_point():
-        return params["embed"][inputs.long()]
+        return F.embedding(inputs.long(), params["embed"])
     return inputs.to(cfg.dtype)
 
 
@@ -107,35 +136,91 @@ def unembed(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     return h @ params["lm_head"]
 
 
-@torch.no_grad()
+# ------------------------------------------------------------------
+# Activation checkpointing (the reference's jax.checkpoint policies)
+# ------------------------------------------------------------------
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def nothing_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Recompute every op of the checkpointed region."""
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Keep the matmul outputs (mm / bmm / addmm), recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def everything_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Keep every op's output: nothing is recomputed."""
+    return CheckpointPolicy.MUST_SAVE
+
+
+def _remat(fn: Callable, policy: Optional[Callable]) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` with ``policy`` (None: as
+    it is)."""
+    if policy is None:
+        return fn
+    if policy is nothing_saveable:
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     policy))
+
+
 def forward(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
-            positions: Optional[torch.Tensor] = None
+            positions: Optional[torch.Tensor] = None,
+            remat_policy: Optional[Callable] = None,
+            remat_block: int = 1
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits (B, S, V), aux)."""
+    """Full-sequence forward. Returns (logits (B, S, V), aux).
+
+    With ``remat_policy``, each layer runs under that checkpoint policy;
+    with ``remat_block`` = K > 1 dividing the depth, each block of K
+    layers does instead (only the block boundaries' activations stay for
+    the backward pass)."""
     _check_family(cfg)
     b, s = inputs.shape[0], inputs.shape[1]
     h = embed_inputs(cfg, params, inputs)
     if positions is None:
         positions = positions_for(cfg, b, s, device=h.device)
+    layers = params["layers"]
+
+    def run(lo: int, hi: int, h: torch.Tensor, aux: torch.Tensor):
+        for l in range(lo, hi):
+            h, a = _layer_fwd(cfg, params, layers[l], l, h, positions)
+            aux = aux + a
+        return h, aux
+
+    k = remat_block
+    n = len(layers)
+    step = k if k > 1 and n % k == 0 else 1
+    block = _remat(run, remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for l, lp in enumerate(params["layers"]):
-        h, a = _layer_fwd(cfg, params, lp, l, h, positions)
-        aux = aux + a
+    for lo in range(0, n, step):
+        h, aux = block(lo, lo + step, h, aux)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, h), aux
 
 
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict
-            ) -> Tuple[torch.Tensor, dict]:
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
+            remat_policy: Optional[Callable] = None,
+            remat_block: int = 1) -> Tuple[torch.Tensor, dict]:
     """Next-token loss of one batch ({inputs, labels[, positions, mask]}):
     ce + AUX_LOSS_WEIGHT · aux. exp(ce) is the perplexity the paper
-    reports."""
+    reports. Differentiable in grad mode (``forward``'s remat options)."""
     inputs = torch.as_tensor(batch["inputs"], device=params["embed"].device)
     labels = torch.as_tensor(batch["labels"], device=inputs.device)
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=inputs.device)
-    logits, aux = forward(cfg, params, inputs, batch.get("positions"))
+    logits, aux = forward(cfg, params, inputs, batch.get("positions"),
+                          remat_policy, remat_block)
     ce = softmax_xent(logits, labels, mask)
     return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
@@ -212,6 +297,7 @@ def paged_decode_step(cfg: ArchConfig, params: dict, paged: list,
     return unembed(cfg, params, h), paged
 
 
+@torch.no_grad()
 def prefill(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prefill = the full forward's logits (the cache fill is modelled as

@@ -381,7 +381,7 @@ def test_pack_model_counts_experts_and_names_dense_ones():
     assert isinstance(eps, ExpertPackedStack)
     assert params["layers"][0]["moe"]["w_up"] is old     # input untouched
     assert rep.by_variant == {"sparse-ell": 2} and rep.n_packed == 2
-    assert rep.fallback == ("L0/moe.w_up[expert 1]",)
+    assert rep.fallback == ((0, "moe.w_up[expert 1]"),)
     per_e = 128 * 64 * 4
     assert rep.bytes_by_variant["dense-fallback"] == (per_e, per_e)
     packed_b, dense_b = rep.bytes_by_variant["sparse-ell"]

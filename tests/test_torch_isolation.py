@@ -10,7 +10,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -33,7 +33,10 @@ def test_port_files_exist():
             "engine.py", "moe.py", "grouped.py",
             "deepseek_moe_16b.py", "plan.py", "allocator.py",
             "llama3_2_3b.py", "mistral_nemo_12b.py",
-            "nemotron_4_340b.py"} <= names
+            "nemotron_4_340b.py", "apply.py", "adamw.py", "compress.py",
+            "step.py", "fault.py", "elastic.py", "manager.py", "train.py",
+            "tree.py", "torch_quickstart.py", "torch_auto_allocate.py",
+            "torch_train_e2e.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -90,6 +93,36 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.init(moe_cfg)
     assert "moe" in lm.init(moe_cfg, device="cpu")["layers"][0]
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_train_and_examples_refuse_the_cpu_unless_asked(no_card):
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.train("llama2_7b", True, 1, 2, 8, None)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--steps", "1"])
+    for name in ("torch_quickstart", "torch_auto_allocate",
+                 "torch_train_e2e"):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            _example(name).main([])
+    _, losses = train.train("llama2_7b", True, 2, 2, 8, None, device="cpu")
+    assert len(losses) == 2
+
+
+def test_quickstart_example_runs_on_the_cpu_when_asked(capsys):
+    _example("torch_quickstart").main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "achieved CR (Eq. 9):    0.5000" in out
+    assert "kernel (its plain version, bf16)" in out
 
 
 def test_serve_cli_runs_packed_on_the_cpu_when_asked(capsys):
