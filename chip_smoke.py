@@ -55,7 +55,13 @@ Phases:
      libraries, grouped_tc.cu and the first design (#16 on phi3.5-moe's
      too); #15, #16, #17, #18 and #20 also through each library at the
      timed M; the first design of #12, #13, #17, #19 and #20 also timed at
-     f32;
+     f32; then #1 at the SSM and hybrid families' (N, K) (mamba2-1.3b's
+     in_z / in_x (4096, 2048) and out (2048, 4096), zamba2-7b's (7168,
+     3584) and (3584, 7168), its shared block's (3584, 3584), (14336,
+     3584) and (3584, 14336)) through the wrapper at M 1 and 4 (bf16) and
+     4 (f32), each call's library the one ``ell.slab_ell_kernel`` names
+     (K 14336 past the split gather's staged x: the first design), each
+     shape timed at M 4, bf16, rank 1;
   3. the port's main paths at full width with cut depth: compress_model
      (16x128 calibration) -> pack_model -> greedy_decode (batch 4, prompt
      32, gen 16, square and ragged), once per packed variant, llama2-7b:
@@ -102,7 +108,8 @@ Phases:
      and w are profiled (a, b, c, e, f, g, h, i, j, n, o, p, s, u and w
      with #1's, #2's, #3's, #8's, #4's, #5's, #6's, #7's, #9's, #17's,
      #16's, #15's and #8's, #12's and #4's, #18's and #6's and #20's and
-     #9's device time per step and share of the busy time);
+     #9's device time per step and share of the busy time; warm-ups and
+     profiles run the first 8 prompt tokens);
      phases e-i also print the eval perplexity (lm.loss_fn) of the
      uncompressed and the compressed model.
      Then the continuous-batching engine on the paged KV cache, slab-ell
@@ -160,6 +167,28 @@ Phases:
           model SLaB-compressed (CR 0.5), packed slab-ell and served
           through #1 (grouped_tc.cu) as phase a, logits within 3e-2 of
           the trained dense-equivalent, with its perplexities;
+     then the SSM and hybrid families at full width, bf16, slab CR 0.5
+     (8 iterations, 16x128 calibration), packed slab-ell and served by
+     greedy_decode square and ragged (launches exact; busy / wall ms a
+     step against the dense-equivalent):
+       S  mamba2-1.3b, 24 of its 48 layers (d_model 2048, d_inner 4096,
+          64 SSD heads of 64, state 128, vocab 50280; 0.82 G parameters):
+          72 linears (in_z, in_x, out) through #1 on grouped_tc.cu; then
+          the same at 2 layers and f32 (#1 on ell.cu), whose greedy
+          tokens must equal the dense-equivalent's;
+       H  zamba2-7b, 12 layers (d_model 3584, d_inner 7168, 112 SSD
+          heads, the shared block of 32 x 112 heads and d_ff 14336 before
+          layers 5 and 11): 36 Mamba linears and the shared block's 7,
+          packed once and run by both invocations; #1 on grouped_tc.cu,
+          its shared mlp.w_down (K 14336) on ell.cu;
+     both held at bf16 as HOLD_LAYERS says (3e-2 against the
+     dense-equivalent on the first 2 layers; at the phase's depth
+     against the dense-equivalent evaluated in f32, within 0.07 on S and
+     0.04 on H), the chunked SSD forward against the recurrent decode
+     (512 tokens, two chunks: the packed model's first 2 layers within
+     3e-2 at bf16 and 1e-4 at f32, the dense-equivalent's first 6 at f32
+     within 1e-4), and the Mamba cache's bytes a layer equal at s_max
+     128 and 524288;
   4. one JSON line listing every ported kernel (all twenty; #1-#9 and
      #12-#20 once per library, each with its own launch counter:
      thirty-eight entries), then the result line.
@@ -1354,6 +1383,7 @@ def flash_checks(flush):
 # ---------------------------------------------------------------- phase 3
 
 PROMPT, GEN, BATCH = 32, 16, 4
+PROF_PROMPT = 8                    # prompt tokens of a warm-up or a profile
 RAGGED = (32, 20, 27, 9)
 ENGINE_REQUESTS = 10
 EVICT_REQUESTS = 6       # phase k's evicting run: the trace's first 6
@@ -1429,12 +1459,14 @@ def _experts_dense(packed, dense):
 
 
 def _greedy_profile(cfg, params, prompts, step_ms, label, focus=None):
-    """``_device_profile`` over one greedy_decode of PROMPT + 4 - 1
-    decode steps."""
+    """``_device_profile`` over one greedy_decode of the first PROF_PROMPT
+    prompt tokens and 4 new ones: PROF_PROMPT + 4 - 1 decode steps (the
+    profiler's cost grows with the host ops it records)."""
     from repro_torch.launch.serve import greedy_decode
-    _device_profile(lambda: greedy_decode(cfg, params, prompts, 4,
+    _device_profile(lambda: greedy_decode(cfg, params,
+                                          prompts[:, :PROF_PROMPT], 4,
                                           device="cuda"),
-                    PROMPT + 4 - 1, step_ms, label, focus)
+                    PROF_PROMPT + 4 - 1, step_ms, label, focus)
 
 
 def _device_profile(run, steps, step_ms, label, focus=None,
@@ -1560,37 +1592,41 @@ def _expert_bytes(packed, dense):
     return pb, db
 
 
-def _only_through(counts, key, where):
+def _only_through(counts, key, where, allowed=()):
     """Raise if a kernel that counts per library launched through another
-    library than ``key`` (every launch of a phase's kernel should run the
-    library the phase names)."""
+    library than ``key`` or those ``allowed`` (every launch of a phase's
+    kernel should run the library the phase names)."""
     from repro_torch.kernels import ops
     name = {kk.key: kk.name for kk in ops.KERNELS}
     for other, c in counts.items():
-        if c and other != key and name[other] == name[key]:
+        if (c and other != key and other not in allowed
+                and name[other] == name[key]):
             raise AssertionError(
                 f"{where}: {other} launched {c} times; every "
                 f"{name[key]} launch here should count on {key}")
 
 
 def _serve_and_hold(tag, cfg, packed, dense_c, need, tol, profiled=True,
-                    focus=None):
+                    focus=None, hold=None):
     """greedy_decode of ``packed`` (BATCH prompts of PROMPT tokens, GEN
     new ones), square and then RAGGED, each run with the launch counts
     zeroed just before and read just after: every kernel of ``need`` must
-    launch at least its count in each run, only through its library.
-    Then the dense-equivalent model's square decode (the yardstick), both
-    profiled with ``profiled`` (busy / wall ms a step, ``focus`` as
-    _greedy_profile takes it); the ragged run's full-length row must
+    launch at least its count in each run, only through the libraries
+    ``need`` names. Then the dense-equivalent model's square decode (the
+    yardstick), both profiled with ``profiled`` (busy / wall ms a step,
+    ``focus`` as _greedy_profile takes it; each model warmed up first on
+    PROF_PROMPT prompt tokens); the ragged run's full-length row must
     equal the square run's, and the last-position logits must lie within
-    ``tol`` of the dense-equivalent's (_hold_moe_logits on a MoE model).
-    Returns the launches of ``need``'s kernels over both runs."""
+    ``tol`` of the dense-equivalent's (_hold_moe_logits on a MoE model;
+    ``hold(seq, square tokens, dense-equivalent's tokens)`` instead where
+    given). Returns the launches of ``need``'s kernels over both runs."""
     from repro_torch.data import SyntheticCorpus
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import greedy_decode
     prompts = SyntheticCorpus(cfg.vocab, seed=0).batch(
         0, BATCH, PROMPT)["inputs"]
-    greedy_decode(cfg, packed, prompts, 2, device="cuda")   # warm-up
+    warm = prompts[:, :PROF_PROMPT]
+    greedy_decode(cfg, packed, warm, 2, device="cuda")   # warm-up
     sync()
     steps = PROMPT + GEN - 1
     launched = dict.fromkeys(need, 0)
@@ -1609,7 +1645,8 @@ def _serve_and_hold(tag, cfg, packed, dense_c, need, tol, profiled=True,
                 raise AssertionError(
                     f"phase {tag}: {kname} launched {counts[kname]} times "
                     f"in the {mode} run, expected >= {n_need}")
-            _only_through(counts, kname, f"phase {tag} {mode} run")
+            _only_through(counts, kname, f"phase {tag} {mode} run",
+                          allowed=need)
             launched[kname] += counts[kname]
         if tuple(gen.shape) != (BATCH, GEN) or not bool(
                 ((gen >= 0) & (gen < cfg.vocab)).all()):
@@ -1622,10 +1659,10 @@ def _serve_and_hold(tag, cfg, packed, dense_c, need, tol, profiled=True,
             + " ".join(f"{kk}={c}" for kk, c in counts.items() if c))
         runs[mode] = (gen, dt)
     # the yardstick: the same model served dense (reconstructed Ŵ)
-    greedy_decode(cfg, dense_c, prompts, 2, device="cuda")
+    greedy_decode(cfg, dense_c, warm, 2, device="cuda")
     sync()
     t0 = time.monotonic()
-    greedy_decode(cfg, dense_c, prompts, GEN, device="cuda")
+    dense_gen = greedy_decode(cfg, dense_c, prompts, GEN, device="cuda")
     sync()
     dt_dense = time.monotonic() - t0
     log(f"  dense-equivalent greedy_decode square: "
@@ -1644,7 +1681,9 @@ def _serve_and_hold(tag, cfg, packed, dense_c, need, tol, profiled=True,
                              f"prompt) differs from the square run")
     seq = torch.cat([torch.as_tensor(prompts, device="cuda").long(),
                      sq[:, :-1]], dim=1)
-    if cfg.family == "moe":
+    if hold is not None:
+        hold(seq, sq, dense_gen)
+    elif cfg.family == "moe":
         _hold_moe_logits(tag, cfg, packed, dense_c, seq, tol)
     else:
         _hold_logits(tag, _final_logits(cfg, packed, seq),
@@ -2554,6 +2593,376 @@ def train_phase():
     return launched
 
 
+# ---------------------------------------------------------------- SSM / hybrid
+
+# #1 at the new families' (N, K): mamba2-1.3b's in_z / in_x and out,
+# zamba2-7b's in_z / in_x and out, and its shared block's attention,
+# w_gate / w_up and w_down (K 14336: past the split gather's staged x, the
+# first design).
+SSM_SHAPES = (("mamba2-1.3b in_z/in_x", 4096, 2048),
+              ("mamba2-1.3b out", 2048, 4096),
+              ("zamba2-7b in_z/in_x", 7168, 3584),
+              ("zamba2-7b out", 3584, 7168),
+              ("zamba2-7b shared attn", 3584, 3584),
+              ("zamba2-7b shared w_gate/w_up", 14336, 3584),
+              ("zamba2-7b shared w_down", 3584, 14336))
+SSM_M = (1, 4)
+SCAN_LEN = 512           # the chunked forward's prompt: two SSD chunks
+# bf16 noise: a random 48-layer mamba2-1.3b's bf16 logits sit ~0.05 from
+# the same weights evaluated in f32 (0.039 at 24, 0.026 at zamba2-7b's 12
+# layers), so 3e-2 holds packed against dense-equivalent only on the first
+# HOLD_LAYERS layers; at the phase's depth the packed model is held against
+# the f32 evaluation within a fixed limit of its own (ssm_phase's deep_tol,
+# 0.07 for S and 0.04 for H in main(), set from the readings on an H100:
+# S 0.0439 at 24 layers and 0.0585 at 48, H 0.0285)
+HOLD_LAYERS = 2
+# phase S's depth: all 48 layers took S 70-113 s and the whole script up
+# to 1037 s of its 1200 s limit on a slow host; 24 keep S near 40 s
+S_LAYERS = 24
+
+
+def ssm_shape_checks(flush):
+    """#1 slab_ell_matmul through its wrapper at every SSM_SHAPES (N, K),
+    M 1 and 4 at bf16 and M 4 at f32, against its plain version; the
+    library each call ran must be the one ``ell.slab_ell_kernel`` names
+    (grouped_tc.cu's split gather at bf16 where ``ell_split_smem`` fits an
+    H100 block, else and at f32 ell.cu). Each shape timed at M 4, bf16,
+    rank 1 (kernel, bound, plain, one torch.matmul, and each library the
+    wrapper may pick there, checked against the plain version first).
+    Returns {(N, K): timed record}."""
+    from repro_torch.kernels import ell as ell_k
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    source = {kk.key: kk.source for kk in ops.KERNELS}
+    worst, timed, n_checks, ran_by = {}, {}, 0, {}
+    for what, n, k in SSM_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            planes = _planes(n, k, dtype, 1, gen)
+            for m in (SSM_M if dtype == torch.bfloat16 else (4,)):
+                x = torch.randn((m, k), generator=gen,
+                                device="cuda").to(dtype)
+                (c,) = [c for c in _cases(planes, x, 1)
+                        if c.label == "slab_ell_matmul"]
+                where = f"{what} N={n} K={k} M={m}"
+                before = ops.launch_counts()
+                got, ref = _check_case(c, x, n, dtype, 1, worst, where)
+                ran = [kk for kk, v in ops.launch_counts().items()
+                       if v > before[kk]]
+                want = ell_k.slab_ell_kernel(dtype, m, k).key
+                if ran != [want]:
+                    raise AssertionError(f"#1 {where} {dtype} ran {ran}, "
+                                         f"expected {want}")
+                ran_by[(what, n, k, m, dtype)] = source[want]
+                n_checks += 1
+                if m == 4 and dtype == torch.bfloat16:
+                    libs = {}
+                    for key, fn in c.libs.items():
+                        g2, _ = _check_case(
+                            c, x, n, dtype, 1, worst,
+                            f"{where} through {source[key]}", kern=fn,
+                            ref=ref)
+                        n_checks += 1
+                        libs[key] = (fn, float(
+                            (g2.float() - ref.float()).abs().max()))
+                    timed[(n, k)] = _time_case(c, x, 1, got, ref, flush,
+                                               libs=libs)
+            del planes
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()        # comparison launches do not count
+    for (what, n, k, m, dtype), src in ran_by.items():
+        if m == 4:
+            log(f"  #1 {what} N={n} K={k} M={m} "
+                f"{str(dtype).replace('torch.', '')}: {src}")
+    log(f"#1 at the SSM / hybrid shapes: {n_checks} cases passed; worst "
+        f"max|err|/max|ref| {worst['slab_ell_matmul']:.3g} [{CARD[0]}]")
+    return timed
+
+
+def _cache_bytes(cfg, s_max):
+    """(one layer's Mamba cache, one shared-block invocation's KV cache)
+    bytes of ``lm.init_cache`` at batch BATCH and ``s_max``, counted on
+    the meta device (nothing is allocated)."""
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if torch.is_tensor(t))
+
+    c = lm.init_cache(cfg, BATCH, s_max, device="meta")
+    return nbytes(c.mamba[0]), (nbytes(c.shared_kv[0]) if c.shared_kv
+                                else 0)
+
+
+def _check_ssm_packed(tag, cfg, packed, dense_c, rep):
+    """Every ``mamba.*`` linear of every layer packed slab-ell and, on the
+    hybrid, the shared block's seven linears packed once into
+    ``packed["shared_attn"]`` (the dense-equivalent's stay dense).
+    Returns the number of linears packed."""
+    from repro_torch.core.packed_model import PackedLinear
+    from repro_torch.core.pipeline import _get, linear_paths
+    from repro_torch.core.pipeline import shared_linear_paths
+    n_lin = 0
+    for l, lp in enumerate(packed["layers"]):
+        for pth in linear_paths(cfg):
+            w = _get(lp, pth)
+            if not (isinstance(w, PackedLinear) and w.variant == "slab-ell"):
+                raise AssertionError(f"phase {tag}: L{l}/{pth} packed as "
+                                     f"{getattr(w, 'variant', 'dense')}")
+            n_lin += 1
+    shared = shared_linear_paths(cfg)
+    for pth in shared:
+        sub = pth.split(".", 1)[1]
+        w = _get(packed["shared_attn"], sub)
+        if not (isinstance(w, PackedLinear) and w.variant == "slab-ell"
+                and not isinstance(_get(dense_c["shared_attn"], sub),
+                                   PackedLinear)):
+            raise AssertionError(f"phase {tag}: {pth} packed as "
+                                 f"{getattr(w, 'variant', 'dense')}")
+        n_lin += 1
+    if (rep.by_variant != {"slab-ell": n_lin} or rep.fallback
+            or rep.paths[len(rep.paths) - len(shared):] != sorted(shared)):
+        raise AssertionError(f"phase {tag}: pack report {rep.by_variant}, "
+                             f"fallback {rep.fallback}, paths {rep.paths}")
+    return n_lin
+
+
+def _shared_calls(cfg, packed):
+    """Calls of each shared-block PackedLinear (by identity) over one
+    decode step: the block is packed once, so every invocation must run
+    the same objects."""
+    from repro_torch.core import packed_model
+    from repro_torch.core.pipeline import _get, shared_linear_paths
+    from repro_torch.models import lm
+    from repro_torch.models.common import positions_for
+    ids = {id(_get(packed["shared_attn"], p.split(".", 1)[1])): p
+           for p in shared_linear_paths(cfg)}
+    calls = dict.fromkeys(ids.values(), 0)
+    orig = packed_model.packed_matmul
+
+    def spy(x, w):
+        if id(w) in ids:
+            calls[ids[id(w)]] += 1
+        return orig(x, w)
+
+    packed_model.packed_matmul = spy
+    try:
+        cache = lm.init_cache(cfg, BATCH, 1, device="cuda")
+        tok = torch.zeros((BATCH, 1), dtype=torch.long, device="cuda")
+        lm.decode_step(cfg, packed, cache, tok,
+                       positions_for(cfg, BATCH, 1, device="cuda"))
+        sync()
+    finally:
+        packed_model.packed_matmul = orig
+    return calls
+
+
+def _first_layers(cfg, params, n_layers, f32=False):
+    """The model cut to its first ``n_layers`` layers (the same weights),
+    with every floating tensor upcast to f32 where ``f32`` (a dense
+    model: packed planes are not upcast)."""
+    from repro_torch.tree import tree_map
+    cfg = cfg.with_(n_layers=n_layers)
+    params = dict(params, layers=params["layers"][:n_layers])
+    if f32:
+        cfg = cfg.with_(dtype=torch.float32)
+        params = tree_map(lambda t: t.float() if torch.is_tensor(t)
+                          and t.is_floating_point() else t, params)
+    return cfg, params
+
+
+def _scan_vs_recurrence(tag, cfg, params, tol, n_layers, f32=False):
+    """The chunked SSD forward's last-position logits (SCAN_LEN tokens,
+    SCAN_LEN / ssm_chunk chunks) against the recurrent decode's after the
+    same prompt (one decode_step a token), held within ``tol``, on the
+    model's first ``n_layers`` layers (upcast to f32 with ``f32``)."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models import lm
+    cfg, params = _first_layers(cfg, params, n_layers, f32)
+    seq = torch.as_tensor(SyntheticCorpus(cfg.vocab, seed=1).batch(
+        0, 1, SCAN_LEN)["inputs"], device="cuda").long()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        fwd = lm.forward(cfg, params, seq)[0][:, -1].float()
+    rec = _final_logits(cfg, params, seq)
+    sync()
+    _hold_logits(tag, fwd, rec, tol,
+                 f"chunked forward ({SCAN_LEN // cfg.ssm_chunk} chunks of "
+                 f"{cfg.ssm_chunk}) vs {SCAN_LEN} recurrent decode steps, "
+                 f"{n_layers} layers, "
+                 f"{str(cfg.dtype).replace('torch.', '')}, "
+                 f"{time.monotonic() - t0:.1f}s")
+
+
+def _hold_to_f32(tag, cfg, packed, dense_c, tol, deep_tol):
+    """The logits hold of phases S and H at bf16 (``_serve_and_hold``'s
+    ``hold``): on the first HOLD_LAYERS layers the packed model within
+    ``tol`` of the dense-equivalent; at the phase's depth the packed model
+    within ``deep_tol`` of the dense-equivalent evaluated in f32. The
+    packed-vs-dense-equivalent distance at that depth and the bf16
+    dense-equivalent's own distance from the f32 evaluation are logged."""
+    def hold(seq, gen, dense_gen):
+        c, p = _first_layers(cfg, packed, HOLD_LAYERS)
+        _, d = _first_layers(cfg, dense_c, HOLD_LAYERS)
+        _hold_logits(tag, _final_logits(c, p, seq), _final_logits(c, d, seq),
+                     tol, f"packed vs dense-equivalent, first "
+                     f"{HOLD_LAYERS} layers")
+        lp = _final_logits(cfg, packed, seq)
+        ld = _final_logits(cfg, dense_c, seq)
+        c32, d32 = _first_layers(cfg, dense_c, cfg.n_layers, f32=True)
+        l32 = _final_logits(c32, d32, seq)
+        del d32
+        torch.cuda.empty_cache()
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+        floor = rel(ld, l32)
+        log(f"  all {cfg.n_layers} layers: packed vs dense-equivalent "
+            f"{rel(lp, ld):.4g} (not held); against the dense-equivalent "
+            f"in f32: bf16 dense-equivalent {floor:.4g}, packed "
+            f"{rel(lp, l32):.4g} [{CARD[0]}]")
+        _hold_logits(tag, lp, l32, deep_tol,
+                     f"packed vs f32 dense-equivalent, all {cfg.n_layers} "
+                     "layers")
+    return hold
+
+
+def _hold_tokens(tag, cfg, packed, dense_c, tol):
+    """The hold of phase S's f32 pass: the packed model's greedy tokens
+    equal to the dense-equivalent's and its last-position logits within
+    ``tol`` of them."""
+    def hold(seq, gen, dense_gen):
+        same = int((gen == dense_gen).sum())
+        log(f"  greedy tokens equal to the dense-equivalent's: {same} of "
+            f"{gen.numel()}")
+        if not torch.equal(gen, dense_gen):
+            raise AssertionError(f"phase {tag}: greedy tokens differ")
+        _hold_logits(tag, _final_logits(cfg, packed, seq),
+                     _final_logits(cfg, dense_c, seq), tol,
+                     "packed vs dense-equivalent")
+    return hold
+
+
+def ssm_phase(tag, arch, n_layers, plan_spec, dtype=torch.bfloat16,
+              deep_tol=None, scan_layers=6, iters=8):
+    """Phase S (mamba2-1.3b) / H (zamba2-7b): the model at full width cut
+    to ``n_layers``, ``dtype``, random weights from seed 0, compressed
+    under ``plan_spec`` (slab at CR 0.5, ``iters`` iterations, 16 x 128
+    calibration tokens), packed (slab-ell everywhere: the Mamba blocks'
+    in_z / in_x / out and, on the hybrid, the shared block once) and
+    served by greedy_decode through ``_serve_and_hold`` (square and
+    ragged, launches exact: #1 on grouped_tc.cu at bf16 where its x fits
+    a block, ell.cu for K 14336 and at f32). At bf16 the busy and wall ms
+    a step against the dense-equivalent, and ``_hold_to_f32``'s logits
+    hold (``deep_tol`` at the phase's depth); at f32 (phase S's f32 pass)
+    greedy tokens equal to the dense-equivalent's and logits within 1e-4.
+    Then the shared block's calls per decode step; the chunked forward
+    against the recurrent decode: the packed model's first HOLD_LAYERS
+    layers (3e-2 at bf16, 1e-4 at f32) and the dense-equivalent's first
+    ``scan_layers`` at f32 within 1e-4; and the decode cache's bytes at
+    two ``s_max``."""
+    from repro_torch import configs
+    from repro_torch.core.packed_model import pack_model
+    from repro_torch.core.pipeline import compress_model
+    from repro_torch.core.plan import CompressionPlan
+    from repro_torch.core.slab import SLaBConfig
+    from repro_torch.data import calibration_batch
+    from repro_torch.kernels import ell as ell_k
+    from repro_torch.models import lm
+    f32 = dtype == torch.float32
+    tol = 1e-4 if f32 else 3e-2
+    full = configs.get(arch, smoke=False)
+    cfg = full.with_(n_layers=n_layers, dtype=dtype)
+    n_par = lm.param_count(cfg)
+    shared_s = (f"; shared block {cfg.n_heads}x{cfg.d_head} heads d_ff "
+                f"{cfg.d_ff} before layers "
+                + ",".join(str(l) for l in range(n_layers)
+                           if lm.shared_fires(cfg, l))
+                if cfg.family == "hybrid" else "")
+    log(f"phase {tag}: {full.name} d_model {cfg.d_model} d_inner "
+        f"{cfg.d_inner} {cfg.ssm_heads} SSD heads of {cfg.ssm_headdim} "
+        f"state {cfg.ssm_state} chunk {cfg.ssm_chunk} vocab {cfg.vocab}"
+        f"{shared_s}; {str(dtype).replace('torch.', '')}, plan "
+        f"'{plan_spec}' (slab iters={iters} cr 0.5); {n_par / 1e9:.3f} G "
+        f"parameters ({n_par * torch.finfo(dtype).bits / 8e9:.2f} GB); "
+        + (f"reduced: n_layers {full.n_layers}->{n_layers}"
+           if n_layers < full.n_layers else f"all {n_layers} layers")
+        + f" [{CARD[0]}]")
+    params = lm.init(cfg, seed=0, device="cuda")
+    calib = calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128)
+    plan = CompressionPlan.parse(plan_spec,
+                                 base=SLaBConfig(cr=0.5, iters=iters))
+    t0 = time.monotonic()
+    dense_c, stats, decs = compress_model(
+        cfg, params, calib, plan=plan, keep_decompositions=True,
+        device="cuda")
+    sync()
+    t_comp = time.monotonic() - t0
+    del params
+    packed, rep = pack_model(dense_c, decs, plan=plan, dtype=cfg.dtype)
+    del decs
+    n_lin = _check_ssm_packed(tag, cfg, packed, dense_c, rep)
+    log(f"  compressed {len(stats)} linears in {t_comp:.1f}s (measured CR "
+        f"{sum(s.cr for s in stats) / len(stats):.4f}, worst weighted "
+        f"err_after/err_before "
+        f"{max(s.err_after / s.err_before for s in stats):.4f}); packed "
+        f"{rep.n_packed} [slab-ell={rep.by_variant['slab-ell']}] across "
+        f"{len(rep.paths)} paths, {len(rep.segments)} segment(s)")
+    for var, (pb, db) in sorted(rep.bytes_by_variant.items()):
+        log(f"  bytes/{var}: {pb / 1e6:.3f} MB packed vs {db / 1e6:.3f} MB "
+            f"dense per linear ({pb / db:.4f}x)")
+    # launches a decode step, by library (M = BATCH rows a call)
+    per_step: dict = {}
+    for pth, k in ([(p, cfg.d_model if p != "mamba.out" else cfg.d_inner)
+                    for p in ("mamba.in_z", "mamba.in_x", "mamba.out")]
+                   * n_layers):
+        key = ell_k.slab_ell_kernel(cfg.dtype, BATCH, k).key
+        per_step[key] = per_step.get(key, 0) + 1
+    n_inv = lm.n_shared_invocations(cfg)
+    for pth in (["attn.w" + x for x in "qkvo"] + ["mlp.w_gate", "mlp.w_up",
+                                                  "mlp.w_down"]
+                if n_inv else []):
+        k = cfg.d_ff if pth == "mlp.w_down" else cfg.d_model
+        key = ell_k.slab_ell_kernel(cfg.dtype, BATCH, k).key
+        per_step[key] = per_step.get(key, 0) + n_inv
+    if sum(per_step.values()) != 3 * n_layers + 7 * n_inv:
+        raise AssertionError(f"phase {tag}: {per_step} for {n_lin} linears")
+    log("  #1 launches a decode step: " + " ".join(
+        f"{kk}={c}" for kk, c in per_step.items()))
+    if n_inv:
+        calls = _shared_calls(cfg, packed)
+        log(f"  shared block: {len(calls)} PackedLinears, packed once, "
+            f"called {sorted(set(calls.values()))} times a decode step "
+            f"({n_inv} invocations)")
+        if set(calls.values()) != {n_inv}:
+            raise AssertionError(f"phase {tag}: shared calls {calls}")
+    steps = PROMPT + GEN - 1
+    need = {kk: c * steps for kk, c in per_step.items()}
+    focus = tuple((f"#1 slab_ell_matmul ({src})", part) for src, part in (
+        ("grouped_tc.cu", "ell_split_kernel<unsigned short, false, true"),
+        ("ell.cu", "slab_ell_kernel<")))
+    hold = (_hold_tokens(tag, cfg, packed, dense_c, tol) if f32 else
+            _hold_to_f32(tag, cfg, packed, dense_c, tol, deep_tol))
+    launched = _serve_and_hold(tag, cfg, packed, dense_c, need, tol,
+                               profiled=not f32, focus=focus, hold=hold)
+    for kk, c in need.items():
+        if launched[kk] != 2 * c:
+            raise AssertionError(f"phase {tag}: {kk} launched "
+                                 f"{launched[kk]}, expected {2 * c}")
+    _scan_vs_recurrence(tag, cfg, packed, tol, min(HOLD_LAYERS, n_layers))
+    _scan_vs_recurrence(tag, cfg, dense_c, 1e-4, min(scan_layers, n_layers),
+                        f32=True)
+    by_s = {s_max: _cache_bytes(cfg, s_max) for s_max in (128, 524288)}
+    log("  decode cache at batch " + str(BATCH) + ": " + ", ".join(
+        f"s_max {s_max}: {m / 1e6:.3f} MB a layer"
+        + (f" + {kv / 1e6:.3f} MB KV an invocation" if n_inv else "")
+        for s_max, (m, kv) in by_s.items()))
+    if by_s[128][0] != by_s[524288][0] or by_s[128][0] == 0:
+        raise AssertionError(f"phase {tag}: Mamba cache bytes {by_s}")
+    del packed, dense_c
+    torch.cuda.empty_cache()
+    return launched
+
+
 # kernel-name parts of the profiles: #4 is ell_split_kernel with neither
 # term and SPLIT (every main-path launch splits), #12 the same unsplit;
 # #6 runs DenseSrc under tc_nm_kernel (#18 under tc_kernel)
@@ -2761,6 +3170,8 @@ def main():
         t, w = grouped_checks(flush, model)
         g_timed[model], g_worst[model] = t, w
         mark(f"grouped {model}")
+    ssm_timed = ssm_shape_checks(flush)
+    mark("#1 SSM shapes")
     del flush
     launches = {k.key: 0 for k in ops.KERNELS}
     for tag, kw in PHASES:
@@ -2780,7 +3191,14 @@ def main():
         mark(tag)
     for tag, phase in (("y", plan_phase_y), ("z", budget_phase_z),
                        ("slab_linear_kernel", slab_linear_kernel_check),
-                       ("T", train_phase)):
+                       ("T", train_phase),
+                       ("S", lambda: ssm_phase("S", "mamba2_1_3b", S_LAYERS,
+                                               "*=slab", deep_tol=0.07)),
+                       ("S f32", lambda: ssm_phase(
+                           "S f32", "mamba2_1_3b", 2, "*=slab",
+                           dtype=torch.float32)),
+                       ("H", lambda: ssm_phase("H", "zamba2_7b", 12, "*=slab",
+                                               deep_tol=0.04))):
         if tag == "slab_linear_kernel":
             log("slab_linear_kernel: the SLaBPacked entry point")
         for kname, c in phase().items():
@@ -2836,6 +3254,18 @@ def main():
             continue
         label = JSON_LABEL[kern.name]
         rec = by_lib(timed[(label,) + JSON_SHAPE], kern.key)
+        by_shape = {f"{n}x{k}": {
+            kk: by_lib(timed[(label, n, k)], kern.key)[kk]
+            for kk in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for (n, k) in SHAPES}
+        if kern.name == "slab_ell_matmul":
+            # null where the wrapper never picks this library (grouped_tc.cu
+            # at K 14336)
+            by_shape.update({f"{n}x{k}": {
+                kk: by_lib(r, kern.key)[kk]
+                for kk in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                if kern.key in r["libs"] else None
+                for (n, k), r in ssm_timed.items()})
         entries.append({
             "name": kern.name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kern.source}",
@@ -2847,11 +3277,7 @@ def main():
             "library_ms": rec["library_ms"],
             "shape": {"M": TIMED["m"], "N": JSON_SHAPE[0],
                       "K": JSON_SHAPE[1], "dtype": "bfloat16", "rank": 1},
-            "worst_rel_err": worst[label],
-            "by_shape": {f"{n}x{k}": {
-                kk: by_lib(timed[(label, n, k)], kern.key)[kk]
-                for kk in ("ms", "plain_ms", "library_ms", "bound_ms")}
-                for (n, k) in SHAPES}})
+            "worst_rel_err": worst[label], "by_shape": by_shape})
     log(f"engine (phase l): {json.dumps(engine_l)}")
     log(f"seconds per phase: {json.dumps(seconds)}")
     log(f"card: {card}; total {time.monotonic() - t_start:.1f}s")

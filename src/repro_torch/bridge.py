@@ -29,6 +29,7 @@ from repro_torch.core.packed_model import ExpertPackedStack, PackedLinear
 from repro_torch.core.pipeline import ModelTapStats
 from repro_torch.core.slab import SLaBDecomposition
 from repro_torch.models.attention import KVCache
+from repro_torch.models.mamba2 import MambaCache
 from repro_torch.serving.paged_cache import PagedKVCache
 
 _SIGNED_VIEW = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
@@ -47,18 +48,22 @@ def tensor(a, device=None) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree(x, device):
-    if isinstance(x, dict):
-        return {k: _tree(v, device) for k, v in x.items()}
-    return tensor(x, device)
-
-
 def _is_packed_stack(x) -> bool:
     return hasattr(x, "owner_group") and hasattr(x, "dense_members")
 
 
 def _is_packed_linear(x) -> bool:
     return hasattr(x, "variant") and hasattr(x, "sparse_vals")
+
+
+def _tree(x, device):
+    """A dict of arrays (the hybrid's ``shared_attn`` may hold per-linear
+    reference ``PackedLinear``s) -> the same dict of tensors."""
+    if isinstance(x, dict):
+        return {k: _tree(v, device) for k, v in x.items()}
+    if _is_packed_linear(x):
+        return packed_linear(x, device)
+    return tensor(x, device)
 
 
 def _is_expert_stack(x) -> bool:
@@ -89,7 +94,9 @@ def params(ref_params: dict, n_layers: int, device=None) -> dict:
     packed, as ``pack_plan_decs`` leaves it: a layer-stacked
     ``PackedLinear`` or ``ExpertPackedStack``, or a ``PackedStack`` (a
     mixed or partial plan), which each layer unstacks into its own
-    ``PackedLinear``, ``ExpertPackedStack`` or dense weight."""
+    ``PackedLinear``, ``ExpertPackedStack`` or dense weight. The hybrid's
+    ``shared_attn`` (outside the layers) comes over as it is, packed or
+    dense."""
     out = {k: _tree(v, device) for k, v in ref_params.items()
            if k != "layers"}
 
@@ -198,3 +205,13 @@ def paged_kv_cache(ref_paged, device=None) -> List[PagedKVCache]:
                          None if ks is None else ks[l].contiguous(),
                          None if vs is None else vs[l].contiguous())
             for l in range(k.shape[0])]
+
+
+def mamba_cache(ref_mc, device=None) -> List[MambaCache]:
+    """A reference layer-stacked ``MambaCache`` (conv windows (L, B, K-1,
+    C) in the model dtype, state h (L, B, H, P, N) f32) -> one port
+    MambaCache per layer: the ``mamba`` part of ``lm.SSMCache``."""
+    parts = [tensor(a, device) for a in (ref_mc.conv_x, ref_mc.conv_b,
+                                         ref_mc.conv_c, ref_mc.h)]
+    return [MambaCache(*(p[l].contiguous() for p in parts))
+            for l in range(parts[0].shape[0])]

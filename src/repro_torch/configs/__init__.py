@@ -9,7 +9,7 @@ from repro_torch.models.common import ArchConfig
 
 ARCH_IDS: List[str] = ["llama2_7b", "stablelm_12b", "mistral_nemo_12b",
                        "llama3_2_3b", "nemotron_4_340b", "phi3_5_moe",
-                       "deepseek_moe_16b"]
+                       "deepseek_moe_16b", "mamba2_1_3b", "zamba2_7b"]
 
 
 def normalize(arch_id: str) -> str:

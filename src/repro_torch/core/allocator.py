@@ -10,8 +10,9 @@
      ``magnitude``, a monotone proxy for ``slab`` / ``hassle``). No
      forward runs per candidate.
   2. **Group** — ``granularity="layer"`` gives each layer's linears one
-     CR; the default ``"linear"`` one CR per linear (the reference's
-     hybrid shared-block group arrives with the hybrid family).
+     CR; the default ``"linear"`` one CR per linear. The hybrid's
+     ``shared.*`` linears are one set of tied weights: one group, one
+     CR, at either granularity.
   3. **Solve** — discrete water-filling: every group starts at its
      lowest admissible CR and takes, step by step, the move with the
      least predicted-error increase per unit of size-weighted CR gained,
@@ -41,8 +42,8 @@ import torch
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import sparsity
 from repro_torch.core.pipeline import (ModelTapStats, _device_for, _get,
-                                       collect_model_stats, linear_paths,
-                                       stats_on)
+                                       _tap_paths, collect_model_stats,
+                                       shared_layer, stats_on)
 from repro_torch.core.slab import SLaBConfig
 
 # 0.05 .. 0.95: dense enough that the budget is hit within ±2.5 % per
@@ -96,10 +97,11 @@ class Allocation:
 def measured_global_cr(params: dict, rows) -> float:
     """Size-weighted measured CR over ``CompressStats`` rows, the
     quantity ``budget`` targets (parameter-count weights; a row's size
-    is its layer's own leaf)."""
+    is its layer's own leaf, and a hybrid ``shared.*`` row's its
+    ``shared_attn`` leaf)."""
     tot = wsum = 0.0
     for s in rows:
-        leaf = _get(params["layers"][s.layer], s.name)
+        leaf = _leaf(params, s.layer, s.name)
         sz = 0.0 if leaf is None else float(leaf.numel())
         tot += sz
         wsum += sz * s.cr
@@ -255,7 +257,17 @@ def waterfill(frontiers: Sequence[Frontier], budget: float,
 # End-to-end allocation
 # ------------------------------------------------------------------
 
+def _leaf(params: dict, layer: int, path: str):
+    """The weight of ``path`` at ``layer``: a ``shared.*`` path's lives in
+    ``params["shared_attn"]``."""
+    if path.startswith("shared."):
+        return _get(params.get("shared_attn", {}), path.split(".", 1)[1])
+    return _get(params["layers"][layer], path)
+
+
 def _group_key(layer: int, path: str, granularity: str) -> str:
+    if path.startswith("shared."):
+        return "shared"              # one set of tied weights: one CR
     if granularity == "layer":
         return f"L{layer}"
     return f"L{layer}/{path}"
@@ -326,8 +338,9 @@ def allocate_plan(cfg, params: dict, calib=None,
     groups: Dict[str, dict] = {}
     member_curves: Dict[Tuple[int, str], Dict[float, float]] = {}
     emit: List[Tuple[int, str, plan_lib.PlanRule, str]] = []
+    shared_at = shared_layer(cfg, params)
     for l in range(cfg.n_layers):
-        for pth in linear_paths(cfg):
+        for pth in _tap_paths(cfg, l, shared_at):
             rule = plan.matching_rule(l, pth)
             if rule is None or rule.method in plan_lib._SKIP_METHODS:
                 continue
@@ -336,7 +349,7 @@ def allocate_plan(cfg, params: dict, calib=None,
             if not flagged and "cr" in rule.options:
                 continue             # explicit cr= is a pin, not a hint
             comp = plan.resolve(l, pth, allow_auto=True)
-            w = _get(params["layers"][l], pth)
+            w = _leaf(params, l, pth)
             if w is None:
                 continue
             curve, err_b = _leaf_curve(w, stats.norms.get((l, pth)),

@@ -581,8 +581,13 @@ def pack_model(params: dict,
     uncovered, unservable experts) aggregate under ``"dense-fallback"``,
     so a partially packed model's bytes are its true bytes. As there, an
     unservable dec of a path packed elsewhere counts both as a fallback
-    and as an uncovered layer. Returns (params, PackReport); the input
-    params are not modified."""
+    and as an uncovered layer. The hybrid's shared-block decs, keyed
+    ``(firing layer, "shared.<path>")``, pack once into a copy of
+    ``params["shared_attn"]`` as plain PackedLinears, which every
+    invocation of the block runs; they count in ``by_variant`` and the
+    bytes, and their paths close ``PackReport.paths`` (segments cover
+    the layer list only). Returns (params, PackReport); the input params
+    are not modified."""
     from repro_torch.core.pipeline import _copy_tree, _get, _set
     if plan is not None:
         from repro_torch.core.plan import CompressionPlan
@@ -597,6 +602,9 @@ def pack_model(params: dict,
     fallback: List[Tuple[int, str]] = []
     covered: Dict[str, List[int]] = {}          # 2-D paths: packed layers
     expert_layers: Dict[str, List[int]] = {}
+    shared_paths: List[str] = []
+    if "shared_attn" in params:
+        out["shared_attn"] = _copy_tree(params["shared_attn"])
 
     def account(var: str, packed_b: float, dense_b: float, n: int = 1):
         a = agg.setdefault(var, [0.0, 0.0, 0])
@@ -608,7 +616,9 @@ def pack_model(params: dict,
 
     for (l, name) in sorted(decs, key=lambda k: (k[1], k[0])):
         dec = decs[(l, name)]
-        old = _get(out["layers"][l], name)
+        shared = name.startswith("shared.")
+        old = (_get(out.get("shared_attn", {}), name.split(".", 1)[1])
+               if shared else _get(out["layers"][l], name))
         r = plan.resolve(l, name) if plan is not None else None
         pattern = r.scfg.pattern if r is not None else None
         if old is None:
@@ -635,9 +645,13 @@ def pack_model(params: dict,
             continue
         pl = pack_linear(dec, pattern, dtype, variant=var,
                          ell_nnz=k_max if var.endswith("-ell") else None)
+        account(var, pl.nbytes(), _nbytes(old))
+        if shared:
+            _set(out["shared_attn"], name.split(".", 1)[1], pl)
+            shared_paths.append(name)
+            continue
         _set(out["layers"][l], name, pl)
         covered.setdefault(name, []).append(l)
-        account(var, pl.nbytes(), _nbytes(old))
 
     # the layers of a packed path that no dec covered stay dense
     for name, got in covered.items():
@@ -653,7 +667,11 @@ def pack_model(params: dict,
                         w.shape[0])
     # unservable decs stayed dense: their bytes count toward the model
     for (l, fname) in fallback:
-        if "[expert " not in fname:         # expert slices counted above
+        if fname.startswith("shared."):
+            w = _get(params.get("shared_attn", {}), fname.split(".", 1)[1])
+            if w is not None:
+                account("dense-fallback", _nbytes(w), _nbytes(w))
+        elif "[expert " not in fname:       # expert slices counted above
             w = _get(layers[l], fname)
             if w is not None:
                 account("dense-fallback", _nbytes(w), _nbytes(w))
@@ -665,8 +683,9 @@ def pack_model(params: dict,
                 f"packed variant {var!r} stores {p / d:.2f}x its dense "
                 f"bytes ({p / 1e3:.1f} kB vs {d / 1e3:.1f} kB per linear)",
                 stacklevel=2)
-    paths = sorted(covered) + sorted(expert_layers)
-    segments = _model_segments(out["layers"], n_layers, paths)
+    layer_paths = sorted(covered) + sorted(expert_layers)
+    segments = _model_segments(out["layers"], n_layers, layer_paths)
+    paths = layer_paths + sorted(shared_paths)
     return out, PackReport(sum(by_variant.values()), by_variant, paths,
                            per_linear,
                            tuple(sorted(fallback, key=lambda k: (k[1], k[0]))),

@@ -1,5 +1,5 @@
 """Layer-wise one-shot compression loop (port of
-``repro.core.pipeline``, dense and moe families), with calibration
+``repro.core.pipeline``: dense, moe, ssm and hybrid families), with calibration
 statistics from activation taps and per-linear policy from a
 ``core.plan.CompressionPlan``.
 
@@ -33,6 +33,14 @@ stored (D_in, D_out) in the model and transposed to the paper's
 leaves, are compressed one expert at a time from that expert's own
 tapped statistics (the tokens dispatched to it), and their
 decompositions travel as a tuple, one per expert.
+
+The hybrid family's shared transformer block (``params["shared_attn"]``,
+outside the layer list) taps as ``shared.*`` on the layers where it
+fires. Its statistics are taken, and it is compressed, once: at its
+first firing layer, after that layer's ``mamba.*`` linears, into a copy
+of ``params["shared_attn"]``, so every later invocation (and the
+propagation through that layer) runs the compressed block. Its
+decompositions are keyed at the firing layer under ``shared.*``.
 """
 from __future__ import annotations
 
@@ -105,9 +113,11 @@ def _copy_tree(d):
 def linear_paths(cfg: ArchConfig) -> List[str]:
     """Compressible linears inside one layer: 2-D, and the 3-D (E, D,
     F) expert leaves of the moe family, with its shared experts' 2-D
-    linears when ``cfg.shared_ff`` is set."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    linears when ``cfg.shared_ff`` is set. The Mamba block's ``in_b``,
+    ``in_c`` and ``in_dt`` stay dense, as in the reference."""
+    lm._check_family(cfg)
+    if cfg.family in lm.SSM_FAMILIES:
+        return ["mamba.in_z", "mamba.in_x", "mamba.out"]
     paths = ["attn.wq", "attn.wk", "attn.wv", "attn.wo"]
     if cfg.family == "moe":
         paths += ["moe.w_gate", "moe.w_up", "moe.w_down"]
@@ -121,11 +131,32 @@ def linear_paths(cfg: ArchConfig) -> List[str]:
 
 
 def shared_linear_paths(cfg: ArchConfig) -> List[str]:
-    """The hybrid family's shared-block linears: none in the dense and
-    moe families (the hybrid family is not ported)."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
-    return []
+    """The hybrid family's shared-block linears: they live in
+    ``params["shared_attn"]`` and tap as ``shared.*`` (the dense family's
+    paths under the "shared." scope) at the layers where the block
+    fires. None in the other families."""
+    lm._check_family(cfg)
+    if cfg.family != "hybrid" or not cfg.attn_every:
+        return []
+    return ["shared." + p for p in linear_paths(cfg.with_(family="dense"))]
+
+
+def shared_layer(cfg: ArchConfig, params: dict) -> Optional[int]:
+    """The layer where the hybrid's shared block is tapped and compressed:
+    its first firing layer (None without a shared block)."""
+    first = cfg.attn_every - 1
+    if ("shared_attn" not in params or first < 0
+            or not lm.shared_fires(cfg, first) or first >= cfg.n_layers):
+        return None
+    return first
+
+
+def _tap_paths(cfg: ArchConfig, l: int, shared_at: Optional[int]
+               ) -> List[str]:
+    """The paths tapped at layer ``l``: its own linears, and the shared
+    block's at ``shared_at``."""
+    return linear_paths(cfg) + (shared_linear_paths(cfg)
+                                if l == shared_at else [])
 
 
 def _capture_layer(cfg: ArchConfig, params: dict, lp: dict, idx: int,
@@ -226,8 +257,9 @@ def collect_model_stats(cfg: ArchConfig, params: dict, calib,
     norms: Dict[Tuple[int, str], torch.Tensor] = {}
     hessians: Dict[Tuple[int, str], torch.Tensor] = {}
     n_fwd = 0
-    paths = linear_paths(cfg)
+    shared_at = shared_layer(cfg, params)
     for l in range(cfg.n_layers):
+        paths = _tap_paths(cfg, l, shared_at)
         if hessian_names is True:
             hnames = set(paths)
         elif hessian_names is not None:
@@ -335,6 +367,31 @@ def _compress_leaf(layer: int, pth: str, w: torch.Tensor,
                                         cr_requested=float(r.scfg.cr))
 
 
+def _compress_shared(out: dict, l: int, paths: Sequence[str],
+                     resolved: dict, acts: dict, hess: dict, keep: bool,
+                     decs: dict, out_stats: List[CompressStats]) -> None:
+    """Compress the hybrid's shared block at its first firing layer ``l``
+    into a copy of ``out["shared_attn"]``; decompositions are keyed
+    ``(l, "shared.<path>")``."""
+    sp = _copy_tree(out["shared_attn"])
+    changed = False
+    for pth in paths:
+        r = resolved[pth]
+        sub = pth.split(".", 1)[1]           # strip the "shared." scope
+        w = _get(sp, sub)
+        if r is None or w is None:
+            continue
+        w_new, dec, st = _compress_leaf(l, pth, w, acts.get(pth),
+                                        hess.get(pth), r)
+        if keep and dec is not None:
+            decs[(l, pth)] = dec
+        out_stats.append(st)
+        _set(sp, sub, w_new)
+        changed = True
+    if changed:
+        out["shared_attn"] = sp
+
+
 @torch.no_grad()
 def compress_model(cfg: ArchConfig, params: dict, calib,
                    method: str = "slab",
@@ -385,20 +442,22 @@ def compress_model(cfg: ArchConfig, params: dict, calib,
     out["layers"] = _copy_tree(params["layers"])
     out_stats: List[CompressStats] = []
     decs: Dict[Tuple[int, str], object] = {}
+    shared_at = shared_layer(cfg, params)
     paths = linear_paths(cfg)
     for l in range(cfg.n_layers):
         lp = out["layers"][l]
-        resolved = {p: plan.resolve(l, p) for p in paths}
+        tap_paths = _tap_paths(cfg, l, shared_at)
+        resolved = {p: plan.resolve(l, p) for p in tap_paths}
         if precollected:
-            acts = {p: stats.norms[(l, p)] for p in paths
+            acts = {p: stats.norms[(l, p)] for p in tap_paths
                     if (l, p) in stats.norms}
-            hess = {p: stats.hessians[(l, p)] for p in paths
+            hess = {p: stats.hessians[(l, p)] for p in tap_paths
                     if (l, p) in stats.hessians}
         else:
             hess_names = {p for p, r in resolved.items()
                           if r is not None and "hessian" in r.needs}
             acts, hess = _capture_layer(cfg, out, lp, l, chunks, positions,
-                                        paths, hess_names)
+                                        tap_paths, hess_names)
         for pth in paths:
             r = resolved[pth]
             w = _get(lp, pth)
@@ -410,6 +469,10 @@ def compress_model(cfg: ArchConfig, params: dict, calib,
                 decs[(l, pth)] = dec
             out_stats.append(st)
             _set(lp, pth, w_new)
+        if l == shared_at:
+            _compress_shared(out, l, shared_linear_paths(cfg), resolved,
+                             acts, hess, keep_decompositions, decs,
+                             out_stats)
         for i in range(len(chunks)):
             chunks[i], _ = lm._layer_fwd(cfg, out, lp, l, chunks[i],
                                          positions[i])

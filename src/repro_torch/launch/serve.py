@@ -20,6 +20,12 @@ paged KV cache (``--kv-quant`` for an int8 cache).
       --calib-batch 4 --device cpu
   python -m repro_torch.launch.serve --arch stablelm_12b --packed \
       --budget 0.5 --device cpu
+  python -m repro_torch.launch.serve --arch mamba2_1_3b --packed --device cpu
+  python -m repro_torch.launch.serve --arch zamba2_7b --packed \
+      --plan '0/mamba.out=skip; *=slab' --device cpu
+
+The ssm and hybrid families serve through ``greedy_decode`` only:
+``--engine`` refuses them (they keep no paged KV cache).
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 refuses to start.

@@ -175,7 +175,7 @@ def tap_record_stacked(leaf: str, x: torch.Tensor, stack_axis: int) -> None:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """One architecture (mirror of the reference's ArchConfig; the port
-    serves the dense and moe families)."""
+    serves the dense, moe, ssm and hybrid families)."""
 
     name: str
     family: str
@@ -216,6 +216,19 @@ class ArchConfig:
     @property
     def d_kv(self) -> int:
         return self.n_kv * self.d_head
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def conv_dim(self) -> int:
+        # x-branch + B + C streams go through the depthwise conv
+        return self.d_inner + 2 * self.ssm_state
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -1,18 +1,25 @@
-"""Language model assembly, dense and moe families (port of
+"""Language model assembly, dense, moe, ssm and hybrid families (port of
 ``repro.models.lm``).
 
 Params are a plain dict: ``embed`` (V, D), ``layers`` — a list with one
 dict per layer ({attn_norm, mlp_norm, attn: {wq, wk, wv, wo}, mlp:
 {w_gate, w_up, w_down}}; the moe family holds ``moe``: {router, w_gate,
 w_up, w_down} with a leading expert dim, and ``shared`` (a SwiGLU MLP
-dict) when the config has shared experts, in place of ``mlp``),
+dict) when the config has shared experts, in place of ``mlp``; the ssm
+and hybrid families hold {norm, mamba}, ``models.mamba2``'s block),
 ``final_norm`` and ``lm_head`` (D, V). Where
 the reference scans stacked layers with ``lax.scan``, this port loops
 over the list in Python. Linear weights are (D_in, D_out); a linear may
 also be a ``core.packed_model.PackedLinear``. ``decode_step`` runs on a
 contiguous cache with one host-int offset for the batch;
 ``paged_decode_step`` (the serving engine's) on a paged cache with a
-device tensor of per-row lengths.
+device tensor of per-row lengths, for the KV-attention families only.
+
+Hybrid (zamba2) layout: every layer is a Mamba-2 block; layers with
+``idx % attn_every == attn_every - 1`` first run one *shared*
+transformer block (attention + MLP) whose parameters,
+``params["shared_attn"]``, are common to all invocations. The layer
+index is a host int, so the firing test is a plain ``if``.
 
 ``forward`` and ``loss_fn`` record gradients when the caller is in grad
 mode (training); the serving entry points run under ``no_grad``. Their
@@ -26,7 +33,7 @@ checkpoint.
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
@@ -44,8 +52,11 @@ from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
 AUX_LOSS_WEIGHT = 0.01
 
 
+SSM_FAMILIES = ("ssm", "hybrid")
+
+
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe") + SSM_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
 
 
@@ -95,28 +106,60 @@ def _init_on(cfg: ArchConfig, seed: int, dev: torch.device) -> dict:
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
-    layers = [{"attn_norm": ones(), "mlp_norm": ones(),
-               "attn": attn_lib.init_attention(cfg, gen, dev),
-               **_init_ffn(cfg, gen, dev)}
-              for _ in range(cfg.n_layers)]
+    if cfg.family in SSM_FAMILIES:
+        layers = [{"norm": ones(),
+                   "mamba": mamba_lib.init_mamba(cfg, gen, dev)}
+                  for _ in range(cfg.n_layers)]
+    else:
+        layers = [{"attn_norm": ones(), "mlp_norm": ones(),
+                   "attn": attn_lib.init_attention(cfg, gen, dev),
+                   **_init_ffn(cfg, gen, dev)}
+                  for _ in range(cfg.n_layers)]
     params = {"layers": layers, "final_norm": ones(),
               "embed": embed_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype,
                                   dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
                                        cfg.d_model, cfg.dtype, dev)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = {
+            "attn_norm": ones(), "mlp_norm": ones(),
+            "attn": attn_lib.init_attention(cfg, gen, dev),
+            "mlp": mlp_lib.init_mlp(cfg, gen, dev)}
     return params
+
+
+def shared_fires(cfg: ArchConfig, idx: int) -> bool:
+    """Whether the hybrid's shared block runs before layer ``idx``."""
+    return (cfg.family == "hybrid" and bool(cfg.attn_every)
+            and idx % cfg.attn_every == cfg.attn_every - 1)
+
+
+def _attn_layer(cfg: ArchConfig, lp: dict, h: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A transformer layer (attention, then ``_ffn``) of the full-sequence
+    forward: a dense or moe layer, or the hybrid's shared block."""
+    with tap_scope("attn"):
+        a = attn_lib.multihead_attention(
+            cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
+            positions)
+    return _ffn(cfg, lp, h + a)
 
 
 def _layer_fwd(cfg: ArchConfig, params: dict, lp: dict, idx: int,
                h: torch.Tensor, positions: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of the full-sequence forward. Returns (h, aux)."""
-    with tap_scope("attn"):
-        a = attn_lib.multihead_attention(
-            cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
-            positions)
-    h, aux = _ffn(cfg, lp, h + a)
+    if cfg.family in SSM_FAMILIES:
+        if shared_fires(cfg, idx):
+            with tap_scope("shared"):
+                h, _ = _attn_layer(cfg, params["shared_attn"], h, positions)
+        with tap_scope("mamba"):
+            h = h + mamba_lib.mamba_block(
+                cfg, lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps))
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = _attn_layer(cfg, lp, h, positions)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, aux
@@ -225,10 +268,32 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
     return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
-def init_cache(cfg: ArchConfig, batch: int, s_max: int,
-               device=None) -> List[attn_lib.KVCache]:
-    """One empty KVCache per layer."""
+class SSMCache(NamedTuple):
+    """The decode cache of the ssm and hybrid families: one MambaCache per
+    layer and, for the hybrid, one KVCache per shared-block invocation
+    (None for ssm)."""
+    mamba: List[mamba_lib.MambaCache]
+    shared_kv: Optional[List[attn_lib.KVCache]]
+
+
+def n_shared_invocations(cfg: ArchConfig) -> int:
+    if cfg.family != "hybrid" or not cfg.attn_every:
+        return 0
+    return cfg.n_layers // cfg.attn_every
+
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int, device=None):
+    """The empty decode cache: one KVCache per layer (dense, moe), or an
+    ``SSMCache`` (ssm, hybrid), whose Mamba part does not depend on
+    ``s_max``."""
     _check_family(cfg)
+    if cfg.family in SSM_FAMILIES:
+        skv = None
+        if cfg.family == "hybrid":
+            skv = [attn_lib.init_kv_cache(cfg, batch, s_max, device)
+                   for _ in range(n_shared_invocations(cfg))]
+        return SSMCache([mamba_lib.init_mamba_cache(cfg, batch, device)
+                         for _ in range(cfg.n_layers)], skv)
     return [attn_lib.init_kv_cache(cfg, batch, s_max, device)
             for _ in range(cfg.n_layers)]
 
@@ -243,18 +308,42 @@ def _layer_decode(cfg: ArchConfig, lp: dict, h: torch.Tensor,
     return h, kc
 
 
+def _ssm_decode(cfg: ArchConfig, params: dict, cache: SSMCache,
+                h: torch.Tensor, positions: torch.Tensor):
+    """The ssm / hybrid layer loop of ``decode_step``: the hybrid's shared
+    block runs (invocation ``idx // attn_every``) before the Mamba block
+    of each firing layer."""
+    skv = None if cache.shared_kv is None else list(cache.shared_kv)
+    mc = []
+    for idx, (lp, mc_l) in enumerate(zip(params["layers"], cache.mamba)):
+        if shared_fires(cfg, idx):
+            inv = idx // cfg.attn_every
+            with tap_scope("shared"):
+                h, skv[inv] = _layer_decode(cfg, params["shared_attn"], h,
+                                            skv[inv], positions)
+        with tap_scope("mamba"):
+            y, mc_new = mamba_lib.mamba_decode_step(
+                cfg, lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps),
+                mc_l)
+        h = h + y
+        mc.append(mc_new)
+    return h, SSMCache(mc, skv)
+
+
 @torch.no_grad()
-def decode_step(cfg: ArchConfig, params: dict,
-                cache: List[attn_lib.KVCache], token: torch.Tensor,
-                positions: torch.Tensor
-                ) -> Tuple[torch.Tensor, List[attn_lib.KVCache]]:
+def decode_step(cfg: ArchConfig, params: dict, cache, token: torch.Tensor,
+                positions: torch.Tensor):
     """One decode step. token (B, 1) ints; positions (B, 1). Returns
-    (logits (B, 1, V), new cache). The cache tensors update in place."""
+    (logits (B, 1, V), new cache). KV tensors update in place; the Mamba
+    states of the ssm and hybrid families come back as new tensors."""
     h = embed_inputs(cfg, params, token)
-    new_cache = []
-    for lp, kv_l in zip(params["layers"], cache):
-        h, kc = _layer_decode(cfg, lp, h, kv_l, positions)
-        new_cache.append(kc)
+    if cfg.family in SSM_FAMILIES:
+        h, new_cache = _ssm_decode(cfg, params, cache, h, positions)
+    else:
+        new_cache = []
+        for lp, kv_l in zip(params["layers"], cache):
+            h, kc = _layer_decode(cfg, lp, h, kv_l, positions)
+            new_cache.append(kc)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, h), new_cache
 
@@ -284,8 +373,10 @@ def paged_decode_step(cfg: ArchConfig, params: dict, paged: list,
     Returns (logits (R, 1, V), paged); the pools update in place.
     Inactive rows write nothing into the pool and their logits are
     garbage-but-finite. Where the reference scans the layers, this port
-    loops over them in Python."""
+    loops over them in Python. KV-attention families only."""
     _check_family(cfg)
+    if cfg.family in SSM_FAMILIES:
+        raise ValueError(f"paged decode: unsupported family {cfg.family!r}")
     r = token.shape[0]
     positions = positions_for(cfg, r, 1, offset=lengths[:, None],
                               device=lengths.device)

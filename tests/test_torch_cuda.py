@@ -1209,6 +1209,32 @@ def test_ell_lin_kernel_matches_plain(cuda, dt, m, kernel):
     _close(out, plain(), dtype)
 
 
+# the SSM / hybrid families' #1 shapes (N, K): mamba2-1.3b's in_z / in_x
+# and out, zamba2-7b's in_z / in_x and out, its shared block's attention,
+# w_gate / w_up and w_down (K 14336, past the split gather's staged x)
+SSM_SHAPES = [(4096, 2048), (2048, 4096), (7168, 3584), (3584, 7168),
+              (3584, 3584), (14336, 3584), (3584, 14336)]
+
+
+@pytest.mark.parametrize("n,k", SSM_SHAPES)
+@pytest.mark.parametrize("m", [1, 4])
+def test_slab_ell_matmul_ssm_shapes(cuda, n, k, m):
+    """#1 through the wrapper at bf16, rank 1, at every SSM / hybrid
+    shape: grouped_tc.cu's split gather where its staged x fits a block,
+    the first design at K 14336."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4400 + m)
+    x, vals, idx, bp, u, v = _ell_lin_operands(gen, n, k, m, 1,
+                                               torch.bfloat16, True)
+    kern = ell_k.slab_ell_kernel(torch.bfloat16, m, k, 1, 2)
+    assert kern is (ell_k.SLAB_ELL_FIRST if k == 14336 else ell_k.SLAB_ELL)
+    launches = kern.launches
+    got = ell_k.slab_ell_matmul(x, vals, idx, bp, u, v)
+    assert kern.launches == launches + 1
+    _close(got, ell_k.slab_ell_matmul_plain(x, vals, idx, bp, u, v),
+           torch.bfloat16)
+
+
 @pytest.mark.parametrize("kernel", ["slab_ell_matmul", "ell_lr_matmul"])
 @pytest.mark.parametrize("m", [1, 4, 37])
 def test_ell_lin_int32_ids(cuda, kernel, m):

@@ -36,7 +36,8 @@ def test_port_files_exist():
             "nemotron_4_340b.py", "apply.py", "adamw.py", "compress.py",
             "step.py", "fault.py", "elastic.py", "manager.py", "train.py",
             "tree.py", "torch_quickstart.py", "torch_auto_allocate.py",
-            "torch_train_e2e.py"} <= names
+            "torch_train_e2e.py", "mamba2.py", "mamba2_1_3b.py",
+            "zamba2_7b.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -191,3 +192,22 @@ def test_serve_cli_budget_allocates_in_one_pass_on_the_cpu(capsys):
     assert "packed serving: 14 linears" in out
     with pytest.raises(SystemExit):
         serve.main(CLI_SMALL + ["--budget", "0.5", "--compress", "none"])
+
+
+def test_serve_cli_packs_the_ssm_family_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "mamba2_1_3b", "--compress", "slab", "--packed",
+                "--device", "cpu", "--iters", "1", "--calib-seqs", "2",
+                "--calib-len", "16", "--batch", "2", "--prompt-len", "4",
+                "--gen-len", "2"])
+    out = capsys.readouterr().out
+    assert ("packed serving: 6 linears on the kernel path across 3 paths "
+            "[slab-ell=6]; dense fallback: 0") in out
+    assert "sample generation:" in out
+
+
+def test_serve_cli_engine_refuses_the_hybrid_family():
+    from repro_torch.launch import serve
+    with pytest.raises(ValueError, match="paged cache"):
+        serve.main(["--arch", "zamba2_7b", "--compress", "none", "--engine",
+                    "--device", "cpu"])
