@@ -7,7 +7,8 @@ Phases:
   1. environment: card name and power limit, torch/CUDA versions, and
      the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, started together), with each source's
-     register and spill summary from ``-Xptxas -v``;
+     register and spill summary from ``-Xptxas -v``; while nvcc runs,
+     phase s's compression (it launches no kernel; AHEAD_PHASES);
   2. each of the nine per-linear kernels against its plain PyTorch
      version at llama2-7b full-width planes, (N, K) in {(4096, 4096),
      (11008, 4096), (4096, 11008)}, M in {1, 4, 37}, bf16 and f32, rank 1
@@ -61,7 +62,13 @@ Phases:
      3584) and (3584, 14336)) through the wrapper at M 1 and 4 (bf16) and
      4 (f32), each call's library the one ``ell.slab_ell_kernel`` names
      (K 14336 past the split gather's staged x: the first design), each
-     shape timed at M 4, bf16, rank 1;
+     shape timed at M 4, bf16, rank 1; then #1 the same at the vlm and
+     audio families' (N, K) (qwen2-vl-2b's (1536, 1536), (256, 1536),
+     (8960, 1536), (1536, 8960); hubert-xlarge's (1280, 1280), (5120,
+     1280), (1280, 5120)) at M 1, 4 and 37, and at hubert-xlarge's also
+     at M 512 (its packed prefill's rows), each library held to the plain
+     version at M 4 and 512 before the shape is timed there beside one
+     torch.matmul;
   3. the port's main paths at full width with cut depth: compress_model
      (16x128 calibration) -> pack_model -> greedy_decode (batch 4, prompt
      32, gen 16, square and ragged), once per packed variant, llama2-7b:
@@ -171,9 +178,9 @@ Phases:
      (8 iterations, 16x128 calibration), packed slab-ell and served by
      greedy_decode square and ragged (launches exact; busy / wall ms a
      step against the dense-equivalent):
-       S  mamba2-1.3b, 24 of its 48 layers (d_model 2048, d_inner 4096,
-          64 SSD heads of 64, state 128, vocab 50280; 0.82 G parameters):
-          72 linears (in_z, in_x, out) through #1 on grouped_tc.cu; then
+       S  mamba2-1.3b, 12 of its 48 layers (d_model 2048, d_inner 4096,
+          64 SSD heads of 64, state 128, vocab 50280; 0.52 G parameters):
+          36 linears (in_z, in_x, out) through #1 on grouped_tc.cu; then
           the same at 2 layers and f32 (#1 on ell.cu), whose greedy
           tokens must equal the dense-equivalent's;
        H  zamba2-7b, 12 layers (d_model 3584, d_inner 7168, 112 SSD
@@ -189,6 +196,30 @@ Phases:
      3e-2 at bf16 and 1e-4 at f32, the dense-equivalent's first 6 at f32
      within 1e-4), and the Mamba cache's bytes a layer equal at s_max
      128 and 524288;
+     then the vlm and audio families at full width and full depth, slab
+     CR 0.5 (8 iterations), every linear packed slab-ell through #1 (or
+     slab-dense through #3 where ELL loses on bytes), the tied
+     embedding and the lm_head as they are:
+       V  qwen2-vl-2b, all 28 layers, bf16 (1.544 G parameters), 16 x 128
+          calibration tokens: greedy_decode as S (square and ragged,
+          launches exact, profiled over 5 decode steps), an embeds
+          prefill of 8 text embeddings and a 4 x 4 x 2 (t, h, w) patch
+          grid (launches exact; the logits must move when the grid's
+          ids become text ids), and the engine over 6 requests (prompts 16-128, outputs
+          8-32, 4 slots; #11 at G 6): every request finished, no block
+          leaked; then the same at 2 layers and f32, whose greedy tokens
+          equal the dense-equivalent's and whose engine streams equal
+          greedy_decode's;
+       A  hubert-xlarge, all 48 layers, bf16 (0.944 G parameters),
+          calibrated on 16 x 128 x 1280 seeded frame embeddings: the
+          packed prefill (runtime.step.make_prefill_fn) at 4 x 128
+          frames, M 512 a linear (launches exact, profiled, against the
+          dense-equivalent), then one make_train_fn step at 2 layers on
+          launch.train.make_batch's embeddings; then the prefill at 2
+          layers and f32, logits within 1e-4;
+     both held as S and H are at bf16 (3e-2 on the first 2 layers; at
+     full depth against the f32 evaluation, within V_DEEP_TOL /
+     A_DEEP_TOL);
   4. one JSON line listing every ported kernel (all twenty; #1-#9 and
      #12-#20 once per library, each with its own launch counter:
      thirty-eight entries), then the result line.
@@ -205,6 +236,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -248,7 +280,11 @@ def sync() -> None:
 
 # ---------------------------------------------------------------- phase 1
 
-def environment():
+def environment(ahead=None):
+    """The card's name and power limit (logged, returned), the versions,
+    and the build of every kernel source (one nvcc each, all at once),
+    with each source's register and spill summary. ``ahead``, where
+    given, runs while nvcc builds (work that launches no kernel)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -264,7 +300,22 @@ def environment():
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
     t0 = time.monotonic()
-    per_src = build.build()
+    built = {}
+
+    def run():
+        try:
+            built["times"] = build.build()
+        except Exception as e:              # raised again below
+            built["error"] = e
+
+    nvcc_thread = threading.Thread(target=run, daemon=True)
+    nvcc_thread.start()
+    if ahead is not None:
+        ahead()
+    nvcc_thread.join()
+    if "error" in built:
+        raise built["error"]
+    per_src = built["times"]
     log(f"kernel build: {time.monotonic() - t0:.2f}s wall "
         + " ".join(f"{s}={t:.2f}s" for s, t in per_src.items()))
     for s in build.SOURCES:
@@ -1458,15 +1509,15 @@ def _experts_dense(packed, dense):
     return out
 
 
-def _greedy_profile(cfg, params, prompts, step_ms, label, focus=None):
-    """``_device_profile`` over one greedy_decode of the first PROF_PROMPT
-    prompt tokens and 4 new ones: PROF_PROMPT + 4 - 1 decode steps (the
+def _greedy_profile(cfg, params, prompts, step_ms, label, focus=None,
+                    prompt=PROF_PROMPT):
+    """``_device_profile`` over one greedy_decode of the first ``prompt``
+    prompt tokens and 4 new ones: ``prompt`` + 4 - 1 decode steps (the
     profiler's cost grows with the host ops it records)."""
     from repro_torch.launch.serve import greedy_decode
-    _device_profile(lambda: greedy_decode(cfg, params,
-                                          prompts[:, :PROF_PROMPT], 4,
-                                          device="cuda"),
-                    PROF_PROMPT + 4 - 1, step_ms, label, focus)
+    _device_profile(lambda: greedy_decode(cfg, params, prompts[:, :prompt],
+                                          4, device="cuda"),
+                    prompt + 4 - 1, step_ms, label, focus)
 
 
 def _device_profile(run, steps, step_ms, label, focus=None,
@@ -1607,15 +1658,16 @@ def _only_through(counts, key, where, allowed=()):
 
 
 def _serve_and_hold(tag, cfg, packed, dense_c, need, tol, profiled=True,
-                    focus=None, hold=None):
+                    focus=None, hold=None, prof_prompt=PROF_PROMPT):
     """greedy_decode of ``packed`` (BATCH prompts of PROMPT tokens, GEN
     new ones), square and then RAGGED, each run with the launch counts
     zeroed just before and read just after: every kernel of ``need`` must
     launch at least its count in each run, only through the libraries
     ``need`` names. Then the dense-equivalent model's square decode (the
     yardstick), both profiled with ``profiled`` (busy / wall ms a step,
-    ``focus`` as _greedy_profile takes it; each model warmed up first on
-    PROF_PROMPT prompt tokens); the ragged run's full-length row must
+    ``focus`` as _greedy_profile takes it, over ``prof_prompt`` prompt
+    tokens and 4 new ones; each model warmed up first on PROF_PROMPT
+    prompt tokens); the ragged run's full-length row must
     equal the square run's, and the last-position logits must lie within
     ``tol`` of the dense-equivalent's (_hold_moe_logits on a MoE model;
     ``hold(seq, square tokens, dense-equivalent's tokens)`` instead where
@@ -1670,9 +1722,10 @@ def _serve_and_hold(tag, cfg, packed, dense_c, need, tol, profiled=True,
         f"{dt_dense / steps * 1e3:.2f} ms per decode step")
     if profiled:
         _greedy_profile(cfg, packed, prompts,
-                        runs["square"][1] / steps * 1e3, "packed", focus)
+                        runs["square"][1] / steps * 1e3, "packed", focus,
+                        prof_prompt)
         _greedy_profile(cfg, dense_c, prompts, dt_dense / steps * 1e3,
-                        "dense-equivalent")
+                        "dense-equivalent", prompt=prof_prompt)
     sq, rg = runs["square"][0], runs["ragged"][0]
     if cfg.family != "moe" and not torch.equal(sq[0], rg[0]):
         # (a MoE row's output depends on its step's other rows through
@@ -1692,37 +1745,42 @@ def _serve_and_hold(tag, cfg, packed, dense_c, need, tol, profiled=True,
     return launched
 
 
-def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
-                profiled=False, method="slab", options=None, note="",
-                ppl=False, zero_ws=False, arch="llama2_7b",
-                expert_kernel=None, focus=None):
-    """compress_model -> pack_model -> greedy_decode of ``arch`` at full
-    width cut to ``n_layers``; ``kernel`` serves every 2-D linear and, on
-    a MoE model, ``expert_kernel`` every expert leaf (one launch per
-    group). ``focus`` (what, kernel name part): the profile's device time
-    of that kernel. Returns the launches of the main-path runs per
-    kernel."""
+# compressions made while the kernels build (``compress_ahead``), by
+# phase tag; a phase takes its own and makes it itself where there is none
+AHEAD = {}
+# the phases whose compression runs while nvcc builds: phase s's SparseGPT
+# of 199 linears (Hessian taps, 64 experts a leaf) took 87-116 s of the
+# script's time on its own, the build 132-221 s
+AHEAD_PHASES = ("s",)
+
+
+def compress_ahead():
+    """``_phase_front`` of every AHEAD_PHASES phase, kept in AHEAD until
+    the phase runs (the compressed model stays on the card until then)."""
+    t0 = time.monotonic()
+    kw = dict(PHASES)
+    for tag in AHEAD_PHASES:
+        AHEAD[tag] = _phase_front(**kw[tag])
+    log(f"compressed ahead while the kernels built: phase "
+        f"{', '.join(AHEAD_PHASES)} in {time.monotonic() - t0:.1f}s")
+
+
+def _phase_front(n_layers, dtype, cr, pattern, method="slab", options=None,
+                 ppl=False, arch="llama2_7b", **_):
+    """``model_phase``'s compression, which launches no kernel: ``arch`` at
+    full width cut to ``n_layers``, random weights from seed 0, the
+    uncompressed model's perplexity with ``ppl``, then compress_model
+    under ``method``'s plan (CR ``cr``, ``pattern``, ``options``) on 16 x
+    128 calibration tokens. Returns its results by name."""
     from repro_torch import configs
-    from repro_torch.core.packed_model import pack_model
     from repro_torch.core.pipeline import compress_model
     from repro_torch.core.plan import plan_for_method
     from repro_torch.core.slab import SLaBConfig
     from repro_torch.data import SyntheticCorpus, calibration_batch
     from repro_torch.models import lm
-
     full = configs.get(arch, smoke=False)
     cfg = full.with_(n_layers=n_layers, dtype=dtype)
     options = dict(iters=8) if options is None else options
-    opt_s = "".join(f" {k}={v}" for k, v in options.items())
-    moe_s = (f" experts {cfg.n_experts} top-{cfg.top_k} capacity factor "
-             f"{cfg.capacity_factor}" if cfg.family == "moe" else "")
-    if cfg.shared_ff:
-        moe_s += f" shared_ff {cfg.shared_ff}"
-    log(f"phase {tag}: {full.name} d_model {cfg.d_model} heads "
-        f"{cfg.n_heads}x{cfg.d_head} kv {cfg.n_kv} d_ff {cfg.d_ff}{moe_s} "
-        f"vocab {cfg.vocab} {dtype} {method}{opt_s} cr {cr} pattern "
-        f"{pattern}; reduced: n_layers {full.n_layers}->{n_layers}"
-        + (f"; {note}" if note else ""))
     params = lm.init(cfg, seed=0, device="cuda")
     calib = calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128)
     eval_batch = next(SyntheticCorpus(cfg.vocab, seed=0).eval_batches(
@@ -1735,8 +1793,41 @@ def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
         cfg, params, calib, plan=plan, keep_decompositions=True,
         device="cuda")
     sync()
-    t_comp = time.monotonic() - t0
-    del params
+    return dict(full=full, cfg=cfg, options=options, eval_batch=eval_batch,
+                ppl_orig=ppl_orig, plan=plan, dense_c=dense_c, stats=stats,
+                decs=decs, t_comp=time.monotonic() - t0)
+
+
+def model_phase(tag, n_layers, dtype, cr, pattern, variant, kernel, tol,
+                profiled=False, method="slab", options=None, note="",
+                ppl=False, zero_ws=False, arch="llama2_7b",
+                expert_kernel=None, focus=None):
+    """compress_model (``_phase_front``, or its result made ahead) ->
+    pack_model -> greedy_decode of ``arch`` at full width cut to
+    ``n_layers``; ``kernel`` serves every 2-D linear and, on a MoE model,
+    ``expert_kernel`` every expert leaf (one launch per group). ``focus``
+    (what, kernel name part): the profile's device time of that kernel.
+    Returns the launches of the main-path runs per kernel."""
+    from repro_torch.core.packed_model import pack_model
+
+    front = AHEAD.pop(tag, None) or _phase_front(
+        n_layers, dtype, cr, pattern, method, options, ppl, arch)
+    full, cfg, options, plan = (front[k] for k in ("full", "cfg", "options",
+                                                   "plan"))
+    dense_c, stats, decs = front["dense_c"], front["stats"], front["decs"]
+    eval_batch, ppl_orig, t_comp = (front[k] for k in (
+        "eval_batch", "ppl_orig", "t_comp"))
+    del front
+    opt_s = "".join(f" {k}={v}" for k, v in options.items())
+    moe_s = (f" experts {cfg.n_experts} top-{cfg.top_k} capacity factor "
+             f"{cfg.capacity_factor}" if cfg.family == "moe" else "")
+    if cfg.shared_ff:
+        moe_s += f" shared_ff {cfg.shared_ff}"
+    log(f"phase {tag}: {full.name} d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}x{cfg.d_head} kv {cfg.n_kv} d_ff {cfg.d_ff}{moe_s} "
+        f"vocab {cfg.vocab} {dtype} {method}{opt_s} cr {cr} pattern "
+        f"{pattern}; reduced: n_layers {full.n_layers}->{n_layers}"
+        + (f"; {note}" if note else ""))
     if zero_ws:
         decs = _zero_sparse_part(cfg, dense_c, decs, dtype)
     packed, rep = pack_model(dense_c, decs, plan=plan, dtype=dtype)
@@ -2617,29 +2708,48 @@ SCAN_LEN = 512           # the chunked forward's prompt: two SSD chunks
 # S 0.0439 at 24 layers and 0.0585 at 48, H 0.0285)
 HOLD_LAYERS = 2
 # phase S's depth: all 48 layers took S 70-113 s and the whole script up
-# to 1037 s of its 1200 s limit on a slow host; 24 keep S near 40 s
-S_LAYERS = 24
+# to 1037 s of its 1200 s limit on a slow host; 24 layers took 44-52 s,
+# and 12 (18-32 s) leave room for phases V and A
+S_LAYERS = 12
 
 
-def ssm_shape_checks(flush):
-    """#1 slab_ell_matmul through its wrapper at every SSM_SHAPES (N, K),
-    M 1 and 4 at bf16 and M 4 at f32, against its plain version; the
-    library each call ran must be the one ``ell.slab_ell_kernel`` names
-    (grouped_tc.cu's split gather at bf16 where ``ell_split_smem`` fits an
-    H100 block, else and at f32 ell.cu). Each shape timed at M 4, bf16,
-    rank 1 (kernel, bound, plain, one torch.matmul, and each library the
-    wrapper may pick there, checked against the plain version first).
-    Returns {(N, K): timed record}."""
+# #1 at qwen2-vl-2b's and hubert-xlarge's linears, (N, K): the vlm's
+# attention q / o, its k / v (kv 2 x 128) and its MLP; the encoder's
+# attention and MLP. M 1, 4 and 37 at every shape (decode and a
+# calibration-sized case) and, at the encoder's, PREFILL_M: the packed
+# prefill's rows (VA_PREFILL frames of VA_FRAMES).
+VA_SHAPES = (("qwen2-vl-2b wq/wo", 1536, 1536),
+             ("qwen2-vl-2b wk/wv", 256, 1536),
+             ("qwen2-vl-2b w_gate/w_up", 8960, 1536),
+             ("qwen2-vl-2b w_down", 1536, 8960),
+             ("hubert-xlarge attn", 1280, 1280),
+             ("hubert-xlarge w_up", 5120, 1280),
+             ("hubert-xlarge w_down", 1280, 5120))
+VA_M = (1, 4, 37)
+VA_PREFILL, VA_FRAMES = 4, 128
+PREFILL_M = VA_PREFILL * VA_FRAMES
+
+
+def ell_shape_checks(flush, shapes, seed, title):
+    """#1 slab_ell_matmul through its wrapper at every (what, N, K, Ms) of
+    ``shapes``, bf16 at each M of Ms and f32 at M 4, against its plain
+    version; the library each call ran must be the one
+    ``ell.slab_ell_kernel`` names (grouped_tc.cu's split gather at bf16
+    where ``ell_split_smem`` fits an H100 block, else and at f32 ell.cu).
+    At M 4 and PREFILL_M (bf16, rank 1) each library the wrapper may pick
+    is checked against the plain version, then the shape is timed
+    (kernel, bound, plain, one torch.matmul, each library). Returns {M:
+    {(N, K): timed record}}."""
     from repro_torch.kernels import ell as ell_k
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(7)
+    gen.manual_seed(seed)
     source = {kk.key: kk.source for kk in ops.KERNELS}
-    worst, timed, n_checks, ran_by = {}, {}, 0, {}
-    for what, n, k in SSM_SHAPES:
+    worst, timed, n_checks, ran_by = {}, {4: {}}, 0, {}
+    for what, n, k, bf16_ms in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             planes = _planes(n, k, dtype, 1, gen)
-            for m in (SSM_M if dtype == torch.bfloat16 else (4,)):
+            for m in (bf16_ms if dtype == torch.bfloat16 else (4,)):
                 x = torch.randn((m, k), generator=gen,
                                 device="cuda").to(dtype)
                 (c,) = [c for c in _cases(planes, x, 1)
@@ -2655,7 +2765,7 @@ def ssm_shape_checks(flush):
                                          f"expected {want}")
                 ran_by[(what, n, k, m, dtype)] = source[want]
                 n_checks += 1
-                if m == 4 and dtype == torch.bfloat16:
+                if m in (4, PREFILL_M) and dtype == torch.bfloat16:
                     libs = {}
                     for key, fn in c.libs.items():
                         g2, _ = _check_case(
@@ -2665,18 +2775,31 @@ def ssm_shape_checks(flush):
                         n_checks += 1
                         libs[key] = (fn, float(
                             (g2.float() - ref.float()).abs().max()))
-                    timed[(n, k)] = _time_case(c, x, 1, got, ref, flush,
-                                               libs=libs)
+                    timed.setdefault(m, {})[(n, k)] = _time_case(
+                        c, x, 1, got, ref, flush, libs=libs)
             del planes
     torch.cuda.empty_cache()
     ops.reset_launch_counts()        # comparison launches do not count
     for (what, n, k, m, dtype), src in ran_by.items():
-        if m == 4:
+        if m in timed:
             log(f"  #1 {what} N={n} K={k} M={m} "
                 f"{str(dtype).replace('torch.', '')}: {src}")
-    log(f"#1 at the SSM / hybrid shapes: {n_checks} cases passed; worst "
+    for (n, k), r in timed.get(PREFILL_M, {}).items():
+        log(f"  #1 N={n} K={k} M={PREFILL_M}: kernel {r['ms']:.4f} ms = "
+            f"{r['ms'] / r['library_ms']:.2f}x torch.matmul "
+            f"({r['library_ms']:.4f} ms), {r['bound_ms'] / r['ms']:.3f} of "
+            f"its {r['bound_by']} bound [{CARD[0]}]")
+    log(f"#1 at {title}: {n_checks} cases passed; worst "
         f"max|err|/max|ref| {worst['slab_ell_matmul']:.3g} [{CARD[0]}]")
     return timed
+
+
+def ssm_shape_checks(flush):
+    """#1 at every SSM_SHAPES (N, K) (``ell_shape_checks``): bf16 at M 1
+    and 4, timed at M 4. Returns {(N, K): timed record}."""
+    return ell_shape_checks(flush, [(what, n, k, SSM_M)
+                                    for what, n, k in SSM_SHAPES], 7,
+                            "the SSM / hybrid shapes")[4]
 
 
 def _cache_bytes(cfg, s_max):
@@ -2963,6 +3086,460 @@ def ssm_phase(tag, arch, n_layers, plan_spec, dtype=torch.bfloat16,
     return launched
 
 
+# ------------------------------------- the vlm and audio families (V, A)
+
+# phase V's embeds prefill: 8 text embeddings (t = h = w = index), then a
+# patch grid of 4 frames x 4 rows x 2 columns whose (t, h, w) ids start
+# after the text, as Qwen2-VL numbers them
+V_TEXT, V_GRID = 8, (4, 4, 2)
+# phase V's engine trace: prompts 16-128, outputs 8-32, 4 slots
+V_REQUESTS = 6
+# phase V's profiles: 2 prompt tokens and 4 new ones (5 decode steps); the
+# profiler took ~30 s over PROF_PROMPT's 11 steps of the 28-layer model
+V_PROF_PROMPT = 2
+# the full-depth holds against the dense-equivalent's f32 evaluation (the
+# bf16 noise of a random model at depth: see HOLD_LAYERS), set from two
+# runs on an H100 that read the same: V's bf16 dense-equivalent 0.01345
+# (decode) and 0.01652 (embeds prefill) from its f32 evaluation, the
+# packed model 0.0179 and 0.0193; A's 0.01371, packed 0.0161. Each limit
+# is at most 1.5x its phase's largest floor.
+V_DEEP_TOL = 0.0245
+A_DEEP_TOL = 0.02
+
+
+def va_shape_checks(flush):
+    """#1 at every VA_SHAPES (N, K) (``ell_shape_checks``): bf16 at M 1, 4
+    and 37, and at hubert-xlarge's also at PREFILL_M, then timed there.
+    Returns ({(N, K): M 4 record}, {(N, K): PREFILL_M record})."""
+    timed = ell_shape_checks(
+        flush, [(what, n, k, VA_M + ((PREFILL_M,) if what.startswith(
+            "hubert") else ())) for what, n, k in VA_SHAPES], 9,
+        "the vlm / audio shapes")
+    return timed[4], timed[PREFILL_M]
+
+
+def _va_front(tag, arch, n_layers, dtype, iters=8):
+    """Phase V's / A's compression and packing, which launch no kernel:
+    ``arch`` at full width cut to ``n_layers`` at ``dtype``, random
+    weights from seed 0, ``*=slab`` (CR 0.5, ``iters`` iterations) on 16 x
+    128 calibration tokens (the vlm) or 16 x 128 frame embeddings from
+    ``np.random.default_rng(0)`` (the encoder), then pack_model at the
+    model dtype. Every linear of every layer must pack slab-ell, or
+    slab-dense where ``packing.ell_wins_bytes`` says ELL loses on bytes;
+    the ``embed`` and ``lm_head`` leaves never pack. Returns (cfg, the
+    full config, dense-equivalent params, packed params, the variant of
+    each (layer, path), the lines to log)."""
+    from repro_torch import configs
+    from repro_torch.data import calibration_batch
+    from repro_torch.core.packed_model import PackedLinear, pack_model
+    from repro_torch.core.packing import ell_wins_bytes
+    from repro_torch.core.pipeline import _get, compress_model, linear_paths
+    from repro_torch.core.plan import CompressionPlan
+    from repro_torch.core.slab import SLaBConfig
+    from repro_torch.models import lm
+    full = configs.get(arch, smoke=False)
+    cfg = full.with_(n_layers=n_layers, dtype=dtype)
+    calib = (np.random.default_rng(0).standard_normal(
+        (16, 128, cfg.d_model), dtype=np.float32)
+        if cfg.input_mode == "embeds" and cfg.family == "audio" else
+        calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128))
+    params = lm.init(cfg, seed=0, device="cuda")
+    plan = CompressionPlan.parse("*=slab", base=SLaBConfig(cr=0.5,
+                                                           iters=iters))
+    t0 = time.monotonic()
+    dense_c, stats, decs = compress_model(
+        cfg, params, calib, plan=plan, keep_decompositions=True,
+        device="cuda")
+    sync()
+    t_comp = time.monotonic() - t0
+    del params
+    packed, rep = pack_model(dense_c, decs, plan=plan, dtype=cfg.dtype)
+    del decs
+    variants = {}
+    itemsize = torch.finfo(cfg.dtype).bits // 8
+    for l, lp in enumerate(packed["layers"]):
+        for pth in linear_paths(cfg):
+            w = _get(lp, pth)
+            var = getattr(w, "variant", "dense")
+            want = ("slab-ell" if isinstance(w, PackedLinear) and
+                    ell_wins_bytes(w.sparse_vals.shape[1], w.d_in, itemsize)
+                    else "slab-dense")
+            if not isinstance(w, PackedLinear) or var != want:
+                raise AssertionError(f"phase {tag}: L{l}/{pth} packed as "
+                                     f"{var}, expected {want}")
+            variants[(l, pth)] = var
+    by = {}
+    for var in variants.values():
+        by[var] = by.get(var, 0) + 1
+    if rep.by_variant != by or rep.fallback or any(
+            isinstance(packed.get(k), PackedLinear)
+            or packed.get(k) is not dense_c.get(k)
+            for k in ("embed", "lm_head")):
+        raise AssertionError(f"phase {tag}: pack report {rep.by_variant} vs "
+                             f"{by}, fallback {rep.fallback}")
+    lines = [
+        f"  compressed {len(stats)} linears in {t_comp:.1f}s (measured CR "
+        f"{sum(s.cr for s in stats) / len(stats):.4f}, worst weighted "
+        f"err_after/err_before "
+        f"{max(s.err_after / s.err_before for s in stats):.4f}); packed "
+        f"{rep.n_packed} [" + " ".join(f"{v}={c}" for v, c in
+                                        sorted(by.items()))
+        + f"] across {len(rep.paths)} paths; "
+        + ", ".join(f"{k} {tuple(packed[k].shape)} left as it is"
+                    for k in ("embed", "lm_head") if k in packed)]
+    lines += [f"  bytes/{var}: {pb / 1e6:.3f} MB packed vs {db / 1e6:.3f} "
+              f"MB dense per linear ({pb / db:.4f}x)"
+              for var, (pb, db) in sorted(rep.bytes_by_variant.items())]
+    return cfg, full, dense_c, packed, variants, lines
+
+
+def _va_header(tag, cfg, full, front, what):
+    """Phase V's / A's first lines: the model, its size and its cut, then
+    the compression's lines (``front``'s)."""
+    from repro_torch.models import lm
+    n_par = lm.param_count(cfg)
+    log(f"phase {tag}: {full.name} {what}; "
+        f"{str(cfg.dtype).replace('torch.', '')}, plan '*=slab' (slab "
+        f"iters=8 cr 0.5); {n_par / 1e9:.3f} G parameters "
+        f"({n_par * torch.finfo(cfg.dtype).bits / 8e9:.2f} GB); "
+        + (f"reduced: n_layers {full.n_layers}->{cfg.n_layers}"
+           if cfg.n_layers < full.n_layers else f"all {cfg.n_layers} layers")
+        + f" [{CARD[0]}]")
+    for line in front[-1]:
+        log(line)
+
+
+def _launch_keys(cfg, packed, variants, m):
+    """{counter key: launches} of one pass over every packed linear at
+    ``m`` rows: #1 (slab-ell) or #3 (slab-dense), the library each
+    wrapper picks there."""
+    from repro_torch.core.pipeline import _get
+    from repro_torch.kernels import ell as ell_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    keys = {}
+    for (l, pth), var in variants.items():
+        w = _get(packed["layers"][l], pth)
+        key = (ell_k.slab_ell_kernel(cfg.dtype, m, w.d_in).key
+               if var == "slab-ell" else
+               slab_k.slab_dense_kernel(cfg.dtype, m).key)
+        keys[key] = keys.get(key, 0) + 1
+    return keys
+
+
+def _va_focus(variants):
+    """The profile's focus: #1's split gather, and #3 where a linear packed
+    slab-dense."""
+    focus = (("#1 slab_ell_matmul (grouped_tc.cu)",
+              "ell_split_kernel<unsigned short, false, true"),)
+    if "slab-dense" in variants.values():
+        focus += (("#3 slab_matmul (grouped_tc.cu)",
+                   "tc_bin_kernel<tc::DenseSrc"),)
+    return focus
+
+
+def _counted(run, need, tag, what):
+    """``run()`` with the launch counts zeroed just before and read just
+    after; every kernel of ``need`` must launch exactly its count, only
+    through the libraries ``need`` names. Returns (run's result, the
+    counts of ``need``'s kernels, wall seconds)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.monotonic()
+    out = run()
+    sync()
+    dt = time.monotonic() - t0
+    counts = ops.launch_counts()
+    for kname, c in need.items():
+        if counts[kname] != c:
+            raise AssertionError(f"phase {tag} {what}: {kname} launched "
+                                 f"{counts[kname]}, expected {c}")
+        _only_through(counts, kname, f"phase {tag} {what}", allowed=need)
+    return out, {kk: counts[kk] for kk in need}, dt
+
+
+def _merge(total, counts):
+    for kk, c in counts.items():
+        total[kk] = total.get(kk, 0) + c
+    return total
+
+
+def _prefill_logits(cfg, params, x, positions=None):
+    from repro_torch.models import lm
+    return lm.prefill(cfg, params, x, positions).float()
+
+
+def _hold_prefill(tag, cfg, packed, dense_c, x, positions, tol, deep_tol,
+                  what):
+    """A prefill's logits (every position): at f32 (``deep_tol`` None) the
+    packed model within ``tol`` of the dense-equivalent; at bf16 within
+    ``tol`` on the first HOLD_LAYERS layers and, at the phase's depth,
+    within ``deep_tol`` of the dense-equivalent evaluated in f32 (the
+    packed-vs-dense-equivalent distance there and the bf16
+    dense-equivalent's own distance from the f32 evaluation logged)."""
+    lp = _prefill_logits(cfg, packed, x, positions)
+    if deep_tol is None:
+        _hold_logits(tag, lp, _prefill_logits(cfg, dense_c, x, positions),
+                     tol, f"{what}: packed vs dense-equivalent")
+        return
+    c, p = _first_layers(cfg, packed, HOLD_LAYERS)
+    _, d = _first_layers(cfg, dense_c, HOLD_LAYERS)
+    _hold_logits(tag, _prefill_logits(c, p, x, positions),
+                 _prefill_logits(c, d, x, positions), tol,
+                 f"{what}: packed vs dense-equivalent, first {HOLD_LAYERS} "
+                 "layers")
+    ld = _prefill_logits(cfg, dense_c, x, positions)
+    c32, d32 = _first_layers(cfg, dense_c, cfg.n_layers, f32=True)
+    l32 = _prefill_logits(c32, d32, x.float(), positions)
+    del d32
+    torch.cuda.empty_cache()
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    log(f"  {what}, all {cfg.n_layers} layers: packed vs dense-equivalent "
+        f"{rel(lp, ld):.4g} (not held); against the dense-equivalent in "
+        f"f32: bf16 dense-equivalent {rel(ld, l32):.4g}, packed "
+        f"{rel(lp, l32):.4g} [{CARD[0]}]")
+    _hold_logits(tag, lp, l32, deep_tol,
+                 f"{what}: packed vs f32 dense-equivalent, all "
+                 f"{cfg.n_layers} layers")
+
+
+def _vlm_grid(cfg, packed, prompts):
+    """Phase V's embeds prefill input: each row's first V_TEXT prompt
+    tokens embedded through the tied table, then a patch grid of V_GRID
+    (t, h, w) whose embeddings are seeded normals at the table's scale;
+    returns (embeds (B, S, D), grid ids (B, S, 3), text-stream ids)."""
+    from repro_torch.models.common import positions_for
+    b = prompts.shape[0]
+    ft, fh, fw = V_GRID
+    ids = [(i, i, i) for i in range(V_TEXT)]
+    ids += [(V_TEXT + t, V_TEXT + h, V_TEXT + w) for t in range(ft)
+            for h in range(fh) for w in range(fw)]
+    pos = torch.tensor(ids, dtype=torch.int32, device="cuda")[None].expand(
+        b, len(ids), 3)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    patches = torch.randn((b, ft * fh * fw, cfg.d_model), generator=gen,
+                          device="cuda") * 0.02
+    text = packed["embed"][prompts[:, :V_TEXT]]
+    x = torch.cat([text.to(cfg.dtype), patches.to(cfg.dtype)], dim=1)
+    return x, pos, positions_for(cfg, b, len(ids), device="cuda")
+
+
+def _engine_trace(cfg, seed=0):
+    """V_REQUESTS requests: prompts 16-128 tokens, outputs 8-32, arriving
+    every 2 steps, from ``np.random.default_rng(seed)``."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    specs = [(int(rng.integers(16, 129)), int(rng.integers(8, 33)),
+              float(2 * i)) for i in range(V_REQUESTS)]
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=p)
+                    .astype(np.int32), max_new=n, arrival=a)
+            for i, (p, n, a) in enumerate(specs)]
+
+
+def _vlm_engine(tag, cfg, packed, need_step, oracle):
+    """The engine over _engine_trace on ``packed`` (4 slots, blocks of 16,
+    a pool that holds every stream): every request finished, no block
+    leaked, #11 at the model's G; with ``oracle`` every stream
+    token-equal to a ragged greedy_decode of the same prompts. Returns
+    the run's launches."""
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.paged_cache import blocks_needed
+    reqs = _engine_trace(cfg)
+    max_len = 128 + 32
+    eng = Engine(cfg, packed, EngineConfig(
+        n_slots=4, n_blocks=4 * blocks_needed(max_len, 16), block_size=16,
+        max_len=max_len, prefill_chunk=8), device="cuda")
+    done, wall, counts = _run_engine(
+        eng, reqs, f"phase {tag} engine",
+        tuple(need_step) + ("flash_decode_paged",), clock="steps")
+    if any(r.status != "finished" for r in done):
+        raise AssertionError(f"phase {tag}: engine statuses "
+                             f"{[r.status for r in done]}")
+    n_tok = sum(r.n_generated for r in done)
+    log(f"  engine: {len(done)} requests [finished={len(done)}] (prompts "
+        f"{min(len(r.prompt) for r in done)}-"
+        f"{max(len(r.prompt) for r in done)}, outputs "
+        f"{min(r.max_new for r in done)}-{max(r.max_new for r in done)}), "
+        f"{n_tok} tokens in {eng.n_steps} steps, {wall:.2f}s "
+        f"({n_tok / wall:.1f} tok/s), {eng.sched.n_evictions} evictions, no "
+        f"block leaked; #11 flash_decode_paged at G "
+        f"{cfg.n_heads // cfg.n_kv} (KV {cfg.n_kv}, dh {cfg.d_head}); "
+        "launches " + " ".join(f"{kk}={c}" for kk, c in counts.items() if c))
+    if oracle:
+        s_max = max(len(r.prompt) for r in done)
+        padded = np.zeros((len(done), s_max), np.int32)
+        for r in done:
+            padded[r.rid, :len(r.prompt)] = r.prompt
+        want = greedy_decode(cfg, packed, padded,
+                             max(r.max_new for r in done),
+                             lengths=[len(r.prompt) for r in done],
+                             device="cuda").cpu().numpy()
+        for r in done:
+            if not np.array_equal(np.asarray(r.out), want[r.rid, :r.max_new]):
+                raise AssertionError(f"phase {tag}: engine rid {r.rid} "
+                                     "differs from greedy_decode")
+        log(f"  engine streams token-equal to greedy_decode: {len(done)} of "
+            f"{len(done)}")
+    return {kk: c for kk, c in counts.items() if c}
+
+
+def vlm_phase(tag, n_layers, dtype=torch.bfloat16, deep_tol=None):
+    """Phase V (qwen2-vl-2b at full width, ``n_layers``, bf16) / V f32 (2
+    layers): random weights from seed 0, ``*=slab`` at CR 0.5 (8
+    iterations) on 16 x 128 calibration tokens (their positions (B, S, 3)
+    with t = h = w), packed (every linear through #1, or #3 where ELL
+    loses on bytes; the tied embedding as it is) and served by
+    greedy_decode through ``_serve_and_hold`` (square and ragged,
+    launches exact, profiled at bf16; at bf16 ``_hold_to_f32``'s logits
+    hold at ``deep_tol``, at f32 greedy tokens equal to the
+    dense-equivalent's and logits within 1e-4). Then an embeds prefill
+    (_vlm_grid, launches counted) held as ``_hold_prefill`` says, whose
+    logits must move when the grid's ids become text ids; then the engine
+    (_vlm_engine; at f32 token-equal to greedy_decode). Returns the
+    main-path runs' launches."""
+    from repro_torch.data import SyntheticCorpus
+    f32 = dtype == torch.float32
+    tol = 1e-4 if f32 else 3e-2
+    front = _va_front(tag, "qwen2_vl_2b", n_layers, dtype)
+    cfg, full, dense_c, packed, variants = front[:5]
+    _va_header(tag, cfg, full, front, f"d_model {cfg.d_model} heads "
+               f"{cfg.n_heads}x{cfg.d_head} kv {cfg.n_kv} d_ff {cfg.d_ff} "
+               f"vocab {cfg.vocab} M-RoPE sections {cfg.mrope_sections} "
+               "tied embeddings")
+    del front
+    per_step = _launch_keys(cfg, packed, variants, BATCH)
+    log("  launches a decode step: " + " ".join(
+        f"{kk}={c}" for kk, c in per_step.items()))
+    steps = PROMPT + GEN - 1
+    need = {kk: c * steps for kk, c in per_step.items()}
+    focus = _va_focus(variants)
+    hold = (_hold_tokens(tag, cfg, packed, dense_c, tol) if f32 else
+            _hold_to_f32(tag, cfg, packed, dense_c, tol, deep_tol))
+    launched = _serve_and_hold(tag, cfg, packed, dense_c, need, tol,
+                               profiled=not f32, focus=focus, hold=hold,
+                               prof_prompt=V_PROF_PROMPT)
+    for kk, c in need.items():
+        if launched[kk] != 2 * c:
+            raise AssertionError(f"phase {tag}: {kk} launched "
+                                 f"{launched[kk]}, expected {2 * c}")
+    # the embeds prefill on a (t, h, w) patch grid
+    prompts = torch.as_tensor(SyntheticCorpus(cfg.vocab, seed=0).batch(
+        0, BATCH, PROMPT)["inputs"], device="cuda").long()
+    x, grid, text_ids = _vlm_grid(cfg, packed, prompts)
+    m = x.shape[0] * x.shape[1]
+    _prefill_logits(cfg, packed, x, grid)        # warm-up
+    logits, counts, dt = _counted(
+        lambda: _prefill_logits(cfg, packed, x, grid),
+        _launch_keys(cfg, packed, variants, m), tag, "embeds prefill")
+    _merge(launched, counts)
+    ft, fh, fw = V_GRID
+    log(f"  embeds prefill: {BATCH} rows x ({V_TEXT} text + {ft}x{fh}x{fw} "
+        f"(t, h, w) patches) = {x.shape[1]} positions, M {m} a linear, "
+        f"{dt * 1e3:.2f} ms wall; logits {tuple(logits.shape)}; launches "
+        + " ".join(f"{kk}={c}" for kk, c in counts.items()))
+    if tuple(logits.shape) != (BATCH, x.shape[1], cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"phase {tag}: embeds prefill logits "
+                             f"{tuple(logits.shape)}")
+    as_text = _prefill_logits(cfg, packed, x, text_ids)
+    moved = float((as_text - logits).abs().max() / logits.abs().max())
+    log(f"  the grid's (t, h, w) ids against text ids on the same "
+        f"embeddings: logits move {moved:.4g}")
+    if not moved > 1e-3:
+        raise AssertionError(f"phase {tag}: M-RoPE grid ids moved the "
+                             f"logits {moved}")
+    _hold_prefill(tag, cfg, packed, dense_c, x, grid, tol, deep_tol,
+                  "embeds prefill")
+    _merge(launched, _vlm_engine(tag, cfg, packed, per_step, oracle=f32))
+    del packed, dense_c
+    torch.cuda.empty_cache()
+    return launched
+
+
+def audio_phase(tag, n_layers, dtype=torch.bfloat16, deep_tol=None):
+    """Phase A (hubert-xlarge at full width, ``n_layers``, bf16) / A f32
+    (2 layers): random weights from seed 0, ``*=slab`` at CR 0.5 (8
+    iterations) on 16 x 128 frame embeddings from
+    ``np.random.default_rng(0)``, packed (every linear through #1, or #3
+    where ELL loses on bytes; ``lm_head`` as it is) and run by the packed
+    prefill (``runtime.step.make_prefill_fn``) on VA_PREFILL x VA_FRAMES
+    frame embeddings: M = PREFILL_M rows a linear, launches exact; at
+    bf16 wall ms against the dense-equivalent's and a device profile. The
+    logits held as ``_hold_prefill`` says. At bf16 then one
+    ``make_train_fn`` step at 2 layers on ``launch.train.make_batch``'s
+    embeddings (loss finite). Returns the main-path runs' launches."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.step import make_prefill_fn, make_train_fn
+    f32 = dtype == torch.float32
+    tol = 1e-4 if f32 else 3e-2
+    front = _va_front(tag, "hubert_xlarge", n_layers, dtype)
+    cfg, full, dense_c, packed, variants = front[:5]
+    _va_header(tag, cfg, full, front, f"(encoder, causal={cfg.causal}, "
+               f"rope {cfg.rope!r}) d_model {cfg.d_model} heads "
+               f"{cfg.n_heads}x{cfg.d_head} d_ff {cfg.d_ff} ({cfg.act}) "
+               f"vocab {cfg.vocab}")
+    del front
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (VA_PREFILL, VA_FRAMES, cfg.d_model), dtype=np.float32)).to(
+        "cuda", dtype)
+    need = _launch_keys(cfg, packed, variants, PREFILL_M)
+    prefill = make_prefill_fn(cfg)
+    prefill(packed, x)                           # warm-up
+    logits, launched, dt = _counted(lambda: prefill(packed, x), need, tag,
+                                    "packed prefill")
+    if tuple(logits.shape) != (VA_PREFILL, VA_FRAMES, cfg.vocab) or not \
+            bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"phase {tag}: prefill logits "
+                             f"{tuple(logits.shape)}")
+    prefill(dense_c, x)
+    sync()
+    t0 = time.monotonic()
+    prefill(dense_c, x)
+    sync()
+    dt_dense = time.monotonic() - t0
+    log(f"  packed prefill {VA_PREFILL} x {VA_FRAMES} frames (M {PREFILL_M} "
+        f"a linear): {dt * 1e3:.2f} ms wall, dense-equivalent "
+        f"{dt_dense * 1e3:.2f} ms; launches "
+        + " ".join(f"{kk}={c}" for kk, c in launched.items()))
+    if not f32:
+        _device_profile(lambda: prefill(packed, x), 1, dt * 1e3, "packed",
+                        focus=_va_focus(variants), unit="prefill")
+        _device_profile(lambda: prefill(dense_c, x), 1, dt_dense * 1e3,
+                        "dense-equivalent", unit="prefill")
+    _hold_prefill(tag, cfg, packed, dense_c, x, None, tol, deep_tol,
+                  "prefill")
+    del packed, dense_c
+    torch.cuda.empty_cache()
+    if not f32:
+        cfg2 = cfg.with_(n_layers=2)
+        acfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        params = lm.init(cfg2, seed=0, device="cuda")
+        opt = adamw_init(params, acfg)
+        step = make_train_fn(cfg2, acfg, remat="nothing")
+        corpus = SyntheticCorpus(cfg2.vocab, seed=0)
+        losses = []
+        for s in range(2):
+            batch = make_batch(cfg2, corpus, s, VA_PREFILL, VA_FRAMES, "cuda")
+            sync()
+            t0 = time.monotonic()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            dt_step = time.monotonic() - t0
+        log(f"  make_train_fn at 2 layers ({lm.param_count(cfg2) / 1e6:.1f} M"
+            f" parameters), batch {VA_PREFILL} x {VA_FRAMES} frame embeddings"
+            f" (make_batch): losses {losses[0]:.4f} {losses[1]:.4f}, the "
+            f"second step {dt_step * 1e3:.1f} ms")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"phase {tag}: train losses {losses}")
+        del params, opt
+        torch.cuda.empty_cache()
+    return launched
+
+
 # kernel-name parts of the profiles: #4 is ell_split_kernel with neither
 # term and SPLIT (every main-path launch splits), #12 the same unsplit;
 # #6 runs DenseSrc under tc_nm_kernel (#18 under tc_kernel)
@@ -3155,7 +3732,7 @@ def main():
         seconds[label] = round(now - last[0], 1)
         last[0] = now
 
-    card = environment()
+    card = environment(ahead=compress_ahead)
     mark("build")
     from repro_torch.kernels import ops
     timed, worst = kernel_checks()
@@ -3172,6 +3749,8 @@ def main():
         mark(f"grouped {model}")
     ssm_timed = ssm_shape_checks(flush)
     mark("#1 SSM shapes")
+    va_timed, va_prefill = va_shape_checks(flush)
+    mark("#1 vlm / audio shapes")
     del flush
     launches = {k.key: 0 for k in ops.KERNELS}
     for tag, kw in PHASES:
@@ -3198,7 +3777,14 @@ def main():
                            "S f32", "mamba2_1_3b", 2, "*=slab",
                            dtype=torch.float32)),
                        ("H", lambda: ssm_phase("H", "zamba2_7b", 12, "*=slab",
-                                               deep_tol=0.04))):
+                                               deep_tol=0.04)),
+                       ("V", lambda: vlm_phase("V", 28, deep_tol=V_DEEP_TOL)),
+                       ("V f32", lambda: vlm_phase("V f32", 2,
+                                                   dtype=torch.float32)),
+                       ("A", lambda: audio_phase("A", 48,
+                                                 deep_tol=A_DEEP_TOL)),
+                       ("A f32", lambda: audio_phase("A f32", 2,
+                                                     dtype=torch.float32))):
         if tag == "slab_linear_kernel":
             log("slab_linear_kernel: the SLaBPacked entry point")
         for kname, c in phase().items():
@@ -3260,12 +3846,15 @@ def main():
             for (n, k) in SHAPES}
         if kern.name == "slab_ell_matmul":
             # null where the wrapper never picks this library (grouped_tc.cu
-            # at K 14336)
-            by_shape.update({f"{n}x{k}": {
+            # at K 14336); the vlm / audio shapes at M 4, the encoder's
+            # also at its prefill's M
+            by_shape.update({f"{n}x{k}" + (f" M={m}" if m != 4 else ""): {
                 kk: by_lib(r, kern.key)[kk]
                 for kk in ("ms", "plain_ms", "library_ms", "bound_ms")}
                 if kern.key in r["libs"] else None
-                for (n, k), r in ssm_timed.items()})
+                for m, recs in ((4, ssm_timed), (4, va_timed),
+                                (PREFILL_M, va_prefill))
+                for (n, k), r in recs.items()})
         entries.append({
             "name": kern.name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kern.source}",

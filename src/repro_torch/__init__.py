@@ -2,8 +2,9 @@
 plans, streamed tap statistics, the budget allocator), packed serving
 through hand-written CUDA kernels and the serving engine, for the dense
 (llama2-7b, stablelm-12b, mistral-nemo-12b, llama3.2-3b,
-nemotron-4-340b), MoE (phi3.5-moe, deepseek-moe-16b), SSM (mamba2-1.3b)
-and hybrid (zamba2-7b) families.
+nemotron-4-340b), MoE (phi3.5-moe, deepseek-moe-16b), SSM (mamba2-1.3b),
+hybrid (zamba2-7b), vlm (qwen2-vl-2b) and audio (hubert-xlarge)
+families.
 
 The JAX package ``repro`` is the reference; this package mirrors its
 module names (``repro_torch.models.lm`` <-> ``repro.models.lm`` ...) and

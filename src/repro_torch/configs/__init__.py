@@ -1,5 +1,5 @@
-"""Config registry of the port (mirror of ``repro.configs``): the
-architectures this slice serves, each with FULL and SMOKE variants."""
+"""Config registry of the port (mirror of ``repro.configs``): every
+architecture of the reference, each with FULL and SMOKE variants."""
 from __future__ import annotations
 
 import importlib
@@ -8,8 +8,9 @@ from typing import List
 from repro_torch.models.common import ArchConfig
 
 ARCH_IDS: List[str] = ["llama2_7b", "stablelm_12b", "mistral_nemo_12b",
-                       "llama3_2_3b", "nemotron_4_340b", "phi3_5_moe",
-                       "deepseek_moe_16b", "mamba2_1_3b", "zamba2_7b"]
+                       "llama3_2_3b", "nemotron_4_340b", "hubert_xlarge",
+                       "phi3_5_moe", "deepseek_moe_16b", "qwen2_vl_2b",
+                       "mamba2_1_3b", "zamba2_7b"]
 
 
 def normalize(arch_id: str) -> str:

@@ -1,5 +1,5 @@
 """Layer-wise one-shot compression loop (port of
-``repro.core.pipeline``: dense, moe, ssm and hybrid families), with calibration
+``repro.core.pipeline``: all six families), with calibration
 statistics from activation taps and per-linear policy from a
 ``core.plan.CompressionPlan``.
 
@@ -204,14 +204,17 @@ def layer_tap_stats(cfg: ArchConfig, params: dict, lp: dict, idx: int,
 
 def _calib_chunks(cfg: ArchConfig, params: dict, calib, dev
                   ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """The embedded calibration chunks of ``calib`` (an (N, S) id array
-    or a ``CalibrationSpec``) and their positions, on ``dev``."""
+    """The embedded calibration chunks of ``calib`` (an (N, S) id array,
+    (N, S, D) float embeddings for a stub-frontend family, or a
+    ``CalibrationSpec`` of either) and their positions ((N, S, 3) under
+    M-RoPE), on ``dev``."""
     spec = (calib if isinstance(calib, plan_lib.CalibrationSpec)
             else plan_lib.CalibrationSpec(calib))
     chunks, positions = [], []
     for t in spec.batches():
+        t = torch.as_tensor(t, device=dev)
         h = lm.embed_inputs(cfg, params,
-                            torch.as_tensor(t, device=dev).long())
+                            t if t.is_floating_point() else t.long())
         chunks.append(h)
         positions.append(positions_for(cfg, h.shape[0], h.shape[1],
                                        device=dev))
@@ -228,9 +231,7 @@ def stats_on(stats: ModelTapStats, dev: torch.device) -> ModelTapStats:
 def _device_for(params: dict, device, what: str) -> torch.device:
     """``resolve_device(device)``, which must be where ``params`` live."""
     dev = resolve_device(device)
-    if params["embed"].device.type != dev.type:
-        raise ValueError(f"params live on {params['embed'].device}, "
-                         f"{what} was asked to run on {dev}")
+    lm.check_params_on(params, dev, what)
     return dev
 
 
@@ -405,7 +406,8 @@ def compress_model(cfg: ArchConfig, params: dict, calib,
     ``decs`` maps (layer, path) to the decomposition for
     ``core.packed_model.pack_model``.
 
-    ``calib`` is an (N, S) int array of calibration token ids, or a
+    ``calib`` is an (N, S) int array of calibration token ids ((N, S, D)
+    float embeddings for the audio family), or a
     ``plan.CalibrationSpec`` that streams it in chunks (the tap
     statistics accumulate across chunks). ``plan`` is anything
     ``CompressionPlan.parse`` takes; when None, ``method`` / ``scfg``

@@ -413,7 +413,8 @@ def plan_for_method(method: str, scfg: SLaBConfig = SLaBConfig()
 class CalibrationSpec:
     """Calibration data + streaming policy.
 
-    ``tokens`` is (N, S) int ids, a numpy array or a tensor.
+    ``tokens`` is (N, S) int ids, or (N, S, D) embeds for the
+    stub-frontend families, a numpy array or a tensor.
     ``batch_size`` sequences are forwarded per chunk; tap statistics
     accumulate across chunks inside one ``TapCapture``, so N can exceed
     what a single forward fits. None keeps the single-batch behaviour.

@@ -23,9 +23,15 @@ paged KV cache (``--kv-quant`` for an int8 cache).
   python -m repro_torch.launch.serve --arch mamba2_1_3b --packed --device cpu
   python -m repro_torch.launch.serve --arch zamba2_7b --packed \
       --plan '0/mamba.out=skip; *=slab' --device cpu
+  python -m repro_torch.launch.serve --arch qwen2_vl_2b --packed \
+      --engine --device cpu
 
 The ssm and hybrid families serve through ``greedy_decode`` only:
-``--engine`` refuses them (they keep no paged KV cache).
+``--engine`` refuses them (they keep no paged KV cache). The vlm serves
+text prompts (token ids, M-RoPE positions with t = h = w) both ways.
+The audio encoder (hubert_xlarge) has no decode path: this entry point
+refuses it, and it serves through ``lm.prefill``
+(``runtime.step.make_prefill_fn``) on frame embeddings.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 refuses to start.
@@ -49,12 +55,6 @@ from repro_torch.models import lm
 from repro_torch.models.common import positions_for
 
 
-def _check_params_on(params: dict, dev: torch.device) -> None:
-    if params["embed"].device.type != dev.type:
-        raise ValueError(f"params live on {params['embed'].device}, "
-                         f"greedy_decode was asked to run on {dev}")
-
-
 @torch.no_grad()
 def greedy_decode(cfg, params, prompts, gen_len: int,
                   lengths=None, device=None) -> torch.Tensor:
@@ -68,7 +68,7 @@ def greedy_decode(cfg, params, prompts, gen_len: int,
     after, so every row's stream stays contiguous from position 0 and
     the shared cache offset and positions are exact for all rows."""
     dev = resolve_device(device)
-    _check_params_on(params, dev)
+    lm.check_params_on(params, dev, "greedy_decode")
     prompts = torch.as_tensor(prompts, device=dev).long()
     b, s = prompts.shape
     if lengths is not None:
@@ -174,8 +174,13 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = configs.get(args.arch, smoke=args.smoke)
+    if cfg.family == "audio":
+        ap.error(f"--arch {args.arch}: {cfg.name} is an encoder-only model "
+                 "(family 'audio') with no decode path; it serves through "
+                 "lm.prefill (runtime.step.make_prefill_fn) on frame "
+                 "embeddings, not through this entry point")
+    dev = resolve_device(args.device)
     if args.kv_quant:
         cfg = cfg.with_(kv_quant="int8")
     params = lm.init(cfg, seed=args.seed, device=dev)

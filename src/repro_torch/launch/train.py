@@ -31,6 +31,22 @@ from repro_torch.runtime.fault import FaultConfig, Supervisor
 from repro_torch.runtime.step import make_train_fn
 
 
+def make_batch(cfg: ArchConfig, corpus: SyntheticCorpus, step: int,
+               batch: int, seq: int, device) -> dict:
+    """Step ``step``'s batch of ``batch`` x ``seq`` synthetic tokens on
+    ``device``. A stub-frontend family (``input_mode="embeds"``: the vlm
+    and the audio encoder) takes standard-normal f32 embeddings (batch,
+    seq, d_model) from ``np.random.default_rng(step)`` as its inputs and
+    the corpus's labels, as the reference does."""
+    b = corpus.batch(step, batch, seq)
+    if cfg.input_mode == "embeds":
+        rng = np.random.default_rng(step)
+        b["inputs"] = rng.standard_normal((batch, seq, cfg.d_model),
+                                          dtype=np.float32)
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in b.items()}
+
+
 def train(arch, smoke: bool, steps: int, batch: int, seq: int,
           ckpt_dir: Optional[str], microbatches: int = 1,
           remat: str = "none", lr: float = 3e-4, seed: int = 0,
@@ -67,11 +83,6 @@ def train(arch, smoke: bool, steps: int, batch: int, seq: int,
         start = mgr.latest_step()
         print(f"restored step {start}")
 
-    def make_batch(step: int):
-        b = corpus.batch(step, batch, seq)
-        return {k: torch.from_numpy(np.asarray(v)).to(dev)
-                for k, v in b.items()}
-
     losses = []
 
     def step_fn(state, step):
@@ -82,7 +93,8 @@ def train(arch, smoke: bool, steps: int, batch: int, seq: int,
                 state["_failed"] = True
                 raise RuntimeError("injected")
         p, o, m = step_fn_inner(state["params"], state["opt"],
-                                make_batch(step))
+                                make_batch(cfg, corpus, step, batch, seq,
+                                           dev))
         new = {"params": p, "opt": o}
         if "_failed" in state:
             new["_failed"] = state["_failed"]

@@ -34,7 +34,9 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
 
 def multihead_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
                         positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence attention, query-chunked. x (B, S, D) -> (B, S, D)."""
+    """Full-sequence attention, query-chunked. x (B, S, D) -> (B, S, D);
+    positions (B, S), or (B, S, 3) under M-RoPE. Causal unless
+    ``cfg.causal`` is False (the audio encoder)."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
     g = h // kv
@@ -52,7 +54,9 @@ def multihead_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
     if s % cq:
         cq = s
     kv_pos = torch.arange(s, device=x.device)
-    qpos_rows = positions[0]
+    # the mask compares a query's position id (under M-RoPE its t id) with
+    # the key's index, as the reference does
+    qpos_rows = (positions[..., 0] if positions.dim() == 3 else positions)[0]
     kf = k.float()
     outs = []
     for c0 in range(0, s, cq):
@@ -100,7 +104,8 @@ def _quantize_token(t: torch.Tensor):
 def decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
                      cache: KVCache, positions: torch.Tensor
                      ) -> Tuple[torch.Tensor, KVCache]:
-    """One-token step. x (B, 1, D); positions (B, 1).
+    """One-token step. x (B, 1, D); positions (B, 1), or (B, 1, 3) under
+    M-RoPE.
 
     int8 mode: the cache is stored and read as int8; the per-(token,
     head) scales are folded into the scores and the probabilities, so no

@@ -175,7 +175,8 @@ def tap_record_stacked(leaf: str, x: torch.Tensor, stack_axis: int) -> None:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """One architecture (mirror of the reference's ArchConfig; the port
-    serves the dense, moe, ssm and hybrid families)."""
+    serves all six of its families: dense, moe, ssm, hybrid, vlm and
+    audio)."""
 
     name: str
     family: str
@@ -285,31 +286,57 @@ def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / d_head))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x (B, S, H, dh); positions (B, S) int. Split-half convention."""
-    dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)
-    ang = positions.float()[..., None] * freqs             # (B, S, dh/2)
+def _rotate_half(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, dh) rotated by the angles ang (B, S, dh/2), split-half
+    convention, in fp32; returns x.dtype."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (B, S, H, dh); positions (B, S) int. Split-half convention."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate_half(x, positions.float()[..., None] * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. positions (B, S, 3) = (t, h, w) ids; the
+    dh/2 rotary frequencies are split across the three streams, the first
+    ``sections[0]`` driven by t, the next ``sections[1]`` by h, the rest
+    by w (sections sum to dh/2). For text, where t = h = w, it equals 1-D
+    RoPE."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    stream = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))            # (dh/2,)
+    ang = positions.float()[..., stream] * freqs             # (B, S, dh/2)
+    return _rotate_half(x, ang)
+
+
 def positions_for(cfg: ArchConfig, batch: int, seq: int, offset=0,
                   device=None) -> torch.Tensor:
-    """Default position ids (B, S), starting at ``offset``."""
+    """Default position ids (B, S), starting at ``offset`` (an int, or a
+    tensor that broadcasts to (B, S), such as per-row lengths[:, None]);
+    (B, S, 3) with t = h = w under M-RoPE."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
-    pos = pos + offset
-    return pos.expand(batch, seq)
+    pos = (pos + offset).expand(batch, seq)
+    if cfg.rope == "mrope":
+        return pos[..., None].expand(batch, seq, 3)
+    return pos
 
 
 def rotate(cfg: ArchConfig, x: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
-    if cfg.rope != "rope":
-        raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
-    return apply_rope(x, positions, cfg.rope_theta)
+    """RoPE, M-RoPE, or x itself for ``rope="none"``."""
+    if cfg.rope == "rope":
+        return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return x
 
 
 # ------------------------------------------------------------------

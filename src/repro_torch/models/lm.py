@@ -1,5 +1,5 @@
-"""Language model assembly, dense, moe, ssm and hybrid families (port of
-``repro.models.lm``).
+"""Language model assembly of the six families, dense, moe, ssm, hybrid,
+vlm and audio (port of ``repro.models.lm``).
 
 Params are a plain dict: ``embed`` (V, D), ``layers`` — a list with one
 dict per layer ({attn_norm, mlp_norm, attn: {wq, wk, wv, wo}, mlp:
@@ -20,6 +20,14 @@ Hybrid (zamba2) layout: every layer is a Mamba-2 block; layers with
 transformer block (attention + MLP) whose parameters,
 ``params["shared_attn"]``, are common to all invocations. The layer
 index is a host int, so the firing test is a plain ``if``.
+
+Family quirks (the reference's): audio is an encoder (non-causal, no
+rotary embedding) whose input is precomputed frame embeddings: it has
+no ``embed`` table and no decode path. vlm takes M-RoPE positions (B, S,
+3); its prefill may take precomputed patch embeddings, its decode takes
+text token ids, and its ``embed`` table is also the unembedding (tied:
+no ``lm_head``). ``final_norm`` is the one leaf every family's tree
+holds (``params_device``).
 
 ``forward`` and ``loss_fn`` record gradients when the caller is in grad
 mode (training); the serving entry points run under ``no_grad``. Their
@@ -53,11 +61,29 @@ AUX_LOSS_WEIGHT = 0.01
 
 
 SSM_FAMILIES = ("ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "audio") + SSM_FAMILIES
+# the families without a KV-cache decode: the paged engine refuses them
+NO_PAGED_DECODE = SSM_FAMILIES + ("audio",)
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe") + SSM_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def params_device(params: dict) -> torch.device:
+    """The device ``params`` live on, read from ``final_norm``: a leaf of
+    every family's tree (the audio model has no ``embed``)."""
+    return params["final_norm"].device
+
+
+def check_params_on(params: dict, dev: torch.device, what: str) -> None:
+    """Raise unless ``params`` live on ``dev``'s device type, where
+    ``what`` was asked to run."""
+    got = params_device(params)
+    if got.type != dev.type:
+        raise ValueError(f"params live on {got}, {what} was asked to run "
+                         f"on {dev}")
 
 
 def _init_ffn(cfg: ArchConfig, gen: torch.Generator, dev) -> dict:
@@ -115,9 +141,10 @@ def _init_on(cfg: ArchConfig, seed: int, dev: torch.device) -> dict:
                    "attn": attn_lib.init_attention(cfg, gen, dev),
                    **_init_ffn(cfg, gen, dev)}
                   for _ in range(cfg.n_layers)]
-    params = {"layers": layers, "final_norm": ones(),
-              "embed": embed_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype,
-                                  dev)}
+    params = {"layers": layers, "final_norm": ones()}
+    if cfg.input_mode == "tokens" or cfg.family == "vlm":
+        params["embed"] = embed_init(gen, (cfg.vocab, cfg.d_model),
+                                     cfg.dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
                                        cfg.d_model, cfg.dtype, dev)
@@ -167,7 +194,8 @@ def _layer_fwd(cfg: ArchConfig, params: dict, lp: dict, idx: int,
 
 def embed_inputs(cfg: ArchConfig, params: dict,
                  inputs: torch.Tensor) -> torch.Tensor:
-    """Token ids -> table lookup; float inputs pass through."""
+    """Token ids -> table lookup; float inputs (the stub frontends'
+    patch or frame embeddings) pass through at the model dtype."""
     if not inputs.is_floating_point():
         return F.embedding(inputs.long(), params["embed"])
     return inputs.to(cfg.dtype)
@@ -256,14 +284,18 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
             remat_block: int = 1) -> Tuple[torch.Tensor, dict]:
     """Next-token loss of one batch ({inputs, labels[, positions, mask]}):
     ce + AUX_LOSS_WEIGHT · aux. exp(ce) is the perplexity the paper
-    reports. Differentiable in grad mode (``forward``'s remat options)."""
-    inputs = torch.as_tensor(batch["inputs"], device=params["embed"].device)
-    labels = torch.as_tensor(batch["labels"], device=inputs.device)
-    mask = batch.get("mask")
+    reports. Differentiable in grad mode (``forward``'s remat options).
+    The batch's arrays move to the params' device."""
+    dev = params_device(params)
+    inputs = torch.as_tensor(batch["inputs"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    mask, positions = batch.get("mask"), batch.get("positions")
     if mask is not None:
-        mask = torch.as_tensor(mask, device=inputs.device)
-    logits, aux = forward(cfg, params, inputs, batch.get("positions"),
-                          remat_policy, remat_block)
+        mask = torch.as_tensor(mask, device=dev)
+    if positions is not None:
+        positions = torch.as_tensor(positions, device=dev)
+    logits, aux = forward(cfg, params, inputs, positions, remat_policy,
+                          remat_block)
     ce = softmax_xent(logits, labels, mask)
     return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
@@ -333,9 +365,10 @@ def _ssm_decode(cfg: ArchConfig, params: dict, cache: SSMCache,
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: dict, cache, token: torch.Tensor,
                 positions: torch.Tensor):
-    """One decode step. token (B, 1) ints; positions (B, 1). Returns
-    (logits (B, 1, V), new cache). KV tensors update in place; the Mamba
-    states of the ssm and hybrid families come back as new tensors."""
+    """One decode step. token (B, 1) ints; positions (B, 1), or (B, 1, 3)
+    under M-RoPE. Returns (logits (B, 1, V), new cache). KV tensors
+    update in place; the Mamba states of the ssm and hybrid families
+    come back as new tensors."""
     h = embed_inputs(cfg, params, token)
     if cfg.family in SSM_FAMILIES:
         h, new_cache = _ssm_decode(cfg, params, cache, h, positions)
@@ -373,9 +406,10 @@ def paged_decode_step(cfg: ArchConfig, params: dict, paged: list,
     Returns (logits (R, 1, V), paged); the pools update in place.
     Inactive rows write nothing into the pool and their logits are
     garbage-but-finite. Where the reference scans the layers, this port
-    loops over them in Python. KV-attention families only."""
+    loops over them in Python. KV-attention families with a decode path
+    only (not ssm, hybrid or audio)."""
     _check_family(cfg)
-    if cfg.family in SSM_FAMILIES:
+    if cfg.family in NO_PAGED_DECODE:
         raise ValueError(f"paged decode: unsupported family {cfg.family!r}")
     r = token.shape[0]
     positions = positions_for(cfg, r, 1, offset=lengths[:, None],
@@ -392,6 +426,6 @@ def paged_decode_step(cfg: ArchConfig, params: dict, paged: list,
 def prefill(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prefill = the full forward's logits (the cache fill is modelled as
-    the forward pass)."""
+    the forward pass); the audio encoder's only serving entry point."""
     logits, _ = forward(cfg, params, inputs, positions)
     return logits

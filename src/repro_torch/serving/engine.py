@@ -79,14 +79,12 @@ class Engine:
 
     def __init__(self, cfg: ArchConfig, params: dict,
                  ecfg: EngineConfig = EngineConfig(), device=None):
-        if cfg.family in ("ssm", "hybrid", "audio"):
+        if cfg.family in lm.NO_PAGED_DECODE:
             raise ValueError(
                 f"engine serves KV-attention families; {cfg.family!r} "
                 "has no paged cache")
         self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed'].device}, "
-                             f"the engine was asked to run on {self.device}")
+        lm.check_params_on(params, self.device, "the engine")
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg

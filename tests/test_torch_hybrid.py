@@ -22,7 +22,9 @@ d_ff 128, firing before layers 2 and 5) and f32, on bridged weights:
   both invocations, and the packed forward and decode against the
   dense-equivalent model and the reference's packed decode (``test_pipeline.py``, ``test_expert_packing.py``,
   ``test_hetero_packing.py``, ``test_segmented_scan.py``);
-- the serving engine and ``paged_decode_step`` still refuse the family.
+- the serving engine and ``paged_decode_step`` still refuse the family
+  (and the audio encoder); ``lm.init`` builds every family of the
+  reference.
 """
 import dataclasses
 
@@ -249,9 +251,19 @@ def test_engine_and_paged_decode_refuse_the_family(model):
     with pytest.raises(ValueError, match="unsupported family"):
         lm.paged_decode_step(cfg, params, [], None, torch.zeros(2), None,
                              None)
-    for fam in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError):
-            lm.init(cfg.with_(family=fam), device="cpu")
+    # every family the reference assembles builds; of those with a KV
+    # cache, the encoder (audio) has no decode path and is refused too
+    for arch in ref_configs.ARCH_IDS:
+        c = configs.get(arch, smoke=True)
+        p = lm.init(c, device="cpu")
+        assert set(p) == set(ref_lm.abstract_params(
+            ref_configs.get(arch, smoke=True))[0]), arch
+    audio = configs.get("hubert_xlarge", smoke=True)
+    p = lm.init(audio, device="cpu")
+    with pytest.raises(ValueError, match="paged cache"):
+        Engine(audio, p, EngineConfig(), device="cpu")
+    with pytest.raises(ValueError, match="unsupported family"):
+        lm.paged_decode_step(audio, p, [], None, torch.zeros(2), None, None)
 
 
 # ------------------------------------------------- taps and compression

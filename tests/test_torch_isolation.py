@@ -37,7 +37,7 @@ def test_port_files_exist():
             "step.py", "fault.py", "elastic.py", "manager.py", "train.py",
             "tree.py", "torch_quickstart.py", "torch_auto_allocate.py",
             "torch_train_e2e.py", "mamba2.py", "mamba2_1_3b.py",
-            "zamba2_7b.py"} <= names
+            "zamba2_7b.py", "qwen2_vl_2b.py", "hubert_xlarge.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -211,3 +211,20 @@ def test_serve_cli_engine_refuses_the_hybrid_family():
     with pytest.raises(ValueError, match="paged cache"):
         serve.main(["--arch", "zamba2_7b", "--compress", "none", "--engine",
                     "--device", "cpu"])
+
+
+@pytest.mark.parametrize("engine", [False, True], ids=("greedy", "engine"))
+def test_serve_cli_packs_and_serves_the_vlm_on_the_cpu(capsys, engine):
+    """qwen2_vl_2b through ``serve --packed``: every linear slab-ell, the
+    tied embedding left as it is; greedy_decode or the engine's trace."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", "qwen2_vl_2b", "--packed", "--device", "cpu",
+                "--iters", "1", "--calib-seqs", "2", "--calib-len", "16",
+                "--batch", "2", "--prompt-len", "4", "--gen-len", "2",
+                "--requests", "3"] + (["--engine"] if engine else []))
+    out = capsys.readouterr().out
+    assert ("packed serving: 14 linears on the kernel path across 7 paths "
+            "[slab-ell=14]; dense fallback: 0") in out
+    if engine:
+        assert "engine: 3 requests [finished=3]" in out
+    assert "sample generation:" in out
