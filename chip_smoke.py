@@ -8,7 +8,8 @@ Phases:
      the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, started together), with each source's
      register and spill summary from ``-Xptxas -v``; while nvcc runs,
-     phase s's compression (it launches no kernel; AHEAD_PHASES);
+     phase s's and phase M's compressions (they launch no kernel;
+     AHEAD_PHASES, mesh_ahead);
   2. each of the nine per-linear kernels against its plain PyTorch
      version at llama2-7b full-width planes, (N, K) in {(4096, 4096),
      (11008, 4096), (4096, 11008)}, M in {1, 4, 37}, bf16 and f32, rank 1
@@ -220,6 +221,27 @@ Phases:
      both held as S and H are at bf16 (3e-2 on the first 2 layers; at
      full depth against the f32 evaluation, within V_DEEP_TOL /
      A_DEEP_TOL);
+     then tensor-parallel packed serving:
+       M  a (data 1, model 2) mesh of two processes on the one card
+          (``runtime.mesh.spawn``; gloo carrying CUDA tensors: NCCL takes
+          one rank a card). The parent packs each model once (its
+          compression made while nvcc builds) and saves it; each rank
+          loads it, cuts its shards leaf by leaf (checksums compared
+          across ranks) and serves it through the kernels the parent
+          built (a rank never runs nvcc): llama2-7b, 2 layers, slab CR
+          0.5, at bf16, each rank's #1 at its local shapes (N 2048 /
+          5504 at K 4096, 2048 at K 11008; checked against the plain
+          version and timed on rank 0), final logits within 3e-2 of the
+          dense-equivalent and within 1e-2 of the single-process packed
+          model's; at f32, greedy tokens equal to the
+          single-process model's and the engine on kv-head-sharded pools
+          (#11 at 16 of 32 heads, rank 0 scheduling) token-equal to the
+          single-process engine; phi3.5-moe, 1 layer, f32, 8 of 16
+          experts a rank through #14, tokens equal and logits within
+          1e-4 of the single-process model's. Per rank: the plane bytes
+          held against the single device's and the launches (added to
+          the JSON line's); rank 0's profile of a decode step and the
+          collectives' share of it (host clock, synchronised);
   4. one JSON line listing every ported kernel (all twenty; #1-#9 and
      #12-#20 once per library, each with its own launch counter:
      thirty-eight entries), then the result line.
@@ -1761,8 +1783,10 @@ def compress_ahead():
     kw = dict(PHASES)
     for tag in AHEAD_PHASES:
         AHEAD[tag] = _phase_front(**kw[tag])
+    mesh_ahead()
     log(f"compressed ahead while the kernels built: phase "
-        f"{', '.join(AHEAD_PHASES)} in {time.monotonic() - t0:.1f}s")
+        f"{', '.join(AHEAD_PHASES)} and phase M's two models in "
+        f"{time.monotonic() - t0:.1f}s")
 
 
 def _phase_front(n_layers, dtype, cr, pattern, method="slab", options=None,
@@ -3550,6 +3574,467 @@ LR6 = "tc_nm_kernel<tc::DenseSrc"
 # under tc_g_kernel without the ±1 term (#17 with it)
 BIN9 = "tc_bin_kernel<tc::NoSrc"
 NM15 = ("tc_g_kernel<tc::NmSrc<2, 4>", "false, false>")
+# ---------------------------------------------------------------- phase M
+
+M_MESH = (1, 2)            # (data, model): two ranks on the one card
+M_PROMPT = 16              # phase M's engine trace: prompts up to this
+M_REQUESTS = 4
+M_ENGINE = dict(n_slots=4, n_blocks=24, block_size=16, max_len=64,
+                prefill_chunk=8)
+M_DIR = ".chip_smoke_mesh"  # the packed models handed to the ranks
+M_TIMEOUT = 600.0
+# bf16 final-step logits under the mesh against the single-process packed
+# model's: the same arithmetic, summed in another order (the split
+# softmax over two ranks' positions, the vocab slices' matmuls)
+M_BF16_TOL = 1e-2
+
+
+def _tree_to(tree, device):
+    """A dict / list / NamedTuple tree with every tensor on ``device``."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device) if torch.is_tensor(t) else t,
+                    tree)
+
+
+def mesh_ahead():
+    """Phase M's compressions (llama2-7b 2 layers bf16, phi3.5-moe 1 layer
+    f32), made while nvcc builds and kept on the host until phase M."""
+    AHEAD["M"] = _tree_to(_phase_front(2, torch.bfloat16, 0.5, None), "cpu")
+    AHEAD["M phi"] = _tree_to(_phase_front(
+        1, torch.float32, 0.5, None, arch="phi3_5_moe"), "cpu")
+
+
+def _m_engine_trace(cfg):
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(1)
+    return [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, size=int(rng.integers(M_PROMPT // 2, M_PROMPT + 1)))
+        .astype(np.int32), max_new=int(rng.integers(8, 17)),
+        arrival=float(2 * i)) for i in range(M_REQUESTS)]
+
+
+def _m_kernel_at(leaf, flush):
+    """#1 on one local (row-sharded) leaf at M 4, bf16: the wrapper held
+    to its plain version on the same inputs, then timed beside the plain
+    version, one torch.matmul on the reconstructed local Ŵ and the bound
+    (``_time_case``)."""
+    from repro_torch.core.packing import (ELLPacked, ell_unpack,
+                                          unpack_sign_bits)
+    from repro_torch.kernels import ell as ell_k
+    from repro_torch.kernels import ops
+    n, k = leaf.sparse_vals.shape[0], leaf.d_in
+    x = torch.randn((4, k), generator=torch.Generator("cuda").manual_seed(
+        n + k), device="cuda").to(torch.bfloat16)
+    u, v = ops._rank_stack(leaf.u, leaf.v, x.dtype)
+    vals, idx, b = leaf.sparse_vals, leaf.sparse_idx, leaf.b_packed
+    got = ell_k.slab_ell_matmul(x, vals, idx, b, u, v)
+    ref = ell_k.slab_ell_matmul_plain(x, vals, idx, b, u, v)
+    err = float((got.float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+    if not err < TOL[torch.bfloat16]:
+        raise AssertionError(f"phase M: #1 at ({n}, {k}) rel {err}")
+    m, r = 4, u.shape[0]
+    ops_n = (2 * m * vals.numel() + m * k * r + 2 * m * n * k * r
+             + 2 * m * n * r)
+    case = Case(
+        "slab_ell_matmul TP", "slab_ell_matmul",
+        lambda: ell_k.slab_ell_matmul(x, vals, idx, b, u, v),
+        lambda: ell_k.slab_ell_matmul_plain(x, vals, idx, b, u, v),
+        (vals, idx, b, u, v),
+        lambda: ell_unpack(ELLPacked(vals, idx, k)).float()
+        + (u.float().T @ v.float()) * unpack_sign_bits(b, k, torch.float32),
+        ops_n)
+    rec = _time_case(case, x, r, got, ref, flush)
+    rec["rel_err"] = err
+    return rec
+
+
+def _m_place(cfg, path, mesh, dev):
+    """A packed model saved by the parent, loaded (memory-mapped) and
+    placed on this rank: each packed leaf moved to the card and cut to
+    its shards at once (``PackPlacer``: checksummed), then the dense
+    leaves (``serve.place_params``, every rank's checksums compared)."""
+    import contextlib
+    import io
+    from repro_torch.core.packed_model import (ExpertPackedStack, PackedLinear,
+                                               packed_axes)
+    from repro_torch.launch.serve import place_params
+    from repro_torch.runtime.sharding import PackPlacer, Planner, _map
+    tree = torch.load(path, mmap=True, map_location="cpu", weights_only=False)
+    placer = PackPlacer(Planner(mesh, cfg), mesh)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        if isinstance(t, (PackedLinear, ExpertPackedStack)):
+            return placer(_map(lambda ax, p, plane: p.to(dev),
+                               packed_axes(t), t))
+        return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+    params = walk(tree)
+    with contextlib.redirect_stdout(io.StringIO()):
+        params = place_params(cfg, params, placer)
+    return params, placer
+
+
+def _m_greedy(cfg, params, prompts, dev, need):
+    """One greedy_decode (BATCH x PROMPT, GEN new) with the launch counts
+    zeroed just before and read just after, each of ``need`` exactly."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_decode
+    greedy_decode(cfg, params, prompts[:, :PROF_PROMPT], 2, device=dev)
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.monotonic()
+    gen = greedy_decode(cfg, params, prompts, GEN, device=dev)
+    sync()
+    wall = time.monotonic() - t0
+    counts = {k: c for k, c in ops.launch_counts().items() if c}
+    for kname, n in need.items():
+        if counts.get(kname, 0) != n:
+            raise AssertionError(f"phase M: {kname} launched "
+                                 f"{counts.get(kname, 0)} times, expected {n}")
+    return gen, wall, counts
+
+
+def _mesh_worker(rank, world, dev, data, model, files, prompts, seqs):
+    """One rank of phase M: every model placed on this rank's shards and
+    served under the mesh; returns what the parent holds and logs. The
+    final logits are taken over the parent's sequences ``seqs`` (its
+    prompts and single-process tokens), so both see the same inputs."""
+    from repro_torch import configs
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.runtime.mesh import make_mesh
+    from repro_torch.runtime.meshctx import use_mesh
+    from repro_torch.runtime.sharding import packed_bytes
+    from repro_torch.core.packed_model import PackedLinear, _row_slice
+    missing = [s for s in build.SOURCES if not build.lib_path(s).exists()]
+    if missing:
+        raise RuntimeError(f"rank {rank}: kernels not built by the parent: "
+                           f"{missing} (a rank never runs nvcc)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(data, model, dev)
+    prompts = torch.as_tensor(prompts, device=dev)
+    steps = PROMPT + GEN - 1
+    out = {"counts": {}}
+
+    def add(counts):
+        for kk, c in counts.items():
+            out["counts"][kk] = out["counts"].get(kk, 0) + c
+
+    # llama2-7b, 2 layers, bf16: #1 at the local shapes, greedy_decode,
+    # the final logits, a profile on rank 0, the collectives' share
+    full = configs.get("llama2_7b")
+    cfg = full.with_(n_layers=2, dtype=torch.bfloat16)
+    params, placer = _m_place(cfg, files["llama_bf16"], mesh, dev)
+    leaves = [w for lp in params["layers"] for sub in lp.values()
+              if isinstance(sub, dict) for w in sub.values()
+              if isinstance(w, PackedLinear)]
+    shapes = sorted({(w.sparse_vals.shape[0], w.d_in) for w in leaves})
+    res = {"shapes": shapes, "bytes": packed_bytes(params),
+           "bytes_whole": placer.bytes_whole, "n_leaves": len(leaves)}
+    if rank == 0:       # alone on the card while it times
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        res["kernel"] = {}
+        for n, k in shapes:
+            leaf = next(w for w in leaves
+                        if (w.sparse_vals.shape[0], w.d_in) == (n, k))
+            with use_mesh(mesh):        # u (rank 1) cut to the rank's rows
+                leaf = _row_slice(leaf, n)
+            res["kernel"][(n, k)] = _m_kernel_at(leaf, flush)
+        del flush
+    torch.distributed.barrier()
+    with use_mesh(mesh):
+        gen, wall, counts = _m_greedy(cfg, params, prompts, dev,
+                                      {"slab_ell_matmul": 14 * steps})
+        add(counts)
+        seq = torch.as_tensor(seqs["llama"], device=dev)
+        res |= {"tokens": gen.cpu().numpy(), "wall": wall,
+                "launches": counts,
+                "logits": _final_logits(cfg, params, seq).cpu().numpy()}
+        run = lambda: greedy_decode(cfg, params, prompts[:, :PROF_PROMPT],
+                                    4, device=dev)
+        if rank == 0:
+            import contextlib
+            import io
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _device_profile(run, PROF_PROMPT + 3, wall / steps * 1e3,
+                                "rank 0", ("#1 slab_ell_matmul",
+                                           "ell_split_kernel"))
+            res["profile"] = buf.getvalue()
+        else:
+            run()
+        sync()
+        mesh.timed = True
+        t0 = time.monotonic()
+        run()
+        sync()
+        res["comm"] = (mesh.comm_s, mesh.comm_calls, time.monotonic() - t0)
+        mesh.timed = False
+    out["llama_bf16"] = res
+    del params, leaves
+    torch.cuda.empty_cache()
+
+    # llama2-7b, 2 layers, f32: greedy tokens, then the engine on
+    # kv-head-sharded pools
+    cfg = full.with_(n_layers=2, dtype=torch.float32)
+    params, _ = _m_place(cfg, files["llama_f32"], mesh, dev)
+    with use_mesh(mesh):
+        gen, wall, counts = _m_greedy(
+            cfg, params, prompts, dev,
+            {"slab_ell_matmul@ell.cu": 14 * steps})
+        add(counts)
+        res = {"tokens": gen.cpu().numpy(), "wall": wall, "launches": counts}
+    from repro_torch.serving import Engine, EngineConfig
+    eng = Engine(cfg, params, EngineConfig(**M_ENGINE), device=dev,
+                 mesh=mesh)
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.monotonic()
+    done = eng.run(_m_engine_trace(cfg), clock="steps")
+    sync()
+    counts = {k: c for k, c in ops.launch_counts().items() if c}
+    add(counts)
+    for kname in ("slab_ell_matmul@ell.cu", "flash_decode_paged"):
+        if not counts.get(kname):
+            raise AssertionError(f"phase M engine: rank {rank} never "
+                                 f"launched {kname}")
+    res["engine"] = {"wall": time.monotonic() - t0, "launches": counts,
+                     "kv_local": tuple(eng.paged[0].k.shape),
+                     "steps": eng.n_steps}
+    if rank == 0:
+        _check_no_leak(eng, "phase M engine")
+        res["engine"]["streams"] = [(r.status, list(map(int, r.out)))
+                                    for r in done]
+    out["llama_f32"] = res
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # phi3.5-moe, 1 layer, f32: experts 8 of 16 a rank
+    cfg = configs.get("phi3_5_moe").with_(n_layers=1, dtype=torch.float32)
+    params, placer = _m_place(cfg, files["phi"], mesh, dev)
+    groups = {name: [(len(m), g.sparse_vals.shape[0]) for m, g in
+                     zip(w.members, w.groups)]
+              for name, w in params["layers"][0]["moe"].items()
+              if hasattr(w, "groups")}
+    n_groups = sum(len(g) for g in groups.values())
+    prompts = prompts % cfg.vocab
+    with use_mesh(mesh):
+        gen, wall, counts = _m_greedy(
+            cfg, params, prompts, dev,
+            {"slab_ell_matmul@ell.cu": 4 * steps,
+             "slab_ell_matmul_g@ell.cu": n_groups * steps})
+        add(counts)
+        seq = torch.as_tensor(seqs["phi"], device=dev)
+        out["phi"] = {"tokens": gen.cpu().numpy(), "wall": wall,
+                      "launches": counts, "groups": groups,
+                      "bytes": packed_bytes(params),
+                      "bytes_whole": placer.bytes_whole,
+                      "logits": _final_logits(cfg, params, seq)
+                      .cpu().numpy()}
+    return out
+
+
+def mesh_phase():
+    """Phase M: tensor-parallel packed serving on a (data 1, model 2) mesh
+    of two processes on the one card (gloo: NCCL takes one rank a card).
+    The parent compresses and packs each model once (made ahead), serves
+    it single-process for the yardsticks, and saves it; each rank loads
+    it, cuts its shards leaf by leaf (checksums compared across ranks) and
+    serves it under the mesh through the kernels the parent built:
+    llama2-7b (2 layers, slab CR 0.5) at bf16, #1 on its local rows (N
+    2048 / 5504 at K 4096, 2048 at K 11008), logits within 3e-2 of the
+    dense-equivalent and M_BF16_TOL of the single-process packed
+    model's; the same at f32, tokens equal to the
+    single-process model's, then the engine on kv-head-sharded pools
+    (#11 at 16 of 32 heads), streams equal to the single-process
+    engine's; phi3.5-moe (1 layer, f32), 8 of 16 experts a rank through
+    #14, tokens equal and logits within 1e-4 of the single-process
+    model's. Returns every rank's main-path launches, summed, and #1's
+    records at the local shapes."""
+    import shutil
+    data, model = M_MESH
+    log(f"phase M: tensor-parallel packed serving, mesh data={data} x "
+        f"model={model} as {data * model} processes on the one card "
+        f"({CARD[0]})")
+    root = Path(__file__).resolve().parent / f"{M_DIR}_{os.getpid()}"
+    root.mkdir()
+    files = {k: str(root / f"{k}.pt") for k in ("llama_bf16", "llama_f32",
+                                                  "phi")}
+    try:
+        return _mesh_phase(data, model, files, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _mesh_phase(data, model, files, root):
+    from repro_torch.core.packed_model import pack_model
+    from repro_torch.tree import tree_map
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.runtime.mesh import spawn
+    from repro_torch.serving import Engine, EngineConfig
+    t0 = time.monotonic()
+    front = _tree_to(AHEAD.pop("M", None) or _phase_front(
+        2, torch.bfloat16, 0.5, None), "cuda")
+    cfg, dense_c, decs, plan = (front[k] for k in ("cfg", "dense_c", "decs",
+                                                   "plan"))
+    prompts = torch.as_tensor(SyntheticCorpus(cfg.vocab, seed=0).batch(
+        0, BATCH, PROMPT)["inputs"], device="cuda")
+    steps = PROMPT + GEN - 1
+    single = {}
+    packed, rep = pack_model(dense_c, decs, plan=plan, dtype=cfg.dtype)
+    _check_packed(cfg, packed, rep, "slab-ell")
+    greedy_decode(cfg, packed, prompts[:, :PROF_PROMPT], 2, device="cuda")
+    sync()
+    t1 = time.monotonic()
+    gen = greedy_decode(cfg, packed, prompts, GEN, device="cuda")
+    sync()
+    single["bf16_wall"] = time.monotonic() - t1
+    # PROMPT + GEN positions: an s_max the "model" axis divides, so the
+    # ranks' held logits come through the position-sharded cache
+    seq = torch.cat([prompts.long(), gen], dim=1)
+    seqs = {"llama": seq.cpu().numpy()}
+    single["bf16_tokens"] = gen.cpu().numpy()
+    single["bf16_logits"] = _final_logits(cfg, packed, seq)
+    single["dense_logits"] = _final_logits(cfg, dense_c, seq)
+    torch.save(packed, files["llama_bf16"])
+    del packed
+    # the same decompositions packed at f32 over the f32 dense-equivalent
+    cfg32 = cfg.with_(dtype=torch.float32)
+    dense32 = tree_map(lambda t: t.float() if torch.is_tensor(t)
+                       and t.is_floating_point() else t, dense_c)
+    packed, _ = pack_model(dense32, decs, plan=plan, dtype=torch.float32)
+    del dense32, dense_c, decs, front
+    single["f32_tokens"] = greedy_decode(cfg32, packed, prompts, GEN,
+                                         device="cuda").cpu().numpy()
+    eng = Engine(cfg32, packed, EngineConfig(**M_ENGINE), device="cuda")
+    done = eng.run(_m_engine_trace(cfg32), clock="steps")
+    _check_no_leak(eng, "phase M single-process engine")
+    single["streams"] = [(r.status, list(map(int, r.out))) for r in done]
+    torch.save(packed, files["llama_f32"])
+    del packed, eng
+    # phi3.5-moe, 1 layer, f32
+    front = _tree_to(AHEAD.pop("M phi", None) or _phase_front(
+        1, torch.float32, 0.5, None, arch="phi3_5_moe"), "cuda")
+    pcfg = front["cfg"]
+    packed, rep = pack_model(front["dense_c"], front["decs"],
+                             plan=front["plan"], dtype=torch.float32)
+    del front
+    _check_packed(pcfg, packed, rep, "slab-ell")
+    pprompts = prompts % pcfg.vocab
+    gen = greedy_decode(pcfg, packed, pprompts, GEN, device="cuda")
+    seq = torch.cat([pprompts.long(), gen], dim=1)
+    seqs["phi"] = seq.cpu().numpy()
+    single["phi_tokens"] = gen.cpu().numpy()
+    single["phi_logits"] = _final_logits(pcfg, packed, seq)
+    torch.save(packed, files["phi"])
+    del packed
+    torch.cuda.empty_cache()
+    log(f"  single-process yardsticks and the saved models: "
+        f"{time.monotonic() - t0:.1f}s; bf16 greedy_decode "
+        f"{single['bf16_wall'] / steps * 1e3:.2f} ms a decode step")
+
+    t0 = time.monotonic()
+    per_rank = spawn(_mesh_worker, data * model, "cuda",
+                     str(root / "store"),
+                     args=(data, model, files, prompts.cpu().numpy(),
+                           seqs),
+                     timeout=M_TIMEOUT)
+    log(f"  {data * model} ranks spawned, placed and served in "
+        f"{time.monotonic() - t0:.1f}s")
+    return _mesh_report(per_rank, single, model, steps, cfg)
+
+
+def _mesh_report(per_rank, single, model, steps, cfg):
+    """Hold every rank's results, log them, and return (launches summed
+    over the ranks, #1's records at the local shapes)."""
+    r0 = per_rank[0]
+    # llama2-7b's q/k/v/o, w_gate/w_up and w_down rows cut over "model"
+    want = sorted({(cfg.d_q // model, cfg.d_model),
+                   (cfg.d_ff // model, cfg.d_model),
+                   (cfg.d_model // model, cfg.d_ff)})
+    for rank, res in enumerate(per_rank):
+        a = res["llama_bf16"]
+        if a["shapes"] != want or a["n_leaves"] != 14:
+            raise AssertionError(f"phase M: rank {rank} holds #1 leaves "
+                                 f"{a['shapes']}, expected {want}")
+        log(f"  rank {rank}: 14 slab-ell leaves at local (N, K) "
+            f"{a['shapes']}; packed planes held {a['bytes'] / 1e6:.1f} MB "
+            f"of {a['bytes_whole'] / 1e6:.1f} MB single-device "
+            f"({a['bytes'] / a['bytes_whole']:.4f}); phi3.5-moe "
+            f"{res['phi']['bytes'] / 1e6:.1f} of "
+            f"{res['phi']['bytes_whole'] / 1e6:.1f} MB "
+            f"({res['phi']['bytes'] / res['phi']['bytes_whole']:.4f}), "
+            f"expert groups (members, held) {res['phi']['groups']}")
+        for g in res["phi"]["groups"].values():
+            for n_mem, held in g:
+                if n_mem % model == 0 and held != n_mem // model:
+                    raise AssertionError(f"phase M: rank {rank} holds "
+                                         f"{held} of {n_mem} experts")
+        log(f"  rank {rank} launches: " + " ".join(
+            f"{k}={c}" for k, c in sorted(res["counts"].items())))
+        kv = res["llama_f32"]["engine"]["kv_local"]
+        if kv[2] != cfg.n_kv // model:
+            raise AssertionError(f"phase M: rank {rank} pool {kv}")
+        for tag in ("llama_bf16", "llama_f32", "phi"):
+            if not np.array_equal(res[tag]["tokens"], r0[tag]["tokens"]):
+                raise AssertionError(f"phase M: rank {rank}'s {tag} tokens "
+                                     "differ from rank 0's")
+    a, f, p = r0["llama_bf16"], r0["llama_f32"], r0["phi"]
+    _hold_logits("M", torch.as_tensor(a["logits"]),
+                 single["dense_logits"].cpu(), 3e-2,
+                 "llama2-7b bf16, mesh vs dense-equivalent")
+    _hold_logits("M", torch.as_tensor(a["logits"]),
+                 single["bf16_logits"].cpu(), M_BF16_TOL,
+                 "llama2-7b bf16, mesh vs single-process packed")
+    same = int((a["tokens"] == single["bf16_tokens"]).sum())
+    log(f"  llama2-7b bf16 mesh vs single-process packed: greedy tokens "
+        f"{same} of {a['tokens'].size} equal")
+    if not np.array_equal(f["tokens"], single["f32_tokens"]):
+        raise AssertionError("phase M: f32 mesh tokens differ from the "
+                             "single-process packed model's")
+    log(f"  llama2-7b f32: greedy tokens equal to the single-process "
+        f"packed model's: {f['tokens'].size} of {f['tokens'].size}")
+    e = f["engine"]
+    if e["streams"] != single["streams"]:
+        raise AssertionError("phase M: engine streams differ from the "
+                             "single-process engine's")
+    log(f"  engine on kv-head-sharded pools {e['kv_local']} "
+        f"({e['kv_local'][2]} of {cfg.n_kv} heads): {len(e['streams'])} "
+        f"requests "
+        f"{sorted({s for s, _ in e['streams']})}, token-equal to the "
+        f"single-process engine, {e['steps']} steps in {e['wall']:.1f}s, "
+        f"no block leaked; launches " + " ".join(
+            f"{k}={c}" for k, c in sorted(e["launches"].items())))
+    if not np.array_equal(p["tokens"], single["phi_tokens"]):
+        raise AssertionError("phase M: phi3.5-moe mesh tokens differ")
+    _hold_logits("M", torch.as_tensor(p["logits"]),
+                 single["phi_logits"].cpu(), 1e-4,
+                 "phi3.5-moe f32, mesh vs single-process packed")
+    comm_s, calls, wall = a["comm"]
+    log(f"  llama2-7b bf16 decode step: {a['wall'] / steps * 1e3:.2f} ms "
+        f"wall under the mesh vs {single['bf16_wall'] / steps * 1e3:.2f} "
+        f"single-process; collectives (synchronised, host clock) "
+        f"{comm_s * 1e3:.1f} ms in {calls} calls of a {wall * 1e3:.1f} ms "
+        f"run of {PROF_PROMPT + 3} steps (share {comm_s / wall:.3f})")
+    for line in a["profile"].splitlines():
+        log("  " + line.strip())
+    for (n, k), rec in a["kernel"].items():
+        log(f"  #1 at rank 0's ({n}, {k}): rel {rec['rel_err']:.3g}, "
+            f"{rec['ms']:.4f} ms (bound {rec['bound_ms']:.4f}, plain "
+            f"{rec['plain_ms']:.4f}, matmul {rec['library_ms']:.4f})")
+    total = {}
+    for res in per_rank:
+        for kk, c in res["counts"].items():
+            total[kk] = total.get(kk, 0) + c
+    return total, a["kernel"]
+
+
 PHASES = (
     ("a", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
                variant="slab-ell", kernel="slab_ell_matmul", tol=3e-2,
@@ -3790,6 +4275,10 @@ def main():
         for kname, c in phase().items():
             launches[kname] += c
         mark(tag)
+    counts_m, tp_timed = mesh_phase()
+    for kname, c in counts_m.items():
+        launches[kname] += c
+    mark("M")
 
     def by_lib(rec, key):
         """The record with the library ``key``'s own time where it was
@@ -3844,6 +4333,12 @@ def main():
             kk: by_lib(timed[(label, n, k)], kern.key)[kk]
             for kk in ("ms", "plain_ms", "library_ms", "bound_ms")}
             for (n, k) in SHAPES}
+        if kern.key == "slab_ell_matmul":
+            # phase M's rank-0 local shapes (row-sharded over model 2)
+            by_shape.update({f"{n}x{k} TP rank 0": {
+                kk: r[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms")}
+                for (n, k), r in tp_timed.items()})
         if kern.name == "slab_ell_matmul":
             # null where the wrapper never picks this library (grouped_tc.cu
             # at K 14336); the vlm / audio shapes at M 4, the encoder's

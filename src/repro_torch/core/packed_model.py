@@ -34,6 +34,14 @@ the ``kernels.ops.*_g`` form of the variant's kernel above, for every
 variant but sparse-dense and lowrank, which stay batched matmuls as in
 the reference); ELL experts first bucket by their realized K_max, so a
 few dense experts do not widen every expert's pad.
+
+Tensor parallelism (``runtime.sharding``): every stored plane except
+``v`` leads with d_out (behind the expert dim of a stack), so a packed
+leaf shards by rows on "model" (``packed_axes``); an expert stack's
+groups shard by experts first. Under a mesh each rank holds its rows and
+runs the variant's kernel on them, and the output features are gathered
+(``linear``, ``expert_matmul``); a leaf whose d_out the mesh does not
+divide is whole on every rank and runs whole.
 """
 from __future__ import annotations
 
@@ -48,6 +56,14 @@ from repro_torch.core.packing import (ell_pack, ell_row_nnz_max,
                                       pack_sign_bits)
 from repro_torch.core.slab import SLaBDecomposition
 from repro_torch.models.common import tap_record
+from repro_torch.runtime.meshctx import (current_mesh, gather_model,
+                                         model_shards)
+
+# Rank threshold for sharding the low-rank u factor on "model": below it
+# the (D_out, r) plane is a few KB and stays whole on every rank (each
+# slices its rows at call time); at or above it u row-shards with the
+# other d_out planes. v (D_in, r) always replicates.
+LR_SHARD_RANK = 8
 
 VARIANTS = ("slab-nm", "slab-dense", "slab-ell", "binlr", "lowrank-nm",
             "lowrank-dense", "lowrank-ell", "lowrank", "sparse-nm",
@@ -135,6 +151,69 @@ def variant_of(dec: SLaBDecomposition, pattern: Optional[str],
 def _check_variant(variant: str) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"unknown packed variant {variant!r}")
+
+
+# ------------------------------------------------------------------
+# Logical axes for the sharding planner (tensor-parallel serving)
+# ------------------------------------------------------------------
+
+def packed_linear_axes(pl: PackedLinear,
+                       lr_shard_rank: int = LR_SHARD_RANK,
+                       _lead: Tuple[str, ...] = ()) -> PackedLinear:
+    """The logical-axes leaf of one packed linear: a PackedLinear with the
+    same static fields whose planes are axes tuples. Every plane but
+    ``v`` leads with d_out ("packed_out"); N:M groups and ELL rows run
+    along d_in and are never split by a row shard. ``u`` shards only at
+    rank >= ``lr_shard_rank``. ``_lead`` prefixes the leading axes (an
+    expert stack's "experts")."""
+    def ax(a, row_sharded=True):
+        if a is None:
+            return None
+        nd = a.dim() - len(_lead)
+        return _lead + ("packed_out" if row_sharded else None,) \
+            + (None,) * (nd - 1)
+
+    return dataclasses.replace(
+        pl, sparse_vals=ax(pl.sparse_vals), sparse_idx=ax(pl.sparse_idx),
+        b_packed=ax(pl.b_packed), u=ax(pl.u, pl.rank >= lr_shard_rank),
+        v=ax(pl.v, False))
+
+
+def expert_stack_axes(eps: "ExpertPackedStack",
+                      lr_shard_rank: int = LR_SHARD_RANK
+                      ) -> "ExpertPackedStack":
+    """Axes of an ExpertPackedStack: each group's planes lead with the
+    expert dim ("experts", expert parallelism) ahead of the per-plane
+    "packed_out" rows; the planner drops "experts" where a group's size
+    does not divide the mesh and row-shards instead. The dense remainder
+    is (E_d, D_in, D_out)."""
+    lead = ("experts",)
+    groups = tuple(packed_linear_axes(g, lr_shard_rank, _lead=lead)
+                   for g in eps.groups)
+    dense = lead + (None, "packed_out") if eps.dense is not None else None
+    return dataclasses.replace(eps, groups=groups, dense=dense)
+
+
+def packed_axes(leaf, lr_shard_rank: int = LR_SHARD_RANK):
+    """Axes of any packed leaf (PackedLinear or ExpertPackedStack)."""
+    if isinstance(leaf, ExpertPackedStack):
+        return expert_stack_axes(leaf, lr_shard_rank)
+    return packed_linear_axes(leaf, lr_shard_rank)
+
+
+def merge_packed_axes(axes_tree, params_tree):
+    """A dense logical-axes tree (``lm.param_axes``) with the packed axes
+    substituted wherever ``params_tree`` holds a packed leaf; the result
+    feeds ``runtime.sharding.Planner.tree_specs`` unchanged."""
+    if isinstance(params_tree, (PackedLinear, ExpertPackedStack)):
+        return packed_axes(params_tree)
+    if isinstance(params_tree, dict):
+        return {k: merge_packed_axes(axes_tree[k], v)
+                for k, v in params_tree.items()}
+    if isinstance(params_tree, list):
+        return [merge_packed_axes(a, v)
+                for a, v in zip(axes_tree, params_tree)]
+    return axes_tree
 
 
 def pack_linear(dec: SLaBDecomposition, pattern: Optional[str],
@@ -398,20 +477,46 @@ def packed_matmul_grouped(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def _group_matmul_sharded(x: torch.Tensor, mem: Tuple[int, ...],
+                          grp: PackedLinear) -> torch.Tensor:
+    """One expert group on this rank's shard, under a mesh: its experts
+    (expert-sharded: the rank's run of ``mem``, the expert dim gathered
+    after) or its rows (row-sharded: the output features gathered
+    after), or the whole group where the planner replicated it. Returns
+    (len(mem), M, D_out)."""
+    held = _held(grp, 0)
+    if held != len(mem):
+        c = model_shards()[0]
+        mine = mem[c * held:(c + 1) * held]
+        xg = x.index_select(0, torch.tensor(mine, device=x.device))
+        return gather_model(packed_matmul_grouped(xg, grp), dim=0)
+    xg = x.index_select(0, torch.tensor(mem, device=x.device))
+    rows = _held(grp, 1)
+    if rows == grp.d_out:
+        return packed_matmul_grouped(xg, grp)
+    return gather_model(packed_matmul_grouped(xg, _row_slice(grp, rows, 1)))
+
+
 def expert_matmul(x: torch.Tensor, w: ExpertPackedStack) -> torch.Tensor:
     """Per-expert packed linear: x (E, M, D_in) -> (E, M, D_out), one
     grouped-kernel launch per group, the experts gathered into their
     groups and scattered back; a single group covering every expert in
-    order skips the gathers."""
+    order skips the gathers. Under a mesh each group runs on this rank's
+    shard (``_group_matmul_sharded``) and every expert's output is whole
+    on every rank before the combine."""
     n = w.n_experts
+    sharded = current_mesh() is not None
     if (len(w.groups) == 1 and not w.dense_members
-            and w.members[0] == tuple(range(n))):
+            and w.members[0] == tuple(range(n)) and not sharded):
         return packed_matmul_grouped(x, w.groups[0])
     parts: List[torch.Tensor] = []
     order: List[int] = []
     for mem, grp in zip(w.members, w.groups):
-        xg = x.index_select(0, torch.tensor(mem, device=x.device))
-        parts.append(packed_matmul_grouped(xg, grp))
+        if sharded:
+            parts.append(_group_matmul_sharded(x, mem, grp))
+        else:
+            xg = x.index_select(0, torch.tensor(mem, device=x.device))
+            parts.append(packed_matmul_grouped(xg, grp))
         order.extend(mem)
     if w.dense is not None:
         xd = x.index_select(0, torch.tensor(w.dense_members,
@@ -426,12 +531,40 @@ def expert_matmul(x: torch.Tensor, w: ExpertPackedStack) -> torch.Tensor:
     return y.index_select(0, torch.tensor(inv, device=x.device))
 
 
+def _held(w: PackedLinear, dim: int) -> int:
+    """How much of dim ``dim`` of ``w``'s row planes this rank holds (the
+    d_out rows at dim 0 of a linear, 1 of an expert group; a group's
+    experts at 0): read off its first row plane."""
+    for a in (w.sparse_vals, w.sparse_idx, w.b_packed, w.u):
+        if a is not None:
+            return a.shape[dim]
+    raise ValueError(f"{w.variant} leaf without planes")
+
+
+def _row_slice(w: PackedLinear, rows: int, lead: int = 0) -> PackedLinear:
+    """``w`` with a whole ``u`` (rank below LR_SHARD_RANK) cut to this
+    rank's ``rows`` (u's row dim sits after ``lead`` leading dims)."""
+    if w.u is None or w.u.shape[lead] == rows:
+        return w
+    c = model_shards()[0]
+    return dataclasses.replace(w, u=w.u.narrow(lead, c * rows, rows))
+
+
 def linear(x: torch.Tensor, w, tap: Optional[str] = None) -> torch.Tensor:
     """Dispatch point used by the model layers: dense ``x @ w`` or the
-    packed kernel. ``tap`` names this linear for activation capture."""
+    packed kernel. ``tap`` names this linear for activation capture.
+
+    Under a mesh a row-sharded PackedLinear runs its kernel on this
+    rank's rows and the output features are gathered over "model" (the
+    reference's output pin); a whole one (d_out not divisible) runs
+    whole."""
     if tap is not None:
         tap_record(tap, x)
     if isinstance(w, PackedLinear):
+        if current_mesh() is not None:
+            rows = _held(w, 0)
+            if rows != w.d_out:
+                return gather_model(packed_matmul(x, _row_slice(w, rows)))
         return packed_matmul(x, w)
     return x @ w
 
@@ -564,7 +697,8 @@ def _nbytes(t: torch.Tensor) -> int:
 def pack_model(params: dict,
                decs: Dict[Tuple[int, str], SLaBDecomposition],
                plan=None,
-               dtype=torch.float32) -> Tuple[dict, PackReport]:
+               dtype=torch.float32,
+               place=None) -> Tuple[dict, PackReport]:
     """Replace every servable decomposed linear of the per-layer params
     with its PackedLinear at the serving ``dtype``, and every 3-D expert
     leaf (whose decs arrive as a tuple, one per expert) with an
@@ -587,7 +721,13 @@ def pack_model(params: dict,
     invocation of the block runs; they count in ``by_variant`` and the
     bytes, and their paths close ``PackReport.paths`` (segments cover
     the layer list only). Returns (params, PackReport); the input params
-    are not modified."""
+    are not modified.
+
+    ``place``, when given, takes each packed leaf as soon as it is packed
+    and returns what the model keeps (``runtime.sharding.PackPlacer``
+    cuts this rank's shards there, so no rank holds more than one whole
+    packed leaf beyond its shards); the report counts the whole leaves.
+    """
     from repro_torch.core.pipeline import _copy_tree, _get, _set
     if plan is not None:
         from repro_torch.core.plan import CompressionPlan
@@ -626,7 +766,6 @@ def pack_model(params: dict,
             continue
         if type(dec) is tuple:          # one dec per expert of a 3-D leaf
             eps = pack_expert_stack(old, dec, pattern, dtype)
-            _set(out["layers"][l], name, eps)
             expert_layers.setdefault(name, []).append(l)
             per_e = _nbytes(old[0])
             for grp, mem in zip(eps.groups, eps.members):
@@ -635,6 +774,7 @@ def pack_model(params: dict,
             for e in eps.dense_members:
                 fallback.append((l, f"{name}[expert {e}]"))
                 account("dense-fallback", per_e, per_e)
+            _set(out["layers"][l], name, place(eps) if place else eps)
             continue
         var = k_max = None
         if dec.w_s is not None and dec.w_s.dim() == 2:
@@ -646,6 +786,8 @@ def pack_model(params: dict,
         pl = pack_linear(dec, pattern, dtype, variant=var,
                          ell_nnz=k_max if var.endswith("-ell") else None)
         account(var, pl.nbytes(), _nbytes(old))
+        if place is not None:
+            pl = place(pl)
         if shared:
             _set(out["shared_attn"], name.split(".", 1)[1], pl)
             shared_paths.append(name)

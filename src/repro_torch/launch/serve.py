@@ -39,6 +39,9 @@ refuses to start.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import time
 from typing import Optional
 
@@ -53,6 +56,7 @@ from repro_torch.core.slab import SLaBConfig
 from repro_torch.data import SyntheticCorpus, calibration_batch
 from repro_torch.models import lm
 from repro_torch.models.common import positions_for
+from repro_torch.runtime import meshctx
 
 
 @torch.no_grad()
@@ -66,15 +70,35 @@ def greedy_decode(cfg, params, prompts, gen_len: int,
     prompt is ``prompts[r, :lengths[r]]``. At step t a row feeds its next
     prompt token while t < length and its previously sampled token
     after, so every row's stream stays contiguous from position 0 and
-    the shared cache offset and positions are exact for all rows."""
+    the shared cache offset and positions are exact for all rows.
+
+    Under a mesh (``runtime.meshctx.use_mesh``) the batch rows split over
+    the data axes where the planner's "batch" rule puts them (the moe
+    family excepted: capacity routing couples the rows of a dispatch
+    group, so every rank runs every row), each rank decodes its rows and
+    the tokens are gathered: every rank returns the whole batch."""
     dev = resolve_device(device)
     lm.check_params_on(params, dev, "greedy_decode")
     prompts = torch.as_tensor(prompts, device=dev).long()
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, device=dev).long()
+    rows = meshctx.batch_rows(cfg, prompts.shape[0]) \
+        if cfg.family != "moe" else None
+    if rows is None:
+        return _greedy_decode_rows(cfg, params, prompts, gen_len, lengths,
+                                   dev)
+    lo, hi, axes = rows
+    out = _greedy_decode_rows(cfg, params, prompts[lo:hi], gen_len,
+                              None if lengths is None else lengths[lo:hi],
+                              dev)
+    return meshctx.gather_data(out, 0, axes)
+
+
+def _greedy_decode_rows(cfg, params, prompts, gen_len, lengths, dev):
     b, s = prompts.shape
     if lengths is not None:
-        return _greedy_decode_ragged(
-            cfg, params, prompts, gen_len,
-            torch.as_tensor(lengths, device=dev).long(), dev)
+        return _greedy_decode_ragged(cfg, params, prompts, gen_len, lengths,
+                                     dev)
     cache = lm.init_cache(cfg, b, s + gen_len, device=dev)
     logits = None
     for t in range(s):
@@ -172,15 +196,67 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--calib-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="serve tensor-parallel on a (data, model) mesh of "
+                         "DATA x MODEL torch.distributed ranks, launched by "
+                         "python -m torch.distributed.run --nproc-per-node "
+                         "DATA*MODEL: weights planner-placed, each packed "
+                         "leaf cut to this rank's shards as it is packed")
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch, smoke=args.smoke)
+    if args.mesh is not None and cfg.family in lm.NO_PAGED_DECODE:
+        ap.error(f"--mesh: the {cfg.family} family ({cfg.name}) does not "
+                 "serve under a mesh yet (ROADMAP A7b: the ssm, hybrid and "
+                 "audio families under a mesh)")
     if cfg.family == "audio":
         ap.error(f"--arch {args.arch}: {cfg.name} is an encoder-only model "
                  "(family 'audio') with no decode path; it serves through "
                  "lm.prefill (runtime.step.make_prefill_fn) on frame "
                  "embeddings, not through this entry point")
+    if args.budget is not None and not args.plan and args.compress == "none":
+        ap.error("--budget needs something to allocate: give --plan or "
+                 "a --compress method")
     dev = resolve_device(args.device)
+    if args.mesh is None:
+        _serve(args, cfg, dev, None)
+        return
+    mesh, dev = open_mesh(ap, args, dev)
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if mesh.rank
+             else contextlib.nullcontext())
+    try:
+        with quiet:
+            _serve(args, cfg, dev, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def open_mesh(ap, args, dev):
+    """``--mesh DATA,MODEL``: the process group from torchrun's
+    environment and the mesh over it. Usage errors for a malformed value
+    and a world size other than DATA x MODEL."""
+    try:
+        d, m = (int(x) for x in args.mesh.split(","))
+    except ValueError:
+        ap.error(f"--mesh {args.mesh!r}: expected DATA,MODEL, e.g. 1,2")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != d * m:
+        ap.error(f"--mesh {d},{m} needs {d * m} ranks, launched with "
+                 f"{world}: python -m torch.distributed.run --standalone "
+                 f"--nproc-per-node {d * m} -m repro_torch.launch.serve "
+                 f"--mesh {d},{m} ...")
+    from repro_torch.runtime.mesh import init_from_env, make_mesh
+    dev = init_from_env(dev)
+    mesh = make_mesh(d, m, dev)
+    if mesh.rank == 0:
+        print(f"mesh: data={d} x model={m} over {world} ranks (backend "
+              f"{mesh.backend}, device {dev})", flush=True)
+    return mesh, dev
+
+
+def _serve(args, cfg, dev, mesh):
+    """Init, compress and pack, then serve, on this rank's shards under
+    ``mesh``."""
     if args.kv_quant:
         cfg = cfg.with_(kv_quant="int8")
     params = lm.init(cfg, seed=args.seed, device=dev)
@@ -190,20 +266,25 @@ def main(argv: Optional[list] = None):
     scfg = SLaBConfig(cr=args.cr, pattern=args.pattern, iters=args.iters)
     plan = (CompressionPlan.parse(args.plan, base=scfg)
             if args.plan else None)
-    if args.budget is not None and plan is None and args.compress == "none":
-        ap.error("--budget needs something to allocate: give --plan or "
-                 "a --compress method")
+    placer = None
+    if mesh is not None:
+        from repro_torch.runtime.sharding import PackPlacer, Planner
+        placer = PackPlacer(Planner(mesh, cfg), mesh)
     if plan is not None or args.compress != "none":
-        params = compress_and_pack(cfg, params, args, scfg, plan, dev)
+        params = compress_and_pack(cfg, params, args, scfg, plan, dev,
+                                   place=placer)
+    if mesh is not None:
+        params = place_params(cfg, params, placer)
 
     if args.engine:
-        serve_engine(cfg, params, args, dev)
+        serve_engine(cfg, params, args, dev, mesh)
         return
 
     corpus = SyntheticCorpus(cfg.vocab, seed=args.seed)
     prompts = corpus.batch(0, args.batch, args.prompt_len)["inputs"]
     t0 = time.monotonic()
-    gen = greedy_decode(cfg, params, prompts, args.gen_len, device=dev)
+    with meshctx.use_mesh(mesh):
+        gen = greedy_decode(cfg, params, prompts, args.gen_len, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.monotonic() - t0
@@ -213,7 +294,23 @@ def main(argv: Optional[list] = None):
     print("sample generation:", gen[0, :16].cpu().numpy())
 
 
-def compress_and_pack(cfg, params, args, scfg, plan, dev):
+def place_params(cfg, params, placer):
+    """The dense leaves cut to this rank's shards by the planner (the
+    packed ones were as they were packed), and every rank's packed leaves
+    checked equal; prints the packed planes' bytes this rank holds."""
+    from repro_torch.runtime.sharding import packed_bytes, tree_shard
+    planner, mesh = placer.planner, placer.mesh
+    params = tree_shard(params, planner.placement(lm.param_axes(cfg),
+                                                  params), mesh)
+    n = placer.verify()
+    if n:
+        print(f"placed: {n} packed leaves, checksums equal on {mesh.size} "
+              f"ranks; packed planes held {packed_bytes(params) / 1e6:.2f} "
+              f"MB of {placer.bytes_whole / 1e6:.2f} MB")
+    return params
+
+
+def compress_and_pack(cfg, params, args, scfg, plan, dev, place=None):
     """Compress ``params`` under ``plan`` (or ``--compress``), after
     allocating per-layer CRs when ``--budget`` is given, print the
     compressed linears and, with ``--plan`` or ``--budget``, each one's
@@ -257,7 +354,8 @@ def compress_and_pack(cfg, params, args, scfg, plan, dev):
     params, rep = pack_model(
         params, decs, dtype=cfg.dtype,
         plan=(plan if plan is not None else
-              CompressionPlan.parse(f"*={args.compress}", base=scfg)))
+              CompressionPlan.parse(f"*={args.compress}", base=scfg)),
+        place=place)
     variants = " ".join(f"{v}={c}"
                         for v, c in sorted(rep.by_variant.items()))
     print(f"packed serving: {rep.n_packed} linears on the kernel "
@@ -323,7 +421,7 @@ def engine_trace(cfg, args):
     return reqs
 
 
-def serve_engine(cfg, params, args, dev):
+def serve_engine(cfg, params, args, dev, mesh=None):
     """``--engine``: the synthetic trace through the engine; prints the
     statuses, tok/s, goodput, steps, evictions and the TTFT / per-token
     latency percentiles."""
@@ -339,7 +437,7 @@ def serve_engine(cfg, params, args, dev):
         n_blocks=per_req * args.batch, max_len=max_len,
         prefill_chunk=min(8, args.prompt_len),
         max_waiting=args.max_waiting, shed=args.shed)
-    eng = Engine(cfg, params, ecfg, device=dev)
+    eng = Engine(cfg, params, ecfg, device=dev, mesh=mesh)
     faults = None
     if args.chaos is not None:
         faults = FaultPlan.chaos(args.chaos, vocab=cfg.vocab,

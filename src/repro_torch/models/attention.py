@@ -18,8 +18,20 @@ import torch
 
 from repro_torch.core.packed_model import linear
 from repro_torch.models.common import ArchConfig, dense_init, rotate
+from repro_torch.runtime.meshctx import (current_mesh, gather_model,
+                                         lse_combine, model_shards)
 
 NEG_INF = -1e30
+
+
+def attention_axes() -> dict:
+    """Logical axes of the attention params (runtime.sharding)."""
+    return {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv"),
+        "wv": ("embed", "kv"),
+        "wo": ("heads", "embed"),
+    }
 
 
 def init_attention(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
@@ -77,19 +89,45 @@ class KVCache(NamedTuple):
     length: int         # tokens currently valid (one offset for the batch)
     k_scale: Optional[torch.Tensor] = None   # (B, S_max, Kv) f32, int8 only
     v_scale: Optional[torch.Tensor] = None
+    # under a mesh whose "model" axis shards the positions (kv_seq): the
+    # first position this rank holds; None for a whole cache
+    seq_lo: Optional[int] = None
+
+
+def kv_cache_axes(cfg: ArchConfig) -> KVCache:
+    """Batch over data, cached sequence over model: each model rank holds
+    a slice of the positions, and the softmax combines across ranks
+    (``runtime.meshctx.lse_combine``)."""
+    scale_ax = ("batch", "kv_seq", None) if cfg.kv_quant else None
+    return KVCache(("batch", "kv_seq", None, None),
+                   ("batch", "kv_seq", None, None), (),
+                   scale_ax, scale_ax)
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, s_max: int,
                   device=None) -> KVCache:
+    """The empty cache of ``batch`` rows. Under a mesh whose planner puts
+    "kv_seq" on "model" (s_max divisible), this rank's slice of the
+    positions only (the caller has split the rows already)."""
+    lo = None
+    mesh = current_mesh()
+    if mesh is not None:
+        from repro_torch.runtime.sharding import Planner
+        if Planner(mesh, cfg).act_spec("kv_seq", shape=(s_max,))[0]:
+            n = mesh.shape["model"]
+            s_max //= n
+            lo = mesh.index(("model",)) * s_max
     shp = (batch, s_max, cfg.n_kv, cfg.d_head)
     if cfg.kv_quant:
         sshp = shp[:-1]
         return KVCache(torch.zeros(shp, dtype=torch.int8, device=device),
                        torch.zeros(shp, dtype=torch.int8, device=device), 0,
                        torch.zeros(sshp, dtype=torch.float32, device=device),
-                       torch.zeros(sshp, dtype=torch.float32, device=device))
+                       torch.zeros(sshp, dtype=torch.float32, device=device),
+                       lo)
     return KVCache(torch.zeros(shp, dtype=cfg.dtype, device=device),
-                   torch.zeros(shp, dtype=cfg.dtype, device=device), 0)
+                   torch.zeros(shp, dtype=cfg.dtype, device=device), 0,
+                   seq_lo=lo)
 
 
 def _quantize_token(t: torch.Tensor):
@@ -118,6 +156,10 @@ def decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
     v_new = linear(x, p["wv"], tap="wv").reshape(b, s, kv, dh)
     q = rotate(cfg, q, positions)
     k_new = rotate(cfg, k_new, positions)
+    if cache.seq_lo is not None:
+        out = _split_decode(cfg, q, k_new, v_new, cache)
+        return (linear(out, p["wo"], tap="wo"),
+                cache._replace(length=cache.length + s))
 
     idx = cache.length
     if cfg.kv_quant:
@@ -149,6 +191,50 @@ def decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
     return linear(out, p["wo"], tap="wo"), new_cache
 
 
+def _split_decode(cfg: ArchConfig, q: torch.Tensor, k_new: torch.Tensor,
+                  v_new: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    """``decode_attention`` on this rank's slice of the positions,
+    [seq_lo, seq_lo + S_l): the new tokens written where they fall in it,
+    the scores of its positions, and the softmax and the weighted V
+    combined across the "model" ranks (the reference's split softmax,
+    explicit). Its arithmetic is the single device's: probabilities
+    normalised in f32 (int8: times the V scales), rounded to cfg.dtype,
+    then weighed against V at cfg.dtype, accumulated in f32 and rounded
+    once. Returns the attention output (B, S, d_q)."""
+    b, s = q.shape[:2]
+    kv, g, dh = cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.d_head
+    idx, lo, s_l = cache.length, cache.seq_lo, cache.k.shape[1]
+    a, e = max(idx, lo), min(idx + s, lo + s_l)
+    if a < e:
+        if cfg.kv_quant:
+            k_q, k_s = _quantize_token(k_new)
+            v_q, v_s = _quantize_token(v_new)
+            cache.k_scale[:, a - lo:e - lo] = k_s[:, a - idx:e - idx]
+            cache.v_scale[:, a - lo:e - lo] = v_s[:, a - idx:e - idx]
+            k_new, v_new = k_q, v_q
+        cache.k[:, a - lo:e - lo] = k_new[:, a - idx:e - idx].to(
+            cache.k.dtype)
+        cache.v[:, a - lo:e - lo] = v_new[:, a - idx:e - idx].to(
+            cache.v.dtype)
+    q = q.reshape(b, s, kv, g, dh) * (dh ** -0.5)
+    kk = cache.k.to(cfg.dtype) if cfg.kv_quant else cache.k
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q.float(), kk.float())
+    if cfg.kv_quant:
+        logits = logits * cache.k_scale.permute(0, 2, 1)[:, :, None, None, :]
+    valid = lo + torch.arange(s_l, device=q.device) <= idx
+    logits = logits.masked_fill(~valid, NEG_INF)
+    vv = (cache.v.to(cfg.dtype) if cfg.kv_quant else cache.v).float()
+
+    def weigh_v(pr):
+        if cfg.kv_quant:
+            pr = pr * cache.v_scale.permute(0, 2, 1)[:, :, None, None, :]
+        pr = pr.to(cfg.dtype).float()
+        return torch.einsum("bkgqs,bskd->bkgqd", pr, vv)
+
+    out = lse_combine(logits, weigh_v)                    # (B,kv,g,S,dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, cfg.d_q).to(cfg.dtype)
+
+
 def paged_decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, pool,
                            block_tables: torch.Tensor, lengths: torch.Tensor,
                            positions: torch.Tensor, active: torch.Tensor):
@@ -164,7 +250,9 @@ def paged_decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, pool,
     The new token's K/V go to block ``block_tables[r, len // bs]`` at
     offset ``len % bs``; attention then reads the whole stream through
     the block table with the ``flash_decode_paged`` kernel, int8
-    included."""
+    included. Under a mesh whose planner split the pool's kv heads over
+    "model", each rank writes and reads its heads and the heads' outputs
+    are gathered."""
     from repro_torch.kernels import ops
     from repro_torch.serving.paged_cache import paged_write
     b, s, _ = x.shape
@@ -175,6 +263,11 @@ def paged_decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, pool,
     q = rotate(cfg, q, positions)
     k_new = rotate(cfg, k_new, positions)
 
+    kv_l = pool.k.shape[2]
+    if kv_l != kv:                  # this rank's kv heads of the pool
+        h0 = model_shards()[0] * kv_l
+        k_new, v_new = k_new[:, :, h0:h0 + kv_l], v_new[:, :, h0:h0 + kv_l]
+        q = q[:, :, h0 * g:(h0 + kv_l) * g]
     bs_blk = pool.block_size
     n_bt = block_tables.shape[1]
     # physical write slot; the clamp shields idle rows with stale
@@ -193,11 +286,13 @@ def paged_decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, pool,
         paged_write(pool.k, k_new[:, 0], blk, off, active)
         paged_write(pool.v, v_new[:, 0], blk, off, active)
 
-    qg = q[:, 0].reshape(b, kv, g, dh) * (dh ** -0.5)
+    qg = q[:, 0].reshape(b, kv_l, g, dh) * (dh ** -0.5)
     act = torch.as_tensor(active).to(x.device, non_blocking=True)
     att_len = torch.where(act, lengths + 1, 0).to(torch.int32)
     out = ops.flash_decode_paged_attention(
         qg.contiguous(), pool.k, pool.v, block_tables, att_len,
         pool.k_scale, pool.v_scale)
+    if kv_l != kv:
+        out = gather_model(out, dim=1)
     out = out.reshape(b, 1, cfg.d_q).to(x.dtype)
     return linear(out, p["wo"], tap="wo"), pool

@@ -37,6 +37,14 @@ selective-checkpoint policies below (``nothing_saveable`` recomputes
 the whole layer in the backward pass, ``dots_saveable`` keeps the
 matmul outputs, ``everything_saveable`` keeps all), or None for no
 checkpoint.
+
+Under a mesh (``runtime.meshctx.use_mesh``) the params are this rank's
+shards (``runtime.sharding``): each layer's dense shards (over "data")
+are gathered whole before the layer runs, packed leaves run on their
+rows, and the
+vocab-sharded embedding table serves its rows' lookups and logits.
+``param_axes`` / ``cache_axes`` give the logical axes the planner
+places them by, one dict per layer (no "layers" lead).
 """
 from __future__ import annotations
 
@@ -56,6 +64,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
                                        positions_for, rms_norm,
                                        softmax_xent, tap_scope)
+from repro_torch.runtime.meshctx import (Shard, gather_dense, gather_model,
+                                         merge_model, model_shards, whole)
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -84,6 +94,35 @@ def check_params_on(params: dict, dev: torch.device, what: str) -> None:
     if got.type != dev.type:
         raise ValueError(f"params live on {got}, {what} was asked to run "
                          f"on {dev}")
+
+
+def _layer_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of one layer's params."""
+    if cfg.family in SSM_FAMILIES:
+        return {"norm": ("embed",), "mamba": mamba_lib.mamba_axes()}
+    a: dict = {"attn_norm": ("embed",), "mlp_norm": ("embed",),
+               "attn": attn_lib.attention_axes()}
+    if cfg.family == "moe":
+        a["moe"] = moe_lib.moe_axes(cfg)
+    else:
+        a["mlp"] = mlp_lib.mlp_axes(cfg)
+    return a
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The params' logical-axes tree (``runtime.sharding.Planner``)."""
+    _check_family(cfg)
+    axes: dict = {"layers": [_layer_axes(cfg) for _ in range(cfg.n_layers)],
+                  "final_norm": ("embed",)}
+    if cfg.input_mode == "tokens" or cfg.family == "vlm":
+        axes["embed"] = ("vocab", "embed")
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    if cfg.family == "hybrid":
+        axes["shared_attn"] = {
+            "attn_norm": ("embed",), "mlp_norm": ("embed",),
+            "attn": attn_lib.attention_axes(), "mlp": mlp_lib.mlp_axes(cfg)}
+    return axes
 
 
 def _init_ffn(cfg: ArchConfig, gen: torch.Generator, dev) -> dict:
@@ -178,10 +217,12 @@ def _layer_fwd(cfg: ArchConfig, params: dict, lp: dict, idx: int,
                h: torch.Tensor, positions: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of the full-sequence forward. Returns (h, aux)."""
+    lp = gather_dense(lp)
     if cfg.family in SSM_FAMILIES:
         if shared_fires(cfg, idx):
             with tap_scope("shared"):
-                h, _ = _attn_layer(cfg, params["shared_attn"], h, positions)
+                h, _ = _attn_layer(cfg, gather_dense(params["shared_attn"]),
+                                   h, positions)
         with tap_scope("mamba"):
             h = h + mamba_lib.mamba_block(
                 cfg, lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps))
@@ -192,19 +233,44 @@ def _layer_fwd(cfg: ArchConfig, params: dict, lp: dict, idx: int,
     return h, aux
 
 
+def _vocab_split(t, dim: int) -> bool:
+    """Whether ``t`` is a Shard whose vocab dim ``dim`` is split over
+    "model"."""
+    return (isinstance(t, Shard) and t.spec[dim] == "model"
+            and model_shards()[1] > 1)
+
+
 def embed_inputs(cfg: ArchConfig, params: dict,
                  inputs: torch.Tensor) -> torch.Tensor:
     """Token ids -> table lookup; float inputs (the stub frontends'
-    patch or frame embeddings) pass through at the model dtype."""
-    if not inputs.is_floating_point():
-        return F.embedding(inputs.long(), params["embed"])
-    return inputs.to(cfg.dtype)
+    patch or frame embeddings) pass through at the model dtype. On a
+    vocab-sharded table each rank looks up the ids in its rows (zeros
+    elsewhere) and the ranks merge, bit for bit."""
+    if inputs.is_floating_point():
+        return inputs.to(cfg.dtype)
+    table = params["embed"]
+    if not _vocab_split(table, 0):
+        return F.embedding(inputs.long(), whole(table))
+    rows = whole(table, keep=(0,))
+    n = rows.shape[0]
+    ids = inputs.long() - model_shards()[0] * n
+    mine = (ids >= 0) & (ids < n)
+    e = F.embedding(ids.clamp(0, n - 1), rows)
+    return merge_model(torch.where(mine[..., None], e, torch.zeros_like(e)))
 
 
 def unembed(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Logits; on a vocab-sharded table or head, this rank's vocab slice,
+    gathered over "model"."""
     if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["lm_head"]
+        table = params["embed"]
+        if _vocab_split(table, 0):
+            return gather_model(h @ whole(table, keep=(0,)).T)
+        return h @ whole(table).T
+    head = params["lm_head"]
+    if _vocab_split(head, 1):
+        return gather_model(h @ whole(head, keep=(1,)))
+    return h @ whole(head)
 
 
 # ------------------------------------------------------------------
@@ -275,7 +341,7 @@ def forward(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, n, step):
         h, aux = block(lo, lo + step, h, aux)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = rms_norm(h, whole(params["final_norm"]), cfg.norm_eps)
     return unembed(cfg, params, h), aux
 
 
@@ -330,8 +396,23 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, device=None):
             for _ in range(cfg.n_layers)]
 
 
+def cache_axes(cfg: ArchConfig):
+    """Logical axes of ``init_cache``'s cache: one ``attn.kv_cache_axes``
+    per layer, or an ``SSMCache`` of them."""
+    _check_family(cfg)
+    if cfg.family in SSM_FAMILIES:
+        skv = None
+        if cfg.family == "hybrid":
+            skv = [attn_lib.kv_cache_axes(cfg)
+                   for _ in range(n_shared_invocations(cfg))]
+        return SSMCache([mamba_lib.mamba_cache_axes()
+                         for _ in range(cfg.n_layers)], skv)
+    return [attn_lib.kv_cache_axes(cfg) for _ in range(cfg.n_layers)]
+
+
 def _layer_decode(cfg: ArchConfig, lp: dict, h: torch.Tensor,
                   kv_l: attn_lib.KVCache, positions: torch.Tensor):
+    lp = gather_dense(lp)
     with tap_scope("attn"):
         a, kc = attn_lib.decode_attention(
             cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
@@ -377,7 +458,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache, token: torch.Tensor,
         for lp, kv_l in zip(params["layers"], cache):
             h, kc = _layer_decode(cfg, lp, h, kv_l, positions)
             new_cache.append(kc)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = rms_norm(h, whole(params["final_norm"]), cfg.norm_eps)
     return unembed(cfg, params, h), new_cache
 
 
@@ -385,6 +466,7 @@ def _layer_decode_paged(cfg: ArchConfig, lp: dict, h: torch.Tensor,
                         pool_l, block_tables: torch.Tensor,
                         lengths: torch.Tensor, positions: torch.Tensor,
                         active):
+    lp = gather_dense(lp)
     with tap_scope("attn"):
         a, pool_l = attn_lib.paged_decode_attention(
             cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
@@ -418,7 +500,7 @@ def paged_decode_step(cfg: ArchConfig, params: dict, paged: list,
     for lp, pool_l in zip(params["layers"], paged):
         h, _ = _layer_decode_paged(cfg, lp, h, pool_l, block_tables,
                                    lengths, positions, active)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = rms_norm(h, whole(params["final_norm"]), cfg.norm_eps)
     return unembed(cfg, params, h), paged
 
 

@@ -28,6 +28,20 @@ from repro_torch.core.packed_model import linear
 from repro_torch.models.common import ArchConfig, dense_init, rms_norm
 
 
+def mamba_axes() -> dict:
+    """Logical axes of one Mamba-2 block's params (runtime.sharding)."""
+    return {
+        "in_z": ("embed", "ssm"), "in_x": ("embed", "ssm"),
+        "in_b": ("embed", None), "in_c": ("embed", None),
+        "in_dt": ("embed", "ssm_heads"),
+        "conv_x": ("ssm", None), "conv_b": (None, None),
+        "conv_c": (None, None),
+        "a_log": ("ssm_heads",), "d_skip": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",), "gate_norm": ("ssm",),
+        "out": ("ssm", "embed"),
+    }
+
+
 def init_mamba(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     k = cfg.ssm_conv
@@ -139,6 +153,12 @@ class MambaCache(NamedTuple):
     conv_b: torch.Tensor   # (B, K-1, N)
     conv_c: torch.Tensor   # (B, K-1, N)
     h: torch.Tensor        # (B, H, P, N) recurrent state, f32
+
+
+def mamba_cache_axes() -> MambaCache:
+    return MambaCache(("batch", None, "ssm"), ("batch", None, None),
+                      ("batch", None, None),
+                      ("batch", "ssm_heads", None, None))
 
 
 def init_mamba_cache(cfg: ArchConfig, batch: int,

@@ -13,6 +13,14 @@ def is_gated(act: str) -> bool:
     return act == "swiglu"
 
 
+def mlp_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of the MLP's params (runtime.sharding)."""
+    if is_gated(cfg.act):
+        return {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"),
+                "w_down": ("ffn", "embed")}
+    return {"w_up": ("embed", "ffn"), "w_down": ("ffn", "embed")}
+
+
 def init_mlp(cfg: ArchConfig, gen: torch.Generator, device,
              d_ff: int | None = None) -> dict:
     """``d_ff`` overrides the hidden width (the MoE shared experts)."""

@@ -15,8 +15,11 @@ D_out) leaf is a batched matmul, an ``ExpertPackedStack`` goes through
 expert bucket). Returns the Switch load-balancing aux loss beside the
 output. With ``cfg.shared_ff`` (DeepSeek-MoE) an always-on SwiGLU MLP
 of that width, the shared experts, is added to the routed output; its
-linears tap as ``moe.shared.*`` and pack as plain 2-D linears. The
-sharding axes are not ported.
+linears tap as ``moe.shared.*`` and pack as plain 2-D linears.
+
+Under a mesh the expert linears run expert-parallel
+(``core.packed_model.expert_matmul``); routing and the combine run on
+every rank, whole.
 """
 from __future__ import annotations
 
@@ -41,6 +44,19 @@ def _expert_apply(x4: torch.Tensor, w) -> torch.Tensor:
         y = expert_matmul(xe, w)
         return y.reshape(e, g, c, -1).permute(1, 0, 2, 3)
     return torch.einsum("gecd,edf->gecf", x4, w)
+
+
+def moe_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of the MoE layer's params (runtime.sharding)."""
+    axes = {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", "ffn"),
+        "w_up": ("experts", "embed", "ffn"),
+        "w_down": ("experts", "ffn", "embed"),
+    }
+    if cfg.shared_ff:
+        axes["shared"] = mlp_lib.mlp_axes(cfg.with_(act="swiglu"))
+    return axes
 
 
 def init_moe(cfg: ArchConfig, gen: torch.Generator, device) -> dict:

@@ -32,8 +32,15 @@ head with a block-accounting diagnosis instead of spinning.
 
 Open-loop traces: requests carry ``arrival`` stamps; ``clock="steps"``
 replays them against the engine-step counter (deterministic — tests),
-``clock="wall"`` against wall time (benchmarks). The reference's
-``mesh``/``planner`` (tensor-parallel serving) are not ported.
+``clock="wall"`` against wall time (benchmarks).
+
+Under a mesh (``mesh=``, as ``serve --mesh`` builds it) the pools are
+placed by ``paged_cache_axes`` (kv heads over "model"; never over data,
+so every data rank runs every row) and the steps run on each rank's
+shards. The scheduler reads a wall clock, deadlines and a fault plan, so
+it runs on rank 0 alone: each step rank 0 broadcasts the step's block
+tables, lengths, tokens, valid counts and poisoned rows, and the other
+ranks run that step (``run`` there returns when rank 0's trace ends).
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.common import ArchConfig
+from repro_torch.runtime.meshctx import use_mesh
 from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.paged_cache import init_paged_cache
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -75,10 +83,12 @@ class Engine:
 
     ``params`` may be dense, SLaB-compressed dense-equivalent, or packed
     (``PackedLinear`` leaves — the CUDA-kernel serving path). Runs on the
-    CUDA card unless ``device="cpu"``; the params must live there."""
+    CUDA card unless ``device="cpu"``; the params must live there. Under
+    ``mesh`` they are this rank's shards (``runtime.sharding``)."""
 
     def __init__(self, cfg: ArchConfig, params: dict,
-                 ecfg: EngineConfig = EngineConfig(), device=None):
+                 ecfg: EngineConfig = EngineConfig(), device=None,
+                 mesh=None):
         if cfg.family in lm.NO_PAGED_DECODE:
             raise ValueError(
                 f"engine serves KV-attention families; {cfg.family!r} "
@@ -94,8 +104,10 @@ class Engine:
                                max_waiting=ecfg.max_waiting,
                                shed=ecfg.shed,
                                max_evictions=ecfg.max_evictions)
-        self.paged = init_paged_cache(cfg, ecfg.n_blocks, ecfg.block_size,
-                                      device=self.device)
+        self.mesh = mesh
+        with use_mesh(mesh):
+            self.paged = init_paged_cache(cfg, ecfg.n_blocks,
+                                          ecfg.block_size, device=self.device)
         self.n_steps = 0
 
     # -- one step ----------------------------------------------------------
@@ -136,14 +148,49 @@ class Engine:
                   force_nan: np.ndarray):
         """Move the scheduler's tables, lengths and tokens to the card
         (once per step, without waiting on it), run the step, and bring
-        back the sampled tokens and finite flags."""
+        back the sampled tokens and finite flags. Under a mesh the step's
+        arrays go to the other ranks first."""
+        tables, lengths = self.sched.block_table, self.sched.lengths
+        if self.mesh is not None:
+            self._send(tables, lengths, tokens, n_valid, force_nan)
+        return self._device_step(tables, lengths, tokens, n_valid,
+                                 force_nan)
+
+    def _device_step(self, tables, lengths, tokens, n_valid, force_nan):
         def dev(a):
             return torch.from_numpy(a).to(self.device, non_blocking=True)
 
-        last, ok = self._step(dev(self.sched.block_table),
-                              dev(self.sched.lengths), dev(tokens), n_valid,
-                              force_nan)
+        with use_mesh(self.mesh):
+            last, ok = self._step(dev(tables), dev(lengths), dev(tokens),
+                                  n_valid, force_nan)
         return last.cpu().numpy().astype(np.int32), ok.cpu().numpy()
+
+    # -- rank 0 leads, the other ranks follow -----------------------------
+
+    def _bcast(self, a: np.ndarray) -> np.ndarray:
+        t = torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
+            self.mesh.comm_device())
+        return self.mesh.broadcast(t, src=0).cpu().numpy()
+
+    def _send(self, tables, lengths, tokens, n_valid, force_nan) -> None:
+        r, c = tokens.shape
+        self._bcast(np.array([1, r, c, tables.shape[1]]))
+        self._bcast(np.concatenate([tables.ravel(), lengths, tokens.ravel(),
+                                    n_valid, force_nan.astype(np.int64)]))
+
+    def _follow(self) -> None:
+        """Run rank 0's steps until it ends its trace."""
+        while True:
+            go, r, c, n_bt = self._bcast(np.zeros(4, np.int64)).tolist()
+            if not go:
+                return
+            body = self._bcast(np.zeros(r * (n_bt + c + 3), np.int64))
+            parts = np.split(body, np.cumsum([r * n_bt, r, r * c, r]))
+            self._device_step(parts[0].reshape(r, n_bt).astype(np.int32),
+                              parts[1].astype(np.int32),
+                              parts[2].reshape(r, c).astype(np.int32),
+                              parts[3].astype(np.int32),
+                              parts[4].astype(bool))
 
     # -- fault plumbing ----------------------------------------------------
 
@@ -208,9 +255,21 @@ class Engine:
         (same objects) with ``status``/``out``/``ttft``/``token_times``
         /``finish`` populated — plus any burst requests ``faults``
         injected — and never raises on a valid trace: failures are
-        statuses, not exceptions. Arrival order need not be sorted."""
+        statuses, not exceptions. Arrival order need not be sorted.
+        Under a mesh only rank 0 serves the trace; the other ranks run its
+        steps and return ``requests`` untouched."""
         if clock not in ("steps", "wall"):
             raise ValueError(clock)
+        if self.mesh is not None and self.mesh.rank != 0:
+            self._follow()
+            return list(requests)
+        try:
+            return self._serve(requests, clock, max_steps, faults)
+        finally:
+            if self.mesh is not None:
+                self._bcast(np.zeros(4, np.int64))       # the end
+
+    def _serve(self, requests, clock, max_steps, faults) -> List[Request]:
         for req in requests:
             self.sched.submit(req)       # unservable -> status rejected
         injected: List[Request] = []

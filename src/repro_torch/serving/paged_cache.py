@@ -44,14 +44,32 @@ class PagedKVCache(NamedTuple):
         return self.k.shape[1]
 
 
+def paged_cache_axes(cfg: ArchConfig) -> PagedKVCache:
+    """Logical axes of one layer's pools (runtime.sharding): blocks are
+    never sharded (any request may own any block, so a block split would
+    scatter one stream across ranks), while the kv-head dim goes over
+    "model" where it divides (each rank serves its heads' pool)."""
+    scale_ax = ("kv_blocks", None, "kv_heads") if cfg.kv_quant else None
+    ax = ("kv_blocks", None, "kv_heads", None)
+    return PagedKVCache(ax, ax, scale_ax, scale_ax)
+
+
 def init_paged_cache(cfg: ArchConfig, n_blocks: int, block_size: int,
                      device=None) -> List[PagedKVCache]:
-    """One zeroed ``PagedKVCache`` per layer."""
+    """One zeroed ``PagedKVCache`` per layer; under a mesh, this rank's
+    shard of it as ``paged_cache_axes`` places it."""
     if cfg.family in ("ssm", "hybrid", "audio"):
         raise ValueError(
             f"paged KV serving needs a KV-attention family, not "
             f"{cfg.family!r} (SSM state is O(1) — it doesn't page)")
     shp = (n_blocks, block_size, cfg.n_kv, cfg.d_head)
+    from repro_torch.runtime.meshctx import current_mesh
+    mesh = current_mesh()
+    if mesh is not None:
+        from repro_torch.runtime.sharding import Planner
+        spec = Planner(mesh, cfg).spec(paged_cache_axes(cfg).k, shp)
+        shp = tuple(d // mesh.n(() if e is None else (e,))
+                    for d, e in zip(shp, spec))
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)

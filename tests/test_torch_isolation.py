@@ -10,7 +10,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -37,7 +38,9 @@ def test_port_files_exist():
             "step.py", "fault.py", "elastic.py", "manager.py", "train.py",
             "tree.py", "torch_quickstart.py", "torch_auto_allocate.py",
             "torch_train_e2e.py", "mamba2.py", "mamba2_1_3b.py",
-            "zamba2_7b.py", "qwen2_vl_2b.py", "hubert_xlarge.py"} <= names
+            "zamba2_7b.py", "qwen2_vl_2b.py", "hubert_xlarge.py",
+            "sharding.py", "mesh.py", "meshctx.py",
+            "torch_tp_worker.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -79,6 +82,8 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card):
         serve.greedy_decode(cfg, params, prompts, 2)
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--arch", "stablelm_12b"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--arch", "stablelm_12b", "--mesh", "1,2"])
     out = serve.greedy_decode(cfg, params, prompts, 2, device="cpu")
     assert out.shape == (1, 2)
     taps = collect_model_stats(cfg, params, calib, device="cpu")
@@ -228,3 +233,25 @@ def test_serve_cli_packs_and_serves_the_vlm_on_the_cpu(capsys, engine):
     if engine:
         assert "engine: 3 requests [finished=3]" in out
     assert "sample generation:" in out
+
+
+def test_serve_mesh_usage_errors(monkeypatch, capsys):
+    """``serve --mesh``: the families that do not serve under a mesh yet
+    (ROADMAP A7b), and a world size other than DATA x MODEL, are usage
+    errors, raised before any process group starts."""
+    from repro_torch.launch import serve
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for arch in ("mamba2_1_3b", "zamba2_7b", "hubert_xlarge"):
+        with pytest.raises(SystemExit):
+            serve.main(["--arch", arch, "--device", "cpu", "--mesh", "1,2"])
+        assert "A7b" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "stablelm_12b", "--device", "cpu",
+                    "--mesh", "1,2"])
+    err = capsys.readouterr().err
+    assert "needs 2 ranks, launched with 1" in err
+    assert "torch.distributed.run" in err
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "stablelm_12b", "--device", "cpu",
+                    "--mesh", "two"])
+    assert "expected DATA,MODEL" in capsys.readouterr().err
