@@ -242,6 +242,25 @@ Phases:
           held against the single device's and the launches (added to
           the JSON line's); rank 0's profile of a decode step and the
           collectives' share of it (host clock, synchronised);
+     then the distributed training runtime:
+       P  a (data 2, model 1) mesh of two processes on the one card
+          (``runtime.mesh.spawn``, gloo carrying CUDA tensors), llama2-7b
+          at full width, bf16 params and f32 moments, init and batch as
+          phase T's: P1 ``make_train_fn(planner=...)`` at 2 layers,
+          batch 8 x 512 global (4 rows a rank), microbatches 2, remat
+          "nothing", 3 steps on batch 0: losses finite and falling, step
+          1 within 1e-3 of phase T's; the step's wall, the collectives'
+          calls, seconds and bytes (``Mesh.timed``), rank 0's profile,
+          max_memory_allocated and the bytes of params and moments a
+          rank holds; P2 the same at 1 layer for 2 steps, committed by
+          rank 0 into a temporary directory of the checkout (removed
+          afterwards) and restored by this process on the card, bitwise
+          equal (SHA-256 of every leaf) to the state the ranks assembled;
+          P3 ``ddp.build_compressed_ddp_step`` at 1 layer, 4 compressed
+          and 4 uncompressed steps from the same init on batch 0 at lr
+          1e-4 (P3_LR): the compressed loss falls, the last losses within
+          5 %, the error buffers not zero, and each variant's bytes sent
+          a step and step wall. Phase P launches no packed kernel;
   4. one JSON line listing every ported kernel (all twenty; #1-#9 and
      #12-#20 once per library, each with its own launch counter:
      thirty-eight entries), then the result line.
@@ -2614,6 +2633,7 @@ def train_phase():
 
     share = _device_profile(run_last, 1, step_ms, "train step",
                             unit="train step")
+    YARDSTICKS["T step 1"] = losses[0]
     log(f"  losses (remat 'nothing', batch 0 every step): "
         + " ".join(f"{x:.4f}" for x in losses))
     log(f"  train step {step_ms:.2f} ms (median of steps 2-{last}), "
@@ -4035,6 +4055,288 @@ def _mesh_report(per_rank, single, model, steps, cfg):
     return total, a["kernel"]
 
 
+# ---------------------------------------------------------------- phase P
+
+P_MESH = (2, 1)          # (data, model): two ranks on the one card
+P_STEPS, P2_STEPS, P3_STEPS = 3, 2, 4
+P_TIMEOUT = 600.0
+P_LOSS_TOL = 1e-3        # P1's step 1 against phase T's
+P3_CLOSE = 0.05          # compressed vs uncompressed after P3_STEPS
+# P3's learning rate: at phase T's 1e-3 both runs fit batch 0 to a loss
+# near 0 by step 4 (0.0087 vs 0.0100), where a relative bound measures
+# the floor's noise, and on fresh batches the loss does not fall in 4
+# steps at full width (10.7432 -> 10.7448)
+P3_LR = 1e-4
+YARDSTICKS = {}          # numbers a later phase holds: phase T's step-1 loss
+
+
+def _nbytes_held(tree) -> int:
+    from repro_torch.runtime.sharding import local_tensors
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(local_tensors(tree)))
+
+
+def _digests(tree) -> list:
+    """SHA-256 of every leaf's bytes, in flatten order."""
+    import hashlib
+    from repro_torch.tree import tree_leaves
+    return [hashlib.sha256(t.detach().contiguous().view(-1).view(
+        torch.uint8).cpu().numpy()).hexdigest() for t in tree_leaves(tree)]
+
+
+def _p_timed_step(mesh, run):
+    """``run()`` with the collectives timed (``Mesh.timed``): (its
+    result, wall seconds, (collective seconds, calls, bytes sent))."""
+    mesh.timed = True
+    mesh.comm_s, mesh.comm_calls, mesh.comm_bytes = 0.0, 0, 0
+    sync()
+    t0 = time.monotonic()
+    out = run()
+    sync()
+    wall = time.monotonic() - t0
+    mesh.timed = False
+    return out, wall, (mesh.comm_s, mesh.comm_calls, mesh.comm_bytes)
+
+
+def _p_worker(rank, world, dev, data, model, commit):
+    """One rank of phase P: P1 (make_train_fn on the mesh, 2 layers), P2
+    (1 layer, committed by rank 0) and P3 (the int8 error-feedback DDP
+    step against the plain f32 mean); returns what the parent holds and
+    logs."""
+    import contextlib
+    import dataclasses
+    import io
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime import ddp
+    from repro_torch.runtime.elastic import place_train_state
+    from repro_torch.runtime.mesh import make_mesh
+    from repro_torch.runtime.sharding import Planner, gather_shards
+    from repro_torch.runtime.step import make_train_fn
+    from repro_torch.tree import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(data, model, dev)
+    out = {}
+
+    def placed(cfg, acfg):
+        params = lm.init(cfg, seed=0, device=dev)
+        state = {"params": params, "opt": adamw_init(params, acfg)}
+        single = (_nbytes_held(state["params"]),
+                  _nbytes_held((state["opt"].mu, state["opt"].nu)))
+        state = place_train_state(state, cfg, acfg, mesh)
+        del params
+        torch.cuda.empty_cache()
+        return state, single
+
+    # ---- P1: 2 layers, P_STEPS steps on batch 0
+    _, cfg, acfg = _train_setup(2)
+    fit = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticCorpus(
+        cfg.vocab, seed=0).batch(0, TRAIN_BATCH, TRAIN_SEQ).items()}
+    state, single = placed(cfg, acfg)
+    held = (_nbytes_held(state["params"]),
+            _nbytes_held((state["opt"].mu, state["opt"].nu)))
+    step = make_train_fn(cfg, acfg, TRAIN_MB, "nothing",
+                         planner=Planner(mesh, cfg))
+    torch.cuda.reset_peak_memory_stats(dev)
+    p, o = state["params"], state["opt"]
+    losses, walls, comm, profile = [], [], None, ""
+    for s in range(P_STEPS):
+        if s == 1:            # the collectives timed
+            (p, o, m), wall, comm = _p_timed_step(
+                mesh, lambda: step(p, o, fit))
+        elif s == 2 and rank == 0:
+            box = []
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _device_profile(lambda: box.append(step(p, o, fit)), 1,
+                                walls[1] * 1e3, "rank 0 train step",
+                                unit="train step")
+            p, o, m = box[0]
+            profile, wall = buf.getvalue(), float("nan")
+        else:
+            sync()
+            t0 = time.monotonic()
+            p, o, m = step(p, o, fit)
+            sync()
+            wall = time.monotonic() - t0
+        losses.append(float(m["loss"]))
+        walls.append(wall)
+    out["P1"] = {"losses": losses, "walls": walls, "comm": comm,
+                 "profile": profile, "held": held, "single": single,
+                 "peak": torch.cuda.max_memory_allocated(dev)}
+    del p, o, state, step, m
+    torch.cuda.empty_cache()
+
+    # ---- P2: 1 layer, P2_STEPS steps, committed by rank 0
+    _, cfg1, acfg1 = _train_setup(1)
+    state, _ = placed(cfg1, acfg1)
+    step = make_train_fn(cfg1, acfg1, TRAIN_MB, "nothing",
+                         planner=Planner(mesh, cfg1))
+    p, o = state["params"], state["opt"]
+    losses = []
+    for s in range(P2_STEPS):
+        p, o, m = step(p, o, fit)
+        losses.append(float(m["loss"]))
+    sync()
+    t0 = time.monotonic()
+    assembled = gather_shards({"params": p, "opt": o}, mesh)
+    sync()
+    t_gather = time.monotonic() - t0
+    digests = _digests(assembled) if rank == 0 else None
+    mgr = CheckpointManager(commit, keep=1, mesh=mesh)
+    t0 = time.monotonic()
+    mgr.save(P2_STEPS, assembled)
+    mgr.wait()
+    out["P2"] = {"losses": losses, "digests": digests,
+                 "gather_s": t_gather, "commit_s": time.monotonic() - t0,
+                 "local": [tuple(t.local.shape) for t in
+                           [p["layers"][0]["attn"]["wq"]]]}
+    del p, o, state, step, assembled, m
+    torch.cuda.empty_cache()
+
+    # ---- P3: the compressed DDP step against the plain f32 mean, 1 layer,
+    # on batch 0 at P3_LR
+    acfg3 = dataclasses.replace(acfg1, lr=P3_LR)
+    for compress in (True, False):
+        params = lm.init(cfg1, seed=0, device=dev)
+        opt = adamw_init(params, acfg3)
+        err = ddp.init_error_buffers(params)
+        step = ddp.build_compressed_ddp_step(cfg1, acfg3, mesh,
+                                             compress=compress)
+        losses, walls, comms = [], [], []
+        for s in range(P3_STEPS):
+            (params, opt, err, m), wall, c = _p_timed_step(
+                mesh, lambda: step(params, opt, err, fit))
+            losses.append(float(m["loss"]))
+            walls.append(wall)
+            comms.append(c)
+        out[f"P3 {compress}"] = {
+            "losses": losses, "walls": walls, "comm": comms,
+            "err_nonzero": any(bool(e.abs().max() > 0)
+                               for e in tree_leaves(err))}
+        del params, opt, err, step, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def ddp_train_phase():
+    """Phase P: the distributed training runtime on a (data 2, model 1)
+    mesh of two processes on the one card (gloo carrying CUDA tensors);
+    see the module docstring. Launches no packed kernel."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import lm
+    from repro_torch.runtime.elastic import elastic_restore
+    from repro_torch.runtime.mesh import spawn
+    data, model = P_MESH
+    full, cfg, acfg = _train_setup(2)
+    log(f"phase P: distributed training, mesh data={data} x model={model} "
+        f"as {data * model} processes on the one card ({CARD[0]}); "
+        f"{full.name} full width, bf16 params, f32 moments, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} global ({TRAIN_BATCH // data} rows a "
+        f"rank), microbatches {TRAIN_MB}, remat 'nothing'")
+    t_first = YARDSTICKS["T step 1"]
+    root = Path(__file__).resolve().parent
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=root)
+    try:
+        _, cfg1, acfg1 = _train_setup(1)
+        per_commit = lm.param_count(cfg1) * (2 + 4 + 4)
+        free = shutil.disk_usage(tmp).free
+        if free < 2.5 * per_commit:
+            raise AssertionError(f"phase P: {free / 1e9:.1f} GB free, the "
+                                 f"commit needs ~{per_commit / 1e9:.1f}")
+        commit = os.path.join(tmp, "commit")
+        t0 = time.monotonic()
+        per_rank = spawn(_p_worker, data * model, "cuda",
+                         os.path.join(tmp, "store"),
+                         args=(data, model, commit), timeout=P_TIMEOUT)
+        log(f"  {data * model} ranks spawned and ran P1-P3 in "
+            f"{time.monotonic() - t0:.1f}s")
+        _p1_report(per_rank, t_first)
+        # P2: the parent restores the commit on the card
+        r0 = per_rank[0]["P2"]
+        t0 = time.monotonic()
+        state = elastic_restore(CheckpointManager(commit), cfg1, acfg1,
+                                device="cuda")
+        sync()
+        t_restore = time.monotonic() - t0
+        same = _digests(state) == r0["digests"]
+        log(f"  P2: llama2-7b 1 layer, {P2_STEPS} steps on the mesh (losses "
+            + " ".join(f"{x:.4f}" for x in r0["losses"]) + f"), rank 0's "
+            f"wq shard {r0['local'][0]}; gathered whole in "
+            f"{r0['gather_s']:.2f}s, committed by rank 0 in "
+            f"{r0['commit_s']:.2f}s (~{per_commit / 1e9:.2f} GB); the "
+            f"parent's restore on the card ({t_restore:.2f}s) "
+            f"{'bitwise equal' if same else 'DIFFERS from'} the state the "
+            f"ranks assembled ({len(r0['digests'])} leaves, SHA-256)")
+        if not same:
+            raise AssertionError("phase P: the restored commit differs")
+        del state
+        torch.cuda.empty_cache()
+        _p3_report(per_rank)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _p1_report(per_rank, t_first):
+    for rank, res in enumerate(per_rank):
+        r = res["P1"]
+        losses = r["losses"]
+        log(f"  P1 rank {rank}: losses " + " ".join(
+            f"{x:.6f}" for x in losses) + f"; holds params "
+            f"{r['held'][0] / 1e9:.3f} of {r['single'][0] / 1e9:.3f} GB, "
+            f"moments {r['held'][1] / 1e9:.3f} of {r['single'][1] / 1e9:.3f}"
+            f" GB single-process; max_memory_allocated "
+            f"{r['peak'] / 2**30:.2f} GiB")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"phase P: P1 losses {losses}")
+        rel = abs(losses[0] - t_first) / abs(t_first)
+        if not rel < P_LOSS_TOL:
+            raise AssertionError(f"phase P: P1 step 1 loss {losses[0]} vs "
+                                 f"phase T's {t_first} (rel {rel})")
+    r = per_rank[0]["P1"]
+    comm_s, calls, sent = r["comm"]
+    log(f"  P1 step 1 loss {r['losses'][0]:.6f} vs phase T's "
+        f"{t_first:.6f} (rel {abs(r['losses'][0] - t_first) / t_first:.2e}"
+        f", tolerance {P_LOSS_TOL}); train step {r['walls'][1] * 1e3:.1f} "
+        f"ms wall (step 2; step 1 {r['walls'][0] * 1e3:.1f}), collectives "
+        f"(synchronised, host clock) {comm_s * 1e3:.1f} ms in {calls} "
+        f"calls (share {comm_s / r['walls'][1]:.3f}), {sent / 1e9:.3f} GB "
+        f"sent by rank 0 [{CARD[0]}]")
+    for line in r["profile"].splitlines():
+        log("  " + line.strip())
+
+
+def _p3_report(per_rank):
+    r0 = per_rank[0]
+    c, u = r0["P3 True"], r0["P3 False"]
+    log(f"  P3: build_compressed_ddp_step, 1 layer, batch 0, lr {P3_LR}")
+    for tag, r in (("compressed (int8, error feedback)", c),
+                   ("uncompressed (f32 mean)", u)):
+        ms = float(np.median(r["walls"][1:])) * 1e3
+        comm_s, calls, sent = r["comm"][-1]
+        log(f"  P3 {tag}: losses " + " ".join(
+            f"{x:.4f}" for x in r["losses"]) + f"; step {ms:.1f} ms wall "
+            f"(median of steps 2-{P3_STEPS}), {sent / 1e6:.1f} MB sent a "
+            f"step by rank 0 in {calls} collectives ({comm_s * 1e3:.1f} ms)")
+    rel = abs(c["losses"][-1] - u["losses"][-1]) / abs(u["losses"][-1])
+    log(f"  P3 after {P3_STEPS} steps: compressed vs uncompressed loss rel "
+        f"{rel:.4f} (tolerance {P3_CLOSE}); error buffers non-zero: "
+        f"{all(r['P3 True']['err_nonzero'] for r in per_rank)}; bytes a "
+        f"step {u['comm'][-1][2] / max(c['comm'][-1][2], 1):.2f}x fewer "
+        f"compressed [{CARD[0]}]")
+    if not c["losses"][-1] < c["losses"][0]:
+        raise AssertionError(f"phase P: P3 compressed losses {c['losses']}")
+    if not rel < P3_CLOSE:
+        raise AssertionError(f"phase P: P3 compressed vs uncompressed {rel}")
+    if not all(r["P3 True"]["err_nonzero"] for r in per_rank):
+        raise AssertionError("phase P: P3 error buffers are zero")
+
+
 PHASES = (
     ("a", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
                variant="slab-ell", kernel="slab_ell_matmul", tol=3e-2,
@@ -4279,6 +4581,8 @@ def main():
     for kname, c in counts_m.items():
         launches[kname] += c
     mark("M")
+    ddp_train_phase()
+    mark("P")
 
     def by_lib(rec, key):
         """The record with the library ``key``'s own time where it was

@@ -2,10 +2,21 @@
 architecture of the reference, each with FULL and SMOKE variants."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from typing import List
 
 from repro_torch.models.common import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """A cell's batch and sequence shape (``runtime.specs``)."""
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
 
 ARCH_IDS: List[str] = ["llama2_7b", "stablelm_12b", "mistral_nemo_12b",
                        "llama3_2_3b", "nemotron_4_340b", "hubert_xlarge",

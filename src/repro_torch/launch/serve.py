@@ -221,7 +221,12 @@ def main(argv: Optional[list] = None):
     if args.mesh is None:
         _serve(args, cfg, dev, None)
         return
-    mesh, dev = open_mesh(ap, args, dev)
+    try:
+        d, m = (int(x) for x in args.mesh.split(","))
+    except ValueError:
+        ap.error(f"--mesh {args.mesh!r}: expected DATA,MODEL, e.g. 1,2")
+    mesh, dev = open_mesh(ap, d, m, dev, "repro_torch.launch.serve",
+                          f"--mesh {d},{m}")
     quiet = (contextlib.redirect_stdout(io.StringIO()) if mesh.rank
              else contextlib.nullcontext())
     try:
@@ -231,20 +236,16 @@ def main(argv: Optional[list] = None):
         torch.distributed.destroy_process_group()
 
 
-def open_mesh(ap, args, dev):
-    """``--mesh DATA,MODEL``: the process group from torchrun's
-    environment and the mesh over it. Usage errors for a malformed value
-    and a world size other than DATA x MODEL."""
-    try:
-        d, m = (int(x) for x in args.mesh.split(","))
-    except ValueError:
-        ap.error(f"--mesh {args.mesh!r}: expected DATA,MODEL, e.g. 1,2")
+def open_mesh(ap, d: int, m: int, dev, module: str, flags: str):
+    """A (data ``d``, model ``m``) mesh: the process group from torchrun's
+    environment and the mesh over it, and the mesh line on rank 0. A
+    usage error for a world size other than d x m, naming the torchrun
+    command of ``module`` with ``flags``."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != d * m:
-        ap.error(f"--mesh {d},{m} needs {d * m} ranks, launched with "
+        ap.error(f"{flags} needs {d * m} ranks, launched with "
                  f"{world}: python -m torch.distributed.run --standalone "
-                 f"--nproc-per-node {d * m} -m repro_torch.launch.serve "
-                 f"--mesh {d},{m} ...")
+                 f"--nproc-per-node {d * m} -m {module} {flags} ...")
     from repro_torch.runtime.mesh import init_from_env, make_mesh
     dev = init_from_env(dev)
     mesh = make_mesh(d, m, dev)

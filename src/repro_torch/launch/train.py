@@ -1,5 +1,5 @@
-"""Training driver on one device (port of ``repro.launch.train`` without
-the mesh): config-driven, checkpointed, fault-tolerant.
+"""Training driver (port of ``repro.launch.train``): config-driven,
+checkpointed, fault-tolerant, on one device or a (data, model) mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama2_7b \\
         --steps 200 --batch 16 --seq 256 --ckpt-dir runs/run1
@@ -8,12 +8,22 @@ It runs on the CUDA card unless ``--device cpu`` is given. Exercised end
 to end: synthetic batches keyed by (seed, step), microbatched gradient
 accumulation, a remat policy, AdamW with the cosine schedule, atomic
 async checkpoints, and supervision with restore-and-replay (``--restore``
-resumes from the latest commit). ``--data-par`` / ``--model-par`` other
-than 1 need the port's mesh runtime, which is not written yet.
+resumes from the latest commit, made on any mesh shape or on one
+device). ``--data-par D --model-par M`` trains on a mesh of D x M
+``torch.distributed`` ranks launched by torchrun:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 2 -m repro_torch.launch.train --data-par 2 ...
+
+the params and moments placed on the ranks' shards, each rank running
+its rows of every microbatch (``runtime.step.make_train_fn``), rank 0
+alone writing the commits and printing.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 from typing import Optional
 
@@ -23,12 +33,14 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticCorpus
+from repro_torch.launch.serve import open_mesh
 from repro_torch.models import lm
 from repro_torch.models.common import ArchConfig
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
-from repro_torch.runtime.elastic import elastic_restore
+from repro_torch.runtime.elastic import elastic_restore, place_train_state
 from repro_torch.runtime.fault import FaultConfig, Supervisor
-from repro_torch.runtime.step import make_train_fn
+from repro_torch.runtime.sharding import Planner
+from repro_torch.runtime.step import MOE_DATA_PARALLEL, make_train_fn
 
 
 def make_batch(cfg: ArchConfig, corpus: SyntheticCorpus, step: int,
@@ -52,34 +64,37 @@ def train(arch, smoke: bool, steps: int, batch: int, seq: int,
           remat: str = "none", lr: float = 3e-4, seed: int = 0,
           log_every: int = 10, ckpt_every: int = 50, restore: bool = False,
           inject_failure_at: Optional[int] = None, device=None,
-          data_par: int = 1, model_par: int = 1):
+          mesh=None):
     """Train ``arch`` (a config name, or an ``ArchConfig``) for ``steps``
     steps of ``batch`` x ``seq`` synthetic tokens from
     ``lm.init(cfg, seed)``. With ``ckpt_dir`` a supervisor
     commits every ``ckpt_every`` steps (the last two kept) and replays
     from the last commit after a failure; ``inject_failure_at`` fails
-    that step once. Returns ({"params", "opt"}, the loss of every step
-    run, replays included)."""
-    if data_par != 1 or model_par != 1:
-        raise NotImplementedError(
-            "--data-par / --model-par > 1 need the port's mesh runtime "
-            "(ROADMAP A7 / A8); the port trains on one device")
-    dev = resolve_device(device)
+    that step once. With ``mesh`` (``runtime.mesh.make_mesh``) every rank
+    calls this together and trains on its shards, on the mesh's device.
+    Returns ({"params", "opt"}, under a mesh this rank's shards; the loss
+    of every step run, replays included)."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     cfg = (arch if isinstance(arch, ArchConfig)
            else configs.get(arch, smoke=smoke))
     acfg = AdamWConfig(lr=lr, total_steps=max(steps, 2),
                        warmup_steps=max(steps // 20, 1))
     params = lm.init(cfg, seed=seed, device=dev)
-    opt = adamw_init(params, acfg)
+    state = {"params": params, "opt": adamw_init(params, acfg)}
+    del params
+    planner = None
+    if mesh is not None:
+        planner = Planner(mesh, cfg)
+        state = place_train_state(state, cfg, acfg, mesh)
     corpus = SyntheticCorpus(cfg.vocab, seed=seed)
     step_fn_inner = make_train_fn(cfg, acfg, microbatches=microbatches,
-                                  remat=remat)
+                                  remat=remat, planner=planner)
 
-    mgr = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
+    mgr = (CheckpointManager(ckpt_dir, keep=2, mesh=mesh) if ckpt_dir
+           else None)
     start = 0
-    state = {"params": params, "opt": opt}
     if restore and mgr and mgr.latest_step() is not None:
-        state = elastic_restore(mgr, cfg, acfg, device=dev)
+        state = elastic_restore(mgr, cfg, acfg, device=dev, mesh=mesh)
         start = mgr.latest_step()
         print(f"restored step {start}")
 
@@ -101,7 +116,8 @@ def train(arch, smoke: bool, steps: int, batch: int, seq: int,
         return new, m
 
     def restore_fn(at_step):
-        st = elastic_restore(mgr, cfg, acfg, step=at_step, device=dev)
+        st = elastic_restore(mgr, cfg, acfg, step=at_step, device=dev,
+                             mesh=mesh)
         st["_failed"] = True
         return st
 
@@ -165,12 +181,29 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    return train(args.arch, args.smoke, args.steps, args.batch, args.seq,
-                 args.ckpt_dir, microbatches=args.microbatches,
-                 remat=args.remat, lr=args.lr, seed=args.seed,
-                 ckpt_every=args.ckpt_every, restore=args.restore,
-                 device=args.device, data_par=args.data_par,
-                 model_par=args.model_par)
+    kw = dict(microbatches=args.microbatches, remat=args.remat, lr=args.lr,
+              seed=args.seed, ckpt_every=args.ckpt_every,
+              restore=args.restore)
+    run = (args.arch, args.smoke, args.steps, args.batch, args.seq,
+           args.ckpt_dir)
+    d, m = args.data_par, args.model_par
+    if d == m == 1:
+        return train(*run, device=args.device, **kw)
+    if d < 1 or m < 1:
+        ap.error(f"--data-par {d} --model-par {m}: each at least 1")
+    cfg = configs.get(args.arch, smoke=args.smoke)
+    if cfg.family == "moe" and d > 1:
+        ap.error(f"--data-par {d}: {cfg.name}: {MOE_DATA_PARALLEL}")
+    mesh, _ = open_mesh(ap, d, m, resolve_device(args.device),
+                          "repro_torch.launch.train",
+                          f"--data-par {d} --model-par {m}")
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if mesh.rank
+             else contextlib.nullcontext())
+    try:
+        with quiet:
+            return train(*run, mesh=mesh, **kw)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -81,6 +81,16 @@ def adamw_update(grads: Any, state: OptState, params: Any,
     parameter and moment tensors, and the incremented count."""
     grads = tree_map(lambda g: g.float(), grads)
     grads, gnorm = global_norm_clip(grads, cfg.clip_norm)
+    return adamw_apply(grads, state, params, gnorm, cfg)
+
+
+@torch.no_grad()
+def adamw_apply(grads: Any, state: OptState, params: Any,
+                gnorm: torch.Tensor, cfg: AdamWConfig = AdamWConfig()):
+    """``adamw_update`` after the clip: ``grads`` are f32 and clipped
+    already, by the global norm ``gnorm`` reported in the metrics. A
+    mesh's step clips the whole gradients and applies the step to this
+    rank's shards of them, of the parameters and of the moments."""
     count = state.count + 1
     lr = cosine_schedule(cfg, count)
     c = count.float()

@@ -13,6 +13,14 @@ loop with periodic commits, a straggler count and restore-and-replay.
 
 Step times are taken after ``torch.cuda.synchronize()`` on a CUDA
 device (the reference's ``block_until_ready``).
+
+Under a mesh every rank runs its own supervisor over the same steps, with
+a mesh-aware manager (``CheckpointManager(mesh=...)``): the commits,
+the manager's waits and a failure injected by step number (the same step
+on every rank) happen on all ranks together, so they restore the same
+commit and replay together. A real failure on one rank alone is not
+handled: the others wait in their next collective until the process
+group's timeout.
 """
 from __future__ import annotations
 

@@ -14,11 +14,17 @@ Backend, by rule, printed on a line of its own by ``init_process``:
   * ``gloo`` where ranks outnumber cards (NCCL refuses two ranks on one
     device): CUDA tensors then go through gloo.
 
-Nothing switches backend or device when a collective fails. The one
-gather of the port is an ``all_reduce`` (sum) of a zero-filled buffer
-holding this rank's slice at its place, viewed as integer words: each
-element has one non-zero term, so the result is exact bit for bit, and
-it runs on every backend, CUDA tensors through gloo included.
+Nothing switches backend or device when a collective fails. The
+gather of the serving path is an ``all_reduce`` (sum) of a zero-filled
+buffer holding this rank's slice at its place, viewed as integer words:
+each element has one non-zero term, so the result is exact bit for bit,
+and it runs on every backend, CUDA tensors through gloo included. The
+data-parallel step's int8 exchange uses the native ``all_to_all`` and
+``all_gather_native`` instead (``dist.all_to_all_single``,
+``dist.all_gather_into_tensor``), so that each shard crosses the wire
+once. Both carry the tensors where they lie, under either backend: gloo
+takes CUDA tensors (int8, bf16 and f32) for both, as for ``all_reduce``
+(checked on the H100 with torch 2.11, two ranks on one card).
 
 The TPU hardware constants of the reference's ``launch/mesh.py`` are not
 ported here.
@@ -61,10 +67,12 @@ class Mesh:
             r //= self.shape[a]
         self._groups: Dict[Tuple[str, ...], Any] = {}
         # host seconds spent in collectives while ``timed`` (each then
-        # synchronises the card before and after it)
+        # synchronises the card before and after it), and the bytes this
+        # rank sent in them (``_run``'s ``sent``)
         self.timed = False
         self.comm_s = 0.0
         self.comm_calls = 0
+        self.comm_bytes = 0
 
     def __repr__(self) -> str:
         dims = " x ".join(f"{a}={n}" for a, n in self.shape.items())
@@ -109,7 +117,12 @@ class Mesh:
 
     # -- collectives ------------------------------------------------------
 
-    def _run(self, fn):
+    def _run(self, fn, sent: float = 0):
+        """``fn()``, a collective; while ``timed``, its host seconds and
+        ``sent``, the bytes this rank puts on the wire by the collective's
+        algorithm: a ring's 2 (n-1)/n of the buffer for ``all_reduce``,
+        (n-1)/n of it for ``all_to_all``, (n-1) slices for
+        ``all_gather_native``."""
         if not self.timed:
             return fn()
         if self.device.type == "cuda":
@@ -120,7 +133,12 @@ class Mesh:
             torch.cuda.synchronize(self.device)
         self.comm_s += time.perf_counter() - t0
         self.comm_calls += 1
+        self.comm_bytes += int(sent)
         return out
+
+    def _ring(self, t: torch.Tensor, axes: Sequence[str]) -> float:
+        n = self.n(axes)
+        return 2 * (n - 1) / n * t.numel() * t.element_size()
 
     def merge(self, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         """Elementwise over the ranks of ``axes``, where at most one holds
@@ -134,7 +152,8 @@ class Mesh:
         if words.numel() % 4 == 0:
             words = words.view(torch.int32)
         group = self._group(axes)
-        self._run(lambda: dist.all_reduce(words, group=group))
+        self._run(lambda: dist.all_reduce(words, group=group),
+                  self._ring(words, axes))
         return buf
 
     def all_gather(self, t: torch.Tensor, axes: Sequence[str],
@@ -156,14 +175,55 @@ class Mesh:
         t = t.contiguous().clone()
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         group = self._group(axes)
-        self._run(lambda: dist.all_reduce(t, op=red, group=group))
+        self._run(lambda: dist.all_reduce(t, op=red, group=group),
+                  self._ring(t, axes))
         return t
+
+    def all_to_all(self, t: torch.Tensor, axes: Sequence[str]
+                   ) -> torch.Tensor:
+        """Dim 0 of ``t`` split into one slice per rank of ``axes`` (in
+        ``index`` order): slice i goes to rank i, and slice i of the result
+        is what rank i sent this rank."""
+        n = self.n(axes)
+        if n == 1:
+            return t
+        if t.shape[0] % n:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does "
+                             f"not split over {n} ranks")
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        group = self._group(axes)
+        self._run(lambda: dist.all_to_all_single(out, t, group=group),
+                  (n - 1) / n * t.numel() * t.element_size())
+        return out
+
+    def all_gather_native(self, t: torch.Tensor, axes: Sequence[str]
+                          ) -> torch.Tensor:
+        """The ranks' ``t`` of ``axes`` concatenated along dim 0 in their
+        order, each slice sent once (``all_gather_into_tensor``), where
+        ``all_gather`` sends a zero-filled buffer of all of them."""
+        n = self.n(axes)
+        if n == 1:
+            return t
+        t = t.contiguous()
+        out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        group = self._group(axes)
+        self._run(lambda: dist.all_gather_into_tensor(out, t, group=group),
+                  (n - 1) * t.numel() * t.element_size())
+        return out
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """``t`` from global rank ``src`` to every rank (in place)."""
         if self.size > 1:
-            self._run(lambda: dist.broadcast(t, src=src))
+            sent = t.numel() * t.element_size() if self.rank == src else 0
+            self._run(lambda: dist.broadcast(t, src=src), sent)
         return t
+
+    def barrier(self) -> None:
+        """Every rank of the mesh waits here for the others."""
+        if self.size > 1:
+            dist.barrier()
 
     def comm_device(self) -> torch.device:
         """Where host-side arrays travel: the card under nccl (it moves
@@ -205,7 +265,8 @@ def backend_for(device: torch.device, local_world: int) -> Tuple[str, str]:
     if local_world <= n_cards:
         return "nccl", f"{local_world} ranks on {n_cards} cards, one each"
     return "gloo", (f"{local_world} ranks on {n_cards} card(s): CUDA "
-                    "tensors through gloo")
+                    "tensors through gloo, all_to_all and "
+                    "all_gather_into_tensor included")
 
 
 def rank_device(device: torch.device, local_rank: int) -> torch.device:

@@ -150,12 +150,12 @@ def lse_combine(logits: torch.Tensor, weigh_v) -> torch.Tensor:
     return mesh.all_reduce(weigh_v(p / z), ("model",), "sum")
 
 
-def batch_rows(cfg, b: int):
+def batch_rows(cfg, b: int, mesh=None):
     """(lo, hi, axes): the batch rows [lo, hi) this rank runs, split over
     ``axes`` where the planner puts "batch" on them (b divisible by their
     size), or None without a mesh or where the batch replicates (every
-    rank runs every row)."""
-    mesh = _MESH.get()
+    rank runs every row). ``mesh`` defaults to the ambient one."""
+    mesh = _MESH.get() if mesh is None else mesh
     if mesh is None:
         return None
     from repro_torch.runtime.sharding import Planner

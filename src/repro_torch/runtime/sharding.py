@@ -52,6 +52,7 @@ import torch
 from repro_torch.core.packed_model import (ExpertPackedStack, PackedLinear,
                                            packed_axes)
 from repro_torch.runtime.meshctx import Shard
+from repro_torch.tree import tree_map
 
 AxisRule = Sequence[Tuple[str, ...]]     # candidates, in priority order
 PLANES = ("sparse_vals", "sparse_idx", "b_packed", "u", "v")
@@ -256,15 +257,30 @@ def tree_shard(tree: Any, specs: Any, mesh) -> Any:
     return _map(cut, specs, tree)
 
 
+def _gather(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    for d, entry in enumerate(spec):
+        t = mesh.all_gather(t, _entry_axes(entry), d)
+    return t
+
+
 def unshard(tree: Any, specs: Any, mesh) -> Any:
     """The whole tree back from this rank's shards, gathered over the
     mesh's process groups (every rank gets it)."""
-    def gather(spec, t, plane):
-        out = t.local if isinstance(t, Shard) else t
-        for d, entry in enumerate(spec):
-            out = mesh.all_gather(out, _entry_axes(entry), d)
-        return out
-    return _map(gather, specs, tree)
+    return _map(lambda spec, t, plane: _gather(
+        t.local if isinstance(t, Shard) else t, spec, mesh), specs, tree)
+
+
+def gather_shards(tree: Any, mesh) -> Any:
+    """A tree of dense leaves (params, moments, a train state) with every
+    ``Shard`` gathered whole by its own spec (every rank gets it); plain
+    tensors, replicated, as they are."""
+    return tree_map(lambda t: _gather(t.local, t.spec, mesh)
+                    if isinstance(t, Shard) else t, tree)
+
+
+def local_tensors(tree: Any) -> Any:
+    """The tensors this rank holds: each ``Shard``'s ``local``."""
+    return tree_map(lambda t: t.local if isinstance(t, Shard) else t, tree)
 
 
 def _checksum(leaf) -> Tuple[int, int]:

@@ -24,8 +24,6 @@ import pytest
 import torch
 
 from repro import configs as ref_configs
-from repro.checkpoint import load_pytree as ref_load
-from repro.checkpoint import save_pytree as ref_save
 from repro.core import packed_model as ref_pm
 from repro.core import pipeline as ref_pipeline
 from repro.core.plan import CalibrationSpec as RefSpec
@@ -33,7 +31,6 @@ from repro.core.plan import CompressionPlan as RefPlan
 from repro.core.slab import SLaBConfig as RefSLaBConfig
 from repro.models import lm as ref_lm
 from repro_torch import bridge, configs
-from repro_torch.checkpoint import load_pytree, save_pytree
 from repro_torch.core.packed_model import PackedLinear, pack_model
 from repro_torch.core.pipeline import (collect_model_stats, compress_model,
                                        linear_paths)
@@ -43,7 +40,7 @@ from repro_torch.models import lm
 from repro_torch.runtime.step import make_prefill_fn
 from repro_torch.serving import Engine, EngineConfig
 from repro_torch.tree import leaves_with_path, tree_leaves
-from test_torch_vlm import _ref_batches, bridge_np
+from test_torch_vlm import _ref_batches, hold_checkpoints_across_packages
 
 ARCH = "hubert_xlarge"
 PLAN = "*=slab"
@@ -255,18 +252,11 @@ def test_train_batches_equal_reference_and_train_runs(monkeypatch):
 
 def test_tree_checkpoints_across_packages(tmp_path):
     """The bf16 tree with no ``embed`` saved by the port loads in the
-    reference bitwise, and the reference's save of it in the port."""
-    params = lm.init(configs.get(ARCH, smoke=True), seed=3, device="cpu")
-    as_jax = jax.tree.map(lambda t: jnp.asarray(bridge_np(t)), params)
-    save_pytree(params, str(tmp_path / "port"))
-    got_r = ref_load(as_jax, str(tmp_path / "port"))
-    ref_save(as_jax, str(tmp_path / "ref"))
-    got = load_pytree(params, str(tmp_path / "ref"), device="cpu")
-    for a, b, c in zip(tree_leaves(params), jax.tree.leaves(got_r),
-                       tree_leaves(got), strict=True):
-        assert np.array_equal(bridge_np(a).view(np.uint8),
-                              np.asarray(b).view(np.uint8))
-        assert c.dtype == a.dtype and torch.equal(c, a)
+    reference bitwise, as the reference's layer-stacked tree, and the
+    reference's save of that tree in the port."""
+    cfg = configs.get(ARCH, smoke=True)
+    params = lm.init(cfg, seed=3, device="cpu")
+    hold_checkpoints_across_packages(params, cfg.n_layers, tmp_path)
 
 
 # ------------------------------------------------------- no decode path

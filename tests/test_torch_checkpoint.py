@@ -229,9 +229,21 @@ def test_train_replay_is_bitwise_and_restore_resumes(tmp_path, capsys):
     assert int(resumed["opt"].count) == 8
 
 
-def test_train_refuses_the_cpu_unless_asked_and_the_mesh():
-    with pytest.raises(NotImplementedError, match="A7"):
-        train("llama2_7b", True, 1, 2, 8, None, data_par=2, device="cpu")
+def test_train_refuses_the_cpu_unless_asked_and_the_mesh(monkeypatch,
+                                                         capsys):
+    """A mesh the launch cannot run is a usage error before any process
+    group starts: a world size other than DATA x MODEL, and the moe
+    family with "data" > 1."""
+    from repro_torch.launch.train import main
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit):
+        main(["--data-par", "2", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "needs 2 ranks, launched with 1" in err
+    assert "torch.distributed.run" in err
+    with pytest.raises(SystemExit):
+        main(["--arch", "phi3_5_moe", "--data-par", "2", "--device", "cpu"])
+    assert "A7b" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train("llama2_7b", True, 1, 2, 8, None)

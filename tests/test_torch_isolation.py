@@ -10,7 +10,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py"] + sorted(
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py",
+    ROOT / "tests" / "torch_train_worker.py"] + sorted(
     (ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -40,7 +41,8 @@ def test_port_files_exist():
             "torch_train_e2e.py", "mamba2.py", "mamba2_1_3b.py",
             "zamba2_7b.py", "qwen2_vl_2b.py", "hubert_xlarge.py",
             "sharding.py", "mesh.py", "meshctx.py",
-            "torch_tp_worker.py"} <= names
+            "torch_tp_worker.py", "ddp.py", "specs.py",
+            "torch_train_worker.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

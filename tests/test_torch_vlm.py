@@ -441,20 +441,43 @@ def test_train_batches_equal_reference_and_train_runs(monkeypatch):
 
 def test_tied_tree_checkpoints_across_packages(tmp_path):
     """The bf16 tied tree (no ``lm_head``) saved by the port loads in the
-    reference bitwise, and the reference's save of it in the port."""
+    reference bitwise, as the reference's layer-stacked tree, and the
+    reference's save of that tree in the port."""
     cfg = configs.get(ARCH, smoke=True)
     params = lm.init(cfg, seed=3, device="cpu")
     assert "lm_head" not in params
-    as_jax = jax.tree.map(
-        lambda t: jnp.asarray(np.asarray(bridge_np(t))), params)
+    hold_checkpoints_across_packages(params, cfg.n_layers, tmp_path)
+
+
+def ref_layout(params: dict) -> dict:
+    """The port's params as the reference holds them: the layer list
+    stacked leaf by leaf on a leading L dim (bf16 bit-exact)."""
+    def stack(ls):
+        if isinstance(ls[0], dict):
+            return {k: stack([d[k] for d in ls]) for k in ls[0]}
+        return jnp.asarray(np.stack([bridge_np(t) for t in ls]))
+    out = {k: jax.tree.map(lambda t: jnp.asarray(bridge_np(t)), v)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = stack(params["layers"])
+    return out
+
+
+def hold_checkpoints_across_packages(params: dict, n_layers: int,
+                                     tmp_path) -> None:
+    """``params`` saved by the port loads bitwise in the reference as its
+    layer-stacked tree, and the reference's save of that tree loads
+    bitwise in the port."""
+    as_jax = ref_layout(params)
     save_pytree(params, str(tmp_path / "port"))
     got_r = ref_load(as_jax, str(tmp_path / "port"))
     ref_save(as_jax, str(tmp_path / "ref"))
     got = load_pytree(params, str(tmp_path / "ref"), device="cpu")
-    for a, b, c in zip(tree_leaves(params), jax.tree.leaves(got_r),
+    back = bridge.params(jax.tree.map(np.asarray, got_r), n_layers,
+                         device="cpu")
+    for a, b, c in zip(tree_leaves(params), tree_leaves(back),
                        tree_leaves(got), strict=True):
         assert np.array_equal(bridge_np(a).view(np.uint8),
-                              np.asarray(b).view(np.uint8))
+                              bridge_np(b).view(np.uint8))
         assert c.dtype == a.dtype and torch.equal(c, a)
 
 
