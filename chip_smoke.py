@@ -8,8 +8,8 @@ Phases:
      the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, started together), with each source's
      register and spill summary from ``-Xptxas -v``; while nvcc runs,
-     phase s's and phase M's compressions (they launch no kernel;
-     AHEAD_PHASES, mesh_ahead);
+     phase s's, phase M's and phase F's compressions (they launch no
+     kernel; AHEAD_PHASES, mesh_ahead, families_ahead);
   2. each of the nine per-linear kernels against its plain PyTorch
      version at llama2-7b full-width planes, (N, K) in {(4096, 4096),
      (11008, 4096), (4096, 11008)}, M in {1, 4, 37}, bf16 and f32, rank 1
@@ -197,11 +197,11 @@ Phases:
      3e-2 at bf16 and 1e-4 at f32, the dense-equivalent's first 6 at f32
      within 1e-4), and the Mamba cache's bytes a layer equal at s_max
      128 and 524288;
-     then the vlm and audio families at full width and full depth, slab
+     then the vlm and audio families at full width, depth cut, slab
      CR 0.5 (8 iterations), every linear packed slab-ell through #1 (or
      slab-dense through #3 where ELL loses on bytes), the tied
      embedding and the lm_head as they are:
-       V  qwen2-vl-2b, all 28 layers, bf16 (1.544 G parameters), 16 x 128
+       V  qwen2-vl-2b, 8 of its 28 layers (V_LAYERS), bf16, 16 x 128
           calibration tokens: greedy_decode as S (square and ragged,
           launches exact, profiled over 5 decode steps), an embeds
           prefill of 8 text embeddings and a 4 x 4 x 2 (t, h, w) patch
@@ -211,7 +211,7 @@ Phases:
           leaked; then the same at 2 layers and f32, whose greedy tokens
           equal the dense-equivalent's and whose engine streams equal
           greedy_decode's;
-       A  hubert-xlarge, all 48 layers, bf16 (0.944 G parameters),
+       A  hubert-xlarge, 16 of its 48 layers (A_LAYERS), bf16,
           calibrated on 16 x 128 x 1280 seeded frame embeddings: the
           packed prefill (runtime.step.make_prefill_fn) at 4 x 128
           frames, M 512 a linear (launches exact, profiled, against the
@@ -219,7 +219,7 @@ Phases:
           launch.train.make_batch's embeddings; then the prefill at 2
           layers and f32, logits within 1e-4;
      both held as S and H are at bf16 (3e-2 on the first 2 layers; at
-     full depth against the f32 evaluation, within V_DEEP_TOL /
+     their depth against the f32 evaluation, within V_DEEP_TOL /
      A_DEEP_TOL);
      then tensor-parallel packed serving:
        M  a (data 1, model 2) mesh of two processes on the one card
@@ -261,6 +261,27 @@ Phases:
           1e-4 (P3_LR): the compressed loss falls, the last losses within
           5 %, the error buffers not zero, and each variant's bytes sent
           a step and step wall. Phase P launches no packed kernel;
+     then the families under a mesh:
+       F  the same two processes, on a (data 1, model 2) mesh and then a
+          (data 2, model 1) one; the parent packs each model once (its
+          compression made while nvcc builds), runs the single-process
+          yardsticks and saves the models. F1 mamba2-1.3b (2 layers) and
+          F2 zamba2-7b (6 layers: the shared block fires once), slab CR
+          0.5, each rank on its SSD heads: bf16 final logits within 1e-2
+          of the single process's on 2 layers and, at F2's depth, no
+          farther from the f32 packed model's than twice the single
+          process's bf16 logits are, f32 greedy tokens equal, each rank
+          holding half of every layer's state h; F3 hubert-xlarge (2
+          layers), the packed prefill at 4 x 128 frames, bf16 within
+          1e-2 and f32 within 1e-4 of the single process's; F4 llama2-7b
+          (2 layers) dense and unpacked at f32, half of the dense bytes a
+          rank, tokens equal; F5 deepseek-moe-16b (1 layer) and F6
+          qwen2-vl-2b (2 layers, rows of different t layouts), 2
+          ``make_train_fn(planner=...)`` steps on (2, 1), step 1 within
+          1e-3 of the single process's. #1 at every new local shape
+          checked against its plain version and timed on rank 0; each
+          rank's launches added to the JSON line's; each decode's
+          collectives' share (host clock, synchronised);
   4. one JSON line listing every ported kernel (all twenty; #1-#9 and
      #12-#20 once per library, each with its own launch counter:
      thirty-eight entries), then the result line.
@@ -1503,11 +1524,11 @@ def _routing_spy():
     calls = []
     orig = moe.moe_ffn
 
-    def spy(cfg, p, x):
+    def spy(cfg, p, x, rows=None):
         xt = x.reshape(-1, x.shape[-1])
         probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
         calls.append(probs.topk(cfg.top_k, dim=-1).indices.sort(-1).values)
-        return orig(cfg, p, x)
+        return orig(cfg, p, x, rows)
 
     moe.moe_ffn = spy
     try:
@@ -1803,9 +1824,10 @@ def compress_ahead():
     for tag in AHEAD_PHASES:
         AHEAD[tag] = _phase_front(**kw[tag])
     mesh_ahead()
+    families_ahead()
     log(f"compressed ahead while the kernels built: phase "
-        f"{', '.join(AHEAD_PHASES)} and phase M's two models in "
-        f"{time.monotonic() - t0:.1f}s")
+        f"{', '.join(AHEAD_PHASES)}, phase M's two models and phase F's "
+        f"three in {time.monotonic() - t0:.1f}s")
 
 
 def _phase_front(n_layers, dtype, cr, pattern, method="slab", options=None,
@@ -3149,6 +3171,11 @@ V_PROF_PROMPT = 2
 # is at most 1.5x its phase's largest floor.
 V_DEEP_TOL = 0.0245
 A_DEEP_TOL = 0.02
+# phases V's and A's depth: all 28 and 48 layers took V 83-104 s and A
+# 20-32 s, and with phase F the whole script 1140.8 s of its 1200 s on a
+# slow host (measured on one H100); the holds at depth only loosen with
+# fewer layers (the bf16 noise grows with depth)
+V_LAYERS, A_LAYERS = 8, 16
 
 
 def va_shape_checks(flush):
@@ -3633,17 +3660,17 @@ def _m_engine_trace(cfg):
         arrival=float(2 * i)) for i in range(M_REQUESTS)]
 
 
-def _m_kernel_at(leaf, flush):
-    """#1 on one local (row-sharded) leaf at M 4, bf16: the wrapper held
-    to its plain version on the same inputs, then timed beside the plain
-    version, one torch.matmul on the reconstructed local Ŵ and the bound
-    (``_time_case``)."""
+def _m_kernel_at(leaf, flush, m=4, tag="M"):
+    """#1 on one local (row-sharded) leaf at ``m`` rows, bf16: the wrapper
+    held to its plain version on the same inputs, then timed beside the
+    plain version, one torch.matmul on the reconstructed local Ŵ and the
+    bound (``_time_case``)."""
     from repro_torch.core.packing import (ELLPacked, ell_unpack,
                                           unpack_sign_bits)
     from repro_torch.kernels import ell as ell_k
     from repro_torch.kernels import ops
     n, k = leaf.sparse_vals.shape[0], leaf.d_in
-    x = torch.randn((4, k), generator=torch.Generator("cuda").manual_seed(
+    x = torch.randn((m, k), generator=torch.Generator("cuda").manual_seed(
         n + k), device="cuda").to(torch.bfloat16)
     u, v = ops._rank_stack(leaf.u, leaf.v, x.dtype)
     vals, idx, b = leaf.sparse_vals, leaf.sparse_idx, leaf.b_packed
@@ -3652,8 +3679,9 @@ def _m_kernel_at(leaf, flush):
     err = float((got.float() - ref.float()).abs().max()
                 / ref.float().abs().max())
     if not err < TOL[torch.bfloat16]:
-        raise AssertionError(f"phase M: #1 at ({n}, {k}) rel {err}")
-    m, r = 4, u.shape[0]
+        raise AssertionError(f"phase {tag}: #1 at ({n}, {k}) M {m} rel "
+                             f"{err}")
+    r = u.shape[0]
     ops_n = (2 * m * vals.numel() + m * k * r + 2 * m * n * k * r
              + 2 * m * n * r)
     case = Case(
@@ -4337,6 +4365,543 @@ def _p3_report(per_rank):
         raise AssertionError("phase P: P3 error buffers are zero")
 
 
+# ---------------------------------------------------------------- phase F
+
+F_SERVE_MESH = (1, 2)     # F1-F4 (data, model): two ranks on the one card
+F_TRAIN_MESH = (2, 1)     # F5, F6: the same two ranks, a second mesh
+# greedy_decode's prompt and new tokens: s_max 24, which "model" 2
+# divides, so the hybrid's shared block runs on position-sharded KV
+F_PROMPT, F_GEN = 16, 8
+# (tag, arch, layers) served packed under (1, 2): at least 6 zamba2-7b
+# layers so that its shared block fires (before layer 5)
+F_SERVED = (("F1", "mamba2_1_3b", 2), ("F2", "zamba2_7b", 6),
+            ("F3", "hubert_xlarge", 2))
+F_DENSE_LAYERS = 2        # F4: llama2-7b, dense and unpacked, f32
+# (tag, arch, layers) trained under (2, 1)
+F_TRAINED = (("F5", "deepseek_moe_16b", 1), ("F6", "qwen2_vl_2b", 2))
+F_TRAIN_BATCH, F_TRAIN_SEQ, F_TRAIN_STEPS = 4, 128, 2
+F_TIMEOUT = 900.0
+F_BF16_TOL = 1e-2         # bf16 logits under the mesh vs one process (as M)
+# F1 / F2 at bf16: F_BF16_TOL holds on the first HOLD_LAYERS layers; at
+# the phase's depth the mesh's logits are held against the f32 packed
+# model's, within F_BF16_NOISE times the single process's own bf16
+# distance from them (the ranks' #1 on half the rows splits its f32 sums
+# otherwise, and a random model's bf16 rounding grows with depth: zamba2-
+# 7b's 6 layers sat 0.0138 from the single process, measured on one H100)
+F_BF16_NOISE = 2.0
+F_F32_TOL = 1e-4          # F3's f32 prefill logits
+F_LOSS_TOL = 1e-3         # F5 / F6 step 1 vs one process (as P)
+F_DIR = ".chip_smoke_families"
+
+
+def _f_front(arch, n_layers):
+    """Phase F's compression of ``arch`` (full width cut to ``n_layers``,
+    bf16, random weights from seed 0): ``*=slab`` at CR 0.5, 8
+    iterations, on 16 x 128 calibration tokens or, for the encoder,
+    frame embeddings from ``np.random.default_rng(0)`` (as S, H and A).
+    Launches no kernel."""
+    from repro_torch import configs
+    from repro_torch.core.pipeline import compress_model
+    from repro_torch.core.plan import CompressionPlan
+    from repro_torch.core.slab import SLaBConfig
+    from repro_torch.data import calibration_batch
+    from repro_torch.models import lm
+    cfg = configs.get(arch).with_(n_layers=n_layers, dtype=torch.bfloat16)
+    calib = (np.random.default_rng(0).standard_normal(
+        (16, 128, cfg.d_model), dtype=np.float32) if cfg.family == "audio"
+        else calibration_batch(cfg.vocab, seed=0, n_seq=16, seq_len=128))
+    plan = CompressionPlan.parse("*=slab", base=SLaBConfig(cr=0.5, iters=8))
+    params = lm.init(cfg, seed=0, device="cuda")
+    dense_c, _, decs = compress_model(cfg, params, calib, plan=plan,
+                                      keep_decompositions=True,
+                                      device="cuda")
+    return {"cfg": cfg, "dense_c": dense_c, "decs": decs, "plan": plan}
+
+
+def families_ahead():
+    """Phase F's three compressions, made while nvcc builds and kept on
+    the host until phase F."""
+    for tag, arch, n in F_SERVED:
+        AHEAD[tag] = _tree_to(_f_front(arch, n), "cpu")
+
+
+def _f_packed_leaves(params):
+    """Every PackedLinear of a (placed) params tree, the hybrid's shared
+    block's too."""
+    from repro_torch.core.packed_model import PackedLinear
+    out = []
+
+    def walk(t):
+        if isinstance(t, PackedLinear):
+            out.append(t)
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+    walk(params)
+    return out
+
+
+def _f_need(cfg, packed, m, passes):
+    """{counter key: launches} of ``passes`` passes of the model at ``m``
+    rows a linear: one launch a PackedLinear a layer (#1, or #3 where it
+    packed slab-dense), the hybrid's shared block once an invocation."""
+    from repro_torch.kernels import ell as ell_k
+    from repro_torch.kernels import slab_matmul as slab_k
+    from repro_torch.models import lm
+    n_inv = lm.n_shared_invocations(cfg)
+    need = {}
+    for lp, calls in ([(lp, 1) for lp in packed["layers"]]
+                      + ([(packed["shared_attn"], n_inv)] if n_inv else [])):
+        for w in _f_packed_leaves(lp):
+            key = (ell_k.slab_ell_kernel(cfg.dtype, m, w.d_in).key
+                   if w.variant == "slab-ell"
+                   else slab_k.slab_dense_kernel(cfg.dtype, m).key)
+            need[key] = need.get(key, 0) + calls * passes
+    return need
+
+
+def _f_train_setup(arch, n_layers):
+    """F5 / F6: ``arch`` at full width cut to ``n_layers``, bf16, AdamW as
+    phase T's, and the global batch on the card: tokens (deepseek-moe),
+    or frame-free embeddings and (t, h, w) ids of a different layout in
+    every row (qwen2-vl), all from seeds."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = configs.get(arch).with_(n_layers=n_layers, dtype=torch.bfloat16)
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    batch = SyntheticCorpus(cfg.vocab, seed=0).batch(0, F_TRAIN_BATCH,
+                                                     F_TRAIN_SEQ)
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(5)
+        batch["inputs"] = rng.standard_normal(
+            (F_TRAIN_BATCH, F_TRAIN_SEQ, cfg.d_model), dtype=np.float32)
+        batch["positions"] = np.cumsum(rng.integers(
+            0, 2, (F_TRAIN_BATCH, F_TRAIN_SEQ, 3)), axis=1).astype(np.int32)
+        half = F_TRAIN_BATCH // 2
+        if np.array_equal(batch["positions"][0, :, 0],
+                          batch["positions"][half, :, 0]):
+            raise AssertionError("phase F: F6's rows share a t layout")
+    return cfg, acfg, {k: torch.from_numpy(v).to("cuda")
+                       for k, v in batch.items()}
+
+
+def _f_train(cfg, acfg, batch, planner=None, mesh=None):
+    """F_TRAIN_STEPS ``make_train_fn`` steps (remat "nothing") from
+    ``lm.init(cfg, seed=0)``, on one process or on ``planner``'s mesh
+    (the state placed by its specs): (losses, aux, the second step's
+    wall and its collectives' (seconds, calls, bytes sent))."""
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.elastic import place_train_state
+    from repro_torch.runtime.step import make_train_fn
+    params = lm.init(cfg, seed=0, device="cuda")
+    state = {"params": params, "opt": adamw_init(params, acfg)}
+    if mesh is not None:
+        state = place_train_state(state, cfg, acfg, mesh)
+    del params
+    step = make_train_fn(cfg, acfg, 1, "nothing", planner=planner)
+    p, o = state["params"], state["opt"]
+    losses, aux, wall, comm = [], [], None, None
+    for s in range(F_TRAIN_STEPS):
+        if s == 1 and mesh is not None:
+            (p, o, m), wall, comm = _p_timed_step(mesh,
+                                                  lambda: step(p, o, batch))
+        else:
+            sync()
+            t0 = time.monotonic()
+            p, o, m = step(p, o, batch)
+            sync()
+            wall = time.monotonic() - t0
+        losses.append(float(m["loss"]))
+        aux.append(float(m["aux"]))
+    del p, o, state, step
+    torch.cuda.empty_cache()
+    return losses, aux, wall, comm
+
+
+def _f_worker(rank, world, dev, files, feeds):
+    """One rank of phase F: F1-F4 on the (1, 2) mesh, F5 and F6 on the
+    (2, 1) mesh of the same two processes; returns what the parent holds
+    and logs."""
+    import io
+    from repro_torch import configs
+    from repro_torch.core.packed_model import _row_slice
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import greedy_decode, place_params
+    from repro_torch.models import lm
+    from repro_torch.runtime.mesh import make_mesh
+    from repro_torch.runtime.meshctx import use_mesh
+    from repro_torch.runtime.sharding import (PackPlacer, Planner,
+                                              dense_bytes, packed_bytes)
+    from repro_torch.runtime.step import make_prefill_fn
+    missing = [s for s in build.SOURCES if not build.lib_path(s).exists()]
+    if missing:
+        raise RuntimeError(f"rank {rank}: kernels not built by the parent: "
+                           f"{missing} (a rank never runs nvcc)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(*F_SERVE_MESH, dev)
+    tmesh = make_mesh(*F_TRAIN_MESH, dev)
+    prompts = torch.as_tensor(feeds["prompts"], device=dev)
+    out = {"counts": {}, "timed": {}}
+
+    def add(counts):
+        for kk, c in counts.items():
+            out["counts"][kk] = out["counts"].get(kk, 0) + c
+
+    def comm_share(run):
+        sync()
+        mesh.timed = True
+        mesh.comm_s, mesh.comm_calls = 0.0, 0
+        t0 = time.monotonic()
+        run()
+        sync()
+        wall = time.monotonic() - t0
+        mesh.timed = False
+        return mesh.comm_s, mesh.comm_calls, wall
+
+    for tag, arch, n in F_SERVED:
+        feed = feeds[tag]
+        res = {}
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).replace("torch.", "")
+            cfg = configs.get(arch).with_(n_layers=n, dtype=dt)
+            params, placer = _m_place(cfg, files[f"{tag} {name}"], mesh, dev)
+            r = {"bytes": packed_bytes(params),
+                 "bytes_whole": placer.bytes_whole}
+            leaves = _f_packed_leaves(params)
+            m_rows = PREFILL_M if cfg.family == "audio" else BATCH
+            shapes = sorted({(w.sparse_vals.shape[0], w.d_in) for w in leaves
+                             if w.variant == "slab-ell"})
+            r["shapes"] = shapes
+            if rank == 0 and dt == torch.bfloat16:
+                flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+                for nn, k in shapes:
+                    leaf = next(w for w in leaves if w.variant == "slab-ell"
+                                and (w.sparse_vals.shape[0], w.d_in) == (nn, k))
+                    with use_mesh(mesh):    # u (rank 1) cut to the rows
+                        leaf = _row_slice(leaf, nn)
+                    out["timed"][(nn, k, m_rows)] = _m_kernel_at(
+                        leaf, flush, m=m_rows, tag="F")
+                del flush
+            torch.distributed.barrier()
+            need = feed["need"][name]
+            with use_mesh(mesh):
+                if cfg.family == "audio":
+                    x = torch.as_tensor(feed["x"], device=dev).to(dt)
+                    prefill = make_prefill_fn(cfg, Planner(mesh, cfg))
+                    prefill(params, x)                      # warm-up
+                    logits, counts, wall = _counted(
+                        lambda: prefill(params, x), need, tag,
+                        f"{name} prefill under the mesh")
+                    r |= {"logits": logits.float().cpu(), "wall": wall}
+                else:
+                    greedy_decode(cfg, params, prompts[:, :PROF_PROMPT], 2,
+                                  device=dev)
+                    gen, counts, wall = _counted(
+                        lambda: greedy_decode(cfg, params, prompts, F_GEN,
+                                              device=dev),
+                        need, tag, f"{name} greedy_decode under the mesh")
+                    r |= {"tokens": gen.cpu().numpy(), "wall": wall}
+                    cache = lm.init_cache(cfg, BATCH, F_PROMPT + F_GEN,
+                                          device=dev)
+                    r["h"] = tuple(cache.mamba[0].h.shape)
+                    if cache.shared_kv:
+                        r["shared_kv"] = tuple(cache.shared_kv[0].k.shape)
+                    if dt == torch.bfloat16:
+                        seq = torch.as_tensor(feed["seq"], device=dev)
+                        r["logits"] = _final_logits(cfg, params, seq).cpu()
+                        r["first"] = _final_logits(*_first_layers(
+                            cfg, params, HOLD_LAYERS), seq).cpu()
+                        r["comm"] = comm_share(lambda: greedy_decode(
+                            cfg, params, prompts[:, :PROF_PROMPT], 4,
+                            device=dev))
+                add(counts)
+                r["launches"] = counts
+            res[name] = r
+            del params, leaves
+            torch.cuda.empty_cache()
+        out[tag] = res
+
+    # F4: llama2-7b dense and unpacked, f32, every dense leaf cut by its
+    # specs (linears over "model" too)
+    cfg = configs.get("llama2_7b").with_(n_layers=F_DENSE_LAYERS,
+                                          dtype=torch.float32)
+    whole = lm.init(cfg, seed=0, device=dev)       # the parent's weights
+    placer = PackPlacer(Planner(mesh, cfg), mesh)
+    with contextlib.redirect_stdout(io.StringIO()):
+        params = place_params(cfg, whole, placer)
+    del whole
+    torch.cuda.empty_cache()
+    p4 = prompts % cfg.vocab
+    with use_mesh(mesh):
+        sync()
+        t0 = time.monotonic()
+        gen = greedy_decode(cfg, params, p4, F_GEN, device=dev)
+        sync()
+        out["F4"] = {"bytes": dense_bytes(params), "tokens": gen.cpu().numpy(),
+                     "wall": time.monotonic() - t0,
+                     "comm": comm_share(lambda: greedy_decode(
+                         cfg, params, p4[:, :PROF_PROMPT], 4, device=dev))}
+    del params
+    torch.cuda.empty_cache()
+
+    # F5, F6: make_train_fn on the (2, 1) mesh, each rank its rows
+    for tag, arch, n in F_TRAINED:
+        cfg, acfg, batch = _f_train_setup(arch, n)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        losses, aux, wall, comm = _f_train(cfg, acfg, batch,
+                                           Planner(tmesh, cfg), tmesh)
+        out[tag] = {"losses": losses, "aux": aux, "wall": wall,
+                    "comm": comm}
+    return out
+
+
+def families_phase():
+    """Phase F: the families under a mesh, two processes on the one card
+    (gloo carrying CUDA tensors), the models at full width (depth cut).
+    The parent packs each model once (its compression made while nvcc
+    builds), runs the single-process yardsticks and saves the models;
+    the ranks load them, cut their shards and run them through the
+    kernels the parent built. On (data 1, model 2): F1 mamba2-1.3b (2
+    layers) and F2 zamba2-7b (6 layers: the shared block fires), slab CR
+    0.5, each rank on its heads: bf16 final logits within F_BF16_TOL of
+    the single process's on HOLD_LAYERS layers and within F_BF16_NOISE
+    times the single process's distance of the f32 packed model's at
+    the phase's depth, f32 greedy tokens equal, each rank holding
+    half of every layer's state h; F3 hubert-xlarge (2 layers), the
+    packed prefill at VA_PREFILL x VA_FRAMES frames: bf16 within
+    F_BF16_TOL, f32 within F_F32_TOL; F4 llama2-7b (2 layers) dense and
+    unpacked at f32: half of the dense bytes a rank, tokens equal. On
+    (data 2, model 1): F5 deepseek-moe-16b (1 layer) and F6 qwen2-vl-2b
+    (2 layers, rows of different t layouts), F_TRAIN_STEPS
+    ``make_train_fn(planner=)`` steps: step 1 within F_LOSS_TOL of the
+    single process's. #1 at every new local shape checked and timed on
+    rank 0. Returns (launches summed over the ranks, #1's records by (N,
+    K, M))."""
+    import shutil
+    log(f"phase F: the families under a mesh, data={F_SERVE_MESH[0]} x "
+        f"model={F_SERVE_MESH[1]} (F1-F4) and data={F_TRAIN_MESH[0]} x "
+        f"model={F_TRAIN_MESH[1]} (F5, F6) over the same two processes on "
+        f"the one card ({CARD[0]})")
+    root = Path(__file__).resolve().parent / f"{F_DIR}_{os.getpid()}"
+    root.mkdir()
+    try:
+        return _families_phase(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _families_phase(root):
+    from repro_torch import configs
+    from repro_torch.core.packed_model import pack_model
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import lm
+    from repro_torch.runtime.mesh import spawn
+    from repro_torch.runtime.step import make_prefill_fn
+    from repro_torch.tree import tree_map
+    t_phase = time.monotonic()
+    files, feeds, single = {}, {}, {}
+    steps = F_PROMPT + F_GEN - 1
+    prompts = torch.as_tensor(SyntheticCorpus(32000, seed=0).batch(
+        0, BATCH, F_PROMPT)["inputs"], device="cuda")
+    feeds["prompts"] = prompts.cpu().numpy()
+    for tag, arch, n in F_SERVED:
+        front = _tree_to(AHEAD.pop(tag, None) or _f_front(arch, n), "cuda")
+        cfg, dense_c, decs, plan = (front[k] for k in ("cfg", "dense_c",
+                                                       "decs", "plan"))
+        del front
+        cfg32 = cfg.with_(dtype=torch.float32)
+        packed, rep = pack_model(dense_c, decs, plan=plan, dtype=cfg.dtype)
+        dense32 = tree_map(lambda t: t.float() if torch.is_tensor(t)
+                           and t.is_floating_point() else t, dense_c)
+        packed32, _ = pack_model(dense32, decs, plan=plan,
+                                 dtype=torch.float32)
+        del dense32, dense_c, decs
+        feed, s = {}, {"n_packed": rep.n_packed,
+                       "variants": dict(rep.by_variant)}
+        if cfg.family == "audio":
+            x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+                (VA_PREFILL, VA_FRAMES, cfg.d_model), dtype=np.float32))
+            feed["x"] = x.numpy()
+            x = x.to("cuda")
+            s["bf16"] = make_prefill_fn(cfg)(packed, x.to(cfg.dtype)
+                                             ).float().cpu()
+            s["f32"] = make_prefill_fn(cfg32)(packed32, x).cpu()
+            feed["need"] = {"bfloat16": _f_need(cfg, packed, PREFILL_M, 1),
+                            "float32": _f_need(cfg32, packed32, PREFILL_M,
+                                               1)}
+        else:
+            p = prompts % cfg.vocab
+            greedy_decode(cfg, packed, p[:, :PROF_PROMPT], 2, device="cuda")
+            sync()
+            t0 = time.monotonic()
+            gen = greedy_decode(cfg, packed, p, F_GEN, device="cuda")
+            sync()
+            s["wall"] = time.monotonic() - t0
+            seq = torch.cat([p.long(), gen], dim=1)
+            feed["seq"] = seq.cpu().numpy()
+            s["logits"] = _final_logits(cfg, packed, seq).cpu()
+            s["first"] = _final_logits(*_first_layers(cfg, packed,
+                                                      HOLD_LAYERS), seq).cpu()
+            s["f32_logits"] = _final_logits(cfg32, packed32, seq).cpu()
+            s["f32_tokens"] = greedy_decode(cfg32, packed32, p, F_GEN,
+                                            device="cuda").cpu().numpy()
+            s["h"] = tuple(lm.init_cache(cfg, BATCH, 1, device="meta")
+                           .mamba[0].h.shape)
+            feed["need"] = {"bfloat16": _f_need(cfg, packed, BATCH, steps),
+                            "float32": _f_need(cfg32, packed32, BATCH,
+                                               steps)}
+        files[f"{tag} bfloat16"] = str(root / f"{tag}_bf16.pt")
+        files[f"{tag} float32"] = str(root / f"{tag}_f32.pt")
+        torch.save(packed, files[f"{tag} bfloat16"])
+        torch.save(packed32, files[f"{tag} float32"])
+        del packed, packed32
+        torch.cuda.empty_cache()
+        feeds[tag], single[tag] = feed, s
+    cfg4 = configs.get("llama2_7b").with_(n_layers=F_DENSE_LAYERS,
+                                           dtype=torch.float32)
+    params = lm.init(cfg4, seed=0, device="cuda")
+    single["F4"] = {"tokens": greedy_decode(
+        cfg4, params, prompts % cfg4.vocab, F_GEN, device="cuda")
+        .cpu().numpy()}
+    del params
+    torch.cuda.empty_cache()
+    for tag, arch, n in F_TRAINED:
+        cfg, acfg, batch = _f_train_setup(arch, n)
+        losses, aux, wall, _ = _f_train(cfg, acfg, batch)
+        single[tag] = {"losses": losses, "aux": aux, "wall": wall}
+        del batch
+        torch.cuda.empty_cache()
+    log(f"  single-process yardsticks and the saved models: "
+        f"{time.monotonic() - t_phase:.1f}s")
+    t0 = time.monotonic()
+    per_rank = spawn(_f_worker, 2, "cuda", str(root / "store"),
+                     args=(files, feeds), timeout=F_TIMEOUT)
+    log(f"  2 ranks spawned, placed, served and trained in "
+        f"{time.monotonic() - t0:.1f}s")
+    out = _families_report(per_rank, single, steps)
+    log(f"  phase F wall {time.monotonic() - t_phase:.1f}s [{CARD[0]}]")
+    return out
+
+
+def _f_rel(a, b) -> float:
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _families_report(per_rank, single, steps):
+    """Hold every rank's results against the single process's, log them,
+    and return (launches summed over the ranks, rank 0's #1 records).
+    Every line is logged before the first failed hold raises."""
+    from repro_torch import configs
+    model = F_SERVE_MESH[1]
+    failed = []
+
+    def hold(ok, what):
+        if not ok:
+            failed.append(what)
+
+    for rank, res in enumerate(per_rank):
+        for tag, arch, n in F_SERVED:
+            cfg = configs.get(arch)
+            b, f = res[tag]["bfloat16"], res[tag]["float32"]
+            s = single[tag]
+            held = b["bytes"] / b["bytes_whole"]
+            launches = " ".join(f"{k}={c}" for k, c in sorted(
+                {**b["launches"], **f["launches"]}.items()))
+            if cfg.family == "audio":
+                e16 = _f_rel(b["logits"], s["bf16"])
+                e32 = _f_rel(f["logits"], s["f32"])
+                hold(e16 < F_BF16_TOL and e32 < F_F32_TOL,
+                     f"{tag} rank {rank}: prefill logits rel {e16} / {e32}")
+                log(f"  {tag} {cfg.name} {n} layers, rank {rank}: packed "
+                    f"prefill {VA_PREFILL} x {VA_FRAMES} frames under the "
+                    f"mesh {b['wall'] * 1e3:.1f} ms bf16 (rel {e16:.3g} "
+                    f"to one process), f32 rel {e32:.3g}; planes held "
+                    f"{held:.4f}; #1 local (N, K) {b['shapes']}; launches "
+                    f"{launches}")
+                continue
+            e_first = _f_rel(b["first"], s["first"])
+            e16 = _f_rel(b["logits"], s["logits"])
+            noise = _f_rel(s["logits"], s["f32_logits"])
+            e_f32 = _f_rel(b["logits"], s["f32_logits"])
+            same = np.array_equal(f["tokens"], s["f32_tokens"])
+            h_want = (s["h"][0], s["h"][1] // model) + s["h"][2:]
+            hold(e_first < F_BF16_TOL,
+                 f"{tag} rank {rank}: bf16 logits rel {e_first} on "
+                 f"{HOLD_LAYERS} layers")
+            hold(e_f32 < F_BF16_NOISE * noise,
+                 f"{tag} rank {rank}: bf16 logits {e_f32} from the f32 "
+                 f"model's, one process {noise}")
+            hold(same, f"{tag} rank {rank}: f32 greedy tokens differ")
+            hold(b["h"] == h_want, f"{tag} rank {rank}: state h {b['h']}")
+            hold(np.array_equal(b["tokens"],
+                                per_rank[0][tag]["bfloat16"]["tokens"]),
+                 f"{tag} rank {rank}: tokens differ from rank 0's")
+            comm_s, calls, wall = b["comm"]
+            log(f"  {tag} {cfg.name} {n} layers, rank {rank}: bf16 final "
+                f"logits rel {e_first:.3g} to one process on "
+                f"{HOLD_LAYERS} layers, {e16:.3g} on {n}; from the f32 "
+                f"packed model's {e_f32:.3g} (one process {noise:.3g}); "
+                f"f32 greedy tokens equal: {same} ({f['tokens'].size}); "
+                f"state h {b['h']} of {s['h']} a layer"
+                + (f", shared-block KV {b['shared_kv']}"
+                   if "shared_kv" in b else "")
+                + f"; planes held {held:.4f}; decode step "
+                f"{b['wall'] / steps * 1e3:.2f} ms under the mesh vs "
+                f"{s['wall'] / steps * 1e3:.2f} one process, collectives "
+                f"{comm_s * 1e3:.1f} ms in {calls} calls of a "
+                f"{wall * 1e3:.1f} ms run of {PROF_PROMPT + 3} steps "
+                f"(share {comm_s / wall:.3f}); #1 local (N, K) "
+                f"{b['shapes']}; launches {launches}")
+        r4 = res["F4"]
+        held, whole = r4["bytes"]
+        same = np.array_equal(r4["tokens"], single["F4"]["tokens"])
+        hold(0.49 < held / whole < 0.51 and same,
+             f"F4 rank {rank}: holds {held} of {whole} dense bytes, tokens "
+             f"equal {same}")
+        comm_s, calls, wall = r4["comm"]
+        log(f"  F4 llama2-7b {F_DENSE_LAYERS} layers dense unpacked f32, "
+            f"rank {rank}: dense bytes held {held / 1e9:.3f} of "
+            f"{whole / 1e9:.3f} GB ({held / whole:.4f}); greedy tokens "
+            f"equal: {same}; {r4['wall'] / steps * 1e3:.2f} ms a decode "
+            f"step, collectives {comm_s * 1e3:.1f} ms in {calls} calls of "
+            f"a {wall * 1e3:.1f} ms run (share {comm_s / wall:.3f})")
+        for tag, arch, n in F_TRAINED:
+            r, s = res[tag], single[tag]
+            rel = abs(r["losses"][0] - s["losses"][0]) / abs(s["losses"][0])
+            hold(rel < F_LOSS_TOL and all(np.isfinite(r["losses"])),
+                 f"{tag} rank {rank}: losses {r['losses']} vs "
+                 f"{s['losses']}")
+            comm_s, calls, sent = r["comm"]
+            log(f"  {tag} {configs.get(arch).name} {n} layer(s), rank "
+                f"{rank}: losses " + " ".join(f"{x:.6f}" for x in
+                                              r["losses"])
+                + " vs one process " + " ".join(f"{x:.6f}" for x in
+                                                s["losses"])
+                + f" (step 1 rel {rel:.3g}); aux {r['aux'][0]:.6f} vs "
+                f"{s['aux'][0]:.6f}; step {r['wall']:.2f}s vs "
+                f"{s['wall']:.2f}s one process, collectives {comm_s:.2f}s "
+                f"in {calls} calls, {sent / 1e9:.2f} GB sent")
+    for (n, k, m), rec in per_rank[0]["timed"].items():
+        log(f"  #1 at rank 0's ({n}, {k}) M {m}: rel {rec['rel_err']:.3g}, "
+            f"{rec['ms']:.4f} ms (bound {rec['bound_ms']:.4f}, plain "
+            f"{rec['plain_ms']:.4f}, matmul {rec['library_ms']:.4f}) "
+            f"[{CARD[0]}]")
+    if failed:
+        raise AssertionError("phase F: " + "; ".join(failed))
+    total = {}
+    for res in per_rank:
+        for kk, c in res["counts"].items():
+            total[kk] = total.get(kk, 0) + c
+    return total, per_rank[0]["timed"]
+
+
 PHASES = (
     ("a", dict(n_layers=2, dtype=torch.bfloat16, cr=0.5, pattern=None,
                variant="slab-ell", kernel="slab_ell_matmul", tol=3e-2,
@@ -4565,10 +5130,11 @@ def main():
                            dtype=torch.float32)),
                        ("H", lambda: ssm_phase("H", "zamba2_7b", 12, "*=slab",
                                                deep_tol=0.04)),
-                       ("V", lambda: vlm_phase("V", 28, deep_tol=V_DEEP_TOL)),
+                       ("V", lambda: vlm_phase("V", V_LAYERS,
+                                               deep_tol=V_DEEP_TOL)),
                        ("V f32", lambda: vlm_phase("V f32", 2,
                                                    dtype=torch.float32)),
-                       ("A", lambda: audio_phase("A", 48,
+                       ("A", lambda: audio_phase("A", A_LAYERS,
                                                  deep_tol=A_DEEP_TOL)),
                        ("A f32", lambda: audio_phase("A f32", 2,
                                                      dtype=torch.float32))):
@@ -4583,6 +5149,10 @@ def main():
     mark("M")
     ddp_train_phase()
     mark("P")
+    counts_f, f_timed = families_phase()
+    for kname, c in counts_f.items():
+        launches[kname] += c
+    mark("F")
 
     def by_lib(rec, key):
         """The record with the library ``key``'s own time where it was
@@ -4643,6 +5213,12 @@ def main():
                 kk: r[kk] for kk in ("ms", "plain_ms", "library_ms",
                                      "bound_ms")}
                 for (n, k), r in tp_timed.items()})
+            # phase F's rank-0 local shapes (the families under (1, 2))
+            by_shape.update({f"{n}x{k} F rank 0"
+                             + (f" M={m}" if m != 4 else ""): {
+                kk: r[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms")}
+                for (n, k, m), r in f_timed.items()})
         if kern.name == "slab_ell_matmul":
             # null where the wrapper never picks this library (grouped_tc.cu
             # at K 14336); the vlm / audio shapes at M 4, the encoder's

@@ -41,7 +41,12 @@ leaf shards by rows on "model" (``packed_axes``); an expert stack's
 groups shard by experts first. Under a mesh each rank holds its rows and
 runs the variant's kernel on them, and the output features are gathered
 (``linear``, ``expert_matmul``); a leaf whose d_out the mesh does not
-divide is whole on every rank and runs whole.
+divide is whole on every rank and runs whole. A dense weight the planner
+cut over "model" is a ``meshctx.Shard`` whose spec says which dim: cut
+on its output dim it runs on the rank's columns and the features are
+gathered, on its input dim on the rank's rows of the contraction, the
+ranks' partial products summed; dense experts cut on the expert dim run
+the rank's experts, then the expert dim is gathered.
 """
 from __future__ import annotations
 
@@ -56,8 +61,9 @@ from repro_torch.core.packing import (ell_pack, ell_row_nnz_max,
                                       pack_sign_bits)
 from repro_torch.core.slab import SLaBDecomposition
 from repro_torch.models.common import tap_record
-from repro_torch.runtime.meshctx import (current_mesh, gather_model,
-                                         model_shards)
+from repro_torch.runtime.meshctx import (Shard, current_mesh, gather_model,
+                                         model_dim, model_shards,
+                                         reduce_model)
 
 # Rank threshold for sharding the low-rank u factor on "model": below it
 # the (D_out, r) plane is a few KB and stays whole on every rank (each
@@ -521,8 +527,7 @@ def expert_matmul(x: torch.Tensor, w: ExpertPackedStack) -> torch.Tensor:
     if w.dense is not None:
         xd = x.index_select(0, torch.tensor(w.dense_members,
                                             device=x.device))
-        parts.append(torch.einsum("emk,ekn->emn", xd,
-                                  w.dense.to(x.dtype)).to(x.dtype))
+        parts.append(dense_experts(xd, w.dense))
         order.extend(w.dense_members)
     y = torch.cat(parts, dim=0)
     inv = [0] * n
@@ -550,6 +555,51 @@ def _row_slice(w: PackedLinear, rows: int, lead: int = 0) -> PackedLinear:
     return dataclasses.replace(w, u=w.u.narrow(lead, c * rows, rows))
 
 
+def _rank_slice(t: torch.Tensor, dim: int, n_local: int) -> torch.Tensor:
+    """This "model" rank's ``n_local`` entries of ``t`` along ``dim``."""
+    return t.narrow(dim, model_shards()[0] * n_local, n_local)
+
+
+def _model_dim_of(w: Shard) -> int:
+    """The dim a layer's dense ``Shard`` is split on over "model" (its
+    "data" dims were gathered by ``meshctx.gather_dense``)."""
+    d = model_dim(w)
+    if d is None:
+        raise ValueError(f"a dense Shard of spec {w.spec} not split over "
+                         "\"model\": gather its layer's leaves first")
+    return d
+
+
+def dense_matmul(x: torch.Tensor, w: Shard) -> torch.Tensor:
+    """``x @ w`` for a ``Shard`` of a dense (D_in, D_out) weight cut over
+    "model": on its output dim the rank's columns, features gathered; on
+    its input dim the rank's rows of the contraction against its slice
+    of x, the partial products (f32) summed."""
+    if _model_dim_of(w) == 1:
+        return gather_model(x @ w.local)
+    xk = _rank_slice(x, -1, w.local.shape[0])
+    return reduce_model(xk.float() @ w.local.float()).to(x.dtype)
+
+
+def dense_experts(x: torch.Tensor, w) -> torch.Tensor:
+    """Per-expert ``x[e] @ w[e]``: x (E, M, D_in), w a dense (E, D_in,
+    D_out) leaf or a ``Shard`` of one cut over "model" on one dim: the
+    expert dim (the rank's experts, gathered after), the output dim
+    (columns, gathered) or the input dim (partial products summed)."""
+    if not isinstance(w, Shard):
+        return torch.einsum("emk,ekn->emn", x, w.to(x.dtype)).to(x.dtype)
+    d = _model_dim_of(w)
+    loc = w.local.to(x.dtype)
+    if d == 0:
+        xe = _rank_slice(x, 0, loc.shape[0])
+        return gather_model(torch.einsum("emk,ekn->emn", xe, loc), dim=0)
+    if d == 2:
+        return gather_model(torch.einsum("emk,ekn->emn", x, loc))
+    xk = _rank_slice(x, -1, loc.shape[1])
+    return reduce_model(torch.einsum("emk,ekn->emn", xk.float(),
+                                     loc.float())).to(x.dtype)
+
+
 def linear(x: torch.Tensor, w, tap: Optional[str] = None) -> torch.Tensor:
     """Dispatch point used by the model layers: dense ``x @ w`` or the
     packed kernel. ``tap`` names this linear for activation capture.
@@ -557,7 +607,7 @@ def linear(x: torch.Tensor, w, tap: Optional[str] = None) -> torch.Tensor:
     Under a mesh a row-sharded PackedLinear runs its kernel on this
     rank's rows and the output features are gathered over "model" (the
     reference's output pin); a whole one (d_out not divisible) runs
-    whole."""
+    whole. A dense ``Shard`` runs tensor-parallel (``dense_matmul``)."""
     if tap is not None:
         tap_record(tap, x)
     if isinstance(w, PackedLinear):
@@ -566,7 +616,35 @@ def linear(x: torch.Tensor, w, tap: Optional[str] = None) -> torch.Tensor:
             if rows != w.d_out:
                 return gather_model(packed_matmul(x, _row_slice(w, rows)))
         return packed_matmul(x, w)
+    if isinstance(w, Shard):
+        return dense_matmul(x, w)
     return x @ w
+
+
+def linear_cols(x: torch.Tensor, w, n_local: int,
+                tap: Optional[str] = None) -> torch.Tensor:
+    """This "model" rank's ``n_local`` output features of ``linear(x,
+    w)``, where the features split evenly over the "model" ranks (a
+    Mamba layer's heads): the rank's rows of a row-sharded PackedLinear
+    or columns of a column-sharded ``Shard``, with no gather; a whole
+    leaf runs whole and is sliced."""
+    if tap is not None:
+        tap_record(tap, x)
+    if isinstance(w, PackedLinear):
+        rows = _held(w, 0)
+        if rows == w.d_out:
+            return _rank_slice(packed_matmul(x, w), -1, n_local)
+        if rows != n_local:
+            raise ValueError(f"a packed leaf of {rows} rows a rank for "
+                             f"{n_local} features a rank")
+        return packed_matmul(x, _row_slice(w, rows))
+    if isinstance(w, Shard):
+        if _model_dim_of(w) != 1 or w.local.shape[1] != n_local:
+            raise ValueError(f"a weight of spec {w.spec} and local shape "
+                             f"{tuple(w.local.shape)} where {n_local} "
+                             "output features a rank are asked")
+        return x @ w.local
+    return x @ _rank_slice(w, 1, n_local)
 
 
 # ------------------------------------------------------------------

@@ -25,13 +25,20 @@ paged KV cache (``--kv-quant`` for an int8 cache).
       --plan '0/mamba.out=skip; *=slab' --device cpu
   python -m repro_torch.launch.serve --arch qwen2_vl_2b --packed \
       --engine --device cpu
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch mamba2_1_3b --packed \
+      --mesh 1,2 --device cpu
 
-The ssm and hybrid families serve through ``greedy_decode`` only:
-``--engine`` refuses them (they keep no paged KV cache). The vlm serves
-text prompts (token ids, M-RoPE positions with t = h = w) both ways.
-The audio encoder (hubert_xlarge) has no decode path: this entry point
-refuses it, and it serves through ``lm.prefill``
-(``runtime.step.make_prefill_fn``) on frame embeddings.
+The ssm and hybrid families serve through ``greedy_decode`` only,
+with or without ``--mesh``: ``--engine`` refuses them (they keep no
+paged KV cache). The vlm serves text prompts (token ids, M-RoPE
+positions with t = h = w) both ways. The audio encoder (hubert_xlarge)
+has no decode path: this entry point refuses it, with or without a
+mesh, and it serves through ``lm.prefill``
+(``runtime.step.make_prefill_fn``, which takes a planner for a mesh) on
+frame embeddings. Under ``--mesh`` every family but audio serves on a
+(data, model) mesh: packed leaves and dense weights cut over "model"
+run tensor-parallel, a Mamba layer on its heads.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 refuses to start.
@@ -205,10 +212,6 @@ def main(argv: Optional[list] = None):
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch, smoke=args.smoke)
-    if args.mesh is not None and cfg.family in lm.NO_PAGED_DECODE:
-        ap.error(f"--mesh: the {cfg.family} family ({cfg.name}) does not "
-                 "serve under a mesh yet (ROADMAP A7b: the ssm, hybrid and "
-                 "audio families under a mesh)")
     if cfg.family == "audio":
         ap.error(f"--arch {args.arch}: {cfg.name} is an encoder-only model "
                  "(family 'audio') with no decode path; it serves through "
@@ -299,15 +302,18 @@ def place_params(cfg, params, placer):
     """The dense leaves cut to this rank's shards by the planner (the
     packed ones were as they were packed), and every rank's packed leaves
     checked equal; prints the packed planes' bytes this rank holds."""
-    from repro_torch.runtime.sharding import packed_bytes, tree_shard
+    from repro_torch.runtime.sharding import (dense_bytes, packed_bytes,
+                                              tree_shard)
     planner, mesh = placer.planner, placer.mesh
-    params = tree_shard(params, planner.placement(lm.param_axes(cfg),
-                                                  params), mesh)
+    params = tree_shard(params, planner.tree_specs(lm.param_axes(cfg),
+                                                   params), mesh)
     n = placer.verify()
     if n:
         print(f"placed: {n} packed leaves, checksums equal on {mesh.size} "
               f"ranks; packed planes held {packed_bytes(params) / 1e6:.2f} "
               f"MB of {placer.bytes_whole / 1e6:.2f} MB")
+    held, total = dense_bytes(params)
+    print(f"dense leaves held {held / 1e6:.2f} MB of {total / 1e6:.2f} MB")
     return params
 
 

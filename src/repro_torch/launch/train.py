@@ -40,7 +40,7 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.runtime.elastic import elastic_restore, place_train_state
 from repro_torch.runtime.fault import FaultConfig, Supervisor
 from repro_torch.runtime.sharding import Planner
-from repro_torch.runtime.step import MOE_DATA_PARALLEL, make_train_fn
+from repro_torch.runtime.step import make_train_fn
 
 
 def make_batch(cfg: ArchConfig, corpus: SyntheticCorpus, step: int,
@@ -191,9 +191,6 @@ def main(argv: Optional[list] = None):
         return train(*run, device=args.device, **kw)
     if d < 1 or m < 1:
         ap.error(f"--data-par {d} --model-par {m}: each at least 1")
-    cfg = configs.get(args.arch, smoke=args.smoke)
-    if cfg.family == "moe" and d > 1:
-        ap.error(f"--data-par {d}: {cfg.name}: {MOE_DATA_PARALLEL}")
     mesh, _ = open_mesh(ap, d, m, resolve_device(args.device),
                           "repro_torch.launch.train",
                           f"--data-par {d} --model-par {m}")

@@ -45,10 +45,14 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
 
 
 def multihead_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
-                        positions: torch.Tensor) -> torch.Tensor:
+                        positions: torch.Tensor,
+                        first=None) -> torch.Tensor:
     """Full-sequence attention, query-chunked. x (B, S, D) -> (B, S, D);
     positions (B, S), or (B, S, 3) under M-RoPE. Causal unless
-    ``cfg.causal`` is False (the audio encoder)."""
+    ``cfg.causal`` is False (the audio encoder). The mask reads the
+    position ids of the batch's first row for every row, as the
+    reference does; where x holds a rank's rows of a larger batch,
+    ``first`` is row 0 of that batch's positions."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
     g = h // kv
@@ -68,7 +72,9 @@ def multihead_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
     kv_pos = torch.arange(s, device=x.device)
     # the mask compares a query's position id (under M-RoPE its t id) with
     # the key's index, as the reference does
-    qpos_rows = (positions[..., 0] if positions.dim() == 3 else positions)[0]
+    row0 = (positions[0] if first is None
+            else torch.as_tensor(first, device=x.device))
+    qpos_rows = row0[..., 0] if row0.dim() == 2 else row0
     kf = k.float()
     outs = []
     for c0 in range(0, s, cq):

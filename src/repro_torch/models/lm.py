@@ -39,12 +39,18 @@ matmul outputs, ``everything_saveable`` keeps all), or None for no
 checkpoint.
 
 Under a mesh (``runtime.meshctx.use_mesh``) the params are this rank's
-shards (``runtime.sharding``): each layer's dense shards (over "data")
-are gathered whole before the layer runs, packed leaves run on their
-rows, and the
-vocab-sharded embedding table serves its rows' lookups and logits.
-``param_axes`` / ``cache_axes`` give the logical axes the planner
-places them by, one dict per layer (no "layers" lead).
+shards (``runtime.sharding``): each layer's dense shards are gathered
+over "data" before the layer runs; what is split over "model" runs
+tensor-parallel: packed leaves on their rows, dense linears on their
+columns or rows (``core.packed_model.linear``), a Mamba layer on its
+heads, and the vocab-sharded embedding table serves its rows' lookups
+and logits. The decode caches are placed as the planner places them:
+KV positions over "model", a Mamba layer's state by its heads. Where
+the batch axes split a batch's rows, ``forward`` takes the split
+(``rows``): the attention mask reads the global batch's first row and
+the MoE layer routes as the single device does. ``param_axes`` /
+``cache_axes`` give the logical axes the planner places them by, one
+dict per layer (no "layers" lead).
 """
 from __future__ import annotations
 
@@ -64,8 +70,10 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
                                        positions_for, rms_norm,
                                        softmax_xent, tap_scope)
-from repro_torch.runtime.meshctx import (Shard, gather_dense, gather_model,
-                                         merge_model, model_shards, whole)
+from repro_torch.runtime.meshctx import (RowSplit, Shard, current_mesh,
+                                         gather_data, gather_dense,
+                                         gather_model, merge_model,
+                                         model_shards, row_split, whole)
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -131,7 +139,8 @@ def _init_ffn(cfg: ArchConfig, gen: torch.Generator, dev) -> dict:
     return {"mlp": mlp_lib.init_mlp(cfg, gen, dev)}
 
 
-def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor
+def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor,
+         rows: Optional[RowSplit] = None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's feed-forward half on the residual stream h: the MLP,
     or the MoE layer with its aux loss, on rms_norm(h). Returns (h + y,
@@ -139,7 +148,7 @@ def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor
     hin = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
     if cfg.family == "moe":
         with tap_scope("moe"):
-            y, aux = moe_lib.moe_ffn(cfg, lp["moe"], hin)
+            y, aux = moe_lib.moe_ffn(cfg, lp["moe"], hin, rows)
         return h + y, aux
     with tap_scope("mlp"):
         y = mlp_lib.mlp(cfg, lp["mlp"], hin)
@@ -202,19 +211,20 @@ def shared_fires(cfg: ArchConfig, idx: int) -> bool:
 
 
 def _attn_layer(cfg: ArchConfig, lp: dict, h: torch.Tensor,
-                positions: torch.Tensor
+                positions: torch.Tensor, rows: Optional[RowSplit] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A transformer layer (attention, then ``_ffn``) of the full-sequence
     forward: a dense or moe layer, or the hybrid's shared block."""
     with tap_scope("attn"):
         a = attn_lib.multihead_attention(
             cfg, lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps),
-            positions)
-    return _ffn(cfg, lp, h + a)
+            positions, None if rows is None else rows.first)
+    return _ffn(cfg, lp, h + a, rows)
 
 
 def _layer_fwd(cfg: ArchConfig, params: dict, lp: dict, idx: int,
-               h: torch.Tensor, positions: torch.Tensor
+               h: torch.Tensor, positions: torch.Tensor,
+               rows: Optional[RowSplit] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of the full-sequence forward. Returns (h, aux)."""
     lp = gather_dense(lp)
@@ -222,12 +232,12 @@ def _layer_fwd(cfg: ArchConfig, params: dict, lp: dict, idx: int,
         if shared_fires(cfg, idx):
             with tap_scope("shared"):
                 h, _ = _attn_layer(cfg, gather_dense(params["shared_attn"]),
-                                   h, positions)
+                                   h, positions, rows)
         with tap_scope("mamba"):
             h = h + mamba_lib.mamba_block(
                 cfg, lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps))
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
-    h, aux = _attn_layer(cfg, lp, h, positions)
+    h, aux = _attn_layer(cfg, lp, h, positions, rows)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, aux
@@ -313,14 +323,17 @@ def _remat(fn: Callable, policy: Optional[Callable]) -> Callable:
 def forward(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             remat_policy: Optional[Callable] = None,
-            remat_block: int = 1
+            remat_block: int = 1, rows: Optional[RowSplit] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits (B, S, V), aux).
 
     With ``remat_policy``, each layer runs under that checkpoint policy;
     with ``remat_block`` = K > 1 dividing the depth, each block of K
     layers does instead (only the block boundaries' activations stay for
-    the backward pass)."""
+    the backward pass). With ``rows`` (``meshctx.RowSplit``) the inputs
+    are this rank's rows of a larger batch: the mask reads that batch's
+    first row, the MoE layers route by its groups, and aux is this
+    rank's share (``models.moe.moe_ffn``)."""
     _check_family(cfg)
     b, s = inputs.shape[0], inputs.shape[1]
     h = embed_inputs(cfg, params, inputs)
@@ -330,7 +343,8 @@ def forward(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
 
     def run(lo: int, hi: int, h: torch.Tensor, aux: torch.Tensor):
         for l in range(lo, hi):
-            h, a = _layer_fwd(cfg, params, layers[l], l, h, positions)
+            h, a = _layer_fwd(cfg, params, layers[l], l, h, positions,
+                              rows)
             aux = aux + a
         return h, aux
 
@@ -347,11 +361,13 @@ def forward(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
             remat_policy: Optional[Callable] = None,
-            remat_block: int = 1) -> Tuple[torch.Tensor, dict]:
+            remat_block: int = 1, rows: Optional[RowSplit] = None
+            ) -> Tuple[torch.Tensor, dict]:
     """Next-token loss of one batch ({inputs, labels[, positions, mask]}):
     ce + AUX_LOSS_WEIGHT · aux. exp(ce) is the perplexity the paper
     reports. Differentiable in grad mode (``forward``'s remat options).
-    The batch's arrays move to the params' device."""
+    The batch's arrays move to the params' device. With ``rows`` the
+    batch is this rank's rows of a larger one (``forward``)."""
     dev = params_device(params)
     inputs = torch.as_tensor(batch["inputs"], device=dev)
     labels = torch.as_tensor(batch["labels"], device=dev)
@@ -361,7 +377,7 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
     if positions is not None:
         positions = torch.as_tensor(positions, device=dev)
     logits, aux = forward(cfg, params, inputs, positions, remat_policy,
-                          remat_block)
+                          remat_block, rows)
     ce = softmax_xent(logits, labels, mask)
     return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
@@ -429,6 +445,7 @@ def _ssm_decode(cfg: ArchConfig, params: dict, cache: SSMCache,
     skv = None if cache.shared_kv is None else list(cache.shared_kv)
     mc = []
     for idx, (lp, mc_l) in enumerate(zip(params["layers"], cache.mamba)):
+        lp = gather_dense(lp)
         if shared_fires(cfg, idx):
             inv = idx // cfg.attn_every
             with tap_scope("shared"):
@@ -508,6 +525,21 @@ def paged_decode_step(cfg: ArchConfig, params: dict, paged: list,
 def prefill(cfg: ArchConfig, params: dict, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prefill = the full forward's logits (the cache fill is modelled as
-    the forward pass); the audio encoder's only serving entry point."""
-    logits, _ = forward(cfg, params, inputs, positions)
-    return logits
+    the forward pass); the audio encoder's only serving entry point.
+
+    Under a mesh whose batch axes split the rows (``meshctx.batch_rows``;
+    the moe family excepted, as in ``greedy_decode``: its capacity
+    couples the rows of a group), each rank runs its rows and the logits
+    are gathered: every rank returns the whole batch's."""
+    rows = None
+    if current_mesh() is not None and cfg.family != "moe":
+        rows = row_split(cfg, inputs.shape[0],
+                         None if positions is None else positions[0])
+    if rows is None:
+        logits, _ = forward(cfg, params, inputs, positions)
+        return logits
+    sl = slice(rows.lo, rows.hi)
+    logits, _ = forward(cfg, params, inputs[sl],
+                        None if positions is None else positions[sl],
+                        rows=rows)
+    return gather_data(logits, 0, rows.axes)

@@ -16,6 +16,15 @@ Projections are separate (z / x / B / C / dt), as in the reference:
 
 Decode is the O(1)-per-token recurrent form with a rolling (K-1)-row
 depthwise-conv window; the cache does not depend on the sequence length.
+
+Under a mesh whose "model" ranks split the heads (``head_split``: the
+planner's "ssm_heads" rule, H divisible), a rank runs its heads: its
+columns of ``in_z`` / ``in_x`` / ``in_dt`` (``packed_model.linear_cols``,
+no gather), its channels of the conv and its heads' dt, recurrence or
+chunk scan and ``d_skip``, and holds its heads' state ``h`` and
+``conv_x`` channels in the cache. ``in_b`` / ``in_c``, their convs and
+the B / C vectors stay whole on every rank. y is gathered over "model"
+before the gated RMSNorm; ``out`` then runs as any linear does.
 """
 from __future__ import annotations
 
@@ -24,8 +33,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.packed_model import linear
+from repro_torch.core.packed_model import linear, linear_cols
 from repro_torch.models.common import ArchConfig, dense_init, rms_norm
+from repro_torch.runtime.meshctx import (current_mesh, gather_model,
+                                         model_dim, model_shards, whole)
 
 
 def mamba_axes() -> dict:
@@ -123,25 +134,73 @@ def _ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return torch.cat(ys, dim=1), hstate
 
 
+def head_split(cfg: ArchConfig) -> Tuple[int, int]:
+    """(this rank's index, ranks) over which a Mamba layer's heads split:
+    the "model" ranks where they divide the heads, else (0, 1)."""
+    c, n = model_shards()
+    if n == 1 or cfg.ssm_heads % n:
+        return 0, 1
+    return c, n
+
+
+def _mine(t, dim: int, n_local: int, split: Tuple[int, int]):
+    """This rank's ``n_local`` entries along ``dim`` of a per-head or
+    per-channel param under ``split`` (``head_split``): a ``Shard``'s
+    own slice where the planner cut that dim over "model", else cut from
+    the whole; the whole param where the heads do not split."""
+    c, n = split
+    if n == 1:
+        return whole(t)
+    if model_dim(t) == dim and t.local.shape[dim] == n_local:
+        return t.local
+    return whole(t).narrow(dim, c * n_local, n_local)
+
+
+def _in_cols(x: torch.Tensor, w, n_local: int, n: int,
+             tap: str) -> torch.Tensor:
+    """The rank's ``n_local`` features of an input projection (all of
+    them where the heads do not split)."""
+    if n == 1:
+        return linear(x, w, tap=tap)
+    return linear_cols(x, w, n_local, tap=tap)
+
+
+def _gated_out(cfg: ArchConfig, p: dict, y: torch.Tensor, z: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """The gated RMSNorm over all d_inner channels (this rank's gathered
+    over "model" first), then ``out``."""
+    g = y * F.silu(z)
+    if n > 1:
+        g = gather_model(g)
+    g = rms_norm(g, whole(p["gate_norm"]), cfg.norm_eps)
+    return linear(g, p["out"], tap="out")
+
+
 def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence SSD block. x (B, S, D) -> (B, S, D)."""
+    """Full-sequence SSD block. x (B, S, D) -> (B, S, D). Under a mesh
+    that splits the heads, on this rank's heads (module docstring)."""
     b, s, _ = x.shape
-    h, pd = cfg.ssm_heads, cfg.ssm_headdim
-    z = linear(x, p["in_z"], tap="in_z")
-    xs = F.silu(_causal_conv(linear(x, p["in_x"], tap="in_x"), p["conv_x"]))
+    split = head_split(cfg)
+    n = split[1]
+    h, pd = cfg.ssm_heads // n, cfg.ssm_headdim
+    di = h * pd
+    z = _in_cols(x, p["in_z"], di, n, "in_z")
+    xs = F.silu(_causal_conv(_in_cols(x, p["in_x"], di, n, "in_x"),
+                             _mine(p["conv_x"], 0, di, split)))
     bmat = F.silu(_causal_conv(linear(x, p["in_b"], tap="in_b"),
-                               p["conv_b"]))
+                               whole(p["conv_b"])))
     cmat = F.silu(_causal_conv(linear(x, p["in_c"], tap="in_c"),
-                               p["conv_c"]))
-    dt = F.softplus(x.float() @ p["in_dt"] + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
+                               whole(p["conv_c"])))
+    dt = F.softplus(x.float() @ _mine(p["in_dt"], 1, h, split)
+                    + _mine(p["dt_bias"], 0, h, split))
+    a = -torch.exp(_mine(p["a_log"], 0, h, split))
 
     xh = xs.reshape(b, s, h, pd)
     y, _ = _ssd_chunk_scan(xh, dt, a, bmat, cmat, cfg.ssm_chunk)
-    y = y + xh.float() * p["d_skip"][None, None, :, None]
-    y = y.reshape(b, s, cfg.d_inner).to(cfg.dtype)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return linear(y, p["out"], tap="out")
+    y = y + xh.float() * _mine(p["d_skip"], 0, h, split)[None, None, :,
+                                                           None]
+    y = y.reshape(b, s, di).to(cfg.dtype)
+    return _gated_out(cfg, p, y, z, n)
 
 
 # ------------------------------------------------------------------
@@ -163,17 +222,27 @@ def mamba_cache_axes() -> MambaCache:
 
 def init_mamba_cache(cfg: ArchConfig, batch: int,
                      device=None) -> MambaCache:
+    """The empty cache of ``batch`` rows. Under a mesh, this rank's part
+    as the planner places ``mamba_cache_axes()``: the dims it cuts over
+    "model" (the state's heads, ``conv_x``'s channels) at this rank's
+    size (the caller has split the rows already)."""
     k = cfg.ssm_conv
-    return MambaCache(
-        torch.zeros((batch, k - 1, cfg.d_inner), dtype=cfg.dtype,
-                    device=device),
-        torch.zeros((batch, k - 1, cfg.ssm_state), dtype=cfg.dtype,
-                    device=device),
-        torch.zeros((batch, k - 1, cfg.ssm_state), dtype=cfg.dtype,
-                    device=device),
-        torch.zeros((batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
-                    dtype=torch.float32, device=device),
-    )
+    shapes = MambaCache((batch, k - 1, cfg.d_inner),
+                        (batch, k - 1, cfg.ssm_state),
+                        (batch, k - 1, cfg.ssm_state),
+                        (batch, cfg.ssm_heads, cfg.ssm_headdim,
+                         cfg.ssm_state))
+    mesh = current_mesh()
+    if mesh is not None:
+        from repro_torch.runtime.sharding import Planner
+        planner = Planner(mesh, cfg)
+        shapes = MambaCache(*(
+            tuple(d // mesh.shape["model"] if e == "model" else d
+                  for d, e in zip(shp, planner.spec(ax, shp)))
+            for ax, shp in zip(mamba_cache_axes(), shapes)))
+    dts = (cfg.dtype, cfg.dtype, cfg.dtype, torch.float32)
+    return MambaCache(*(torch.zeros(shp, dtype=dt, device=device)
+                        for shp, dt in zip(shapes, dts)))
 
 
 def _conv_step(window: torch.Tensor, x_new: torch.Tensor, w: torch.Tensor
@@ -189,30 +258,38 @@ def mamba_decode_step(cfg: ArchConfig, p: dict, x: torch.Tensor,
                       cache: MambaCache
                       ) -> Tuple[torch.Tensor, MambaCache]:
     """x (B, 1, D) -> (y (B, 1, D), the next cache). The cache's tensors
-    are not modified."""
+    are not modified. Under a mesh that splits the heads, on this rank's
+    heads and its part of the cache (``init_mamba_cache``)."""
     b = x.shape[0]
     xt = x[:, 0, :]
-    h, pd = cfg.ssm_heads, cfg.ssm_headdim
-    z = linear(xt, p["in_z"], tap="in_z")
-    wx, xconv = _conv_step(cache.conv_x, linear(xt, p["in_x"], tap="in_x"),
-                           p["conv_x"])
+    split = head_split(cfg)
+    n = split[1]
+    h, pd = cfg.ssm_heads // n, cfg.ssm_headdim
+    di = h * pd
+    if cache.h.shape[1] != h:
+        raise ValueError(f"a Mamba cache of {cache.h.shape[1]} heads for "
+                         f"{h} heads a rank")
+    z = _in_cols(xt, p["in_z"], di, n, "in_z")
+    wx, xconv = _conv_step(cache.conv_x, _in_cols(xt, p["in_x"], di, n,
+                                                  "in_x"),
+                           _mine(p["conv_x"], 0, di, split))
     wb, bconv = _conv_step(cache.conv_b, linear(xt, p["in_b"], tap="in_b"),
-                           p["conv_b"])
+                           whole(p["conv_b"]))
     wc, cconv = _conv_step(cache.conv_c, linear(xt, p["in_c"], tap="in_c"),
-                           p["conv_c"])
+                           whole(p["conv_c"]))
     xs = F.silu(xconv).reshape(b, h, pd).float()
     bvec = F.silu(bconv).float()                              # (B, N)
     cvec = F.silu(cconv).float()                              # (B, N)
-    dt = F.softplus(xt.float() @ p["in_dt"] + p["dt_bias"])
-    a = -torch.exp(p["a_log"])                                # (H,)
+    dt = F.softplus(xt.float() @ _mine(p["in_dt"], 1, h, split)
+                    + _mine(p["dt_bias"], 0, h, split))
+    a = -torch.exp(_mine(p["a_log"], 0, h, split))            # (H,)
 
     da = torch.exp(dt * a[None, :])                           # (B, H)
     dtx = xs * dt[..., None]                                  # (B, H, P)
     h_new = cache.h * da[:, :, None, None] + \
         dtx[..., None] * bvec[:, None, None, :]
     y = torch.einsum("bhpn,bn->bhp", h_new, cvec) + \
-        xs * p["d_skip"][None, :, None]
-    y = y.reshape(b, cfg.d_inner).to(cfg.dtype)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return (linear(y, p["out"], tap="out")[:, None, :],
+        xs * _mine(p["d_skip"], 0, h, split)[None, :, None]
+    y = y.reshape(b, di).to(cfg.dtype)
+    return (_gated_out(cfg, p, y, z, n)[:, None, :],
             MambaCache(wx, wb, wc, h_new))

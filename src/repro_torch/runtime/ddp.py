@@ -116,7 +116,7 @@ def build_compressed_ddp_step(cfg: ArchConfig, acfg: AdamWConfig, mesh,
         k = b // n
         local = {key: v[i * k:(i + 1) * k] for key, v in batch.items()}
         leaves = tree_leaves(params)
-        loss, grads = loss_and_grads(cfg, params, leaves, local)
+        loss, _, grads = loss_and_grads(cfg, params, leaves, local)
         loss = mesh.all_reduce(loss.float(), AXIS) / n
         if compress:
             groups = groups or _reference_tensors(params)

@@ -33,9 +33,9 @@ def train_state_specs(cfg: ArchConfig, acfg: AdamWConfig,
     moments as their parameters, the count replicated."""
     template = train_state_template(cfg, acfg)
     axes = lm.param_axes(cfg)
-    return {"params": planner.placement(axes, template["params"]),
-            "opt": planner.placement(OptState(axes, axes, ()),
-                                     template["opt"])}
+    return {"params": planner.tree_specs(axes, template["params"]),
+            "opt": planner.tree_specs(OptState(axes, axes, ()),
+                                      template["opt"])}
 
 
 def place_train_state(state: dict, cfg: ArchConfig, acfg: AdamWConfig,

@@ -6,7 +6,10 @@ Entry points enter ``with use_mesh(mesh):``; model code reads
 XLA insert the collectives, the port calls them itself, and only these:
 
   * ``gather_model(y, dim)`` — a dim sharded over "model" made whole
-    (a row-sharded linear's output features, an expert dim, kv heads);
+    (a column-sharded linear's output features, an expert dim, kv heads,
+    a Mamba layer's heads);
+  * ``reduce_model(y)`` — the sum of the "model" ranks' partial products
+    (a row-sharded dense linear: each rank contracts its input rows);
   * ``gather_data(t, dim, axes)`` — a dim sharded over the data axes
     made whole (greedy_decode's batch rows, split by ``batch_rows``);
   * ``merge_model(t)`` — elementwise, at most one "model" rank holds a
@@ -15,20 +18,28 @@ XLA insert the collectives, the port calls them itself, and only these:
   * ``lse_combine(...)`` — the split softmax over a position-sharded KV
     cache: the max, the sum of the exponentials, then the sum of the
     ranks' weighted V;
-  * ``whole(t)`` / ``gather_dense(tree)`` — a dense leaf sharded over
-    "data" (a ``Shard``; ``sharding.Planner.placement`` cuts one over
-    "model" only on a vocab dim) gathered whole before use, layer by
-    layer.
+  * ``gather_dense(tree)`` — a layer's dense leaves gathered over "data"
+    (FSDP) before the layer runs; what the planner cut over "model" stays
+    a ``Shard`` and runs tensor-parallel on it
+    (``core.packed_model.linear``); ``whole(t)`` gathers a ``Shard``
+    over every axis.
 
 Each is the identity without a mesh, so every single-device path runs
 exactly the code it ran before. A ``Shard`` exists only under a mesh.
+
+A ``RowSplit`` says which rows of a global batch this rank runs where
+the batch axes split them (the train step, a prefill). It is handed to
+``models.lm.forward`` as an argument, not set in a context, so that a
+checkpointed layer recomputed in the backward pass (on the autograd
+engine's thread) sees it: the attention mask reads the global batch's
+first row, and the MoE layer routes by the global batch's groups.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -86,6 +97,34 @@ def _axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+@dataclasses.dataclass(frozen=True)
+class RowSplit:
+    """This rank's rows [lo, hi) of a global batch of ``b`` rows, split
+    over the mesh axes ``axes`` of ``mesh`` (every rank's rows in the
+    order of its index along them). ``first`` is row 0 of the global
+    batch's positions ((S,), or (S, 3) under M-RoPE), or None where the
+    batch came without positions (every row then has the same ones)."""
+
+    mesh: Any
+    axes: Tuple[str, ...]
+    lo: int
+    hi: int
+    b: int
+    first: Optional[Any] = None
+
+
+def model_dim(t) -> Optional[int]:
+    """The dim of a ``Shard`` that is split over "model" (more than one
+    rank), or None."""
+    if not isinstance(t, Shard):
+        return None
+    mesh = _MESH.get()
+    for d, entry in enumerate(t.spec):
+        if "model" in _axes(entry) and mesh.n(_axes(entry)) > 1:
+            return d
+    return None
+
+
 def whole(t, keep: Tuple[int, ...] = ()):
     """A ``Shard`` gathered along every sharded dim but those in ``keep``;
     anything else as it is."""
@@ -99,9 +138,30 @@ def whole(t, keep: Tuple[int, ...] = ()):
     return out
 
 
+def _gather_data_dims(t):
+    """A ``Shard`` gathered along its data dims (every entry but "model"):
+    the whole tensor, or a ``Shard`` of what stays split over "model"."""
+    if not isinstance(t, Shard):
+        return t
+    mesh = _MESH.get()
+    out, spec = t.local, []
+    for d, entry in enumerate(t.spec):
+        if mesh.n(_axes(entry)) == 1:
+            spec.append(None)
+        elif "model" in _axes(entry):
+            spec.append(entry)
+        else:
+            out = mesh.all_gather(out, _axes(entry), d)
+            spec.append(None)
+    if all(e is None for e in spec):
+        return out
+    return Shard(out, tuple(spec), t.shape)
+
+
 def gather_dense(tree):
-    """A layer's params with every dense ``Shard`` gathered whole (an
-    expert stack's dense remainder too); packed leaves stay as they
+    """A layer's params with every dense ``Shard`` gathered over "data"
+    (an expert stack's dense remainder too); a leaf split over "model"
+    stays a ``Shard`` of its "model" slice, packed leaves stay as they
     are."""
     if _MESH.get() is None:
         return tree
@@ -109,8 +169,9 @@ def gather_dense(tree):
     if isinstance(tree, dict):
         return {k: gather_dense(v) for k, v in tree.items()}
     if isinstance(tree, ExpertPackedStack) and isinstance(tree.dense, Shard):
-        return dataclasses.replace(tree, dense=whole(tree.dense))
-    return whole(tree)
+        return dataclasses.replace(tree,
+                                   dense=_gather_data_dims(tree.dense))
+    return _gather_data_dims(tree)
 
 
 def gather_model(y: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -118,6 +179,13 @@ def gather_model(y: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if mesh is None:
         return y
     return mesh.all_gather(y, ("model",), dim)
+
+
+def reduce_model(y: torch.Tensor) -> torch.Tensor:
+    mesh = _MESH.get()
+    if mesh is None:
+        return y
+    return mesh.all_reduce(y, ("model",), "sum")
 
 
 def gather_data(t: torch.Tensor, dim: int = 0,
@@ -165,3 +233,14 @@ def batch_rows(cfg, b: int, mesh=None):
         return None
     i, k = mesh.index(_axes(entry)), b // n
     return i * k, (i + 1) * k, _axes(entry)
+
+
+def row_split(cfg, b: int, first=None, mesh=None) -> Optional[RowSplit]:
+    """``batch_rows`` as a ``RowSplit`` (``first``: row 0 of the global
+    batch's positions), or None where every rank runs every row."""
+    mesh = _MESH.get() if mesh is None else mesh
+    rows = batch_rows(cfg, b, mesh)
+    if rows is None:
+        return None
+    lo, hi, axes = rows
+    return RowSplit(mesh, axes, lo, hi, b, first)

@@ -27,13 +27,15 @@ one dim of a leaf at most. Otherwise the dim replicates (degraded but
 correct). A spec is a tuple with one entry per dim: None, an axis name,
 or a tuple of names — the entries of the reference's ``PartitionSpec``.
 
-Placement (``Planner.placement``) follows the specs, but for one rule:
-a dense leaf keeps "model" only on a "vocab" dim. The reference shards
-dense weights over "model" as well and XLA runs them tensor-parallel;
-here tensor parallelism runs on the packed leaves, whose planes are
-row-sharded, and the vocab-sharded table and head, so a dense weight
-replicates over "model" and no layer gathers one over it. "data" (FSDP)
-still shards dense leaves, gathered whole before use, layer by layer.
+Placement follows the specs (``Planner.tree_specs``), dense and packed
+leaves alike, as the reference's ``tree_shardings`` do. A dense leaf cut
+over "data" (FSDP) is gathered over "data" before its layer runs; what
+is cut over "model" stays cut and runs tensor-parallel, as XLA runs the
+reference's: a linear on its columns (features gathered) or rows
+(partial products summed), dense experts on the rank's experts, a Mamba
+layer on its heads, the vocab-sharded table and head on their rows
+(``core.packed_model.linear``, ``models``). Packed planes are
+row-sharded.
 
 ``shard`` cuts this rank's slice of one tensor, ``tree_shard`` of a
 tree. A sharded dense leaf becomes a ``meshctx.Shard``; the planes of a
@@ -153,18 +155,6 @@ class Planner:
         None, as ``tree_shard`` leaves it."""
         return _map(lambda ax, t, plane: self.spec(ax, tuple(t.shape)),
                     axes_tree, tree, keep=False)
-
-    def placement(self, axes_tree: Any, tree: Any) -> Any:
-        """``tree_specs`` as the port places the tree: a packed leaf's
-        planes by their specs, a dense leaf with "model" dropped from
-        every dim but a "vocab" one (the module docstring)."""
-        def spec(ax, t, plane):
-            sp = self.spec(ax, tuple(t.shape))
-            if plane:
-                return sp
-            return tuple(None if e == "model" and name != "vocab" else e
-                         for name, e in zip(ax, sp))
-        return _map(spec, axes_tree, tree, keep=False)
 
     def act_spec(self, *names: Optional[str], shape: Tuple[int, ...]
                  ) -> tuple:
@@ -316,7 +306,7 @@ class PackPlacer:
     def __call__(self, leaf):
         self.checksums.append(_checksum(leaf))
         self.bytes_whole += leaf_nbytes(leaf)
-        specs = self.planner.placement(packed_axes(leaf), leaf)
+        specs = self.planner.tree_specs(packed_axes(leaf), leaf)
         return tree_shard(leaf, specs, self.mesh)
 
     def verify(self) -> int:
@@ -342,6 +332,32 @@ def leaf_nbytes(leaf) -> int:
         return (sum(g.nbytes() for g in leaf.groups)
                 + (0 if d is None else d.numel() * d.element_size()))
     return leaf.nbytes()
+
+
+def dense_bytes(tree) -> Tuple[int, int]:
+    """(bytes this rank holds, bytes of the whole) of the dense tensors
+    of a params tree (a ``Shard``'s local slice against its global shape;
+    packed planes not counted)."""
+    held = whole = 0
+    for t in _dense_leaves(tree):
+        if isinstance(t, Shard):
+            held += t.local.numel() * t.local.element_size()
+            whole += math.prod(t.shape) * t.local.element_size()
+        else:
+            held += t.numel() * t.element_size()
+            whole += t.numel() * t.element_size()
+    return held, whole
+
+
+def _dense_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _dense_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _dense_leaves(v)
+    elif isinstance(tree, (torch.Tensor, Shard)):
+        yield tree
 
 
 def packed_bytes(tree) -> int:

@@ -5,10 +5,8 @@ reference's ``PartitionSpec`` as a tuple and whose ``shape`` is the
 global shape. Nothing is allocated.
 
 The specs are ``Planner.tree_specs``, the reference's
-``tree_shardings``. The port *places* dense leaves by
-``Planner.placement`` instead, which keeps "model" only on a vocab dim
-(``runtime.sharding``'s docstring): a dense weight replicates over
-"model" where these specs cut it.
+``tree_shardings``, by which the port also places a params tree and a
+train state (``runtime.sharding``, ``runtime.elastic``).
 """
 from __future__ import annotations
 

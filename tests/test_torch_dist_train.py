@@ -24,7 +24,8 @@ reference and against its own single-device step:
   "data") and a loss mask uneven over the ranks on (2, 1), loss and
   grad_norm at rel < 1e-5 and every
   assembled param and moment leaf within 1e-5 norm-relative; a moe
-  config refused on (2, 1) and equal to the single device on (1, 2);
+  config equal to the single device on (2, 1) and (1, 2); dense leaves
+  held at their specs' shares (over "model" too);
 - elastic restore: a commit made on (2, 1) after 2 steps, restored on
   (1, 2) (each rank's local shapes as the placement gives them) and in
   one process, bitwise equal to the state the ranks assembled; the
@@ -283,9 +284,9 @@ def _start_reference(tmp, inputs, batches):
 
 
 def _vlm_batches(cfg, n):
-    """Embeddings and (t, h, w) ids of one layout in every row: the
-    causal mask reads the first row's t ids (ROADMAP §C), each rank's
-    own first row under "data"."""
+    """Embeddings and (t, h, w) ids of one layout in every row (rows of
+    different layouts, whose mask reads the global batch's first row on
+    every rank, are held in ``tests/test_torch_mesh_families.py``)."""
     rng = np.random.default_rng(5)
     corpus = SyntheticCorpus(cfg.vocab, seed=0)
     out = []
@@ -460,9 +461,10 @@ def test_parallel_step_matches_single_device(runs, mesh):
         if data > 1:                 # FSDP: a norm and a linear cut
             assert local["params/final_norm"] == (64,)
             assert local["opt/mu/layers/0/attn/wq"] == (64, 128)
-        else:                        # only the vocab dim over "model"
+        else:                        # heads and the vocab over "model"
             assert local["params/embed"] == (256, 128)
-            assert local["params/layers/0/attn/wq"] == (128, 128)
+            assert local["params/layers/0/attn/wq"] == (128, 64)
+            assert local["opt/nu/layers/0/mlp/w_down"] == (172, 128)
 
 
 def test_parallel_step_vlm_on_mrope_positions(runs):
@@ -475,9 +477,11 @@ def test_parallel_step_masked_loss_is_the_global_mean(runs):
     _held_step(runs, (2, 1), "masked")
 
 
-def test_moe_refused_over_data_and_equal_over_model(runs):
-    for res in runs["mesh"][(2, 1)]:
-        assert "A7b" in res["moe"]["refused"]
+def test_moe_equal_over_data_and_over_model(runs):
+    """phi3.5-moe trains over "data" (each rank its rows, routed by the
+    global batch's groups: ``tests/test_torch_mesh_families.py`` holds
+    the three group cases) and over "model" as on one device."""
+    _held_step(runs, (2, 1), "moe")
     _held_step(runs, (1, 2), "moe")
 
 

@@ -11,7 +11,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py",
-    ROOT / "tests" / "torch_train_worker.py"] + sorted(
+    ROOT / "tests" / "torch_train_worker.py",
+    ROOT / "tests" / "torch_families_worker.py"] + sorted(
     (ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -42,7 +43,7 @@ def test_port_files_exist():
             "zamba2_7b.py", "qwen2_vl_2b.py", "hubert_xlarge.py",
             "sharding.py", "mesh.py", "meshctx.py",
             "torch_tp_worker.py", "ddp.py", "specs.py",
-            "torch_train_worker.py"} <= names
+            "torch_train_worker.py", "torch_families_worker.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -238,15 +239,21 @@ def test_serve_cli_packs_and_serves_the_vlm_on_the_cpu(capsys, engine):
 
 
 def test_serve_mesh_usage_errors(monkeypatch, capsys):
-    """``serve --mesh``: the families that do not serve under a mesh yet
-    (ROADMAP A7b), and a world size other than DATA x MODEL, are usage
-    errors, raised before any process group starts."""
+    """``serve --mesh``: the audio encoder (no decode path, mesh or not)
+    and a world size other than DATA x MODEL are usage errors, raised
+    before any process group starts; the ssm and hybrid families pass the
+    family check and stop only at the world size."""
     from repro_torch.launch import serve
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    for arch in ("mamba2_1_3b", "zamba2_7b", "hubert_xlarge"):
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "hubert_xlarge", "--device", "cpu", "--mesh",
+                    "1,2"])
+    err = capsys.readouterr().err
+    assert "encoder-only" in err and "A7b" not in err
+    for arch in ("mamba2_1_3b", "zamba2_7b"):
         with pytest.raises(SystemExit):
             serve.main(["--arch", arch, "--device", "cpu", "--mesh", "1,2"])
-        assert "A7b" in capsys.readouterr().err
+        assert "needs 2 ranks, launched with 1" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         serve.main(["--arch", "stablelm_12b", "--device", "cpu",
                     "--mesh", "1,2"])

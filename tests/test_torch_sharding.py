@@ -13,8 +13,8 @@ no processes:
   the reference's;
 - every rank's ``tree_shard`` of a packed model, assembled, gives each
   leaf back bit for bit;
-- ``Planner.placement`` keeps the specs but drops "model" from a dense
-  leaf's dims other than "vocab".
+- an uncompressed model placed by its specs: dense leaves cut over
+  "model" and "data" as the specs say, assembled back bit for bit.
 """
 import functools
 import types
@@ -360,33 +360,40 @@ def _assemble(trees, specs, mesh):
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x4"])
 @pytest.mark.parametrize("arch", ["stablelm_12b", "deepseek_moe_16b"])
-def test_placement_keeps_model_only_on_vocab(arch, mesh):
-    """A dense leaf (here every linear: the model is not compressed)
-    keeps its data entries and "model" only on a vocab dim; a packed
-    leaf's planes keep their specs."""
+def test_dense_leaves_placed_by_their_specs(arch, mesh):
+    """An uncompressed model (every linear dense) placed by
+    ``tree_specs``: each dense leaf cut on every dim its spec names, over
+    "model" on heads / kv / ffn / experts dims as well as on a vocab
+    dim, and every rank's shards assembled give the tree back bit for
+    bit."""
     data, model = map(int, mesh.split("x"))
     cfg = configs.get(arch, smoke=True).with_(dtype=torch.float32)
     planner = Planner(make_test_mesh(data, model), cfg)
     params, axes = lm.init(cfg, seed=0, device="cpu"), lm.param_axes(cfg)
     specs = planner.tree_specs(axes, params)
-    seen = {"dropped": 0, "vocab": 0, "data": 0}
+    shards = [tree_shard(params, specs, make_test_mesh(data, model, rank=r))
+              for r in range(data * model)]
+    seen = {"model": 0, "vocab": 0, "data": 0}
 
-    def held(ax, t, spec, placed, plane):
-        for name, e, p in zip(ax, spec, placed):
-            if e == "model" and name != "vocab":
-                assert p is None
-                seen["dropped"] += 1
-            else:
-                assert p == e
-                seen["vocab"] += e == "model"
-                seen["data"] += e is not None and e != "model"
+    def held(ax, t, spec, local, plane):
+        n = 1
+        for name, e in zip(ax, spec):
+            axes_e = () if e is None else (e if isinstance(e, tuple)
+                                           else (e,))
+            n *= int(np.prod([planner.mesh.shape[a] for a in axes_e]))
+            if "model" in axes_e:
+                seen["vocab" if name == "vocab" else "model"] += 1
+            elif axes_e:
+                seen["data"] += 1
+        got = local.local if isinstance(local, Shard) else local
+        assert got.numel() * n == t.numel()
         return t
-    _map(held, axes, params, specs, planner.placement(axes, params))
-    assert seen["dropped"] and seen["vocab"] and seen["data"]
-    _, packed, _ = _packed_port_model(arch)
-    axes = pm.merge_packed_axes(axes, packed)
-    planes = _leaves(planner.tree_specs(axes, packed))      # specs only
-    assert planes and planes == _leaves(planner.placement(axes, packed))
+    _map(held, axes, params, specs, shards[-1])
+    assert seen["model"] and seen["vocab"] and seen["data"]
+    back = _assemble(shards, specs, make_test_mesh(data, model))
+    for (path, a), (_, b) in zip(_leaves(params), _leaves(back),
+                                 strict=True):
+        assert torch.equal(a, b), path
 
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x1", "2x2", "2x4"])

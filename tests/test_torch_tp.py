@@ -17,8 +17,8 @@ and hands the results back; each test reads its case. Cases, f32:
   experts), slab, expert-parallel;
 - ``vlm``: qwen2_vl_2b SMOKE, slab, on M-RoPE positions;
 - ``dense``: ``mixed``'s dense-equivalent weights served unpacked:
-  dense weights replicate over "model" (only the vocab-sharded table
-  and head are cut there) and shard over "data";
+  dense weights shard over "model" (column- or row-parallel) and over
+  "data", half of each linear a rank;
 - ``int8``: the ``mixed`` model on an int8 KV cache: under "model" 2
   the contiguous cache shards its positions, int8 payloads and scales;
 - ``engine`` / ``engine8``: the ``mixed`` model through the engine on
@@ -276,18 +276,29 @@ def test_vlm_on_mrope_positions(tp):
     _held(tp, "vlm")
 
 
-def test_dense_weights_replicate_over_model(tp):
+def test_dense_weights_shard_over_model(tp):
+    """Served unpacked, every dense linear is cut by its specs: over
+    "model" on its heads / kv / ffn dim and over "data" on its embed dim,
+    so a rank holds half of each (the norms only over "data"), and the
+    logits equal the single process's (``_held``)."""
     (data, model), got, per_rank = _held(tp, "dense")
     assert got["bytes"] == 0
     for res in per_rank:
         shards = dict(res["dense"]["dense_shards"])
-        for path, spec in shards.items():
-            assert "model" not in spec or path in ("embed.",
-                                                   "lm_head."), path
+        held = res["dense"]["dense_held"]
+        linears = [p for p in held if ".attn." in p or ".mlp." in p]
+        assert len(linears) == 2 * 7
+        for path in linears:
+            local, whole = held[path]
+            assert 2 * local == whole, path
         if model > 1:
             assert "model" in shards["embed."]
+            assert shards["layers.0.attn.wq."][1] == "model"
+            assert shards["layers.0.mlp.w_down."][0] == "model"
+            assert "layers.0.attn_norm." not in shards
         if data > 1:                        # FSDP: norms and linears
-            assert shards["layers.0.attn.wq."] == ("data", None)
+            assert shards["layers.0.attn.wq."][0] == "data"
+            assert shards["layers.0.attn_norm."] == ("data",)
 
 
 def test_int8_kv_cache_on_split_positions(tp):

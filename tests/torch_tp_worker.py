@@ -84,6 +84,22 @@ def dense_shards(tree, path="") -> list:
     return []
 
 
+def dense_held(tree, path="") -> dict:
+    """{path: (elements this rank holds, elements of the whole)} of every
+    dense tensor of a placed params tree."""
+    if isinstance(tree, Shard):
+        return {path: (tree.local.numel(), int(np.prod(tree.shape)))}
+    if isinstance(tree, torch.Tensor):
+        return {path: (tree.numel(), tree.numel())}
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in dense_held(v, f"{path}{k}.").items()}
+    if isinstance(tree, list):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in dense_held(v, f"{path}{i}.").items()}
+    return {}
+
+
 def run_engine(cfg, params, case, mesh):
     from repro_torch.serving import Engine, EngineConfig, Request
     ecfg = EngineConfig(**case["engine"])
@@ -128,7 +144,7 @@ def placement_roundtrip(cfg, case, mesh, placed) -> dict:
     back bit for bit."""
     whole, _ = pack_model(case["dense"], case["decs"], plan=case["plan"],
                           dtype=torch.float32)
-    specs = Planner(mesh, cfg).placement(
+    specs = Planner(mesh, cfg).tree_specs(
         merge_packed_axes(lm.param_axes(cfg), whole), whole)
     local = tree_shard(whole, specs, mesh)
     back = unshard(local, specs, mesh)
@@ -154,7 +170,8 @@ def run_cases(rank, world, dev, data, model, cases):
         params = place_params(cfg, params, placer)
         res = {"layouts": layouts(params), "bytes": packed_bytes(params),
                "bytes_whole": placer.bytes_whole,
-               "dense_shards": dense_shards(params)}
+               "dense_shards": dense_shards(params),
+               "dense_held": dense_held(params)}
         if name == "mixed":
             res["roundtrip"] = placement_roundtrip(cfg, case, mesh, params)
         with use_mesh(mesh):
